@@ -12,11 +12,22 @@ Phases, each timed:
 2. K1 (dhconv) at the main path's shape, against its plain version;
 3. K2 (fused MLP) at the main path's shape in bf16, against its plain
    version, plus its dropout statistics;
-4. the main path: both SFNOs at embed 256 x 8 layers on 180 x 360, bf16
+4. K3 (fused block tail) at the main path's shapes (batch 1 with the
+   float32 residual, batch 2 without), straddling tiles, erf gelu, dropout
+   masks and float32, against its plain version; K3 with A = 1, C = 0
+   against K2, bit for bit;
+5. the window path: both SFNOs at embed 256 x 8 layers on 180 x 360, bf16
    compute, K1 and K2 on, weights from a seed, one 12-step ``run_window``
-   (two horizon-6 segments) at batch 1, with the kernels' launch counts; then
-   the same window with dropout off through the kernels and through the plain
-   path, in bf16 and in float32.
+   (two horizon-6 segments) at batch 1, cold-sampled by the double-batch
+   scan sampler, with the kernels' launch counts; then the same window with
+   dropout off through the kernels and through the plain path, in bf16 and
+   in float32;
+6. the fused-tail path: the same window with K1 and K3 (``fused_tail``), the
+   peeled sampler and ``scan_layers``, with its launch counts and the
+   interpolator's batch sizes; then dropout off, kernels against the plain
+   path in float32 and bf16;
+7. profile: one ``torch.profiler`` pass over one window of each path, the
+   top 10 CUDA kernels by total time.
 
 It prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -34,6 +45,14 @@ import time
 F32_PEAK = 67e12  # FLOP/s, float32 outside the tensor cores (H100 SXM data sheet)
 BF16_PEAK = 989e12  # FLOP/s, dense bf16 tensor cores
 HBM_RATE = 3.35e12  # bytes/s
+N_STEPS = 12
+# The fused-tail window in bf16 against the plain path in bf16, as a
+# multiple of the plain path's own bf16 error (bf16 against float32): the
+# fused tail rounds the folded norm input to bf16 once more. The CPU test
+# (tests/test_torch_port_tail.py, BF16_TAIL_VS_PLAIN) measured a ratio of
+# 0.76 at debug size and holds it to 2; a ratio scales with width and depth
+# where an absolute gap does not.
+BF16_TAIL_VS_PLAIN = 2.0
 
 
 def log(msg: str) -> None:
@@ -75,14 +94,22 @@ def main() -> int:
     try:
         from spherical_dyffusion_tpu_torch import main_path
         from spherical_dyffusion_tpu_torch.ops import _cuda
-        from spherical_dyffusion_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+        from spherical_dyffusion_tpu_torch.ops.fused_mlp import (
+            fused_block_tail,
+            fused_block_tail_plain,
+            fused_mlp,
+            fused_mlp_plain,
+        )
         from spherical_dyffusion_tpu_torch.ops.pallas_contractions import dhconv, dhconv_plain
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing: {e}", file=sys.stderr)
         return 1
+    import torch.nn.functional as F
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
+    wrappers = {"K1": dhconv, "K2": fused_mlp, "K3": fused_block_tail}
 
     def timed(fn, reps: int) -> float:
         fn()
@@ -150,21 +177,24 @@ def main() -> int:
                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         del x, w, y, want, xc, wc
 
-    with Phase("3 K2 fused MLP"):
-        import torch.nn.functional as F
+    N, C, Hd = 180 * 360, 256, 512  # 64,800 rows: the last 64-row tile holds 32
+    g = torch.Generator(device=dev).manual_seed(1)
+    w1 = torch.randn((C, Hd), device=dev, generator=g) / 16
+    w2 = torch.randn((Hd, C), device=dev, generator=g) / 22
+    b1 = torch.randn(Hd, device=dev, generator=g) * 0.1
+    b2 = torch.randn(C, device=dev, generator=g) * 0.1
+    w1b, w2b = w1.bfloat16(), w2.bfloat16()
+    b1b, b2b = b1.bfloat16(), b2.bfloat16()
+    flops1 = 2.0 * N * (C * Hd + Hd * C)  # one sample's two products
+    # bf16 rounding of the hidden tensor may fall on the other side of a
+    # tie in the two versions; the outputs then move by about one bf16 ulp
+    # of a hidden value times a weight. float32: sums in another order.
+    tol_bf16, tol_f32 = 1e-2, 1e-5
 
-        g = torch.Generator(device=dev).manual_seed(1)
-        N, C, Hd = 180 * 360, 256, 512  # 64,800 rows: the last 64-row tile holds 32
+    with Phase("3 K2 fused MLP"):
         x = torch.randn((N, C), device=dev, generator=g).bfloat16()
-        w1 = torch.randn((C, Hd), device=dev, generator=g) / 16
-        w2 = torch.randn((Hd, C), device=dev, generator=g) / 22
-        b1 = torch.randn(Hd, device=dev, generator=g) * 0.1
-        b2 = torch.randn(C, device=dev, generator=g) * 0.1
         res = torch.randn((N, C), device=dev, generator=g)
-        # bf16 rounding of the hidden tensor may fall on the other side of a
-        # tie in the two versions; the outputs then move by about one bf16
-        # ulp of a hidden value times a weight
-        tol = 1e-2
+        tol = tol_bf16
         cases = {
             "residual f32 (main path)": dict(residual=res),
             "no residual, bf16 out (main path)": dict(),
@@ -216,20 +246,17 @@ def main() -> int:
 
         ms = timed(lambda: fused_mlp(x, w1, b1, w2, b2, residual=res), 10)
         plain_ms = timed(lambda: fused_mlp_plain(x, w1, b1, w2, b2, residual=res), 3)
-        w1b, w2b = w1.bfloat16(), w2.bfloat16()
-        b1b, b2b = b1.bfloat16(), b2.bfloat16()
         library_ms = timed(
             lambda: F.gelu(torch.matmul(x, w1b) + b1b, approximate="tanh") @ w2b + b2b, 10)
         ms_nores = timed(lambda: fused_mlp(x, w1, b1, w2, b2), 10)
-        flops = 2.0 * N * (C * Hd + Hd * C)
         nbytes = 2.0 * (x.numel() + w1.numel() + w2.numel()) + 4.0 * (Hd + C) \
             + 4.0 * res.numel() + 4.0 * N * C
-        bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+        bound_ms, bound_by = bound(flops1, nbytes, BF16_PEAK)
         nb_nores = 2.0 * (x.numel() + w1.numel() + w2.numel() + N * C) + 4.0 * (Hd + C)
-        bound_nores, by_nores = bound(flops, nb_nores, BF16_PEAK)
+        bound_nores, by_nores = bound(flops1, nb_nores, BF16_PEAK)
         log(f"K2 (64800,256)->512->256 bf16, f32 residual: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, torch.matmul chain {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) on {smi_line}")
+            f"({bound_by}; {flops1 / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) on {smi_line}")
         log(f"K2 no residual, bf16 out: kernel {ms_nores:.4f} ms, bound {bound_nores:.4f} ms "
             f"({by_nores})")
         report["K2"] = dict(max_abs_err=k2_err[0], max_rel_err=k2_err[1], ms=ms,
@@ -237,45 +264,152 @@ def main() -> int:
                             bound_by=bound_by)
         del x, res, y, want, zero_x, zres
 
-    with Phase("4 main path"):
-        n_steps = 12
-        inp = main_path.window_inputs(n_steps, seed=0, device="cuda")
-        t0 = time.perf_counter()
-        stepper = main_path.build(embed=256, layers=8, dtype="bfloat16", device="cuda", seed=0)
-        log(f"main path built in {time.perf_counter() - t0:.2f} s")
-        nets = {"forecaster": stepper.exp.model, "interpolator": stepper.exp.interpolator.model}
-        calls = {k: 0 for k in nets}
-        for k, net in nets.items():
-            net.register_forward_pre_hook(lambda *a, k=k: calls.__setitem__(k, calls[k] + 1))
+    with Phase("4 K3 fused block tail"):
+        g = torch.Generator(device=dev).manual_seed(2)
 
-        def window(st, seed):
-            out = st.run_window(inp["x0"], inp["forcing"], inp["sst"], inp["mask"],
-                                torch.Generator().manual_seed(seed), n_steps)
+        def operands(B):
+            return (torch.randn((B, N, C), device=dev, generator=g).bfloat16(),
+                    1.0 + 0.1 * torch.randn((B, 1, C), device=dev, generator=g),
+                    0.1 * torch.randn((B, 1, C), device=dev, generator=g),
+                    torch.randn((B, N, C), device=dev, generator=g))
+
+        x1, a1, c1, res1 = operands(1)  # the forecaster's call: f32 residual stream
+        x2, a2, c2, res2 = operands(2)  # the interpolator's double batch
+        cases = {
+            "B=1, f32 residual (forecaster)": (x1, a1, c1, dict(residual=res1), tol_bf16),
+            "B=2, no residual, bf16 out (interpolator)": (x2, a2, c2, {}, tol_bf16),
+            "B=2, 77 rows per sample (tiles straddle samples)":
+                (x2[:, :77], a2, c2, dict(residual=res2[:, :77]), tol_bf16),
+            "erf gelu": (x1, a1, c1, dict(residual=res1, exact_gelu=True), tol_bf16),
+            "dropout 0.1 on, B=2": (x2, a2, c2, dict(seed=20260102, drop_rate=0.1), tol_bf16),
+            "float32 in and out, B=2, 77 rows": (x2[:, :77].float(), a2, c2,
+                                                 dict(residual=res2[:, :77]), tol_f32),
+        }
+        k3_err = None
+        for name, (xx, aa, cc, kw, tol) in cases.items():
+            y = fused_block_tail(xx, aa, cc, w1, b1, w2, b2, **kw)
             torch.cuda.synchronize()
-            return out
+            want = fused_block_tail_plain(xx, aa, cc, w1, b1, w2, b2, **kw)
+            check(y.dtype == want.dtype and y.shape == want.shape,
+                  f"K3 {name}: {y.dtype} {tuple(y.shape)} vs {want.dtype} {tuple(want.shape)}")
+            abs_err, rel_err = errs(y, want)
+            log(f"K3 {name}: out {y.dtype}, max abs err {abs_err:.3e}, max rel err "
+                f"{rel_err:.3e} (tolerance {tol:g} of max |plain|)")
+            check(rel_err <= tol, f"K3 disagrees with its plain version ({name})")
+            if "seed" in kw:
+                # no residual: a dropped output element is exactly 0
+                dropped = (y == 0).float().mean().item()
+                check(torch.equal(y == 0, want == 0), "K3 dropout mask differs from the plain")
+                log(f"K3 dropout: the kernel drops the plain version's elements "
+                    f"({dropped:.6f} of the outputs)")
+            if k3_err is None:
+                k3_err = (abs_err, rel_err)
+        kw = dict(seed=20260103, drop_rate=0.1)
+        y3 = fused_block_tail(x2, torch.ones_like(a2), torch.zeros_like(c2), w1, b1, w2, b2,
+                              **kw)
+        y2 = fused_mlp(x2.reshape(-1, C), w1, b1, w2, b2, **kw)
+        check(torch.equal(y3.reshape(-1, C), y2), "K3 with A = 1, C = 0 differs from K2")
+        log("K3 with A = 1, C = 0 equals K2 bit for bit (B=2, dropout on)")
 
+        ms = timed(lambda: fused_block_tail(x1, a1, c1, w1, b1, w2, b2, residual=res1), 10)
+        plain_ms = timed(lambda: fused_block_tail_plain(x1, a1, c1, w1, b1, w2, b2,
+                                                        residual=res1), 3)
+        library_ms = timed(lambda: F.gelu(torch.matmul((x1.float() * a1 + c1).bfloat16(), w1b)
+                                          + b1b, approximate="tanh") @ w2b + b2b + res1, 10)
+        ms_b2 = timed(lambda: fused_block_tail(x2, a2, c2, w1, b1, w2, b2), 10)
+        plain_b2 = timed(lambda: fused_block_tail_plain(x2, a2, c2, w1, b1, w2, b2), 3)
+        library_b2 = timed(lambda: F.gelu(torch.matmul((x2.float() * a2 + c2).bfloat16(), w1b)
+                                          + b1b, approximate="tanh") @ w2b + b2b, 10)
+        nbytes = 2.0 * (x1.numel() + w1.numel() + w2.numel()) + 4.0 * (Hd + C) \
+            + 4.0 * (a1.numel() + c1.numel()) + 4.0 * res1.numel() + 4.0 * N * C
+        bound_ms, bound_by = bound(flops1, nbytes, BF16_PEAK)
+        nb_b2 = 2.0 * (x2.numel() + w1.numel() + w2.numel() + 2 * N * C) + 4.0 * (Hd + C) \
+            + 4.0 * (a2.numel() + c2.numel())
+        bound_b2, by_b2 = bound(2 * flops1, nb_b2, BF16_PEAK)
+        log(f"K3 B=1 (64800,256)->512->256 bf16, f32 residual: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, affine + torch.matmul chain + residual {library_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}; {flops1 / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB) on {smi_line}")
+        log(f"K3 B=2 no residual, bf16 out: kernel {ms_b2:.4f} ms, plain {plain_b2:.4f} ms, "
+            f"affine + torch.matmul chain {library_b2:.4f} ms, bound {bound_b2:.4f} ms "
+            f"({by_b2}; {2 * flops1 / 1e9:.2f} GFLOP, {nb_b2 / 1e6:.1f} MB)")
+        report["K3"] = dict(max_abs_err=k3_err[0], max_rel_err=k3_err[1], ms=ms,
+                            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, ms_b2=ms_b2, plain_ms_b2=plain_b2,
+                            library_ms_b2=library_b2, bound_ms_b2=bound_b2, bound_by_b2=by_b2)
+        del x1, a1, c1, res1, x2, a2, c2, res2, y, want, y2, y3
+
+    inp = main_path.window_inputs(N_STEPS, seed=0, device="cuda")
+    other = [c for c in range(35) if c != 1]  # the channels the models drive
+
+    def window(st, seed):
+        out = st.run_window(inp["x0"], inp["forcing"], inp["sst"], inp["mask"],
+                            torch.Generator().manual_seed(seed), N_STEPS)
+        torch.cuda.synchronize()
+        return out
+
+    def drive(name, path_kw, expect):
+        """Build the path at full width, warm it up, and run one counted,
+        timed 12-step window with dropout live. ``expect`` maps each kernel
+        to whether the path must launch it 8 x per SFNO forward (True) or
+        never (False)."""
+        t0 = time.perf_counter()
+        stepper = main_path.build(embed=256, layers=8, dtype="bfloat16", device="cuda", seed=0,
+                                  **path_kw)
+        log(f"{name} built in {time.perf_counter() - t0:.2f} s")
+        nets = {"forecaster": stepper.exp.model, "interpolator": stepper.exp.interpolator.model}
+        batches = {k: [] for k in nets}
+        for k, net in nets.items():
+            net.register_forward_pre_hook(lambda mod, args, k=k: batches[k].append(
+                args[0].shape[0]))
         t0 = time.perf_counter()
         window(stepper, 1)  # first window: cuBLAS and allocator warm-up
-        log(f"warm-up window: {time.perf_counter() - t0:.2f} s")
-        for k in calls:
-            calls[k] = 0
-        dhconv.launches = 0
-        fused_mlp.launches = 0
+        log(f"{name} warm-up window: {time.perf_counter() - t0:.2f} s")
+        for k in batches:
+            batches[k].clear()
+        for fn in wrappers.values():
+            fn.launches = 0
         t0 = time.perf_counter()
         x_out, preds = window(stepper, 2)
         seconds = time.perf_counter() - t0
-        launches = {"K1": dhconv.launches, "K2": fused_mlp.launches}
-        forwards = sum(calls.values())
-        log(f"main path window: {n_steps} steps in {seconds:.3f} s = "
-            f"{n_steps / seconds:.3f} steps/s at batch 1 on {smi_line}")
-        log(f"SFNO forwards {calls} -> launches {launches} (expect 8 x {forwards} each)")
-        check(forwards > 0 and all(v == 8 * forwards for v in launches.values()),
-              "kernel launches do not equal 8 x the SFNO forwards")
-        check(preds.shape == (1, n_steps, 180, 360, 35), f"preds shape {tuple(preds.shape)}")
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        forwards = sum(len(b) for b in batches.values())
+        log(f"{name} window: {N_STEPS} steps in {seconds:.3f} s = {N_STEPS / seconds:.3f} "
+            f"steps/s at batch 1 on {smi_line}")
+        log(f"{name} SFNO forwards {forwards}, batch sizes {batches} -> launches {launches}")
+        for k, on in expect.items():
+            want = 8 * forwards if on else 0
+            check(forwards > 0 and launches[k] == want,
+                  f"{name}: {k} launched {launches[k]} times, expected {want}")
+        check(preds.shape == (1, N_STEPS, 180, 360, 35), f"preds shape {tuple(preds.shape)}")
         check(bool(torch.isfinite(preds).all()) and bool(torch.isfinite(x_out).all()),
-              "non-finite predictions")
-        del stepper, nets, preds, x_out
+              f"{name}: non-finite predictions")
+        return dict(seconds=seconds, forwards=forwards, launches=launches, batches=batches)
 
+    def pair(dtype, path_kw, plain_kw):
+        """The same window with dropout off through the kernels and through
+        the plain path, same weights; returns (kernels, plain) predictions."""
+        kern = main_path.build(dtype=dtype, device="cuda", seed=0,
+                               enable_interpolator_dropout=False, **path_kw)
+        plain = main_path.build(dtype=dtype, device="cuda", seed=0,
+                                enable_interpolator_dropout=False, **plain_kw)
+        plain.exp.model.load_state_dict(kern.exp.model.state_dict())
+        plain.exp.interpolator.model.load_state_dict(kern.exp.interpolator.model.state_dict())
+        t0 = time.perf_counter()
+        _, pk = window(kern, 3)
+        tk = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, pp = window(plain, 3)
+        tp = time.perf_counter() - t0
+        check(bool(torch.isfinite(pk).all()), f"non-finite {dtype} predictions")
+        log(f"deterministic window {dtype}: kernels {tk:.3f} s, plain path {tp:.3f} s")
+        return pk, pp
+
+    with Phase("5 window path (K1, K2, scan sampler)"):
+        runs = {"window": drive("window path", {}, {"K1": True, "K2": True, "K3": False})}
+        # two horizon-6 segments: one double-batch interpolation per step
+        check(runs["window"]["batches"]["interpolator"] == [2] * N_STEPS,
+              "the scan sampler should run every interpolation on the double batch")
         # dropout off: kernels against the plain path (K1 -> einsum
         # contraction, K2 -> unfused MLP), same weights, same inputs. The
         # scale is the largest prediction outside the prescribed SST channel
@@ -283,41 +417,100 @@ def main() -> int:
         # bf16 rounds the MLP at other places in the two paths (once after
         # the fused second product vs after each Dense and its bias), which
         # measured 1-2% of that scale at debug size on the CPU.
-        other = [c for c in range(35) if c != 1]
         for dtype, tol in (("bfloat16", 5e-2), ("float32", 1e-4)):
-            kern = main_path.build(dtype=dtype, device="cuda", seed=0,
-                                   enable_interpolator_dropout=False)
-            plain = main_path.build(dtype=dtype, device="cuda", seed=0, use_pallas=False,
-                                    fused_mlp=False, enable_interpolator_dropout=False)
-            plain.exp.model.load_state_dict(kern.exp.model.state_dict())
-            plain.exp.interpolator.model.load_state_dict(
-                kern.exp.interpolator.model.state_dict())
-            t0 = time.perf_counter()
-            _, pk = window(kern, 3)
-            tk = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            _, pp = window(plain, 3)
-            tp = time.perf_counter() - t0
+            pk, pp = pair(dtype, {}, dict(use_pallas=False, fused_mlp=False))
             scale = pp[..., other].abs().max().item()
             diff = (pk - pp).abs().max().item()
-            log(f"deterministic window {dtype}: kernels {tk:.3f} s, plain path {tp:.3f} s; "
-                f"max |kernels - plain| {diff:.3e} = {diff / scale:.3e} of the largest "
-                f"model-driven prediction {scale:.3e} (tolerance {tol:g})")
-            check(bool(torch.isfinite(pk).all()), f"non-finite {dtype} predictions")
-            check(diff <= tol * scale, f"main path {dtype}: kernels disagree with the plain path")
-            del kern, plain, pk, pp
+            log(f"window path {dtype}: max |kernels - plain| {diff:.3e} = {diff / scale:.3e} "
+                f"of the largest model-driven prediction {scale:.3e} (tolerance {tol:g})")
+            check(diff <= tol * scale, f"window path {dtype}: kernels disagree with the plain path")
+            del pk, pp
 
-    kernels = [
-        dict(name="dhconv", route="cuda", source="spherical_dyffusion_tpu_torch/csrc/dhconv.cu",
-             replaces="spherical_dyffusion_tpu/ops/pallas_contractions.py:72",
-             launches=launches["K1"], **report["K1"]),
-        dict(name="fused_mlp", route="cuda",
-             source="spherical_dyffusion_tpu_torch/csrc/fused_mlp.cu",
-             replaces="spherical_dyffusion_tpu/ops/fused_mlp.py:125",
-             launches=launches["K2"], **report["K2"]),
-    ]
-    for k in kernels:
-        k["kernel_ms"] = k["ms"]
+    tail_kw = dict(use_pallas=True, fused_tail=True, peel=True, scan_layers=True)
+    with Phase("6 fused-tail path (K1, K3, peeled sampler)"):
+        runs["fused_tail"] = drive("fused-tail path", tail_kw,
+                                   {"K1": True, "K2": False, "K3": True})
+        # per segment: single-batch ends, the double batch in between
+        check(runs["fused_tail"]["batches"]["interpolator"] == ([1] + [2] * 4 + [1]) * 2,
+              "the peeled sampler's interpolator batches are not 1, 2, 2, 2, 2, 1 per segment")
+        plain_kw = dict(use_pallas=False, fused_mlp=False, fused_tail=False, peel=True,
+                        scan_layers=True)
+        pk32, pp32 = pair("float32", tail_kw, plain_kw)
+        scale = pp32[..., other].abs().max().item()
+        diff = (pk32 - pp32).abs().max().item()
+        log(f"fused-tail path float32: max |kernels - plain| {diff:.3e} = {diff / scale:.3e} "
+            f"of the largest model-driven prediction {scale:.3e} (tolerance 1e-4)")
+        check(diff <= 1e-4 * scale, "fused-tail path float32: kernels disagree with the plain path")
+        del pk32
+        pk, pp = pair("bfloat16", tail_kw, plain_kw)
+        gap = (pk - pp).abs().max().item()
+        noise = (pp - pp32).abs().max().item()
+        log(f"fused-tail path bf16: max |kernels - plain| {gap:.3e} = {gap / scale:.3e} of the "
+            f"largest model-driven prediction; the plain path's own bf16 error "
+            f"max |plain bf16 - plain float32| {noise:.3e} = {noise / scale:.3e}; ratio "
+            f"{gap / noise:.3f} (tolerance {BF16_TAIL_VS_PLAIN:g})")
+        check(gap <= BF16_TAIL_VS_PLAIN * noise,
+              "fused-tail path bf16: kernels disagree with the plain path")
+        del pk, pp, pp32
+
+    with Phase("7 profile (one window of each path)"):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=activities):  # the profiler's own start-up, not measured
+            torch.ones(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+        for name, run, path_kw in (("window path", "window", {}),
+                                   ("fused-tail path", "fused_tail", tail_kw)):
+            stepper = main_path.build(embed=256, layers=8, dtype="bfloat16", device="cuda",
+                                      seed=0, **path_kw)
+            window(stepper, 1)
+            t0 = time.perf_counter()
+            with profile(activities=activities) as prof:
+                window(stepper, 2)
+            wall = time.perf_counter() - t0
+            events = [e for e in prof.key_averages()
+                      if "cuda" in str(getattr(e, "device_type", "")).lower()]
+            dev_us = {e.key: (e.count, getattr(e, "self_device_time_total",
+                                               getattr(e, "self_cuda_time_total", 0)))
+                      for e in events}
+            busy = sum(us for _, us in dev_us.values()) / 1e6
+            unprofiled = runs[run]["seconds"]
+            log(f"{name} profile: {len(events)} CUDA kernels, device kernel time {busy:.3f} s "
+                f"= {busy / unprofiled:.1%} of the unprofiled window ({unprofiled:.3f} s; "
+                f"{wall:.3f} s with the profiler on); top 10 CUDA kernels by total time:")
+            for key, (cnt, us) in sorted(dev_us.items(), key=lambda kv: -kv[1][1])[:10]:
+                log(f"  {us / 1e3:10.2f} ms  {us / 1e6 / max(busy, 1e-12):6.1%}  x{cnt:<5d} "
+                    f"{key[:110]}")
+            groups = {}
+            for key, (cnt, us) in dev_us.items():
+                group = ("K1" if "dhconv" in key else
+                         "K3" if "fused_mlp_kernel<true" in key else
+                         "K2" if "fused_mlp_kernel<false" in key else
+                         "cuBLAS GEMM" if "gemm" in key.lower() else
+                         "copies" if "copy" in key.lower() else
+                         "reductions" if "reduce" in key.lower() else "other elementwise")
+                groups[group] = groups.get(group, 0.0) + us / 1e6
+            log(f"{name} kernel time by group: " + ", ".join(
+                f"{k} {v:.3f} s ({v / max(busy, 1e-12):.1%})"
+                for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
+            del stepper, prof
+
+    sources = {"K1": "spherical_dyffusion_tpu_torch/csrc/dhconv.cu",
+               "K2": "spherical_dyffusion_tpu_torch/csrc/fused_mlp.cu",
+               "K3": "spherical_dyffusion_tpu_torch/csrc/fused_mlp.cu"}
+    replaces = {"K1": "spherical_dyffusion_tpu/ops/pallas_contractions.py:72",
+                "K2": "spherical_dyffusion_tpu/ops/fused_mlp.py:125",
+                "K3": "spherical_dyffusion_tpu/ops/fused_mlp.py:212"}
+    names = {"K1": "dhconv", "K2": "fused_mlp", "K3": "fused_block_tail"}
+    own_path = {"K1": "window", "K2": "window", "K3": "fused_tail"}
+    kernels = []
+    for k in ("K1", "K2", "K3"):
+        kernels.append(dict(
+            name=names[k], route="cuda", source=sources[k], replaces=replaces[k],
+            launches=runs[own_path[k]]["launches"][k],
+            launches_by_path={p: r["launches"][k] for p, r in runs.items()},
+            kernel_ms=report[k]["ms"], **report[k]))
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

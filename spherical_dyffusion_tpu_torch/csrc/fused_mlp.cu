@@ -1,33 +1,57 @@
-// K2: the block MLP as one pass, with quantized dropout drawn in the kernel.
+// K2: the block MLP as one pass, with quantized dropout drawn in the kernel,
+// and K3: the same pass with the block tail's per-sample affine in front.
 //
-// Replaces the Pallas kernel spherical_dyffusion_tpu/ops/fused_mlp.py
+// K2 replaces the Pallas kernel spherical_dyffusion_tpu/ops/fused_mlp.py
 // (_fused_mlp_2d, pallas_call at :125, body _kernel at :61):
 //
 //     h = qdrop(gelu(x @ W1 + b1))  rounded to the input type
 //     y = qdrop(h @ W2 + b2) (+ residual)   stored as promote(x, residual)
 //
+// K3 replaces the Pallas kernel of fused_block_tail in the same file
+// (_fused_tail_3d, pallas_call at :212, body _tail_kernel at :135). Its x is
+// the PRE-norm activation of B samples of N rows each, and it first forms
+//
+//     xn = x * A[b] + C[b]   in float32, per channel, b = row / N,
+//
+// rounds xn to the input type (as the TPU kernel does before its first
+// product) and then runs K2's arithmetic on xn. A and C fold the instance
+// norm's statistics and affine and the time scale-shift (InstanceNorm2d with
+// fold=True in models/modules.py), so the normalized tensor never reaches
+// device memory. The row grid is flat over B * N rows; N need not be a
+// multiple of the 64-row tile, so a tile may hold rows of two samples, and
+// each row reads the A and C of its own sample. The affine is computed as a
+// rounded product and a rounded sum (no FMA contraction), as the plain
+// version computes it. K3 is K2's kernel template with kAffine set: with
+// A = 1 and C = 0, xn is x exactly and K3 equals K2 bit for bit.
+//
 // Quantized dropout keeps an element iff (bits & 255) < t and scales it by
 // 256 / t; t == 0 means dropout off. The bits come from Philox4x32-10 keyed by
 // the 64-bit seed and counted by (column, row, stream, 0), stream 0 for the
-// hidden mask and 1 for the output mask; the plain version in
-// spherical_dyffusion_tpu_torch/ops/fused_mlp.py computes the same bits.
+// hidden mask and 1 for the output mask; in K3 the row is the flat row
+// b * N + n. The plain versions in spherical_dyffusion_tpu_torch/ops/fused_mlp.py
+// compute the same bits. The TPU kernels draw per-tile hardware bits, which
+// cannot be reproduced: the port agrees with them in distribution only.
 //
-// What bounds it on the H100: at the main path's shapes (N = 64,800 rows,
-// C = 256 -> 512 -> 256, bf16 inputs, f32 residual and output) it does 34 GFLOP
+// What bounds them on the H100: at the main path's shapes (N = 64,800 rows,
+// C = 256 -> 512 -> 256, bf16 inputs, f32 residual and output) K2 does 34 GFLOP
 // against 166 MB of compulsory traffic: 0.034 ms at the bf16 tensor-core rate
-// and 0.050 ms at 3.35 TB/s, so bytes bound it. The hidden tensor
-// (N x 512) would add 133 MB of round trip if it reached device memory; it
-// never does, which is the point of the kernel.
+// and 0.050 ms at 3.35 TB/s, so bytes bound it. K3 adds 2 KB of A and C per
+// sample: the same bound at batch 1, and at the interpolator's double batch
+// (B = 2, no residual, bf16 out) 68 GFLOP against 133 MB, 0.069 ms, bound by
+// operations. The hidden tensor (N x 512) would add 133 MB of round trip per
+// sample if it reached device memory; it never does, which is the point of
+// the kernels.
 //
 // Design: one block of 256 threads owns 64 rows. It stages its x tile in
-// shared memory once, then for each chunk of 64 hidden units computes the
-// 64 x 64 hidden tile with float32 FMAs (W1 staged in slices of 32 rows),
-// applies bias, gelu and the dropout mask, rounds it to the input type into
-// shared memory (as the TPU kernel does between its GEMMs), and accumulates
-// hidden_chunk @ W2_chunk into a 64 x 256 float32 tile held in registers
-// (8 rows x 8 columns per thread). Rows past N read zeros and are never
-// stored. This first version does its products with float32 FMAs, not tensor
-// cores, so it sits far above its bound; mma/wgmma tiles are later work.
+// shared memory once (applying K3's affine on the way), then for each chunk
+// of 64 hidden units computes the 64 x 64 hidden tile with float32 FMAs (W1
+// staged in slices of 32 rows), applies bias, gelu and the dropout mask,
+// rounds it to the input type into shared memory (as the TPU kernel does
+// between its GEMMs), and accumulates hidden_chunk @ W2_chunk into a
+// 64 x 256 float32 tile held in registers (8 rows x 8 columns per thread).
+// Rows past B * N read zeros and are never stored. This first version does
+// its products with float32 FMAs, not tensor cores, so it sits far above its
+// bound; mma/wgmma tiles are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,9 +110,13 @@ __device__ __forceinline__ float qdrop(float v, int t, uint64_t seed,
   return bits < (uint32_t)t ? v * (256.f / (float)t) : 0.f;
 }
 
-template <typename T, typename R, typename O>
+// kAffine: K3's per-sample affine on the staged x tile (aff_a, aff_c are
+// (N / n_per_sample, C) float32); without it, K2.
+template <bool kAffine, typename T, typename R, typename O>
 __global__ void __launch_bounds__(kThreads)
-fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+fused_mlp_kernel(const T* __restrict__ x, const float* __restrict__ aff_a,
+                 const float* __restrict__ aff_c, int n_per_sample,
+                 const T* __restrict__ w1,
                  const float* __restrict__ b1, const T* __restrict__ w2,
                  const float* __restrict__ b2, const R* __restrict__ res,
                  O* __restrict__ y, int N, int C, int Hd, int C2, int t,
@@ -105,7 +133,15 @@ fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 
   for (int e = tid; e < kRows * C; e += kThreads) {
     const int r = e / C;
-    xs[e] = (r0 + r < N) ? x[(size_t)r0 * C + e] : from_f<T>(0.f);
+    T v = from_f<T>(0.f);
+    if (r0 + r < N) {
+      v = x[(size_t)r0 * C + e];
+      if constexpr (kAffine) {
+        const size_t ab = (size_t)((r0 + r) / n_per_sample) * C + (e - r * C);
+        v = from_f<T>(__fadd_rn(__fmul_rn(to_f(v), aff_a[ab]), aff_c[ab]));
+      }
+    }
+    xs[e] = v;
   }
 
   float acc[8][8];
@@ -191,21 +227,52 @@ fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   }
 }
 
-template <typename T, typename R, typename O>
-int launch(const void* x, const void* w1, const float* b1, const void* w2,
-           const float* b2, const void* res, void* y, int N, int C, int Hd,
-           int C2, int t, uint64_t seed, int exact_gelu, cudaStream_t stream) {
+template <bool kAffine, typename T, typename R, typename O>
+int launch(const void* x, const float* aff_a, const float* aff_c, int n_per_sample,
+           const void* w1, const float* b1, const void* w2, const float* b2,
+           const void* res, void* y, int N, int C, int Hd, int C2, int t, uint64_t seed,
+           int exact_gelu, cudaStream_t stream) {
   const int wsw = C2 > kHidden ? C2 : kHidden;
   const size_t smem = sizeof(T) * ((size_t)kRows * C + kRows * kHidden + (size_t)kSlice * wsw);
-  auto kern = fused_mlp_kernel<T, R, O>;
+  auto kern = fused_mlp_kernel<kAffine, T, R, O>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (N + kRows - 1) / kRows;
   kern<<<blocks, kThreads, smem, stream>>>(
-      (const T*)x, (const T*)w1, b1, (const T*)w2, b2, (const R*)res, (O*)y, N, C, Hd, C2,
-      t, seed, exact_gelu);
+      (const T*)x, aff_a, aff_c, n_per_sample, (const T*)w1, b1, (const T*)w2, b2,
+      (const R*)res, (O*)y, N, C, Hd, C2, t, seed, exact_gelu);
   return (int)cudaGetLastError();
+}
+
+// The four (input, residual, output) type combinations of both kernels.
+template <bool kAffine>
+int dispatch(const void* x, const float* aff_a, const float* aff_c, int n_per_sample,
+             const void* w1, const void* b1, const void* w2, const void* b2,
+             const void* res, void* y, int N, int C, int Hd, int C2, int x_dtype,
+             int res_dtype, int t, uint64_t seed, int exact_gelu, void* stream) {
+  if (C2 > kMaxOut || C2 <= 0 || C <= 0 || Hd <= 0 || N < 0) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* fb1 = (const float*)b1;
+  const float* fb2 = (const float*)b2;
+  const void* r = res_dtype < 0 ? nullptr : res;
+  if (x_dtype == 0 && res_dtype != 1)
+    return launch<kAffine, float, float, float>(x, aff_a, aff_c, n_per_sample, w1, fb1, w2,
+                                                fb2, r, y, N, C, Hd, C2, t, seed,
+                                                exact_gelu, s);
+  if (x_dtype == 0 && res_dtype == 1)
+    return launch<kAffine, float, __nv_bfloat16, float>(x, aff_a, aff_c, n_per_sample, w1,
+                                                        fb1, w2, fb2, r, y, N, C, Hd, C2,
+                                                        t, seed, exact_gelu, s);
+  if (x_dtype == 1 && res_dtype == 0)
+    return launch<kAffine, __nv_bfloat16, float, float>(x, aff_a, aff_c, n_per_sample, w1,
+                                                        fb1, w2, fb2, r, y, N, C, Hd, C2,
+                                                        t, seed, exact_gelu, s);
+  if (x_dtype == 1)
+    return launch<kAffine, __nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
+        x, aff_a, aff_c, n_per_sample, w1, fb1, w2, fb2, r, y, N, C, Hd, C2, t, seed,
+        exact_gelu, s);
+  return -1;
 }
 
 }  // namespace
@@ -219,23 +286,22 @@ extern "C" int sdt_fused_mlp(const void* x, const void* w1, const void* b1, cons
                              const void* b2, const void* res, void* y, int N, int C,
                              int Hd, int C2, int x_dtype, int res_dtype, int t,
                              unsigned long long seed, int exact_gelu, void* stream) {
-  if (C2 > kMaxOut || C2 <= 0 || C <= 0 || Hd <= 0) return -1;
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* fb1 = (const float*)b1;
-  const float* fb2 = (const float*)b2;
-  const void* r = res_dtype < 0 ? nullptr : res;
-  if (x_dtype == 0 && res_dtype != 1)
-    return launch<float, float, float>(x, w1, fb1, w2, fb2, r, y, N, C, Hd, C2, t, seed,
-                                       exact_gelu, s);
-  if (x_dtype == 0 && res_dtype == 1)
-    return launch<float, __nv_bfloat16, float>(x, w1, fb1, w2, fb2, r, y, N, C, Hd, C2, t,
-                                               seed, exact_gelu, s);
-  if (x_dtype == 1 && res_dtype == 0)
-    return launch<__nv_bfloat16, float, float>(x, w1, fb1, w2, fb2, r, y, N, C, Hd, C2, t,
-                                               seed, exact_gelu, s);
-  if (x_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(x, w1, fb1, w2, fb2, r, y, N,
-                                                               C, Hd, C2, t, seed,
-                                                               exact_gelu, s);
-  return -1;
+  return dispatch<false>(x, nullptr, nullptr, 1, w1, b1, w2, b2, res, y, N, C, Hd, C2,
+                         x_dtype, res_dtype, t, seed, exact_gelu, stream);
+}
+
+// K3: as sdt_fused_mlp, with x (B * n_per_sample, C) the pre-norm rows of B
+// samples and a, c (B, C) float32, the affine x * a[b] + c[b] applied to
+// every row of sample b before the first product. Returns -1 also when N is
+// not a multiple of n_per_sample.
+extern "C" int sdt_fused_block_tail(const void* x, const void* a, const void* c,
+                                    const void* w1, const void* b1, const void* w2,
+                                    const void* b2, const void* res, void* y, int N,
+                                    int n_per_sample, int C, int Hd, int C2, int x_dtype,
+                                    int res_dtype, int t, unsigned long long seed,
+                                    int exact_gelu, void* stream) {
+  if (n_per_sample <= 0 || N % n_per_sample != 0) return -1;
+  return dispatch<true>(x, (const float*)a, (const float*)c, n_per_sample, w1, b1, w2, b2,
+                        res, y, N, C, Hd, C2, x_dtype, res_dtype, t, seed, exact_gelu,
+                        stream);
 }

@@ -2,10 +2,15 @@
 
 Counterpart of ``spherical_dyffusion_tpu/diffusion/dyffusion.py``:
 ``DYffusionConfig``, ``DiffusionSchedule``/``build_schedule``, ``q_sample``,
-``predict_x_last`` and ``sample_loop``. The sampler is the plain Python loop
-of the JAX package's ``sample_loop``; its ``lax.scan`` forms
-(``sample_loop_scan`` and the peeled variant) compute the same math and are
-not ported. Everything works over two injected callables:
+``predict_x_last``, the cold samplers ``sample_loop``, ``scan_compatible``,
+``sample_loop_scan`` and its peeled form. The JAX package's ``lax.scan``
+samplers are Python loops here over the same math, and keep what makes them
+differ from ``sample_loop`` on the device: the two interpolations of each
+cold update run as ONE double-batch interpolator call (``[x_hat, x_hat]`` at
+times ``[i(s+1), i(s)]``), with masked ends in the uniform form and
+degenerate single-batch ends in the peeled form
+(``DYffusionConfig.peel_sampler``). Everything works over two injected
+callables:
 
     interpolate_fn(initial_condition, x_last, t, generator, **cond) -> x_t
     forecast_fn(x_t, time, condition, static_condition) -> x_hat_last
@@ -24,7 +29,8 @@ import numpy as np
 import torch
 
 __all__ = ["DYffusionConfig", "DiffusionSchedule", "build_schedule", "q_sample",
-           "predict_x_last", "sample_loop", "Intermediates"]
+           "predict_x_last", "sample_loop", "scan_compatible", "sample_loop_scan",
+           "select_sampler", "Intermediates"]
 
 InterpolateFn = Callable[..., torch.Tensor]
 ForecastFn = Callable[..., torch.Tensor]
@@ -331,3 +337,135 @@ def sample_loop(interpolate_fn: InterpolateFn, forecast_fn: ForecastFn,
 
     x_last = x_s if last_plus_one < N else xhat
     return Intermediates(preds=preds, x_last=x_last, ar_init=ar_init)
+
+
+def scan_compatible(cfg: DYffusionConfig, sched: DiffusionSchedule) -> bool:
+    """Whether the config admits the double-batch samplers below (the full
+    schedule with cold updates everywhere: the released-model path)."""
+    return (
+        cfg.sampling_type == "cold"
+        and tuple(sched.sampling_steps) == tuple(range(sched.num_timesteps))
+        and cfg.use_cold_sampling_for_intermediate_steps
+        and cfg.use_cold_sampling_for_last_step
+        and not cfg.refine_intermediate_predictions
+    )
+
+
+def select_sampler(cfg: DYffusionConfig, sched: DiffusionSchedule):
+    """The sampler the JAX package runs for this config: the scan form when
+    ``scan_compatible`` (peeled inside it when ``peel_sampler`` and N >= 3),
+    else ``sample_loop``."""
+    return sample_loop_scan if scan_compatible(cfg, sched) else sample_loop
+
+
+def _double_batch(interpolate_fn: InterpolateFn, initial_condition: torch.Tensor,
+                  xhat: torch.Tensor, t_next: float, t_s: float,
+                  generator: Optional[torch.Generator], cond_kwargs: dict):
+    """Both interpolations of a cold update as one call on the batch
+    ``[xhat, xhat]`` at times ``[t_next, t_s]``; returns the two halves."""
+    B = initial_condition.shape[0]
+    dev = initial_condition.device
+    t_pair = torch.cat([torch.full((B,), float(t_next), dtype=torch.float32, device=dev),
+                        torch.full((B,), float(t_s), dtype=torch.float32, device=dev)])
+    cond2 = {k: (torch.cat([v, v]) if isinstance(v, torch.Tensor) else v)
+             for k, v in cond_kwargs.items()}
+    pair = interpolate_fn(torch.cat([initial_condition, initial_condition]),
+                          torch.cat([xhat, xhat]), t_pair, generator, **cond2)
+    return pair[:B], pair[B:]
+
+
+def _scan_preds(cfg: DYffusionConfig, sched: DiffusionSchedule, states) -> Dict[int, torch.Tensor]:
+    """Iteration s emits the prediction of interpolation step i(s+1); the
+    last emits the horizon."""
+    N = sched.num_timesteps
+    preds: Dict[int, torch.Tensor] = {}
+    for s in range(N):
+        i_next = sched.d_to_i(s + 1) if s < N - 1 else float(cfg.timesteps)
+        if float(i_next).is_integer():
+            p = states[s]
+            if cfg.hack_for_imprecise_interpolation:
+                p = p[..., 1:]
+            preds[int(i_next)] = p
+    return preds
+
+
+def sample_loop_scan(interpolate_fn: InterpolateFn, forecast_fn: ForecastFn,
+                     cfg: DYffusionConfig, sched: DiffusionSchedule,
+                     initial_condition: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     **cond_kwargs: Any) -> Intermediates:
+    """Cold sampling with one uniform step body (the JAX package's
+    ``lax.scan`` form), the same math as ``sample_loop`` for a
+    ``scan_compatible`` config. Every step runs the forecaster once and the
+    interpolator once on the double batch; at s = 0 the second half and at
+    s = N - 1 the first half are computed and masked away, as on the TPU.
+    Dispatches to the peeled form when ``cfg.peel_sampler`` and N >= 3."""
+    if not scan_compatible(cfg, sched):
+        raise ValueError("config is not scan-compatible; use sample_loop")
+    N = sched.num_timesteps
+    if cfg.peel_sampler and N >= 3:
+        return _sample_loop_scan_peeled(interpolate_fn, forecast_fn, cfg, sched,
+                                        initial_condition, generator, **cond_kwargs)
+    x_s = initial_condition
+    states = []
+    xhat = None
+    for s in range(N):
+        xhat = predict_x_last(forecast_fn, cfg, sched, initial_condition, x_s, float(s),
+                              **cond_kwargs)
+        xhat_state = (_hack_prepend(initial_condition, xhat)
+                      if cfg.hack_for_imprecise_interpolation else xhat)
+        # the masked lanes get clamped times; a non-positive time becomes 1
+        t_next = float(sched.d_to_i(min(s + 1, N - 1)))
+        t_s = float(sched.d_to_i(max(s, 1)))
+        x_int_next, x_int_s = _double_batch(
+            interpolate_fn, initial_condition, xhat, t_next if t_next > 0 else 1.0,
+            t_s if t_s > 0 else 1.0, generator, cond_kwargs)
+        if s == N - 1:
+            x_int_next = xhat_state
+        if s == 0:
+            x_int_s = x_s
+        x_s = x_s + x_int_next - x_int_s
+        states.append(x_s)
+    return Intermediates(preds=_scan_preds(cfg, sched, states), x_last=xhat, ar_init=None)
+
+
+def _sample_loop_scan_peeled(interpolate_fn: InterpolateFn, forecast_fn: ForecastFn,
+                             cfg: DYffusionConfig, sched: DiffusionSchedule,
+                             initial_condition: torch.Tensor,
+                             generator: Optional[torch.Generator] = None,
+                             **cond_kwargs: Any) -> Intermediates:
+    """``sample_loop_scan`` with the s = 0 and s = N - 1 steps peeled off, so
+    no interpolator row is masked away:
+
+    * s = 0: ``x_int_s == x_s``, so ``x_1 = I(xhat_0, i(1))``, one
+      single-batch interpolation;
+    * s = 1 .. N-2: the uniform double-batch step with both halves live;
+    * s = N - 1: ``x_int_next == xhat``, so
+      ``x_N = x_{N-1} + xhat - I(xhat, i(N-1))``, one single-batch
+      interpolation."""
+    N = sched.num_timesteps
+    B = initial_condition.shape[0]
+    dev = initial_condition.device
+
+    def interp1(xhat, i_t):
+        t = torch.full((B,), float(i_t), dtype=torch.float32, device=dev)
+        return interpolate_fn(initial_condition, xhat, t, generator, **cond_kwargs)
+
+    xhat = predict_x_last(forecast_fn, cfg, sched, initial_condition, initial_condition, 0.0,
+                          **cond_kwargs)
+    x_s = interp1(xhat, sched.d_to_i(1))
+    states = [x_s]
+    for s in range(1, N - 1):
+        xhat = predict_x_last(forecast_fn, cfg, sched, initial_condition, x_s, float(s),
+                              **cond_kwargs)
+        x_int_next, x_int_s = _double_batch(interpolate_fn, initial_condition, xhat,
+                                            sched.d_to_i(s + 1), sched.d_to_i(s), generator,
+                                            cond_kwargs)
+        x_s = x_s + x_int_next - x_int_s
+        states.append(x_s)
+    xhat = predict_x_last(forecast_fn, cfg, sched, initial_condition, x_s, float(N - 1),
+                          **cond_kwargs)
+    xhat_state = (_hack_prepend(initial_condition, xhat)
+                  if cfg.hack_for_imprecise_interpolation else xhat)
+    states.append(x_s + xhat_state - interp1(xhat, sched.d_to_i(N - 1)))
+    return Intermediates(preds=_scan_preds(cfg, sched, states), x_last=xhat, ar_init=None)

@@ -6,7 +6,11 @@ Counterpart of ``spherical_dyffusion_tpu/inference/stepper.py``
 compiled ``lax.scan``:
 
 * every ``horizon`` steps a new cold-sampling pass runs from the last
-  (prescribed) prediction, and its intermediate horizons are emitted;
+  (prescribed) prediction, and its intermediate horizons are emitted; the
+  pass uses the sampler the JAX stepper compiles
+  (``DYffusionForecastingExperiment.predict``: the double-batch scan form
+  when ``scan_compatible``, peeled with ``peel_sampler``, else
+  ``sample_loop``);
 * forcings enter as ``static_condition`` at the segment's start time;
 * the prescriber overwrites the prescribed channel of every emitted step;
 * input channels that are not predicted are carried from the previous state;

@@ -8,7 +8,13 @@ and DropPath 0.1 live at inference, the deterministic forecaster
 (37 -> 35), DYffusion at horizon 6 with ``forward_conditioning="none"`` and
 ``time_encoding="dynamics"``, and the SST prescriber. ``use_pallas`` and
 ``fused_mlp`` route the spectral contraction and the block MLP through the
-hand-written kernels K1 and K2.
+hand-written kernels K1 and K2; ``fused_tail`` routes norm1, the time
+scale-shift, the MLP and the outer skip of every block through K3 instead
+of K2 (``bench.py``'s ``BENCH_FUSED_TAIL=1``). The window is cold-sampled
+by the double-batch scan sampler, peeled with ``peel`` (``BENCH_PEEL``);
+``scan_layers`` (``BENCH_SCAN_LAYERS``) is accepted and runs the blocks as
+the same plain loop. ``fused_tail``, ``peel`` and ``scan_layers`` default
+to off, as in ``bench.py:build()``.
 
 Weights come from a seeded ``torch.Generator`` or from JAX-package parameter
 trees (``utils/convert.py``). The builder runs on ``device="cuda"`` unless
@@ -54,12 +60,14 @@ def state_names(n: int = 35) -> list:
 def sfno_configs(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
                  img_shape: Tuple[int, int] = (180, 360), horizon: int = 6,
                  n_state: int = 35, use_pallas: bool = True,
-                 fused_mlp: bool = True) -> Tuple[SFNOConfig, SFNOConfig]:
+                 fused_mlp: bool = True, fused_tail: bool = False,
+                 scan_layers: bool = False) -> Tuple[SFNOConfig, SFNOConfig]:
     """(interpolator, forecaster) configs of ``bench.py:build()``."""
     C, CF = n_state, len(FORCING_NAMES)
     common = dict(img_shape=img_shape, out_chans=C, embed_dim=embed, num_layers=layers,
                   operator_type="dhconv", with_time_emb=True, data_grid="equiangular",
-                  compute_dtype=dtype, use_pallas=use_pallas, fused_mlp=fused_mlp)
+                  compute_dtype=dtype, use_pallas=use_pallas, fused_mlp=fused_mlp,
+                  fused_tail=fused_tail, scan_layers=scan_layers)
     interp = SFNOConfig(in_chans=2 * C + CF, dropout_mlp=0.1, drop_path_rate=0.1,
                         min_time=1, max_time=horizon - 1, **common)
     fcast = SFNOConfig(in_chans=C + CF, min_time=0, max_time=horizon - 1, **common)
@@ -68,7 +76,8 @@ def sfno_configs(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
 
 def build(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
           img_shape: Tuple[int, int] = (180, 360), horizon: int = 6, n_state: int = 35,
-          use_pallas: bool = True, fused_mlp: bool = True, device: str = "cuda",
+          use_pallas: bool = True, fused_mlp: bool = True, fused_tail: bool = False,
+          peel: bool = False, scan_layers: bool = False, device: str = "cuda",
           seed: int = 0, flax_params: Optional[Mapping[str, Mapping]] = None,
           enable_interpolator_dropout: bool = True) -> DYffusionStepper:
     """The window stepper of the main path.
@@ -87,7 +96,7 @@ def build(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
                                           {n: 1.0 for n in FORCING_NAMES}, FORCING_NAMES)
     packer = Packer(names)
     icfg, fcfg = sfno_configs(embed, layers, dtype, img_shape, horizon, n_state,
-                              use_pallas, fused_mlp)
+                              use_pallas, fused_mlp, fused_tail, scan_layers)
     imodel, fmodel = SFNO(icfg).to(device), SFNO(fcfg).to(device)
     if flax_params is not None:
         imodel.load_state_dict(flax_to_state_dict(flax_params["interpolator"]))
@@ -102,7 +111,7 @@ def build(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
         imodel, ExperimentConfig(horizon=horizon, enable_inference_dropout=True),
         packer, packer, unit)
     dcfg = DYffusionConfig(timesteps=horizon, forward_conditioning="none",
-                           time_encoding="dynamics",
+                           time_encoding="dynamics", peel_sampler=peel,
                            enable_interpolator_dropout=enable_interpolator_dropout)
     exp = DYffusionForecastingExperiment(
         fmodel, interp, dcfg, ExperimentConfig(horizon=horizon), packer, packer, unit,

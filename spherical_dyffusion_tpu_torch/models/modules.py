@@ -15,13 +15,13 @@ draws a 64-bit seed from it and makes its mask with the Philox bits of
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_mlp import fused_mlp, keep_threshold, quantized_dropout
+from ..ops.fused_mlp import fused_block_tail, fused_mlp, keep_threshold, quantized_dropout
 
 __all__ = ["Dense", "InstanceNorm2d", "QuantizedDropout", "MLP2d",
            "SinusoidalTimeEmbedding", "TimeEmbedMLP", "DropPath",
@@ -67,7 +67,11 @@ class Dense(nn.Module):
 class InstanceNorm2d(nn.Module):
     """Per-sample, per-channel normalization over (H, W) of (B, H, W, C),
     float32 statistics, affine, eps 1e-6. ``exact=False`` is the one-pass
-    form ``var = max(E[x^2] - E[x]^2, 0)`` of the JAX package's default."""
+    form ``var = max(E[x^2] - E[x]^2, 0)`` of the JAX package's default.
+
+    ``fold=True`` returns the per-(sample, channel) pair ``(A, B)`` with
+    ``norm(x) == x * A + B`` (float32, shape (B, 1, 1, C)) instead of the
+    normalized tensor, for the fused block tail (K3)."""
 
     def __init__(self, features: int, eps: float = 1e-6, exact: bool = False):
         super().__init__()
@@ -76,14 +80,17 @@ class InstanceNorm2d(nn.Module):
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fold: bool = False):
         xf = x.float()
         mean = xf.mean(dim=(-3, -2), keepdim=True)
         if self.exact:
             var = (xf - mean).square().mean(dim=(-3, -2), keepdim=True)
         else:
             var = (xf.square().mean(dim=(-3, -2), keepdim=True) - mean.square()).clamp_min(0.0)
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        rstd = torch.rsqrt(var + self.eps)
+        if fold:
+            return rstd * self.scale, self.bias - mean * rstd * self.scale
+        y = (xf - mean) * rstd
         return (y * self.scale + self.bias).to(x.dtype)
 
 
@@ -107,8 +114,11 @@ class MLP2d(nn.Module):
 
     ``fused=True`` runs the whole MLP through the K2 kernel (``fused_mlp``):
     one pass, the hidden tensor never in device memory, the optional residual
-    added inside, output ``promote(x, residual)``. Both forms share the
-    parameter tree ``Dense_0``/``Dense_1``."""
+    added inside, output ``promote(x, residual)``. With ``affine=(A, B)``, x
+    is the pre-norm tensor: the fused form runs the K3 kernel
+    (``fused_block_tail``), which applies ``x * A + B`` before the first
+    product, and the unfused form applies it in float32 first. Both forms
+    share the parameter tree ``Dense_0``/``Dense_1``."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
                  activation: str = "gelu", drop_rate: float = 0.0,
@@ -126,15 +136,21 @@ class MLP2d(nn.Module):
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 residual: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                affine: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         drop_active = self.drop_rate > 0.0 and not deterministic
         if self.fused:
-            return fused_mlp(
-                x.to(self.dtype or x.dtype), self.Dense_0.kernel, self.Dense_0.bias,
-                self.Dense_1.kernel, self.Dense_1.bias, residual=residual,
-                seed=draw_seed(generator) if drop_active else None,
-                drop_rate=self.drop_rate if drop_active else 0.0,
-                exact_gelu=self.activation == "gelu_exact")
+            kw = dict(residual=residual, seed=draw_seed(generator) if drop_active else None,
+                      drop_rate=self.drop_rate if drop_active else 0.0,
+                      exact_gelu=self.activation == "gelu_exact")
+            params = (self.Dense_0.kernel, self.Dense_0.bias, self.Dense_1.kernel,
+                      self.Dense_1.bias)
+            x = x.to(self.dtype or x.dtype)
+            if affine is not None:
+                return fused_block_tail(x, affine[0], affine[1], *params, **kw)
+            return fused_mlp(x, *params, **kw)
+        if affine is not None:
+            x = (x.float() * affine[0] + affine[1]).to(self.dtype or x.dtype)
         y = get_activation(self.activation)(self.Dense_0(x))
         y = self.drop(y, deterministic, generator)
         y = self.drop(self.Dense_1(y), deterministic, generator)

@@ -16,6 +16,12 @@ output, so under bf16 compute every block returns float32.
 
 ``use_pallas`` routes the contraction through the K1 kernel and ``fused_mlp``
 the block MLP through the K2 kernel (the JAX package's flag names).
+``fused_tail`` (for instance norm, an MLP and a gelu) takes precedence over
+``fused_mlp``: each block folds norm1 and, with
+``time_scale_shift_before_filter=False``, the time scale-shift into one
+per-(sample, channel) affine (``InstanceNorm2d(fold=True)``) and runs
+norm-apply, MLP and outer skip as the K3 kernel, as the JAX package's
+boundary-corrected block tail does.
 """
 
 from __future__ import annotations
@@ -47,7 +53,6 @@ _UNSUPPORTED_UNLESS = {
     "operator_type": "dhconv",
     "separable": False,
     "exact_dropout": False,
-    "fused_tail": False,
     "checkpointing": 0,
     "factorization": None,
     "spectral_io_dtype": "",
@@ -194,16 +199,24 @@ class FNOBlock(nn.Module):
         self.filter = SpectralConvS2(forward_transform, inverse_transform, C, C,
                                      use_pallas=cfg.use_pallas)
         self.inner_skip = Dense(C, C, dtype=compute)
+        # the fused tail folds norm1 and the time scale-shift into the K3
+        # kernel (the JAX package's gating, models/sfno.py:596-598)
+        self.use_tail = (cfg.fused_tail and cfg.use_mlp
+                         and cfg.normalization_layer == "instance_norm"
+                         and cfg.activation_function in ("gelu", "gelu_exact"))
         if cfg.use_mlp:
             self.mlp = MLP2d(C, int(C * cfg.mlp_ratio), C,
                              activation=cfg.activation_function,
                              drop_rate=cfg.dropout_mlp, dtype=compute,
-                             fused=cfg.fused_mlp)
+                             fused=cfg.fused_mlp or self.use_tail)
         self.drop_path = DropPath(drop_path)
 
-    def _time_scale_shift(self, h: torch.Tensor, time_emb: torch.Tensor) -> torch.Tensor:
+    def _scale_shift(self, time_emb: torch.Tensor):
         emb = self.time_mlp(torch.nn.functional.silu(time_emb))
-        scale, shift = emb[:, None, None, :].chunk(2, dim=-1)
+        return emb[:, None, None, :].chunk(2, dim=-1)
+
+    def _time_scale_shift(self, h: torch.Tensor, time_emb: torch.Tensor) -> torch.Tensor:
+        scale, shift = self._scale_shift(time_emb)
         return h * (scale + 1.0) + shift
 
     def forward(self, x: torch.Tensor, time_emb: Optional[torch.Tensor] = None,
@@ -215,10 +228,23 @@ class FNOBlock(nn.Module):
             x_norm = self._time_scale_shift(x_norm, time_emb)
         x_f, residual = self.filter(x_norm)
         x = get_activation(cfg.activation_function)(x_f + self.inner_skip(residual))
+        dp_active = self.drop_path_rate > 0.0 and not deterministic
+        if self.use_tail:
+            # norm1 (and the time scale-shift after the filter) as one
+            # per-(sample, channel) affine applied inside K3; a live DropPath
+            # keeps the outer skip out of the kernel
+            A, B = self.norm1(x, fold=True)
+            if time_emb is not None and not cfg.time_scale_shift_before_filter:
+                scale, shift = self._scale_shift(time_emb)
+                A, B = A * (scale + 1.0), B * (scale + 1.0) + shift
+            x = self.mlp(x, deterministic, None if dp_active else residual, generator,
+                         affine=(A, B))
+            if dp_active:
+                return self.drop_path(x, deterministic, generator) + residual
+            return x
         x = self.norm1(x)
         if time_emb is not None and not cfg.time_scale_shift_before_filter:
             x = self._time_scale_shift(x, time_emb)
-        dp_active = self.drop_path_rate > 0.0 and not deterministic
         if cfg.use_mlp:
             # the fused kernel adds the outer skip itself unless a live
             # DropPath has to act on the MLP output first

@@ -36,6 +36,8 @@ _SIGNATURES = {
     "sdt_dhconv_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sdt_fused_mlp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       ctypes.c_ulonglong, _I, _P],
+    "sdt_fused_block_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, ctypes.c_ulonglong, _I, _P],
 }
 
 _state: dict = {}

@@ -18,7 +18,7 @@ import torch
 
 from ..data.normalization import StandardNormalizer
 from ..data.packer import Packer
-from ..diffusion.dyffusion import DYffusionConfig, build_schedule, sample_loop
+from ..diffusion.dyffusion import DYffusionConfig, build_schedule, select_sampler
 
 __all__ = ["ExperimentConfig", "InterpolationExperiment",
            "DYffusionForecastingExperiment"]
@@ -129,11 +129,15 @@ class DYffusionForecastingExperiment:
                 generator: Optional[torch.Generator] = None,
                 dynamical_condition: Optional[torch.Tensor] = None,
                 static_condition: Optional[torch.Tensor] = None):
-        """One cold-sampling pass; returns ``Intermediates``."""
+        """One cold-sampling pass; returns ``Intermediates``. Runs the
+        double-batch scan sampler when the config is ``scan_compatible``
+        (peeled with ``peel_sampler``), else ``sample_loop``, as the JAX
+        package does."""
         cond_kwargs = {}
         if dynamical_condition is not None:
             cond_kwargs["dynamical_condition"] = dynamical_condition
         if static_condition is not None:
             cond_kwargs["static_condition"] = static_condition
-        return sample_loop(self._interp_fn(), self._forecast_fn(), self.diffusion_cfg,
-                           self.sched, initial_condition, generator, **cond_kwargs)
+        sampler = select_sampler(self.diffusion_cfg, self.sched)
+        return sampler(self._interp_fn(), self._forecast_fn(), self.diffusion_cfg,
+                       self.sched, initial_condition, generator, **cond_kwargs)

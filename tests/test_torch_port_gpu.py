@@ -18,7 +18,12 @@ import pytest
 import torch
 
 from spherical_dyffusion_tpu_torch.models.sfno import SFNO, SFNOConfig
-from spherical_dyffusion_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+from spherical_dyffusion_tpu_torch.ops.fused_mlp import (
+    fused_block_tail,
+    fused_block_tail_plain,
+    fused_mlp,
+    fused_mlp_plain,
+)
 from spherical_dyffusion_tpu_torch.ops.pallas_contractions import dhconv, dhconv_plain
 
 pytestmark = pytest.mark.gpu
@@ -110,5 +115,78 @@ def test_sfno_forward_kernels_match_plain(cuda):
         y = fast(x, time=t, static_condition=cond)
         want = plain(x, time=t, static_condition=cond)
     assert (dhconv.launches - k1, fused_mlp.launches - k2) == (3, 3)
+    assert np.isfinite(y.cpu().numpy()).all()
+    assert _rel_err(y, want) < 1e-5
+
+
+def _tail_operands(cuda, seed, B, N, C=256, Hd=512, x_dtype=torch.bfloat16):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return dict(x=torch.randn(B, N, C, device=cuda, generator=g).to(x_dtype),
+                a=1.0 + 0.1 * torch.randn(B, 1, C, device=cuda, generator=g),
+                c=0.1 * torch.randn(B, 1, C, device=cuda, generator=g),
+                w1=torch.randn(C, Hd, device=cuda, generator=g) / 16,
+                b1=torch.randn(Hd, device=cuda, generator=g) * 0.1,
+                w2=torch.randn(Hd, C, device=cuda, generator=g) / 22,
+                b2=torch.randn(C, device=cuda, generator=g) * 0.1,
+                res=torch.randn(B, N, C, device=cuda, generator=g))
+
+
+@pytest.mark.parametrize("x_dtype,res_dtype", [
+    (torch.float32, None), (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, None), (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("exact_gelu", [False, True])
+def test_fused_block_tail_kernel_matches_plain(cuda, x_dtype, res_dtype, exact_gelu):
+    """K3 on two samples of 77 rows: the second 64-row tile holds rows of
+    both samples, each with its own A and C."""
+    o = _tail_operands(cuda, 5, B=2, N=77, x_dtype=x_dtype)
+    res = o["res"].to(res_dtype) if res_dtype else None
+    args = [o[k] for k in ("x", "a", "c", "w1", "b1", "w2", "b2")]
+    before = fused_block_tail.launches
+    y = fused_block_tail(*args, residual=res, exact_gelu=exact_gelu)
+    torch.cuda.synchronize()
+    assert fused_block_tail.launches == before + 1
+    want = fused_block_tail_plain(*args, residual=res, exact_gelu=exact_gelu)
+    assert y.dtype == want.dtype and y.shape == want.shape == (2, 77, 256)
+    tol = 1e-5 if x_dtype == torch.float32 else 2e-2
+    assert _rel_err(y, want) < tol
+
+
+def test_fused_block_tail_kernel_dropout_and_unit_affine(cuda):
+    """Dropout on, no residual: the kernel drops the plain version's
+    elements (rows b * N + n); with A = 1, C = 0 it equals K2 bit for bit."""
+    o = _tail_operands(cuda, 6, B=2, N=150)
+    args = [o[k] for k in ("x", "a", "c", "w1", "b1", "w2", "b2")]
+    kw = dict(seed=987654321987, drop_rate=0.1)
+    y = fused_block_tail(*args, **kw)
+    want = fused_block_tail_plain(*args, **kw)
+    assert torch.equal(y == 0, want == 0) and bool((y == 0).any())
+    assert _rel_err(y, want) < 2e-2
+    x, w = o["x"], args[3:]
+    unit = fused_block_tail(x, torch.ones_like(o["a"]), torch.zeros_like(o["c"]), *w,
+                            residual=o["res"], **kw)
+    k2 = fused_mlp(x.reshape(-1, 256), *w, residual=o["res"].reshape(-1, 256), **kw)
+    assert torch.equal(unit.reshape(-1, 256), k2)
+
+
+def test_sfno_fused_tail_kernels_match_plain(cuda):
+    """The fused-tail network on the card (K1 and K3, batch 2, time
+    scale-shift after the filter) against the plain path, float32."""
+    kw = dict(img_shape=(32, 64), in_chans=7, out_chans=5, embed_dim=32, num_layers=3,
+              with_time_emb=True, dropout_mlp=0.1, drop_path_rate=0.1, scan_layers=True,
+              time_scale_shift_before_filter=False)
+    fast = SFNO(SFNOConfig(**kw, use_pallas=True, fused_mlp=True, fused_tail=True)).to(cuda)
+    plain = SFNO(SFNOConfig(**kw)).to(cuda)
+    fast.init_weights(torch.Generator(device=cuda).manual_seed(7))
+    plain.load_state_dict(fast.state_dict())
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(2, 32, 64, 5, device=cuda, generator=g)
+    cond = torch.randn(2, 32, 64, 2, device=cuda, generator=g)
+    t = torch.tensor([1.0, 2.0], device=cuda)
+    k1, k2, k3 = dhconv.launches, fused_mlp.launches, fused_block_tail.launches
+    with torch.no_grad():
+        y = fast(x, time=t, static_condition=cond)
+        want = plain(x, time=t, static_condition=cond)
+    assert (dhconv.launches - k1, fused_mlp.launches - k2,
+            fused_block_tail.launches - k3) == (3, 0, 3)
     assert np.isfinite(y.cpu().numpy()).all()
     assert _rel_err(y, want) < 1e-5

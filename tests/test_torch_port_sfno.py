@@ -154,7 +154,7 @@ def test_dropout_is_live_only_when_not_deterministic():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("operator_type", "diagonal"), ("factorization", "cp"), ("fused_tail", True),
+    ("operator_type", "diagonal"), ("factorization", "cp"), ("merged_dhconv", True),
     ("spectral_io_dtype", "bfloat16"), ("sht_fold_symmetry", True),
     ("sht_matmul_dtype", "bfloat16"), ("normalization_layer", "layer_norm"),
     ("filter_type", "non-linear"), ("exact_dropout", True)])
