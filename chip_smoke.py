@@ -16,18 +16,27 @@ Phases, each timed:
    float32 residual, batch 2 without), straddling tiles, erf gelu, dropout
    masks and float32, against its plain version; K3 with A = 1, C = 0
    against K2, bit for bit;
-5. the window path: both SFNOs at embed 256 x 8 layers on 180 x 360, bf16
-   compute, K1 and K2 on, weights from a seed, one 12-step ``run_window``
-   (two horizon-6 segments) at batch 1, cold-sampled by the double-batch
-   scan sampler, with the kernels' launch counts; then the same window with
-   dropout off through the kernels and through the plain path, in bf16 and
-   in float32;
-6. the fused-tail path: the same window with K1 and K3 (``fused_tail``), the
+5. K4 (the CP rank pipeline's fused Legendre analysis, scale and
+   synthesis) at the fast window's shape (h 180, l = m = 144, R 64) at
+   batch 1 and 2 in bf16 and float32, at the Pallas prototype's own shape
+   (l = m = 181) and at a ragged shape, against its plain version;
+6. the window path: both SFNOs at embed 256 x 8 layers on 180 x 360, bf16
+   compute (the transforms and dhconv with bf16 operands), K1 and K2 on,
+   weights from a seed, one 12-step ``run_window`` (two horizon-6
+   segments) at batch 1, cold-sampled by the double-batch scan sampler,
+   with the kernels' launch counts; then the same window with dropout off
+   through the kernels and through the plain path, in bf16 and in float32;
+7. the fused-tail path: the same window with K1 and K3 (``fused_tail``), the
    peeled sampler and ``scan_layers``, with its launch counts and the
    interpolator's batch sizes; then dropout off, kernels against the plain
    path in float32 and bf16;
-7. profile: one ``torch.profiler`` pass over one window of each path, the
-   top 10 CUDA kernels by total time.
+8. the fast window (``main_path.FAST_WINDOW``: CP rank 0.25, thresholding
+   0.8, bf16 spectral IO, scan and peel, the block MLP unfused) with K4,
+   launched 6 x per SFNO forward (blocks 1-6; blocks 0 and 7 change grid and
+   contract in spectral space) and K1-K3 never; then dropout off, K4 against
+   the plain path in float32 and bf16;
+9. profile: one ``torch.profiler`` pass over one window of each path, the
+   top 10 CUDA kernels by total time and the kernel time by group.
 
 It prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -100,7 +109,9 @@ def main() -> int:
             fused_mlp,
             fused_mlp_plain,
         )
+        from spherical_dyffusion_tpu_torch.ops.fused_rank import fused_rank, fused_rank_plain
         from spherical_dyffusion_tpu_torch.ops.pallas_contractions import dhconv, dhconv_plain
+        from spherical_dyffusion_tpu_torch.ops.sht import InverseRealSHT, RealSHT
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing: {e}", file=sys.stderr)
         return 1
@@ -109,7 +120,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    wrappers = {"K1": dhconv, "K2": fused_mlp, "K3": fused_block_tail}
+    wrappers = {"K1": dhconv, "K2": fused_mlp, "K3": fused_block_tail, "K4": fused_rank}
 
     def timed(fn, reps: int) -> float:
         fn()
@@ -339,6 +350,91 @@ def main() -> int:
                             library_ms_b2=library_b2, bound_ms_b2=bound_b2, bound_by_b2=by_b2)
         del x1, a1, c1, res1, x2, a2, c2, res2, y, want, y2, y3
 
+    with Phase("5 K4 fused rank pipeline"):
+        g = torch.Generator(device=dev).manual_seed(3)
+
+        def rank_operands(B, H, L, M, R, dtype, grid=None):
+            """xf (B, H, M, 2R, 2) and the (M, H, L) Legendre matrices of a
+            2H-longitude ``grid`` in dtype (random matrices without one), C
+            (L, R, 2) float32."""
+            xf = torch.randn((B, H, M, 2 * R, 2), device=dev, generator=g).to(dtype)
+            C = torch.randn((L, R, 2), device=dev, generator=g) * 0.5
+            if grid is None:
+                A = (torch.randn((M, H, L), device=dev, generator=g) * 0.2).to(dtype)
+                S = (torch.randn((M, H, L), device=dev, generator=g) * 0.2).to(dtype)
+            else:
+                kw = dict(grid=grid, matmul_dtype=dtype, kernel_layout=True)
+                A = RealSHT(H, 2 * H, L, M, **kw).analysis_mhl.to(dev)
+                S = InverseRealSHT(H, 2 * H, L, M, **kw).synthesis_mhl.to(dev)
+            return xf, A, S, C
+
+        def rank_library(xf, A, S, C):
+            """The yardstick: the bf16 (or float32) torch.bmm chain, batched
+            over m, with the float32 CP scale between the two products and
+            the layout permutes to and from the port's layout."""
+            B, H, M, R2, _ = xf.shape
+            R, L = R2 // 2, A.shape[2]
+            xm = xf.permute(2, 1, 0, 3, 4).reshape(M, H, B * R2 * 2)
+            t = torch.bmm(A.transpose(1, 2), xm).view(M, L, B, R2, 2).float()
+            Sr, Si = t[..., :R, :], t[..., R:, :]
+            p_re, p_im = Sr[..., 0] - Si[..., 1], Sr[..., 1] + Si[..., 0]
+            Cr, Ci = C[:, None, :, 0], C[:, None, :, 1]
+            s_re, s_im = p_re * Cr - p_im * Ci, p_re * Ci + p_im * Cr
+            s = torch.cat([torch.stack([s_re, s_im], -1), torch.stack([-s_im, s_re], -1)], -2)
+            y = torch.bmm(S, s.to(xf.dtype).reshape(M, L, B * R2 * 2))
+            return y.view(M, H, B, R2, 2).permute(2, 1, 0, 3, 4).contiguous()
+
+        def rank_bound(xf, A, S, C):
+            B, H, M, R2, _ = xf.shape
+            flops = 2 * 2.0 * H * A.shape[2] * 2 * R2 * M * B
+            nbytes = xf.element_size() * (2 * xf.numel() + A.numel() + S.numel()) \
+                + 4.0 * C.numel()
+            return bound(flops, nbytes, BF16_PEAK if xf.dtype == torch.bfloat16 else F32_PEAK)
+
+        cases = {
+            "fast shape B=1 bf16 (the forecaster)": ((1, 180, 144, 144, 64), torch.bfloat16,
+                                                      "legendre-gauss", tol_bf16),
+            "fast shape B=2 bf16 (the interpolator)": ((2, 180, 144, 144, 64), torch.bfloat16,
+                                                       "legendre-gauss", tol_bf16),
+            "fast shape B=1 float32": ((1, 180, 144, 144, 64), torch.float32,
+                                       "legendre-gauss", tol_f32),
+            "fast shape B=2 float32": ((2, 180, 144, 144, 64), torch.float32,
+                                       "legendre-gauss", tol_f32),
+            "prototype shape l=m=181 bf16": ((1, 180, 181, 181, 64), torch.bfloat16,
+                                             "equiangular", tol_bf16),
+            "prototype shape l=m=181 float32": ((1, 180, 181, 181, 64), torch.float32,
+                                                "equiangular", tol_f32),
+            "ragged h 37, l=m=29, R 5 bf16": ((2, 37, 29, 29, 5), torch.bfloat16, None, tol_bf16),
+            "ragged h 37, l=m=29, R 5 float32": ((2, 37, 29, 29, 5), torch.float32, None,
+                                                 tol_f32),
+        }
+        k4 = {}
+        for name, (shape, dtype, grid, tol) in cases.items():
+            ops = rank_operands(*shape, dtype, grid)
+            y = fused_rank(*ops)
+            torch.cuda.synchronize()
+            want = fused_rank_plain(*ops)
+            check(y.dtype == want.dtype and y.shape == want.shape,
+                  f"K4 {name}: {y.dtype} {tuple(y.shape)} vs {want.dtype} {tuple(want.shape)}")
+            abs_err, rel_err = errs(y, want)
+            log(f"K4 {name}: max abs err {abs_err:.3e}, max rel err {rel_err:.3e} "
+                f"(tolerance {tol:g} of max |plain|)")
+            check(rel_err <= tol, f"K4 disagrees with its plain version ({name})")
+            if name.startswith("fast shape") and dtype == torch.bfloat16:
+                lib_err = errs(rank_library(*ops), want)[1]
+                ms = timed(lambda: fused_rank(*ops), 20)
+                plain_ms = timed(lambda: fused_rank_plain(*ops), 5)
+                library_ms = timed(lambda: rank_library(*ops), 20)
+                bound_ms, bound_by = rank_bound(*ops)
+                log(f"K4 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 torch.bmm "
+                    f"chain {library_ms:.4f} ms (its max rel err {lib_err:.3e}), bound "
+                    f"{bound_ms:.4f} ms ({bound_by}) on {smi_line}")
+                k4[shape[0]] = dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
+                                    plain_ms=plain_ms, library_ms=library_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by)
+            del ops, y, want
+        report["K4"] = dict(k4[1], **{f"{k}_b2": v for k, v in k4[2].items()})
+
     inp = main_path.window_inputs(N_STEPS, seed=0, device="cuda")
     other = [c for c in range(35) if c != 1]  # the channels the models drive
 
@@ -348,11 +444,10 @@ def main() -> int:
         torch.cuda.synchronize()
         return out
 
-    def drive(name, path_kw, expect):
+    def drive(name, path_kw, per_forward):
         """Build the path at full width, warm it up, and run one counted,
-        timed 12-step window with dropout live. ``expect`` maps each kernel
-        to whether the path must launch it 8 x per SFNO forward (True) or
-        never (False)."""
+        timed 12-step window with dropout live. ``per_forward`` maps each
+        kernel to the launches the path must make per SFNO forward."""
         t0 = time.perf_counter()
         stepper = main_path.build(embed=256, layers=8, dtype="bfloat16", device="cuda", seed=0,
                                   **path_kw)
@@ -377,8 +472,8 @@ def main() -> int:
         log(f"{name} window: {N_STEPS} steps in {seconds:.3f} s = {N_STEPS / seconds:.3f} "
             f"steps/s at batch 1 on {smi_line}")
         log(f"{name} SFNO forwards {forwards}, batch sizes {batches} -> launches {launches}")
-        for k, on in expect.items():
-            want = 8 * forwards if on else 0
+        for k, n in per_forward.items():
+            want = n * forwards
             check(forwards > 0 and launches[k] == want,
                   f"{name}: {k} launched {launches[k]} times, expected {want}")
         check(preds.shape == (1, N_STEPS, 180, 360, 35), f"preds shape {tuple(preds.shape)}")
@@ -405,8 +500,8 @@ def main() -> int:
         log(f"deterministic window {dtype}: kernels {tk:.3f} s, plain path {tp:.3f} s")
         return pk, pp
 
-    with Phase("5 window path (K1, K2, scan sampler)"):
-        runs = {"window": drive("window path", {}, {"K1": True, "K2": True, "K3": False})}
+    with Phase("6 window path (K1, K2, scan sampler)"):
+        runs = {"window": drive("window path", {}, {"K1": 8, "K2": 8, "K3": 0, "K4": 0})}
         # two horizon-6 segments: one double-batch interpolation per step
         check(runs["window"]["batches"]["interpolator"] == [2] * N_STEPS,
               "the scan sampler should run every interpolation on the double batch")
@@ -427,9 +522,9 @@ def main() -> int:
             del pk, pp
 
     tail_kw = dict(use_pallas=True, fused_tail=True, peel=True, scan_layers=True)
-    with Phase("6 fused-tail path (K1, K3, peeled sampler)"):
+    with Phase("7 fused-tail path (K1, K3, peeled sampler)"):
         runs["fused_tail"] = drive("fused-tail path", tail_kw,
-                                   {"K1": True, "K2": False, "K3": True})
+                                   {"K1": 8, "K2": 0, "K3": 8, "K4": 0})
         # per segment: single-batch ends, the double batch in between
         check(runs["fused_tail"]["batches"]["interpolator"] == ([1] + [2] * 4 + [1]) * 2,
               "the peeled sampler's interpolator batches are not 1, 2, 2, 2, 2, 1 per segment")
@@ -453,7 +548,38 @@ def main() -> int:
               "fused-tail path bf16: kernels disagree with the plain path")
         del pk, pp, pp32
 
-    with Phase("7 profile (one window of each path)"):
+    fast_kw = dict(main_path.FAST_WINDOW)
+    with Phase("8 fast window (K4, CP rank pipeline, peeled sampler)"):
+        # blocks 1-6 take the rank pipeline; blocks 0 and 7 change grid and
+        # contract in spectral space; the block MLP is unfused
+        runs["fast"] = drive("fast window", fast_kw, {"K1": 0, "K2": 0, "K3": 0, "K4": 6})
+        check(runs["fast"]["launches"]["K4"] == 144, "the fast window should launch K4 144 x")
+        check(runs["fast"]["batches"]["interpolator"] == ([1] + [2] * 4 + [1]) * 2,
+              "the peeled sampler's interpolator batches are not 1, 2, 2, 2, 2, 1 per segment")
+        # dropout off, K4 against the plain path (same weights, fused_rank
+        # off). K4 computes in float32 throughout or rounds like bf16 matmul
+        # dtype with bf16 spectral IO, so the float32 pair runs without the
+        # spectral-IO emit; bf16 is held, as the fused-tail path, to a
+        # multiple of the plain path's own bf16 error
+        f32_kw = dict(fast_kw, spectral_io="")
+        pk32, pp32 = pair("float32", f32_kw, dict(f32_kw, fused_rank=False))
+        scale = pp32[..., other].abs().max().item()
+        diff = (pk32 - pp32).abs().max().item()
+        log(f"fast window float32: max |kernels - plain| {diff:.3e} = {diff / scale:.3e} "
+            f"of the largest model-driven prediction {scale:.3e} (tolerance 1e-4)")
+        check(diff <= 1e-4 * scale, "fast window float32: K4 disagrees with the plain path")
+        del pk32
+        pk, pp = pair("bfloat16", fast_kw, dict(fast_kw, fused_rank=False))
+        gap = (pk - pp).abs().max().item()
+        noise = (pp - pp32).abs().max().item()
+        log(f"fast window bf16: max |kernels - plain| {gap:.3e} = {gap / scale:.3e} of the "
+            f"largest model-driven prediction; the plain path's own bf16 error "
+            f"max |plain bf16 - plain float32| {noise:.3e} = {noise / scale:.3e}; ratio "
+            f"{gap / noise:.3f} (tolerance {BF16_TAIL_VS_PLAIN:g})")
+        check(gap <= BF16_TAIL_VS_PLAIN * noise, "fast window bf16: K4 disagrees with the plain path")
+        del pk, pp, pp32
+
+    with Phase("9 profile (one window of each path)"):
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -461,7 +587,8 @@ def main() -> int:
             torch.ones(1, device=dev).add_(1)
             torch.cuda.synchronize()
         for name, run, path_kw in (("window path", "window", {}),
-                                   ("fused-tail path", "fused_tail", tail_kw)):
+                                   ("fused-tail path", "fused_tail", tail_kw),
+                                   ("fast window", "fast", fast_kw)):
             stepper = main_path.build(embed=256, layers=8, dtype="bfloat16", device="cuda",
                                       seed=0, **path_kw)
             window(stepper, 1)
@@ -485,9 +612,11 @@ def main() -> int:
             groups = {}
             for key, (cnt, us) in dev_us.items():
                 group = ("K1" if "dhconv" in key else
+                         "K4" if "fused_rank" in key else
                          "K3" if "fused_mlp_kernel<true" in key else
                          "K2" if "fused_mlp_kernel<false" in key else
-                         "cuBLAS GEMM" if "gemm" in key.lower() else
+                         "cuBLAS GEMM" if any(w in key.lower() for w in
+                                              ("gemm", "nvjet", "xmma", "cutlass")) else
                          "copies" if "copy" in key.lower() else
                          "reductions" if "reduce" in key.lower() else "other elementwise")
                 groups[group] = groups.get(group, 0.0) + us / 1e6
@@ -498,14 +627,16 @@ def main() -> int:
 
     sources = {"K1": "spherical_dyffusion_tpu_torch/csrc/dhconv.cu",
                "K2": "spherical_dyffusion_tpu_torch/csrc/fused_mlp.cu",
-               "K3": "spherical_dyffusion_tpu_torch/csrc/fused_mlp.cu"}
+               "K3": "spherical_dyffusion_tpu_torch/csrc/fused_mlp.cu",
+               "K4": "spherical_dyffusion_tpu_torch/csrc/fused_rank.cu"}
     replaces = {"K1": "spherical_dyffusion_tpu/ops/pallas_contractions.py:72",
                 "K2": "spherical_dyffusion_tpu/ops/fused_mlp.py:125",
-                "K3": "spherical_dyffusion_tpu/ops/fused_mlp.py:212"}
-    names = {"K1": "dhconv", "K2": "fused_mlp", "K3": "fused_block_tail"}
-    own_path = {"K1": "window", "K2": "window", "K3": "fused_tail"}
+                "K3": "spherical_dyffusion_tpu/ops/fused_mlp.py:212",
+                "K4": "scripts/proto_fused_rank.py:94"}
+    names = {"K1": "dhconv", "K2": "fused_mlp", "K3": "fused_block_tail", "K4": "fused_rank"}
+    own_path = {"K1": "window", "K2": "window", "K3": "fused_tail", "K4": "fast"}
     kernels = []
-    for k in ("K1", "K2", "K3"):
+    for k in ("K1", "K2", "K3", "K4"):
         kernels.append(dict(
             name=names[k], route="cuda", source=sources[k], replaces=replaces[k],
             launches=runs[own_path[k]]["launches"][k],

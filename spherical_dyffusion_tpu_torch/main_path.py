@@ -2,19 +2,25 @@
 
 Builds the same system as the JAX package's benchmark builder, with the
 configuration written here in Python (no YAML): two SFNOs at 180 x 360 with
-the dense dhconv filter and a time embedding, bf16 compute with the
-transforms in float32, the interpolator (72 -> 35 channels) with MLP dropout
-and DropPath 0.1 live at inference, the deterministic forecaster
+a time embedding, bf16 compute with the transforms and spectral products
+rounding their operands to bf16 (``sht_matmul_dtype=dtype``, as
+``bench.py:build()`` sets it), the interpolator (72 -> 35 channels) with MLP
+dropout and DropPath 0.1 live at inference, the deterministic forecaster
 (37 -> 35), DYffusion at horizon 6 with ``forward_conditioning="none"`` and
 ``time_encoding="dynamics"``, and the SST prescriber. ``use_pallas`` and
-``fused_mlp`` route the spectral contraction and the block MLP through the
-hand-written kernels K1 and K2; ``fused_tail`` routes norm1, the time
+``fused_mlp`` route the dense spectral contraction and the block MLP through
+the hand-written kernels K1 and K2; ``fused_tail`` routes norm1, the time
 scale-shift, the MLP and the outer skip of every block through K3 instead
-of K2 (``bench.py``'s ``BENCH_FUSED_TAIL=1``). The window is cold-sampled
-by the double-batch scan sampler, peeled with ``peel`` (``BENCH_PEEL``);
+of K2 (``bench.py``'s ``BENCH_FUSED_TAIL=1``). ``factorization``, ``rank``,
+``thresh`` and ``spectral_io`` are ``bench.py``'s CP filter, spectral
+truncation and spectral-IO dtype, and ``fused_rank`` routes the CP rank
+pipeline's spectral middle through K4; ``FAST_WINDOW`` is the JAX bench's
+fast product compose (CP rank 0.25, truncation 0.8, bf16 spectral IO, scan
+and peel on, no fused MLP) with K4 on. The window is cold-sampled by the
+double-batch scan sampler, peeled with ``peel`` (``BENCH_PEEL``);
 ``scan_layers`` (``BENCH_SCAN_LAYERS``) is accepted and runs the blocks as
-the same plain loop. ``fused_tail``, ``peel`` and ``scan_layers`` default
-to off, as in ``bench.py:build()``.
+the same plain loop. ``fused_tail``, ``peel``, ``scan_layers`` and the CP
+filter default to off, as in ``bench.py:build()``.
 
 Weights come from a seeded ``torch.Generator`` or from JAX-package parameter
 trees (``utils/convert.py``). The builder runs on ``device="cuda"`` unless
@@ -42,11 +48,18 @@ from .training.experiments import (
 )
 from .utils.convert import flax_to_state_dict
 
-__all__ = ["state_names", "FORCING_NAMES", "MASK_NAME", "sfno_configs", "build",
-           "window_inputs"]
+__all__ = ["state_names", "FORCING_NAMES", "MASK_NAME", "FAST_WINDOW", "sfno_configs",
+           "build", "window_inputs"]
 
 FORCING_NAMES = ("DSWRFtoa", "HGTsfc")
 MASK_NAME = "ocean_fraction"
+# bench.py's fast product compose (BENCH_FACT=cp BENCH_RANK=0.25
+# BENCH_THRESH=0.8 BENCH_SPECTRAL_IO=bfloat16, scan and peel on), with the
+# rank pipeline's spectral middle on K4; build(**FAST_WINDOW, fused_rank=False)
+# is its plain path
+FAST_WINDOW = dict(use_pallas=False, fused_mlp=False, fused_tail=False, factorization="cp",
+                   rank=0.25, thresh=0.8, spectral_io="bfloat16", scan_layers=True,
+                   peel=True, fused_rank=True)
 
 
 def state_names(n: int = 35) -> list:
@@ -61,12 +74,16 @@ def sfno_configs(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
                  img_shape: Tuple[int, int] = (180, 360), horizon: int = 6,
                  n_state: int = 35, use_pallas: bool = True,
                  fused_mlp: bool = True, fused_tail: bool = False,
-                 scan_layers: bool = False) -> Tuple[SFNOConfig, SFNOConfig]:
+                 scan_layers: bool = False, factorization: str = "", rank: float = 1.0,
+                 thresh: float = 1.0,
+                 spectral_io: str = "") -> Tuple[SFNOConfig, SFNOConfig]:
     """(interpolator, forecaster) configs of ``bench.py:build()``."""
     C, CF = n_state, len(FORCING_NAMES)
     common = dict(img_shape=img_shape, out_chans=C, embed_dim=embed, num_layers=layers,
                   operator_type="dhconv", with_time_emb=True, data_grid="equiangular",
-                  compute_dtype=dtype, use_pallas=use_pallas, fused_mlp=fused_mlp,
+                  compute_dtype=dtype, sht_matmul_dtype=dtype, use_pallas=use_pallas,
+                  fused_mlp=fused_mlp, hard_thresholding_fraction=thresh,
+                  factorization=factorization, rank=rank, spectral_io_dtype=spectral_io,
                   fused_tail=fused_tail, scan_layers=scan_layers)
     interp = SFNOConfig(in_chans=2 * C + CF, dropout_mlp=0.1, drop_path_rate=0.1,
                         min_time=1, max_time=horizon - 1, **common)
@@ -77,7 +94,9 @@ def sfno_configs(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
 def build(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
           img_shape: Tuple[int, int] = (180, 360), horizon: int = 6, n_state: int = 35,
           use_pallas: bool = True, fused_mlp: bool = True, fused_tail: bool = False,
-          peel: bool = False, scan_layers: bool = False, device: str = "cuda",
+          peel: bool = False, scan_layers: bool = False, factorization: str = "",
+          rank: float = 1.0, thresh: float = 1.0, spectral_io: str = "",
+          fused_rank: bool = False, device: str = "cuda",
           seed: int = 0, flax_params: Optional[Mapping[str, Mapping]] = None,
           enable_interpolator_dropout: bool = True) -> DYffusionStepper:
     """The window stepper of the main path.
@@ -96,8 +115,10 @@ def build(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
                                           {n: 1.0 for n in FORCING_NAMES}, FORCING_NAMES)
     packer = Packer(names)
     icfg, fcfg = sfno_configs(embed, layers, dtype, img_shape, horizon, n_state,
-                              use_pallas, fused_mlp, fused_tail, scan_layers)
-    imodel, fmodel = SFNO(icfg).to(device), SFNO(fcfg).to(device)
+                              use_pallas, fused_mlp, fused_tail, scan_layers, factorization,
+                              rank, thresh, spectral_io)
+    imodel = SFNO(icfg, fused_rank=fused_rank).to(device)
+    fmodel = SFNO(fcfg, fused_rank=fused_rank).to(device)
     if flax_params is not None:
         imodel.load_state_dict(flax_to_state_dict(flax_params["interpolator"]))
         fmodel.load_state_dict(flax_to_state_dict(flax_params["forecaster"]))

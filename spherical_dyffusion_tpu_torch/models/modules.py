@@ -7,9 +7,15 @@ names and layouts follow the flax modules (``Dense.kernel`` is ``(in, out)``,
 ``Dense(dtype=...)`` computes and returns in that dtype, with float32
 parameters cast at use; with ``dtype=None`` it promotes its inputs.
 
-Randomness comes from an explicit host-side ``torch.Generator``: dropout
-draws a 64-bit seed from it and makes its mask with the Philox bits of
-``ops/fused_mlp.py``, so the unfused and the fused MLP drop by the same rule.
+Randomness comes from an explicit host-side ``torch.Generator``. The fused
+MLP (K2, K3) draws a 64-bit seed from it for its in-kernel Philox bits;
+``QuantizedDropout`` draws a seed for a generator on x's device, which then
+draws the 8 random bits of each element in one call, as the JAX package's
+module draws ``jax.random.bits(..., uint8)``. Both keep an element iff its
+8 bits are below ``t``, so the unfused and the fused MLP drop by the same
+rule, from different bits. Where the JAX package's ``QuantizedDropout``
+leaves quantized dropout for exact-rate dropout, the port draws that mask
+from the caller's generator itself.
 """
 
 from __future__ import annotations
@@ -21,16 +27,29 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_mlp import fused_block_tail, fused_mlp, keep_threshold, quantized_dropout
+from ..ops.fused_mlp import fused_block_tail, fused_mlp
 
 __all__ = ["Dense", "InstanceNorm2d", "QuantizedDropout", "MLP2d",
            "SinusoidalTimeEmbedding", "TimeEmbedMLP", "DropPath",
-           "get_activation", "draw_seed"]
+           "get_activation", "draw_seed", "exact_dropout"]
 
 
 def draw_seed(generator: torch.Generator) -> int:
     """A 63-bit dropout seed from a host-side generator (no device sync)."""
     return int(torch.randint(0, 2**63 - 1, (1,), generator=generator).item())
+
+
+def exact_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout at the exact rate (``flax.linen.Dropout``): keep
+    each element with probability ``1 - rate`` (a uniform draw from
+    ``generator``, on the generator's device) and scale kept ones by
+    ``1 / (1 - rate)`` in x's dtype; rate 1 drops everything."""
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    mask = (u < keep).to(x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -96,17 +115,29 @@ class InstanceNorm2d(nn.Module):
 
 class QuantizedDropout(nn.Module):
     """Inverted dropout with the keep probability quantized to 1/256: keep
-    iff ``(bits & 255) < t``, ``t = round((1 - rate) * 256)``, scale ``256/t``."""
+    iff ``bits < t`` for 8 random bits drawn on x's device,
+    ``t = round((1 - rate) * 256)``, scale ``256/t``. As the JAX package's
+    module: a rate that rounds to
+    keep-everything (below 1/512) is no dropout, and where the last axis is
+    not a multiple of 4 or the rate rounds to keep-nothing (``rate >= 1 -
+    1/512``) the module drops at the exact rate (``exact_dropout``)."""
 
     def __init__(self, rate: float):
         super().__init__()
-        self.t = keep_threshold(rate)
+        self.rate = rate
+        self.t = int(round((1.0 - rate) * 256)) if rate > 0.0 else 256
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if deterministic or self.t == 0:
+        if deterministic or self.rate <= 0.0 or self.t >= 256:
             return x
-        return quantized_dropout(x, self.t, draw_seed(generator))
+        if self.t <= 0 or x.shape[-1] % 4:
+            return exact_dropout(x, self.rate, generator)
+        device_gen = torch.Generator(device=x.device).manual_seed(draw_seed(generator))
+        bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, device=x.device,
+                             generator=device_gen)
+        return torch.where(bits < self.t, x * (256.0 / self.t),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class MLP2d(nn.Module):
@@ -118,7 +149,9 @@ class MLP2d(nn.Module):
     is the pre-norm tensor: the fused form runs the K3 kernel
     (``fused_block_tail``), which applies ``x * A + B`` before the first
     product, and the unfused form applies it in float32 first. Both forms
-    share the parameter tree ``Dense_0``/``Dense_1``."""
+    share the parameter tree ``Dense_0``/``Dense_1``. A live dropout rate
+    that rounds to keep-nothing leaves the fused form for the unfused one, as
+    in the JAX package (the kernels quantize the rate)."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
                  activation: str = "gelu", drop_rate: float = 0.0,
@@ -139,7 +172,7 @@ class MLP2d(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 affine: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         drop_active = self.drop_rate > 0.0 and not deterministic
-        if self.fused:
+        if self.fused and not (drop_active and self.drop.t <= 0):
             kw = dict(residual=residual, seed=draw_seed(generator) if drop_active else None,
                       drop_rate=self.drop_rate if drop_active else 0.0,
                       exact_gelu=self.activation == "gelu_exact")

@@ -1,27 +1,35 @@
 """Spherical Fourier Neural Operator, channels-last, in PyTorch.
 
 Counterpart of ``spherical_dyffusion_tpu/models/sfno.py`` (``SFNOConfig``,
-``SpectralConvS2``, ``FNOBlock``, ``SFNO``) for the configuration of the main
-path: SHT transforms, the linear dense ``dhconv`` filter, instance norm, a
-gelu MLP and an optional time embedding. ``scan_layers`` is accepted and runs
-as the same plain loop over the blocks (the JAX package states both are the
-same math). Fields whose other values the port does not implement raise in
+``SpectralConvS2``, ``FNOBlock``, ``SFNO``) for the configurations of the
+main path: SHT transforms, the linear ``dhconv`` filter (dense, or
+CP-factorized with the rank pipeline), instance norm, a gelu MLP and an
+optional time embedding. ``scan_layers`` is accepted and runs as the same
+plain loop over the blocks (the JAX package states both are the same math).
+Fields whose other values the port does not implement raise in
 ``SFNOConfig.__post_init__`` rather than being ignored.
 
 Mixed precision follows the JAX package: Dense layers compute in
-``compute_dtype``, the transforms and the spectral contraction run in
-float32, parameters stay float32, and the residual stream is promoted to
-float32 by the float32 time scale-shift, position embedding and filter
-output, so under bf16 compute every block returns float32.
+``compute_dtype``; the transforms and spectral contractions round their
+operands to ``sht_matmul_dtype`` and sum in float32, and
+``spectral_io_dtype`` rounds the spectral stages' outputs (``ops/sht.py``);
+parameters stay float32, and the residual stream is promoted to float32 by
+the float32 time scale-shift, position embedding and filter output, so under
+bf16 compute every block returns float32.
 
-``use_pallas`` routes the contraction through the K1 kernel and ``fused_mlp``
-the block MLP through the K2 kernel (the JAX package's flag names).
-``fused_tail`` (for instance norm, an MLP and a gelu) takes precedence over
-``fused_mlp``: each block folds norm1 and, with
+``use_pallas`` routes the dense contraction through the K1 kernel and
+``fused_mlp`` the block MLP through the K2 kernel (the JAX package's flag
+names). ``fused_tail`` (for instance norm, an MLP and a gelu) takes
+precedence over ``fused_mlp``: each block folds norm1 and, with
 ``time_scale_shift_before_filter=False``, the time scale-shift into one
 per-(sample, channel) affine (``InstanceNorm2d(fold=True)``) and runs
 norm-apply, MLP and outer skip as the K3 kernel, as the JAX package's
-boundary-corrected block tail does.
+boundary-corrected block tail does. ``SFNO(cfg, fused_rank=True)`` routes
+the spectral middle of every block that takes the CP rank pipeline (Legendre
+analysis, CP scale, Legendre synthesis) through the K4 kernel. It is a
+keyword of the port's model, not a config field, because ``SFNOConfig``
+mirrors the JAX package's config field for field; it is off by default, so a
+config computes the JAX package's three separate stages unless asked.
 """
 
 from __future__ import annotations
@@ -32,7 +40,15 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.contractions import contract
+from ..ops.contractions import (
+    contract,
+    contract_dhconv_cp,
+    cp_spatial_expand,
+    cp_spatial_project,
+    cp_spectral_scale_stacked,
+)
+from ..ops.fused_rank import fused_rank as fused_rank_kernel
+from ..ops.matmul import as_dtype
 from ..ops.sht import InverseRealSHT, RealSHT
 from .modules import (
     Dense,
@@ -46,21 +62,21 @@ from .modules import (
 
 __all__ = ["SFNOConfig", "SFNO", "FNOBlock", "SpectralConvS2"]
 
-# field -> the only value the port implements (the JAX package's default)
-_UNSUPPORTED_UNLESS = {
-    "spectral_transform": "sht",
-    "filter_type": "linear",
-    "operator_type": "dhconv",
-    "separable": False,
-    "exact_dropout": False,
-    "checkpointing": 0,
-    "factorization": None,
-    "spectral_io_dtype": "",
-    "lon_method": "matmul",
-    "sht_fold_symmetry": False,
-    "merged_dhconv": False,
-    "sht_matmul_dtype": "float32",
-    "fused_mlp_tile_rows": 1024,
+# field -> the values the port implements (the JAX package's default first)
+_SUPPORTED = {
+    "spectral_transform": ("sht",),
+    "filter_type": ("linear",),
+    "operator_type": ("dhconv",),
+    "separable": (False,),
+    "exact_dropout": (False,),
+    "checkpointing": (0,),
+    "factorization": (None, "", "cp"),
+    "spectral_io_dtype": ("", "bfloat16"),
+    "lon_method": ("matmul",),
+    "sht_fold_symmetry": (False,),
+    "merged_dhconv": (False,),
+    "sht_matmul_dtype": ("float32", "bfloat16"),
+    "fused_mlp_tile_rows": (1024,),
 }
 
 
@@ -119,11 +135,11 @@ class SFNOConfig:
     debug_mode: bool = False
 
     def __post_init__(self):
-        for name, value in _UNSUPPORTED_UNLESS.items():
-            if getattr(self, name) != value:
+        for name, values in _SUPPORTED.items():
+            if getattr(self, name) not in values:
                 raise NotImplementedError(
                     f"SFNOConfig.{name}={getattr(self, name)!r}: the port implements "
-                    f"only {value!r}")
+                    f"only {values}")
         if self.normalization_layer not in ("instance_norm", "none"):
             raise NotImplementedError(
                 f"normalization_layer={self.normalization_layer!r} is not ported")
@@ -152,29 +168,99 @@ class SFNOConfig:
 
 
 class SpectralConvS2(nn.Module):
-    """SHT -> per-degree dense dhconv weight -> ISHT (+ bias). Returns
-    ``(filtered, residual)``; the residual is the input regridded through
-    ISHT(SHT(x)) when the two transforms' grids differ, else the input."""
+    """SHT -> spectral weight -> ISHT (+ bias). Returns ``(filtered,
+    residual)``; the residual is the input regridded through ISHT(SHT(x))
+    when the two transforms' grids differ, else the input.
+
+    The weight is dense (``weight (ci, co, lmax, 2)``) or, with
+    ``factorization="cp"``, the CP factors ``cp_A (ci, R, 2)``,
+    ``cp_B (co, R, 2)`` and ``cp_C (lmax, R, 2)`` with
+    ``R = max(1, int(rank * min(ci, co)))`` (the flax names). A CP filter
+    whose two transforms share a grid, with ``2R <= min(ci, co)``, runs the
+    rank pipeline: project to rank in grid space, transform 2R channels,
+    scale per l, inverse-transform, expand in grid space; the other CP
+    filters contract in spectral space (``contract_dhconv_cp``).
+    ``fused_rank`` runs the rank pipeline's spectral middle as the K4 kernel.
+    """
 
     def __init__(self, forward_transform: RealSHT, inverse_transform: InverseRealSHT,
-                 in_channels: int, out_channels: int, use_pallas: bool = False):
+                 in_channels: int, out_channels: int, use_pallas: bool = False,
+                 operator_type: str = "dhconv", separable: bool = False,
+                 factorization: Optional[str] = None, rank: float = 1.0,
+                 rank_pipeline: bool = False, matmul_dtype: str = "float32",
+                 io_dtype: str = "", fused_rank: bool = False):
         super().__init__()
         # held outside the module tree: the SFNO owns the shared transforms
         self._transforms = (forward_transform, inverse_transform)
         self.use_pallas = use_pallas
+        self.factorization = factorization or ""
+        self.matmul_dtype = as_dtype(matmul_dtype)
         lmax = forward_transform.lmax
-        self.weight = nn.Parameter(torch.empty(in_channels, out_channels, lmax, 2))
+        if self.factorization == "cp":
+            R = max(1, int(rank * min(in_channels, out_channels)))
+            self.cp_A = nn.Parameter(torch.empty(in_channels, R, 2))
+            self.cp_B = nn.Parameter(torch.empty(out_channels, R, 2))
+            self.cp_C = nn.Parameter(torch.empty(lmax, R, 2))
+        elif self.factorization:
+            raise NotImplementedError(f"factorization {factorization!r} is not ported")
+        else:
+            self.weight = nn.Parameter(torch.empty(in_channels, out_channels, lmax, 2))
         self.bias = nn.Parameter(torch.zeros(out_channels))
+        fwd, inv = forward_transform, inverse_transform
+        self.scale_residual = (fwd.nlat, fwd.nlon, fwd.grid) != (inv.nlat, inv.nlon, inv.grid)
+        # the JAX package's gate (models/sfno.py:323-334), condition for
+        # condition
+        self.rank_pipeline = (
+            rank_pipeline
+            and self.factorization in ("cp", "tucker")
+            and operator_type == "dhconv"
+            and not separable
+            and not self.scale_residual
+            and isinstance(fwd, RealSHT)
+            and isinstance(inv, InverseRealSHT)
+            and 2 * R <= min(in_channels, out_channels)
+        )
+        # the rank pipeline emits io_dtype; the dense filter only on the
+        # stacked path the JAX package takes for it (no Pallas kernel)
+        stackable = not self.factorization and not use_pallas
+        self.io_dtype = as_dtype(io_dtype) if (self.rank_pipeline or stackable) else None
+        self.fused_rank = fused_rank and self.rank_pipeline
+        if self.fused_rank and (self.matmul_dtype, self.io_dtype) not in (
+                (torch.float32, None), (torch.bfloat16, torch.bfloat16)):
+            raise NotImplementedError(
+                "fused_rank: K4 rounds like sht_matmul_dtype = spectral_io_dtype = bfloat16 "
+                "or computes in float32 throughout; other mixes are not implemented")
+
+    def _rank_pipeline(self, x: torch.Tensor) -> torch.Tensor:
+        fwd, inv = self._transforms
+        md, io = self.matmul_dtype, self.io_dtype
+        z = cp_spatial_project(x.float(), self.cp_A, md, out_dtype=io)
+        xf = fwd.longitude(z, out_dtype=io)
+        if self.fused_rank:
+            y = fused_rank_kernel(xf.contiguous(), fwd.analysis_mhl, inv.synthesis_mhl,
+                                  self.cp_C.float().contiguous())
+        else:
+            zs = fwd.latitude(xf, out_dtype=io)
+            y = inv.latitude(cp_spectral_scale_stacked(zs, self.cp_C), out_dtype=io)
+        g = inv.longitude(y, out_dtype=io)
+        return cp_spatial_expand(g, self.cp_B, md, out_dtype=io)
 
     def forward(self, x: torch.Tensor):
         fwd, inv = self._transforms
         dtype = x.dtype
         residual = x
-        xs = fwd(x.float())
-        if (fwd.nlat, fwd.nlon, fwd.grid) != (inv.nlat, inv.nlon, inv.grid):
+        if self.rank_pipeline:
+            return (self._rank_pipeline(x) + self.bias).to(dtype), residual
+        io = self.io_dtype
+        xs = fwd(x.float(), out_dtype=io)
+        if self.scale_residual:
             residual = inv(xs).to(dtype)
-        ys = contract(xs, self.weight, use_pallas=self.use_pallas)
-        out = inv(ys) + self.bias
+        if self.factorization == "cp":
+            factors = {"A": self.cp_A, "B": self.cp_B, "C": self.cp_C}
+            ys = contract_dhconv_cp(xs, factors, self.matmul_dtype)
+        else:
+            ys = contract(xs, self.weight, self.use_pallas, self.matmul_dtype, out_dtype=io)
+        out = inv(ys, out_dtype=io) + self.bias
         return out.to(dtype), residual
 
 
@@ -183,7 +269,7 @@ class FNOBlock(nn.Module):
     -> norm1 -> MLP -> (drop path) -> + outer skip."""
 
     def __init__(self, cfg: SFNOConfig, forward_transform, inverse_transform,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, fused_rank: bool = False):
         super().__init__()
         self.cfg = cfg
         C = cfg.embed_dim
@@ -196,8 +282,12 @@ class FNOBlock(nn.Module):
             self.norm0 = self.norm1 = nn.Identity()
         if cfg.with_time_emb:
             self.time_mlp = Dense(C * cfg.time_dim_mult, 2 * C)
-        self.filter = SpectralConvS2(forward_transform, inverse_transform, C, C,
-                                     use_pallas=cfg.use_pallas)
+        self.filter = SpectralConvS2(
+            forward_transform, inverse_transform, C, C, use_pallas=cfg.use_pallas,
+            operator_type=cfg.operator_type, separable=cfg.separable,
+            factorization=cfg.factorization, rank=cfg.rank, rank_pipeline=cfg.rank_pipeline,
+            matmul_dtype=cfg.sht_matmul_dtype, io_dtype=cfg.spectral_io_dtype,
+            fused_rank=fused_rank)
         self.inner_skip = Dense(C, C, dtype=compute)
         # the fused tail folds norm1 and the time scale-shift into the K3
         # kernel (the JAX package's gating, models/sfno.py:596-598)
@@ -262,7 +352,7 @@ class SFNO(nn.Module):
     """The SFNO backbone: ``(inputs, time, condition, static_condition) ->
     outputs``, all (B, H, W, C), output float32."""
 
-    def __init__(self, cfg: SFNOConfig):
+    def __init__(self, cfg: SFNOConfig, fused_rank: bool = False):
         super().__init__()
         cfg = cfg.resolved()
         self.cfg = cfg
@@ -271,10 +361,13 @@ class SFNO(nn.Module):
         lmax, mmax = cfg.modes
         H, W = cfg.img_shape
         h, w = cfg.model_shape
-        self.trans_down = RealSHT(H, W, lmax, mmax, grid=cfg.data_grid)
-        self.itrans_up = InverseRealSHT(H, W, lmax, mmax, grid=cfg.data_grid)
-        self.trans = RealSHT(h, w, lmax, mmax, grid="legendre-gauss")
-        self.itrans = InverseRealSHT(h, w, lmax, mmax, grid="legendre-gauss")
+        # the JAX package's _build_transforms; K4's (m, h, l) matrices are
+        # made here once, in the matmul dtype
+        kw = dict(matmul_dtype=cfg.sht_matmul_dtype, kernel_layout=fused_rank)
+        self.trans_down = RealSHT(H, W, lmax, mmax, grid=cfg.data_grid, **kw)
+        self.itrans_up = InverseRealSHT(H, W, lmax, mmax, grid=cfg.data_grid, **kw)
+        self.trans = RealSHT(h, w, lmax, mmax, grid="legendre-gauss", **kw)
+        self.itrans = InverseRealSHT(h, w, lmax, mmax, grid="legendre-gauss", **kw)
 
         width = cfg.in_chans
         for i in range(cfg.encoder_layers):
@@ -292,7 +385,8 @@ class SFNO(nn.Module):
             first, last = i == 0, i == n - 1
             block = FNOBlock(cfg, self.trans_down if first else self.trans,
                              self.itrans_up if last else self.itrans,
-                             drop_path=cfg.drop_path_rate * i / max(n - 1, 1))
+                             drop_path=cfg.drop_path_rate * i / max(n - 1, 1),
+                             fused_rank=fused_rank)
             self.add_module(f"block_{i}", block)
             self.blocks.append(block)
         width = C + (cfg.in_chans if cfg.big_skip else 0)
@@ -306,13 +400,17 @@ class SFNO(nn.Module):
         """Random weights from ``generator`` (on the parameters' device),
         with the JAX package's initializers: truncated normal(0.02) for
         Dense kernels and the position embedding, normal(1/(ci*co)) for the
-        spectral weights, ones for norm scales, zeros for biases."""
+        dense spectral weights, normal((1/(ci*co))**(1/3)) for the CP
+        factors, ones for norm scales, zeros for biases."""
+        cp_std = (1.0 / (self.cfg.embed_dim * self.cfg.embed_dim)) ** (1.0 / 3.0)
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf == "kernel" or leaf == "pos_embed":
                 nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=generator)
             elif name.endswith("filter.weight"):
                 p.normal_(0.0, 1.0 / (p.shape[0] * p.shape[1]), generator=generator)
+            elif leaf.startswith("cp_"):
+                p.normal_(0.0, cp_std, generator=generator)
             elif leaf == "scale":
                 p.fill_(1.0)
             elif leaf == "bias":

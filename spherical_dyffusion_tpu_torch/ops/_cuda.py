@@ -38,6 +38,7 @@ _SIGNATURES = {
                       ctypes.c_ulonglong, _I, _P],
     "sdt_fused_block_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, ctypes.c_ulonglong, _I, _P],
+    "sdt_fused_rank": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _state: dict = {}

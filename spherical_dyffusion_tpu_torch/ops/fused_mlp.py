@@ -93,7 +93,9 @@ def philox_bits(seed: int, rows: int, cols: int, stream: int,
 
 def keep_threshold(drop_rate: float) -> int:
     """``t`` of quantized dropout; 0 means dropout off. Raises where the
-    rate quantizes to keep-nothing, as the JAX package does."""
+    rate quantizes to keep-nothing, as the JAX package's fused wrappers do
+    (its ``QuantizedDropout`` module drops at the exact rate there, as
+    ``models/modules.py`` does)."""
     t = int(round((1.0 - drop_rate) * 256)) if drop_rate > 0.0 else 256
     if t <= 0:
         raise ValueError(f"drop_rate {drop_rate} quantizes to keep-nothing")
@@ -102,7 +104,8 @@ def keep_threshold(drop_rate: float) -> int:
 
 def quantized_dropout(x: torch.Tensor, t: int, seed: int, stream: int = 0) -> torch.Tensor:
     """Quantized dropout over ``x`` viewed as rows of its last axis, with the
-    bits of ``philox_bits``; returns x unchanged for ``t == 0``."""
+    bits of ``philox_bits``; returns x unchanged for ``t == 0``. These are
+    the kernels' bits, for any width, reproduced by their plain versions."""
     if t == 0:
         return x
     cols = x.shape[-1]

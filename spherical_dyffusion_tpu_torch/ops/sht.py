@@ -3,67 +3,102 @@
 Counterpart of ``spherical_dyffusion_tpu/ops/sht.py`` (``RealSHT`` and
 ``InverseRealSHT``) for the default longitude method: the longitude stage is
 an explicit real-DFT matrix product and the latitude stage an
-associated-Legendre product batched over the azimuthal order m. Both are
-plain ``torch.einsum`` products in float32, as the JAX package leaves them to
-XLA outside any Pallas kernel.
+associated-Legendre product batched over the azimuthal order m, as the JAX
+package leaves them to XLA outside any Pallas kernel.
 
 Spectral tensors use the stacked real layout ``(..., lmax, mmax, C, 2)``
 (real and imaginary parts in a trailing axis, the layout of
-``torch.view_as_real``), so no complex dtype appears anywhere in the port.
-The matrices are float32 buffers, built once on the host in float64
-(``ops/quadrature.py``).
+``torch.view_as_real``), which is the JAX package's ``stacked=True`` output,
+so no complex dtype appears anywhere in the port. The matrices are float32
+buffers, built once on the host in float64 (``ops/quadrature.py``).
+
+``matmul_dtype`` rounds both operands of every product to that dtype and
+keeps the float32 sums, at the JAX package's rounding points
+(``ops/matmul.py``): the grid input and the DFT matrix before the longitude
+product, its output (after ``out_dtype``) and the Legendre matrix before the
+latitude product. ``out_dtype`` rounds each stage's output (JAX's
+``_emit``). The two stages are separate methods (``longitude`` and
+``latitude``), so the CP rank pipeline can put the K4 kernel between the
+DFT and the inverse DFT. With ``kernel_layout=True`` the transform also
+holds its Legendre matrix as ``(m, h, l)`` in the matmul dtype
+(``analysis_mhl`` / ``synthesis_mhl``), the layout K4 reads, made once.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
+from .matmul import as_dtype, einsum, emit
 from .quadrature import dft_matrices, sht_matrices
 
 __all__ = ["RealSHT", "InverseRealSHT"]
 
 
-class RealSHT(nn.Module):
+class _Transform(nn.Module):
+    def __init__(self, nlat: int, nlon: int, lmax: Optional[int], mmax: Optional[int],
+                 grid: str, matmul_dtype, kernel_layout: bool, inverse: bool):
+        super().__init__()
+        self.nlat, self.nlon, self.grid = nlat, nlon, grid
+        self.lmax = lmax if lmax is not None else nlat
+        self.mmax = mmax if mmax is not None else nlon // 2 + 1
+        self.matmul_dtype = as_dtype(matmul_dtype) or torch.float32
+        mats = sht_matrices(nlat, grid, self.lmax, self.mmax)
+        legendre = mats[1] if inverse else mats[0]
+        dft = dft_matrices(nlon, self.mmax)[1 if inverse else 0]
+        name = "synthesis" if inverse else "analysis"
+        self.register_buffer(name, torch.tensor(legendre, dtype=torch.float32),
+                             persistent=False)
+        self.register_buffer("dft", torch.tensor(dft, dtype=torch.float32), persistent=False)
+        if kernel_layout:
+            self.register_buffer(
+                f"{name}_mhl",
+                torch.tensor(legendre, dtype=torch.float32).permute(2, 0, 1).contiguous()
+                .to(self.matmul_dtype), persistent=False)
+
+
+class RealSHT(_Transform):
     """Forward (analysis) real SHT: grid ``(..., nlat, nlon, C)`` ->
-    spectral ``(..., lmax, mmax, C, 2)`` float32."""
+    spectral ``(..., lmax, mmax, C, 2)``, float32 unless ``out_dtype``."""
 
-    def __init__(self, nlat: int, nlon: int, lmax: int | None = None,
-                 mmax: int | None = None, grid: str = "equiangular"):
-        super().__init__()
-        self.nlat, self.nlon, self.grid = nlat, nlon, grid
-        self.lmax = lmax if lmax is not None else nlat
-        self.mmax = mmax if mmax is not None else nlon // 2 + 1
-        analysis, _ = sht_matrices(nlat, grid, self.lmax, self.mmax)
-        fwd, _ = dft_matrices(nlon, self.mmax)
-        self.register_buffer("analysis", torch.tensor(analysis, dtype=torch.float32),
-                             persistent=False)
-        self.register_buffer("dft", torch.tensor(fwd, dtype=torch.float32),
-                             persistent=False)
+    def __init__(self, nlat: int, nlon: int, lmax: Optional[int] = None,
+                 mmax: Optional[int] = None, grid: str = "equiangular",
+                 matmul_dtype="float32", kernel_layout: bool = False):
+        super().__init__(nlat, nlon, lmax, mmax, grid, matmul_dtype, kernel_layout, False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        xf = torch.einsum("...hwc,wmr->...hmcr", x, self.dft)
-        return torch.einsum("...hmcr,hlm->...lmcr", xf, self.analysis).contiguous()
+    def longitude(self, x: torch.Tensor, out_dtype: Optional[torch.dtype] = None):
+        """DFT stage: ``(..., h, w, c)`` -> ``(..., h, m, c, 2)``."""
+        return emit(einsum("...hwc,wmr->...hmcr", x.float(), self.dft, self.matmul_dtype),
+                    out_dtype)
+
+    def latitude(self, xf: torch.Tensor, out_dtype: Optional[torch.dtype] = None):
+        """Legendre analysis: ``(..., h, m, c, 2)`` -> ``(..., l, m, c, 2)``."""
+        return emit(einsum("...hmcr,hlm->...lmcr", xf, self.analysis, self.matmul_dtype)
+                    .contiguous(), out_dtype)
+
+    def forward(self, x: torch.Tensor, out_dtype: Optional[torch.dtype] = None):
+        return self.latitude(self.longitude(x, out_dtype), out_dtype)
 
 
-class InverseRealSHT(nn.Module):
+class InverseRealSHT(_Transform):
     """Inverse (synthesis) real SHT: spectral ``(..., lmax, mmax, C, 2)`` ->
-    grid ``(..., nlat, nlon, C)`` float32."""
+    grid ``(..., nlat, nlon, C)``, float32 unless ``out_dtype``."""
 
-    def __init__(self, nlat: int, nlon: int, lmax: int | None = None,
-                 mmax: int | None = None, grid: str = "equiangular"):
-        super().__init__()
-        self.nlat, self.nlon, self.grid = nlat, nlon, grid
-        self.lmax = lmax if lmax is not None else nlat
-        self.mmax = mmax if mmax is not None else nlon // 2 + 1
-        _, synthesis = sht_matrices(nlat, grid, self.lmax, self.mmax)
-        _, inv = dft_matrices(nlon, self.mmax)
-        self.register_buffer("synthesis", torch.tensor(synthesis, dtype=torch.float32),
-                             persistent=False)
-        self.register_buffer("dft", torch.tensor(inv, dtype=torch.float32),
-                             persistent=False)
+    def __init__(self, nlat: int, nlon: int, lmax: Optional[int] = None,
+                 mmax: Optional[int] = None, grid: str = "equiangular",
+                 matmul_dtype="float32", kernel_layout: bool = False):
+        super().__init__(nlat, nlon, lmax, mmax, grid, matmul_dtype, kernel_layout, True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.einsum("...lmcr,hlm->...hmcr", x.float(), self.synthesis)
-        return torch.einsum("...hmcr,mwr->...hwc", y, self.dft)
+    def latitude(self, x: torch.Tensor, out_dtype: Optional[torch.dtype] = None):
+        """Legendre synthesis: ``(..., l, m, c, 2)`` -> ``(..., h, m, c, 2)``."""
+        return emit(einsum("...lmcr,hlm->...hmcr", x, self.synthesis, self.matmul_dtype),
+                    out_dtype)
+
+    def longitude(self, y: torch.Tensor, out_dtype: Optional[torch.dtype] = None):
+        """Inverse DFT stage: ``(..., h, m, c, 2)`` -> ``(..., h, w, c)``."""
+        return emit(einsum("...hmcr,mwr->...hwc", y, self.dft, self.matmul_dtype), out_dtype)
+
+    def forward(self, x: torch.Tensor, out_dtype: Optional[torch.dtype] = None):
+        return self.longitude(self.latitude(x, out_dtype), out_dtype)

@@ -24,7 +24,9 @@ from spherical_dyffusion_tpu_torch.ops.fused_mlp import (
     fused_mlp,
     fused_mlp_plain,
 )
+from spherical_dyffusion_tpu_torch.ops.fused_rank import fused_rank, fused_rank_plain
 from spherical_dyffusion_tpu_torch.ops.pallas_contractions import dhconv, dhconv_plain
+from spherical_dyffusion_tpu_torch.ops.sht import InverseRealSHT, RealSHT
 
 pytestmark = pytest.mark.gpu
 
@@ -190,3 +192,87 @@ def test_sfno_fused_tail_kernels_match_plain(cuda):
             fused_block_tail.launches - k3) == (3, 0, 3)
     assert np.isfinite(y.cpu().numpy()).all()
     assert _rel_err(y, want) < 1e-5
+
+
+def _rank_operands(cuda, seed, B, H, L, M, R, dtype, real_matrices=False):
+    """xf (B, H, M, 2R, 2), A_t and S_t (M, H, L) in dtype, C (L, R, 2)
+    float32; the Legendre matrices of a 180 x 360 legendre-gauss grid where
+    real_matrices is set (the fast window's), else random ones."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    xf = torch.randn(B, H, M, 2 * R, 2, device=cuda, generator=g).to(dtype)
+    C = torch.randn(L, R, 2, device=cuda, generator=g) * 0.5
+    if real_matrices:
+        kw = dict(grid="legendre-gauss", matmul_dtype=dtype, kernel_layout=True)
+        A_t = RealSHT(H, 2 * H, L, M, **kw).analysis_mhl.to(cuda)
+        S_t = InverseRealSHT(H, 2 * H, L, M, **kw).synthesis_mhl.to(cuda)
+    else:
+        A_t = (torch.randn(M, H, L, device=cuda, generator=g) * 0.2).to(dtype)
+        S_t = (torch.randn(M, H, L, device=cuda, generator=g) * 0.2).to(dtype)
+    return xf, A_t, S_t, C
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,L,M,R,real", [(1, 37, 29, 29, 5, False), (2, 37, 29, 29, 5, False),
+                                            (1, 180, 144, 144, 64, True),
+                                            (2, 180, 144, 144, 64, True)])
+def test_fused_rank_kernel_matches_plain(cuda, dtype, B, H, L, M, R, real):
+    """K4 at a ragged shape (a partial rank tile, h and l not multiples of
+    16) and at the fast window's shape, B = 1 and 2. float32: sums in
+    another order, 1e-5 of the largest output; bf16: t and s are rounded to
+    bf16 on both sides and a tie may round either way, 1e-2."""
+    xf, A_t, S_t, C = _rank_operands(cuda, 9, B, H, L, M, R, dtype, real)
+    before = fused_rank.launches
+    y = fused_rank(xf, A_t, S_t, C)
+    torch.cuda.synchronize()
+    assert fused_rank.launches == before + 1
+    want = fused_rank_plain(xf, A_t, S_t, C)
+    assert y.dtype == want.dtype == dtype and y.shape == want.shape == xf.shape
+    assert _rel_err(y, want) < (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def test_fused_rank_wrapper_raises(cuda):
+    """Wrong dtypes, a non-contiguous operand, shapes that do not match and
+    l beyond the kernel's 192 raise before any launch."""
+    xf, A_t, S_t, C = _rank_operands(cuda, 10, 1, 37, 29, 29, 5, torch.bfloat16)
+    bad = [
+        (TypeError, (xf, A_t.float(), S_t, C)),
+        (TypeError, (xf, A_t, S_t, C.bfloat16())),
+        (ValueError, (xf.transpose(1, 2), A_t, S_t, C)),
+        (ValueError, (xf, A_t[:-1], S_t[:-1], C)),
+        (ValueError, (xf, A_t, S_t, C[:, :-1])),
+        (ValueError, (xf[..., 0], A_t, S_t, C)),
+    ]
+    big = torch.zeros(29, 37, 200, device=cuda, dtype=torch.bfloat16)
+    bad.append((ValueError, (xf, big, big, torch.zeros(200, 5, 2, device=cuda))))
+    before = fused_rank.launches
+    for err, args in bad:
+        with pytest.raises(err):
+            fused_rank(*args)
+    assert fused_rank.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sfno_fused_rank_matches_plain(cuda, dtype):
+    """The CP network (rank 0.25, thresholding 0.8, 3 layers) on the card
+    with K4 against the same weights without it: one launch for the middle
+    block. float32: 1e-5 of the largest output; bf16 (matmul dtype and
+    spectral IO): 2e-2, a bf16 intermediate may round a tie either way."""
+    kw = dict(img_shape=(32, 64), in_chans=7, out_chans=5, embed_dim=32, num_layers=3,
+              with_time_emb=True, factorization="cp", rank=0.25,
+              hard_thresholding_fraction=0.8, scan_layers=True, compute_dtype=dtype,
+              sht_matmul_dtype=dtype, spectral_io_dtype="" if dtype == "float32" else dtype)
+    fast = SFNO(SFNOConfig(**kw), fused_rank=True).to(cuda)
+    plain = SFNO(SFNOConfig(**kw)).to(cuda)
+    fast.init_weights(torch.Generator(device=cuda).manual_seed(11))
+    plain.load_state_dict(fast.state_dict())
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(2, 32, 64, 5, device=cuda, generator=g)
+    cond = torch.randn(2, 32, 64, 2, device=cuda, generator=g)
+    t = torch.tensor([1.0, 2.0], device=cuda)
+    before = fused_rank.launches
+    with torch.no_grad():
+        y = fast(x, time=t, static_condition=cond)
+        want = plain(x, time=t, static_condition=cond)
+    assert fused_rank.launches - before == 1
+    assert np.isfinite(y.cpu().numpy()).all()
+    assert _rel_err(y, want) < (1e-5 if dtype == "float32" else 2e-2)

@@ -154,9 +154,9 @@ def test_dropout_is_live_only_when_not_deterministic():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("operator_type", "diagonal"), ("factorization", "cp"), ("merged_dhconv", True),
-    ("spectral_io_dtype", "bfloat16"), ("sht_fold_symmetry", True),
-    ("sht_matmul_dtype", "bfloat16"), ("normalization_layer", "layer_norm"),
+    ("operator_type", "diagonal"), ("factorization", "tucker"), ("merged_dhconv", True),
+    ("lon_method", "fft"), ("sht_fold_symmetry", True),
+    ("factorization", "tt"), ("normalization_layer", "layer_norm"),
     ("filter_type", "non-linear"), ("exact_dropout", True)])
 def test_unsupported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError):
