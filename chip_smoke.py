@@ -6,16 +6,21 @@
 Phases, each timed:
 
 0. device: the card's name, count, and its ``nvidia-smi`` name and power limit;
-1. build: one ``nvcc`` call compiles every kernel in
-   ``spherical_dyffusion_tpu_torch/csrc``; prints its seconds and the
-   ``-Xptxas -v`` register and shared-memory lines;
+1. build: one ``nvcc`` per source in
+   ``spherical_dyffusion_tpu_torch/csrc``, all started together, linked into
+   one library; prints its seconds and the ``-Xptxas -v`` register, spill
+   and shared-memory lines, and checks with ``cuobjdump -sass`` that the
+   bf16 K2/K3 instances run their products as HGMMA (``wgmma``);
 2. K1 (dhconv) at the main path's shape, against its plain version;
-3. K2 (fused MLP) at the main path's shape in bf16, against its plain
-   version, plus its dropout statistics;
+3. K2 (fused MLP) at the main path's shapes in bf16 (the forecaster's 64,800
+   rows with the float32 residual, and the interpolator's call: 129,600 rows,
+   no residual, dropout 0.1), against its plain version, plus its dropout
+   statistics and the weight repack kernel against its plain permutation;
+   times with dropout off and on;
 4. K3 (fused block tail) at the main path's shapes (batch 1 with the
    float32 residual, batch 2 without), straddling tiles, erf gelu, dropout
    masks and float32, against its plain version; K3 with A = 1, C = 0
-   against K2, bit for bit;
+   against K2, bit for bit; times at batch 2 with dropout off and on;
 5. K4 (the CP rank pipeline's fused Legendre analysis, scale and
    synthesis) at the fast window's shape (h 180, l = m = 144, R 64) at
    batch 1 and 2 in bf16 and float32, at the Pallas prototype's own shape
@@ -24,7 +29,8 @@ Phases, each timed:
    compute (the transforms and dhconv with bf16 operands), K1 and K2 on,
    weights from a seed, one 12-step ``run_window`` (two horizon-6
    segments) at batch 1, cold-sampled by the double-batch scan sampler,
-   with the kernels' launch counts; then the same window with dropout off
+   with the kernels' launch counts (and one weight repack per bf16 K2 or
+   K3 launch); then the same window with dropout off
    through the kernels and through the plain path, in bf16 and in float32;
 7. the fused-tail path: the same window with K1 and K3 (``fused_tail``), the
    peeled sampler and ``scan_layers``, with its launch counts and the
@@ -47,6 +53,8 @@ and a CUDA card; without either it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -108,6 +116,8 @@ def main() -> int:
             fused_block_tail_plain,
             fused_mlp,
             fused_mlp_plain,
+            weight_image,
+            weight_image_plain,
         )
         from spherical_dyffusion_tpu_torch.ops.fused_rank import fused_rank, fused_rank_plain
         from spherical_dyffusion_tpu_torch.ops.pallas_contractions import dhconv, dhconv_plain
@@ -154,8 +164,27 @@ def main() -> int:
         info = _cuda.build_info()
         log(f"build: {info['seconds']:.2f} s (cached: {info['cached']}) -> {info['path']}")
         for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "C7512",
+                                       "setmaxnreg")):
                 log("  ptxas " + line.strip())
+        check("C7512" not in info["ptxas"], "ptxas serialized the wgmma of a bf16 kernel")
+        cuobjdump = os.path.join(os.path.dirname(info["nvcc"]), "cuobjdump")
+        sass = subprocess.run([cuobjdump, "-sass", info["path"]], capture_output=True,
+                              text=True, timeout=300)
+        check(sass.returncode == 0, f"cuobjdump: {sass.stderr.strip()[:200]}")
+        hgmma, fn = {}, None
+        for line in sass.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                hgmma[fn] = 0
+            elif fn is not None and "HGMMA" in line:
+                hgmma[fn] += 1
+        tc = {k: v for k, v in hgmma.items() if "fused_mlp_tc_kernel" in k}
+        for k, v in tc.items():
+            log(f"  sass: {v} HGMMA (wgmma) instructions in {k}")
+        check(len(tc) == 4 and all(v > 0 for v in tc.values()),
+              "the four bf16 K2/K3 instances should run their products as HGMMA")
 
     report = {}
 
@@ -205,22 +234,31 @@ def main() -> int:
     with Phase("3 K2 fused MLP"):
         x = torch.randn((N, C), device=dev, generator=g).bfloat16()
         res = torch.randn((N, C), device=dev, generator=g)
+        xi = torch.randn((2 * N, C), device=dev, generator=g).bfloat16()  # the double batch
         tol = tol_bf16
+        img = weight_image(w1, w2)
+        torch.cuda.synchronize()
+        check(torch.equal(img, weight_image_plain(w1, w2).to(torch.bfloat16)),
+              "the weight repack kernel differs from its plain permutation")
+        log(f"K2 weight repack {tuple(img.shape)} bf16: equal to its plain permutation")
         cases = {
             "residual f32 (main path)": dict(residual=res),
             "no residual, bf16 out (main path)": dict(),
             "partial tile, 77 rows": dict(rows=77, residual=res),
             "erf gelu": dict(residual=res, exact_gelu=True),
             "dropout 0.1 on": dict(residual=res, seed=20260101, drop_rate=0.1),
+            "interpolator call: 129,600 rows, no residual, dropout 0.1":
+                dict(x=xi, seed=20260104, drop_rate=0.1),
         }
         k2_err = None
         for name, kw in cases.items():
-            rows = kw.pop("rows", N)
+            xx = kw.pop("x", x)
+            rows = kw.pop("rows", xx.shape[0])
             if "residual" in kw:
                 kw["residual"] = kw["residual"][:rows]
-            y = fused_mlp(x[:rows], w1, b1, w2, b2, **kw)
+            y = fused_mlp(xx[:rows], w1, b1, w2, b2, **kw)
             torch.cuda.synchronize()
-            want = fused_mlp_plain(x[:rows], w1, b1, w2, b2, **kw)
+            want = fused_mlp_plain(xx[:rows], w1, b1, w2, b2, **kw)
             check(y.dtype == want.dtype, f"K2 {name}: dtype {y.dtype} vs {want.dtype}")
             abs_err, rel_err = errs(y, want)
             log(f"K2 {name}: out {y.dtype}, max abs err {abs_err:.3e}, max rel err "
@@ -260,6 +298,7 @@ def main() -> int:
         library_ms = timed(
             lambda: F.gelu(torch.matmul(x, w1b) + b1b, approximate="tanh") @ w2b + b2b, 10)
         ms_nores = timed(lambda: fused_mlp(x, w1, b1, w2, b2), 10)
+        repack_ms = timed(lambda: weight_image(w1, w2), 20)
         nbytes = 2.0 * (x.numel() + w1.numel() + w2.numel()) + 4.0 * (Hd + C) \
             + 4.0 * res.numel() + 4.0 * N * C
         bound_ms, bound_by = bound(flops1, nbytes, BF16_PEAK)
@@ -269,11 +308,29 @@ def main() -> int:
             f"{plain_ms:.4f} ms, torch.matmul chain {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}; {flops1 / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) on {smi_line}")
         log(f"K2 no residual, bf16 out: kernel {ms_nores:.4f} ms, bound {bound_nores:.4f} ms "
-            f"({by_nores})")
+            f"({by_nores}); of each call, the weight repack kernel {repack_ms:.4f} ms")
+        # the interpolator's call: the dropout mask is drawn, not read, so
+        # the bound is the same with it on
+        drop_kw = dict(seed=20260105, drop_rate=0.1)
+        ms_i = timed(lambda: fused_mlp(xi, w1, b1, w2, b2), 10)
+        ms_i_drop = timed(lambda: fused_mlp(xi, w1, b1, w2, b2, **drop_kw), 10)
+        library_i = timed(lambda: F.gelu(torch.matmul(xi, w1b) + b1b, approximate="tanh")
+                          @ w2b + b2b, 10)
+        nb_i = 2.0 * (2 * xi.numel() + w1.numel() + w2.numel()) + 4.0 * (Hd + C)
+        bound_i, by_i = bound(2 * flops1, nb_i, BF16_PEAK)
+        philox_share = (ms_i_drop - ms_i) / ms_i_drop
+        log(f"K2 interpolator call (129600,256)->512->256, no residual, bf16 out: kernel "
+            f"{ms_i:.4f} ms with dropout off, {ms_i_drop:.4f} ms with dropout 0.1 (the Philox "
+            f"draws and masks {philox_share:.1%} of it), torch.matmul chain without dropout "
+            f"{library_i:.4f} ms, bound {bound_i:.4f} ms ({by_i}; {2 * flops1 / 1e9:.2f} GFLOP, "
+            f"{nb_i / 1e6:.1f} MB) on {smi_line}")
         report["K2"] = dict(max_abs_err=k2_err[0], max_rel_err=k2_err[1], ms=ms,
                             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                            bound_by=bound_by)
-        del x, res, y, want, zero_x, zres
+                            bound_by=bound_by, ms_nores=ms_nores, repack_ms=repack_ms,
+                            ms_interp=ms_i, ms_interp_dropout=ms_i_drop,
+                            library_ms_interp=library_i, bound_ms_interp=bound_i,
+                            philox_share=philox_share)
+        del x, res, xi, y, want, zero_x, zres, img
 
     with Phase("4 K3 fused block tail"):
         g = torch.Generator(device=dev).manual_seed(2)
@@ -328,6 +385,8 @@ def main() -> int:
         library_ms = timed(lambda: F.gelu(torch.matmul((x1.float() * a1 + c1).bfloat16(), w1b)
                                           + b1b, approximate="tanh") @ w2b + b2b + res1, 10)
         ms_b2 = timed(lambda: fused_block_tail(x2, a2, c2, w1, b1, w2, b2), 10)
+        ms_b2_drop = timed(lambda: fused_block_tail(x2, a2, c2, w1, b1, w2, b2,
+                                                    seed=20260106, drop_rate=0.1), 10)
         plain_b2 = timed(lambda: fused_block_tail_plain(x2, a2, c2, w1, b1, w2, b2), 3)
         library_b2 = timed(lambda: F.gelu(torch.matmul((x2.float() * a2 + c2).bfloat16(), w1b)
                                           + b1b, approximate="tanh") @ w2b + b2b, 10)
@@ -344,10 +403,14 @@ def main() -> int:
         log(f"K3 B=2 no residual, bf16 out: kernel {ms_b2:.4f} ms, plain {plain_b2:.4f} ms, "
             f"affine + torch.matmul chain {library_b2:.4f} ms, bound {bound_b2:.4f} ms "
             f"({by_b2}; {2 * flops1 / 1e9:.2f} GFLOP, {nb_b2 / 1e6:.1f} MB)")
+        log(f"K3 B=2 with dropout 0.1: kernel {ms_b2_drop:.4f} ms, bound {bound_b2:.4f} ms "
+            f"(the mask is drawn, not read); Philox and masks "
+            f"{(ms_b2_drop - ms_b2) / ms_b2_drop:.1%} of it")
         report["K3"] = dict(max_abs_err=k3_err[0], max_rel_err=k3_err[1], ms=ms,
                             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                             bound_by=bound_by, ms_b2=ms_b2, plain_ms_b2=plain_b2,
-                            library_ms_b2=library_b2, bound_ms_b2=bound_b2, bound_by_b2=by_b2)
+                            library_ms_b2=library_b2, bound_ms_b2=bound_b2, bound_by_b2=by_b2,
+                            ms_b2_dropout=ms_b2_drop)
         del x1, a1, c1, res1, x2, a2, c2, res2, y, want, y2, y3
 
     with Phase("5 K4 fused rank pipeline"):
@@ -462,12 +525,15 @@ def main() -> int:
         log(f"{name} warm-up window: {time.perf_counter() - t0:.2f} s")
         for k in batches:
             batches[k].clear()
-        for fn in wrappers.values():
+        for fn in (*wrappers.values(), weight_image):
             fn.launches = 0
         t0 = time.perf_counter()
         x_out, preds = window(stepper, 2)
         seconds = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in wrappers.items()}
+        check(weight_image.launches == launches["K2"] + launches["K3"],
+              f"{name}: {weight_image.launches} weight repacks for "
+              f"{launches['K2'] + launches['K3']} bf16 K2/K3 launches")
         forwards = sum(len(b) for b in batches.values())
         log(f"{name} window: {N_STEPS} steps in {seconds:.3f} s = {N_STEPS / seconds:.3f} "
             f"steps/s at batch 1 on {smi_line}")
@@ -613,8 +679,9 @@ def main() -> int:
             for key, (cnt, us) in dev_us.items():
                 group = ("K1" if "dhconv" in key else
                          "K4" if "fused_rank" in key else
-                         "K3" if "fused_mlp_kernel<true" in key else
-                         "K2" if "fused_mlp_kernel<false" in key else
+                         "K3" if re.search(r"fused_mlp(_tc)?_kernel<true", key) else
+                         "K2" if re.search(r"fused_mlp(_tc)?_kernel<false", key) else
+                         "K2/K3 weight repack" if "weight_image_kernel" in key else
                          "cuBLAS GEMM" if any(w in key.lower() for w in
                                               ("gemm", "nvjet", "xmma", "cutlass")) else
                          "copies" if "copy" in key.lower() else

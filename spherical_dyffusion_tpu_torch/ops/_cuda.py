@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``.cu`` file under ``spherical_dyffusion_tpu_torch/csrc/`` is compiled by
-ONE ``nvcc`` call into one shared library with a plain ``extern "C"``
-interface, loaded with ``ctypes``. No PyTorch header is involved, so the build
-takes seconds, not minutes. The library lands in
+its own ``nvcc`` process, all started together, and the objects are linked
+into one shared library with a plain ``extern "C"`` interface, loaded with
+``ctypes``. No PyTorch header is involved, so the build takes seconds, not
+minutes. The library lands in
 ``spherical_dyffusion_tpu_torch/build/<hash of the sources>/`` (listed in
 ``.gitignore``) and is built at first use; a finished build is reused by later
 calls in the same checkout. Nothing here runs at import time.
@@ -28,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +39,9 @@ _SIGNATURES = {
                       ctypes.c_ulonglong, _I, _P],
     "sdt_fused_block_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, ctypes.c_ulonglong, _I, _P],
+    "sdt_fused_mlp_tc": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         ctypes.c_ulonglong, _I, _P],
+    "sdt_weight_image": [_P, _P, _P, _I, _I, _I, _I, _P],
     "sdt_fused_rank": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
@@ -64,25 +68,38 @@ def _build() -> dict:
     out_dir = _BUILD / digest.hexdigest()[:16]
     lib = out_dir / "libsdt_kernels.so"
     log = out_dir / "ptxas.txt"
+    nvcc = _nvcc()
     if lib.exists():
-        return {"path": str(lib), "seconds": 0.0, "cached": True,
+        return {"path": str(lib), "seconds": 0.0, "cached": True, "nvcc": nvcc,
                 "ptxas": log.read_text() if log.exists() else ""}
     out_dir.mkdir(parents=True, exist_ok=True)
-    # build into a temporary name and rename: concurrent first uses never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *_ARCH, *_FLAGS, "-o", tmp, *map(str, sources)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # build into a temporary directory and rename the library: concurrent
+    # first uses never load a half-written one
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        procs = []
+        for src in sources:
+            cmd = [nvcc, *_ARCH, *_FLAGS, "-c", "-o", str(Path(tmp) / (src.stem + ".o")),
+                   str(src)]
+            procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        outputs = [(src, proc.communicate()[0], proc.returncode) for src, proc in procs]
+        text = "".join(f"== {src.name}\n{out}" for src, out, _ in outputs)
+        failed = [src.name for src, _, code in outputs if code != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{text}")
+        so = Path(tmp) / "libsdt_kernels.so"
+        proc = subprocess.run([nvcc, *_ARCH, "-shared", "-o", str(so),
+                               *(str(Path(tmp) / (src.stem + ".o")) for src in sources)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed ({proc.returncode}):\n"
+                               f"{proc.stdout}")
+        os.replace(so, lib)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, lib)
-    log.write_text(proc.stdout)
-    return {"path": str(lib), "seconds": seconds, "cached": False,
-            "ptxas": proc.stdout}
+    log.write_text(text)
+    return {"path": str(lib), "seconds": seconds, "cached": False, "nvcc": nvcc,
+            "ptxas": text}
 
 
 def library() -> ctypes.CDLL:
@@ -100,7 +117,8 @@ def library() -> ctypes.CDLL:
 
 
 def build_info() -> dict:
-    """Path, wall seconds, cache hit and ``-Xptxas -v`` output of the build."""
+    """Path, wall seconds, cache hit, the ``nvcc`` used and the ``-Xptxas -v``
+    output of the build."""
     library()
     return dict(_state["info"])
 

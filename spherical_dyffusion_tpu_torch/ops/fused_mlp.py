@@ -14,20 +14,23 @@ rounded to x's dtype, before K2's arithmetic. A and C fold the instance
 norm and the time scale-shift (``InstanceNorm2d(fold=True)``), so the
 normalized tensor never reaches device memory.
 
-Both kernels are ``csrc/fused_mlp.cu`` (one template; K3 sets its affine
-flag); its source note says what bounds them on the H100 and how they are
-tiled. ``fused_mlp`` and ``fused_block_tail`` launch them for CUDA tensors
-and count the launches in ``fused_mlp.launches`` and
-``fused_block_tail.launches``; for CPU tensors they compute the plain
-versions, ``fused_mlp_plain`` and ``fused_block_tail_plain``. There is no
-fallback: a CUDA tensor that a kernel cannot take raises.
+Both kernels are ``csrc/fused_mlp.cu``, dispatched on x's type: bf16 x
+goes to the tensor-core kernel (``wgmma``; its weights arrive as the
+swizzled image of ``weight_image``), float32 x to the CUDA-core kernel; in
+each, K3 is K2's code with the affine on. The source note says what bounds
+them on the H100 and how they are tiled. ``fused_mlp`` and
+``fused_block_tail`` launch them for CUDA tensors and count the launches in
+``fused_mlp.launches`` and ``fused_block_tail.launches``; for CPU tensors they
+compute the plain versions, ``fused_mlp_plain`` and
+``fused_block_tail_plain``. There is no fallback: a CUDA tensor that a kernel
+cannot take raises.
 
 Quantized dropout (``QuantizedDropout`` in the JAX package) keeps an element
-iff ``(bits & 255) < t`` with ``t = round((1 - rate) * 256)`` and scales kept
-values by ``256 / t``. The bits are the first word of Philox4x32-10, keyed by
-a 64-bit seed and counted by (column, row, stream), where K3's row is the
+iff its random byte is below ``t = round((1 - rate) * 256)`` and scales kept
+values by ``256 / t``. The bytes come from Philox4x32-10 keyed by a 64-bit
+seed, one call for 16 elements (``philox_layout``), where K3's row is the
 flat row ``b * N + n``: ``philox_bits`` below computes exactly the kernels'
-bits, so the plain versions and the kernels drop the same elements, and K3
+bytes, so the plain versions and the kernels drop the same elements, and K3
 with ``A = 1, C = 0`` drops what K2 drops. The TPU's hardware PRNG cannot be
 reproduced, so the port and the JAX package agree on the distribution of the
 mask, not on its bits.
@@ -35,6 +38,7 @@ mask, not on its bits.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -43,7 +47,8 @@ import torch.nn.functional as F
 from . import _cuda
 
 __all__ = ["fused_mlp", "fused_mlp_plain", "fused_block_tail", "fused_block_tail_plain",
-           "philox4x32", "philox_bits", "quantized_dropout", "keep_threshold"]
+           "philox4x32", "philox_layout", "philox_bits", "quantized_dropout",
+           "keep_threshold", "weight_image", "weight_image_plain"]
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -77,18 +82,40 @@ def philox4x32(counter, key):
     return c0, c1, c2, c3
 
 
+def philox_layout(rows: int, cols: int, device=None):
+    """Where each element of a ``(rows, cols)`` grid takes its dropout byte:
+    int64 tensors ``(c0, c1, byte)`` broadcastable to ``(rows, cols)``.
+    Element (r, c) takes byte ``b = 4*((c % 32)//8) + 2*(c % 2) + (r % 16)//8``
+    (byte ``b % 4`` from the low end of output word ``b // 4``) of the
+    Philox4x32-10 call at counter ``(c0, c1, stream, 0)`` with
+    ``c0 = (c // 32)*4 + (c % 8)//2`` and ``c1 = (r // 16)*8 + r % 8``. In each
+    16-row by 32-column block the 16 elements of one counter are those that
+    one thread holds in its ``wgmma`` accumulator fragment, so one call serves
+    16 elements, and no byte serves two."""
+    row = torch.arange(rows, device=device, dtype=torch.int64)[:, None]
+    col = torch.arange(cols, device=device, dtype=torch.int64)[None, :]
+    c0 = (col // 32) * 4 + (col % 8) // 2
+    c1 = (row // 16) * 8 + row % 8
+    byte = 4 * ((col % 32) // 8) + 2 * (col % 2) + (row % 16) // 8
+    return c0, c1, byte
+
+
 def philox_bits(seed: int, rows: int, cols: int, stream: int,
                 device=None) -> torch.Tensor:
-    """First output word of Philox4x32-10 for every (row, col) of a
-    ``(rows, cols)`` grid, as int64 in [0, 2**32): counter
-    ``(col, row, stream, 0)``, key ``(seed & 0xffffffff, seed >> 32)``. The
-    CUDA kernel computes the same words (``philox_word0`` in
-    ``csrc/fused_mlp.cu``)."""
-    col = torch.arange(cols, device=device, dtype=torch.int64).expand(rows, cols)
-    row = torch.arange(rows, device=device, dtype=torch.int64)[:, None].expand(rows, cols)
-    zero = torch.zeros((rows, cols), device=device, dtype=torch.int64)
-    return philox4x32((col, row, zero + stream, zero),
-                      (seed & _MASK32, (seed >> 32) & _MASK32))[0]
+    """The dropout byte of every (row, col) of a ``(rows, cols)`` grid, as
+    int64 in [0, 256): the byte that ``philox_layout`` assigns it, of
+    Philox4x32-10 keyed by ``(seed & 0xffffffff, seed >> 32)`` at counter
+    ``(c0, c1, stream, 0)``. The CUDA kernels compute the same bytes
+    (``philox4`` and the epilogues in ``csrc/fused_mlp.cu``). Each counter is
+    evaluated once and its four words gathered."""
+    c0, c1, byte = philox_layout(rows, cols, device)
+    n1, n0 = -(-rows // 16) * 8, -(-cols // 32) * 4
+    g0 = torch.arange(n0, device=device, dtype=torch.int64).expand(n1, n0)
+    g1 = torch.arange(n1, device=device, dtype=torch.int64)[:, None].expand(n1, n0)
+    zero = torch.zeros((n1, n0), device=device, dtype=torch.int64)
+    words = torch.stack(philox4x32((g0, g1, zero + stream, zero),
+                                   (seed & _MASK32, (seed >> 32) & _MASK32)))
+    return (words[byte // 4, c1, c0] >> (8 * (byte % 4))) & 255
 
 
 def keep_threshold(drop_rate: float) -> int:
@@ -104,13 +131,13 @@ def keep_threshold(drop_rate: float) -> int:
 
 def quantized_dropout(x: torch.Tensor, t: int, seed: int, stream: int = 0) -> torch.Tensor:
     """Quantized dropout over ``x`` viewed as rows of its last axis, with the
-    bits of ``philox_bits``; returns x unchanged for ``t == 0``. These are
-    the kernels' bits, for any width, reproduced by their plain versions."""
+    bytes of ``philox_bits``; returns x unchanged for ``t == 0``. These are
+    the kernels' bytes, for any width, reproduced by their plain versions."""
     if t == 0:
         return x
     cols = x.shape[-1]
     bits = philox_bits(seed, x.numel() // cols, cols, stream, x.device)
-    keep = (bits & 255).lt(t).reshape(x.shape)
+    keep = bits.lt(t).reshape(x.shape)
     return torch.where(keep, x * (256.0 / t), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -171,51 +198,143 @@ def fused_block_tail_plain(x: torch.Tensor, affine_a: torch.Tensor, affine_c: to
                            exact_gelu=exact_gelu)
 
 
-def _launch(name: str, entry: str, x: torch.Tensor, affine, w1, b1, w2, b2, residual,
-            seed, drop_rate: float, exact_gelu: bool) -> torch.Tensor:
+_CHUNK = 64  # hidden units per chunk of the bf16 kernel
+_OUT = 256  # the bf16 kernel's second product is this wide; C2 is padded to it
+
+
+def _swizzled(rows: int):
+    """(row, column) of each element of a ``rows`` x 64 block stored in
+    ``wgmma``'s 128-byte-swizzle layout, in storage order: storage chunk s of
+    row n holds the 8 columns of logical chunk ``s ^ (n % 8)``."""
+    n = torch.arange(rows)[:, None, None]
+    s = torch.arange(8)[None, :, None]
+    e = torch.arange(8)[None, None, :]
+    return n.expand(rows, 8, 8).reshape(-1), ((s ^ (n % 8)) * 8 + e).reshape(-1)
+
+
+@functools.lru_cache(maxsize=8)
+def _image_index(C: int, Hd: int, C2: int, device: str) -> torch.Tensor:
+    """Source index of every element of ``weight_image``'s result in
+    ``cat(w1.flatten(), w2.flatten(), [0])``; padding takes the final 0."""
+    Cp, nch = -(-C // 64) * 64, -(-Hd // _CHUNK)
+    zero = C * Hd + Hd * C2
+    j = torch.arange(nch)[:, None, None]
+    n, k = _swizzled(_CHUNK)  # W1 part: rows are hidden units, columns inputs
+    u = j * _CHUNK + n
+    kk = torch.arange(Cp // 64)[None, :, None] * 64 + k
+    w1_idx = torch.where((kk < C) & (u < Hd), kk * Hd + u, zero).reshape(nch, -1)
+    n2, k2 = _swizzled(_OUT)  # W2 part: rows are outputs, columns hidden units
+    u2 = j[:, :, 0] * _CHUNK + k2
+    w2_idx = torch.where((u2 < Hd) & (n2 < C2), C * Hd + u2 * C2 + n2, zero)
+    return torch.cat((w1_idx, w2_idx), 1).to(device)
+
+
+def weight_image_plain(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """W1 ``(C, Hd)`` and W2 ``(Hd, C2)`` repacked, zero-padded, in the
+    bf16 kernel's shared-memory layout, one row per chunk of 64 hidden units
+    j: first ``W1[:, chunk j]`` transposed (64 rows of hidden units by C
+    inputs, C padded to a multiple of 64, in blocks of 64 inputs), then
+    ``W2[chunk j, :]`` transposed (256 rows of outputs, C2 padded to 256, by
+    the 64 hidden units); every 64-wide block of rows stored in the
+    128-byte-swizzle layout of ``_swizzled``. A permutation of the weights
+    and zeros, in w1's dtype: each chunk's two parts are the two contiguous
+    byte ranges that the kernel copies into shared memory with one bulk copy
+    each."""
+    C, Hd = w1.shape
+    idx = _image_index(C, Hd, w2.shape[1], str(w1.device))
+    return torch.cat((w1.reshape(-1), w2.reshape(-1).to(w1.dtype), w1.new_zeros(1)))[idx]
+
+
+def weight_image(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """``weight_image_plain`` in bf16: for CUDA tensors one launch of the
+    repack kernel of ``csrc/fused_mlp.cu`` (counted in
+    ``weight_image.launches``), which the K2/K3 wrappers make before each
+    bf16 launch; for CPU tensors the plain version."""
+    if w1.device.type == "cpu":
+        return weight_image_plain(w1, w2).to(torch.bfloat16)
+    C, Hd = w1.shape
+    C2 = w2.shape[1]
+    if w1.dtype not in _DTYPE_CODES:
+        raise TypeError(f"weight_image: float32/bfloat16 only, got {w1.dtype}")
+    w1 = w1.contiguous()
+    w2 = w2.to(w1.dtype).contiguous()
+    img = torch.empty((-(-Hd // _CHUNK), (-(-C // 64) * 64 + _OUT) * _CHUNK),
+                      device=w1.device, dtype=torch.bfloat16)
+    _cuda.check(_cuda.library().sdt_weight_image(
+        w1.data_ptr(), w2.data_ptr(), img.data_ptr(), C, Hd, C2, _DTYPE_CODES[w1.dtype],
+        _cuda.stream_ptr(w1.device)), "weight_image")
+    weight_image.launches += 1
+    return img
+
+
+weight_image.launches = 0
+
+
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """t contiguous at a 16-byte-aligned address (the kernels' vector loads)."""
+    if t is None:
+        return None
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(name: str, x: torch.Tensor, affine, w1, b1, w2, b2, residual, seed,
+            drop_rate: float, exact_gelu: bool) -> torch.Tensor:
     """Checks and launch of K2 (``affine`` None) or K3 (``affine`` the
-    float32 (B, C) pair) on CUDA tensors; raises on what the kernels do not
-    take."""
+    float32 (B, C) pair) on CUDA tensors: the bf16 tensor-core kernel for
+    bf16 x, the float32 kernel for float32 x; raises on what the kernels do
+    not take."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     t, seed = _dropout_args(name, drop_rate, seed)
     C = x.shape[-1]
     lead = x.shape[:-1]
-    C2 = w2.shape[-1]
+    Hd, C2 = w1.shape[-1], w2.shape[-1]
+    if x.dtype not in _DTYPE_CODES or (residual is not None
+                                       and residual.dtype not in _DTYPE_CODES):
+        raise TypeError(f"{name}: float32/bfloat16 only, got {x.dtype}")
     out_dtype = torch.promote_types(x.dtype, residual.dtype) if residual is not None else x.dtype
     x2 = x.reshape(-1, C)
     res2 = residual.reshape(-1, C2) if residual is not None else None
-    w1 = w1.to(x.dtype)
-    w2 = w2.to(x.dtype)
-    if x.dtype not in _DTYPE_CODES or (res2 is not None and res2.dtype not in _DTYPE_CODES):
-        raise TypeError(f"{name}: float32/bfloat16 only, got {x.dtype}")
-    if w1.shape[0] != C or w2.shape[0] != w1.shape[1] or b1.numel() != w1.shape[1] \
+    if w1.shape[0] != C or w2.shape[0] != Hd or b1.numel() != Hd \
             or b2.numel() != C2 or (res2 is not None and res2.shape[0] != x2.shape[0]):
         raise ValueError(f"{name}: operand shapes do not match")
-    if C2 > 256:
-        raise ValueError(f"{name}: output width {C2} exceeds the kernel's 256")
+    if C2 > _OUT:
+        raise ValueError(f"{name}: output width {C2} exceeds the kernel's {_OUT}")
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and (C % 16 or Hd % 16 or C2 % 16 or C > 256):
+        raise ValueError(f"{name}: the bf16 tensor-core kernel takes C, Hd and C2 multiples "
+                         f"of 16 with C and C2 at most 256; got C={C}, Hd={Hd}, C2={C2}")
     tensors = [x2, w1, b1, w2, b2] + ([res2] if res2 is not None else []) + list(affine or ())
     if any(a.device != x.device for a in tensors):
         raise ValueError(f"{name}: all operands must lie on x's device")
-    x2, w1, w2 = x2.contiguous(), w1.contiguous(), w2.contiguous()
     b1 = b1.float().contiguous()
     b2 = b2.float().contiguous()
-    if res2 is not None:
-        res2 = res2.contiguous()
+    res_code = _DTYPE_CODES[res2.dtype] if res2 is not None else -1
     y2 = torch.empty((x2.shape[0], C2), device=x.device, dtype=out_dtype)
-    fn = getattr(_cuda.library(), entry)
-    args = [x2.data_ptr()]
-    if affine is not None:
-        affine = [a.contiguous() for a in affine]
-        args += [a.data_ptr() for a in affine]
-    args += [w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-             res2.data_ptr() if res2 is not None else None, y2.data_ptr(), x2.shape[0]]
-    if affine is not None:
-        args.append(x2.shape[0] // x.shape[0])
-    args += [C, w1.shape[1], C2, _DTYPE_CODES[x.dtype],
-             _DTYPE_CODES[res2.dtype] if res2 is not None else -1, t, seed, int(exact_gelu),
-             _cuda.stream_ptr(x.device)]
-    _cuda.check(fn(*args), name)
+    lib = _cuda.library()
+    N = x2.shape[0]
+    nps = N // x.shape[0] if affine is not None else 1
+    a, c = (_aligned(v) for v in affine) if affine is not None else (None, None)
+    ptr = lambda v: v.data_ptr() if v is not None else None  # noqa: E731
+    if bf16:
+        x2, res2 = _aligned(x2), _aligned(res2)
+        img = weight_image(w1, w2)
+        code = lib.sdt_fused_mlp_tc(
+            x2.data_ptr(), ptr(a), ptr(c), nps, img.data_ptr(), b1.data_ptr(), b2.data_ptr(),
+            ptr(res2), y2.data_ptr(), N, C, Hd, C2, res_code, t, seed, int(exact_gelu),
+            _cuda.stream_ptr(x.device))
+    else:
+        x2, w1, w2 = x2.contiguous(), w1.to(x.dtype).contiguous(), w2.to(x.dtype).contiguous()
+        res2 = res2.contiguous() if res2 is not None else None
+        args = [x2.data_ptr()] + ([ptr(a), ptr(c)] if affine is not None else [])
+        args += [w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ptr(res2),
+                 y2.data_ptr(), N] + ([nps] if affine is not None else [])
+        args += [C, Hd, C2, _DTYPE_CODES[x.dtype], res_code, t, seed, int(exact_gelu),
+                 _cuda.stream_ptr(x.device)]
+        entry = lib.sdt_fused_block_tail if affine is not None else lib.sdt_fused_mlp
+        code = entry(*args)
+    _cuda.check(code, name)
     return y2.reshape(*lead, C2)
 
 
@@ -232,8 +351,7 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
     if x.device.type == "cpu":
         return fused_mlp_plain(x, w1, b1, w2, b2, residual, seed, drop_rate=drop_rate,
                                exact_gelu=exact_gelu)
-    y = _launch("fused_mlp", "sdt_fused_mlp", x, None, w1, b1, w2, b2, residual, seed,
-                drop_rate, exact_gelu)
+    y = _launch("fused_mlp", x, None, w1, b1, w2, b2, residual, seed, drop_rate, exact_gelu)
     fused_mlp.launches += 1
     return y
 
@@ -256,8 +374,8 @@ def fused_block_tail(x: torch.Tensor, affine_a: torch.Tensor, affine_c: torch.Te
                                       drop_rate=drop_rate, exact_gelu=exact_gelu)
     affine = (_fold_rows("fused_block_tail", x, affine_a),
               _fold_rows("fused_block_tail", x, affine_c))
-    y = _launch("fused_block_tail", "sdt_fused_block_tail", x, affine, w1, b1, w2, b2,
-                residual, seed, drop_rate, exact_gelu)
+    y = _launch("fused_block_tail", x, affine, w1, b1, w2, b2, residual, seed, drop_rate,
+                exact_gelu)
     fused_block_tail.launches += 1
     return y
 

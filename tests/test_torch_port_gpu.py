@@ -23,6 +23,8 @@ from spherical_dyffusion_tpu_torch.ops.fused_mlp import (
     fused_block_tail_plain,
     fused_mlp,
     fused_mlp_plain,
+    weight_image,
+    weight_image_plain,
 )
 from spherical_dyffusion_tpu_torch.ops.fused_rank import fused_rank, fused_rank_plain
 from spherical_dyffusion_tpu_torch.ops.pallas_contractions import dhconv, dhconv_plain
@@ -168,6 +170,87 @@ def test_fused_block_tail_kernel_dropout_and_unit_affine(cuda):
                             residual=o["res"], **kw)
     k2 = fused_mlp(x.reshape(-1, 256), *w, residual=o["res"].reshape(-1, 256), **kw)
     assert torch.equal(unit.reshape(-1, 256), k2)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_fused_block_tail_bf16_tensor_core_batches(cuda, B):
+    """The bf16 tensor-core kernel at the main path's widths (C 256, Hd 512):
+    B = 1 with the float32 residual (the forecaster's call), B = 2 without
+    (the interpolator's); 700 rows a sample, so at B = 2 the 64-row tile of
+    rows 640-703 holds rows of both samples. 1e-2 of the largest output: the
+    hidden tensor is rounded to bf16 on both sides and a tie may round
+    either way."""
+    o = _tail_operands(cuda, 13, B=B, N=700)
+    args = [o[k] for k in ("x", "a", "c", "w1", "b1", "w2", "b2")]
+    res = o["res"] if B == 1 else None
+    before = fused_block_tail.launches
+    y = fused_block_tail(*args, residual=res)
+    torch.cuda.synchronize()
+    assert fused_block_tail.launches == before + 1
+    want = fused_block_tail_plain(*args, residual=res)
+    assert y.dtype == want.dtype == (torch.float32 if B == 1 else torch.bfloat16)
+    assert y.shape == want.shape == (B, 700, 256)
+    assert _rel_err(y, want) < 1e-2
+
+
+def test_fused_bf16_tensor_core_dropout_masks_match_plain(cuda):
+    """Dropout 0.1 in the bf16 tensor-core kernels, no residual: K2 over
+    1000 rows and K3 over two samples of 700 rows (a tile straddles them)
+    drop exactly the plain versions' elements, and K3 with A = 1, C = 0
+    equals K2 bit for bit."""
+    o = _tail_operands(cuda, 14, B=2, N=700)
+    args = [o[k] for k in ("x", "a", "c", "w1", "b1", "w2", "b2")]
+    w = args[3:]
+    kw = dict(seed=2**40 + 12345, drop_rate=0.1)
+    y = fused_block_tail(*args, **kw)
+    want = fused_block_tail_plain(*args, **kw)
+    assert torch.equal(y == 0, want == 0) and bool((y == 0).any())
+    assert _rel_err(y, want) < 1e-2
+    x2 = o["x"].reshape(-1, 256)[:1000]
+    y2 = fused_mlp(x2, *w, **kw)
+    want2 = fused_mlp_plain(x2, *w, **kw)
+    assert torch.equal(y2 == 0, want2 == 0) and bool((y2 == 0).any())
+    unit = fused_block_tail(o["x"], torch.ones_like(o["a"]), torch.zeros_like(o["c"]), *w, **kw)
+    assert torch.equal(unit.reshape(-1, 256)[:1000], y2)
+
+
+def test_fused_bf16_tensor_core_refuses_widths(cuda):
+    """The bf16 kernel takes C, Hd and C2 multiples of 16 with C and C2 at
+    most 256; any other bf16 call raises before a launch (float32 calls of
+    the same widths go to the float32 kernel)."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+
+    def ops(C, Hd, C2):
+        return (torch.randn(130, C, device=cuda, generator=g).bfloat16(),
+                torch.randn(C, Hd, device=cuda, generator=g) / 16,
+                torch.zeros(Hd, device=cuda), torch.randn(Hd, C2, device=cuda, generator=g) / 16,
+                torch.zeros(C2, device=cuda))
+
+    before = fused_mlp.launches
+    for widths in [(72, 512, 256), (320, 512, 256), (256, 40, 256), (256, 512, 72)]:
+        with pytest.raises(ValueError, match="multiples of 16"):
+            fused_mlp(*ops(*widths))
+    assert fused_mlp.launches == before
+    x, w1, b1, w2, b2 = ops(72, 40, 72)
+    y = fused_mlp(x.float(), w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert _rel_err(y, fused_mlp_plain(x.float(), w1, b1, w2, b2)) < 1e-5
+
+
+@pytest.mark.parametrize("C,Hd,C2,dtype", [(256, 512, 256, torch.float32),
+                                           (256, 512, 256, torch.bfloat16),
+                                           (48, 80, 32, torch.float32)])
+def test_weight_image_kernel_matches_plain(cuda, C, Hd, C2, dtype):
+    """The repack kernel writes exactly the plain permutation, rounded to
+    bf16, at the main path's widths and at padded ones."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    w1 = torch.randn(C, Hd, device=cuda, generator=g).to(dtype)
+    w2 = torch.randn(Hd, C2, device=cuda, generator=g).to(dtype)
+    before = weight_image.launches
+    img = weight_image(w1, w2)
+    torch.cuda.synchronize()
+    assert weight_image.launches == before + 1
+    assert torch.equal(img, weight_image_plain(w1, w2).to(torch.bfloat16))
 
 
 def test_sfno_fused_tail_kernels_match_plain(cuda):

@@ -31,7 +31,9 @@ from spherical_dyffusion_tpu_torch.ops.fused_mlp import (
     fused_mlp,
     philox4x32,
     philox_bits,
+    philox_layout,
     quantized_dropout,
+    weight_image_plain,
 )
 from spherical_dyffusion_tpu_torch.ops.pallas_contractions import dhconv, dhconv_plain
 from spherical_dyffusion_tpu_torch.ops.sht import InverseRealSHT, RealSHT
@@ -221,6 +223,73 @@ def test_quantized_dropout_keep_rate_and_unbiased_mean():
     assert not torch.equal(b0, philox_bits(1234, 64, 64, 1))
     assert not torch.equal(b0, philox_bits(1235, 64, 64, 0))
     assert torch.equal(b0, philox_bits(1234, 64, 64, 0))
+
+
+@pytest.mark.parametrize("rows,cols", [(16, 32), (37, 83), (130, 200)])
+def test_philox_layout_is_injective_on_a_ragged_grid(rows, cols):
+    """No (counter, byte) serves two elements, on whole and ragged 16 x 32
+    blocks; each counter serves at most 16 elements (a whole block: exactly
+    16) and the counters stay inside the grid the kernels evaluate."""
+    c0, c1, byte = (v.expand(rows, cols).reshape(-1) for v in philox_layout(rows, cols))
+    assert int(byte.min()) == 0 and int(byte.max()) == 15
+    assert int(c0.max()) < -(-cols // 32) * 4 and int(c1.max()) < -(-rows // 16) * 8
+    key = (c0 * 4096 + c1) * 16 + byte
+    assert torch.unique(key).numel() == rows * cols
+    _, per_counter = torch.unique(c0 * 4096 + c1, return_counts=True)
+    assert int(per_counter.max()) == 16 and int(per_counter.min()) >= 1
+    if rows % 16 == 0 and cols % 32 == 0:
+        assert bool((per_counter == 16).all())
+
+
+def test_philox_bits_follow_the_documented_map():
+    """philox_bits against single Philox calls at the counter and byte that
+    the docstring (and the kernel's source note) give, seed above 2**32."""
+    seed, rows, cols, stream = 0x1234_5678_9ABC, 45, 70, 1
+    bits = philox_bits(seed, rows, cols, stream)
+    key = (seed & 0xFFFFFFFF, seed >> 32)
+    for r, c in [(0, 0), (0, 1), (8, 0), (7, 6), (15, 31), (16, 32), (44, 69), (23, 45)]:
+        counter = ((c // 32) * 4 + (c % 8) // 2, (r // 16) * 8 + r % 8, stream, 0)
+        words = philox4x32(tuple(torch.tensor([v]) for v in counter), key)
+        b = 4 * ((c % 32) // 8) + 2 * (c % 2) + (r % 16) // 8
+        assert int(bits[r, c]) == (int(words[b // 4]) >> (8 * (b % 4))) & 255
+
+
+@pytest.mark.parametrize("t", [230, 128, 13])
+def test_quantized_dropout_keep_rate_on_a_ragged_grid(t):
+    """Keep rate within 4 sigma of t / 256 for both streams on a grid that
+    is not a whole number of 16 x 32 blocks."""
+    x = torch.ones(301, 77)
+    p, n = t / 256, x.numel()
+    for stream in (0, 1):
+        kept = (quantized_dropout(x, t, seed=99, stream=stream) > 0).float().mean().item()
+        assert abs(kept - p) < _four_sigma(p, n)
+
+
+@pytest.mark.parametrize("C,Hd,C2", [(256, 512, 256), (64, 128, 64), (48, 80, 32)])
+def test_weight_image_is_the_swizzled_permutation(C, Hd, C2):
+    """weight_image_plain holds every weight once and zeros elsewhere, each weight
+    at the place the bf16 kernel reads it: chunk j of 64 hidden units, W1
+    part (input block kb, hidden unit n, input k) then W2 part (output n,
+    hidden unit k), element (row, k) of a 64-wide block at
+    row * 64 + ((k // 8) ^ (row % 8)) * 8 + k % 8."""
+    w1 = torch.arange(1, C * Hd + 1, dtype=torch.float64).reshape(C, Hd)
+    w2 = torch.arange(C * Hd + 1, C * Hd + Hd * C2 + 1, dtype=torch.float64).reshape(Hd, C2)
+    img = weight_image_plain(w1, w2)
+    Cp, nch = -(-C // 64) * 64, -(-Hd // 64)
+    assert img.shape == (nch, Cp * 64 + 256 * 64)
+    nonzero = img[img != 0]
+    assert nonzero.numel() == C * Hd + Hd * C2
+    assert torch.equal(torch.sort(nonzero).values, torch.arange(1, C * Hd + Hd * C2 + 1,
+                                                                 dtype=torch.float64))
+    flat = img.numpy()
+    swz = lambda row, k: row * 64 + ((k // 8) ^ (row % 8)) * 8 + k % 8  # noqa: E731
+    ks, us = np.meshgrid(np.arange(C), np.arange(Hd), indexing="ij")
+    j, n = us // 64, us % 64
+    got = flat[j, (ks // 64) * 4096 + swz(n, ks % 64)]
+    np.testing.assert_array_equal(got, w1.numpy())
+    us, outs = np.meshgrid(np.arange(Hd), np.arange(C2), indexing="ij")
+    got = flat[us // 64, Cp * 64 + swz(outs, us % 64)]
+    np.testing.assert_array_equal(got, w2.numpy())
 
 
 def test_fused_mlp_dropout_statistics():

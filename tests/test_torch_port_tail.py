@@ -157,6 +157,25 @@ def test_fused_block_tail_plain_rows_and_unit_affine(dtype):
     assert (got == res).any()  # dropout fired: a dropped output is the residual alone
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_block_tail_plain_unit_affine_drops_what_k2_drops(dtype):
+    """No residual, dropout on, rows 2 x 77 (ragged 16-row and 32-column
+    blocks of the Philox layout): K3's plain version at A = 1, C = 0 zeroes
+    exactly the outputs that K2's plain version zeroes, at the keep rate of
+    both masks."""
+    o = _tail_operands(4, H=7, W=11, C=16, Hd=48)
+    x = torch.from_numpy(o["x"]).to(dtype)
+    w = [torch.from_numpy(o[k]) for k in ("w1", "b1", "w2", "b2")]
+    kw = dict(seed=2**40 + 17, drop_rate=0.25)
+    got = fused_block_tail_plain(x, torch.ones(2, 1, 1, 16), torch.zeros(2, 1, 1, 16), *w,
+                                 **kw)
+    want = fused_mlp_plain(x, *w, **kw)
+    assert torch.equal(got == 0, want == 0)
+    assert torch.equal(got, want)
+    dropped = (got == 0).float().mean().item()
+    assert 0.1 < dropped < 0.45  # the output mask drops a quarter of the outputs
+
+
 def test_fused_block_tail_validation():
     o = _tail_operands(3)
     args = [torch.from_numpy(o[k]) for k in ("x", "a", "c", "w1", "b1", "w2", "b2")]
