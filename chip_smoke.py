@@ -9,9 +9,18 @@ Phases, each timed:
 1. build: one ``nvcc`` per source in
    ``spherical_dyffusion_tpu_torch/csrc``, all started together, linked into
    one library; prints its seconds and the ``-Xptxas -v`` register, spill
-   and shared-memory lines, and checks with ``cuobjdump -sass`` that the
-   bf16 K2/K3 instances run their products as HGMMA (``wgmma``);
-2. K1 (dhconv) at the main path's shape, against its plain version;
+   and shared-memory lines, and checks with ``cuobjdump -sass`` that K1's
+   TF32 kernel, the four bf16 K2/K3 instances and the two bf16 K4 instances
+   run their products as HGMMA (``wgmma``);
+2. K1 (dhconv, 3xTF32 on the tensor cores) at the main path's shape, batch 1
+   and 2, through a weight image made once (the image kernel against its
+   plain version, and timed apart), against its plain version, with the
+   function's bound (its products at the TF32 peak), the bound of three
+   TF32 passes over the hi/lo image and the bound of a float32 CUDA-core
+   kernel. Every kernel, plain version and library call is timed the same
+   way, in a loop of calls between CUDA events; K1 and K4 are also timed on
+   the device by the profiler (``device_ms``), which leaves out the host
+   work a fast kernel may wait on in such a loop;
 3. K2 (fused MLP) at the main path's shapes in bf16 (the forecaster's 64,800
    rows with the float32 residual, and the interpolator's call: 129,600 rows,
    no residual, dropout 0.1), against its plain version, plus its dropout
@@ -22,15 +31,19 @@ Phases, each timed:
    masks and float32, against its plain version; K3 with A = 1, C = 0
    against K2, bit for bit; times at batch 2 with dropout off and on;
 5. K4 (the CP rank pipeline's fused Legendre analysis, scale and
-   synthesis) at the fast window's shape (h 180, l = m = 144, R 64) at
-   batch 1 and 2 in bf16 and float32, at the Pallas prototype's own shape
-   (l = m = 181) and at a ragged shape, against its plain version;
+   synthesis, the zero Legendre triangle skipped from ``l_first``) at the
+   fast window's shape (h 180, l = m = 144, R 64) at batch 1 and 2 in bf16
+   and float32, at the Pallas prototype's own shape (l = m = 181), on the
+   0.25-degree grid (h 721, which the bf16 kernel walks in chunks) and at a
+   ragged shape, against its plain version, with its bound over the triangle
+   and the dense bound;
 6. the window path: both SFNOs at embed 256 x 8 layers on 180 x 360, bf16
    compute (the transforms and dhconv with bf16 operands), K1 and K2 on,
    weights from a seed, one 12-step ``run_window`` (two horizon-6
    segments) at batch 1, cold-sampled by the double-batch scan sampler,
-   with the kernels' launch counts (and one weight repack per bf16 K2 or
-   K3 launch); then the same window with dropout off
+   with the kernels' launch counts (one weight repack per bf16 K2 or K3
+   launch, and no K1 weight image: the models made theirs in the warm-up
+   window); then the same window with dropout off
    through the kernels and through the plain path, in bf16 and in float32;
 7. the fused-tail path: the same window with K1 and K3 (``fused_tail``), the
    peeled sampler and ``scan_layers``, with its launch counts and the
@@ -60,6 +73,7 @@ import sys
 import time
 
 F32_PEAK = 67e12  # FLOP/s, float32 outside the tensor cores (H100 SXM data sheet)
+TF32_PEAK = 495e12  # FLOP/s, dense TF32 tensor cores
 BF16_PEAK = 989e12  # FLOP/s, dense bf16 tensor cores
 HBM_RATE = 3.35e12  # bytes/s
 N_STEPS = 12
@@ -120,12 +134,22 @@ def main() -> int:
             weight_image_plain,
         )
         from spherical_dyffusion_tpu_torch.ops.fused_rank import fused_rank, fused_rank_plain
-        from spherical_dyffusion_tpu_torch.ops.pallas_contractions import dhconv, dhconv_plain
-        from spherical_dyffusion_tpu_torch.ops.sht import InverseRealSHT, RealSHT
+        from spherical_dyffusion_tpu_torch.ops.pallas_contractions import (
+            dhconv,
+            dhconv_plain,
+            dhconv_weight_image,
+            dhconv_weight_image_plain,
+        )
+        from spherical_dyffusion_tpu_torch.ops.sht import (
+            InverseRealSHT,
+            RealSHT,
+            legendre_l_first,
+        )
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing: {e}", file=sys.stderr)
         return 1
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -143,6 +167,24 @@ def main() -> int:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / reps
+
+    def device_ms(fn, reps: int, kernel: str) -> float:
+        """Device time per launch of the CUDA kernel whose name holds
+        ``kernel``, from the profiler over ``reps`` calls: the wrapper's host
+        work between launches, which a fast kernel may wait on in a loop of
+        events, does not count."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if kernel in e.key]
+        count = sum(e.count for e in hits)
+        check(count == reps, f"the profiler saw {count} launches of {kernel}, expected {reps}")
+        us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                 for e in hits)
+        return us / 1e3 / reps
 
     def errs(got, want):
         d = (got.float() - want.float()).abs().max().item()
@@ -180,42 +222,69 @@ def main() -> int:
                 hgmma[fn] = 0
             elif fn is not None and "HGMMA" in line:
                 hgmma[fn] += 1
-        tc = {k: v for k, v in hgmma.items() if "fused_mlp_tc_kernel" in k}
-        for k, v in tc.items():
-            log(f"  sass: {v} HGMMA (wgmma) instructions in {k}")
-        check(len(tc) == 4 and all(v > 0 for v in tc.values()),
-              "the four bf16 K2/K3 instances should run their products as HGMMA")
+        for kernel, n in (("dhconv_tc_kernel", 1), ("fused_mlp_tc_kernel", 4),
+                          ("fused_rank_tc_kernel", 2)):
+            tc = {k: v for k, v in hgmma.items() if kernel in k}
+            for k, v in tc.items():
+                log(f"  sass: {v} HGMMA (wgmma) instructions in {k}")
+            check(len(tc) == n and all(v > 0 for v in tc.values()),
+                  f"the {n} instance(s) of {kernel} should run their products as HGMMA")
 
     report = {}
 
     with Phase("2 K1 dhconv"):
         g = torch.Generator(device=dev).manual_seed(0)
         L, M, CI, CO = 180, 181, 256, 256
-        x = torch.randn((1, L, M, CI, 2), device=dev, generator=g)
         w = torch.randn((CI, CO, L, 2), device=dev, generator=g) / (CI * CO)
-        y = dhconv(x, w)
+        img = dhconv_weight_image(w)
         torch.cuda.synchronize()
-        want = dhconv_plain(x, w)
-        abs_err, rel_err = errs(y, want)
-        # a 512-term float32 sum per output, in another order than cuBLAS's
+        check(torch.equal(img, dhconv_weight_image_plain(w)),
+              "the K1 weight image kernel differs from its plain version")
+        image_ms = timed(lambda: dhconv_weight_image(w), 5)
+        log(f"K1 weight image {tuple(img.shape)} float32 (hi and lo, "
+            f"{img.numel() * 4 / 1e6:.1f} MB): equal to its plain version; made once per "
+            f"model in {image_ms:.4f} ms")
+        # a 512-term float32 sum per output, in another order than cuBLAS's,
+        # and 3xTF32 drops about 2^-22 of each product
         tol = 1e-5
-        log(f"K1 (1,{L},{M},{CI})->{CO} f32: max abs err {abs_err:.3e}, "
-            f"max rel err {rel_err:.3e} (tolerance {tol:g} of max |plain|)")
-        check(rel_err <= tol, "K1 disagrees with its plain version")
-        ms = timed(lambda: dhconv(x, w), 20)
-        plain_ms = timed(lambda: dhconv_plain(x, w), 5)
-        xc = torch.view_as_complex(x)
-        wc = torch.view_as_complex(w.permute(2, 0, 1, 3).contiguous())
-        library_ms = timed(lambda: torch.matmul(xc, wc), 20)
-        flops = 8.0 * L * M * CI * CO
-        nbytes = 4.0 * (x.numel() + w.numel() + y.numel())
-        bound_ms, bound_by = bound(flops, nbytes, F32_PEAK)
-        log(f"K1: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, complex matmul {library_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB) on {smi_line}")
-        report["K1"] = dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=ms, plain_ms=plain_ms,
-                            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-        del x, w, y, want, xc, wc
+        k1 = {}
+        for B in (1, 2):
+            x = torch.randn((B, L, M, CI, 2), device=dev, generator=g)
+            y = dhconv(x, w, img)
+            torch.cuda.synchronize()
+            want = dhconv_plain(x, w)
+            abs_err, rel_err = errs(y, want)
+            log(f"K1 ({B},{L},{M},{CI})->{CO} f32: max abs err {abs_err:.3e}, "
+                f"max rel err {rel_err:.3e} (tolerance {tol:g} of max |plain|)")
+            check(rel_err <= tol, f"K1 disagrees with its plain version (B={B})")
+            ms = timed(lambda: dhconv(x, w, img), 20)
+            dev_ms = device_ms(lambda: dhconv(x, w, img), 20, "dhconv_tc_kernel")
+            plain_ms = timed(lambda: dhconv_plain(x, w), 5)
+            xc = torch.view_as_complex(x)
+            wc = torch.view_as_complex(w.permute(2, 0, 1, 3).contiguous())
+            library_ms = timed(lambda: torch.matmul(xc, wc), 20)
+            flops = 8.0 * B * L * M * CI * CO
+            xy_bytes = 4.0 * (x.numel() + y.numel())
+            # the function's bound (x, w and y once, its products at the TF32
+            # peak); the bound of this algorithm (three TF32 passes over the
+            # hi/lo image); and that of a float32 CUDA-core kernel
+            bound_ms, bound_by = bound(flops, xy_bytes + 4.0 * w.numel(), TF32_PEAK)
+            tc3_ms, tc3_by = bound(3 * flops, xy_bytes + 4.0 * img.numel(), TF32_PEAK)
+            simt_ms, simt_by = bound(flops, xy_bytes + 4.0 * w.numel(), F32_PEAK)
+            log(f"K1 B={B}: kernel {ms:.4f} ms a call in a loop through the wrapper "
+                f"({dev_ms:.4f} ms on the device, profiler), plain {plain_ms:.4f} ms, complex "
+                f"matmul {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+                f"{flops / 1e9:.2f} GFLOP at the TF32 peak, "
+                f"{(xy_bytes + 4.0 * w.numel()) / 1e6:.1f} MB), 3xTF32 bound {tc3_ms:.4f} ms "
+                f"({tc3_by}; 3 x {flops / 1e9:.2f} GFLOP, "
+                f"{(xy_bytes + 4.0 * img.numel()) / 1e6:.1f} MB), float32 CUDA-core bound "
+                f"{simt_ms:.4f} ms ({simt_by}) on {smi_line}")
+            k1[B] = dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, bound_ms_3xtf32=tc3_ms, bound_ms_simt=simt_ms)
+            del x, y, want, xc, wc
+        report["K1"] = dict(k1[1], image_ms=image_ms, **{f"{k}_b2": v for k, v in k1[2].items()})
+        del w, img
 
     N, C, Hd = 180 * 360, 256, 512  # 64,800 rows: the last 64-row tile holds 32
     g = torch.Generator(device=dev).manual_seed(1)
@@ -419,17 +488,20 @@ def main() -> int:
         def rank_operands(B, H, L, M, R, dtype, grid=None):
             """xf (B, H, M, 2R, 2) and the (M, H, L) Legendre matrices of a
             2H-longitude ``grid`` in dtype (random matrices without one), C
-            (L, R, 2) float32."""
+            (L, R, 2) float32, and l_first (M,) int32: the transforms' record
+            (m on the Legendre grids), or read from random matrices (0)."""
             xf = torch.randn((B, H, M, 2 * R, 2), device=dev, generator=g).to(dtype)
             C = torch.randn((L, R, 2), device=dev, generator=g) * 0.5
             if grid is None:
                 A = (torch.randn((M, H, L), device=dev, generator=g) * 0.2).to(dtype)
                 S = (torch.randn((M, H, L), device=dev, generator=g) * 0.2).to(dtype)
+                l_first = legendre_l_first(A, S)
             else:
                 kw = dict(grid=grid, matmul_dtype=dtype, kernel_layout=True)
-                A = RealSHT(H, 2 * H, L, M, **kw).analysis_mhl.to(dev)
-                S = InverseRealSHT(H, 2 * H, L, M, **kw).synthesis_mhl.to(dev)
-            return xf, A, S, C
+                fwd, inv = RealSHT(H, 2 * H, L, M, **kw), InverseRealSHT(H, 2 * H, L, M, **kw)
+                A, S = fwd.analysis_mhl.to(dev), inv.synthesis_mhl.to(dev)
+                l_first = torch.minimum(fwd.analysis_l_first, inv.synthesis_l_first).to(dev)
+            return xf, A, S, C, l_first
 
         def rank_library(xf, A, S, C):
             """The yardstick: the bf16 (or float32) torch.bmm chain, batched
@@ -447,11 +519,15 @@ def main() -> int:
             y = torch.bmm(S, s.to(xf.dtype).reshape(M, L, B * R2 * 2))
             return y.view(M, H, B, R2, 2).permute(2, 1, 0, 3, 4).contiguous()
 
-        def rank_bound(xf, A, S, C):
+        def rank_bound(xf, A, S, C, l_first, dense=False):
+            """Over what these inputs need: the rows l >= l_first[m] of A[m]
+            and S[m] (the triangle; dense=True: all of them), xf and y once,
+            C."""
             B, H, M, R2, _ = xf.shape
-            flops = 2 * 2.0 * H * A.shape[2] * 2 * R2 * M * B
-            nbytes = xf.element_size() * (2 * xf.numel() + A.numel() + S.numel()) \
-                + 4.0 * C.numel()
+            L = A.shape[2]
+            rows = M * L if dense else int((L - l_first.clamp(0, L)).sum())
+            flops = 2 * 2.0 * H * rows * 2 * R2 * B
+            nbytes = xf.element_size() * (2 * xf.numel() + 2 * H * rows) + 4.0 * C.numel()
             return bound(flops, nbytes, BF16_PEAK if xf.dtype == torch.bfloat16 else F32_PEAK)
 
         cases = {
@@ -467,6 +543,8 @@ def main() -> int:
                                              "equiangular", tol_bf16),
             "prototype shape l=m=181 float32": ((1, 180, 181, 181, 64), torch.float32,
                                                 "equiangular", tol_f32),
+            "0.25-degree grid h 721 (h in chunks), l=m=144 bf16": (
+                (1, 721, 144, 144, 64), torch.bfloat16, "equiangular", tol_bf16),
             "ragged h 37, l=m=29, R 5 bf16": ((2, 37, 29, 29, 5), torch.bfloat16, None, tol_bf16),
             "ragged h 37, l=m=29, R 5 float32": ((2, 37, 29, 29, 5), torch.float32, None,
                                                  tol_f32),
@@ -476,7 +554,7 @@ def main() -> int:
             ops = rank_operands(*shape, dtype, grid)
             y = fused_rank(*ops)
             torch.cuda.synchronize()
-            want = fused_rank_plain(*ops)
+            want = fused_rank_plain(*ops[:4])
             check(y.dtype == want.dtype and y.shape == want.shape,
                   f"K4 {name}: {y.dtype} {tuple(y.shape)} vs {want.dtype} {tuple(want.shape)}")
             abs_err, rel_err = errs(y, want)
@@ -484,17 +562,22 @@ def main() -> int:
                 f"(tolerance {tol:g} of max |plain|)")
             check(rel_err <= tol, f"K4 disagrees with its plain version ({name})")
             if name.startswith("fast shape") and dtype == torch.bfloat16:
-                lib_err = errs(rank_library(*ops), want)[1]
+                lib_err = errs(rank_library(*ops[:4]), want)[1]
                 ms = timed(lambda: fused_rank(*ops), 20)
-                plain_ms = timed(lambda: fused_rank_plain(*ops), 5)
-                library_ms = timed(lambda: rank_library(*ops), 20)
+                dev_ms = device_ms(lambda: fused_rank(*ops), 20, "fused_rank_tc_kernel")
+                plain_ms = timed(lambda: fused_rank_plain(*ops[:4]), 5)
+                library_ms = timed(lambda: rank_library(*ops[:4]), 20)
                 bound_ms, bound_by = rank_bound(*ops)
-                log(f"K4 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 torch.bmm "
-                    f"chain {library_ms:.4f} ms (its max rel err {lib_err:.3e}), bound "
-                    f"{bound_ms:.4f} ms ({bound_by}) on {smi_line}")
+                dense_ms, _ = rank_bound(*ops, dense=True)
+                log(f"K4 {name}: kernel {ms:.4f} ms a call in a loop through the wrapper "
+                    f"({dev_ms:.4f} ms on the device, profiler), plain {plain_ms:.4f} ms, "
+                    f"bf16 torch.bmm chain {library_ms:.4f} ms (its max rel err {lib_err:.3e}), "
+                    f"bound over the triangle {bound_ms:.4f} ms ({bound_by}), dense bound "
+                    f"{dense_ms:.4f} ms on {smi_line}")
                 k4[shape[0]] = dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
-                                    plain_ms=plain_ms, library_ms=library_ms,
-                                    bound_ms=bound_ms, bound_by=bound_by)
+                                    device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    bound_ms_dense=dense_ms)
             del ops, y, want
         report["K4"] = dict(k4[1], **{f"{k}_b2": v for k, v in k4[2].items()})
 
@@ -525,7 +608,7 @@ def main() -> int:
         log(f"{name} warm-up window: {time.perf_counter() - t0:.2f} s")
         for k in batches:
             batches[k].clear()
-        for fn in (*wrappers.values(), weight_image):
+        for fn in (*wrappers.values(), weight_image, dhconv_weight_image):
             fn.launches = 0
         t0 = time.perf_counter()
         x_out, preds = window(stepper, 2)
@@ -534,6 +617,9 @@ def main() -> int:
         check(weight_image.launches == launches["K2"] + launches["K3"],
               f"{name}: {weight_image.launches} weight repacks for "
               f"{launches['K2'] + launches['K3']} bf16 K2/K3 launches")
+        check(dhconv_weight_image.launches == 0,
+              f"{name}: {dhconv_weight_image.launches} K1 weight images made in a window after "
+              f"the first (each filter makes its image once)")
         forwards = sum(len(b) for b in batches.values())
         log(f"{name} window: {N_STEPS} steps in {seconds:.3f} s = {N_STEPS / seconds:.3f} "
             f"steps/s at batch 1 on {smi_line}")
@@ -646,8 +732,6 @@ def main() -> int:
         del pk, pp, pp32
 
     with Phase("9 profile (one window of each path)"):
-        from torch.profiler import ProfilerActivity, profile
-
         activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         with profile(activities=activities):  # the profiler's own start-up, not measured
             torch.ones(1, device=dev).add_(1)
@@ -677,7 +761,8 @@ def main() -> int:
                     f"{key[:110]}")
             groups = {}
             for key, (cnt, us) in dev_us.items():
-                group = ("K1" if "dhconv" in key else
+                group = ("K1 weight image" if "dhconv_weight_image" in key else
+                         "K1" if "dhconv" in key else
                          "K4" if "fused_rank" in key else
                          "K3" if re.search(r"fused_mlp(_tc)?_kernel<true", key) else
                          "K2" if re.search(r"fused_mlp(_tc)?_kernel<false", key) else

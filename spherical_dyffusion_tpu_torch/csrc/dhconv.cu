@@ -1,121 +1,315 @@
-// K1: the dense Driscoll-Healy spectral contraction, forward.
+// K1: the dense Driscoll-Healy spectral contraction, forward, on the TF32
+// tensor cores with float32 accuracy (3xTF32).
 //
 // Replaces the Pallas kernel spherical_dyffusion_tpu/ops/pallas_contractions.py
 // (_pallas_forward, pallas_call at :72). Per degree l it is one complex GEMM
 //
-//     y[b, l, m, co] = sum_ci x[b, l, m, ci] * w[l, ci, co]
-//
-// done as four real products: yr = xr wr - xi wi, yi = xr wi + xi wr.
+//     y[b, l, m, co] = sum_ci x[b, l, m, ci] * w[ci, co, l]
 //
 // Layout: x and y are the interleaved (re, im) layout of torch.view_as_real,
-// x (B*L, M, CI, 2) and y (B*L, M, CO, 2) float32; w is (L, CI, CO, 2) float32
-// (the wrapper permutes the model's (CI, CO, L, 2) weight once per call).
+// x (B*L, M, CI, 2) and y (B*L, M, CO, 2) float32. The weight reaches the
+// kernel as an image made once per model (dhconv_weight_image_kernel below;
+// ops/pallas_contractions.py caches it on the module that owns the weight).
 //
-// What bounds it on the H100: at the main path's shapes (B=1, L=180, M=181,
-// CI=CO=256) it does 17.1 GFLOP in float32 against 228 MB of compulsory
-// traffic, so at the card's 67 TFLOP/s float32 (outside the tensor cores) and
-// 3.35 TB/s the operations bound it (0.25 ms against 0.07 ms).
+// The complex product as one real GEMM over K = 2 CI. Row m of x, read as
+// (ci, re/im) pairs, is K-major already. With the weight column of co as the
+// pair (wr, wi) over those K, the real output is A' . w with A' = (xr, -xi)
+// and the imaginary output A'' . w with A'' = (xi, xr): two real GEMMs that
+// share the weight operand and differ only in how the staged x is written,
+// so the weight image holds the weight once, (L, CO, CI, 2) K-major, and
+// never a negated copy. (TF32 wgmma takes only K-major operands.)
 //
-// Design: one block of 256 threads owns a 64 (m) x 64 (co) tile of y for one
-// (b, l) and walks ci in chunks of 16. Each chunk of x and of w is staged in
-// shared memory once and feeds all four real products, so x is read once for
-// both yr and yi, which is what the TPU kernel kept in VMEM. Each thread
-// accumulates a 4 x 4 tile of complex outputs in registers with float32 FMAs.
-// This first version uses no tensor cores; TF32 or split-bf16 wgmma is later
-// work. Blocks of one l are adjacent in launch order so the w slice of that l
-// is served from L2.
+// Accuracy. K1 is float32 in the JAX package, and its checks hold it to 1e-5
+// of the largest output; one TF32 pass keeps about 11 bits of each operand
+// and misses that. Each operand is split as a = hi + lo, hi = a rounded to
+// TF32 (nearest, ties away from zero: add half a TF32 ulp to the bits and
+// clear the 13 low bits), lo = a - hi (exact in float32) rounded the same
+// way, and the product is hi.hi + hi.lo + lo.hi, accumulated in float32 by
+// the tensor cores; only lo.lo (about 2^-22 of each product) is dropped.
+// The weight image stores hi and lo (made once); x is split on its way from
+// registers into shared memory.
+//
+// What bounds it on the H100: at the main path's shapes (B = 1, L = 180,
+// M = 181, CI = CO = 256) the three TF32 passes do 3 x 17.08 GFLOP, 0.104 ms
+// at the 495 TFLOP/s of the TF32 tensor cores, against 322 MB of compulsory
+// traffic (x and y 66.7 MB each, the hi/lo image 188.7 MB), 0.096 ms at
+// 3.35 TB/s: operations bound it.
+//
+// Design. One block is one warpgroup (128 threads) that owns 64 rows (m) by
+// 128 columns (co) of one (b, l): wgmma's M, and N = 128 for each of the two
+// GEMMs, so the real and imaginary accumulators take 64 float32 registers
+// each. M = 181 is three row tiles (6% padding). K runs in chunks of 16 ci
+// (32 floats, one 128-byte swizzle row). Shared memory (97 KB, two blocks an
+// SM):
+//   - the x chunk as four 64 x 32 tiles, A' hi, A' lo, A'' hi, A'' lo
+//     (8 KB each), written from registers: each thread loads its 8 complex
+//     values of the next chunk while the tensor cores work on this one,
+//     then splits and stores them in the K-major swizzle;
+//   - a ring of two weight slots, each the hi and lo tiles (128 x 32, 16 KB
+//     each) of one chunk, one 32 KB cp.async.bulk from the image completing
+//     on the slot's mbarrier; thread 0 refills a slot as soon as the
+//     products that read it have completed, two chunks ahead of its use.
+// Per chunk the warpgroup issues 4 k-steps x 2 GEMMs x 3 passes = 24
+// m64n128k8 products. Blocks of one l are adjacent in launch order (b
+// fastest, then the six row and column tiles), so its weight slice is read
+// from device memory about once per call and from L2 by the others. At B = 1
+// the grid is 1,080 blocks on 132 SMs.
+// What bounds this design: in steady state the tensor cores run at about
+// four fifths of their TF32 peak; at B = 1 the 1,080 blocks are 4.09 waves
+// of two blocks an SM, and the partial last wave leaves most SMs idle, so a
+// call takes about 1.8x its bound on an H100 SXM at 700 W (PERF.md).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kTileM = 64;
-constexpr int kTileC = 64;
-constexpr int kChunk = 16;
-constexpr int kThreads = 256;
+namespace k1 {
+constexpr int kThreads = 128;                 // one warpgroup
+constexpr int kRows = 64;                     // m rows per block: wgmma's M
+constexpr int kCo = 128;                      // co per block: each GEMM's N
+constexpr int kCi = 16;                       // ci per chunk: K = 32 floats
+constexpr uint32_t kATile = 8192;             // 64 rows x 128 B
+constexpr uint32_t kBTile = 16384;            // 128 rows x 128 B
+constexpr uint32_t kSlotBytes = 2 * kBTile;   // the hi and lo tiles of a chunk
+constexpr int kSlots = 2;
+constexpr uint32_t kSlotFloats = kSlotBytes / 4;
+constexpr size_t kSmem = 1024 + 4 * kATile + kSlots * kSlotBytes + 8 * kSlots;
+}  // namespace k1
 
-__global__ void __launch_bounds__(kThreads)
-dhconv_fwd_kernel(const float2* __restrict__ x, const float2* __restrict__ w,
-                  float2* __restrict__ y, int L, int M, int CI, int CO) {
-  // +1 pads the rows so the two m rows a warp reads fall in different banks
-  __shared__ float2 xs[kTileM][kChunk + 1];
-  __shared__ float2 ws[kChunk][kTileC];
+// v rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero, kept in a float with the 13 low bits clear; the weight image's
+// plain version (ops/pallas_contractions.py:split_tf32) computes the same
+// bits.
+__device__ __forceinline__ float tf32_round(float v) {
+  return __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xFFFFE000u);
+}
 
-  const int bl = blockIdx.z;
-  const int l = bl % L;
-  const int m0 = blockIdx.y * kTileM;
-  const int c0 = blockIdx.x * kTileC;
+// D += A B, m64n128k8, tf32 operands (K-major: the only layout tf32 takes)
+__device__ __forceinline__ void wgmma_tf32_n128(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// x (B*L, M, CI) complex as float2; img the weight image; y (B*L, M, CO)
+// complex as float2. blockIdx.y = l * B + b; blockIdx.x = row tile * (column
+// tiles) + column tile.
+__global__ void __launch_bounds__(k1::kThreads, 2)
+dhconv_tc_kernel(const float2* __restrict__ x, const float* __restrict__ img,
+                 float2* __restrict__ y, int B, int L, int M, int CI, int CO) {
+  using namespace k1;
+  extern __shared__ __align__(1024) unsigned char smem_k1[];
+  const uint32_t raw = smem_u32(smem_k1);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const sgen = smem_k1 + (base - raw);  // generic pointer to base
+  const uint32_t bs = 4 * kATile;                     // the weight ring
+  const uint32_t bar0 = base + bs + kSlots * kSlotBytes;
+
+  const int nct = (CO + kCo - 1) / kCo;
+  const int nch = (CI + kCi - 1) / kCi;
+  const int ct = blockIdx.x % nct, mt = blockIdx.x / nct;
+  const int l = blockIdx.y / B, b = blockIdx.y % B;
+  const size_t bl = (size_t)b * L + l;
+  const float2* xb = x + bl * M * CI;
+  const int row0 = mt * kRows, co0 = ct * kCo;
+  const float* imgb = img + ((size_t)l * nct + ct) * nch * kSlotFloats;
+
+  auto full = [&](int j) { return bar0 + 8u * (uint32_t)(j % kSlots); };
+  auto slot = [&](int j) { return base + bs + (uint32_t)(j % kSlots) * kSlotBytes; };
+  auto issue = [&](int j) {
+    if (j >= nch) return;
+    mbar_expect_tx(full(j), kSlotBytes);
+    bulk_load(slot(j), imgb + (size_t)j * kSlotFloats, kSlotBytes, full(j));
+  };
+
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const float2* xb = x + (size_t)bl * M * CI;
-  const float2* wl = w + (size_t)l * CI * CO;
-
-  float accr[4][4];
-  float acci[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      accr[i][j] = 0.f;
-      acci[i][j] = 0.f;
-    }
-
-  for (int k0 = 0; k0 < CI; k0 += kChunk) {
-    for (int e = tid; e < kTileM * kChunk; e += kThreads) {
-      const int m = e / kChunk, k = e % kChunk;
-      float2 v = make_float2(0.f, 0.f);
-      if (m0 + m < M && k0 + k < CI) v = xb[(size_t)(m0 + m) * CI + k0 + k];
-      xs[m][k] = v;
-    }
-    for (int e = tid; e < kChunk * kTileC; e += kThreads) {
-      const int k = e / kTileC, c = e % kTileC;
-      float2 v = make_float2(0.f, 0.f);
-      if (k0 + k < CI && c0 + c < CO) v = wl[(size_t)(k0 + k) * CO + c0 + c];
-      ws[k][c] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      float2 a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[ty + 16 * i][k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          accr[i][j] = fmaf(a[i].x, b[j].x, accr[i][j]);
-          accr[i][j] = fmaf(-a[i].y, b[j].y, accr[i][j]);
-          acci[i][j] = fmaf(a[i].x, b[j].y, acci[i][j]);
-          acci[i][j] = fmaf(a[i].y, b[j].x, acci[i][j]);
-        }
-    }
-    __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < kSlots; ++s) mbar_init(full(s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int j = 0; j < kSlots; ++j) issue(j);
   }
 
-  float2* yb = y + (size_t)bl * M * CO;
+  // A thread's 8 complex values of a chunk: e = tid + 128 u is row e / 16
+  // and ci e % 16 of the chunk. Loads come from clamped, always valid
+  // addresses; rows past M and ci past CI are written as zeros.
+  float2 xv[8];
+  auto load_x = [&](int j) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
+    for (int u = 0; u < 8; ++u) {
+      const int e = tid + u * kThreads, r = e >> 4, c = e & 15;
+      xv[u] = __ldg(xb + (size_t)min(row0 + r, M - 1) * CI + min(j * kCi + c, CI - 1));
+    }
+  };
+  // A' = (xr, -xi) and A'' = (xi, xr), each as hi and lo, into the four
+  // tiles: the pair of ci c sits at K = 2c, 2c + 1 of its row.
+  auto store_x = [&](int j) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c < CO) yb[(size_t)m * CO + c] = make_float2(accr[i][j], acci[i][j]);
+    for (int u = 0; u < 8; ++u) {
+      const int e = tid + u * kThreads, r = e >> 4, c = e & 15;
+      const bool inside = row0 + r < M && j * kCi + c < CI;
+      const float xr = inside ? xv[u].x : 0.f, xi = inside ? xv[u].y : 0.f;
+      const float hr = tf32_round(xr), hi = tf32_round(xi);
+      const float lr = tf32_round(xr - hr), li = tf32_round(xi - hi);
+      unsigned char* p = sgen + r * 128 + (((c >> 1) ^ (r & 7)) << 4) + (c & 1) * 8;
+      *reinterpret_cast<float2*>(p) = make_float2(hr, -hi);
+      *reinterpret_cast<float2*>(p + kATile) = make_float2(lr, -li);
+      *reinterpret_cast<float2*>(p + 2 * kATile) = make_float2(hi, hr);
+      *reinterpret_cast<float2*>(p + 3 * kATile) = make_float2(li, lr);
+    }
+  };
+
+  load_x(0);
+  store_x(0);
+  fence_async_smem();
+  __syncthreads();
+
+  float acc_r[64], acc_i[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc_r[i] = acc_i[i] = 0.f;
+
+  for (int j = 0; j < nch; ++j) {
+    mbar_wait(full(j), (uint32_t)((j / kSlots) & 1));
+    wgmma_fence();
+    const uint32_t whi = slot(j), wlo = whi + kBTile;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {  // 8 K (32 bytes) a step
+      const uint32_t ko = 32u * ks;
+      const uint64_t wh = kmajor_desc(whi + ko), wl = kmajor_desc(wlo + ko);
+      const uint32_t a = base + ko;
+      wgmma_tf32_n128(acc_r, kmajor_desc(a + kATile), wh);      // A' lo . w hi
+      wgmma_tf32_n128(acc_r, kmajor_desc(a), wl);               // A' hi . w lo
+      wgmma_tf32_n128(acc_r, kmajor_desc(a), wh);               // A' hi . w hi
+      wgmma_tf32_n128(acc_i, kmajor_desc(a + 3 * kATile), wh);  // A'' lo . w hi
+      wgmma_tf32_n128(acc_i, kmajor_desc(a + 2 * kATile), wl);  // A'' hi . w lo
+      wgmma_tf32_n128(acc_i, kmajor_desc(a + 2 * kATile), wh);  // A'' hi . w hi
+    }
+    wgmma_commit();
+    const bool more = j + 1 < nch;
+    if (more) load_x(j + 1);  // in flight while the products run
+    wgmma_wait_all();
+    fence_regs<64>(acc_r);
+    fence_regs<64>(acc_i);
+    __syncthreads();  // every read of the x tiles and of slot j is done
+    if (tid == 0) issue(j + kSlots);
+    if (more) {
+      store_x(j + 1);
+      fence_async_smem();
+      __syncthreads();
+    }
+  }
+
+  // y[row, co] = (acc_r, acc_i): the thread holds rows r and r + 8 of its
+  // warp's 16, columns 8 q + 2 (lane % 4) + {0, 1}; two neighbouring columns
+  // are one 16-byte store where CO is even.
+  const int warp = tid >> 5, lane = tid & 31;
+  float2* yb = y + bl * M * CO;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 16 * warp + (lane >> 2) + 8 * h;
+    if (row >= M) continue;
+    float2* yr = yb + (size_t)row * CO;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int co = co0 + 8 * q + 2 * (lane & 3);
+      const int i = 4 * q + 2 * h;
+      if ((CO & 1) == 0) {
+        if (co < CO)
+          *reinterpret_cast<float4*>(yr + co) =
+              make_float4(acc_r[i], acc_i[i], acc_r[i + 1], acc_i[i + 1]);
+      } else {
+        if (co < CO) yr[co] = make_float2(acc_r[i], acc_i[i]);
+        if (co + 1 < CO) yr[co + 1] = make_float2(acc_r[i + 1], acc_i[i + 1]);
+      }
     }
   }
 }
 
+// The weight image of dhconv_weight_image_plain (ops/pallas_contractions.py)
+// from the model's w (CI, CO, L, 2) float32: for each l, column tile of 128
+// co and chunk of 16 ci, the hi tile and then the lo tile, each 128 rows (co)
+// of 32 floats (the chunk's (ci, re/im) pairs) in the K-major 128-byte
+// swizzle; co past CO and ci past CI are zeros. One thread writes one
+// 16-byte piece.
+__global__ void dhconv_weight_image_kernel(const float* __restrict__ w, float* __restrict__ img,
+                                           int L, int CI, int CO) {
+  using namespace k1;
+  const int nct = (CO + kCo - 1) / kCo, nch = (CI + kCi - 1) / kCi;
+  const size_t pieces = (size_t)L * nct * nch * 2 * kCo * 8;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= pieces) return;
+  size_t rest = idx >> 3;
+  const int s = (int)(idx & 7);
+  const int n = (int)(rest % kCo);
+  rest /= kCo;
+  const int lo = (int)(rest & 1);
+  rest >>= 1;
+  const int j = (int)(rest % nch);
+  rest /= nch;
+  const int ct = (int)(rest % nct);
+  const int l = (int)(rest / nct);
+  const int c = s ^ (n & 7);  // the logical 16-byte chunk: K = 4 c .. 4 c + 3
+  const int co = ct * kCo + n;
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int k = 4 * c + e, ci = j * kCi + (k >> 1);
+    const float a = ci < CI && co < CO ? w[(((size_t)ci * CO + co) * L + l) * 2 + (k & 1)] : 0.f;
+    const float hi = tf32_round(a);
+    v[e] = lo ? tf32_round(a - hi) : hi;
+  }
+  *reinterpret_cast<float4*>(img + idx * 4) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
 }  // namespace
 
-// x: (BL, M, CI, 2), w: (L, CI, CO, 2), y: (BL, M, CO, 2), all float32 and
-// contiguous. Returns the cudaError_t of the launch (0 on success).
-extern "C" int sdt_dhconv_fwd(const void* x, const void* w, void* y, int BL,
-                              int L, int M, int CI, int CO, void* stream) {
-  dim3 grid((CO + kTileC - 1) / kTileC, (M + kTileM - 1) / kTileM, BL);
-  dhconv_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)x, (const float2*)w, (float2*)y, L, M, CI, CO);
+// w (CI, CO, L, 2) float32, contiguous; img (L, ceil(CO/128), ceil(CI/16),
+// 2, 128, 32) float32, 16-byte aligned. Returns the cudaError_t of the
+// launch (0 on success), or -1 for widths it does not take.
+extern "C" int sdt_dhconv_weight_image(const void* w, void* img, int L, int CI, int CO,
+                                       void* stream) {
+  using namespace k1;
+  if (L <= 0 || CI <= 0 || CO <= 0) return -1;
+  const size_t pieces = (size_t)L * ((CO + kCo - 1) / kCo) * ((CI + kCi - 1) / kCi) * 2 * kCo * 8;
+  const int threads = 256;
+  const size_t blocks = (pieces + threads - 1) / threads;
+  if (blocks > 0x7FFFFFFF) return -1;
+  dhconv_weight_image_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)w, (float*)img, L, CI, CO);
+  return (int)cudaGetLastError();
+}
+
+// x: (B*L, M, CI, 2) float32, contiguous; img: the image of
+// sdt_dhconv_weight_image for (CI, CO, L); y: (B*L, M, CO, 2) float32,
+// contiguous. B*L <= 65535. Returns the cudaError_t of the launch (0 on
+// success), or -1 for shapes the kernel does not take.
+extern "C" int sdt_dhconv_fwd(const void* x, const void* img, void* y, int B, int L, int M,
+                              int CI, int CO, void* stream) {
+  using namespace k1;
+  if (B <= 0 || L <= 0 || M <= 0 || CI <= 0 || CO <= 0 || (long long)B * L > 65535) return -1;
+  cudaError_t err = cudaFuncSetAttribute(dhconv_tc_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = ((M + kRows - 1) / kRows) * ((CO + kCo - 1) / kCo);
+  dim3 grid(tiles, B * L);
+  dhconv_tc_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
+      (const float2*)x, (const float*)img, (float2*)y, B, L, M, CI, CO);
   return (int)cudaGetLastError();
 }

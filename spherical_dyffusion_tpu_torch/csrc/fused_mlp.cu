@@ -120,6 +120,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -365,74 +367,6 @@ constexpr uint32_t kBlockBytes = 8192;  // 64 rows x 128 bytes
 constexpr int kMaxC = 256;
 constexpr uint32_t kBiasOffset = 64;    // b1 and b2 follow the barriers
 }  // namespace tc
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// wgmma descriptor of a K-major operand in the 128-byte-swizzle layout:
-// start address, leading offset 16 (unused for this layout), stride 1024
-// bytes between 8-row atoms, swizzle mode 1 (128 B).
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// Wait for the phase of the given parity to complete. A wait that outlasts
-// any legitimate one (2^26 polls) traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n > (1u << 26)) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Generic-proxy stores to shared memory become visible to wgmma's reads.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Keeps the compiler from moving accumulator reads or writes across a wait.
-template <int kN>
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // D (+)= A B for a 64-row A tile and a 64- or 256-wide B tile, K = 16, both
 // K-major in shared memory; scale_d == 0 overwrites D.

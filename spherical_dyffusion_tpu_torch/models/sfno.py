@@ -49,6 +49,7 @@ from ..ops.contractions import (
 )
 from ..ops.fused_rank import fused_rank as fused_rank_kernel
 from ..ops.matmul import as_dtype
+from ..ops.pallas_contractions import WeightImageCache
 from ..ops.sht import InverseRealSHT, RealSHT
 from .modules import (
     Dense,
@@ -205,6 +206,8 @@ class SpectralConvS2(nn.Module):
             raise NotImplementedError(f"factorization {factorization!r} is not ported")
         else:
             self.weight = nn.Parameter(torch.empty(in_channels, out_channels, lmax, 2))
+        # K1's weight image, made on the card once per weight (not saved)
+        self._k1_image = WeightImageCache() if use_pallas and not self.factorization else None
         self.bias = nn.Parameter(torch.zeros(out_channels))
         fwd, inv = forward_transform, inverse_transform
         self.scale_residual = (fwd.nlat, fwd.nlon, fwd.grid) != (inv.nlat, inv.nlon, inv.grid)
@@ -230,6 +233,10 @@ class SpectralConvS2(nn.Module):
             raise NotImplementedError(
                 "fused_rank: K4 rounds like sht_matmul_dtype = spectral_io_dtype = bfloat16 "
                 "or computes in float32 throughout; other mixes are not implemented")
+        if self.fused_rank:  # where K4 may start: A[m] and S[m] are zero before it
+            self.register_buffer("rank_l_first", torch.minimum(fwd.analysis_l_first,
+                                                               inv.synthesis_l_first),
+                                 persistent=False)
 
     def _rank_pipeline(self, x: torch.Tensor) -> torch.Tensor:
         fwd, inv = self._transforms
@@ -238,7 +245,7 @@ class SpectralConvS2(nn.Module):
         xf = fwd.longitude(z, out_dtype=io)
         if self.fused_rank:
             y = fused_rank_kernel(xf.contiguous(), fwd.analysis_mhl, inv.synthesis_mhl,
-                                  self.cp_C.float().contiguous())
+                                  self.cp_C.float().contiguous(), self.rank_l_first)
         else:
             zs = fwd.latitude(xf, out_dtype=io)
             y = inv.latitude(cp_spectral_scale_stacked(zs, self.cp_C), out_dtype=io)
@@ -259,7 +266,10 @@ class SpectralConvS2(nn.Module):
             factors = {"A": self.cp_A, "B": self.cp_B, "C": self.cp_C}
             ys = contract_dhconv_cp(xs, factors, self.matmul_dtype)
         else:
-            ys = contract(xs, self.weight, self.use_pallas, self.matmul_dtype, out_dtype=io)
+            image = self._k1_image(self.weight) \
+                if self._k1_image is not None and self.weight.is_cuda else None
+            ys = contract(xs, self.weight, self.use_pallas, self.matmul_dtype, out_dtype=io,
+                          image=image)
         out = inv(ys, out_dtype=io) + self.bias
         return out.to(dtype), residual
 

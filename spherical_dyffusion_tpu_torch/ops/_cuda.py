@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``.cu`` file under ``spherical_dyffusion_tpu_torch/csrc/`` is compiled by
-its own ``nvcc`` process, all started together, and the objects are linked
+its own ``nvcc`` process, all started together (the ``.cuh`` headers there are
+included by them), and the objects are linked
 into one shared library with a plain ``extern "C"`` interface, loaded with
 ``ctypes``. No PyTorch header is involved, so the build takes seconds, not
 minutes. The library lands in
-``spherical_dyffusion_tpu_torch/build/<hash of the sources>/`` (listed in
+``spherical_dyffusion_tpu_torch/build/<hash of the sources and headers>/`` (listed in
 ``.gitignore``) and is built at first use; a finished build is reused by later
 calls in the same checkout. Nothing here runs at import time.
 """
@@ -35,6 +36,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "sdt_dhconv_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sdt_dhconv_weight_image": [_P, _P, _I, _I, _I, _P],
     "sdt_fused_mlp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       ctypes.c_ulonglong, _I, _P],
     "sdt_fused_block_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -42,7 +44,7 @@ _SIGNATURES = {
     "sdt_fused_mlp_tc": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          ctypes.c_ulonglong, _I, _P],
     "sdt_weight_image": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "sdt_fused_rank": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sdt_fused_rank": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _state: dict = {}
@@ -61,7 +63,8 @@ def _nvcc() -> str:
 def _build() -> dict:
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256()
-    for src in sources:
+    # the headers too: an edited header must not reuse a stale library
+    for src in sorted(sources + list(_CSRC.glob("*.cuh"))):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(_ARCH + _FLAGS).encode())

@@ -50,15 +50,17 @@ def contract_dhconv(x: torch.Tensor, w: torch.Tensor,
 
 def contract(x: torch.Tensor, w: torch.Tensor, use_pallas: bool = False,
              matmul_dtype: Optional[torch.dtype] = None,
-             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+             out_dtype: Optional[torch.dtype] = None,
+             image: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dispatch of the dense dhconv contraction. ``use_pallas`` routes it
     through the hand-written kernel K1 (the JAX package's flag name: there it
     selects the Pallas kernel), which, like the Pallas kernel, computes in
-    float32 whatever the matmul dtype."""
+    float32 whatever the matmul dtype; ``image`` is w's K1 weight image, made
+    once by the caller."""
     if use_pallas:
         from .pallas_contractions import dhconv
 
-        return emit(dhconv(x, w), out_dtype)
+        return emit(dhconv(x, w, image), out_dtype)
     return contract_dhconv(x, w, matmul_dtype, out_dtype)
 
 

@@ -14,7 +14,16 @@ is ``csrc/fused_rank.cu``; its source note says what bounds it on the H100
 and how it is tiled. ``fused_rank`` launches it for CUDA tensors and counts
 the launch in ``fused_rank.launches``; for CPU tensors it computes the plain
 version, ``fused_rank_plain``. There is no fallback: a CUDA tensor that the
-kernel cannot take raises.
+kernel cannot take raises. In bf16 both products run on the tensor cores; in
+float32 the kernel stays on the CUDA cores, for the float32 checks.
+
+The Legendre triangle: A[m] and S[m] vanish for l < m. The transforms
+record once (``kernel_layout=True``, ``ops/sht.py``'s ``legendre_l_first``),
+per m, the first l at which their matrix is non-zero; the model passes the
+smaller of the two records as ``l_first``, and the kernel runs both products
+only from there (rounded down to 16). Rows of t below it are
+exactly zero and meet zero columns of S, so the skip changes no sum; for
+matrices without such zeros ``l_first`` is 0 and nothing is skipped.
 
 Layout is the port's, not the prototype's: xf and y are
 ``(B, h, m, 2R, 2)`` (the DFT stage's output and the inverse DFT's input,
@@ -31,6 +40,8 @@ rounded. Kernel and plain version then differ only in the order of sums.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -56,9 +67,11 @@ def fused_rank_plain(xf: torch.Tensor, A_t: torch.Tensor, S_t: torch.Tensor,
 
 
 def fused_rank(xf: torch.Tensor, A_t: torch.Tensor, S_t: torch.Tensor,
-               C: torch.Tensor) -> torch.Tensor:
+               C: torch.Tensor, l_first: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused Legendre analysis, CP scale and Legendre synthesis; arguments
-    and result as ``fused_rank_plain``."""
+    and result as ``fused_rank_plain``. ``l_first`` ``(m,)`` int32: per m, an
+    l before which A_t[m] and S_t[m] are zero (the transforms' record);
+    without it nothing is skipped."""
     if xf.device.type == "cpu":
         return fused_rank_plain(xf, A_t, S_t, C)
     if xf.device.type != "cuda":
@@ -84,11 +97,17 @@ def fused_rank(xf: torch.Tensor, A_t: torch.Tensor, S_t: torch.Tensor,
         raise ValueError(f"fused_rank: l = {L} > 192, m = {M} or B = {B} beyond the grid")
     if not all(t.is_contiguous() for t in (xf, A_t, S_t, C)):
         raise ValueError("fused_rank: operands must be contiguous")
+    if l_first is None:
+        l_first = torch.zeros(M, dtype=torch.int32, device=xf.device)
+    if l_first.shape != (M,) or l_first.dtype != torch.int32 or l_first.device != xf.device:
+        raise ValueError(f"fused_rank: l_first must be int32 ({M},) on xf's device, got "
+                         f"{l_first.dtype} {tuple(l_first.shape)}")
     y = torch.empty_like(xf)
     lib = _cuda.library()
     _cuda.check(lib.sdt_fused_rank(xf.data_ptr(), A_t.data_ptr(), S_t.data_ptr(), C.data_ptr(),
-                                   y.data_ptr(), B, H, M, L, R, _DTYPE_CODES[xf.dtype],
-                                   _cuda.stream_ptr(xf.device)), "fused_rank")
+                                   l_first.contiguous().data_ptr(), y.data_ptr(), B, H, M, L, R,
+                                   _DTYPE_CODES[xf.dtype], _cuda.stream_ptr(xf.device)),
+                "fused_rank")
     fused_rank.launches += 1
     return y
 

@@ -21,7 +21,11 @@ latitude product. ``out_dtype`` rounds each stage's output (JAX's
 ``latitude``), so the CP rank pipeline can put the K4 kernel between the
 DFT and the inverse DFT. With ``kernel_layout=True`` the transform also
 holds its Legendre matrix as ``(m, h, l)`` in the matmul dtype
-(``analysis_mhl`` / ``synthesis_mhl``), the layout K4 reads, made once.
+(``analysis_mhl`` / ``synthesis_mhl``), the layout K4 reads, and per m the
+first l at which that matrix is non-zero (``analysis_l_first`` /
+``synthesis_l_first``, int32, read from the matrix in the matmul dtype: m on
+the Legendre grids, where P_l^m = 0 for l < m), from which K4 skips the zero
+triangle; both made once.
 """
 
 from __future__ import annotations
@@ -34,7 +38,15 @@ from torch import nn
 from .matmul import as_dtype, einsum, emit
 from .quadrature import dft_matrices, sht_matrices
 
-__all__ = ["RealSHT", "InverseRealSHT"]
+__all__ = ["RealSHT", "InverseRealSHT", "legendre_l_first"]
+
+
+def legendre_l_first(*mats: torch.Tensor) -> torch.Tensor:
+    """Per m, the first l at which any of the ``(m, h, l)`` matrices is
+    non-zero (l where all of them vanish), int32 ``(m,)``."""
+    nz = torch.stack([(a != 0).any(dim=1) for a in mats]).any(dim=0)  # (m, l)
+    first = nz.to(torch.int32).argmax(dim=1).to(torch.int32)
+    return torch.where(nz.any(dim=1), first, torch.full_like(first, nz.shape[1]))
 
 
 class _Transform(nn.Module):
@@ -53,10 +65,10 @@ class _Transform(nn.Module):
                              persistent=False)
         self.register_buffer("dft", torch.tensor(dft, dtype=torch.float32), persistent=False)
         if kernel_layout:
-            self.register_buffer(
-                f"{name}_mhl",
-                torch.tensor(legendre, dtype=torch.float32).permute(2, 0, 1).contiguous()
-                .to(self.matmul_dtype), persistent=False)
+            mhl = torch.tensor(legendre, dtype=torch.float32).permute(2, 0, 1).contiguous() \
+                .to(self.matmul_dtype)
+            self.register_buffer(f"{name}_mhl", mhl, persistent=False)
+            self.register_buffer(f"{name}_l_first", legendre_l_first(mhl), persistent=False)
 
 
 class RealSHT(_Transform):

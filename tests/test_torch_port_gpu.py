@@ -27,8 +27,13 @@ from spherical_dyffusion_tpu_torch.ops.fused_mlp import (
     weight_image_plain,
 )
 from spherical_dyffusion_tpu_torch.ops.fused_rank import fused_rank, fused_rank_plain
-from spherical_dyffusion_tpu_torch.ops.pallas_contractions import dhconv, dhconv_plain
-from spherical_dyffusion_tpu_torch.ops.sht import InverseRealSHT, RealSHT
+from spherical_dyffusion_tpu_torch.ops.pallas_contractions import (
+    dhconv,
+    dhconv_plain,
+    dhconv_weight_image,
+    dhconv_weight_image_plain,
+)
+from spherical_dyffusion_tpu_torch.ops.sht import InverseRealSHT, RealSHT, legendre_l_first
 
 pytestmark = pytest.mark.gpu
 
@@ -59,6 +64,68 @@ def test_dhconv_kernel_matches_plain(cuda, lead, L, M, CI, CO):
     assert dhconv.launches == before + 1
     assert y.shape == lead + (L, M, CO, 2)
     assert _rel_err(y, dhconv_plain(x, w)) < 1e-5
+
+
+@pytest.mark.parametrize("CI,CO,L", [(256, 256, 6), (40, 72, 5), (16, 16, 4), (33, 130, 3)])
+def test_dhconv_weight_image_kernel_matches_plain(cuda, CI, CO, L):
+    """The image kernel writes the plain image bit for bit: the same
+    permutation, padding and TF32 split."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    w = torch.randn((CI, CO, L, 2), device=cuda, generator=g) / CI
+    before = dhconv_weight_image.launches
+    img = dhconv_weight_image(w)
+    torch.cuda.synchronize()
+    assert dhconv_weight_image.launches == before + 1
+    assert torch.equal(img, dhconv_weight_image_plain(w))
+
+
+@pytest.mark.parametrize("lead,L,M,CI,CO", [((2,), 6, 181, 256, 256), ((2, 1), 5, 70, 40, 72),
+                                             ((3,), 4, 9, 16, 16), ((1,), 3, 65, 33, 130)])
+def test_dhconv_kernel_with_cached_image_matches_plain(cuda, lead, L, M, CI, CO):
+    """K1 through an image made once: batch 2 at the main path's widths,
+    and ragged shapes (partial row and column tiles, ci not a multiple of
+    the 16-wide chunk, odd CI and CO); two calls, no image made by them.
+    1e-5 of the largest output: 3xTF32 drops about 2^-22 of each product."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    x = torch.randn(lead + (L, M, CI, 2), device=cuda, generator=g)
+    w = torch.randn((CI, CO, L, 2), device=cuda, generator=g) / CI
+    img = dhconv_weight_image(w)
+    images, before = dhconv_weight_image.launches, dhconv.launches
+    y = dhconv(x, w, img)
+    y2 = dhconv(x, w, img)
+    torch.cuda.synchronize()
+    assert (dhconv.launches - before, dhconv_weight_image.launches - images) == (2, 0)
+    assert torch.equal(y, y2)
+    assert _rel_err(y, dhconv_plain(x, w)) < 1e-5
+    with pytest.raises(ValueError, match="weight image"):
+        dhconv(x, w, img[:, :, :, :1])
+
+
+def test_k1_image_rebuilt_after_weight_update_on_card(cuda):
+    """The SFNO's filters make their images once, reuse them, and make
+    them again after load_state_dict copies new weights in place; the
+    output then matches the plain path with the new weights."""
+    kw = dict(img_shape=(32, 64), in_chans=7, out_chans=5, embed_dim=32, num_layers=3,
+              with_time_emb=True)
+    fast = SFNO(SFNOConfig(**kw, use_pallas=True)).to(cuda)
+    plain = SFNO(SFNOConfig(**kw)).to(cuda)
+    fast.init_weights(torch.Generator(device=cuda).manual_seed(19))
+    g = torch.Generator(device=cuda).manual_seed(20)
+    x = torch.randn(1, 32, 64, 5, device=cuda, generator=g)
+    cond = torch.randn(1, 32, 64, 2, device=cuda, generator=g)
+    t = torch.tensor([1.0], device=cuda)
+    before = dhconv_weight_image.launches
+    with torch.no_grad():
+        fast(x, time=t, static_condition=cond)
+        fast(x, time=t, static_condition=cond)
+    assert dhconv_weight_image.launches - before == 3
+    plain.init_weights(torch.Generator(device=cuda).manual_seed(21))
+    fast.load_state_dict(plain.state_dict())
+    with torch.no_grad():
+        y = fast(x, time=t, static_condition=cond)
+        want = plain(x, time=t, static_condition=cond)
+    assert dhconv_weight_image.launches - before == 6
+    assert _rel_err(y, want) < 1e-5
 
 
 @pytest.mark.parametrize("x_dtype,res_dtype", [
@@ -311,6 +378,90 @@ def test_fused_rank_kernel_matches_plain(cuda, dtype, B, H, L, M, R, real):
     want = fused_rank_plain(xf, A_t, S_t, C)
     assert y.dtype == want.dtype == dtype and y.shape == want.shape == xf.shape
     assert _rel_err(y, want) < (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,grid,L", [(1, "legendre-gauss", 144), (2, "legendre-gauss", 144),
+                                      (1, "equiangular", 181)])
+def test_fused_rank_kernel_skips_the_triangle(cuda, dtype, B, grid, L):
+    """K4 with the Legendre matrices of a 180-latitude grid and the l_first
+    the transforms record (l_first = m): the fast window's legendre-gauss
+    l = m = 144 at B = 1 and 2, and the prototype's equiangular l = m = 181
+    (L not a multiple of 8: the 2-byte load path); against the dense plain
+    version, float32 1e-5 and bf16 1e-2 of the largest output."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    kw = dict(grid=grid, matmul_dtype=dtype, kernel_layout=True)
+    fwd, inv = RealSHT(180, 360, L, L, **kw).to(cuda), InverseRealSHT(180, 360, L, L, **kw).to(cuda)
+    A_t, S_t = fwd.analysis_mhl, inv.synthesis_mhl
+    l_first = torch.minimum(fwd.analysis_l_first, inv.synthesis_l_first)
+    assert torch.equal(l_first.cpu(), torch.arange(L, dtype=torch.int32))
+    xf = torch.randn(B, 180, L, 128, 2, device=cuda, generator=g).to(dtype)
+    C = torch.randn(L, 64, 2, device=cuda, generator=g) * 0.5
+    before = fused_rank.launches
+    y = fused_rank(xf, A_t, S_t, C, l_first)
+    torch.cuda.synchronize()
+    assert fused_rank.launches == before + 1
+    want = fused_rank_plain(xf, A_t, S_t, C)
+    assert y.dtype == want.dtype == dtype
+    assert _rel_err(y, want) < (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_rank_kernel_random_matrices_skip_nothing(cuda, dtype):
+    """Random matrices have no zero triangle: l_first is 0 for every m, and
+    the kernel with it equals the kernel called without l_first (which
+    skips nothing) and the plain version (R 8: the 16-byte load path at a
+    partial rank tile)."""
+    xf, A_t, S_t, C = _rank_operands(cuda, 23, 2, 180, 144, 144, 8, dtype)
+    l_first = legendre_l_first(A_t, S_t)
+    assert int(l_first.abs().max()) == 0
+    y = fused_rank(xf, A_t, S_t, C, l_first)
+    assert torch.equal(y, fused_rank(xf, A_t, S_t, C))
+    assert _rel_err(y, fused_rank_plain(xf, A_t, S_t, C)) < (1e-5 if dtype == torch.float32
+                                                               else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,L,R,grid", [(1, 721, 144, 64, "equiangular"),
+                                          (2, 400, 29, 5, None)])
+def test_fused_rank_kernel_tall_grids(cuda, dtype, B, H, L, R, grid):
+    """Grids taller than 192 latitudes, which the bf16 kernel walks in
+    chunks of h: the 0.25-degree equiangular grid (721 latitudes, a partial
+    last chunk) with its Legendre matrices and l_first at l = m = 144, and
+    random matrices at a ragged shape (h 400, l = m = 29, R 5: the 2-byte
+    load path); against the plain version, float32 1e-5 and bf16 1e-2."""
+    if grid is None:
+        xf, A_t, S_t, C = _rank_operands(cuda, 26, B, H, L, L, R, dtype)
+        l_first = legendre_l_first(A_t, S_t)
+    else:
+        g = torch.Generator(device=cuda).manual_seed(27)
+        kw = dict(grid=grid, matmul_dtype=dtype, kernel_layout=True)
+        fwd = RealSHT(H, 2 * H, L, L, **kw).to(cuda)
+        inv = InverseRealSHT(H, 2 * H, L, L, **kw).to(cuda)
+        A_t, S_t = fwd.analysis_mhl, inv.synthesis_mhl
+        l_first = torch.minimum(fwd.analysis_l_first, inv.synthesis_l_first)
+        assert torch.equal(l_first.cpu(), torch.arange(L, dtype=torch.int32))
+        xf = torch.randn(B, H, L, 2 * R, 2, device=cuda, generator=g).to(dtype)
+        C = torch.randn(L, R, 2, device=cuda, generator=g) * 0.5
+    before = fused_rank.launches
+    y = fused_rank(xf, A_t, S_t, C, l_first)
+    torch.cuda.synchronize()
+    assert fused_rank.launches == before + 1
+    want = fused_rank_plain(xf, A_t, S_t, C)
+    assert y.dtype == want.dtype == dtype and y.shape == xf.shape
+    assert _rel_err(y, want) < (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def test_fused_rank_wrapper_checks_l_first(cuda):
+    """l_first of the wrong dtype, shape or device raises before any
+    launch."""
+    xf, A_t, S_t, C = _rank_operands(cuda, 24, 1, 37, 29, 29, 5, torch.bfloat16)
+    lf = torch.zeros(29, dtype=torch.int32, device=cuda)
+    before = fused_rank.launches
+    for bad in (lf.long(), lf[:-1], lf.cpu()):
+        with pytest.raises(ValueError, match="l_first"):
+            fused_rank(xf, A_t, S_t, C, bad)
+    assert fused_rank.launches == before
 
 
 def test_fused_rank_wrapper_raises(cuda):

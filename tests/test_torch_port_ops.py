@@ -367,3 +367,27 @@ def test_port_imports_only_stdlib_torch_numpy_scipy_einops():
                 if not ok:
                     bad.append(f"{path.relative_to(REPO)}:{node.lineno} imports {root}")
     assert not bad, "\n".join(bad)
+
+
+def test_package_data_ships_every_kernel_source_and_header():
+    """An installed port builds its kernels from the files under ``csrc/``:
+    every source there and every file a source includes with quotes must be
+    matched by the port's package data in ``pyproject.toml``."""
+    import fnmatch
+    import re
+    import tomllib
+
+    cfg = tomllib.loads((REPO / "pyproject.toml").read_text())
+    patterns = cfg["tool"]["setuptools"]["package-data"]["spherical_dyffusion_tpu_torch"]
+    pkg = REPO / "spherical_dyffusion_tpu_torch"
+    sources = sorted((pkg / "csrc").glob("*.cu"))
+    assert sources
+    needed = {p.relative_to(pkg).as_posix() for p in sources}
+    for src in sources:
+        for inc in re.findall(r'^\s*#include\s+"([^"]+)"', src.read_text(), re.M):
+            path = (src.parent / inc).resolve()
+            assert path.is_file(), f"{src.name} includes {inc}, which is not there"
+            needed.add(path.relative_to(pkg.resolve()).as_posix())
+    missing = [f for f in sorted(needed)
+               if not any(fnmatch.fnmatch(f, pat) for pat in patterns)]
+    assert not missing, f"not in the package data: {missing}"
