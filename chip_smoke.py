@@ -54,6 +54,20 @@ Phases, each timed:
    launched 6 x per SFNO forward (blocks 1-6; blocks 0 and 7 change grid and
    contract in spectral space) and K1-K3 never; then dropout off, K4 against
    the plain path in float32 and bf16;
+10. the rollout (run after phase 8, before the profile): the product path of
+   ``main_path.product_rollout`` on the fused-tail path at 256 x 8 with bf16
+   weights (``params_dtype``), bf16 predictions (``preds_dtype``) and the
+   forecaster's EMA weights drawn from seed 1: one warm-up window, then
+   ``run_inference`` of 288 steps in three 96-step windows with the
+   aggregator on, its rate, sim-yr/day and ``time/*`` splits, K1 and K3
+   1,536 launches a window and no K1 weight image made; every log and the
+   final state finite; one 12-step rollout at ensemble 2 (CRPS and SSR in
+   its logs); with dropout off, a 24-step ``run_inference`` in two 12-step
+   windows over a source that does not repeat, run under the sync debug
+   mode "error" (no synchronizing CUDA call before the end sync), against
+   two ``run_window`` calls chained by hand on inputs read from the source
+   here, and the aggregator's per-step RMSE and bias tables against float64
+   numpy;
 9. profile: one ``torch.profiler`` pass over one window of each path, the
    top 10 CUDA kernels by total time and the kernel time by group.
 
@@ -77,6 +91,8 @@ TF32_PEAK = 495e12  # FLOP/s, dense TF32 tensor cores
 BF16_PEAK = 989e12  # FLOP/s, dense bf16 tensor cores
 HBM_RATE = 3.35e12  # bytes/s
 N_STEPS = 12
+STEPS_PER_SIM_YEAR = 1460  # 6-hour steps
+ROLLOUT_STEPS, ROLLOUT_WINDOW = 288, 96
 # The fused-tail window in bf16 against the plain path in bf16, as a
 # multiple of the plain path's own bf16 error (bf16 against float32): the
 # fused tail rounds the folded norm input to bf16 once more. The CPU test
@@ -117,6 +133,7 @@ def bound(flops: float, nbytes: float, peak: float):
 
 def main() -> int:
     t_start = time.perf_counter()
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -124,6 +141,10 @@ def main() -> int:
         return 1
     try:
         from spherical_dyffusion_tpu_torch import main_path
+        from spherical_dyffusion_tpu_torch.data.datasets import SyntheticTimeSeries
+        from spherical_dyffusion_tpu_torch.evaluation.aggregators import InferenceAggregator
+        from spherical_dyffusion_tpu_torch.inference.loop import InferenceConfig, run_inference
+        from spherical_dyffusion_tpu_torch.models.sfno import SFNO
         from spherical_dyffusion_tpu_torch.ops import _cuda
         from spherical_dyffusion_tpu_torch.ops.fused_mlp import (
             fused_block_tail,
@@ -730,6 +751,150 @@ def main() -> int:
             f"{gap / noise:.3f} (tolerance {BF16_TAIL_VS_PLAIN:g})")
         check(gap <= BF16_TAIL_VS_PLAIN * noise, "fast window bf16: K4 disagrees with the plain path")
         del pk, pp, pp32
+
+    with Phase("10 rollout (run_inference, aggregator, 96-step windows)"):
+        names = main_path.state_names()
+        rollout_kw = dict(embed=256, layers=8, dtype="bfloat16", device="cuda", seed=0,
+                          params_dtype="bfloat16", preds_dtype="bfloat16", **tail_kw)
+        ema_net = SFNO(main_path.sfno_configs(fused_tail=True, scan_layers=True)[1]).to(dev)
+        ema_net.init_weights(torch.Generator(device=dev).manual_seed(1))
+        rollout_kw["ema_params"] = ema_net.state_dict()
+        t0 = time.perf_counter()
+        stepper = main_path.build(**rollout_kw)
+        del ema_net
+        log(f"rollout stepper built in {time.perf_counter() - t0:.2f} s (EMA forecaster from "
+            f"seed 1, weights rounded to bf16, bf16 predictions)")
+        last = {}
+        run = stepper.run_window
+
+        def record_state(*args, **kwargs):
+            out = run(*args, **kwargs)
+            last["x"] = out[0]
+            return out
+
+        stepper.run_window = record_state
+
+        def zero_counts():
+            for fn in (*wrappers.values(), weight_image, dhconv_weight_image):
+                fn.launches = 0
+
+        t0 = time.perf_counter()
+        summary, logs = main_path.product_rollout(stepper, n_steps=ROLLOUT_STEPS,
+                                                  window=ROLLOUT_WINDOW, before_timed=zero_counts)
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        n_windows = ROLLOUT_STEPS // ROLLOUT_WINDOW
+        per_window = {k: v / n_windows for k, v in launches.items()}
+        steady = summary["steady_steps_per_second"]
+        log(f"rollout: warm-up window and {ROLLOUT_STEPS} timed steps in "
+            f"{time.perf_counter() - t0:.2f} s")
+        log(f"rollout {ROLLOUT_STEPS} steps in {n_windows} windows of {ROLLOUT_WINDOW}, batch 1, "
+            f"aggregator on: duration {summary['duration_s']:.3f} s, total "
+            f"{summary['total_steps_per_second']:.3f} steps/s, steady {steady:.3f} steps/s = "
+            f"{steady * 86400 / STEPS_PER_SIM_YEAR:.1f} sim-yr/day; " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in summary.items() if k.startswith("time/"))
+            + f"; upload cache skips {summary['upload_cache_skips']} on {smi_line}")
+        log(f"rollout launches per timed window {per_window}; K1 weight images made in the "
+            f"timed windows: {dhconv_weight_image.launches}; K2/K3 weight repacks "
+            f"{weight_image.launches}")
+        for k, n in (("K1", 1536), ("K2", 0), ("K3", 1536), ("K4", 0)):
+            check(launches[k] == n * n_windows,
+                  f"rollout: {k} launched {launches[k]} times in {n_windows} windows, "
+                  f"expected {n} a window")
+        check(dhconv_weight_image.launches == 0,
+              f"rollout: {dhconv_weight_image.launches} K1 weight images made in timed windows")
+        check(weight_image.launches == launches["K3"], "rollout: one weight repack per K3 launch")
+        check(summary["n_forward_steps"] == ROLLOUT_STEPS, f"rollout summary {summary}")
+        bad = {k: v for k, v in logs.items() if not np.isfinite(v)}
+        check(len(logs) > 0 and not bad, f"rollout: non-finite logs {list(bad)[:5]}")
+        check(bool(torch.isfinite(last["x"]).all()), "rollout: non-finite final state")
+        log(f"rollout logs: {len(logs)}, all finite; inference/avg/rmse "
+            f"{logs['inference/avg/rmse']:.4f}, time-mean rmse of v0 "
+            f"{logs['inference/time_mean/rmse/v0']:.4f}; final state finite")
+        runs["rollout"] = dict(launches=launches, summary=summary)
+
+        t0 = time.perf_counter()
+        _, logs2 = main_path.product_rollout(stepper, n_steps=N_STEPS, window=N_STEPS,
+                                             n_ensemble=2)
+        ens = {k: logs2.get(f"inference/avg/{k}") for k in ("crps", "ssr")}
+        check(all(v is not None and np.isfinite(v) for v in ens.values()),
+              f"ensemble 2: CRPS and SSR missing or not finite: {ens}")
+        log(f"rollout at ensemble 2, {N_STEPS} steps ({time.perf_counter() - t0:.2f} s with its "
+            f"warm-up): inference/avg/crps {ens['crps']:.4e}, inference/avg/ssr {ens['ssr']:.4e}")
+        stepper.run_window = run
+        del stepper, last
+
+        # dropout off: run_inference against run_window chained by hand on
+        # inputs read from the source here (the main path's normalizers are
+        # the identity, so the raw fields are the normalized inputs)
+        det = main_path.build(**dict(rollout_kw, enable_interpolator_dropout=False))
+        n_det = 2 * N_STEPS
+        src = SyntheticTimeSeries(names + list(main_path.FORCING_NAMES) + [main_path.MASK_NAME],
+                                  n_timesteps=n_det + 1)
+        outs = []
+        run = det.run_window
+
+        def record(*args, **kwargs):
+            out = run(*args, **kwargs)
+            outs.append(out)
+            return out
+
+        det.run_window = record
+        agg = InferenceAggregator(names, src.horizontal.area_weights(),
+                                  log_zonal_mean_images=False)
+        # the source does not repeat, so every window misses the upload
+        # cache; the sync debug mode raises on any synchronizing CUDA call
+        # (a pageable upload, a device-to-host copy) before the end sync
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run_inference(det, src, InferenceConfig(n_forward_steps=n_det,
+                                                    forward_steps_in_memory=N_STEPS),
+                          aggregator=agg, mask_name=main_path.MASK_NAME, verbose=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        log(f"dropout off, {n_det} steps, no repeats: run_inference issued no synchronizing "
+            f"CUDA call before its end sync (sync debug mode 'error')")
+        det.run_window = run
+        raw_np = src.read_window(0, n_det + 1, src.names)
+        raw = {k: torch.from_numpy(v).to(dev) for k, v in raw_np.items()}
+        x = torch.stack([raw[n][0] for n in names], -1)[None]
+        forcing = torch.stack([raw[n] for n in main_path.FORCING_NAMES], -1)[None]
+        chained = []
+        for w in range(2):
+            sl = slice(N_STEPS * w, N_STEPS * (w + 1) + 1)
+            x, p = det.run_window(x, forcing[:, sl], raw["surface_temperature"][None, sl],
+                                  raw[main_path.MASK_NAME][None, sl],
+                                  torch.Generator().manual_seed(0), N_STEPS,
+                                  apply_inputs_noise=(w == 0))
+            chained.append(p)
+        torch.cuda.synchronize()
+        loop_preds = torch.cat([o[1] for o in outs], dim=1)
+        chained = torch.cat(chained, dim=1)
+        same = torch.equal(outs[-1][0], x) and torch.equal(loop_preds, chained)
+        gap = max(errs(outs[-1][0], x)[1], errs(loop_preds, chained)[1])
+        log(f"dropout off, {n_det} steps in two windows: run_inference against chained "
+            f"run_window: {'equal bit for bit' if same else 'not bit-equal'}, max gap "
+            f"{gap:.3e} of the largest value (tolerance: bit for bit, or 1e-6 if a library "
+            f"call is not deterministic)")
+        check(same or gap <= 1e-6, "run_inference differs from chained run_window calls")
+        # the aggregator's per-step tables against float64 numpy
+        p64 = chained[0].float().cpu().numpy().astype(np.float64)
+        y64 = np.stack([raw_np[n][1:n_det + 1] for n in names], -1).astype(np.float64)
+        lat = src.horizontal.lat
+        w64 = np.cos(np.deg2rad(lat))[:, None] * np.ones((1, len(src.horizontal.lon)))
+        w64 = (w64 / w64.sum())[None, :, :, None]
+        diff = p64 - y64
+        ref = {"rmse": np.sqrt((w64 * diff ** 2).sum((1, 2)) / w64.sum()),
+               "bias": (w64 * diff).sum((1, 2)) / w64.sum()}
+        series = agg.reduced.series()
+        for k, want in ref.items():
+            got = series[k]
+            check(got.shape == want.shape, f"{k} table {got.shape} vs {want.shape}")
+            rel = float(np.abs(got - want).max() / np.abs(want).max())
+            log(f"aggregator {k} table ({got.shape[0]} steps x {got.shape[1]} channels) against "
+                f"float64 numpy: max gap {rel:.3e} of its largest value (tolerance 1e-4)")
+            check(rel <= 1e-4, f"aggregator {k} table differs from float64 numpy")
+        del det, outs, chained, loop_preds, raw, p64, y64, diff
 
     with Phase("9 profile (one window of each path)"):
         activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]

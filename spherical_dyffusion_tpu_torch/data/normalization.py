@@ -2,7 +2,10 @@
 
 Counterpart of ``spherical_dyffusion_tpu/data/normalization.py`` built from
 in-memory statistics (``from_dicts``). Reading the statistics files
-(netCDF) is not part of the port yet.
+(netCDF) is not part of the port yet. ``subset`` selects the channels of
+another name list, as the rollout does for its output normalizer; ``to``
+moves the statistics to the device once, so that ``normalize`` does not
+copy them at every call.
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ import dataclasses
 from typing import Mapping, Sequence
 
 import torch
+
+from ..utils.device import to_device
 
 __all__ = ["StandardNormalizer"]
 
@@ -28,6 +33,15 @@ class StandardNormalizer:
 
     def denormalize(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.stds.to(x.device) + self.means.to(x.device)
+
+    def to(self, device) -> "StandardNormalizer":
+        return dataclasses.replace(self, means=to_device(self.means, device),
+                                   stds=to_device(self.stds, device))
+
+    def subset(self, names: Sequence[str]) -> "StandardNormalizer":
+        idx = {n: i for i, n in enumerate(self.names)}
+        sel = torch.tensor([idx[n] for n in names], dtype=torch.long)
+        return StandardNormalizer(means=self.means[sel], stds=self.stds[sel], names=tuple(names))
 
     @classmethod
     def from_dicts(cls, means: Mapping[str, float], stds: Mapping[str, float],

@@ -17,15 +17,23 @@ compiled ``lax.scan``:
 * a trailing partial segment hands off its r-th prediction;
 * the inputs noise (``prediction_inputs_noise``) perturbs the initial state
   of the rollout's first window only.
+
+The options of the JAX stepper's constructor that the 10-year config uses
+are here: ``use_ema_params`` with ``ema_params``, ``params_dtype`` and
+``preds_dtype``. The networks are ``nn.Module``s that hold their weights, so
+the EMA tree is loaded into the experiment's forecaster and ``params_dtype``
+rounds the weights of both networks in place (see ``__init__``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 import torch
 
 from ..training.experiments import DYffusionForecastingExperiment
+from ..utils.convert import flax_to_state_dict
+from ..utils.device import to_device
 from .prescriber import NullPrescriber, PackedPrescriber
 
 __all__ = ["DYffusionStepper"]
@@ -36,16 +44,52 @@ class DYffusionStepper:
 
     def __init__(self, experiment: DYffusionForecastingExperiment,
                  prescriber: Optional[PackedPrescriber] = None,
-                 inputs_noise: Optional[float] = None):
+                 use_ema_params: bool = False,
+                 ema_params: Optional[Mapping[str, Any]] = None,
+                 inputs_noise: Optional[float] = None,
+                 params_dtype: Optional[str] = None,
+                 preds_dtype: Optional[str] = None):
+        """``use_ema_params`` loads the forecaster's EMA weights,
+        ``ema_params`` (a flax variable tree, converted by
+        ``utils/convert.py``, or a ``state_dict``), into the experiment's
+        forecaster; it raises without them. The interpolator keeps its own.
+
+        ``params_dtype="bfloat16"`` rounds every floating parameter and
+        buffer of both networks (the transforms' matrices too, as the JAX
+        stepper's cast covers the ``constants`` collection) to bf16 values.
+        They stay float32 tensors: K1 takes float32 weights, and every other
+        consumer casts at use, so the values, not the storage, decide the
+        result. The rounding is an in-place update, so K1's weight images are
+        made again, once, at the next forward.
+
+        ``preds_dtype`` is the dtype of the emitted predictions: only the
+        emitted copy is rounded, and the hand-off state stays float32."""
         self.exp = experiment
+        if use_ema_params:
+            if ema_params is None:
+                raise ValueError("use_ema_params=True requires ema_params (the checkpoint "
+                                 "has no EMA weights)")
+            experiment.model.load_state_dict(_as_state_dict(ema_params))
+        if params_dtype:
+            dtype = getattr(torch, params_dtype)
+            with torch.no_grad():
+                for net in (experiment.model, experiment.interpolator.model):
+                    for t in (*net.parameters(), *net.buffers()):
+                        if t.is_floating_point():
+                            t.copy_(t.to(dtype))
+        self.preds_dtype = getattr(torch, preds_dtype) if preds_dtype else None
         self.prescriber = prescriber or NullPrescriber()
         self.inputs_noise = float(inputs_noise if inputs_noise is not None
                                   else experiment.cfg.prediction_inputs_noise or 0.0)
         self.horizon = experiment.cfg.horizon
         in_names = list(experiment.in_packer.names)
         out_names = list(experiment.out_packer.names)
-        self._out_idx = [in_names.index(n) for n in out_names]
-        self._carry_idx = [i for i, n in enumerate(in_names) if n not in out_names]
+        # index tensors on the networks' device: a host index would be
+        # copied to the card at every segment, waiting for the stream
+        dev = next(experiment.model.parameters()).device
+        self._out_idx = to_device(torch.tensor([in_names.index(n) for n in out_names]), dev)
+        self._carry_idx = to_device(torch.tensor(
+            [i for i, n in enumerate(in_names) if n not in out_names], dtype=torch.long), dev)
 
     def _segment(self, x, forcing, tgt, mask, generator, handoff_step: int):
         """One cold-sampling pass from state x; returns (next state, preds
@@ -64,8 +108,10 @@ class DYffusionStepper:
             last = preds[:, handoff_step - 1]
         x_next = torch.zeros_like(x)
         x_next[..., self._out_idx] = last.to(x.dtype)
-        if self._carry_idx:
+        if self._carry_idx.numel():
             x_next[..., self._carry_idx] = x[..., self._carry_idx]
+        if self.preds_dtype is not None:
+            preds = preds.to(self.preds_dtype)
         return x_next, preds
 
     @torch.inference_mode()
@@ -101,7 +147,7 @@ class DYffusionStepper:
         x = x0_norm
         if apply_inputs_noise and self.inputs_noise > 0.0:
             noise = torch.randn(x.shape, generator=generator, dtype=x.dtype)
-            x = x + self.inputs_noise * noise.to(dev)
+            x = x + self.inputs_noise * to_device(noise, dev)
         parts = []
         for s in range(n_seg):
             forcing = (window_forcing_norm[:, s * H]
@@ -120,3 +166,10 @@ class DYffusionStepper:
             x, preds = self._segment(x, forcing, tgt, msk, generator, handoff)
             parts.append(preds if s < n_full else preds[:, :r])
         return x, torch.cat(parts, dim=1)
+
+
+def _as_state_dict(tree: Mapping[str, Any]) -> Mapping[str, torch.Tensor]:
+    """A ``state_dict`` as it is, a flax variable tree converted."""
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return tree
+    return flax_to_state_dict(tree)

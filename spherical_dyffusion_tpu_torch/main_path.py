@@ -23,21 +23,30 @@ the same plain loop. ``fused_tail``, ``peel``, ``scan_layers`` and the CP
 filter default to off, as in ``bench.py:build()``.
 
 Weights come from a seeded ``torch.Generator`` or from JAX-package parameter
-trees (``utils/convert.py``). The builder runs on ``device="cuda"`` unless
+trees (``utils/convert.py``); ``ema_params`` replaces the forecaster's with
+its EMA tree, and ``params_dtype`` / ``preds_dtype`` are the stepper's
+options of the 10-year config. ``build`` runs on ``device="cuda"`` unless
 the caller asks for another device; without CUDA that default raises rather
 than falling back to the CPU.
+
+``product_rollout`` is the product path of ``bench.py:product_bench``
+without the writer: ``run_inference`` over an aligned ``SyntheticTimeSeries``
+with the ``InferenceAggregator`` reducing on the card.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+from typing import Callable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .data.datasets import SyntheticTimeSeries
 from .data.normalization import StandardNormalizer
 from .data.packer import Packer
 from .diffusion.dyffusion import DYffusionConfig
+from .evaluation.aggregators import InferenceAggregator
+from .inference.loop import InferenceConfig, run_inference
 from .inference.prescriber import PrescriberConfig
 from .inference.stepper import DYffusionStepper
 from .models.sfno import SFNO, SFNOConfig
@@ -49,7 +58,7 @@ from .training.experiments import (
 from .utils.convert import flax_to_state_dict
 
 __all__ = ["state_names", "FORCING_NAMES", "MASK_NAME", "FAST_WINDOW", "sfno_configs",
-           "build", "window_inputs"]
+           "build", "window_inputs", "product_rollout"]
 
 FORCING_NAMES = ("DSWRFtoa", "HGTsfc")
 MASK_NAME = "ocean_fraction"
@@ -98,12 +107,16 @@ def build(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
           rank: float = 1.0, thresh: float = 1.0, spectral_io: str = "",
           fused_rank: bool = False, device: str = "cuda",
           seed: int = 0, flax_params: Optional[Mapping[str, Mapping]] = None,
-          enable_interpolator_dropout: bool = True) -> DYffusionStepper:
+          enable_interpolator_dropout: bool = True, params_dtype: Optional[str] = None,
+          preds_dtype: Optional[str] = None,
+          ema_params: Optional[Mapping] = None) -> DYffusionStepper:
     """The window stepper of the main path.
 
     ``flax_params``: optional ``{"interpolator": ..., "forecaster": ...}``
     JAX-package variable trees; otherwise weights are drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    ``torch.Generator`` seeded with ``seed`` on ``device``. ``ema_params``
+    (a flax tree or a ``state_dict``) turns on ``use_ema_params``: the
+    forecaster runs its EMA weights, as the 10-year config's ``use_ema``."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("main path: CUDA is not available; pass device='cpu' "
@@ -138,7 +151,9 @@ def build(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
         fmodel, interp, dcfg, ExperimentConfig(horizon=horizon), packer, packer, unit,
         forcing_names=FORCING_NAMES, forcing_normalizer=funit)
     prescriber = PrescriberConfig("surface_temperature", MASK_NAME, 1).build(names)
-    return DYffusionStepper(exp, prescriber=prescriber)
+    return DYffusionStepper(exp, prescriber=prescriber, use_ema_params=ema_params is not None,
+                            ema_params=ema_params, params_dtype=params_dtype,
+                            preds_dtype=preds_dtype)
 
 
 def window_inputs(n_steps: int, img_shape: Tuple[int, int] = (180, 360),
@@ -161,3 +176,40 @@ def window_inputs(n_steps: int, img_shape: Tuple[int, int] = (180, 360),
         "sst": t(rng.standard_normal((batch, T, H, W))),
         "mask": t((rng.random((batch, H, W)) < 0.7).astype(np.float32)),
     }
+
+
+def product_rollout(stepper: DYffusionStepper, n_steps: int = 288, window: int = 96,
+                    n_ensemble: int = 1,
+                    before_timed: Optional[Callable[[], None]] = None) -> Tuple[dict, dict]:
+    """The product path of ``bench.py:product_bench`` without the writer:
+    ``run_inference`` of ``n_steps`` steps in windows of ``window`` over a
+    ``SyntheticTimeSeries`` of the state, forcing and mask names that is
+    ``window`` frames long (aligned: every window hits one read-cache and one
+    upload-cache entry), looped ``n_steps // window + 2`` times, with an
+    ``InferenceAggregator`` over the output names (zonal means off, as the
+    10-year config sets them). One untimed warm-up window runs first (the
+    K1 weight images, cuBLAS and the allocator), then ``before_timed`` if
+    given (``chip_smoke.py`` zeroes the kernels' launch counts there). Runs
+    on the stepper's device; returns (the timed run's summary, its
+    aggregator's logs)."""
+    exp = stepper.exp
+    names = list(exp.out_packer.names)
+    src = SyntheticTimeSeries(list(exp.in_packer.names) + list(exp.forcing_names) + [MASK_NAME],
+                              n_timesteps=window, spatial_shape=exp.model.cfg.img_shape)
+
+    def aggregator():
+        return InferenceAggregator(names, src.horizontal.area_weights(),
+                                   log_zonal_mean_images=False)
+
+    run_inference(stepper, src,
+                  InferenceConfig(n_forward_steps=window, forward_steps_in_memory=window,
+                                  n_ensemble=n_ensemble, n_repeats=3),
+                  aggregator=aggregator(), mask_name=MASK_NAME, verbose=False)
+    if before_timed is not None:
+        before_timed()
+    agg = aggregator()
+    cfg = InferenceConfig(n_forward_steps=n_steps, forward_steps_in_memory=window,
+                          n_ensemble=n_ensemble, n_repeats=n_steps // window + 2)
+    summary = run_inference(stepper, src, cfg, aggregator=agg, mask_name=MASK_NAME,
+                            verbose=False)
+    return summary, agg.get_logs()

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_mlp import fused_block_tail, fused_mlp
+from ..utils.device import to_device
 
 __all__ = ["Dense", "InstanceNorm2d", "QuantizedDropout", "MLP2d",
            "SinusoidalTimeEmbedding", "TimeEmbedMLP", "DropPath",
@@ -48,7 +49,7 @@ def exact_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> t
         return torch.zeros_like(x)
     keep = 1.0 - rate
     u = torch.rand(x.shape, generator=generator, device=generator.device)
-    mask = (u < keep).to(x.device)
+    mask = to_device(u < keep, x.device)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -234,6 +235,6 @@ class DropPath(nn.Module):
             return x
         keep = 1.0 - self.rate
         mask = torch.rand(x.shape[0], generator=generator) < keep
-        mask = mask.to(x.device).reshape((x.shape[0],) + (1,) * (x.dim() - 1))
-        scale = torch.tensor(1.0 / keep, dtype=x.dtype, device=x.device)
+        mask = to_device(mask, x.device).reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+        scale = torch.full((), 1.0 / keep, dtype=x.dtype, device=x.device)
         return torch.where(mask, x * scale, torch.zeros((), dtype=x.dtype, device=x.device))

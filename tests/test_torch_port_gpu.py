@@ -17,6 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+from spherical_dyffusion_tpu_torch import main_path
+from spherical_dyffusion_tpu_torch.data.datasets import SyntheticTimeSeries
+from spherical_dyffusion_tpu_torch.evaluation.aggregators import InferenceAggregator
+from spherical_dyffusion_tpu_torch.inference.loop import InferenceConfig, run_inference
 from spherical_dyffusion_tpu_torch.models.sfno import SFNO, SFNOConfig
 from spherical_dyffusion_tpu_torch.ops.fused_mlp import (
     fused_block_tail,
@@ -510,3 +514,95 @@ def test_sfno_fused_rank_matches_plain(cuda, dtype):
     assert fused_rank.launches - before == 1
     assert np.isfinite(y.cpu().numpy()).all()
     assert _rel_err(y, want) < (1e-5 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("preds_dtype", [None, "bfloat16"])
+def test_run_inference_on_card_is_chained_run_window(cuda, preds_dtype):
+    """run_inference on the card at a small size (the fused-tail path with
+    K1 and K3, embed 32 x 2 layers, 16 x 32, 5 channels, horizon 3, bf16,
+    dropout off), two 3-step windows with the aggregator on: its final state
+    and predictions equal two run_window calls chained by hand on inputs read
+    from the source here, bit for bit; its tables on the card equal those of
+    the same aggregator fed the CPU copies of the predictions and targets,
+    within 1e-5 of each table's largest value."""
+    grid, n_state = (16, 32), 5
+    st = main_path.build(embed=32, layers=2, img_shape=grid, n_state=n_state, horizon=3,
+                         use_pallas=True, fused_tail=True, peel=True, scan_layers=True,
+                         device="cuda", seed=0, enable_interpolator_dropout=False,
+                         preds_dtype=preds_dtype)
+    names = list(st.exp.in_packer.names)
+    forcing, mask = list(main_path.FORCING_NAMES), main_path.MASK_NAME
+    src = SyntheticTimeSeries(names + forcing + [mask], n_timesteps=12, spatial_shape=grid)
+    outs = []
+    run = st.run_window
+
+    def record(*args, **kwargs):
+        out = run(*args, **kwargs)
+        outs.append(out)
+        return out
+
+    st.run_window = record
+    agg = InferenceAggregator(names, src.horizontal.area_weights())
+    k1, k3 = dhconv.launches, fused_block_tail.launches
+    run_inference(st, src, InferenceConfig(n_forward_steps=6, forward_steps_in_memory=3),
+                  aggregator=agg, mask_name=mask, verbose=False)
+    assert dhconv.launches > k1 and fused_block_tail.launches > k3
+    st.run_window = run
+    # the main path's normalizers are the identity: the raw fields are the inputs
+    raw = {k: torch.from_numpy(v).to(cuda) for k, v in src.read_window(0, 7, list(src.names)).items()}
+    x = torch.stack([raw[n][0] for n in names], -1)[None]
+    f = torch.stack([raw[n] for n in forcing], -1)[None]
+    preds = []
+    for w in range(2):
+        sl = slice(3 * w, 3 * w + 4)
+        x, p = st.run_window(x, f[:, sl], raw["surface_temperature"][None, sl], raw[mask][None, sl],
+                             torch.Generator().manual_seed(0), 3, apply_inputs_noise=(w == 0))
+        preds.append(p)
+    assert torch.equal(outs[-1][0], x)
+    got_preds = torch.cat([o[1] for o in outs], dim=1)
+    assert got_preds.dtype == (torch.bfloat16 if preds_dtype else torch.float32)
+    assert torch.equal(got_preds, torch.cat(preds, dim=1))
+    cpu = InferenceAggregator(names, src.horizontal.area_weights())
+    tgt = torch.stack([raw[n] for n in names], -1)
+    for w in range(2):
+        cpu.record_batch(preds[w].cpu(), tgt[3 * w + 1:3 * w + 4].cpu(), start_step=3 * w)
+    want = cpu.reduced.series()
+    got = agg.reduced.series()
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert np.isfinite(v).all()
+        assert np.abs(got[k] - v).max() <= 1e-5 * max(np.abs(v).max(), 1.0), k
+
+
+@pytest.mark.parametrize("n_repeats", [1, 2])
+def test_run_inference_never_waits_for_the_card(cuda, n_repeats):
+    """The rollout loop issues no synchronizing CUDA call before its end
+    sync: run_inference (the fused-tail path at embed 32 x 2 layers, 16 x
+    32, horizon 3, three 3-step windows, aggregator on with a snapshot in
+    the second window) runs under ``torch.cuda.set_sync_debug_mode("error")``,
+    which raises on a pageable upload or a device-to-host copy. With
+    ``n_repeats=1`` every window misses the upload cache (a source that
+    does not repeat); with 2 the aligned source hits it after the first."""
+    grid = (16, 32)
+    st = main_path.build(embed=32, layers=2, img_shape=grid, n_state=5, horizon=3,
+                         use_pallas=True, fused_tail=True, peel=True, scan_layers=True,
+                         device="cuda", seed=0)
+    names = list(st.exp.in_packer.names)
+    n_t = 10 if n_repeats == 1 else 6
+    src = SyntheticTimeSeries(names + list(main_path.FORCING_NAMES) + [main_path.MASK_NAME],
+                              n_timesteps=n_t, spatial_shape=grid)
+    cfg = InferenceConfig(n_forward_steps=9, forward_steps_in_memory=3, n_repeats=n_repeats)
+    # the first call builds K1's weight images and warms the allocators
+    run_inference(st, src, cfg, aggregator=InferenceAggregator(names,
+                  src.horizontal.area_weights()), mask_name=main_path.MASK_NAME, verbose=False)
+    agg = InferenceAggregator(names, src.horizontal.area_weights(), snapshot_steps=[4])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        summary = run_inference(st, src, cfg, aggregator=agg, mask_name=main_path.MASK_NAME,
+                                verbose=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert summary["n_forward_steps"] == 9
+    assert set(agg.snapshots.snapshots) == {4}
+    assert all(np.isfinite(v) for v in agg.get_logs().values())
