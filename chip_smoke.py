@@ -18,9 +18,9 @@ Phases, each timed:
    function's bound (its products at the TF32 peak), the bound of three
    TF32 passes over the hi/lo image and the bound of a float32 CUDA-core
    kernel. Every kernel, plain version and library call is timed the same
-   way, in a loop of calls between CUDA events; K1 and K4 are also timed on
-   the device by the profiler (``device_ms``), which leaves out the host
-   work a fast kernel may wait on in such a loop;
+   way, in a loop of calls between CUDA events; K1 and K4 are also timed
+   with the calls queued behind a spin kernel (``device_ms``), which leaves
+   out the host work a fast kernel may wait on in such a loop;
 3. K2 (fused MLP) at the main path's shapes in bf16 (the forecaster's 64,800
    rows with the float32 residual, and the interpolator's call: 129,600 rows,
    no residual, dropout 0.1), against its plain version, plus its dropout
@@ -54,7 +54,7 @@ Phases, each timed:
    launched 6 x per SFNO forward (blocks 1-6; blocks 0 and 7 change grid and
    contract in spectral space) and K1-K3 never; then dropout off, K4 against
    the plain path in float32 and bf16;
-10. the rollout (run after phase 8, before the profile): the product path of
+10. the rollout (run after phase 8): the product path of
    ``main_path.product_rollout`` on the fused-tail path at 256 x 8 with bf16
    weights (``params_dtype``), bf16 predictions (``preds_dtype``) and the
    forecaster's EMA weights drawn from seed 1: one warm-up window, then
@@ -69,9 +69,35 @@ Phases, each timed:
    here, and the aggregator's per-step RMSE and bias tables against float64
    numpy;
 9. profile: one ``torch.profiler`` pass over one window of each path, the
-   top 10 CUDA kernels by total time and the kernel time by group.
+   top 10 CUDA kernels by total time and the kernel time by group;
+11. training (run right after the build, while the process holds nothing
+   else, so that its peak memory is training's own): (a) K1's backward at the main path's shapes, batch
+   1 and 2: dx (K1 over the conjugate-transposed image) and dW (a float32
+   ``torch.bmm``) against autograd of the plain version, the backward image
+   against its plain version, and the dx kernel (event loop and
+   ``device_ms``), the backward image, the dW product, one complex
+   ``torch.matmul`` computing dx and autograd of complex ``torch.matmul``
+   (dx and dW) timed; (b) ``main_path.train_steps`` at 256 x 8, 180 x 360,
+   float32, K1 on: 6 interpolator steps, then 6 forecaster steps with the
+   interpolator frozen in ``p_losses``: per-step losses (finite), the median
+   step ms after 2 warm-up steps, steps/s, the forward / backward /
+   optimizer-and-EMA split (CUDA events), peak device memory, K1 launches
+   per step (8 forward and 8 dx per trained SFNO, 8 more for the frozen
+   interpolator in a forecaster step) and K1 images per step (16, and 8
+   more at the forecaster's first step); the loss at a fixed timestep on a
+   batch repeated for 10 steps (dropout off, constant lr) falls; (c) with
+   dropout off and the timesteps fixed, 3 steps of each experiment at
+   constant lr 4e-4 through the kernels against 3 through the plain path
+   from the same weights and batches: at every step the loss (1e-5
+   relative), every gradient (1e-4 of its largest entry, or of 1e-4 of the
+   network's where it cancels below that; where the L1 loss's sign flips at
+   an output entry, the plain path's gradient taken at the kernels' output
+   cotangent), every gradient finite and every filter weight's non-zero
+   (F5); the parameters after the 3 updates (1e-6 plus AdamW's response to
+   the measured gradient difference).
 
-It prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+It prints a ``training`` JSON line (phase 11's figures), a ``kernels`` JSON
+line (K1's backward dx as its own entry), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. It needs the port's package beside it
 and a CUDA card; without either it exits non-zero at once.
@@ -92,6 +118,9 @@ BF16_PEAK = 989e12  # FLOP/s, dense bf16 tensor cores
 HBM_RATE = 3.35e12  # bytes/s
 N_STEPS = 12
 STEPS_PER_SIM_YEAR = 1460  # 6-hour steps
+TRAIN_STEPS = 6  # per experiment in phase 11
+CMP_STEPS = 3  # per experiment, kernels against the plain path, in phase 11 (c)
+SPIN_CYCLES = 200_000_000  # about 0.1 s of torch.cuda._sleep at the H100's clocks
 ROLLOUT_STEPS, ROLLOUT_WINDOW = 288, 96
 # The fused-tail window in bf16 against the plain path in bf16, as a
 # multiple of the plain path's own bf16 error (bf16 against float32): the
@@ -156,8 +185,10 @@ def main() -> int:
         )
         from spherical_dyffusion_tpu_torch.ops.fused_rank import fused_rank, fused_rank_plain
         from spherical_dyffusion_tpu_torch.ops.pallas_contractions import (
+            conj_transpose,
             dhconv,
             dhconv_plain,
+            dhconv_weight_grad,
             dhconv_weight_image,
             dhconv_weight_image_plain,
         )
@@ -189,23 +220,28 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    def device_ms(fn, reps: int, kernel: str) -> float:
-        """Device time per launch of the CUDA kernel whose name holds
-        ``kernel``, from the profiler over ``reps`` calls: the wrapper's host
-        work between launches, which a fast kernel may wait on in a loop of
-        events, does not count."""
+    def device_ms(fn, reps: int) -> float:
+        """Device time per call of ``fn`` (a wrapper that launches one
+        kernel): CUDA events around ``reps`` calls queued behind a spin
+        kernel of about 0.1 s, so that the host has queued every launch
+        before the device reaches the first and the wrapper's host work
+        between launches, which a fast kernel may wait on in a plain loop of
+        events, does not count; checked by the start event not yet reached
+        when the last call returns. (Counting the profiler's records instead
+        lost some of a profiling pass's launches in three of four runs.)"""
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages() if kernel in e.key]
-        count = sum(e.count for e in hits)
-        check(count == reps, f"the profiler saw {count} launches of {kernel}, expected {reps}")
-        us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-                 for e in hits)
-        return us / 1e3 / reps
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        check(not start.query(), "the device reached the timed launches before the host had "
+                                 "queued them all; lengthen the spin")
+        end.synchronize()
+        return start.elapsed_time(end) / reps
 
     def errs(got, want):
         d = (got.float() - want.float()).abs().max().item()
@@ -253,6 +289,266 @@ def main() -> int:
 
     report = {}
 
+    with Phase("11 training (K1 forward and backward, the trainer at 256 x 8)"):
+        # (a) K1's backward at the main path's shapes: dx is K1 over the
+        # conjugate-transposed image, dW a float32 torch.bmm
+        g = torch.Generator(device=dev).manual_seed(11)
+        L, M, CI, CO = 180, 181, 256, 256
+        w = torch.randn((CI, CO, L, 2), device=dev, generator=g) / (CI * CO)
+        img_t = dhconv_weight_image(w, conj_t=True)
+        torch.cuda.synchronize()
+        check(torch.equal(img_t, dhconv_weight_image_plain(w, conj_t=True)),
+              "the conjugate-transposed K1 image differs from its plain version")
+        image_t_ms = timed(lambda: dhconv_weight_image(w, conj_t=True), 5)
+        wct = conj_transpose(w).contiguous()  # its forward image is img_t
+        bwd = {}
+        for B in (1, 2):
+            x = torch.randn((B, L, M, CI, 2), device=dev, generator=g)
+            gy = torch.randn((B, L, M, CO, 2), device=dev, generator=g)
+            xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+            dx, dw = torch.autograd.grad(dhconv(xl, wl), (xl, wl), gy)
+            want_dx, want_dw = torch.autograd.grad(dhconv_plain(xl, wl), (xl, wl), gy)
+            torch.cuda.synchronize()
+            dx_err, dx_rel = errs(dx, want_dx)
+            dw_err, dw_rel = errs(dw, want_dw)
+            log(f"K1 backward B={B}: dx max abs err {dx_err:.3e} (rel {dx_rel:.3e}), dW max abs "
+                f"err {dw_err:.3e} (rel {dw_rel:.3e}) against autograd of the plain version "
+                f"(tolerance 1e-5 of the largest entry)")
+            check(dx_rel <= 1e-5 and dw_rel <= 1e-5,
+                  f"K1's backward disagrees with autograd of its plain version (B={B})")
+            ms = timed(lambda: dhconv(gy, wct, img_t), 20)
+            dev_ms = device_ms(lambda: dhconv(gy, wct, img_t), 20)
+            plain_ms = timed(lambda: dhconv_plain(gy, conj_transpose(w)), 5)
+            dw_ms = timed(lambda: dhconv_weight_grad(x, gy), 10)
+            gc = torch.view_as_complex(gy)
+            wc = torch.view_as_complex(w.permute(2, 0, 1, 3).contiguous())
+            library_ms = timed(lambda: torch.matmul(gc, wc.conj().transpose(-1, -2)), 20)
+            xc = torch.view_as_complex(x).detach().requires_grad_()
+            wcl = wc.detach().requires_grad_()
+            yc = torch.matmul(xc, wcl)
+            autograd_ms = timed(lambda: torch.autograd.grad(yc, (xc, wcl), gc,
+                                                            retain_graph=True), 10)
+            flops = 8.0 * B * L * M * CI * CO
+            bound_ms, bound_by = bound(flops, 4.0 * (2 * gy.numel() + w.numel()), TF32_PEAK)
+            # dW's bound on the yardstick of K1's: the TF32 tensor cores, one
+            # pass (three for float32 accuracy as 3xTF32 beside it)
+            dw_bytes = 4.0 * (x.numel() + gy.numel() + w.numel())
+            dw_bound, dw_by = bound(flops, dw_bytes, TF32_PEAK)
+            dw_bound3, dw_by3 = bound(3 * flops, dw_bytes, TF32_PEAK)
+            log(f"K1 backward B={B}: dx kernel {ms:.4f} ms a call in a loop through the "
+                f"wrapper ({dev_ms:.4f} ms on the device, queued behind a spin), plain {plain_ms:.4f} ms, "
+                f"complex torch.matmul {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}); the backward image {image_t_ms:.4f} ms (once per step per "
+                f"filter); dW torch.bmm {dw_ms:.4f} ms, its bound {dw_bound:.4f} ms "
+                f"({dw_by}; {dw_bound3:.4f} ms as 3xTF32, {dw_by3}); autograd of complex "
+                f"torch.matmul (dx and dW) {autograd_ms:.4f} ms "
+                f"against dx + dW here {ms + dw_ms:.4f} ms, on {smi_line}")
+            bwd[B] = dict(max_abs_err=dx_err, max_rel_err=dx_rel, dw_max_rel_err=dw_rel, ms=ms,
+                          device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, dw_ms=dw_ms,
+                          dw_bound_ms=dw_bound, dw_bound_ms_3xtf32=dw_bound3,
+                          autograd_complex_matmul_ms=autograd_ms)
+            del x, gy, xl, wl, dx, dw, want_dx, want_dw, gc, wc, xc, wcl, yc
+        report["K1_bwd"] = dict(bwd[1], image_t_ms=image_t_ms,
+                                **{f"{k}_b2": v for k, v in bwd[2].items()})
+        del w, wct, img_t
+        torch.cuda.empty_cache()
+
+        # (b) the trainer at 256 x 8 on 180 x 360, float32, K1 on: the
+        # interpolator, then the forecaster with it frozen in p_losses
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        train = main_path.train_steps(n_steps=TRAIN_STEPS, device="cuda")
+        off = {k: wrappers[k].launches for k in ("K2", "K3", "K4")}
+        check(not any(off.values()), f"training launched kernels without a backward: {off}")
+        log(f"training: {TRAIN_STEPS} steps of each experiment, built and run in "
+            f"{time.perf_counter() - t0:.2f} s")
+        per_step = {"interpolator": (16, 8), "forecaster": (24, 8)}
+        train_report = {}
+        for name, rec in train.items():
+            steady = rec["step_ms"][2:]
+            med = float(np.median(steady))
+            split = {p: float(np.median([s[p] for s in rec["split_ms"][2:]]))
+                     for p in ("forward", "backward", "optimizer")}
+            log(f"training {name}: losses {[round(v, 5) for v in rec['losses']]}; step ms "
+                f"{[round(v, 1) for v in rec['step_ms']]}, median after 2 warm-up steps "
+                f"{med:.2f} ms = {1e3 / med:.3f} steps/s at batch 1; median split forward "
+                f"{split['forward']:.2f}, backward {split['backward']:.2f}, optimizer and EMA "
+                f"{split['optimizer']:.2f} ms (CUDA events); peak device memory "
+                f"{rec['peak_bytes'] / 1e9:.3f} GB; K1 launches per step {rec['k1_launches']} "
+                f"(backward {rec['k1_backward']}), K1 images made per step {rec['k1_images']} "
+                f"on {smi_line}")
+            check(all(np.isfinite(v) for v in rec["losses"]), f"training {name}: a non-finite loss")
+            k1, dx = per_step[name]
+            check(all(n == k1 for n in rec["k1_launches"]) and
+                  all(n == dx for n in rec["k1_backward"]),
+                  f"training {name}: K1 launches {rec['k1_launches']} (backward "
+                  f"{rec['k1_backward']}), expected {k1} ({dx}) a step")
+            # a new forward and backward image per filter after every update;
+            # the frozen interpolator's, once, at the forecaster's first step
+            images = [16] * TRAIN_STEPS
+            if name == "forecaster":
+                images[0] += 8
+            check(rec["k1_images"] == images,
+                  f"training {name}: K1 images per step {rec['k1_images']}, expected {images}")
+            train_report[name] = dict(step_ms=med, steps_per_s=1e3 / med, split_ms=split,
+                                      peak_gb=rec["peak_bytes"] / 1e9, losses=rec["losses"],
+                                      k1_launches=sum(rec["k1_launches"]),
+                                      k1_backward=sum(rec["k1_backward"]))
+        report["K1_bwd"]["launches"] = sum(r["k1_backward"] for r in train_report.values())
+        del train
+        torch.cuda.empty_cache()
+
+        # the same batch 10 times, dropout off, constant lr: the loss at a
+        # fixed timestep draw falls
+        tr = main_path.build_training(dropout=False, scheduler="constant", n_samples=1,
+                                      device="cuda")["interpolator"]
+        dyn, cond, _ = tr.upload(next(iter(tr.dm.train_batches(seed=0))))
+
+        def fixed_loss():
+            with torch.no_grad():
+                return float(tr.exp.train_loss(tr.normalizer.normalize(dyn),
+                                               torch.Generator().manual_seed(123),
+                                               dynamical_condition=cond)[0])
+
+        before = fixed_loss()
+        rep = main_path.train_steps(n_steps=10, repeat=True, trainers={"interpolator": tr})
+        after = fixed_loss()
+        log(f"repeated batch, dropout off, constant lr 4e-4: the loss at a fixed timestep "
+            f"{before:.5f} before, {after:.5f} after 10 steps; the training losses "
+            f"{[round(v, 5) for v in rep['interpolator']['losses']]}")
+        check(after < before, "training on a repeated batch did not lower its loss")
+        del tr, rep, dyn, cond
+        torch.cuda.empty_cache()
+
+        # (c) CMP_STEPS steps at constant lr through the kernels against as
+        # many through the plain path (use_pallas=False), from the same
+        # weights, on the same batches, dropout off, the same generators (so
+        # the same timesteps). By the last step the filter weights have moved
+        # far from their small initial values, so its loss and gradients
+        # lean on K1's forward and dx over the images made after each update.
+        kw = dict(dropout=False, scheduler="constant", n_samples=CMP_STEPS, device="cuda")
+        fast = main_path.build_training(**kw)
+        plain = main_path.build_training(use_pallas=False, **kw)
+        for name in fast:
+            plain[name].exp.model.load_state_dict(fast[name].exp.model.state_dict())
+
+        def loss_grads(tr, batch, seed):
+            """The loss, its gradients, and the trained network's output with
+            that output's cotangent (the graph kept for one more product)."""
+            outs, cots = [], []
+
+            def keep(module, args, out):
+                outs.append(out)
+                out.register_hook(cots.append)
+
+            hook = tr.exp.model.register_forward_hook(keep)
+            dyn, cond, _ = tr.upload(batch)
+            loss, _ = tr.exp.train_loss(tr.normalizer.normalize(dyn),
+                                        torch.Generator().manual_seed(seed),
+                                        dynamical_condition=cond)
+            hook.remove()
+            grads = torch.autograd.grad(loss, tr._params, retain_graph=True)
+            check(len(outs) == 1 and len(cots) == 1, "one call of the trained network a loss")
+            return float(loss.detach()), grads, outs[0], cots[0]
+
+        for name in ("interpolator", "forecaster"):
+            ftr, ptr = fast[name], plain[name]
+            p0 = [p.detach().clone() for p in ftr.exp.model.parameters() if p.requires_grad]
+            names = [n for n, p in ftr.exp.model.named_parameters() if p.requires_grad]
+            states = (ftr.init_state(), ptr.init_state())
+            lk, lp, gk, gp, flips = [], [], [], [], []
+            g_rel = 0.0
+            bad, zero = set(), set()
+            for s, batch in zip(range(CMP_STEPS), ptr.dm.train_batches(seed=0)):
+                lp_s, gp_s, op, cp = loss_grads(ptr, batch, 7 + s)
+                lk_s, gk_s, ok, ck = loss_grads(ftr, batch, 7 + s)
+                # the L1 loss's sign differs where a prediction meets its
+                # target within rounding: there the two paths' output
+                # cotangents differ, and the plain path's gradients are taken
+                # at the kernels' cotangent (the same product, J^T c)
+                delta = ck - cp
+                flips.append(int((delta != 0).sum()))
+                check(flips[-1] <= max(1, 1e-5 * delta.numel()),
+                      f"training {name}: the loss cotangents differ at {flips[-1]} entries")
+                gp_at_k = gp_s
+                if flips[-1]:
+                    vjp = torch.autograd.grad(op, ptr._params, delta)
+                    gp_at_k = [a + b for a, b in zip(gp_s, vjp)]
+                del op, ok, cp, ck, delta
+                # F5: every parameter a finite gradient and every filter
+                # weight a non-zero one, through the kernels
+                bad |= {n for n, a in zip(names, gk_s) if not bool(torch.isfinite(a).all())}
+                zero |= {n for n, a in zip(names, gk_s)
+                         if n.endswith("filter.weight") and float(a.abs().max()) == 0.0}
+                top = max(float(b.abs().max()) for b in gp_at_k)
+                g_rel = max(g_rel, max(float((a - b).abs().max()) /
+                                       max(float(b.abs().max()), 1e-4 * top)
+                                       for a, b in zip(gk_s, gp_at_k)))
+                del gp_at_k
+                lk.append(lk_s)
+                lp.append(lp_s)
+                gk.append(gk_s)
+                gp.append(gp_s)
+                for tr, state in zip((ftr, ptr), states):
+                    dyn, cond, _ = tr.upload(batch)
+                    tr.train_step(state, dyn, cond, torch.Generator().manual_seed(7 + s))
+            check(not bad and not zero and sum(n.endswith("filter.weight") for n in names) == 8,
+                  f"training {name}: non-finite gradients {sorted(bad)[:3]}, zero filter "
+                  f"gradients {sorted(zero)[:3]}")
+            l_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+            # post-step parameters: within 1e-6 plus AdamW's response to the
+            # gradient difference measured here (where a gradient entry is
+            # rounding, as for a bias that an instance norm removes, the
+            # update follows the rounding's sign): per entry lr times the sum
+            # over steps of min(2.5, 3 E / (sqrt(v_hat) + eps)), E the largest
+            # difference over the steps, v_hat Adam's bias-corrected second
+            # moment of the plain gradients (2 E / ... to first order; clipping
+            # only raises the effective eps)
+            lr = ftr.schedule(0)
+            pk = [p.detach() for p in ftr._params]
+            pp = [p.detach() for p in ptr._params]
+            p_ratio = p_err = moved = 0.0
+            n_over = n_all = 0
+            for i, (a, b) in enumerate(zip(pk, pp)):
+                e = torch.stack([(sk[i] - sp[i]).abs() for sk, sp in zip(gk, gp)]).amax(0)
+                v, sens = torch.zeros_like(b), torch.zeros_like(b)
+                for t, sp in enumerate(gp, 1):
+                    v = 0.999 * v + 0.001 * sp[i] ** 2
+                    sens += (3 * e / ((v / (1 - 0.999 ** t)).sqrt() + 1e-8)).clamp(max=2.5)
+                d = (a - b).abs()
+                p_ratio = max(p_ratio, float((d / (1e-6 + lr * sens)).max()))
+                p_err = max(p_err, float(d.max()))
+                moved = max(moved, float((b - p0[i]).abs().max()))
+                n_over += int((d > 1e-6).sum())
+                n_all += d.numel()
+            fw = [k for k, n in enumerate(names) if n.endswith("filter.weight")]
+            rms = [float(torch.cat([q[k].flatten() for k in fw]).square().mean().sqrt())
+                   for q in (p0, pp)]
+            log(f"training {name}, {CMP_STEPS} steps at constant lr {lr:g} through the kernels "
+                f"against the plain path: losses {[round(v, 6) for v in lk]} vs "
+                f"{[round(v, 6) for v in lp]} (max rel {l_rel:.3e}, tolerance 1e-5); L1 signs "
+                f"flipped at {flips} output entries a step; gradients, the plain path's taken "
+                f"at the kernels' output cotangent, max err {g_rel:.3e} of each tensor's "
+                f"largest entry, or of 1e-4 of the network's largest where a tensor's "
+                f"gradient cancels below that (tolerance 1e-4), at every step; post-step "
+                f"parameters max abs diff {p_err:.3e} ({n_over} of {n_all} entries beyond "
+                f"1e-6), {p_ratio:.3f} of the tolerance (1e-6 plus AdamW's response to the "
+                f"measured gradient difference); the largest move of a parameter {moved:.3e}, "
+                f"the filter weights' rms {rms[0]:.3e} -> {rms[1]:.3e}; all {len(names)} "
+                f"gradients finite, the 8 filter weights' non-zero")
+            check(l_rel <= 1e-5 and g_rel <= 1e-4 and p_ratio <= 1.0,
+                  f"training {name}: the kernels disagree with the plain path")
+            train_report[name]["kernels_vs_plain"] = dict(
+                steps=CMP_STEPS, lr=lr, loss_rel=l_rel, grad_rel=g_rel, l1_flips=flips,
+                param_abs=p_err, param_tol_ratio=p_ratio, params_beyond_1e6=n_over,
+                params=n_all, moved=moved)
+            del gk, gp, pk, pp, p0, states
+        del fast, plain
+        torch.cuda.empty_cache()
+        report["training"] = train_report
+
     with Phase("2 K1 dhconv"):
         g = torch.Generator(device=dev).manual_seed(0)
         L, M, CI, CO = 180, 181, 256, 256
@@ -279,7 +575,7 @@ def main() -> int:
                 f"max rel err {rel_err:.3e} (tolerance {tol:g} of max |plain|)")
             check(rel_err <= tol, f"K1 disagrees with its plain version (B={B})")
             ms = timed(lambda: dhconv(x, w, img), 20)
-            dev_ms = device_ms(lambda: dhconv(x, w, img), 20, "dhconv_tc_kernel")
+            dev_ms = device_ms(lambda: dhconv(x, w, img), 20)
             plain_ms = timed(lambda: dhconv_plain(x, w), 5)
             xc = torch.view_as_complex(x)
             wc = torch.view_as_complex(w.permute(2, 0, 1, 3).contiguous())
@@ -293,7 +589,7 @@ def main() -> int:
             tc3_ms, tc3_by = bound(3 * flops, xy_bytes + 4.0 * img.numel(), TF32_PEAK)
             simt_ms, simt_by = bound(flops, xy_bytes + 4.0 * w.numel(), F32_PEAK)
             log(f"K1 B={B}: kernel {ms:.4f} ms a call in a loop through the wrapper "
-                f"({dev_ms:.4f} ms on the device, profiler), plain {plain_ms:.4f} ms, complex "
+                f"({dev_ms:.4f} ms on the device, queued behind a spin), plain {plain_ms:.4f} ms, complex "
                 f"matmul {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
                 f"{flops / 1e9:.2f} GFLOP at the TF32 peak, "
                 f"{(xy_bytes + 4.0 * w.numel()) / 1e6:.1f} MB), 3xTF32 bound {tc3_ms:.4f} ms "
@@ -585,13 +881,13 @@ def main() -> int:
             if name.startswith("fast shape") and dtype == torch.bfloat16:
                 lib_err = errs(rank_library(*ops[:4]), want)[1]
                 ms = timed(lambda: fused_rank(*ops), 20)
-                dev_ms = device_ms(lambda: fused_rank(*ops), 20, "fused_rank_tc_kernel")
+                dev_ms = device_ms(lambda: fused_rank(*ops), 20)
                 plain_ms = timed(lambda: fused_rank_plain(*ops[:4]), 5)
                 library_ms = timed(lambda: rank_library(*ops[:4]), 20)
                 bound_ms, bound_by = rank_bound(*ops)
                 dense_ms, _ = rank_bound(*ops, dense=True)
                 log(f"K4 {name}: kernel {ms:.4f} ms a call in a loop through the wrapper "
-                    f"({dev_ms:.4f} ms on the device, profiler), plain {plain_ms:.4f} ms, "
+                    f"({dev_ms:.4f} ms on the device, queued behind a spin), plain {plain_ms:.4f} ms, "
                     f"bf16 torch.bmm chain {library_ms:.4f} ms (its max rel err {lib_err:.3e}), "
                     f"bound over the triangle {bound_ms:.4f} ms ({bound_by}), dense bound "
                     f"{dense_ms:.4f} ms on {smi_line}")
@@ -959,7 +1255,14 @@ def main() -> int:
             launches=runs[own_path[k]]["launches"][k],
             launches_by_path={p: r["launches"][k] for p, r in runs.items()},
             kernel_ms=report[k]["ms"], **report[k]))
+    # K1 run by the backward for dx (JAX's custom VJP, whose dx is XLA's
+    # einsum and whose forward is the Pallas kernel); launches over the
+    # training steps of phase 11
+    kernels.append(dict(name="dhconv_backward_dx", route="cuda", source=sources["K1"],
+                        replaces="spherical_dyffusion_tpu/ops/pallas_contractions.py:94",
+                        kernel_ms=report["K1_bwd"]["ms"], **report["K1_bwd"]))
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"training": report["training"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -6,6 +6,11 @@
 //
 //     y[b, l, m, co] = sum_ci x[b, l, m, ci] * w[ci, co, l]
 //
+// The backward's input gradient is the same product with the conjugate
+// transposed weight, dx[b, l, m, ci] = sum_co g[b, l, m, co] conj(w[ci, co, l])
+// (dx of _dhconv_rr_bwd, :94-105), so it runs this kernel over the image of
+// conj(w)^T, which dhconv_weight_image_kernel writes from w itself (conj_t).
+//
 // Layout: x and y are the interleaved (re, im) layout of torch.view_as_real,
 // x (B*L, M, CI, 2) and y (B*L, M, CO, 2) float32. The weight reaches the
 // kernel as an image made once per model (dhconv_weight_image_kernel below;
@@ -243,13 +248,16 @@ dhconv_tc_kernel(const float2* __restrict__ x, const float* __restrict__ img,
 }
 
 // The weight image of dhconv_weight_image_plain (ops/pallas_contractions.py)
-// from the model's w (CI, CO, L, 2) float32: for each l, column tile of 128
-// co and chunk of 16 ci, the hi tile and then the lo tile, each 128 rows (co)
-// of 32 floats (the chunk's (ci, re/im) pairs) in the K-major 128-byte
-// swizzle; co past CO and ci past CI are zeros. One thread writes one
+// of the contraction's weight, (CI, CO, L, 2) float32 as K1 reads it: for
+// each l, column tile of 128 co and chunk of 16 ci, the hi tile and then the
+// lo tile, each 128 rows (co) of 32 floats (the chunk's (ci, re/im) pairs) in
+// the K-major 128-byte swizzle; co past CO and ci past CI are zeros. With
+// conj_t the source w is (CO, CI, L, 2) and the image is that of its
+// conjugate transpose, conj(w)^T: the weight of the backward product dx = g
+// conj(w)^T, read straight from the model's weight. One thread writes one
 // 16-byte piece.
 __global__ void dhconv_weight_image_kernel(const float* __restrict__ w, float* __restrict__ img,
-                                           int L, int CI, int CO) {
+                                           int L, int CI, int CO, int conj_t) {
   using namespace k1;
   const int nct = (CO + kCo - 1) / kCo, nch = (CI + kCi - 1) / kCi;
   const size_t pieces = (size_t)L * nct * nch * 2 * kCo * 8;
@@ -270,8 +278,13 @@ __global__ void dhconv_weight_image_kernel(const float* __restrict__ w, float* _
   float v[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    const int k = 4 * c + e, ci = j * kCi + (k >> 1);
-    const float a = ci < CI && co < CO ? w[(((size_t)ci * CO + co) * L + l) * 2 + (k & 1)] : 0.f;
+    const int k = 4 * c + e, ci = j * kCi + (k >> 1), part = k & 1;
+    float a = 0.f;
+    if (ci < CI && co < CO) {
+      const size_t src = conj_t ? ((size_t)co * CI + ci) : ((size_t)ci * CO + co);
+      a = w[(src * L + l) * 2 + part];
+      if (conj_t && part) a = -a;
+    }
     const float hi = tf32_round(a);
     v[e] = lo ? tf32_round(a - hi) : hi;
   }
@@ -280,11 +293,12 @@ __global__ void dhconv_weight_image_kernel(const float* __restrict__ w, float* _
 
 }  // namespace
 
-// w (CI, CO, L, 2) float32, contiguous; img (L, ceil(CO/128), ceil(CI/16),
-// 2, 128, 32) float32, 16-byte aligned. Returns the cudaError_t of the
-// launch (0 on success), or -1 for widths it does not take.
+// w (CI, CO, L, 2) float32, contiguous, or with conj_t (CO, CI, L, 2), whose
+// conjugate transpose is imaged; img (L, ceil(CO/128), ceil(CI/16), 2, 128,
+// 32) float32, 16-byte aligned. Returns the cudaError_t of the launch (0 on
+// success), or -1 for widths it does not take.
 extern "C" int sdt_dhconv_weight_image(const void* w, void* img, int L, int CI, int CO,
-                                       void* stream) {
+                                       int conj_t, void* stream) {
   using namespace k1;
   if (L <= 0 || CI <= 0 || CO <= 0) return -1;
   const size_t pieces = (size_t)L * ((CO + kCo - 1) / kCo) * ((CI + kCi - 1) / kCi) * 2 * kCo * 8;
@@ -292,7 +306,7 @@ extern "C" int sdt_dhconv_weight_image(const void* w, void* img, int L, int CI, 
   const size_t blocks = (pieces + threads - 1) / threads;
   if (blocks > 0x7FFFFFFF) return -1;
   dhconv_weight_image_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)w, (float*)img, L, CI, CO);
+      (const float*)w, (float*)img, L, CI, CO, conj_t);
   return (int)cudaGetLastError();
 }
 

@@ -4,19 +4,20 @@ Counterpart of ``spherical_dyffusion_tpu/data/coords.py`` as far as the
 sources return it: ``SigmaCoordinates`` and ``HorizontalCoordinates``, numpy
 arrays as in the JAX package; ``HorizontalCoordinates.area_weights`` gives a
 float32 CPU tensor, which the aggregators move to their tensors' device.
+``GridMetadata`` bundles them for the datamodules.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..evaluation.metrics import spherical_area_weights
 
-__all__ = ["SigmaCoordinates", "HorizontalCoordinates"]
+__all__ = ["SigmaCoordinates", "HorizontalCoordinates", "GridMetadata"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,3 +48,11 @@ class HorizontalCoordinates:
         lat = 90.0 - (np.arange(nlat) + 0.5) * (180.0 / nlat)
         lon = (np.arange(nlon) + 0.5) * (360.0 / nlon)
         return cls(lat, lon)
+
+
+@dataclasses.dataclass(frozen=True)
+class GridMetadata:
+    """The grid a datamodule's batches lie on."""
+
+    horizontal: HorizontalCoordinates
+    sigma: Optional[SigmaCoordinates] = None

@@ -1,17 +1,33 @@
-"""Host-side data plumbing of the rollout.
+"""Host-side data plumbing: batch iteration over windowed datasets.
 
-Only ``prefetched`` of ``spherical_dyffusion_tpu/data/datamodule.py`` is
-ported (copied: that module imports the JAX package's netCDF sources); the
-datamodules come with the data layer.
+Counterpart of ``spherical_dyffusion_tpu/data/datamodule.py``: ``prefetched``
+(copied: that module imports the JAX package's netCDF sources),
+``batch_iterator``, ``DataModuleConfig``, ``BaseDataModule`` and
+``DebugDataModule``. Batches are stacked with numpy, as in the JAX package;
+``train_batches`` and ``val_batches`` hand them on as torch tensors, pinned
+when there is a card, so that ``utils/device.py:to_device`` uploads them
+without waiting for it; the stacking and pinning run on the prefetch thread.
+The netCDF datamodule (``FV3GFSDataModule``) and ``StochasticDataModule``
+are not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
-from typing import Iterable, Iterator
+from typing import Dict, Iterable, Iterator, Optional, Sequence
 
-__all__ = ["prefetched"]
+import numpy as np
+import torch
+
+from .coords import GridMetadata
+from .datasets import SyntheticTimeSeries, TimeSeriesSource, WindowedDataset
+from .normalization import StandardNormalizer
+from .packer import Packer
+
+__all__ = ["prefetched", "batch_iterator", "DataModuleConfig", "BaseDataModule",
+           "DebugDataModule"]
 
 
 def prefetched(iterable: Iterable, depth: int = 2) -> Iterator:
@@ -44,3 +60,130 @@ def prefetched(iterable: Iterable, depth: int = 2) -> Iterator:
                 raise errbox[0]
             return
         yield item
+
+
+def batch_iterator(dataset: WindowedDataset, batch_size: int, shuffle: bool = False,
+                   seed: int = 0, drop_last: bool = True,
+                   max_samples: Optional[int] = None) -> Iterator[Dict[str, np.ndarray]]:
+    """Stacks samples along a new batch axis; with ``shuffle``, in the order
+    of numpy's generator seeded with ``seed``."""
+    n = len(dataset)
+    if max_samples is not None:
+        n = min(n, max_samples)
+    idx = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(idx)
+    end = n - (n % batch_size) if drop_last else n
+    for i in range(0, end, batch_size):
+        chunk = [dataset[int(j)] for j in idx[i:i + batch_size]]
+        yield {k: np.stack([c[k] for c in chunk]) for k in chunk[0]}
+
+
+def _host_tensors(batches: Iterable[Dict[str, np.ndarray]]) -> Iterator[Dict[str, torch.Tensor]]:
+    pin = torch.cuda.is_available()
+    for batch in batches:
+        out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+        yield {k: v.pin_memory() for k, v in out.items()} if pin else out
+
+
+@dataclasses.dataclass(frozen=True)
+class DataModuleConfig:
+    """The JAX package's datamodule settings, same names and defaults."""
+
+    in_names: Sequence[str]
+    out_names: Sequence[str]
+    forcing_names: Sequence[str] = ()
+    data_dir: Optional[str] = None
+    data_dir_stats: Optional[str] = None
+    horizon: int = 6
+    window: int = 1
+    prediction_horizon: int = 504
+    prediction_horizon_long: int = 1464
+    batch_size: int = 1
+    eval_batch_size: int = 1
+    max_train_samples: Optional[int] = None
+    max_val_samples: Optional[int] = 80
+    training_sub_paths: Optional[Sequence[str]] = None
+    debug_mode: bool = False
+    prefetch_depth: int = 2
+
+
+class BaseDataModule:
+    """Normalizer, packers and split horizons (train: ``horizon``; val:
+    ``prediction_horizon``; test: ``prediction_horizon_long``)."""
+
+    def __init__(self, cfg: DataModuleConfig, normalizer: StandardNormalizer):
+        self.cfg = cfg
+        self.normalizer = normalizer
+        self.in_packer = Packer(cfg.in_names)
+        self.out_packer = Packer(cfg.out_names)
+        self.forcing_packer = Packer(cfg.forcing_names) if cfg.forcing_names else None
+        self.forcing_normalizer = (
+            normalizer.subset(list(cfg.forcing_names))
+            if cfg.forcing_names and all(n in normalizer.names for n in cfg.forcing_names)
+            else None)
+
+    def horizon_for_split(self, split: str) -> int:
+        if split == "train":
+            return self.cfg.horizon
+        if split in ("val", "validation"):
+            return self.cfg.prediction_horizon or self.cfg.horizon
+        return self.cfg.prediction_horizon_long or self.cfg.horizon
+
+    def _source(self, split: str) -> TimeSeriesSource:
+        raise NotImplementedError
+
+    def dataset(self, split: str, horizon: Optional[int] = None) -> WindowedDataset:
+        return WindowedDataset(
+            source=self._source(split), in_names=self.cfg.in_names,
+            horizon=horizon if horizon is not None else self.horizon_for_split(split),
+            window=self.cfg.window, forcing_names=self.cfg.forcing_names,
+            forcing_normalizer=self.forcing_normalizer)
+
+    def train_batches(self, seed: int = 0, horizon: Optional[int] = None):
+        """Shuffled training batches of torch host tensors (pinned when
+        there is a card), made on the prefetch thread."""
+        return prefetched(_host_tensors(batch_iterator(
+            self.dataset("train", horizon), self.cfg.batch_size, shuffle=True, seed=seed,
+            max_samples=self.cfg.max_train_samples)), depth=self.cfg.prefetch_depth)
+
+    def val_batches(self, horizon: Optional[int] = None):
+        return prefetched(_host_tensors(batch_iterator(
+            self.dataset("val", horizon), self.cfg.eval_batch_size, shuffle=False,
+            drop_last=False, max_samples=self.cfg.max_val_samples)),
+            depth=self.cfg.prefetch_depth)
+
+    @property
+    def grid(self) -> GridMetadata:
+        src = self._source("train")
+        return GridMetadata(horizontal=src.horizontal, sigma=src.sigma)
+
+
+class DebugDataModule(BaseDataModule):
+    """Synthetic datamodule: ``channels`` state variables ``var_i`` and
+    ``n_forcing`` forcings ``forcing_i`` from one ``SyntheticTimeSeries``,
+    normalized with statistics of its first (up to) 32 frames."""
+
+    def __init__(self, channels: int = 4, height: int = 16, width: int = 32, horizon: int = 6,
+                 window: int = 1, n_timesteps: int = 96, n_forcing: int = 0,
+                 batch_size: int = 2, seed: int = 0, **cfg_kwargs):
+        in_names = [f"var_{i}" for i in range(channels)]
+        forcing_names = [f"forcing_{i}" for i in range(n_forcing)]
+        cfg = DataModuleConfig(
+            in_names=in_names, out_names=in_names, forcing_names=forcing_names,
+            horizon=horizon, window=window, batch_size=batch_size,
+            prediction_horizon=cfg_kwargs.pop("prediction_horizon", horizon),
+            prediction_horizon_long=cfg_kwargs.pop("prediction_horizon_long", horizon),
+            **cfg_kwargs)
+        names = in_names + forcing_names
+        self._src = SyntheticTimeSeries(names, n_timesteps=n_timesteps,
+                                        spatial_shape=(height, width), seed=seed)
+        sample = self._src.read_window(0, min(32, n_timesteps), names)
+        means = {n: float(np.mean(v)) for n, v in sample.items()}
+        stds = {n: float(np.std(v) + 1e-6) for n, v in sample.items()}
+        super().__init__(cfg, StandardNormalizer.from_dicts(means, stds, in_names))
+        if forcing_names:
+            self.forcing_normalizer = StandardNormalizer.from_dicts(means, stds, forcing_names)
+
+    def _source(self, split: str) -> TimeSeriesSource:
+        return self._src

@@ -1,23 +1,30 @@
-"""Time-series sources of named (T, H, W) fields, on the host in numpy.
+"""Time-series sources of named (T, H, W) fields, and the windowed dataset
+over them, on the host in numpy.
 
 A copy of the generated sources of ``spherical_dyffusion_tpu/data/datasets.py``
 (that module imports the JAX package's netCDF reader, so it is repeated here,
 not imported): ``TimeSeriesSource``, ``SyntheticTimeSeries`` (the source the
-product rollout reads) and ``StochasticModalTimeSeries`` (the skill-study
-system). The same numpy generators from the same seeds give the same float32
-arrays; ``tests/test_torch_port_inference.py`` pins the copy to the original.
-``NetCDFTimeSeries`` is not ported: its reader needs h5py.
+product rollout and the training slice read) and
+``StochasticModalTimeSeries`` (the skill-study system). The same numpy
+generators from the same seeds give the same float32 arrays;
+``tests/test_torch_port_inference.py`` pins the copy to the original.
+``WindowedDataset`` maps a sample index to its window of packed frames, as
+the JAX package's does with its numpy packing. ``NetCDFTimeSeries`` and
+``ConcatSource`` (several ensemble members) are not ported: the reader needs
+h5py.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 
 from .coords import HorizontalCoordinates, SigmaCoordinates
 
-__all__ = ["TimeSeriesSource", "SyntheticTimeSeries", "StochasticModalTimeSeries"]
+__all__ = ["TimeSeriesSource", "SyntheticTimeSeries", "StochasticModalTimeSeries",
+           "WindowedDataset", "pack_normalize"]
 
 
 class TimeSeriesSource:
@@ -146,4 +153,75 @@ class StochasticModalTimeSeries(TimeSeriesSource):
                               axis=1)
                 frames[i] = det + np.einsum("k,khw->hw", self._a[t, v], self._modes[v])
             out[n] = frames
+        return out
+
+
+def pack_normalize(arrays: Sequence[np.ndarray], means: Optional[np.ndarray] = None,
+                   stds: Optional[np.ndarray] = None) -> np.ndarray:
+    """Per-variable (T, H, W) arrays -> channels-last (T, H, W, C) float32,
+    z-scored per channel when ``means`` and ``stds`` are given: the numpy
+    form of the JAX package's ``utils/native.py:pack_normalize``."""
+    out = np.stack([np.asarray(a, np.float32) for a in arrays], axis=-1)
+    if means is not None:
+        out = (out - np.asarray(means, np.float32)) / np.asarray(stds, np.float32)
+    return out
+
+
+@dataclasses.dataclass
+class WindowedDataset:
+    """Maps a sample index to ``window + horizon`` frames, packed channels
+    last: ``{"dynamics": (T, H, W, C_in)`` raw, ``"dynamical_condition":
+    (T, H, W, C_forcing)`` normalized (with ``forcing_names``)``}``.
+
+    ``strategy``: "sequential" keeps every frame; "direct" the window frames
+    and the last; "random" the window frames and one step t in [1, horizon];
+    "interpolation" the window frames, a step t in [1, horizon - 1] and the
+    last frame. The sparse strategies read only the frames they keep and
+    return their draw as ``random_timestep``, from numpy's generator seeded
+    with ``(seed, index)``."""
+
+    source: TimeSeriesSource
+    in_names: Sequence[str]
+    horizon: int
+    window: int = 1
+    forcing_names: Sequence[str] = ()
+    forcing_normalizer: Optional[object] = None  # StandardNormalizer of the forcings
+    stride: int = 1
+    strategy: str = "sequential"
+    seed: int = 0
+
+    def __len__(self) -> int:
+        total = self.window + self.horizon
+        return max(0, (self.source.n_timesteps - total) // self.stride + 1)
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        start = i * self.stride
+        total = self.window + self.horizon
+        names = list(self.in_names) + [n for n in self.forcing_names if n not in self.in_names]
+        random_timestep = None
+        if self.strategy in ("sequential", "direct"):
+            raw = self.source.read_window(start, total, names)
+            if self.strategy == "direct":
+                keep = list(range(self.window)) + [total - 1]
+                raw = {k: v[keep] for k, v in raw.items()}
+        elif self.strategy in ("random", "interpolation"):
+            rng = np.random.default_rng((self.seed, i))
+            hi = self.horizon + 1 if self.strategy == "random" else self.horizon
+            random_timestep = int(rng.integers(1, hi))
+            offsets = list(range(self.window)) + [self.window - 1 + random_timestep]
+            if self.strategy == "interpolation":
+                offsets.append(total - 1)
+            chunks = [self.source.read_window(start + off, 1, names) for off in offsets]
+            raw = {k: np.stack([c[k][0] for c in chunks]) for k in names}
+        else:
+            raise ValueError(f"Unknown strategy {self.strategy!r}")
+        out = {"dynamics": pack_normalize([raw[n] for n in self.in_names])}
+        if random_timestep is not None:
+            out["random_timestep"] = np.int64(random_timestep)
+        if self.forcing_names:
+            fn = self.forcing_normalizer
+            out["dynamical_condition"] = pack_normalize(
+                [raw[n] for n in self.forcing_names],
+                means=fn.means.numpy() if fn is not None else None,
+                stds=fn.stds.numpy() if fn is not None else None)
         return out

@@ -2,7 +2,8 @@
 
 Counterpart of ``spherical_dyffusion_tpu/diffusion/dyffusion.py``:
 ``DYffusionConfig``, ``DiffusionSchedule``/``build_schedule``, ``q_sample``,
-``predict_x_last``, the cold samplers ``sample_loop``, ``scan_compatible``,
+``predict_x_last``, the forecaster's training loss ``p_losses``, the cold
+samplers ``sample_loop``, ``scan_compatible``,
 ``sample_loop_scan`` and its peeled form. The JAX package's ``lax.scan``
 samplers are Python loops here over the same math, and keep what makes them
 differ from ``sample_loop`` on the device: the two interpolations of each
@@ -15,8 +16,9 @@ callables:
     interpolate_fn(initial_condition, x_last, t, generator, **cond) -> x_t
     forecast_fn(x_t, time, condition, static_condition) -> x_hat_last
 
-Randomness (the interpolator's inference dropout) flows through an explicit
-host-side ``torch.Generator``. Tensors are channels-last (B, H, W, C).
+Randomness (the interpolator's dropout, the training timesteps) flows
+through an explicit host-side ``torch.Generator``. Tensors are channels-last
+(B, H, W, C).
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..utils.device import to_device
+
 __all__ = ["DYffusionConfig", "DiffusionSchedule", "build_schedule", "q_sample",
-           "predict_x_last", "sample_loop", "scan_compatible", "sample_loop_scan",
+           "predict_x_last", "p_losses", "sample_loop", "scan_compatible", "sample_loop_scan",
            "select_sampler", "Intermediates"]
 
 InterpolateFn = Callable[..., torch.Tensor]
@@ -39,8 +43,8 @@ ForecastFn = Callable[..., torch.Tensor]
 @dataclasses.dataclass(frozen=True)
 class DYffusionConfig:
     """The JAX package's DYffusion hyperparameters, same names and defaults.
-    ``forward_conditioning`` "data+noise-*" and the training-only fields are
-    accepted here but not used by the inference path."""
+    ``forward_conditioning`` "data+noise-*" is accepted here and raises
+    where a forecast would use it."""
 
     timesteps: int
     schedule: str = "before_t1_only"
@@ -220,24 +224,34 @@ def _hack_prepend(initial_condition: torch.Tensor, x: torch.Tensor) -> torch.Ten
 
 
 def q_sample(interpolate_fn: InterpolateFn, sched: DiffusionSchedule,
-             x_end: torch.Tensor, x0: torch.Tensor, interpolation_time: float,
+             x_end: torch.Tensor, x0: torch.Tensor,
+             interpolation_time: Union[float, torch.Tensor],
              generator: Optional[torch.Generator], **kwargs: Any) -> torch.Tensor:
-    """Run the stochastic interpolator at ``interpolation_time`` for every
-    sample (x_end = initial conditions, x0 = last timestep)."""
-    i_t = torch.full((x0.shape[0],), float(interpolation_time), dtype=torch.float32,
-                     device=x0.device)
+    """Run the stochastic interpolator at ``interpolation_time`` (a number,
+    or one time per sample) for every sample (x_end = initial conditions, x0
+    = last timestep). A time that is not positive (the masked t = 0 lane of
+    ``p_losses``) becomes 1."""
+    if isinstance(interpolation_time, torch.Tensor):
+        i_t = interpolation_time.float()
+    else:
+        i_t = torch.full((x0.shape[0],), float(interpolation_time), dtype=torch.float32,
+                         device=x0.device)
     i_t = torch.where(i_t > 0, i_t, torch.ones_like(i_t))
     return interpolate_fn(x_end, x0, i_t, generator, **kwargs)
 
 
 def predict_x_last(forecast_fn: ForecastFn, cfg: DYffusionConfig,
                    sched: DiffusionSchedule, initial_condition: torch.Tensor,
-                   x_t: torch.Tensor, t: float,
+                   x_t: torch.Tensor, t: Union[float, torch.Tensor],
                    static_condition: Optional[torch.Tensor] = None,
                    dynamical_condition: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Forecast x_{t0+h} from x_t at diffusion step ``t``."""
+    """Forecast x_{t0+h} from x_t at diffusion step ``t`` (a number, or one
+    step per sample)."""
     B = initial_condition.shape[0]
-    tt = torch.full((B,), float(t), dtype=torch.float32, device=x_t.device)
+    if isinstance(t, torch.Tensor):
+        tt = t.float()
+    else:
+        tt = torch.full((B,), float(t), dtype=torch.float32, device=x_t.device)
     ctype = cfg.forward_conditioning
     if ctype == "data":
         forward_cond = initial_condition
@@ -251,11 +265,60 @@ def predict_x_last(forecast_fn: ForecastFn, cfg: DYffusionConfig,
         elif cfg.dynamic_cond_from_t == "h":
             dyn = dynamical_condition[:, -1]
         elif cfg.dynamic_cond_from_t == "t":
-            dyn = dynamical_condition[:, int(round(float(t)))]
+            idx = torch.round(tt).long()
+            dyn = dynamical_condition[torch.arange(B, device=idx.device), idx]
         else:
             raise ValueError(f"Invalid dynamic_cond_from_t {cfg.dynamic_cond_from_t!r}")
         forward_cond = dyn if forward_cond is None else torch.cat([forward_cond, dyn], dim=-1)
     return forecast_fn(x_t, sched.encode_time(tt), forward_cond, static_condition)
+
+
+def p_losses(interpolate_fn: InterpolateFn, forecast_fn: ForecastFn, cfg: DYffusionConfig,
+             sched: DiffusionSchedule, input_dynamics: torch.Tensor, xt_last: torch.Tensor,
+             generator: torch.Generator, criterion: Optional[Callable] = None,
+             **cond_kwargs: Any) -> Dict[str, torch.Tensor]:
+    """The forecaster's training loss (the JAX package's ``p_losses``).
+
+    A diffusion step t ~ U{0..N-1} per sample, drawn from ``generator`` (a
+    host generator; the draw is copied to the card without waiting); for
+    t > 0 the training input x_t comes from the interpolator (computed for
+    every sample and masked, as in JAX); loss1 = criterion on the forecast
+    of x_last. With ``lambda_reconstruction2 > 0`` a second term simulates
+    one further diffusion step (t + 1, clamped to N - 1) from the forecast
+    (detached with ``reconstruction2_detach_x_last``) and is the criterion
+    per sample, averaged over the samples whose t + 1 is a valid step. The
+    interpolator and the forecaster draw their dropout from ``generator``
+    too."""
+    if criterion is None:
+        criterion = lambda a, b: torch.mean(torch.abs(a - b))  # noqa: E731 (l1)
+    B = input_dynamics.shape[0]
+    dev = input_dynamics.device
+    t = to_device(torch.randint(0, sched.num_timesteps, (B,), generator=generator), dev)
+    x_interp = q_sample(interpolate_fn, sched, input_dynamics, xt_last, sched.d_to_i(t.float()),
+                        generator, **cond_kwargs)
+    tmask = (t > 0).reshape((B,) + (1,) * (input_dynamics.dim() - 1))
+    x_t_model = torch.where(tmask, x_interp, input_dynamics)
+    xt_last_pred = predict_x_last(forecast_fn, cfg, sched, input_dynamics, x_t_model, t,
+                                  **cond_kwargs)
+    loss_forward = criterion(xt_last_pred, xt_last)
+
+    lam1, lam2 = cfg.lambda_reconstruction, cfg.lambda_reconstruction2
+    if lam2 > 0:
+        t2 = t + 1
+        mask = (t2 <= sched.num_timesteps - 1).to(xt_last.dtype)
+        x0_2 = xt_last_pred.detach() if cfg.reconstruction2_detach_x_last else xt_last_pred
+        t2_safe = torch.clamp(t2, max=sched.num_timesteps - 1)
+        x_interp2 = q_sample(interpolate_fn, sched, input_dynamics, x0_2,
+                             sched.d_to_i(t2_safe.float()), generator, **cond_kwargs)
+        x_last_pred2 = predict_x_last(forecast_fn, cfg, sched, input_dynamics, x_interp2,
+                                      t2_safe, **cond_kwargs)
+        per_sample = torch.stack([criterion(x_last_pred2[b:b + 1], xt_last[b:b + 1])
+                                  for b in range(B)])
+        loss_forward2 = torch.sum(per_sample * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        loss_forward2 = torch.zeros((), dtype=xt_last.dtype, device=dev)
+    loss = lam1 * loss_forward + lam2 * loss_forward2
+    return {"loss": loss, "loss_forward": loss_forward, "loss_forward2": loss_forward2}
 
 
 @dataclasses.dataclass

@@ -32,15 +32,25 @@ than falling back to the CPU.
 ``product_rollout`` is the product path of ``bench.py:product_bench``
 without the writer: ``run_inference`` over an aligned ``SyntheticTimeSeries``
 with the ``InferenceAggregator`` reducing on the card.
+
+``train_steps`` is the training path of ``bench.py:train_bench``: both
+experiments of the paper at their full width, in float32 with K1 on (its
+forward, and its backward's dx), K2-K4 off as the JAX trainer keeps them,
+the trainer settings of ``configs/trainer/default.yaml``, batch 1 from a
+``DebugDataModule`` at 180 x 360: the interpolator trains first, then the
+forecaster with it frozen inside ``p_losses``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional, Tuple
+import dataclasses
+import time
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .data.datamodule import DebugDataModule
 from .data.datasets import SyntheticTimeSeries
 from .data.normalization import StandardNormalizer
 from .data.packer import Packer
@@ -50,15 +60,17 @@ from .inference.loop import InferenceConfig, run_inference
 from .inference.prescriber import PrescriberConfig
 from .inference.stepper import DYffusionStepper
 from .models.sfno import SFNO, SFNOConfig
+from .ops.pallas_contractions import dhconv, dhconv_weight_image
 from .training.experiments import (
     DYffusionForecastingExperiment,
     ExperimentConfig,
     InterpolationExperiment,
 )
+from .training.trainer import Trainer, TrainerConfig
 from .utils.convert import flax_to_state_dict
 
 __all__ = ["state_names", "FORCING_NAMES", "MASK_NAME", "FAST_WINDOW", "sfno_configs",
-           "build", "window_inputs", "product_rollout"]
+           "build", "window_inputs", "product_rollout", "build_training", "train_steps"]
 
 FORCING_NAMES = ("DSWRFtoa", "HGTsfc")
 MASK_NAME = "ocean_fraction"
@@ -213,3 +225,110 @@ def product_rollout(stepper: DYffusionStepper, n_steps: int = 288, window: int =
     summary = run_inference(stepper, src, cfg, aggregator=agg, mask_name=MASK_NAME,
                             verbose=False)
     return summary, agg.get_logs()
+
+
+def build_training(embed: int = 256, layers: int = 8, img_shape: Tuple[int, int] = (180, 360),
+                   horizon: int = 6, n_state: int = 35, use_pallas: bool = True,
+                   dropout: bool = True, n_samples: int = 8, scheduler: str = "warmup_cosine",
+                   device: str = "cuda") -> Dict[str, Trainer]:
+    """The two trainers of the training path, ``{"interpolator": ...,
+    "forecaster": ...}``, over one ``DebugDataModule`` (``n_state`` state
+    channels, two forcings, ``n_samples`` samples of batch 1): the
+    interpolator (72 -> 35 channels, MLP dropout and DropPath 0.1 with
+    ``dropout``) and the forecaster (37 -> 35) of ``fv3gfs_interpolation``
+    and ``fv3gfs_dyffusion``, float32 compute, weights from a
+    ``torch.Generator`` seeded with 0; the forecaster's loss runs the
+    interpolator frozen.
+    ``dropout=False`` turns the interpolator's dropout off in both losses."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("main path: CUDA is not available; pass device='cpu' "
+                           "to run on the CPU")
+    dm = DebugDataModule(channels=n_state, height=img_shape[0], width=img_shape[1],
+                         horizon=horizon, n_forcing=len(FORCING_NAMES), batch_size=1,
+                         n_timesteps=horizon + n_samples, seed=0)
+    icfg, fcfg = sfno_configs(embed, layers, "float32", img_shape, horizon, n_state,
+                              use_pallas=use_pallas, fused_mlp=False)
+    if not dropout:
+        icfg = dataclasses.replace(icfg, dropout_mlp=0.0, drop_path_rate=0.0)
+    imodel = SFNO(icfg).to(device)
+    fmodel = SFNO(fcfg).to(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    imodel.init_weights(gen)
+    fmodel.init_weights(gen)
+    interp = InterpolationExperiment(
+        imodel, ExperimentConfig(horizon=horizon, enable_inference_dropout=True),
+        dm.in_packer, dm.out_packer, dm.normalizer)
+    dcfg = DYffusionConfig(timesteps=horizon, forward_conditioning="none",
+                           time_encoding="dynamics")
+    fexp = DYffusionForecastingExperiment(
+        fmodel, interp, dcfg, ExperimentConfig(horizon=horizon), dm.in_packer, dm.out_packer,
+        dm.normalizer, forcing_names=dm.cfg.forcing_names,
+        forcing_normalizer=dm.forcing_normalizer)
+    tcfg = TrainerConfig(epochs=1, steps_per_epoch=n_samples, scheduler=scheduler)
+    return {"interpolator": Trainer(interp, dm, tcfg), "forecaster": Trainer(fexp, dm, tcfg)}
+
+
+def train_steps(n_steps: int = 6, embed: int = 256, layers: int = 8,
+                img_shape: Tuple[int, int] = (180, 360), horizon: int = 6, n_state: int = 35,
+                repeat: bool = False, device: str = "cuda",
+                trainers: Optional[Dict[str, Trainer]] = None) -> Dict[str, dict]:
+    """``n_steps`` training steps of the interpolator, then of the
+    forecaster, through ``Trainer.train_step`` (``build_training``'s
+    trainers unless ``trainers`` is given). The batches are read first (set
+    up), ``n_steps`` distinct ones, or the first one every step with
+    ``repeat``. Per experiment it returns the per-step ``losses``, ``step_ms``
+    (host clock to the end-synced step), ``split_ms`` (forward, backward,
+    optimizer and EMA per step: CUDA events recorded between the parts on
+    the card, the host clock on the CPU), ``peak_bytes``
+    (``torch.cuda.max_memory_allocated`` over the steps; None on the CPU), and
+    per step the K1 launches (``k1_launches``; ``k1_backward``: those of the
+    backward, dx) and K1 weight images made (``k1_images``), with the
+    ``trainer`` and its ``state``."""
+    if trainers is None:
+        trainers = build_training(embed, layers, img_shape, horizon, n_state,
+                                  n_samples=max(n_steps, 1), device=device)
+    out = {}
+    for name, tr in trainers.items():
+        cuda = tr.device.type == "cuda"
+        batches = [b for _, b in zip(range(n_steps), tr.dm.train_batches(seed=0))]
+        if repeat:
+            batches = [batches[0]] * n_steps
+        state = tr.init_state()
+        gen = torch.Generator().manual_seed(1)
+        rec = {k: [] for k in ("losses", "step_ms", "split_ms", "k1_launches", "k1_backward",
+                               "k1_images")}
+        if cuda:
+            torch.cuda.synchronize(tr.device)
+            torch.cuda.reset_peak_memory_stats(tr.device)
+        metrics = []
+        for batch in batches:
+            marks = []
+
+            def mark(part, marks=marks):
+                if cuda:
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record()
+                    marks.append((part, ev, dhconv.launches))
+                else:
+                    marks.append((part, time.perf_counter(), dhconv.launches))
+
+            dhconv.launches = dhconv_weight_image.launches = 0
+            t0 = time.perf_counter()
+            mark("start")
+            dyn, cond, rt = tr.upload(batch)
+            metrics.append(tr.train_step(state, dyn, cond, gen, rt, mark=mark))
+            if cuda:
+                torch.cuda.synchronize(tr.device)
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["k1_launches"].append(dhconv.launches)
+            rec["k1_images"].append(dhconv_weight_image.launches)
+            rec["split_ms"].append({
+                part: (a.elapsed_time(b) if cuda else (b - a) * 1e3)
+                for (_, a, _), (part, b, _) in zip(marks, marks[1:])})
+            rec["k1_backward"].append(marks[2][2] - marks[1][2])
+        rec["losses"] = [float(m["loss"]) for m in metrics]
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(tr.device) if cuda else None
+        rec.update(trainer=tr, state=state)
+        out[name] = rec
+    return out

@@ -19,7 +19,11 @@ bf16 compute every block returns float32.
 
 ``use_pallas`` routes the dense contraction through the K1 kernel and
 ``fused_mlp`` the block MLP through the K2 kernel (the JAX package's flag
-names). ``fused_tail`` (for instance norm, an MLP and a gelu) takes
+names). K1 is differentiable (its backward's dx runs K1 too), so
+``use_pallas`` trains; K2, K3 and K4 have no backward and refuse autograd,
+so a network that trains keeps ``fused_mlp``, ``fused_tail`` and
+``fused_rank`` off, as the JAX trainer does. A training forward passes
+``deterministic=False`` and a host generator for the dropout masks. ``fused_tail`` (for instance norm, an MLP and a gelu) takes
 precedence over ``fused_mlp``: each block folds norm1 and, with
 ``time_scale_shift_before_filter=False``, the time scale-shift into one
 per-(sample, channel) affine (``InstanceNorm2d(fold=True)``) and runs
@@ -206,8 +210,11 @@ class SpectralConvS2(nn.Module):
             raise NotImplementedError(f"factorization {factorization!r} is not ported")
         else:
             self.weight = nn.Parameter(torch.empty(in_channels, out_channels, lmax, 2))
-        # K1's weight image, made on the card once per weight (not saved)
-        self._k1_image = WeightImageCache() if use_pallas and not self.factorization else None
+        # K1's weight images, made on the card once per weight version (not
+        # saved): the forward's, and the backward's conjugate transpose
+        k1 = use_pallas and not self.factorization
+        self._k1_image = WeightImageCache() if k1 else None
+        self._k1_image_t = WeightImageCache(conj_t=True) if k1 else None
         self.bias = nn.Parameter(torch.zeros(out_channels))
         fwd, inv = forward_transform, inverse_transform
         self.scale_residual = (fwd.nlat, fwd.nlon, fwd.grid) != (inv.nlat, inv.nlon, inv.grid)
@@ -269,7 +276,7 @@ class SpectralConvS2(nn.Module):
             image = self._k1_image(self.weight) \
                 if self._k1_image is not None and self.weight.is_cuda else None
             ys = contract(xs, self.weight, self.use_pallas, self.matmul_dtype, out_dtype=io,
-                          image=image)
+                          image=image, image_t=self._k1_image_t)
         out = inv(ys, out_dtype=io) + self.bias
         return out.to(dtype), residual
 

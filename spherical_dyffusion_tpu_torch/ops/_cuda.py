@@ -36,7 +36,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "sdt_dhconv_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "sdt_dhconv_weight_image": [_P, _P, _I, _I, _I, _P],
+    "sdt_dhconv_weight_image": [_P, _P, _I, _I, _I, _I, _P],
     "sdt_fused_mlp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       ctypes.c_ulonglong, _I, _P],
     "sdt_fused_block_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -18,7 +18,7 @@ rounding points (``ops/matmul.py``).
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional
 
 import torch
 
@@ -51,16 +51,18 @@ def contract_dhconv(x: torch.Tensor, w: torch.Tensor,
 def contract(x: torch.Tensor, w: torch.Tensor, use_pallas: bool = False,
              matmul_dtype: Optional[torch.dtype] = None,
              out_dtype: Optional[torch.dtype] = None,
-             image: Optional[torch.Tensor] = None) -> torch.Tensor:
+             image: Optional[torch.Tensor] = None,
+             image_t: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
     """Dispatch of the dense dhconv contraction. ``use_pallas`` routes it
     through the hand-written kernel K1 (the JAX package's flag name: there it
     selects the Pallas kernel), which, like the Pallas kernel, computes in
-    float32 whatever the matmul dtype; ``image`` is w's K1 weight image, made
-    once by the caller."""
+    float32 whatever the matmul dtype and is differentiable; ``image`` is w's
+    K1 weight image, made once by the caller, and ``image_t`` gives the
+    backward's (``ops/pallas_contractions.py:dhconv``)."""
     if use_pallas:
         from .pallas_contractions import dhconv
 
-        return emit(dhconv(x, w, image), out_dtype)
+        return emit(dhconv(x, w, image, image_t), out_dtype)
     return contract_dhconv(x, w, matmul_dtype, out_dtype)
 
 

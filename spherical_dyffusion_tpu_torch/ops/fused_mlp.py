@@ -48,7 +48,7 @@ from . import _cuda
 
 __all__ = ["fused_mlp", "fused_mlp_plain", "fused_block_tail", "fused_block_tail_plain",
            "philox4x32", "philox_layout", "philox_bits", "quantized_dropout",
-           "keep_threshold", "weight_image", "weight_image_plain"]
+           "keep_threshold", "weight_image", "weight_image_plain", "refuse_grad"]
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -338,6 +338,16 @@ def _launch(name: str, x: torch.Tensor, affine, w1, b1, w2, b2, residual, seed,
     return y2.reshape(*lead, C2)
 
 
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise where autograd would record a call of a kernel that has no
+    backward (grad enabled and an operand requiring grad), on every device,
+    as the JAX package's K2/K3 fail under differentiation: the output would
+    otherwise carry no gradient to the operands, silently."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; run it under torch.no_grad() "
+                           f"or inference, and train with the plain path")
+
+
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
               b2: torch.Tensor, residual: Optional[torch.Tensor] = None,
               seed: Optional[int] = None, *, drop_rate: float = 0.0,
@@ -347,7 +357,9 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
     x ``(..., C)``; w1 ``(C, H)``; w2 ``(H, C2)`` (cast to x's dtype, as in
     the JAX wrapper); b1, b2 float32; residual optional ``(..., C2)`` added
     after the output dropout. ``seed`` (a Python int) is required when
-    ``drop_rate > 0``. Returns ``(..., C2)`` in ``promote(x, residual)``."""
+    ``drop_rate > 0``. Returns ``(..., C2)`` in ``promote(x, residual)``.
+    Forward only: raises under autograd (``refuse_grad``)."""
+    refuse_grad("fused_mlp", x, w1, b1, w2, b2, residual)
     if x.device.type == "cpu":
         return fused_mlp_plain(x, w1, b1, w2, b2, residual, seed, drop_rate=drop_rate,
                                exact_gelu=exact_gelu)
@@ -368,7 +380,9 @@ def fused_block_tail(x: torch.Tensor, affine_a: torch.Tensor, affine_c: torch.Te
     x ``(B, ..., C)``: the PRE-norm activations, in the compute dtype;
     ``affine_a``/``affine_c``: float32 per-(sample, channel) fold,
     broadcastable as ``(B, 1, ..., 1, C)``; the rest as ``fused_mlp``.
-    Returns ``(B, ..., C2)`` in ``promote(x, residual)``."""
+    Returns ``(B, ..., C2)`` in ``promote(x, residual)``. Forward only:
+    raises under autograd (``refuse_grad``)."""
+    refuse_grad("fused_block_tail", x, affine_a, affine_c, w1, b1, w2, b2, residual)
     if x.device.type == "cpu":
         return fused_block_tail_plain(x, affine_a, affine_c, w1, b1, w2, b2, residual, seed,
                                       drop_rate=drop_rate, exact_gelu=exact_gelu)

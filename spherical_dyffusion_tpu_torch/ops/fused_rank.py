@@ -47,6 +47,7 @@ import torch
 
 from . import _cuda
 from .contractions import cp_spectral_scale_stacked
+from .fused_mlp import refuse_grad
 from .matmul import einsum
 
 __all__ = ["fused_rank", "fused_rank_plain"]
@@ -71,7 +72,9 @@ def fused_rank(xf: torch.Tensor, A_t: torch.Tensor, S_t: torch.Tensor,
     """Fused Legendre analysis, CP scale and Legendre synthesis; arguments
     and result as ``fused_rank_plain``. ``l_first`` ``(m,)`` int32: per m, an
     l before which A_t[m] and S_t[m] are zero (the transforms' record);
-    without it nothing is skipped."""
+    without it nothing is skipped. Forward only: raises under autograd
+    (``refuse_grad``)."""
+    refuse_grad("fused_rank", xf, A_t, S_t, C)
     if xf.device.type == "cpu":
         return fused_rank_plain(xf, A_t, S_t, C)
     if xf.device.type != "cuda":

@@ -1,41 +1,49 @@
 """K1: the dhconv spectral contraction as a hand-written CUDA kernel.
 
 Counterpart of ``spherical_dyffusion_tpu/ops/pallas_contractions.py``
-(``dhconv_pallas`` and its Pallas forward ``_pallas_forward``). The kernel is
-``csrc/dhconv.cu``: the complex product as one real GEMM over K = 2 CI on the
-TF32 tensor cores, with each operand split into two TF32 parts (3xTF32) so
-that the result keeps float32 accuracy; its source note says what bounds it
-on the H100 and how it is tiled. ``dhconv`` launches it for CUDA tensors and
-counts the launch in ``dhconv.launches``; for CPU tensors it computes the
-plain version, ``contract_dhconv`` (the same four real products in
-``torch.einsum``). There is no fallback: a CUDA tensor that the kernel cannot
-take raises.
+(``dhconv_pallas``, its Pallas forward ``_pallas_forward`` and its custom VJP
+``_dhconv_rr_fwd``/``_dhconv_rr_bwd``). The kernel is ``csrc/dhconv.cu``: the
+complex product as one real GEMM over K = 2 CI on the TF32 tensor cores, with
+each operand split into two TF32 parts (3xTF32) so that the result keeps
+float32 accuracy; its source note says what bounds it on the H100 and how it
+is tiled. ``dhconv`` launches it for CUDA tensors and counts the launch in
+``dhconv.launches``; for CPU tensors it computes the plain version,
+``contract_dhconv`` (the same four real products in ``torch.einsum``). There
+is no fallback: a CUDA tensor that the kernel cannot take raises.
 
 Layout: x is the interleaved ``(..., L, M, CI, 2)`` float32 layout of
 ``ops/sht.py`` (what ``torch.view_as_real`` gives for complex64); the output
 is ``(..., L, M, CO, 2)`` float32 in the same layout. The weight keeps the
 model's ``(CI, CO, L, 2)`` layout; the kernel reads it as an image made once
-per model (``dhconv_weight_image``): per l, per tile of 128 co and chunk of 16
-ci, the K-major tile ``(co, (ci, re/im))`` in the 128-byte swizzle that the
-tensor cores read, split into its TF32 hi and lo parts (twice the weight's
-bytes). ``WeightImageCache`` holds the image beside the weight and makes it
-again when the weight changes.
+per weight version (``dhconv_weight_image``): per l, per tile of 128 co and
+chunk of 16 ci, the K-major tile ``(co, (ci, re/im))`` in the 128-byte
+swizzle that the tensor cores read, split into its TF32 hi and lo parts
+(twice the weight's bytes). ``WeightImageCache`` holds the image beside the
+weight and makes it again when the weight changes.
 
-Forward only: the backward pass (``_dhconv_rr_bwd`` in the JAX package) comes
-with training.
+Differentiable, as the JAX function is: under autograd ``dhconv`` runs
+``DhconvFunction``, whose backward is JAX's ``_dhconv_rr_bwd``. The input
+gradient ``dx = g conj(W)^T`` is the forward's product shape, so on the card
+it is K1 itself (counted in ``dhconv.launches``) over the image of the
+conjugate transpose (``dhconv_weight_image(w, conj_t=True)``). The weight
+gradient ``dW = sum_{b,m} conj(x)^T g`` is a plain float32 product over l
+(``dhconv_weight_grad``, one ``torch.bmm`` with TF32 off whatever the
+process's setting), as JAX leaves it to XLA: it is the same code on every
+device and no kernel of this repository.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from . import _cuda
 from .contractions import contract_dhconv
 
-__all__ = ["dhconv", "dhconv_plain", "dhconv_weight_image", "dhconv_weight_image_plain",
-           "split_tf32", "WeightImageCache", "IMAGE_CO", "IMAGE_CI"]
+__all__ = ["dhconv", "dhconv_plain", "DhconvFunction", "dhconv_weight_grad",
+           "dhconv_weight_image", "dhconv_weight_image_plain", "conj_transpose", "split_tf32",
+           "WeightImageCache", "IMAGE_CO", "IMAGE_CI"]
 
 dhconv_plain = contract_dhconv
 
@@ -56,16 +64,25 @@ def split_tf32(a: torch.Tensor):
     return hi, rna(a.float() - hi)
 
 
+def conj_transpose(w: torch.Tensor) -> torch.Tensor:
+    """``(CI, CO, L, 2)`` -> ``(CO, CI, L, 2)``: the weight of the backward
+    product ``dx = g conj(W)^T``, the imaginary part negated."""
+    return torch.stack([w[..., 0], -w[..., 1]], dim=-1).transpose(0, 1)
+
+
 def _image_shape(CI: int, CO: int, L: int):
     return (L, -(-CO // IMAGE_CO), -(-CI // IMAGE_CI), 2, IMAGE_CO, 2 * IMAGE_CI)
 
 
-def dhconv_weight_image_plain(w: torch.Tensor) -> torch.Tensor:
+def dhconv_weight_image_plain(w: torch.Tensor, conj_t: bool = False) -> torch.Tensor:
     """The K1 weight image of w ``(CI, CO, L, 2)``: a zero-padded permutation
     to ``(L, CO/128, CI/16, 128, 32)`` (co rows, (ci, re/im) pairs along K),
     each row's eight 16-byte chunks swizzled (storage chunk s holds logical
     chunk s ^ (row % 8)), then split by ``split_tf32``; returns
-    ``(L, CO/128, CI/16, 2, 128, 32)`` float32, hi before lo."""
+    ``(L, CO/128, CI/16, 2, 128, 32)`` float32, hi before lo. ``conj_t``:
+    the image of ``conj_transpose(w)``, the backward's weight."""
+    if conj_t:
+        w = conj_transpose(w)
     CI, CO, L, _ = w.shape
     shape = _image_shape(CI, CO, L)
     nct, nch = shape[1], shape[2]
@@ -80,22 +97,26 @@ def dhconv_weight_image_plain(w: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, lo], dim=3).contiguous()
 
 
-def dhconv_weight_image(w: torch.Tensor) -> torch.Tensor:
-    """The K1 weight image of w ``(CI, CO, L, 2)`` float32: built by one small
-    kernel on the card (counted in ``dhconv_weight_image.launches``), by
+def dhconv_weight_image(w: torch.Tensor, conj_t: bool = False) -> torch.Tensor:
+    """The K1 weight image of w ``(CI, CO, L, 2)`` float32 (with ``conj_t``,
+    of its conjugate transpose): built by one small kernel on the card
+    (counted in ``dhconv_weight_image.launches``), by
     ``dhconv_weight_image_plain`` on the CPU."""
     if w.device.type == "cpu":
-        return dhconv_weight_image_plain(w)
+        return dhconv_weight_image_plain(w, conj_t)
     if w.device.type != "cuda":
         raise ValueError(f"dhconv_weight_image: unsupported device {w.device}")
     if w.dtype != torch.float32 or w.dim() != 4 or w.shape[-1] != 2 or not w.is_contiguous():
         raise ValueError(f"dhconv_weight_image: a contiguous float32 (CI, CO, L, 2) weight "
                          f"required, got {w.dtype} {tuple(w.shape)}")
     CI, CO, L, _ = w.shape
+    if conj_t:  # the image of the (CO, CI) product, read from w as it lies
+        CI, CO = CO, CI
     img = torch.empty(_image_shape(CI, CO, L), device=w.device, dtype=torch.float32)
     lib = _cuda.library()
     _cuda.check(lib.sdt_dhconv_weight_image(w.data_ptr(), img.data_ptr(), L, CI, CO,
-                                            _cuda.stream_ptr(w.device)), "dhconv_weight_image")
+                                            int(conj_t), _cuda.stream_ptr(w.device)),
+                "dhconv_weight_image")
     dhconv_weight_image.launches += 1
     return img
 
@@ -104,14 +125,16 @@ dhconv_weight_image.launches = 0
 
 
 class WeightImageCache:
-    """The K1 weight image of one weight tensor, made on first use and made
+    """The K1 weight image of one weight tensor (with ``conj_t``, the
+    backward's image of its conjugate transpose), made on first use and made
     again whenever the weight changes: the key is the weight's device, data
     pointer, version counter and shape, so an in-place update
     (``load_state_dict``, an optimizer step) or a move to another device
     rebuilds it. Held, not registered, by the module that owns the weight:
     it is derived and never saved."""
 
-    def __init__(self):
+    def __init__(self, conj_t: bool = False):
+        self.conj_t = conj_t
         self.key = None
         self.image: Optional[torch.Tensor] = None
 
@@ -119,19 +142,12 @@ class WeightImageCache:
         key = (w.device, w.data_ptr(), w._version, tuple(w.shape))
         if key != self.key:
             self.image = None  # free the old image before the new one is made
-            self.image = dhconv_weight_image(w)
+            self.image = dhconv_weight_image(w.detach(), self.conj_t)
             self.key = key
         return self.image
 
 
-def dhconv(x: torch.Tensor, w: torch.Tensor,
-           image: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x ``(..., L, M, CI, 2)``, w ``(CI, CO, L, 2)`` -> ``(..., L, M, CO, 2)``.
-
-    ``image``: w's ``dhconv_weight_image``, made once by the caller (see
-    ``WeightImageCache``); without it a CUDA call makes one for itself."""
-    if x.device.type == "cpu":
-        return dhconv_plain(x, w)
+def _check_operands(x: torch.Tensor, w: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"dhconv: unsupported device {x.device}")
     if x.dtype != torch.float32 or w.dtype != torch.float32:
@@ -140,22 +156,24 @@ def dhconv(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("dhconv: x and w must lie on the same device")
     if x.dim() < 4 or x.shape[-1] != 2 or w.dim() != 4 or w.shape[-1] != 2:
         raise ValueError(f"dhconv: bad shapes x {tuple(x.shape)}, w {tuple(w.shape)}")
-    L, M, CI = x.shape[-4:-1]
-    if w.shape[0] != CI or w.shape[2] != L:
+    if w.shape[0] != x.shape[-2] or w.shape[2] != x.shape[-4]:
         raise ValueError(f"dhconv: w {tuple(w.shape)} does not match x {tuple(x.shape)}")
+
+
+def _launch(x: torch.Tensor, image: torch.Tensor, CO: int) -> torch.Tensor:
+    """K1 on x ``(..., L, M, CI, 2)`` through ``image``, the image of a
+    ``(CI, CO, L, 2)`` weight: ``(..., L, M, CO, 2)``."""
+    L, M, CI = x.shape[-4:-1]
     if not x.is_contiguous():
         raise ValueError("dhconv: x must be contiguous")
-    CO = w.shape[1]
     lead = x.shape[:-4]
     B = x.numel() // (L * M * CI * 2)
     if B * L > 65535:
         raise ValueError(f"dhconv: batch x L = {B * L} exceeds the kernel grid (65535)")
-    if image is None:
-        image = dhconv_weight_image(w)
     if image.shape != _image_shape(CI, CO, L) or image.dtype != torch.float32 \
             or image.device != x.device or not image.is_contiguous():
         raise ValueError(f"dhconv: image {image.dtype} {tuple(image.shape)} is not the "
-                         f"weight image of w {tuple(w.shape)}")
+                         f"weight image of a ({CI}, {CO}, {L}, 2) weight")
     y = torch.empty(lead + (L, M, CO, 2), device=x.device, dtype=torch.float32)
     if B == 0:
         return y
@@ -164,6 +182,85 @@ def dhconv(x: torch.Tensor, w: torch.Tensor,
                                    CO, _cuda.stream_ptr(x.device)), "dhconv")
     dhconv.launches += 1
     return y
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, image: Optional[torch.Tensor]) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return dhconv_plain(x, w)
+    _check_operands(x, w)
+    return _launch(x, dhconv_weight_image(w) if image is None else image, w.shape[1])
+
+
+def dhconv_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``dW = sum_{b,m} conj(x)^T g`` per l: x ``(..., L, M, CI, 2)``, g
+    ``(..., L, M, CO, 2)`` -> ``(CI, CO, L, 2)`` float32. One real product
+    per l, ``[xr xi]^T [gr gi]`` over K = B M, holds JAX's four
+    (``dwr = xr^T gr + xi^T gi``, ``dwi = xr^T gi - xi^T gr``). It is a
+    float32 ``torch.bmm`` on every device, in full float32 whatever the
+    process's matmul precision: TF32 is switched off for the product and
+    the caller's setting put back after it."""
+    L, M, CI = x.shape[-4:-1]
+    CO = g.shape[-2]
+    xk = x.reshape(-1, L, M * 2 * CI).transpose(0, 1).reshape(L, -1, 2 * CI)
+    gk = g.reshape(-1, L, M * 2 * CO).transpose(0, 1).reshape(L, -1, 2 * CO)
+    flags = torch.backends.cuda.matmul
+    tf32 = flags.allow_tf32
+    flags.allow_tf32 = False
+    try:
+        p = torch.bmm(xk.transpose(1, 2), gk).view(L, CI, 2, CO, 2)
+    finally:
+        flags.allow_tf32 = tf32
+    dwr = p[:, :, 0, :, 0] + p[:, :, 1, :, 1]
+    dwi = p[:, :, 0, :, 1] - p[:, :, 1, :, 0]
+    return torch.stack([dwr, dwi], dim=-1).permute(1, 2, 0, 3).contiguous()
+
+
+class DhconvFunction(torch.autograd.Function):
+    """K1 with the backward of JAX's custom VJP (``_dhconv_rr_bwd``):
+    ``dx = g conj(W)^T`` (K1 over the conjugate-transposed image on the card,
+    ``dhconv_plain`` on the CPU) and ``dW = dhconv_weight_grad(x, g)``. It
+    saves x and w, never an image, so torch's version check catches an
+    in-place update of either between forward and backward. ``image``: w's
+    forward image (made here if None); ``image_t``: a callable giving w's
+    conjugate-transposed image (a ``WeightImageCache(conj_t=True)``, so that
+    it is made once per weight version; made here if None)."""
+
+    @staticmethod
+    def forward(ctx, x, w, image, image_t):
+        ctx.image_t = image_t
+        ctx.save_for_backward(x, w)
+        return _forward(x, w, image)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            if g.device.type == "cpu":
+                dx = dhconv_plain(g, conj_transpose(w))
+            else:
+                g = g.contiguous()
+                img_t = (ctx.image_t(w) if ctx.image_t is not None
+                         else dhconv_weight_image(w, conj_t=True))
+                dx = _launch(g, img_t, w.shape[0])
+        if ctx.needs_input_grad[1]:
+            dw = dhconv_weight_grad(x, g)
+        return dx, dw, None, None
+
+
+def dhconv(x: torch.Tensor, w: torch.Tensor, image: Optional[torch.Tensor] = None,
+           image_t: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
+    """x ``(..., L, M, CI, 2)``, w ``(CI, CO, L, 2)`` -> ``(..., L, M, CO, 2)``.
+
+    ``image``: w's ``dhconv_weight_image``, made once by the caller (see
+    ``WeightImageCache``); without it a CUDA call makes one for itself.
+    Where autograd records (grad enabled and x or w requiring grad) the call
+    goes through ``DhconvFunction`` with ``image_t`` for its backward;
+    elsewhere (inference, a frozen network under ``torch.no_grad``) it
+    records and saves nothing."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return DhconvFunction.apply(x, w, image, image_t)
+    return _forward(x, w, image)
 
 
 dhconv.launches = 0

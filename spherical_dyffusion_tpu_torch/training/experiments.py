@@ -1,12 +1,16 @@
-"""Experiment types, inference half, in PyTorch.
+"""Experiment types, in PyTorch.
 
-Counterpart of ``spherical_dyffusion_tpu/training/experiments.py`` for what
-the rollout needs: ``ExperimentConfig``, ``InterpolationExperiment.predict``
-and ``make_interpolate_fn``, and ``DYffusionForecastingExperiment`` with its
-interpolate/forecast callables and ``predict``. The JAX package's
-experiments are stateless over explicit parameter trees; here the networks
-are ``nn.Module``s that carry their weights, so the parameter arguments
-disappear. Training losses come with the training slice.
+Counterpart of ``spherical_dyffusion_tpu/training/experiments.py``:
+``ExperimentConfig``, ``InterpolationExperiment`` (``train_loss``,
+``predict``, ``make_interpolate_fn``) and ``DYffusionForecastingExperiment``
+(``train_loss`` through ``p_losses``, its interpolate/forecast callables and
+``predict``). The JAX package's experiments are stateless over explicit
+parameter trees; here the networks are ``nn.Module``s that carry their
+weights, so the parameter arguments disappear: the frozen interpolator of
+the forecaster's loss runs under ``torch.no_grad()``, which is the same math
+as JAX passing its tree as ``aux_params``. Randomness (timesteps, dropout)
+comes from one host ``torch.Generator``. ``SimultaneousForecastingExperiment``
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,10 +22,12 @@ import torch
 
 from ..data.normalization import StandardNormalizer
 from ..data.packer import Packer
-from ..diffusion.dyffusion import DYffusionConfig, build_schedule, select_sampler
+from ..diffusion.dyffusion import DYffusionConfig, build_schedule, p_losses, select_sampler
+from ..utils.device import to_device
+from .losses import get_loss_fn
 
 __all__ = ["ExperimentConfig", "InterpolationExperiment",
-           "DYffusionForecastingExperiment"]
+           "DYffusionForecastingExperiment", "stack_window"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,9 +43,23 @@ class ExperimentConfig:
     prediction_inputs_noise: float = 0.0
 
 
+def stack_window(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, W, C) -> (B, H, W, T*C)."""
+    B, T, H, W, C = x.shape
+    return torch.movedim(x, 1, -2).reshape(B, H, W, T * C)
+
+
+def _out_indices(in_packer: Packer, out_packer: Packer) -> list:
+    idx = in_packer.index
+    return [idx[n] for n in out_packer.names]
+
+
 class InterpolationExperiment:
-    """Stochastic time interpolation; dropout stays live at inference when
-    ``enable_inference_dropout`` (the DYffusion spread source)."""
+    """Stochastic time interpolation: inputs are the first ``window`` frames
+    and the last frame stacked into channels, a per-sample time t in
+    [1, horizon - 1], and the target the frame at ``window + t - 1``;
+    dropout stays live at inference when ``enable_inference_dropout`` (the
+    DYffusion spread source)."""
 
     def __init__(self, model, cfg: ExperimentConfig, in_packer: Packer,
                  out_packer: Packer, normalizer: StandardNormalizer):
@@ -50,6 +70,58 @@ class InterpolationExperiment:
         self.in_packer = in_packer
         self.out_packer = out_packer
         self.normalizer = normalizer
+        self.criterion = get_loss_fn(cfg.loss_function)
+        self._out_idx = _out_indices(in_packer, out_packer)
+
+    @property
+    def horizon_range(self) -> list:
+        return list(range(1, self.cfg.horizon))
+
+    def get_inputs_from_dynamics(self, dynamics: torch.Tensor) -> torch.Tensor:
+        return torch.cat([stack_window(dynamics[:, :self.cfg.window]), dynamics[:, -1]], dim=-1)
+
+    def slice_condition(self, dynamical_condition: Optional[torch.Tensor], target_time):
+        """The condition at ``target_time``: an int, or one index per sample."""
+        if dynamical_condition is None:
+            return None
+        if isinstance(target_time, int):
+            return dynamical_condition[:, target_time]
+        B = dynamical_condition.shape[0]
+        return dynamical_condition[torch.arange(B, device=target_time.device), target_time]
+
+    def train_loss(self, dynamics: torch.Tensor, generator: torch.Generator,
+                   dynamical_condition: Optional[torch.Tensor] = None,
+                   static_condition: Optional[torch.Tensor] = None,
+                   random_timestep: Optional[torch.Tensor] = None):
+        """``(loss, {"loss": loss})`` on normalized ``dynamics``
+        (B, window + horizon, H, W, C), t drawn from ``generator``; or, from a
+        sparse "interpolation"-strategy loader, dynamics (B, window + 2, ...)
+        holding [window frames, frame at t, last frame] with its draw
+        ``random_timestep`` (B,)."""
+        B = dynamics.shape[0]
+        w = self.cfg.window
+        if random_timestep is not None:
+            if dynamics.shape[1] != w + 2:
+                raise ValueError(f"random_timestep given but dynamics has {dynamics.shape[1]} "
+                                 f"frames; the sparse 'interpolation' strategy emits "
+                                 f"window+2={w + 2}")
+            t = to_device(torch.as_tensor(random_timestep), dynamics.device).long()
+            targets = dynamics[:, w][..., self._out_idx]
+            cond = dynamical_condition[:, w] if dynamical_condition is not None else None
+        else:
+            if dynamics.shape[1] != w + self.cfg.horizon:
+                raise ValueError(f"sequential interpolation training needs window+horizon="
+                                 f"{w + self.cfg.horizon} frames, got {dynamics.shape[1]}")
+            t = to_device(torch.randint(1, self.cfg.horizon, (B,), generator=generator),
+                          dynamics.device)
+            target_time = w + t - 1
+            targets = dynamics[torch.arange(B, device=t.device), target_time][..., self._out_idx]
+            cond = self.slice_condition(dynamical_condition, target_time)
+        preds = self.model(self.get_inputs_from_dynamics(dynamics), time=t.float(),
+                           condition=cond, static_condition=static_condition,
+                           deterministic=False, generator=generator)
+        loss = self.criterion(preds, targets)
+        return loss, {"loss": loss}
 
     def predict(self, inputs: torch.Tensor, time: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
@@ -112,18 +184,61 @@ class DYffusionForecastingExperiment:
         self.normalizer = normalizer
         self.forcing_names = tuple(forcing_names)
         self.forcing_normalizer = forcing_normalizer
+        self.criterion = get_loss_fn(cfg.loss_function)
+        self._out_idx = _out_indices(in_packer, out_packer)
 
-    def _interp_fn(self):
-        return self.interpolator.make_interpolate_fn(
+    def _interp_fn(self, training: bool = False):
+        """The frozen interpolator; its dropout is always on in training.
+        In training it runs under ``torch.no_grad()`` unless x_last carries
+        the forecaster's gradient (the ``lambda_reconstruction2`` term
+        without ``reconstruction2_detach_x_last``), which then flows
+        through it as in JAX; the trainer differentiates the forecaster's
+        parameters only."""
+        fn = self.interpolator.make_interpolate_fn(
             hack_for_imprecise_interpolation=self.diffusion_cfg.hack_for_imprecise_interpolation,
-            use_inference_dropout=bool(self.diffusion_cfg.enable_interpolator_dropout))
+            use_inference_dropout=training or bool(self.diffusion_cfg.enable_interpolator_dropout))
+        if not training:
+            return fn
 
-    def _forecast_fn(self):
+        def frozen(x_end, x_last, t, generator, **kw):
+            if torch.is_grad_enabled() and (x_end.requires_grad or x_last.requires_grad):
+                return fn(x_end, x_last, t, generator, **kw)
+            with torch.no_grad():
+                return fn(x_end, x_last, t, generator, **kw)
+
+        return frozen
+
+    def _forecast_fn(self, generator: Optional[torch.Generator] = None):
+        """The forecaster; dropout live when a ``generator`` is given."""
+
         def forecast_fn(x_t, time, condition, static_condition=None):
             return self.model(x_t, time=time.float(), condition=condition,
-                              static_condition=static_condition, deterministic=True)
+                              static_condition=static_condition,
+                              deterministic=generator is None, generator=generator)
 
         return forecast_fn
+
+    def train_loss(self, dynamics: torch.Tensor, generator: torch.Generator,
+                   dynamical_condition: Optional[torch.Tensor] = None,
+                   static_condition: Optional[torch.Tensor] = None,
+                   random_timestep: Optional[torch.Tensor] = None):
+        """``(loss, {"loss", "loss_forward", "loss_forward2"})`` of
+        ``p_losses`` on normalized ``dynamics`` (B, window + horizon, H, W,
+        C); the diffusion step and all dropout come from ``generator``."""
+        if random_timestep is not None:
+            raise ValueError("DYffusion forecasting draws its own diffusion timestep; sparse "
+                             "'random'/'interpolation' loader strategies are not supported")
+        cond_kwargs = {}
+        if dynamical_condition is not None:
+            cond_kwargs["dynamical_condition"] = dynamical_condition
+        if static_condition is not None:
+            cond_kwargs["static_condition"] = static_condition
+        losses = p_losses(self._interp_fn(training=True), self._forecast_fn(generator),
+                          self.diffusion_cfg, self.sched,
+                          stack_window(dynamics[:, :self.cfg.window]),
+                          dynamics[:, -1][..., self._out_idx], generator,
+                          criterion=self.criterion, **cond_kwargs)
+        return losses["loss"], losses
 
     def predict(self, initial_condition: torch.Tensor,
                 generator: Optional[torch.Generator] = None,

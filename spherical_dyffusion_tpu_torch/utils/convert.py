@@ -8,6 +8,13 @@ flattening its nested dicts with "." as separator. Trees saved with
 ``block_1`` .. ``block_{L-2}``, as ``unstack_block_params`` of the JAX
 package (``utils/params.py``) does. That module imports JAX, so its logic is
 repeated here, on numpy arrays.
+
+``train_state_payload`` carries a JAX ``TrainState`` across as the port
+trainer's checkpoint payload: params, EMA params, and optax's Adam state
+(``mu``, ``nu``, ``count``; with ``optax.MultiSteps`` also the accumulated
+gradients and the mini-step) as AdamW's ``exp_avg``, ``exp_avg_sq`` and step,
+so both packages can continue from the same mid-training state. The optax
+states are found by their fields (no optax import).
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["unstack_block_params", "flax_to_state_dict"]
+__all__ = ["unstack_block_params", "flax_to_state_dict", "train_state_payload"]
 
 
 def _tree_map(fn, tree):
@@ -67,3 +74,42 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk(params, "")
     return sd
+
+
+def _find(tree, *fields):
+    """The first node of a (named)tuple/dict tree that has all ``fields``."""
+    if all(hasattr(tree, f) for f in fields):
+        return tree
+    children = tree.values() if isinstance(tree, Mapping) else (
+        tree if isinstance(tree, (tuple, list)) else ())
+    for child in children:
+        found = _find(child, *fields)
+        if found is not None:
+            return found
+    return None
+
+
+def train_state_payload(state: Any) -> Dict[str, Any]:
+    """A JAX ``TrainState`` (params, opt_state of the trainer's optax chain,
+    ema, step) -> the port trainer's ``restore_payload``: ``params`` and
+    ``ema_params`` as ``state_dict``s, and ``opt_state`` with ``exp_avg`` and
+    ``exp_avg_sq`` by parameter name, ``updates`` (Adam's count),
+    ``mini_step`` and ``acc_grads`` (``MultiSteps``; 0 and None without)."""
+    adam = _find(state.opt_state, "mu", "nu", "count")
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu, count) in the optimizer state")
+    multi = _find(state.opt_state, "mini_step", "acc_grads")
+    mini = int(np.asarray(multi.mini_step)) if multi is not None else 0
+    ema = getattr(state, "ema", None)
+    return {
+        "params": flax_to_state_dict(state.params),
+        "ema_params": flax_to_state_dict(ema.params) if ema is not None else None,
+        "opt_state": {
+            "exp_avg": flax_to_state_dict(adam.mu),
+            "exp_avg_sq": flax_to_state_dict(adam.nu),
+            "updates": int(np.asarray(adam.count)),
+            "mini_step": mini,
+            "acc_grads": flax_to_state_dict(multi.acc_grads) if mini else None,
+        },
+        "step": int(np.asarray(state.step)),
+    }

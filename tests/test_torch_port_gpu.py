@@ -34,6 +34,7 @@ from spherical_dyffusion_tpu_torch.ops.fused_rank import fused_rank, fused_rank_
 from spherical_dyffusion_tpu_torch.ops.pallas_contractions import (
     dhconv,
     dhconv_plain,
+    dhconv_weight_grad,
     dhconv_weight_image,
     dhconv_weight_image_plain,
 )
@@ -606,3 +607,160 @@ def test_run_inference_never_waits_for_the_card(cuda, n_repeats):
     assert summary["n_forward_steps"] == 9
     assert set(agg.snapshots.snapshots) == {4}
     assert all(np.isfinite(v) for v in agg.get_logs().values())
+
+
+# ------------------------------------------------------------------ training
+
+
+@pytest.mark.parametrize("CI,CO,L", [(256, 256, 6), (40, 72, 5), (33, 130, 3)])
+def test_dhconv_conj_transposed_image_kernel_matches_plain(cuda, CI, CO, L):
+    """The backward's image, conj(w)^T written from w by the image kernel,
+    equals its plain version bit for bit (ragged widths both ways)."""
+    g = torch.Generator(device=cuda).manual_seed(30)
+    w = torch.randn((CI, CO, L, 2), device=cuda, generator=g) / CI
+    before = dhconv_weight_image.launches
+    img = dhconv_weight_image(w, conj_t=True)
+    torch.cuda.synchronize()
+    assert dhconv_weight_image.launches == before + 1
+    assert torch.equal(img, dhconv_weight_image_plain(w, conj_t=True))
+
+
+@pytest.mark.parametrize("lead,L,M,CI,CO", [((1,), 6, 181, 256, 256), ((2, 1), 5, 70, 40, 72),
+                                             ((3,), 3, 65, 33, 130)])
+def test_dhconv_backward_on_the_card_matches_autograd_of_plain(cuda, lead, L, M, CI, CO):
+    """dhconv under grad carries a grad_fn; its backward launches K1 once
+    for dx (over the conjugate-transposed image, made once) and matches
+    autograd of the plain version: dx and dW within 1e-5 of their largest
+    entry (3xTF32 drops about 2^-22 of each product; dW is a float32
+    product summed in another order)."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    x = torch.randn(lead + (L, M, CI, 2), device=cuda, generator=g, requires_grad=True)
+    w = (torch.randn((CI, CO, L, 2), device=cuda, generator=g) / CI).requires_grad_()
+    gy = torch.randn(lead + (L, M, CO, 2), device=cuda, generator=g)
+    k1, images = dhconv.launches, dhconv_weight_image.launches
+    y = dhconv(x, w)
+    assert y.grad_fn is not None
+    dx, dw = torch.autograd.grad(y, (x, w), gy)
+    torch.cuda.synchronize()
+    assert (dhconv.launches - k1, dhconv_weight_image.launches - images) == (2, 2)
+    want_dx, want_dw = torch.autograd.grad(dhconv_plain(x, w), (x, w), gy)
+    assert _rel_err(dx, want_dx) < 1e-5
+    assert _rel_err(dw, want_dw) < 1e-5
+    # a permuted upstream gradient is made contiguous before the launch
+    gp = gy.transpose(-2, -3).contiguous().transpose(-2, -3)
+    dx2, = torch.autograd.grad(dhconv(x, w), x, gp)
+    assert _rel_err(dx2, want_dx) < 1e-5
+
+
+def test_dhconv_weight_grad_keeps_float32_under_tf32(cuda):
+    """dW stays a full float32 product when the caller has switched TF32 on
+    for matmuls (one TF32 pass would miss by about 1e-4 of the largest
+    entry): within 1e-5 of its largest entry against float64, and the
+    caller's setting is put back."""
+    g = torch.Generator(device=cuda).manual_seed(41)
+    x = torch.randn((1, 4, 181, 64, 2), device=cuda, generator=g)
+    gy = torch.randn((1, 4, 181, 48, 2), device=cuda, generator=g)
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_tf32
+    try:
+        flags.allow_tf32 = True
+        dw = dhconv_weight_grad(x, gy)
+        assert flags.allow_tf32
+    finally:
+        flags.allow_tf32 = before
+    want = dhconv_weight_grad(x.double(), gy.double())
+    assert _rel_err(dw, want) < 1e-5
+
+
+def _adam_allowance(gk, gp, lr):
+    """Per parameter, how far AdamW's updates over the steps may move apart
+    when the gradients differ from ``gp`` (per step, the plain path's) by
+    ``gk``'s difference: lr times the sum over steps of min(2.5, 3 E /
+    (sqrt(v_hat) + eps)), E the largest difference over the steps, v_hat
+    Adam's bias-corrected second moment of ``gp`` (2 E / ... to first
+    order; clipping only raises the effective eps). Where a gradient entry
+    is rounding, as for a bias that an instance norm removes, the update
+    follows the rounding's sign."""
+    out = []
+    for i in range(len(gp[0])):
+        e = torch.stack([(sk[i] - sp[i]).abs() for sk, sp in zip(gk, gp)]).amax(0)
+        v, sens = torch.zeros_like(e), torch.zeros_like(e)
+        for t, sp in enumerate(gp, 1):
+            v = 0.999 * v + 0.001 * sp[i] ** 2
+            sens += (3 * e / ((v / (1 - 0.999 ** t)).sqrt() + 1e-8)).clamp(max=2.5)
+        out.append(lr * sens)
+    return out
+
+
+def _loss_grads(tr, batch, seed):
+    """The loss, its gradients, and the trained network's output with that
+    output's cotangent (the graph kept for one more product)."""
+    outs, cots = [], []
+
+    def keep(module, args, out):
+        outs.append(out)
+        out.register_hook(cots.append)
+
+    hook = tr.exp.model.register_forward_hook(keep)
+    dyn, cond, _ = tr.upload(batch)
+    loss, _ = tr.exp.train_loss(tr.normalizer.normalize(dyn), torch.Generator().manual_seed(seed),
+                                dynamical_condition=cond)
+    hook.remove()
+    grads = torch.autograd.grad(loss, tr._params, retain_graph=True)
+    assert len(outs) == len(cots) == 1
+    return float(loss.detach()), grads, outs[0], cots[0]
+
+
+def test_training_step_through_kernels_matches_plain_path(cuda):
+    """Three trainer steps of each experiment at constant lr 4e-4 through K1
+    (forward and dx) and through the plain path, same weights and batches,
+    dropout off, the same generators (so the same t): at every step the
+    loss within 1e-5 relative and every gradient within 1e-4 of its largest
+    entry, or of 1e-4 of the network's largest gradient entry where a
+    tensor's gradient cancels below that (a bias followed by an instance
+    norm, which removes it: what is left is rounding). Where the L1 loss's
+    sign flips at an output entry (a prediction meets its target within
+    rounding; at most 1e-5 of the entries, or one), the plain gradient is
+    taken at the kernels' output cotangent. The parameters after the three
+    updates are within 1e-6 plus AdamW's response to the measured gradient
+    difference (``_adam_allowance``). By the third step the filter weights
+    have moved far from their small initial values."""
+    steps = 3
+    kw = dict(embed=32, layers=2, img_shape=(32, 64), horizon=3, n_state=5, dropout=False,
+              n_samples=steps, scheduler="constant", device="cuda")
+    fast = main_path.build_training(use_pallas=True, **kw)
+    plain = main_path.build_training(use_pallas=False, **kw)
+    for name in ("interpolator", "forecaster"):
+        ftr, ptr = fast[name], plain[name]
+        ptr.exp.model.load_state_dict(ftr.exp.model.state_dict())
+        p0 = [p.detach().clone() for p in ptr.exp.model.parameters() if p.requires_grad]
+        states = (ftr.init_state(), ptr.init_state())
+        gk, gp = [], []
+        for k, batch in zip(range(steps), ptr.dm.train_batches(seed=0)):
+            lp, gp_k, op, cp = _loss_grads(ptr, batch, 5 + k)
+            lk, gk_k, _, ck = _loss_grads(ftr, batch, 5 + k)
+            assert abs(lk - lp) <= 1e-5 * abs(lp)
+            delta = ck - cp
+            flips = int((delta != 0).sum())
+            assert flips <= max(1, 1e-5 * delta.numel())
+            want = gp_k
+            if flips:
+                want = [a + b for a, b in zip(gp_k, torch.autograd.grad(op, ptr._params, delta))]
+            top = max(float(b.abs().max()) for b in want)
+            for a, b in zip(gk_k, want):
+                assert torch.isfinite(a).all()
+                scale = max(float(b.abs().max()), 1e-4 * top)
+                assert float((a - b).abs().max()) <= 1e-4 * scale
+            gk.append(gk_k)
+            gp.append(gp_k)
+            for tr, state in zip((ftr, ptr), states):
+                dyn, cond, _ = tr.upload(batch)
+                tr.train_step(state, dyn, cond, torch.Generator().manual_seed(5 + k))
+        lr = ftr.schedule(0)
+        assert abs(lr - 4e-4) < 1e-12
+        pk = [p.detach() for p in ftr._params]
+        pp = [p.detach() for p in ptr._params]
+        # the updates were real: an entry moves by about lr a step
+        assert max(float((b - q).abs().max()) for b, q in zip(pp, p0)) > lr
+        for a, b, c in zip(pk, pp, _adam_allowance(gk, gp, lr)):
+            assert bool(((a - b).abs() <= 1e-6 + c).all())

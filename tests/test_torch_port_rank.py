@@ -492,12 +492,14 @@ def test_keep_nothing_rate_leaves_the_fused_mlp():
     """MLP2d(fused=True) at rate 0.999 builds, runs the fused form while
     deterministic and the unfused form (exact-rate dropout) while dropout
     is live, as the JAX package's MLP2d does; the kernels' wrappers keep
-    refusing a keep-nothing rate."""
+    refusing a keep-nothing rate. The fused forms run under no_grad: the
+    kernels have no backward and refuse autograd."""
     mlp = MLP2d(8, 16, 8, drop_rate=0.999, fused=True)
     for p in mlp.parameters():
         torch.nn.init.normal_(p, std=0.3, generator=torch.Generator().manual_seed(0))
     x = torch.randn(64, 8, generator=torch.Generator().manual_seed(1))
-    det = mlp(x, deterministic=True)
+    with torch.no_grad():
+        det = mlp(x, deterministic=True)
     unfused = MLP2d(8, 16, 8, drop_rate=0.999)
     unfused.load_state_dict(mlp.state_dict())
     torch.testing.assert_close(det, unfused(x, deterministic=True), rtol=1e-5, atol=1e-6)
@@ -506,6 +508,6 @@ def test_keep_nothing_rate_leaves_the_fused_mlp():
     assert live.shape == x.shape and torch.isfinite(live).all()
     from spherical_dyffusion_tpu_torch.ops.fused_mlp import fused_mlp
 
-    with pytest.raises(ValueError, match="keep-nothing"):
+    with torch.no_grad(), pytest.raises(ValueError, match="keep-nothing"):
         fused_mlp(x, mlp.Dense_0.kernel, mlp.Dense_0.bias, mlp.Dense_1.kernel,
                   mlp.Dense_1.bias, seed=1, drop_rate=0.999)
