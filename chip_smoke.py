@@ -94,10 +94,36 @@ Phases, each timed:
    an output entry, the plain path's gradient taken at the kernels' output
    cotangent), every gradient finite and every filter weight's non-zero
    (F5); the parameters after the 3 updates (1e-6 plus AdamW's response to
-   the measured gradient difference).
+   the measured gradient difference);
+12. checkpoints and the command lines (run right after phase 11), in a
+   temporary directory: (a) ``train.run_model`` with
+   ``experiment=debug_interpolation``, then ``debug_dyffusion`` with the
+   first run's checkpoint as its interpolator, through the port's JSON
+   configs with dotlist overrides: embed 256 x 8 on 180 x 360, 35 channels
+   and 2 forcings, batch 1, K1 on, 2 steps each: every step's ms
+   (synchronized) with its K1 launches (16 and 24 a step, 8 of them dx, as
+   in phase 11), each checkpoint's bytes and write seconds, its read seconds,
+   and its parameters and EMA reloaded bit for bit; (b)
+   ``run_inference.main_from_config`` from the forecaster's checkpoint: 24
+   steps in windows of 12, K1 and K3 in both networks, bf16 compute and
+   transforms, the EMA: steps/s, 8 K1 and 8 K3 launches per SFNO forward,
+   ``metrics.json`` finite; then float32 with the interpolator's dropout
+   off through the kernels and the plain path: final states and logs within
+   1e-4; (c) a reference Lightning checkpoint built from (a)'s networks
+   (``sfno_flax_to_torch``, ``model.model.*``, ``model.interpolator.model.*``,
+   ``model_ema.*``, SFNO/datamodule/DYffusion hyperparameters), loaded by
+   ``load_experiment_checkpoint`` with gelu_exact, exact_norm and
+   exact_dropout and its weights equal bit for bit; a 12-step window with K1
+   and the exact dropout live, whose host-to-device bytes in one profiled
+   window (beside a 1 MiB control copy) stay below 1% of one activation;
+   dropout off, kernels against the plain path within 1e-4; (d)
+   ``results/skill_fast08/forecaster.msgpack`` decoded by
+   ``utils/flax_msgpack.py`` and loaded strictly into its SFNO.
 
-It prints a ``training`` JSON line (phase 11's figures), a ``kernels`` JSON
-line (K1's backward dx as its own entry), the ``nvidia-smi`` line, and last
+It prints a ``training`` JSON line (phase 11's figures), a ``cli`` JSON line
+(phase 12's), a ``kernels`` JSON line (K1's backward dx as its own entry;
+``launches_by_path`` holds phase 12 (b)'s counts as ``"cli"``), the
+``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. It needs the port's package beside it
 and a CUDA card; without either it exits non-zero at once.
@@ -122,6 +148,8 @@ TRAIN_STEPS = 6  # per experiment in phase 11
 CMP_STEPS = 3  # per experiment, kernels against the plain path, in phase 11 (c)
 SPIN_CYCLES = 200_000_000  # about 0.1 s of torch.cuda._sleep at the H100's clocks
 ROLLOUT_STEPS, ROLLOUT_WINDOW = 288, 96
+CLI_STEPS = 24  # the inference command line's rollout in phase 12, in windows of 12
+REF_STEPS = 12  # the reference checkpoint's window in phase 12
 # The fused-tail window in bf16 against the plain path in bf16, as a
 # multiple of the plain path's own bf16 error (bf16 against float32): the
 # fused tail rounds the folded norm input to bf16 once more. The CPU test
@@ -158,6 +186,342 @@ def check(ok: bool, what: str) -> None:
 def bound(flops: float, nbytes: float, peak: float):
     t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase12(smi_line, wrappers, report, runs) -> None:
+    """Phase 12: the product path from checkpoint files at 256 x 8 on 180 x
+    360, in a temporary directory: (a) the train command line, (b) the
+    inference command line from its checkpoint, (c) a reference Lightning
+    checkpoint built from (a)'s networks, (d) the trained CP forecaster of
+    ``results/skill_fast08`` decoded without flax."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spherical_dyffusion_tpu_torch import interface, main_path
+    from spherical_dyffusion_tpu_torch.inference.stepper import DYffusionStepper
+    from spherical_dyffusion_tpu_torch.models.sfno import SFNO, SFNOConfig
+    from spherical_dyffusion_tpu_torch.ops.pallas_contractions import dhconv
+    from spherical_dyffusion_tpu_torch.run_inference import main_from_config
+    from spherical_dyffusion_tpu_torch.train import run_model
+    from spherical_dyffusion_tpu_torch.training.trainer import Trainer
+    from spherical_dyffusion_tpu_torch.utils import flax_msgpack
+    from spherical_dyffusion_tpu_torch.utils.convert import flax_to_state_dict, state_dict_to_flax
+    from spherical_dyffusion_tpu_torch.utils.torch_convert import sfno_flax_to_torch
+
+    cli = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
+    d = Path(tmp.name)
+
+    def equal_sd(got, want):
+        return set(got) == set(want) and all(torch.equal(got[k].cpu(), want[k].cpu())
+                                             for k in want)
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    # (a) the train command line: the interpolator, then the forecaster,
+    # two steps each; every step timed (synchronized) with its K1 launches,
+    # those of the backward (dx) apart, and every checkpoint write timed
+    common = [f"ckpt_dir={d}", f"++log_dir={d / 'logs'}", "trainer.epochs=1",
+              "++trainer.steps_per_epoch=2", "datamodule.n_timesteps=8",
+              "datamodule.height=180", "datamodule.width=360", "datamodule.channels=35",
+              "datamodule.n_forcing=2", "datamodule.batch_size=1",
+              "++datamodule.max_val_samples=1", "++trainer.num_predictions=2",
+              "model.embed_dim=256", "model.num_layers=8", "++model.use_pallas=true",
+              "verbose=false"]
+    steps, writes = [], []
+    real_step, real_save, real_grad = Trainer.train_step, Trainer.save_checkpoint, \
+        torch.autograd.grad
+    backward = [0]
+
+    def timed_step(self, *a, **k):
+        torch.cuda.synchronize()
+        n0, b0, t0 = dhconv.launches, backward[0], time.perf_counter()
+        out = real_step(self, *a, **k)
+        torch.cuda.synchronize()
+        steps.append(dict(exp=type(self.exp).__name__, ms=(time.perf_counter() - t0) * 1e3,
+                          k1=dhconv.launches - n0, k1_backward=backward[0] - b0))
+        return out
+
+    def counted_grad(*a, **k):
+        n0 = dhconv.launches
+        out = real_grad(*a, **k)
+        backward[0] += dhconv.launches - n0
+        return out
+
+    def timed_save(self, state, path):
+        t0 = time.perf_counter()
+        real_save(self, state, path)
+        writes.append(dict(path=path, seconds=time.perf_counter() - t0,
+                           bytes=os.path.getsize(path)))
+
+    Trainer.train_step, Trainer.save_checkpoint = timed_step, timed_save
+    torch.autograd.grad = counted_grad
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        ip = run_model(None, ["experiment=debug_interpolation"] + common)
+        fc = run_model(None, ["experiment=debug_dyffusion",
+                              f"diffusion.interpolator_checkpoint_path={ip['ckpt_path']}"]
+                       + common)
+        train_s = time.perf_counter() - t0
+    finally:
+        Trainer.train_step, Trainer.save_checkpoint = real_step, real_save
+        torch.autograd.grad = real_grad
+    off = {k: wrappers[k].launches for k in ("K2", "K3", "K4")}
+    check(not any(off.values()), f"train command line launched kernels without a backward: {off}")
+    per_step = {"InterpolationExperiment": (16, 8), "DYffusionForecastingExperiment": (24, 8)}
+    for s in steps:
+        check((s["k1"], s["k1_backward"]) == per_step[s["exp"]],
+              f"train command line {s['exp']}: K1 launches {s['k1']} (backward "
+              f"{s['k1_backward']}) a step, expected {per_step[s['exp']]} as in phase 11")
+    check([s["exp"] for s in steps] == ["InterpolationExperiment"] * 2
+          + ["DYffusionForecastingExperiment"] * 2, f"train command line steps {steps}")
+    for name, run in (("interpolator", ip), ("forecaster", fc)):
+        check(all(np.isfinite(run["history"]["step_losses"])), f"{name}: a non-finite loss")
+        path = run["ckpt_path"]
+        write = [w for w in writes if w["path"] == path][-1]
+        t0 = time.perf_counter()
+        Trainer.load_checkpoint(path)
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exp, params, ema, _ = interface.load_experiment_checkpoint(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        state = run["trainer"].state
+        same = (equal_sd(params, state.model.state_dict())
+                and equal_sd(exp.model.state_dict(), state.model.state_dict())
+                and equal_sd(ema, state.ema.state_dict()))
+        check(same, f"{name}: the reloaded parameters or EMA differ from the trainer's")
+        ms = [s["ms"] for s in steps if (s["exp"] == "InterpolationExperiment") ==
+              (name == "interpolator")]
+        cli[name] = dict(step_ms=ms, losses=run["history"]["step_losses"],
+                         ckpt_bytes=write["bytes"], write_s=write["seconds"], read_s=read_s,
+                         load_experiment_s=load_s)
+        log(f"train command line {name}: step ms {[round(v, 2) for v in ms]} (synchronized "
+            f"around each step; phase 11's median "
+            f"{report['training'][name]['step_ms']:.2f} ms), losses "
+            f"{[round(v, 5) for v in run['history']['step_losses']]}; checkpoint "
+            f"{write['bytes'] / 1e9:.3f} GB written in {write['seconds']:.2f} s, read "
+            f"(torch.load) in {read_s:.2f} s, load_experiment_checkpoint {load_s:.2f} s; "
+            f"params and EMA reload bit for bit; on {smi_line}")
+        del exp, params, ema
+    log(f"train command line: both experiments built, trained and saved in {train_s:.2f} s; "
+        f"K1 launches a step {[s['k1'] for s in steps]} (backward "
+        f"{[s['k1_backward'] for s in steps]})")
+    fc_exp, fc_ema = fc["trainer"].exp, fc["trainer"].state.ema.state_dict()
+    del ip
+    torch.cuda.empty_cache()
+
+    # (b) the inference command line from the forecaster's checkpoint (and,
+    # through its config, the interpolator's): K1 and K3 in both networks,
+    # bf16 compute and transforms, the EMA
+    forwards = []
+    real_forward = SFNO.forward
+
+    def counted_forward(self, *a, **k):
+        forwards.append(a[0].shape[0])
+        return real_forward(self, *a, **k)
+
+    def infer(model, out, **extra):
+        over = {"model": model, "interpolator_model": model, **extra}
+        return main_from_config({"checkpoint_path": fc["ckpt_path"], "use_ema": True,
+                                 "n_forward_steps": CLI_STEPS, "forward_steps_in_memory": 12,
+                                 "experiment_dir": str(d / out), "log_zonal_mean_images": False,
+                                 "verbose": False, "overrides": over})
+
+    bf16 = dict(use_pallas=True, fused_tail=True, compute_dtype="bfloat16",
+                sht_matmul_dtype="bfloat16")
+    zero_counts()
+    SFNO.forward = counted_forward
+    try:
+        t0 = time.perf_counter()
+        out = infer(bf16, "bf16")
+        wall = time.perf_counter() - t0
+    finally:
+        SFNO.forward = real_forward
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    runs["cli"] = dict(launches=launches)
+    summary = out["summary"]
+    log(f"inference command line, {CLI_STEPS} steps in windows of 12 from the checkpoint, bf16, "
+        f"K1 and K3, EMA: {wall:.2f} s with loading; duration {summary['duration_s']:.3f} s, "
+        f"total {summary['total_steps_per_second']:.3f} steps/s, steady "
+        f"{summary['steady_steps_per_second']:.3f} steps/s (phase 7's fused-tail window is "
+        f"printed below); SFNO forwards {len(forwards)}, launches {launches}; on {smi_line}")
+    for k, n in (("K1", 8), ("K3", 8), ("K2", 0), ("K4", 0)):
+        check(bool(forwards) and launches[k] == n * len(forwards),
+              f"inference command line: {k} launched {launches[k]} times in {len(forwards)} "
+              f"SFNO forwards, expected {n} a forward")
+    metrics = json.loads((d / "bf16" / "metrics.json").read_text())
+    logs = {k: v for k, v in metrics.items() if k.startswith("inference/")}
+    bad = [k for k, v in logs.items() if not np.isfinite(v)]
+    check(len(logs) > 20 and not bad and metrics["n_forward_steps"] == CLI_STEPS,
+          f"inference command line metrics.json: {len(logs)} metrics, non-finite {bad[:4]}")
+    cli["inference"] = dict(steps=CLI_STEPS, wall_s=wall, forwards=len(forwards),
+                            launches=launches, **{k: summary[k] for k in (
+                                "duration_s", "total_steps_per_second",
+                                "steady_steps_per_second")})
+    del out
+
+    # float32, the interpolator's dropout off: through the kernels and
+    # through the plain path, final states and logs
+    finals = []
+    real_window = DYffusionStepper.run_window
+
+    def recorded(self, *a, **k):
+        result = real_window(self, *a, **k)
+        finals.append(result[0])
+        return result
+
+    det = {}
+    DYffusionStepper.run_window = recorded
+    try:
+        for kernels in (True, False):
+            finals.clear()
+            model = dict(use_pallas=kernels, fused_tail=kernels)
+            det[kernels] = (infer(model, f"f32_{kernels}", diffusion={
+                "enable_interpolator_dropout": False})["logs"], finals[-1])
+    finally:
+        DYffusionStepper.run_window = real_window
+    (lk, xk), (lp, xp) = det[True], det[False]
+    state_rel = float((xk - xp).abs().max() / xp.abs().max())
+    log_rel = max(abs(lk[k] - v) / max(abs(v), 100.0 if "percent_diff" in k else 1.0)
+                  for k, v in lp.items())
+    log(f"inference command line float32, dropout off, {CLI_STEPS} steps: kernels against the "
+        f"plain path: final state max gap {state_rel:.3e} of its largest value, logs max gap "
+        f"{log_rel:.3e} of each value (or of 1; tolerance 1e-4, phase 7's)")
+    check(set(lk) == set(lp) and state_rel <= 1e-4 and log_rel <= 1e-4,
+          "inference command line: the kernels disagree with the plain path")
+    cli["inference"].update(f32_state_rel=state_rel, f32_logs_rel=log_rel)
+    del det, finals, xk, xp
+    torch.cuda.empty_cache()
+
+    # (c) a reference Lightning checkpoint from (a)'s networks, through the
+    # upstream names (sfno_flax_to_torch): the forecaster under model.model,
+    # the interpolator under model.interpolator.model, LitEma shadows
+    nets = {"model.model.": fc_exp.model.state_dict(),
+            "model.interpolator.model.": fc_exp.interpolator.model.state_dict()}
+    sd = {}
+    for prefix, net in list(nets.items()) + [("model_ema.", fc_ema)]:
+        for k, v in sfno_flax_to_torch(state_dict_to_flax(net), mlp_dropout=True).items():
+            key = "model_ema." + ("model." + k).replace(".", "") if prefix == "model_ema." \
+                else prefix + k
+            sd[key] = torch.from_numpy(v)
+    names = list(fc_exp.in_packer.names)
+    forcings = list(fc_exp.forcing_names)
+    check(len(names) == 35 and len(forcings) == 2, f"state {len(names)}, forcings {forcings}")
+    hp = {"model_config": {"_target_": "src.models.sfno.sfnonet."
+                                       "SphericalFourierNeuralOperatorNet",
+                           "embed_dim": 256, "num_layers": 8, "dropout_mlp": 0.1,
+                           "drop_path_rate": 0.1},
+          "datamodule_config": {"_target_": "src.datamodules.fv3gfs.FV3GFSDataModule",
+                                "in_names": names + forcings, "forcing_names": forcings,
+                                "out_names": names, "horizon": 6, "window": 1},
+          "diffusion_config": {"_target_": "src.diffusion.dyffusion.DYffusion",
+                               "forward_conditioning": "none", "time_encoding": "dynamics"}}
+    ref_path = str(d / "reference.ckpt")
+    t0 = time.perf_counter()
+    torch.save({"state_dict": sd, "hyper_parameters": hp, "epoch": 1}, ref_path)
+    ref_write = time.perf_counter() - t0
+    ref_bytes = os.path.getsize(ref_path)
+    del sd
+    t0 = time.perf_counter()
+    exp, _, ema, cfg = interface.load_experiment_checkpoint(
+        ref_path, overrides={"model": {"use_pallas": True}})
+    torch.cuda.synchronize()
+    ref_load = time.perf_counter() - t0
+    mc = exp.model.cfg
+    check((mc.activation_function, mc.exact_norm, mc.exact_dropout) ==
+          ("gelu_exact", True, True) and exp.interpolator.model.cfg.exact_dropout,
+          f"reference checkpoint: the model is not the exact-form one: {mc}")
+    check(equal_sd(exp.model.state_dict(), nets["model.model."])
+          and equal_sd(exp.interpolator.model.state_dict(), nets["model.interpolator.model."])
+          and equal_sd(ema, fc_ema), "reference checkpoint: the weights differ")
+    log(f"reference checkpoint: {ref_bytes / 1e9:.3f} GB written in {ref_write:.2f} s, loaded "
+        f"in {ref_load:.2f} s (gelu_exact, exact_norm, exact_dropout), weights and EMA equal "
+        f"bit for bit")
+    inp = main_path.window_inputs(REF_STEPS, seed=5, device="cuda")
+    stepper = DYffusionStepper(exp, use_ema_params=True, ema_params=ema)
+
+    def ref_window(st, seed=0):
+        out = st.run_window(inp["x0"], inp["forcing"], None, None,
+                            torch.Generator().manual_seed(seed), REF_STEPS)
+        torch.cuda.synchronize()
+        return out
+
+    ref_window(stepper)  # warm-up: K1's images, cuBLAS
+    zero_counts()
+    t0 = time.perf_counter()
+    x_out, preds = ref_window(stepper, 1)
+    ref_s = time.perf_counter() - t0
+    ref_launches = {k: fn.launches for k, fn in wrappers.items()}
+    check(ref_launches["K1"] > 0 and bool(torch.isfinite(preds).all()),
+          f"reference checkpoint window: launches {ref_launches}, finite "
+          f"{bool(torch.isfinite(preds).all())}")
+    # exact dropout draws its uniforms on the card: count the bytes copied
+    # from the host in one profiled window, beside a 1 MiB pinned copy made
+    # on purpose in it (the profiler has to see that one)
+    act_bytes = 180 * 360 * 256 * 4
+    control = torch.ones(1 << 18).pin_memory()
+    trace = str(d / "reference_window_trace.json")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        control.to("cuda", non_blocking=True)
+        ref_window(stepper, 2)
+    prof.export_chrome_trace(trace)
+    events = json.loads(Path(trace).read_text()).get("traceEvents", [])
+    h2d = [int(e.get("args", {}).get("bytes", 0)) for e in events
+           if "memcpy" in str(e.get("cat", "")).lower() and "HtoD" in str(e.get("name", ""))]
+    h2d_bytes = sum(h2d) - control.numel() * 4
+    log(f"reference checkpoint, {REF_STEPS} steps with the interpolator's exact dropout live "
+        f"(K1 on): {ref_s:.3f} s, launches {ref_launches}; host-to-device in one profiled "
+        f"window: {len(h2d)} copies, {sum(h2d)} bytes, {h2d_bytes} besides the 1 MiB control "
+        f"(one activation is {act_bytes} bytes)")
+    check(max(h2d, default=0) >= control.numel() * 4,
+          "the profiler saw no host-to-device copy of the 1 MiB control")
+    check(h2d_bytes < act_bytes // 100,
+          f"exact dropout: {h2d_bytes} bytes copied from the host in one window")
+    del stepper, exp, x_out, preds
+    torch.cuda.empty_cache()
+
+    def ref_det(kernels):
+        e, _, e_ema, _ = interface.load_experiment_checkpoint(ref_path, overrides={
+            "model": {"use_pallas": kernels}, "diffusion": {"enable_interpolator_dropout": False}})
+        return ref_window(DYffusionStepper(e, use_ema_params=True, ema_params=e_ema))[1]
+
+    pk, pp = ref_det(True), ref_det(False)
+    ref_rel = float((pk - pp).abs().max() / pp.abs().max())
+    log(f"reference checkpoint float32, dropout off: kernels against the plain path max gap "
+        f"{ref_rel:.3e} of the largest prediction (tolerance 1e-4)")
+    check(ref_rel <= 1e-4, "reference checkpoint: the kernels disagree with the plain path")
+    cli["reference"] = dict(bytes=ref_bytes, write_s=ref_write, load_s=ref_load,
+                            window_s=ref_s, launches=ref_launches, h2d_bytes=h2d_bytes,
+                            f32_rel=ref_rel)
+    del pk, pp, fc, fc_exp, fc_ema, nets
+    os.remove(ref_path)
+    torch.cuda.empty_cache()
+
+    # (d) the trained CP forecaster, decoded by the port's reader
+    path = Path(__file__).resolve().parent / "results" / "skill_fast08" / "forecaster.msgpack"
+    t0 = time.perf_counter()
+    tree = flax_msgpack.read(str(path))
+    decode_s = time.perf_counter() - t0
+    net = SFNO(SFNOConfig(img_shape=(64, 128), in_chans=4, out_chans=2, embed_dim=64,
+                          num_layers=4, with_time_emb=True, min_time=0, max_time=5,
+                          hard_thresholding_fraction=0.8, factorization="cp", rank=0.25))
+    sd = flax_to_state_dict(tree)
+    net.load_state_dict(sd, strict=True)
+    leaves = len(sd)
+    nbytes = sum(v.numel() * v.element_size() for v in sd.values())
+    log(f"results/skill_fast08 forecaster: {path.stat().st_size} bytes decoded without flax in "
+        f"{decode_s:.3f} s; {leaves} parameter leaves, {nbytes} bytes, loaded strictly")
+    cli["skill_fast08"] = dict(leaves=leaves, bytes=nbytes, decode_s=decode_s)
+    tmp.cleanup()
+    report["cli"] = cli
 
 
 def main() -> int:
@@ -548,6 +912,10 @@ def main() -> int:
         del fast, plain
         torch.cuda.empty_cache()
         report["training"] = train_report
+
+    runs = {}
+    with Phase("12 checkpoints and command lines at 256 x 8"):
+        phase12(smi_line, wrappers, report, runs)
 
     with Phase("2 K1 dhconv"):
         g = torch.Generator(device=dev).manual_seed(0)
@@ -970,7 +1338,7 @@ def main() -> int:
         return pk, pp
 
     with Phase("6 window path (K1, K2, scan sampler)"):
-        runs = {"window": drive("window path", {}, {"K1": 8, "K2": 8, "K3": 0, "K4": 0})}
+        runs["window"] = drive("window path", {}, {"K1": 8, "K2": 8, "K3": 0, "K4": 0})
         # two horizon-6 segments: one double-batch interpolation per step
         check(runs["window"]["batches"]["interpolator"] == [2] * N_STEPS,
               "the scan sampler should run every interpolation on the double batch")
@@ -1262,7 +1630,12 @@ def main() -> int:
                         replaces="spherical_dyffusion_tpu/ops/pallas_contractions.py:94",
                         kernel_ms=report["K1_bwd"]["ms"], **report["K1_bwd"]))
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
+    fused_tail_rate = N_STEPS / runs["fused_tail"]["seconds"]
+    report["cli"]["inference"]["phase7_fused_tail_steps_per_second"] = fused_tail_rate
+    log(f"inference command line: steady {report['cli']['inference']['steady_steps_per_second']:.3f}"
+        f" steps/s against phase 7's fused-tail window {fused_tail_rate:.3f} steps/s")
     print(json.dumps({"training": report["training"]}))
+    print(json.dumps({"cli": report["cli"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -132,6 +132,12 @@ class DiffusionSchedule:
             return self.d_to_i(t)
         raise ValueError(f"Unknown time_encoding {enc!r}")
 
+    @property
+    def forecaster_time_range(self) -> tuple:
+        """(min, max) of the forecaster's encoded times."""
+        times = [float(self.encode_time(d)) for d in range(self.num_timesteps)]
+        return (min(times), max(times))
+
 
 def build_schedule(cfg: DYffusionConfig) -> DiffusionSchedule:
     horizon = cfg.timesteps

@@ -13,9 +13,10 @@ MLP (K2, K3) draws a 64-bit seed from it for its in-kernel Philox bits;
 draws the 8 random bits of each element in one call, as the JAX package's
 module draws ``jax.random.bits(..., uint8)``. Both keep an element iff its
 8 bits are below ``t``, so the unfused and the fused MLP drop by the same
-rule, from different bits. Where the JAX package's ``QuantizedDropout``
-leaves quantized dropout for exact-rate dropout, the port draws that mask
-from the caller's generator itself.
+rule, from different bits. Exact-rate dropout (``exact_dropout``: the
+config's ``exact_dropout``, and where the JAX package's ``QuantizedDropout``
+leaves quantized dropout for it) draws a uniform on x's device, from a
+generator there seeded from the caller's.
 """
 
 from __future__ import annotations
@@ -42,15 +43,17 @@ def draw_seed(generator: torch.Generator) -> int:
 
 def exact_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
     """Inverted dropout at the exact rate (``flax.linen.Dropout``): keep
-    each element with probability ``1 - rate`` (a uniform draw from
-    ``generator``, on the generator's device) and scale kept ones by
-    ``1 / (1 - rate)`` in x's dtype; rate 1 drops everything."""
+    each element with probability ``1 - rate`` and scale kept ones by
+    ``1 / (1 - rate)`` in x's dtype; rate 1 drops everything. The uniform
+    draw is made on x's device, from a generator there seeded from
+    ``generator`` (a host generator): nothing of x's size crosses from the
+    host."""
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=generator.device)
-    mask = to_device(u < keep, x.device)
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    device_gen = torch.Generator(device=x.device).manual_seed(draw_seed(generator))
+    u = torch.rand(x.shape, generator=device_gen, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -121,16 +124,23 @@ class QuantizedDropout(nn.Module):
     module: a rate that rounds to
     keep-everything (below 1/512) is no dropout, and where the last axis is
     not a multiple of 4 or the rate rounds to keep-nothing (``rate >= 1 -
-    1/512``) the module drops at the exact rate (``exact_dropout``)."""
+    1/512``) the module drops at the exact rate (``exact_dropout``).
+    ``exact=True`` always drops at the exact rate (the config's
+    ``exact_dropout``, which the loader of reference checkpoints turns on)."""
 
-    def __init__(self, rate: float):
+    def __init__(self, rate: float, exact: bool = False):
         super().__init__()
         self.rate = rate
+        self.exact = exact
         self.t = int(round((1.0 - rate) * 256)) if rate > 0.0 else 256
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if deterministic or self.rate <= 0.0 or self.t >= 256:
+        if deterministic or self.rate <= 0.0:
+            return x
+        if self.exact:
+            return exact_dropout(x, self.rate, generator)
+        if self.t >= 256:
             return x
         if self.t <= 0 or x.shape[-1] % 4:
             return exact_dropout(x, self.rate, generator)
@@ -152,21 +162,23 @@ class MLP2d(nn.Module):
     product, and the unfused form applies it in float32 first. Both forms
     share the parameter tree ``Dense_0``/``Dense_1``. A live dropout rate
     that rounds to keep-nothing leaves the fused form for the unfused one, as
-    in the JAX package (the kernels quantize the rate)."""
+    in the JAX package (the kernels quantize the rate), and ``exact_dropout``
+    never takes it: K2 and K3 draw quantized masks only."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
                  activation: str = "gelu", drop_rate: float = 0.0,
-                 dtype: Optional[torch.dtype] = None, fused: bool = False):
+                 dtype: Optional[torch.dtype] = None, fused: bool = False,
+                 exact_dropout: bool = False):
         super().__init__()
         if fused and activation not in ("gelu", "gelu_exact"):
             raise ValueError(f"fused MLP supports gelu/gelu_exact, not {activation!r}")
         self.activation = activation
         self.drop_rate = drop_rate
         self.dtype = dtype
-        self.fused = fused
+        self.fused = fused and not exact_dropout
         self.Dense_0 = Dense(in_features, hidden_features, dtype=dtype)
         self.Dense_1 = Dense(hidden_features, out_features, dtype=dtype)
-        self.drop = QuantizedDropout(drop_rate)
+        self.drop = QuantizedDropout(drop_rate, exact=exact_dropout)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 residual: Optional[torch.Tensor] = None,

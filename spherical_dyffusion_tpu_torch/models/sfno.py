@@ -73,7 +73,6 @@ _SUPPORTED = {
     "filter_type": ("linear",),
     "operator_type": ("dhconv",),
     "separable": (False,),
-    "exact_dropout": (False,),
     "checkpointing": (0,),
     "factorization": (None, "", "cp"),
     "spectral_io_dtype": ("", "bfloat16"),
@@ -315,7 +314,8 @@ class FNOBlock(nn.Module):
             self.mlp = MLP2d(C, int(C * cfg.mlp_ratio), C,
                              activation=cfg.activation_function,
                              drop_rate=cfg.dropout_mlp, dtype=compute,
-                             fused=cfg.fused_mlp or self.use_tail)
+                             fused=cfg.fused_mlp or self.use_tail,
+                             exact_dropout=cfg.exact_dropout)
         self.drop_path = DropPath(drop_path)
 
     def _scale_shift(self, time_emb: torch.Tensor):
@@ -393,7 +393,7 @@ class SFNO(nn.Module):
         self.encoder_out = Dense(width, C, use_bias=False, dtype=compute)
         if cfg.pos_embed:
             self.pos_embed = nn.Parameter(torch.empty(1, H, W, C))
-        self.pos_drop = QuantizedDropout(cfg.pos_emb_dropout)
+        self.pos_drop = QuantizedDropout(cfg.pos_emb_dropout, exact=cfg.exact_dropout)
         if cfg.with_time_emb:
             self.time_emb = TimeEmbedMLP(C * cfg.time_dim_mult, C)
         n = cfg.num_layers

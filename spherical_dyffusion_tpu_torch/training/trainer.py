@@ -5,8 +5,10 @@ Counterpart of ``spherical_dyffusion_tpu/training/trainer.py`` (``TrainerConfig`
 on one device,
 
 * AdamW with optax's defaults (b1 0.9, b2 0.999, eps 1e-8) and two parameter
-  groups: weight decay only on parameters of two or more dimensions, never on
-  ``pos_embed`` (JAX's ``_wd_mask``);
+  groups: weight decay on the leaves that JAX's ``_wd_mask`` decays, those of
+  two or more dimensions in the JAX layout and never ``pos_embed``; under
+  ``scan_layers`` JAX stacks the middle blocks with a leading layer axis, so
+  their 1-D leaves (biases, norm scales) decay too (``decays``);
 * the gradient clipped to ``grad_clip`` by its global norm, then the
   schedule's learning rate for the update about to be applied
   (``training/schedules.py``; step 0 of ``warmup_cosine`` trains at 0);
@@ -25,7 +27,9 @@ experiment's network only (``torch.autograd.grad``), so a frozen network
 inside the loss gets none. A step queues its work and reads nothing back:
 losses stay on the device until the epoch ends, as in JAX. Randomness
 (diffusion timesteps, dropout, shuffles, validation members) comes from
-host ``torch.Generator``s seeded from ``cfg.seed``.
+host ``torch.Generator``s seeded from ``cfg.seed``; the validation inputs
+noise from a generator on the device, so that nothing of a batch's size is
+drawn on the host.
 
 Deliberate departure: JAX's ``fit`` restarts its epoch count and its key
 when it resumes; here a checkpoint also holds the epochs done and the
@@ -52,7 +56,7 @@ from .ema import EMA
 from .experiments import stack_window
 from .schedules import get_scheduler
 
-__all__ = ["TrainerConfig", "TrainState", "Trainer"]
+__all__ = ["TrainerConfig", "TrainState", "Trainer", "decays"]
 
 # field -> the value the port implements (the JAX package's default)
 _UNPORTED = {
@@ -143,6 +147,23 @@ def _named_trainable(model: nn.Module):
     return [(n, p) for n, p in model.named_parameters() if p.requires_grad]
 
 
+def decays(model: nn.Module, name: str, p: torch.Tensor) -> bool:
+    """Whether JAX's ``_wd_mask`` decays parameter ``name``: a leaf of two
+    or more dimensions other than ``pos_embed``. With ``scan_layers`` (and
+    three or more layers) the JAX network holds blocks ``1 .. L-2`` stacked
+    with a leading layer axis, so every leaf of those blocks has two or more
+    dimensions there."""
+    if "pos_embed" in name:
+        return False
+    if p.dim() >= 2:
+        return True
+    cfg = getattr(model, "cfg", None)
+    if not (getattr(cfg, "scan_layers", False) and cfg.num_layers >= 3):
+        return False
+    head = name.split(".", 1)[0]
+    return head.startswith("block_") and 1 <= int(head[len("block_"):]) <= cfg.num_layers - 2
+
+
 @contextlib.contextmanager
 def _weights(model: nn.Module, params: Optional[Dict[str, torch.Tensor]]):
     """Run with ``params`` loaded into ``model``, then put its own back."""
@@ -170,6 +191,7 @@ class Trainer:
         self.restore_payload: Optional[dict] = None
         self.generator = torch.Generator().manual_seed(cfg.seed + 1)
         self.state: Optional[TrainState] = None
+        self.epochs_done = 0
         self._area_weights = None
         self._best_monitor = None
 
@@ -185,8 +207,8 @@ class Trainer:
         if restore is not None:
             model.load_state_dict(restore["params"])
         named = _named_trainable(model)
-        decay = [p for n, p in named if p.dim() >= 2 and "pos_embed" not in n]
-        no_decay = [p for n, p in named if not (p.dim() >= 2 and "pos_embed" not in n)]
+        decay = [p for n, p in named if decays(model, n, p)]
+        no_decay = [p for n, p in named if not decays(model, n, p)]
         spe = cfg.steps_per_epoch
         if spe is None:
             spe = max(1, len(self.dm.dataset("train")) // self.dm.cfg.batch_size)
@@ -306,13 +328,15 @@ class Trainer:
         training batches (epoch e shuffled with seed ``cfg.seed + e``),
         validating every ``val_every`` epochs and checkpointing each epoch
         when ``cfg.ckpt_dir`` is set. Returns ``{"train_loss": [per-epoch
-        means], "step_losses": [per step], "val": [tables]}``."""
+        means], "step_losses": [per step], "val": [tables]}``. ``self.state``
+        is the live state from the start, so that a checkpoint can be taken
+        while it runs (the command line's "melk" handler)."""
         cfg = self.cfg
         epochs = epochs if epochs is not None else cfg.epochs
-        state = self.init_state()
+        state = self.state = self.init_state()
         first_epoch = 0
         if self.restore_payload is not None:
-            first_epoch = int(self.restore_payload.get("epoch", 0))
+            first_epoch = self.epochs_done = int(self.restore_payload.get("epoch", 0))
             if self.restore_payload.get("generator") is not None:
                 self.generator.set_state(self.restore_payload["generator"])
         history: Dict[str, List] = {"train_loss": [], "step_losses": [], "val": []}
@@ -348,8 +372,8 @@ class Trainer:
                 history["val"].append(val)
                 if logger is not None and val:
                     logger.log(val, step=state.step)
-            self._save_epoch(state, val, epoch + 1)
-        self.state = state
+            self.epochs_done = epoch + 1
+            self._save_epoch(state, val)
         return history
 
     # ------------------------------------------------------------ validation
@@ -390,7 +414,9 @@ class Trainer:
     def validate(self, state: TrainState, max_batches: int = 4) -> Dict[str, float]:
         """Ensemble RMSE (+ CRPS and SSR when stochastic) per horizon step,
         averaged, on the EMA weights, over up to ``max_batches`` validation
-        batches; member draws from a generator seeded ``cfg.seed + 7``."""
+        batches; member and dropout draws from a host generator seeded
+        ``cfg.seed + 7``, the inputs noise from a generator on the device
+        seeded alike."""
         exp = self.exp
         if self._area_weights is None:
             self._area_weights = to_device(self.dm.grid.horizontal.area_weights(), self.device)
@@ -398,13 +424,14 @@ class Trainer:
         out_norm = exp.normalizer.subset(list(exp.out_packer.names)).to(self.device)
         out_idx = exp._out_idx
         gen = torch.Generator().manual_seed(self.cfg.seed + 7)
+        noise_gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed + 7)
         in_noise = float(getattr(exp.cfg, "prediction_inputs_noise", 0.0) or 0.0)
 
         def perturb(x):
             if in_noise <= 0.0:
                 return x
-            noise = torch.randn(x.shape, generator=gen)
-            return x + in_noise * to_device(noise, x.device).to(x.dtype)
+            noise = torch.randn(x.shape, generator=noise_gen, device=x.device)
+            return x + in_noise * noise.to(x.dtype)
 
         tables = []
         ema = state.ema.state_dict() if state.ema is not None else None
@@ -461,24 +488,25 @@ class Trainer:
         return {k: float(torch.mean(torch.stack([t[k] for t in per_h]))) for k in per_h[0]}
 
     # ------------------------------------------------------------ checkpoint
-    def _save_epoch(self, state: TrainState, val: Optional[dict], epochs_done: int) -> None:
+    def _save_epoch(self, state: TrainState, val: Optional[dict]) -> None:
         """last.ckpt every epoch; best.ckpt when ``ckpt_monitor`` improves
         (lower is better)."""
         cfg = self.cfg
         if not cfg.ckpt_dir:
             return
-        self.save_checkpoint(state, os.path.join(cfg.ckpt_dir, "last.ckpt"), epochs_done)
+        self.save_checkpoint(state, os.path.join(cfg.ckpt_dir, "last.ckpt"))
         if cfg.ckpt_monitor and val and cfg.ckpt_monitor in val:
             v = float(val[cfg.ckpt_monitor])
             if self._best_monitor is None or v < self._best_monitor:
                 self._best_monitor = v
-                self.save_checkpoint(state, os.path.join(cfg.ckpt_dir, "best.ckpt"),
-                                     epochs_done)
+                self.save_checkpoint(state, os.path.join(cfg.ckpt_dir, "best.ckpt"))
 
-    def save_checkpoint(self, state: TrainState, path: str, epochs_done: int = 0) -> None:
+    def save_checkpoint(self, state: TrainState, path: str) -> None:
         """The JAX checkpoint's entries (``params``, ``ema_params``,
         ``opt_state``, ``step``, ``config_json``) as CPU tensors through
-        ``torch.save``, plus ``epoch`` and ``generator`` for an exact resume.
+        ``torch.save``, plus ``epoch`` (the epochs done) and ``generator``
+        for an exact resume; the one writer of the port's checkpoints
+        (``interface.save_experiment_checkpoint`` calls it).
         ``opt_state`` holds AdamW's moments by parameter name, the updates
         applied, and the batches accumulated toward the next."""
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -488,7 +516,7 @@ class Trainer:
                            if state.ema is not None else None),
             "opt_state": self._opt_state(state),
             "step": int(state.step),
-            "epoch": int(epochs_done),
+            "epoch": int(self.epochs_done),
             "generator": self.generator.get_state(),
             "config_json": json.dumps(self.run_config or {}),
         }

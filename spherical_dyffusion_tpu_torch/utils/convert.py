@@ -24,13 +24,20 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["unstack_block_params", "flax_to_state_dict", "train_state_payload"]
+__all__ = ["unstack_block_params", "flax_to_state_dict", "state_dict_to_flax",
+           "train_state_payload"]
 
 
 def _tree_map(fn, tree):
     if isinstance(tree, Mapping):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def _as_leaf(a):
+    """numpy arrays as they are; torch tensors (the bfloat16 leaves of
+    ``utils/flax_msgpack.py``) too; anything else through ``np.asarray``."""
+    return a if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def _first_leaf(tree):
@@ -44,7 +51,7 @@ def unstack_block_params(params: Mapping[str, Any]) -> Dict[str, Any]:
     ``block_1`` .. ``block_{L-2}``; trees without it pass through."""
     if "blocks_mid" not in params:
         return dict(params)
-    stacked = _tree_map(np.asarray, params["blocks_mid"]["block"])
+    stacked = _tree_map(_as_leaf, params["blocks_mid"]["block"])
     n_mid = _first_leaf(stacked).shape[0]
     n = 1 + max(int(k.split("_")[1]) for k in params if k.startswith("block_"))
     if n != n_mid + 2:
@@ -69,11 +76,27 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             name = f"{prefix}{k}"
             if isinstance(v, Mapping):
                 walk(v, name + ".")
+            elif isinstance(v, torch.Tensor):
+                sd[name] = v.detach().to("cpu", torch.float32).clone()
             else:
                 sd[name] = torch.from_numpy(np.array(v, dtype=np.float32))
 
     walk(params, "")
     return sd
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``flax_to_state_dict`` in the unrolled layout: a port
+    SFNO's ``state_dict`` -> ``{"params": <nested dict of numpy arrays>}``,
+    the tree ``utils/torch_convert.py:sfno_flax_to_torch`` takes."""
+    params: Dict[str, Any] = {}
+    for name, t in state_dict.items():
+        node = params
+        *path, leaf = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t.detach().to("cpu", torch.float32).numpy()
+    return {"params": params}
 
 
 def _find(tree, *fields):

@@ -21,6 +21,7 @@ from spherical_dyffusion_tpu_torch import main_path
 from spherical_dyffusion_tpu_torch.data.datasets import SyntheticTimeSeries
 from spherical_dyffusion_tpu_torch.evaluation.aggregators import InferenceAggregator
 from spherical_dyffusion_tpu_torch.inference.loop import InferenceConfig, run_inference
+from spherical_dyffusion_tpu_torch.inference.stepper import DYffusionStepper
 from spherical_dyffusion_tpu_torch.models.sfno import SFNO, SFNOConfig
 from spherical_dyffusion_tpu_torch.ops.fused_mlp import (
     fused_block_tail,
@@ -764,3 +765,122 @@ def test_training_step_through_kernels_matches_plain_path(cuda):
         assert max(float((b - q).abs().max()) for b, q in zip(pp, p0)) > lr
         for a, b, c in zip(pk, pp, _adam_allowance(gk, gp, lr)):
             assert bool(((a - b).abs() <= 1e-6 + c).all())
+
+
+# ------------------------------------------- the command lines on the card
+
+def _cli_common(d):
+    return [f"ckpt_dir={d}", f"++log_dir={d / 'logs'}", "trainer.epochs=1",
+            "datamodule.n_timesteps=12", "model.embed_dim=32", "model.num_layers=2",
+            "++model.use_pallas=true", "verbose=false"]
+
+
+@pytest.fixture
+def cli_runs(cuda, tmp_path):
+    """The train command line on the card at embed 32 x 2 with K1 on: the
+    interpolator, then the forecaster."""
+    from spherical_dyffusion_tpu_torch.train import run_model
+
+    dhconv.launches = 0
+    ip = run_model(None, ["experiment=debug_interpolation"] + _cli_common(tmp_path))
+    fc = run_model(None, ["experiment=debug_dyffusion",
+                          f"diffusion.interpolator_checkpoint_path={ip['ckpt_path']}"]
+                   + _cli_common(tmp_path))
+    assert dhconv.launches > 0
+    return ip, fc
+
+
+def _logs_close(got, want, tol=1e-4):
+    assert set(got) == set(want)
+    for k, w in want.items():
+        scale = max(abs(w), 100.0 if "percent_diff" in k else 1.0)
+        assert abs(got[k] - w) <= tol * scale, (k, got[k], w)
+
+
+def test_cli_rollout_from_checkpoint_through_kernels_matches_plain(cuda, cli_runs, tmp_path):
+    """The inference command line from the forecaster's checkpoint, float32,
+    the interpolator's dropout off: K1 and K3 launched, and every log within
+    1e-4 of the plain path's (use_pallas and fused_tail off in both nets)."""
+    from spherical_dyffusion_tpu_torch.run_inference import main_from_config
+
+    def infer(kernels):
+        model = {"use_pallas": kernels, "fused_tail": kernels}
+        return main_from_config({
+            "checkpoint_path": cli_runs[1]["ckpt_path"], "n_forward_steps": 12,
+            "forward_steps_in_memory": 6, "experiment_dir": str(tmp_path / str(kernels)),
+            "log_zonal_mean_images": False, "verbose": False,
+            "overrides": {"model": model, "interpolator_model": model,
+                          "diffusion": {"enable_interpolator_dropout": False}}})["logs"]
+
+    dhconv.launches = fused_block_tail.launches = 0
+    fast = infer(True)
+    assert dhconv.launches > 0 and fused_block_tail.launches > 0
+    dhconv.launches = fused_block_tail.launches = 0
+    plain = infer(False)
+    assert dhconv.launches == 0 and fused_block_tail.launches == 0
+    _logs_close(fast, plain)
+
+
+def test_reference_checkpoint_on_the_card_draws_exact_dropout_there(cuda, cli_runs, tmp_path,
+                                                                   monkeypatch):
+    """A reference Lightning checkpoint built from the trained networks
+    (``sfno_flax_to_torch``) loads with exact dropout and equal weights; its
+    live dropout draws every uniform on the card; with dropout off the
+    kernels agree with the plain path (1e-4 of the largest prediction)."""
+    from spherical_dyffusion_tpu_torch.interface import load_experiment_checkpoint
+    from spherical_dyffusion_tpu_torch.utils.convert import state_dict_to_flax
+    from spherical_dyffusion_tpu_torch.utils.torch_convert import sfno_flax_to_torch
+
+    fc = cli_runs[1]["trainer"].exp
+    nets = {"model.model.": fc.model.state_dict(),
+            "model.interpolator.model.": fc.interpolator.model.state_dict()}
+    sd = {}
+    for prefix, net in nets.items():
+        for k, v in sfno_flax_to_torch(state_dict_to_flax(net), mlp_dropout=True).items():
+            sd[prefix + k] = torch.from_numpy(v)
+    names = list(fc.in_packer.names)
+    hp = {"model_config": {"_target_": "src.models.sfno.sfnonet.SphericalFourierNeuralOperatorNet",
+                           "embed_dim": 32, "num_layers": 2, "dropout_mlp": 0.1},
+          "datamodule_config": {"in_names": names + list(fc.forcing_names),
+                                "forcing_names": list(fc.forcing_names), "out_names": names,
+                                "horizon": 6, "window": 1},
+          "diffusion_config": {"_target_": "src.diffusion.dyffusion.DYffusion",
+                               "forward_conditioning": "none"}}
+    path = str(tmp_path / "reference.ckpt")
+    torch.save({"state_dict": sd, "hyper_parameters": hp}, path)
+
+    def load(**model):
+        return load_experiment_checkpoint(path, overrides={"model": model} if model else None,
+                                          device="cuda")[0]
+
+    exp = load(use_pallas=True)
+    assert exp.model.cfg.exact_dropout and exp.interpolator.model.cfg.exact_dropout
+    for net, want in ((exp.model, nets["model.model."]),
+                      (exp.interpolator.model, nets["model.interpolator.model."])):
+        assert all(torch.equal(net.state_dict()[k].cpu(), v.cpu()) for k, v in want.items())
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((1, 16, 32, 3), device=cuda, generator=g)
+    f = torch.randn((1, 7, 16, 32, 1), device=cuda, generator=g)
+    real = torch.rand
+    draws = []
+
+    def spy(*a, **k):
+        draws.append((k.get("device"), a[0] if a else k.get("size")))
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch, "rand", spy)
+    _, live = DYffusionStepper(exp).run_window(x, f, None, None,
+                                               torch.Generator().manual_seed(0), 6)
+    monkeypatch.setattr(torch, "rand", real)
+    big = [d for d in draws if int(np.prod(d[1])) > 64]
+    assert big and all(torch.device(d[0]).type == "cuda" for d in big)
+    assert torch.isfinite(live).all()
+
+    def off(kernels):
+        e = load_experiment_checkpoint(path, overrides={
+            "model": {"use_pallas": kernels},
+            "diffusion": {"enable_interpolator_dropout": False}}, device="cuda")[0]
+        return DYffusionStepper(e).run_window(x, f, None, None, torch.Generator(), 6)[1]
+
+    k, p = off(True), off(False)
+    assert float((k - p).abs().max()) <= 1e-4 * float(p.abs().max())

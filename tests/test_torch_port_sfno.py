@@ -157,7 +157,7 @@ def test_dropout_is_live_only_when_not_deterministic():
     ("operator_type", "diagonal"), ("factorization", "tucker"), ("merged_dhconv", True),
     ("lon_method", "fft"), ("sht_fold_symmetry", True),
     ("factorization", "tt"), ("normalization_layer", "layer_norm"),
-    ("filter_type", "non-linear"), ("exact_dropout", True)])
+    ("filter_type", "non-linear"), ("checkpointing", 3)])
 def test_unsupported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError):
         SFNOConfig(**{field: value})

@@ -269,6 +269,27 @@ def test_fit_matches_jax_fit(pin_t, kind):
     _assert_trees(ttr.state.ema.state_dict(), flax_to_state_dict(jtr.state.ema.params), lr_sum)
 
 
+def test_fit_with_scan_layers_matches_jax(pin_t):
+    """F7: with ``scan_layers`` (3 layers: JAX stacks block 1) JAX's mask
+    decays the middle block's 1-D leaves too; at weight decay 0.5, a leaf
+    the port left undecayed would move by about 4e-4, far outside
+    ``_assert_trees``. The interpolator's fit as ``test_fit_matches_jax_fit``."""
+    pin_t((1,))
+    jside, tside = _build(n_timesteps=5, num_layers=3, scan_layers=True)
+    assert "blocks_mid" in jside["ivars"]["params"]
+    kw = dict(epochs=2, warmup_steps=1, log_every=1, weight_decay=0.5)
+    jtr = JTrainer(jside["interp"], jside["dm"], JTrainerConfig(**kw))
+    jtr.restore_payload = {"params": {"params": jside["ivars"]["params"]}}
+    jhist = jtr.fit(val_every=100, verbose=False, logger=_Log())
+    ttr = Trainer(tside["interp"], tside["dm"], TrainerConfig(**kw))
+    thist = ttr.fit(val_every=100, verbose=False)
+    np.testing.assert_allclose(thist["train_loss"], jhist["train_loss"], rtol=1e-5)
+    lr_sum = sum(ttr.schedule(k) for k in range(4))
+    _assert_trees(dict(tside["interp"].model.state_dict()),
+                  flax_to_state_dict(jtr.state.params), lr_sum)
+    _assert_trees(ttr.state.ema.state_dict(), flax_to_state_dict(jtr.state.ema.params), lr_sum)
+
+
 def test_validate_matches_jax(pin_t):
     """Validation on the EMA weights: the interpolator's RMSE over its
     horizon steps (one member, dropout off), within 1e-5 relative."""
