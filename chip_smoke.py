@@ -114,15 +114,45 @@ Phases, each timed:
    ``model_ema.*``, SFNO/datamodule/DYffusion hyperparameters), loaded by
    ``load_experiment_checkpoint`` with gelu_exact, exact_norm and
    exact_dropout and its weights equal bit for bit; a 12-step window with K1
-   and the exact dropout live, whose host-to-device bytes in one profiled
-   window (beside a 1 MiB control copy) stay below 1% of one activation;
+   and the exact dropout live, whose host-to-device bytes in one window
+   (counted by a dispatch mode that sees every aten op, beside a 1 MiB
+   control copy) stay below 1% of one activation;
    dropout off, kernels against the plain path within 1e-4; (d)
    ``results/skill_fast08/forecaster.msgpack`` decoded by
-   ``utils/flax_msgpack.py`` and loaded strictly into its SFNO.
+   ``utils/flax_msgpack.py`` and loaded strictly into its SFNO;
+13. the model options at 256 x 8 on 180 x 360 (run last, after phase 9):
+   (a) the Tucker window (``main_path.TUCKER_WINDOW``: Tucker rank 0.25 on
+   the rank pipeline, 2R = 128, bf16, scan and peel, K3 on): one warm-up
+   and one timed 12-step window beside phase 7's, K3 launched 192 x and
+   K1, K2, K4 never; then float32 with dropout off, K3 against the plain
+   path (1e-4 of the largest prediction); (b) phase 7's fused-tail window
+   with ``sht_fold_symmetry``: its seconds beside phase 7's, K1 and K3 192
+   launches each; float32 with dropout off, folded against unfolded from
+   the same weights (1e-4); (c) ``main_path.train_steps`` on
+   ``build_training(scan_layers=True, checkpointing=3)``: float32, K1 on,
+   dropout and DropPath live, 6 steps of each experiment, the median step ms
+   and peak memory beside phase 11's (both from a card that the earlier
+   phases left empty); per step 16 K1 forwards (8 of them
+   the recompute) and 8 dx per trained SFNO, 8 more forwards of the frozen
+   interpolator in a forecaster step, 16 K1 weight images; then 3 steps of
+   each experiment with remat and 3 without, from the same weights,
+   batches and generator seed, dropout live: at every step the losses and
+   every gradient within 1e-6 of the tensor's largest entry and the
+   generators' states equal; (d) one float32 forward at batch 1 of each
+   other option (TT rank 0.25, Tucker in spectral space, the non-linear
+   filter shared and per degree, layer norm, the FFT transform with K1,
+   ``lon_method="fft"`` with K1, the merged dhconv, a separable dhconv, and
+   the diagonal filter at embed 64, since at 256 its weight is 17.1 GB a
+   block): finite, its ms; and one forecaster training step with
+   ``data+noise-v2`` on a model built with the extra condition channels:
+   its loss finite and, in one step under the dispatch mode, no
+   activation-sized bytes copied from the host.
 
 It prints a ``training`` JSON line (phase 11's figures), a ``cli`` JSON line
-(phase 12's), a ``kernels`` JSON line (K1's backward dx as its own entry;
-``launches_by_path`` holds phase 12 (b)'s counts as ``"cli"``), the
+(phase 12's), an ``options`` JSON line (phase 13's), a ``kernels`` JSON line
+(K1's backward dx as its own entry; ``launches_by_path`` holds phase 12
+(b)'s counts as ``"cli"`` and phase 13's as ``"tucker"``, ``"fold"`` and
+``"remat"``), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. It needs the port's package beside it
@@ -150,6 +180,16 @@ SPIN_CYCLES = 200_000_000  # about 0.1 s of torch.cuda._sleep at the H100's cloc
 ROLLOUT_STEPS, ROLLOUT_WINDOW = 288, 96
 CLI_STEPS = 24  # the inference command line's rollout in phase 12, in windows of 12
 REF_STEPS = 12  # the reference checkpoint's window in phase 12
+# phase 13: width, depth and grid of the option runs; the diagonal filter's
+# width (at 256 its weight, 256 x 256 x 180 x 181 pairs, is 17.1 GB a block)
+OPT_EMBED, OPT_LAYERS, OPT_SHAPE = 256, 8, (180, 360)
+OPT_DIAG_EMBED = 64
+REMAT_STEPS = 6  # per experiment in phase 13 (c)
+REMAT_CMP_STEPS = 3  # per experiment, remat against no remat, in phase 13 (c)
+# what the earlier phases may leave allocated when phase 13 (c) starts (the
+# window inputs, about 20 MB, and small caches): its peak is read as the
+# trainers' own
+REMAT_LIVE_GB = 0.1
 # The fused-tail window in bf16 against the plain path in bf16, as a
 # multiple of the plain path's own bf16 error (bf16 against float32): the
 # fused tail rounds the folded norm input to bf16 once more. The CPU test
@@ -188,6 +228,53 @@ def bound(flops: float, nbytes: float, peak: float):
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
+def host_to_device():
+    """A dispatch mode recording ``(op, bytes)`` for every host tensor that
+    an aten op reads into a result on a CUDA device: ``.to``/``copy_`` from
+    the host, a host tensor in an op on the card, and a tensor constructor
+    (``torch.tensor``/``as_tensor``, its ``lift_fresh``) whose result is on
+    the card (counted whole: its data may come from the host). Every op
+    dispatched while it is on passes through it, the backward's too, so
+    unlike a profiler trace it drops no record. Use as
+    ``with host_to_device() as seen: ...``, then read ``seen.copies``."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class HostToDevice(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.copies = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = [a for a in tree_leaves((args, kwargs)) if isinstance(a, torch.Tensor)]
+            if any(isinstance(o, torch.Tensor) and o.is_cuda for o in tree_leaves(out)):
+                fresh = func is torch.ops.aten.lift_fresh.default
+                for a in ins:
+                    if fresh or a.device.type == "cpu":
+                        self.copies.append((str(func), a.numel() * a.element_size()))
+            return out
+
+    return HostToDevice()
+
+
+def live_cuda_tensors(top: int = 10):
+    """The CUDA storages that Python objects keep alive: (their bytes, the
+    ``top`` largest as (GB, shape, dtype))."""
+    import gc
+
+    import torch
+
+    seen = {}
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            st = o.untyped_storage()
+            seen.setdefault(st.data_ptr(), (st.nbytes() / 1e9, tuple(o.shape), str(o.dtype)))
+    return (sum(v[0] for v in seen.values()) * 1e9,
+            sorted(seen.values(), key=lambda v: -v[0])[:top])
+
+
 def phase12(smi_line, wrappers, report, runs) -> None:
     """Phase 12: the product path from checkpoint files at 256 x 8 on 180 x
     360, in a temporary directory: (a) the train command line, (b) the
@@ -199,7 +286,6 @@ def phase12(smi_line, wrappers, report, runs) -> None:
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from spherical_dyffusion_tpu_torch import interface, main_path
     from spherical_dyffusion_tpu_torch.inference.stepper import DYffusionStepper
@@ -464,25 +550,21 @@ def phase12(smi_line, wrappers, report, runs) -> None:
           f"reference checkpoint window: launches {ref_launches}, finite "
           f"{bool(torch.isfinite(preds).all())}")
     # exact dropout draws its uniforms on the card: count the bytes copied
-    # from the host in one profiled window, beside a 1 MiB pinned copy made
-    # on purpose in it (the profiler has to see that one)
+    # from the host in one window under the dispatch mode, beside a 1 MiB
+    # copy made on purpose in it (the mode has to see that one)
     act_bytes = 180 * 360 * 256 * 4
-    control = torch.ones(1 << 18).pin_memory()
-    trace = str(d / "reference_window_trace.json")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        control.to("cuda", non_blocking=True)
+    control = torch.ones(1 << 18)
+    with host_to_device() as seen:
+        control.to("cuda")
         ref_window(stepper, 2)
-    prof.export_chrome_trace(trace)
-    events = json.loads(Path(trace).read_text()).get("traceEvents", [])
-    h2d = [int(e.get("args", {}).get("bytes", 0)) for e in events
-           if "memcpy" in str(e.get("cat", "")).lower() and "HtoD" in str(e.get("name", ""))]
+    h2d = [b for _, b in seen.copies]
     h2d_bytes = sum(h2d) - control.numel() * 4
     log(f"reference checkpoint, {REF_STEPS} steps with the interpolator's exact dropout live "
-        f"(K1 on): {ref_s:.3f} s, launches {ref_launches}; host-to-device in one profiled "
-        f"window: {len(h2d)} copies, {sum(h2d)} bytes, {h2d_bytes} besides the 1 MiB control "
+        f"(K1 on): {ref_s:.3f} s, launches {ref_launches}; host-to-device in one window: "
+        f"{len(h2d)} copies, {sum(h2d)} bytes, {h2d_bytes} besides the 1 MiB control "
         f"(one activation is {act_bytes} bytes)")
-    check(max(h2d, default=0) >= control.numel() * 4,
-          "the profiler saw no host-to-device copy of the 1 MiB control")
+    check(h2d.count(control.numel() * 4) == 1,
+          "the dispatch mode did not see the 1 MiB control copy once")
     check(h2d_bytes < act_bytes // 100,
           f"exact dropout: {h2d_bytes} bytes copied from the host in one window")
     del stepper, exp, x_out, preds
@@ -522,6 +604,296 @@ def phase12(smi_line, wrappers, report, runs) -> None:
     cli["skill_fast08"] = dict(leaves=leaves, bytes=nbytes, decode_s=decode_s)
     tmp.cleanup()
     report["cli"] = cli
+
+
+def phase13(smi_line, wrappers, report, runs, drive, pair, other, device="cuda") -> None:
+    """Phase 13: the model options at OPT_EMBED x OPT_LAYERS on OPT_SHAPE:
+    (a) the Tucker window, (b) the folded window, (c) remat training, (d)
+    one forward of each other option and one data+noise forecaster step.
+    ``drive`` and ``pair`` are phase 6's window helpers, ``other`` the
+    model-driven channels."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from spherical_dyffusion_tpu_torch import main_path
+    from spherical_dyffusion_tpu_torch.models.sfno import SFNO
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    L = OPT_LAYERS
+    H, W = OPT_SHAPE
+    opts = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def free():
+        """Collect the dead networks of earlier phases (reference cycles
+        keep some of them until the cyclic collector runs) and return the
+        cache, so that a peak-memory figure counts only what is live."""
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def model_gap(kern, plain):
+        """max |kernels - plain| over the largest model-driven prediction."""
+        return (kern - plain).abs().max().item() / plain[..., other].abs().max().item()
+
+    fused_tail_s = runs["fused_tail"]["seconds"]
+
+    # (a) the Tucker window: the rank pipeline in blocks 1-6, K3 in every block
+    tucker_kw = dict(main_path.TUCKER_WINDOW)
+    run = drive("Tucker window", tucker_kw, {"K1": 0, "K2": 0, "K3": L, "K4": 0})
+    runs["tucker"] = run
+    log(f"Tucker window (rank 0.25, 2R = {OPT_EMBED // 2}): {N_STEPS} steps in "
+        f"{run['seconds']:.3f} s against phase 7's fused-tail window {fused_tail_s:.3f} s "
+        f"on {smi_line}")
+    check(run["launches"]["K3"] == 24 * L and run["forwards"] == 24,
+          f"Tucker window: K3 launched {run['launches']['K3']} times in {run['forwards']} "
+          f"SFNO forwards, expected {24 * L}")
+    pk, pp = pair("float32", tucker_kw, dict(tucker_kw, fused_tail=False))
+    tucker_gap = model_gap(pk, pp)
+    log(f"Tucker window float32, dropout off: max |K3 - plain| {tucker_gap:.3e} of the "
+        f"largest model-driven prediction (tolerance 1e-4)")
+    check(tucker_gap <= 1e-4, "Tucker window float32: K3 disagrees with the plain path")
+    del pk, pp
+    free()
+    opts["tucker"] = dict(seconds=run["seconds"], steps_per_s=N_STEPS / run["seconds"],
+                          phase7_seconds=fused_tail_s, launches=run["launches"],
+                          f32_rel=tucker_gap)
+
+    # (b) the folded window: phase 7's path with sht_fold_symmetry
+    fold_kw = dict(use_pallas=True, fused_tail=True, peel=True, scan_layers=True,
+                   sht_fold_symmetry=True)
+    run = drive("folded window", fold_kw, {"K1": L, "K2": 0, "K3": L, "K4": 0})
+    runs["fold"] = run
+    log(f"folded window: {N_STEPS} steps in {run['seconds']:.3f} s against phase 7's unfolded "
+        f"fused-tail window {fused_tail_s:.3f} s ({run['seconds'] / fused_tail_s - 1:+.1%}) "
+        f"on {smi_line}")
+    check(run["launches"]["K1"] == run["launches"]["K3"] == 24 * L,
+          f"folded window: launches {run['launches']}, expected K1 and K3 {24 * L}")
+    pk, pp = pair("float32", fold_kw, dict(fold_kw, sht_fold_symmetry=False))
+    fold_gap = model_gap(pk, pp)
+    log(f"folded window float32, dropout off: max |folded - unfolded| {fold_gap:.3e} of the "
+        f"largest model-driven prediction (tolerance 1e-4)")
+    check(fold_gap <= 1e-4, "folded window float32: folded and unfolded disagree")
+    del pk, pp
+    free()
+    opts["fold"] = dict(seconds=run["seconds"], steps_per_s=N_STEPS / run["seconds"],
+                        phase7_seconds=fused_tail_s, launches=run["launches"],
+                        f32_rel=fold_gap)
+
+    # (c) remat training: scan_layers and checkpointing=3, float32, K1 on,
+    # dropout and DropPath live
+    size = dict(embed=OPT_EMBED, layers=L, img_shape=OPT_SHAPE, device=device)
+    free()
+    # the earlier phases drop what they built, so the peak below is the
+    # trainers' own, as phase 11's
+    live_gb = torch.cuda.memory_allocated() / 1e9 if cuda else 0.0
+    if live_gb > REMAT_LIVE_GB:
+        _, largest = live_cuda_tensors()
+        log(f"remat training: the largest CUDA tensors still live: {largest}")
+    log(f"remat training: {live_gb:.3f} GB allocated on the card before the trainers are built")
+    check(live_gb <= REMAT_LIVE_GB,
+          f"remat training: {live_gb:.3f} GB left live by the earlier phases, more than "
+          f"{REMAT_LIVE_GB} GB")
+    zero_counts()
+    t0 = time.perf_counter()
+    trainers = main_path.build_training(scan_layers=True, checkpointing=3,
+                                        n_samples=REMAT_STEPS, **size)
+    rec = main_path.train_steps(n_steps=REMAT_STEPS, trainers=trainers)
+    off = {k: wrappers[k].launches for k in ("K2", "K3", "K4")}
+    check(not any(off.values()), f"remat training launched kernels without a backward: {off}")
+    log(f"remat training: {REMAT_STEPS} steps of each experiment, built and run in "
+        f"{time.perf_counter() - t0:.2f} s")
+    # per step: (K1 launches, those in the backward, dx): the forward, the
+    # recompute and dx per trained SFNO; the frozen interpolator's forward
+    # in a forecaster step
+    per_step = {"interpolator": (3 * L, 2 * L, L), "forecaster": (4 * L, 2 * L, L)}
+    remat = {}
+    k1_total = 0
+    for name, r in rec.items():
+        med = float(np.median(r["step_ms"][2:]))
+        peak = r["peak_bytes"] / 1e9 if r["peak_bytes"] is not None else float("nan")
+        ref = report["training"][name]
+        log(f"remat training {name}: losses {[round(v, 5) for v in r['losses']]}; step ms "
+            f"{[round(v, 1) for v in r['step_ms']]}, median after 2 warm-up steps {med:.2f} ms "
+            f"(phase 11 without remat {ref['step_ms']:.2f} ms, {med / ref['step_ms'] - 1:+.1%}); "
+            f"peak device memory {peak:.3f} GB (phase 11 {ref['peak_gb']:.3f} GB); K1 launches "
+            f"per step {r['k1_launches']} (backward {r['k1_backward']}, dx {r['k1_dx']}), "
+            f"images per step {r['k1_images']} on {smi_line}")
+        check(all(np.isfinite(v) for v in r["losses"]), f"remat training {name}: a non-finite loss")
+        got = list(zip(r["k1_launches"], r["k1_backward"], r["k1_dx"]))
+        check(got == [per_step[name]] * REMAT_STEPS,
+              f"remat training {name}: K1 (launches, backward, dx) per step {got}, expected "
+              f"{per_step[name]}")
+        images = [2 * L] * REMAT_STEPS
+        if name == "forecaster":
+            images[0] += L
+        check(r["k1_images"] == images,
+              f"remat training {name}: K1 images per step {r['k1_images']}, expected {images}")
+        k1_total += sum(r["k1_launches"])
+        remat[name] = dict(step_ms=med, steps_per_s=1e3 / med, peak_gb=peak,
+                           phase11_step_ms=ref["step_ms"], phase11_peak_gb=ref["peak_gb"],
+                           live_gb_before=live_gb,
+                           losses=r["losses"], k1_launches=sum(r["k1_launches"]),
+                           k1_dx=sum(r["k1_dx"]))
+    runs["remat"] = dict(launches={"K1": k1_total, "K2": 0, "K3": 0, "K4": 0})
+    del trainers, rec
+    free()
+
+    # remat against no remat: the same weights, batches and generator seed,
+    # dropout live; the gradients taken from inside each train step
+    kw = dict(scan_layers=True, n_samples=REMAT_CMP_STEPS, **size)
+    with_remat = main_path.build_training(checkpointing=3, **kw)
+    without = main_path.build_training(checkpointing=0, **kw)
+    real_grad = torch.autograd.grad
+    grabbed = []
+
+    def grab(*a, **k):
+        out = real_grad(*a, **k)
+        grabbed.append([g.detach().clone() for g in out])
+        return out
+
+    for name in ("interpolator", "forecaster"):
+        a, b = with_remat[name], without[name]
+        b.exp.model.load_state_dict(a.exp.model.state_dict())
+        if name == "forecaster":
+            b.exp.interpolator.model.load_state_dict(a.exp.interpolator.model.state_dict())
+        states = (a.init_state(), b.init_state())
+        gens = (torch.Generator().manual_seed(13), torch.Generator().manual_seed(13))
+        l_rel = g_rel = 0.0
+        same_gen = True
+        batches = [x for _, x in zip(range(REMAT_CMP_STEPS), a.dm.train_batches(seed=0))]
+        torch.autograd.grad = grab
+        try:
+            for batch in batches:
+                losses = []
+                for tr, state, gen in zip((a, b), states, gens):
+                    dyn, cond, rt = tr.upload(batch)
+                    losses.append(float(tr.train_step(state, dyn, cond, gen, rt)["loss"]))
+                gb = grabbed.pop()
+                ga = grabbed.pop()
+                l_rel = max(l_rel, abs(losses[0] - losses[1]) / abs(losses[1]))
+                for x, y in zip(ga, gb):
+                    d, sc = float((x - y).abs().max()), float(y.abs().max())
+                    g_rel = max(g_rel, d / sc if sc > 0 else (0.0 if d == 0 else float("inf")))
+                same_gen &= torch.equal(gens[0].get_state(), gens[1].get_state())
+                del ga, gb
+        finally:
+            torch.autograd.grad = real_grad
+        log(f"remat against no remat, {name}, {REMAT_CMP_STEPS} steps, dropout live: losses max "
+            f"rel gap {l_rel:.3e}, gradients max gap {g_rel:.3e} of each tensor's largest entry "
+            f"(tolerance 1e-6), generator states {'equal' if same_gen else 'DIFFERENT'} after "
+            f"every step")
+        check(l_rel <= 1e-6 and g_rel <= 1e-6 and same_gen,
+              f"remat {name}: losses, gradients or generator state differ from no remat")
+        remat[name]["vs_no_remat"] = dict(steps=REMAT_CMP_STEPS, loss_rel=l_rel, grad_rel=g_rel,
+                                          generator_equal=same_gen)
+    del with_remat, without, states
+    free()
+    opts["remat"] = remat
+
+    # (d) one float32 forward at batch 1 of each other option
+    base = main_path.sfno_configs(OPT_EMBED, L, "float32", OPT_SHAPE, use_pallas=False,
+                                  fused_mlp=False)[1]
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn((1, H, W, base.out_chans), device=dev, generator=g)
+    forcing = torch.randn((1, H, W, base.in_chans - base.out_chans), device=dev, generator=g)
+    t = torch.ones(1, device=dev)
+    cases = {
+        "TT rank 0.25": dict(factorization="tt", rank=0.25),
+        "Tucker rank 0.25 in spectral space": dict(factorization="tucker", rank=0.25,
+                                                   rank_pipeline=False),
+        "non-linear filter, shared (diagonal)": dict(filter_type="non-linear",
+                                                     operator_type="diagonal"),
+        "non-linear filter, per degree (l-dependant)": dict(filter_type="non-linear",
+                                                            operator_type="l-dependant"),
+        "layer norm": dict(normalization_layer="layer_norm"),
+        "FFT transform, K1": dict(spectral_transform="fft", use_pallas=True),
+        "SHT with lon_method fft, K1": dict(lon_method="fft", use_pallas=True),
+        "merged dhconv": dict(merged_dhconv=True),
+        "separable dhconv": dict(separable=True),
+        f"diagonal filter at embed {OPT_DIAG_EMBED}": dict(operator_type="diagonal",
+                                                           embed_dim=OPT_DIAG_EMBED),
+    }
+    log(f"option forwards: the diagonal filter runs at embed {OPT_DIAG_EMBED}: at "
+        f"{OPT_EMBED} its weight (ci, co, l, m, 2) float32 is "
+        f"{OPT_EMBED ** 2 * H * (W // 2 + 1) * 2 * 4 / 1e9:.1f} GB a block, "
+        f"{L * OPT_EMBED ** 2 * H * (W // 2 + 1) * 2 * 4 / 1e9:.0f} GB over {L} blocks, "
+        f"beyond the card's memory")
+    forwards = {}
+    for name, kw in cases.items():
+        free()
+        net = SFNO(dataclasses.replace(base, **kw)).to(dev)
+        net.init_weights(torch.Generator(device=dev).manual_seed(0))
+        with torch.no_grad():
+            net(x, time=t, static_condition=forcing)  # warm-up: K1's image, cuBLAS
+            sync()
+            zero_counts()
+            t0 = time.perf_counter()
+            y = net(x, time=t, static_condition=forcing)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+        k1 = wrappers["K1"].launches
+        finite = bool(torch.isfinite(y).all())
+        log(f"option forward {name}: {ms:.2f} ms at batch 1, float32, output "
+            f"{tuple(y.shape)} finite {finite}, K1 launches {k1} on {smi_line}")
+        check(finite and tuple(y.shape) == (1, H, W, base.out_chans),
+              f"option forward {name}: non-finite or misshapen output")
+        check(k1 == (L if kw.get("use_pallas") else 0),
+              f"option forward {name}: K1 launched {k1} times")
+        forwards[name] = dict(ms=ms, k1_launches=k1)
+        del net, y
+    opts["forwards"] = forwards
+    free()
+
+    # a forecaster training step with data+noise-v2, the extra condition
+    # channels built in; the noise is drawn on the card
+    trs = main_path.build_training(forward_conditioning="data+noise-v2", n_samples=1, **size)
+    tr = trs["forecaster"]
+    state = tr.init_state()
+    dyn, cond, rt = tr.upload(next(iter(tr.dm.train_batches(seed=0))))
+    gen = torch.Generator().manual_seed(3)
+    tr.train_step(state, dyn, cond, gen, rt)  # warm-up: K1's images, cuBLAS
+    sync()
+    act_bytes = H * W * OPT_EMBED * 4
+    control = torch.ones(1 << 18)
+    nbytes = control.numel() * 4
+    # every aten op of the step passes through the dispatch mode (the
+    # backward's too), so no host-to-device copy goes unseen, as a profiler
+    # trace's could; the 1 MiB control copy before the step shows it counting
+    with host_to_device() as seen:
+        control.to(dev)
+        t0 = time.perf_counter()
+        loss = float(tr.train_step(state, dyn, cond, gen, rt)["loss"])
+        sync()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    h2d = seen.copies
+    n_control = sum(b == nbytes for _, b in h2d)
+    h2d_bytes = sum(b for _, b in h2d) - n_control * nbytes
+    log(f"data+noise-v2 forecaster step (in_chans {tr.exp.model.cfg.in_chans}): loss {loss:.5f}, "
+        f"{step_ms:.2f} ms under the dispatch mode; host-to-device {len(h2d)} copies, "
+        f"{sorted({(op, b) for op, b in h2d})}, {h2d_bytes} bytes besides the 1 MiB control "
+        f"(seen {n_control} time(s), expected 1; one activation is {act_bytes} bytes)")
+    check(np.isfinite(loss), "data+noise-v2 forecaster step: a non-finite loss")
+    check(not cuda or n_control == 1, f"the dispatch mode saw the control copy {n_control} times")
+    check(h2d_bytes < act_bytes // 100,
+          f"data+noise-v2: {h2d_bytes} bytes copied from the host in one training step")
+    opts["data_noise"] = dict(loss=loss, step_ms=step_ms, h2d_bytes=h2d_bytes,
+                              h2d_copies=len(h2d) - n_control,
+                              in_chans=tr.exp.model.cfg.in_chans)
+    del trs, tr, state, dyn, cond
+    free()
+    report["options"] = opts
 
 
 def main() -> int:
@@ -761,7 +1133,7 @@ def main() -> int:
                                       k1_launches=sum(rec["k1_launches"]),
                                       k1_backward=sum(rec["k1_backward"]))
         report["K1_bwd"]["launches"] = sum(r["k1_backward"] for r in train_report.values())
-        del train
+        del train, rec  # rec holds the last trainer and its state
         torch.cuda.empty_cache()
 
         # the same batch 10 times, dropout off, constant lr: the loss at a
@@ -840,6 +1212,7 @@ def main() -> int:
                 if flips[-1]:
                     vjp = torch.autograd.grad(op, ptr._params, delta)
                     gp_at_k = [a + b for a, b in zip(gp_s, vjp)]
+                    del vjp
                 del op, ok, cp, ck, delta
                 # F5: every parameter a finite gradient and every filter
                 # weight a non-zero one, through the kernels
@@ -908,8 +1281,10 @@ def main() -> int:
                 steps=CMP_STEPS, lr=lr, loss_rel=l_rel, grad_rel=g_rel, l1_flips=flips,
                 param_abs=p_err, param_tol_ratio=p_ratio, params_beyond_1e6=n_over,
                 params=n_all, moved=moved)
-            del gk, gp, pk, pp, p0, states
-        del fast, plain
+            del gk, gp, gk_s, gp_s, sp, pk, pp, p0, states, a, b, d, e, v, sens
+        # the last loop's trainers and batch too: phase 13 (c) measures its
+        # peak memory from an empty card
+        del fast, plain, ftr, ptr, tr, state, dyn, cond, batch
         torch.cuda.empty_cache()
         report["training"] = train_report
 
@@ -1558,7 +1933,9 @@ def main() -> int:
             log(f"aggregator {k} table ({got.shape[0]} steps x {got.shape[1]} channels) against "
                 f"float64 numpy: max gap {rel:.3e} of its largest value (tolerance 1e-4)")
             check(rel <= 1e-4, f"aggregator {k} table differs from float64 numpy")
-        del det, outs, chained, loop_preds, raw, p64, y64, diff
+        # run and record hold det's bound method, rollout_kw the EMA weights
+        del det, run, record, outs, chained, loop_preds, raw, p64, y64, diff, agg, x, forcing
+        del p, rollout_kw
 
     with Phase("9 profile (one window of each path)"):
         activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1606,6 +1983,9 @@ def main() -> int:
                 for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
             del stepper, prof
 
+    with Phase("13 model options at 256 x 8 (Tucker, fold, remat, the other options)"):
+        phase13(smi_line, wrappers, report, runs, drive, pair, other)
+
     sources = {"K1": "spherical_dyffusion_tpu_torch/csrc/dhconv.cu",
                "K2": "spherical_dyffusion_tpu_torch/csrc/fused_mlp.cu",
                "K3": "spherical_dyffusion_tpu_torch/csrc/fused_mlp.cu",
@@ -1636,6 +2016,7 @@ def main() -> int:
         f" steps/s against phase 7's fused-tail window {fused_tail_rate:.3f} steps/s")
     print(json.dumps({"training": report["training"]}))
     print(json.dumps({"cli": report["cli"]}))
+    print(json.dumps({"options": report["options"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

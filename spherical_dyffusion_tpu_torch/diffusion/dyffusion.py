@@ -16,9 +16,9 @@ callables:
     interpolate_fn(initial_condition, x_last, t, generator, **cond) -> x_t
     forecast_fn(x_t, time, condition, static_condition) -> x_hat_last
 
-Randomness (the interpolator's dropout, the training timesteps) flows
-through an explicit host-side ``torch.Generator``. Tensors are channels-last
-(B, H, W, C).
+Randomness (the interpolator's dropout, the training timesteps, the noise
+of the ``data+noise`` forward conditionings) flows through an explicit
+host-side ``torch.Generator``. Tensors are channels-last (B, H, W, C).
 """
 
 from __future__ import annotations
@@ -30,10 +30,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..models.modules import draw_seed
 from ..utils.device import to_device
 
 __all__ = ["DYffusionConfig", "DiffusionSchedule", "build_schedule", "q_sample",
-           "predict_x_last", "p_losses", "sample_loop", "scan_compatible", "sample_loop_scan",
+           "forward_noise", "predict_x_last", "p_losses", "sample_loop", "scan_compatible", "sample_loop_scan",
            "select_sampler", "Intermediates"]
 
 InterpolateFn = Callable[..., torch.Tensor]
@@ -42,9 +43,7 @@ ForecastFn = Callable[..., torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class DYffusionConfig:
-    """The JAX package's DYffusion hyperparameters, same names and defaults.
-    ``forward_conditioning`` "data+noise-*" is accepted here and raises
-    where a forecast would use it."""
+    """The JAX package's DYffusion hyperparameters, same names and defaults."""
 
     timesteps: int
     schedule: str = "before_t1_only"
@@ -246,13 +245,30 @@ def q_sample(interpolate_fn: InterpolateFn, sched: DiffusionSchedule,
     return interpolate_fn(x_end, x0, i_t, generator, **kwargs)
 
 
+def forward_noise(x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Standard normal noise of x's shape and dtype for the ``data+noise``
+    conditionings, drawn on x's device from a generator there seeded from
+    ``generator`` (a host generator): nothing of x's size comes from the
+    host."""
+    if generator is None:
+        raise ValueError("data+noise conditioning requires a generator")
+    device_gen = torch.Generator(device=x.device).manual_seed(draw_seed(generator))
+    return torch.randn(x.shape, generator=device_gen, device=x.device, dtype=x.dtype)
+
+
 def predict_x_last(forecast_fn: ForecastFn, cfg: DYffusionConfig,
                    sched: DiffusionSchedule, initial_condition: torch.Tensor,
                    x_t: torch.Tensor, t: Union[float, torch.Tensor],
                    static_condition: Optional[torch.Tensor] = None,
-                   dynamical_condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   dynamical_condition: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Forecast x_{t0+h} from x_t at diffusion step ``t`` (a number, or one
-    step per sample)."""
+    step per sample). The forecaster's condition is the initial condition
+    ("data"), nothing ("none"), or the initial condition mixed with noise
+    (``forward_noise``, from ``generator``) by the per-sample factor
+    ``f = t / (N - 1)``: ``f x0 + (1 - f) noise`` ("data+noise-v1") or
+    ``(1 - f) x0 + f noise`` ("data+noise-v2"); the forcings of
+    ``dynamical_condition`` follow it."""
     B = initial_condition.shape[0]
     if isinstance(t, torch.Tensor):
         tt = t.float()
@@ -263,8 +279,15 @@ def predict_x_last(forecast_fn: ForecastFn, cfg: DYffusionConfig,
         forward_cond = initial_condition
     elif ctype == "none":
         forward_cond = None
+    elif ctype in ("data+noise-v1", "data+noise-v2"):
+        f = (tt / (sched.num_timesteps - 1)).reshape((B,) + (1,) * (initial_condition.dim() - 1))
+        noise = forward_noise(initial_condition, generator)
+        if ctype == "data+noise-v1":
+            forward_cond = f * initial_condition + (1 - f) * noise
+        else:
+            forward_cond = (1 - f) * initial_condition + f * noise
     else:
-        raise NotImplementedError(f"forward_conditioning {ctype!r} is not ported")
+        raise ValueError(f"Invalid forward conditioning {ctype!r}")
     if dynamical_condition is not None:
         if cfg.dynamic_cond_from_t == "0":
             dyn = dynamical_condition[:, 0]
@@ -305,7 +328,7 @@ def p_losses(interpolate_fn: InterpolateFn, forecast_fn: ForecastFn, cfg: DYffus
     tmask = (t > 0).reshape((B,) + (1,) * (input_dynamics.dim() - 1))
     x_t_model = torch.where(tmask, x_interp, input_dynamics)
     xt_last_pred = predict_x_last(forecast_fn, cfg, sched, input_dynamics, x_t_model, t,
-                                  **cond_kwargs)
+                                  generator=generator, **cond_kwargs)
     loss_forward = criterion(xt_last_pred, xt_last)
 
     lam1, lam2 = cfg.lambda_reconstruction, cfg.lambda_reconstruction2
@@ -317,7 +340,7 @@ def p_losses(interpolate_fn: InterpolateFn, forecast_fn: ForecastFn, cfg: DYffus
         x_interp2 = q_sample(interpolate_fn, sched, input_dynamics, x0_2,
                              sched.d_to_i(t2_safe.float()), generator, **cond_kwargs)
         x_last_pred2 = predict_x_last(forecast_fn, cfg, sched, input_dynamics, x_interp2,
-                                      t2_safe, **cond_kwargs)
+                                      t2_safe, generator=generator, **cond_kwargs)
         per_sample = torch.stack([criterion(x_last_pred2[b:b + 1], xt_last[b:b + 1])
                                   for b in range(B)])
         loss_forward2 = torch.sum(per_sample * mask) / torch.clamp(torch.sum(mask), min=1.0)
@@ -362,7 +385,7 @@ def sample_loop(interpolate_fn: InterpolateFn, forecast_fn: ForecastFn,
     for s, s_next in zip(steps, s_next_list):
         is_last = s == N - 1
         xhat = predict_x_last(forecast_fn, cfg, sched, initial_condition, x_s, float(s),
-                              **cond_kwargs)
+                              generator=generator, **cond_kwargs)
         xhat_state = (_hack_prepend(initial_condition, xhat)
                       if cfg.hack_for_imprecise_interpolation else xhat)
         time_i_n = float(sched.d_to_i(s_next)) if not is_last else math.inf
@@ -480,7 +503,7 @@ def sample_loop_scan(interpolate_fn: InterpolateFn, forecast_fn: ForecastFn,
     xhat = None
     for s in range(N):
         xhat = predict_x_last(forecast_fn, cfg, sched, initial_condition, x_s, float(s),
-                              **cond_kwargs)
+                              generator=generator, **cond_kwargs)
         xhat_state = (_hack_prepend(initial_condition, xhat)
                       if cfg.hack_for_imprecise_interpolation else xhat)
         # the masked lanes get clamped times; a non-positive time becomes 1
@@ -521,19 +544,19 @@ def _sample_loop_scan_peeled(interpolate_fn: InterpolateFn, forecast_fn: Forecas
         return interpolate_fn(initial_condition, xhat, t, generator, **cond_kwargs)
 
     xhat = predict_x_last(forecast_fn, cfg, sched, initial_condition, initial_condition, 0.0,
-                          **cond_kwargs)
+                          generator=generator, **cond_kwargs)
     x_s = interp1(xhat, sched.d_to_i(1))
     states = [x_s]
     for s in range(1, N - 1):
         xhat = predict_x_last(forecast_fn, cfg, sched, initial_condition, x_s, float(s),
-                              **cond_kwargs)
+                              generator=generator, **cond_kwargs)
         x_int_next, x_int_s = _double_batch(interpolate_fn, initial_condition, xhat,
                                             sched.d_to_i(s + 1), sched.d_to_i(s), generator,
                                             cond_kwargs)
         x_s = x_s + x_int_next - x_int_s
         states.append(x_s)
     xhat = predict_x_last(forecast_fn, cfg, sched, initial_condition, x_s, float(N - 1),
-                          **cond_kwargs)
+                          generator=generator, **cond_kwargs)
     xhat_state = (_hack_prepend(initial_condition, xhat)
                   if cfg.hack_for_imprecise_interpolation else xhat)
     states.append(x_s + xhat_state - interp1(xhat, sched.d_to_i(N - 1)))

@@ -52,7 +52,10 @@ class DYffusionStepper:
         """``use_ema_params`` loads the forecaster's EMA weights,
         ``ema_params`` (a flax variable tree, converted by
         ``utils/convert.py``, or a ``state_dict``), into the experiment's
-        forecaster; it raises without them. The interpolator keeps its own.
+        forecaster; it raises without them. The interpolator runs the
+        weights its experiment loaded: with ``interpolator_use_ema`` its
+        checkpoint's EMA weights (the JAX stepper's
+        ``active_interpolator_params``).
 
         ``params_dtype="bfloat16"`` rounds every floating parameter and
         buffer of both networks (the transforms' matrices too, as the JAX

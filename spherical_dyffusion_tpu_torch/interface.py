@@ -177,16 +177,27 @@ def get_experiment(cfg: Dict[str, Any], dm, device=None, seed: int = 0):
         ip_path = diff_cfg.get("interpolator_checkpoint_path")
         if not ip_path:
             raise ValueError("dyffusion needs diffusion.interpolator_checkpoint_path")
-        ip_over = {"model": cfg["interpolator_model"]} if cfg.get("interpolator_model") else None
-        interpolator = load_experiment_checkpoint(ip_path, overrides=ip_over, dm=dm,
-                                                  device=device)[0]
+        # the JAX package gives the forecaster condition channels for
+        # "data" only, so a "data+noise" forecaster, whose forecasts feed the
+        # noised condition too, fails at its first step there (ROADMAP
+        # Queue 3); the port keeps that channel count and says so here
         cond_ch = C if dcfg.forward_conditioning == "data" else 0
+        if dcfg.forward_conditioning.startswith("data+noise"):
+            raise ValueError(
+                f"forward_conditioning {dcfg.forward_conditioning!r}: the forecaster is built "
+                f"with {C + CF + cond_ch} input channels, as the JAX package builds it "
+                f"(condition channels for 'data' only), but its forecasts would feed it "
+                f"{2 * C + CF} (the noised condition too)")
+        ip_over = {"model": cfg["interpolator_model"]} if cfg.get("interpolator_model") else None
+        interpolator, _, ip_ema, _ = load_experiment_checkpoint(
+            ip_path, overrides=ip_over, dm=dm, device=device)
         model = get_model(model_cfg, HW, C + CF + cond_ch, len(dm.cfg.out_names),
                           with_time_emb=True, min_time=0, max_time=horizon - 1, device=device,
                           generator=gen)
         return DYffusionForecastingExperiment(
             model, interpolator, dcfg, exp_cfg, dm.in_packer, dm.out_packer, dm.normalizer,
-            forcing_names=dm.cfg.forcing_names, forcing_normalizer=dm.forcing_normalizer)
+            forcing_names=dm.cfg.forcing_names, forcing_normalizer=dm.forcing_normalizer,
+            interpolator_ema_params=ip_ema)
 
     if kind == "simultaneous":
         raise NotImplementedError("experiment 'simultaneous' is not ported (ROADMAP Queue 1 "

@@ -16,11 +16,13 @@ of K2 (``bench.py``'s ``BENCH_FUSED_TAIL=1``). ``factorization``, ``rank``,
 truncation and spectral-IO dtype, and ``fused_rank`` routes the CP rank
 pipeline's spectral middle through K4; ``FAST_WINDOW`` is the JAX bench's
 fast product compose (CP rank 0.25, truncation 0.8, bf16 spectral IO, scan
-and peel on, no fused MLP) with K4 on. The window is cold-sampled by the
-double-batch scan sampler, peeled with ``peel`` (``BENCH_PEEL``);
+and peel on, no fused MLP) with K4 on, and ``TUCKER_WINDOW`` its compose
+with ``BENCH_FACT=tucker BENCH_RANK=0.25`` (the Tucker rank pipeline, scan
+and peel on) with K3 on. ``sht_fold_symmetry`` is ``BENCH_FOLD``. The window is cold-sampled
+by the double-batch scan sampler, peeled with ``peel`` (``BENCH_PEEL``);
 ``scan_layers`` (``BENCH_SCAN_LAYERS``) is accepted and runs the blocks as
-the same plain loop. ``fused_tail``, ``peel``, ``scan_layers`` and the CP
-filter default to off, as in ``bench.py:build()``.
+the same plain loop. ``fused_tail``, ``peel``, ``scan_layers``, folding
+and the factorized filters default to off, as in ``bench.py:build()``.
 
 Weights come from a seeded ``torch.Generator`` or from JAX-package parameter
 trees (``utils/convert.py``); ``ema_params`` replaces the forecaster's with
@@ -38,7 +40,9 @@ experiments of the paper at their full width, in float32 with K1 on (its
 forward, and its backward's dx), K2-K4 off as the JAX trainer keeps them,
 the trainer settings of ``configs/trainer/default.yaml``, batch 1 from a
 ``DebugDataModule`` at 180 x 360: the interpolator trains first, then the
-forecaster with it frozen inside ``p_losses``.
+forecaster with it frozen inside ``p_losses``; ``scan_layers`` and
+``checkpointing=3`` are ``bench.py``'s training at paper scale with remat
+(``BENCH_SCAN_LAYERS=1 BENCH_CKPT=3``).
 """
 
 from __future__ import annotations
@@ -69,7 +73,8 @@ from .training.experiments import (
 from .training.trainer import Trainer, TrainerConfig
 from .utils.convert import flax_to_state_dict
 
-__all__ = ["state_names", "FORCING_NAMES", "MASK_NAME", "FAST_WINDOW", "sfno_configs",
+__all__ = ["state_names", "FORCING_NAMES", "MASK_NAME", "FAST_WINDOW", "TUCKER_WINDOW",
+           "sfno_configs",
            "build", "window_inputs", "product_rollout", "build_training", "train_steps"]
 
 FORCING_NAMES = ("DSWRFtoa", "HGTsfc")
@@ -81,6 +86,11 @@ MASK_NAME = "ocean_fraction"
 FAST_WINDOW = dict(use_pallas=False, fused_mlp=False, fused_tail=False, factorization="cp",
                    rank=0.25, thresh=0.8, spectral_io="bfloat16", scan_layers=True,
                    peel=True, fused_rank=True)
+# bench.py's compose with BENCH_FACT=tucker BENCH_RANK=0.25 (scan and peel
+# on): the Tucker rank pipeline (2R = 128 channels through the SHTs) in the
+# middle blocks, with every block's tail on K3
+TUCKER_WINDOW = dict(use_pallas=False, fused_mlp=False, fused_tail=True,
+                     factorization="tucker", rank=0.25, scan_layers=True, peel=True)
 
 
 def state_names(n: int = 35) -> list:
@@ -96,8 +106,9 @@ def sfno_configs(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
                  n_state: int = 35, use_pallas: bool = True,
                  fused_mlp: bool = True, fused_tail: bool = False,
                  scan_layers: bool = False, factorization: str = "", rank: float = 1.0,
-                 thresh: float = 1.0,
-                 spectral_io: str = "") -> Tuple[SFNOConfig, SFNOConfig]:
+                 thresh: float = 1.0, spectral_io: str = "",
+                 sht_fold_symmetry: bool = False,
+                 checkpointing: int = 0) -> Tuple[SFNOConfig, SFNOConfig]:
     """(interpolator, forecaster) configs of ``bench.py:build()``."""
     C, CF = n_state, len(FORCING_NAMES)
     common = dict(img_shape=img_shape, out_chans=C, embed_dim=embed, num_layers=layers,
@@ -105,7 +116,8 @@ def sfno_configs(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
                   compute_dtype=dtype, sht_matmul_dtype=dtype, use_pallas=use_pallas,
                   fused_mlp=fused_mlp, hard_thresholding_fraction=thresh,
                   factorization=factorization, rank=rank, spectral_io_dtype=spectral_io,
-                  fused_tail=fused_tail, scan_layers=scan_layers)
+                  fused_tail=fused_tail, scan_layers=scan_layers,
+                  sht_fold_symmetry=sht_fold_symmetry, checkpointing=checkpointing)
     interp = SFNOConfig(in_chans=2 * C + CF, dropout_mlp=0.1, drop_path_rate=0.1,
                         min_time=1, max_time=horizon - 1, **common)
     fcast = SFNOConfig(in_chans=C + CF, min_time=0, max_time=horizon - 1, **common)
@@ -117,7 +129,7 @@ def build(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
           use_pallas: bool = True, fused_mlp: bool = True, fused_tail: bool = False,
           peel: bool = False, scan_layers: bool = False, factorization: str = "",
           rank: float = 1.0, thresh: float = 1.0, spectral_io: str = "",
-          fused_rank: bool = False, device: str = "cuda",
+          fused_rank: bool = False, sht_fold_symmetry: bool = False, device: str = "cuda",
           seed: int = 0, flax_params: Optional[Mapping[str, Mapping]] = None,
           enable_interpolator_dropout: bool = True, params_dtype: Optional[str] = None,
           preds_dtype: Optional[str] = None,
@@ -141,7 +153,7 @@ def build(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
     packer = Packer(names)
     icfg, fcfg = sfno_configs(embed, layers, dtype, img_shape, horizon, n_state,
                               use_pallas, fused_mlp, fused_tail, scan_layers, factorization,
-                              rank, thresh, spectral_io)
+                              rank, thresh, spectral_io, sht_fold_symmetry)
     imodel = SFNO(icfg, fused_rank=fused_rank).to(device)
     fmodel = SFNO(fcfg, fused_rank=fused_rank).to(device)
     if flax_params is not None:
@@ -230,6 +242,8 @@ def product_rollout(stepper: DYffusionStepper, n_steps: int = 288, window: int =
 def build_training(embed: int = 256, layers: int = 8, img_shape: Tuple[int, int] = (180, 360),
                    horizon: int = 6, n_state: int = 35, use_pallas: bool = True,
                    dropout: bool = True, n_samples: int = 8, scheduler: str = "warmup_cosine",
+                   scan_layers: bool = False, checkpointing: int = 0,
+                   forward_conditioning: str = "none",
                    device: str = "cuda") -> Dict[str, Trainer]:
     """The two trainers of the training path, ``{"interpolator": ...,
     "forecaster": ...}``, over one ``DebugDataModule`` (``n_state`` state
@@ -239,7 +253,12 @@ def build_training(embed: int = 256, layers: int = 8, img_shape: Tuple[int, int]
     and ``fv3gfs_dyffusion``, float32 compute, weights from a
     ``torch.Generator`` seeded with 0; the forecaster's loss runs the
     interpolator frozen.
-    ``dropout=False`` turns the interpolator's dropout off in both losses."""
+    ``dropout=False`` turns the interpolator's dropout off in both losses.
+    ``scan_layers`` and ``checkpointing`` (remat from 3) are the SFNO
+    fields of both networks. ``forward_conditioning`` is DYffusion's; other
+    than "none" the forecaster gets the ``n_state`` condition channels that
+    its forecasts feed it (for "data+noise-*" too, where the JAX package's
+    experiment builder leaves them out: ROADMAP Queue 3)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("main path: CUDA is not available; pass device='cpu' "
@@ -248,9 +267,12 @@ def build_training(embed: int = 256, layers: int = 8, img_shape: Tuple[int, int]
                          horizon=horizon, n_forcing=len(FORCING_NAMES), batch_size=1,
                          n_timesteps=horizon + n_samples, seed=0)
     icfg, fcfg = sfno_configs(embed, layers, "float32", img_shape, horizon, n_state,
-                              use_pallas=use_pallas, fused_mlp=False)
+                              use_pallas=use_pallas, fused_mlp=False, scan_layers=scan_layers,
+                              checkpointing=checkpointing)
     if not dropout:
         icfg = dataclasses.replace(icfg, dropout_mlp=0.0, drop_path_rate=0.0)
+    if forward_conditioning != "none":
+        fcfg = dataclasses.replace(fcfg, in_chans=fcfg.in_chans + n_state)
     imodel = SFNO(icfg).to(device)
     fmodel = SFNO(fcfg).to(device)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -259,7 +281,7 @@ def build_training(embed: int = 256, layers: int = 8, img_shape: Tuple[int, int]
     interp = InterpolationExperiment(
         imodel, ExperimentConfig(horizon=horizon, enable_inference_dropout=True),
         dm.in_packer, dm.out_packer, dm.normalizer)
-    dcfg = DYffusionConfig(timesteps=horizon, forward_conditioning="none",
+    dcfg = DYffusionConfig(timesteps=horizon, forward_conditioning=forward_conditioning,
                            time_encoding="dynamics")
     fexp = DYffusionForecastingExperiment(
         fmodel, interp, dcfg, ExperimentConfig(horizon=horizon), dm.in_packer, dm.out_packer,
@@ -282,9 +304,10 @@ def train_steps(n_steps: int = 6, embed: int = 256, layers: int = 8,
     optimizer and EMA per step: CUDA events recorded between the parts on
     the card, the host clock on the CPU), ``peak_bytes``
     (``torch.cuda.max_memory_allocated`` over the steps; None on the CPU), and
-    per step the K1 launches (``k1_launches``; ``k1_backward``: those of the
-    backward, dx) and K1 weight images made (``k1_images``), with the
-    ``trainer`` and its ``state``."""
+    per step the K1 launches (``k1_launches``; ``k1_backward``: those made
+    in the backward, which under remat include the recompute's forwards;
+    ``k1_dx``: the backward's dx products) and K1 weight images made
+    (``k1_images``), with the ``trainer`` and its ``state``."""
     if trainers is None:
         trainers = build_training(embed, layers, img_shape, horizon, n_state,
                                   n_samples=max(n_steps, 1), device=device)
@@ -297,7 +320,7 @@ def train_steps(n_steps: int = 6, embed: int = 256, layers: int = 8,
         state = tr.init_state()
         gen = torch.Generator().manual_seed(1)
         rec = {k: [] for k in ("losses", "step_ms", "split_ms", "k1_launches", "k1_backward",
-                               "k1_images")}
+                               "k1_dx", "k1_images")}
         if cuda:
             torch.cuda.synchronize(tr.device)
             torch.cuda.reset_peak_memory_stats(tr.device)
@@ -313,7 +336,7 @@ def train_steps(n_steps: int = 6, embed: int = 256, layers: int = 8,
                 else:
                     marks.append((part, time.perf_counter(), dhconv.launches))
 
-            dhconv.launches = dhconv_weight_image.launches = 0
+            dhconv.launches = dhconv.dx_launches = dhconv_weight_image.launches = 0
             t0 = time.perf_counter()
             mark("start")
             dyn, cond, rt = tr.upload(batch)
@@ -322,6 +345,7 @@ def train_steps(n_steps: int = 6, embed: int = 256, layers: int = 8,
                 torch.cuda.synchronize(tr.device)
             rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
             rec["k1_launches"].append(dhconv.launches)
+            rec["k1_dx"].append(dhconv.dx_launches)
             rec["k1_images"].append(dhconv_weight_image.launches)
             rec["split_ms"].append({
                 part: (a.elapsed_time(b) if cuda else (b - a) * 1e3)

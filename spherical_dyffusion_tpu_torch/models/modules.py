@@ -31,7 +31,7 @@ from torch import nn
 from ..ops.fused_mlp import fused_block_tail, fused_mlp
 from ..utils.device import to_device
 
-__all__ = ["Dense", "InstanceNorm2d", "QuantizedDropout", "MLP2d",
+__all__ = ["Dense", "InstanceNorm2d", "SpatialLayerNorm", "QuantizedDropout", "MLP2d",
            "SinusoidalTimeEmbedding", "TimeEmbedMLP", "DropPath",
            "get_activation", "draw_seed", "exact_dropout"]
 
@@ -114,6 +114,33 @@ class InstanceNorm2d(nn.Module):
         if fold:
             return rstd * self.scale, self.bias - mean * rstd * self.scale
         y = (xf - mean) * rstd
+        return (y * self.scale + self.bias).to(x.dtype)
+
+
+class SpatialLayerNorm(nn.Module):
+    """Layer norm over the spatial dims of (B, H, W, C): each channel's
+    (H, W) slice normalized jointly (float32 statistics, eps 1e-6, one-pass
+    ``max(E[x^2] - E[x]^2, 0)`` unless ``exact``), then the per-pixel
+    ``scale`` and ``bias`` of shape ``(h, w, 1)``, shared by the channels
+    (the JAX package's module and parameter layout)."""
+
+    def __init__(self, spatial_shape: Tuple[int, int], eps: float = 1e-6,
+                 exact: bool = False):
+        super().__init__()
+        h, w = spatial_shape
+        self.eps = eps
+        self.exact = exact
+        self.scale = nn.Parameter(torch.ones(h, w, 1))
+        self.bias = nn.Parameter(torch.zeros(h, w, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=(-3, -2), keepdim=True)
+        if self.exact:
+            var = (xf - mean).square().mean(dim=(-3, -2), keepdim=True)
+        else:
+            var = (xf.square().mean(dim=(-3, -2), keepdim=True) - mean.square()).clamp_min(0.0)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.scale + self.bias).to(x.dtype)
 
 

@@ -1,13 +1,45 @@
 """Spherical Fourier Neural Operator, channels-last, in PyTorch.
 
 Counterpart of ``spherical_dyffusion_tpu/models/sfno.py`` (``SFNOConfig``,
-``SpectralConvS2``, ``FNOBlock``, ``SFNO``) for the configurations of the
-main path: SHT transforms, the linear ``dhconv`` filter (dense, or
-CP-factorized with the rank pipeline), instance norm, a gelu MLP and an
-optional time embedding. ``scan_layers`` is accepted and runs as the same
-plain loop over the blocks (the JAX package states both are the same math).
-Fields whose other values the port does not implement raise in
-``SFNOConfig.__post_init__`` rather than being ignored.
+``SpectralConvS2``, ``SpectralAttentionS2``, ``FNOBlock``, ``SFNO``) over the
+JAX package's configuration space:
+
+- transforms: the SHT (``lon_method`` "matmul" or "fft",
+  ``sht_fold_symmetry``) or the planar FFT (``spectral_transform="fft"``);
+- the linear filter (``filter_type="linear"``): ``operator_type`` "dhconv"
+  or "diagonal", separable or not, dense or factorized (``factorization``
+  "cp", "tucker" or "tt"); CP and Tucker take the rank pipeline where the
+  JAX package does; ``merged_dhconv`` computes the dense dhconv as one
+  product;
+- the non-linear filter (``filter_type="non-linear"``, spectral attention):
+  a complex MLP per mode, shared ("dhconv"/"diagonal") or per degree
+  ("l-dependant"), with the complex activations "real", "cartesian" and
+  "complex";
+- ``normalization_layer`` "instance_norm", "layer_norm" or "none"; any
+  activation of ``get_activation``; ``use_mlp``; ``scale_factor``; an
+  optional time embedding;
+- remat (``checkpointing >= 3``, below).
+
+``scan_layers`` runs the same plain loop over the blocks (the JAX package
+states both are the same math; its stacked parameter layout is unstacked by
+``utils/convert.py``). Values that the JAX package rejects raise in
+``SFNOConfig.__post_init__``, and so do ``fused_mlp_tile_rows`` other than
+1024 (the CUDA kernels tile by their own rule), compute and matmul dtypes
+other than float32 and bfloat16, and a non-linear ``operator_type`` name
+outside "dhconv", "diagonal" and "l-dependant", which the JAX package reads as
+"diagonal". The transforms check their own names (``ops/sht.py``): an unknown
+``lon_method``, which the JAX package reads as "fft", raises at model build.
+
+Remat: with ``checkpointing >= 3`` every block runs under
+``torch.utils.checkpoint`` (non-reentrant), the middle blocks under
+``scan_layers`` included, as the JAX package wraps each block (and its scan
+body) in ``nn.remat`` from 3 on; lower values remat nothing (the JAX field's
+comment says 1 remats the encoder and decoder, but its code does not). A
+block is checkpointed only where autograd records; at inference it is the
+plain forward. The recompute draws exactly the dropout and DropPath bits of
+the forward, as flax replays its keys: it runs on a copy of the caller's
+host generator restored to the state the block's forward started from, so
+the caller's generator ends the step where it would without remat.
 
 Mixed precision follows the JAX package: Dense layers compute in
 ``compute_dtype``; the transforms and spectral contractions round their
@@ -17,40 +49,53 @@ parameters stay float32, and the residual stream is promoted to float32 by
 the float32 time scale-shift, position embedding and filter output, so under
 bf16 compute every block returns float32.
 
-``use_pallas`` routes the dense contraction through the K1 kernel and
-``fused_mlp`` the block MLP through the K2 kernel (the JAX package's flag
-names). K1 is differentiable (its backward's dx runs K1 too), so
-``use_pallas`` trains; K2, K3 and K4 have no backward and refuse autograd,
-so a network that trains keeps ``fused_mlp``, ``fused_tail`` and
-``fused_rank`` off, as the JAX trainer does. A training forward passes
-``deterministic=False`` and a host generator for the dropout masks. ``fused_tail`` (for instance norm, an MLP and a gelu) takes
-precedence over ``fused_mlp``: each block folds norm1 and, with
+``use_pallas`` routes the dense dhconv contraction that is not separable
+through the K1 kernel and ``fused_mlp`` the block MLP through the K2 kernel
+(the JAX package's flag names). K1 is differentiable (its backward's dx runs
+K1 too), so ``use_pallas`` trains, remat included; K2, K3 and K4 have no
+backward and refuse autograd, so a network that trains keeps
+``fused_mlp``, ``fused_tail`` and ``fused_rank`` off, as the JAX trainer
+does. A training forward passes ``deterministic=False`` and a host generator
+for the dropout masks. ``fused_tail`` (for instance norm, an MLP and a gelu)
+takes precedence over ``fused_mlp``: each block folds norm1 and, with
 ``time_scale_shift_before_filter=False``, the time scale-shift into one
 per-(sample, channel) affine (``InstanceNorm2d(fold=True)``) and runs
 norm-apply, MLP and outer skip as the K3 kernel, as the JAX package's
 boundary-corrected block tail does. ``SFNO(cfg, fused_rank=True)`` routes
-the spectral middle of every block that takes the CP rank pipeline (Legendre
-analysis, CP scale, Legendre synthesis) through the K4 kernel. It is a
-keyword of the port's model, not a config field, because ``SFNOConfig``
-mirrors the JAX package's config field for field; it is off by default, so a
-config computes the JAX package's three separate stages unless asked.
+the spectral middle of every block that takes the CP rank pipeline on the
+unfolded matmul SHT (Legendre analysis, CP scale, Legendre synthesis)
+through the K4 kernel; other blocks compute their stages as they would
+without it. It is a keyword of the port's model, not a config field,
+because ``SFNOConfig`` mirrors the JAX package's config field for field; it
+is off by default, so a config computes the JAX package's three separate
+stages unless asked.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import re
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.contractions import (
+    complex_einsum,
     contract,
     contract_dhconv_cp,
+    contract_dhconv_stacked,
+    contract_dhconv_tt,
+    contract_dhconv_tucker,
     cp_spatial_expand,
     cp_spatial_project,
     cp_spectral_scale_stacked,
+    tucker_rank_kernel,
+    tucker_spectral_mix_stacked,
 )
+from ..ops.fft import InverseRealFFT2, RealFFT2
 from ..ops.fused_rank import fused_rank as fused_rank_kernel
 from ..ops.matmul import as_dtype
 from ..ops.pallas_contractions import WeightImageCache
@@ -61,32 +106,44 @@ from .modules import (
     InstanceNorm2d,
     MLP2d,
     QuantizedDropout,
+    SpatialLayerNorm,
     TimeEmbedMLP,
     get_activation,
 )
 
-__all__ = ["SFNOConfig", "SFNO", "FNOBlock", "SpectralConvS2"]
+__all__ = ["SFNOConfig", "SFNO", "FNOBlock", "SpectralConvS2", "SpectralAttentionS2"]
 
-# field -> the values the port implements (the JAX package's default first)
+# field -> the values the port implements, where it implements fewer than
+# the JAX package runs
 _SUPPORTED = {
-    "spectral_transform": ("sht",),
-    "filter_type": ("linear",),
-    "operator_type": ("dhconv",),
-    "separable": (False,),
-    "checkpointing": (0,),
-    "factorization": (None, "", "cp"),
     "spectral_io_dtype": ("", "bfloat16"),
-    "lon_method": ("matmul",),
-    "sht_fold_symmetry": (False,),
-    "merged_dhconv": (False,),
     "sht_matmul_dtype": ("float32", "bfloat16"),
     "fused_mlp_tile_rows": (1024,),
 }
+# field -> its values, as the JAX package names them
+_NAMES = {
+    "spectral_transform": ("sht", "fft"),
+    "filter_type": ("linear", "non-linear"),
+    "normalization_layer": ("instance_norm", "layer_norm", "none"),
+    "activation_function": ("gelu", "gelu_exact", "relu", "silu", "tanh"),
+}
+_FACTORIZATIONS = (None, "", "cp", "tucker", "tt")
+_COMPLEX_ACTIVATIONS = ("real", "cartesian", "complex")
+
+
+def _factor_shapes(factorization: str, ci: int, co: int, lmax: int, R: int) -> dict:
+    """The factors of a factorization by their short names, with shapes."""
+    cp = {"A": (ci, R, 2), "B": (co, R, 2), "C": (lmax, R, 2)}
+    return {"cp": cp, "tucker": dict(cp, core=(R, R, R, 2)),
+            "tt": {"G1": (ci, R, 2), "G2": (R, co, R, 2), "G3": (R, lmax, 2)}}[factorization]
 
 
 @dataclasses.dataclass(frozen=True)
 class SFNOConfig:
-    """Static configuration, with the JAX package's field names."""
+    """Static configuration, with the JAX package's field names and
+    defaults. Every value that the JAX package runs is accepted, with the
+    exceptions listed in the module docstring; ``checkpointing >= 3``
+    remats every block (lower values remat nothing)."""
 
     img_shape: Tuple[int, int] = (180, 360)
     in_chans: int = 35
@@ -94,9 +151,9 @@ class SFNOConfig:
     embed_dim: int = 256
     num_layers: int = 8
     scale_factor: int = 1
-    spectral_transform: str = "sht"
-    filter_type: str = "linear"
-    operator_type: str = "dhconv"
+    spectral_transform: str = "sht"  # "sht" | "fft"
+    filter_type: str = "linear"  # "linear" | "non-linear"
+    operator_type: str = "dhconv"  # "dhconv" | "diagonal" | "l-dependant" (non-linear)
     separable: bool = False
     mlp_ratio: float = 2.0
     use_mlp: bool = True
@@ -104,7 +161,7 @@ class SFNOConfig:
     encoder_layers: int = 1
     pos_embed: bool = True
     big_skip: bool = True
-    normalization_layer: str = "instance_norm"  # "instance_norm" | "none"
+    normalization_layer: str = "instance_norm"  # "instance_norm" | "layer_norm" | "none"
     exact_norm: bool = False
     exact_dropout: bool = False
     hard_thresholding_fraction: float = 1.0
@@ -116,7 +173,7 @@ class SFNOConfig:
     dropout_filter: float = 0.0
     pos_emb_dropout: float = 0.0
     drop_path_rate: float = 0.0
-    checkpointing: int = 0
+    checkpointing: int = 0  # >= 3: remat every block
     data_grid: str = "equiangular"
     with_time_emb: bool = False
     time_dim_mult: int = 2
@@ -124,15 +181,15 @@ class SFNOConfig:
     time_scale_shift_before_filter: bool = True
     min_time: float = 0.0
     max_time: float = 1000.0
-    factorization: Optional[str] = None
+    factorization: Optional[str] = None  # None | "cp" | "tucker" | "tt"
     rank: float = 1.0
     rank_pipeline: bool = True
     spectral_layers: int = 3
-    complex_activation: str = "real"
+    complex_activation: str = "real"  # "real" | "cartesian" | "complex"
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
     sht_matmul_dtype: str = "float32"
     spectral_io_dtype: str = ""
-    lon_method: str = "matmul"
+    lon_method: str = "matmul"  # "matmul" | "fft"
     sht_fold_symmetry: bool = False
     use_pallas: bool = False
     merged_dhconv: bool = False
@@ -144,11 +201,24 @@ class SFNOConfig:
                 raise NotImplementedError(
                     f"SFNOConfig.{name}={getattr(self, name)!r}: the port implements "
                     f"only {values}")
-        if self.normalization_layer not in ("instance_norm", "none"):
-            raise NotImplementedError(
-                f"normalization_layer={self.normalization_layer!r} is not ported")
+        for name, values in _NAMES.items():
+            if getattr(self, name) not in values:
+                raise ValueError(f"SFNOConfig.{name}={getattr(self, name)!r}: one of {values}")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
+        if self.filter_type == "linear":
+            if self.operator_type not in ("dhconv", "diagonal"):
+                raise ValueError(f"Unsupported operator_type {self.operator_type!r}")
+            if self.factorization not in _FACTORIZATIONS:
+                raise ValueError(f"Unknown factorization {self.factorization!r}")
+            if self.factorization and self.operator_type != "dhconv":
+                raise NotImplementedError("factorizations implemented for dhconv")
+        else:
+            if self.operator_type not in ("dhconv", "diagonal", "l-dependant"):
+                raise ValueError(
+                    f"Unknown non-linear operator type {self.operator_type!r}")
+            if self.complex_activation not in _COMPLEX_ACTIVATIONS:
+                raise ValueError(f"Unknown complex activation {self.complex_activation!r}")
 
     def resolved(self) -> "SFNOConfig":
         if self.debug_mode:
@@ -171,69 +241,106 @@ class SFNOConfig:
         return getattr(torch, self.compute_dtype)
 
 
-class SpectralConvS2(nn.Module):
-    """SHT -> spectral weight -> ISHT (+ bias). Returns ``(filtered,
-    residual)``; the residual is the input regridded through ISHT(SHT(x))
-    when the two transforms' grids differ, else the input.
+def _build_transforms(cfg: SFNOConfig, kernel_layout: bool = False):
+    """``(trans_down, itrans_up, trans, itrans)``: the data-grid transforms
+    of the first and last block and the model-grid (legendre-gauss)
+    transforms of the others, as the JAX package's ``_build_transforms``;
+    K4's ``(m, h, l)`` matrices are made with ``kernel_layout``."""
+    lmax, mmax = cfg.modes
+    H, W = cfg.img_shape
+    h, w = cfg.model_shape
+    if cfg.spectral_transform == "fft":
+        return (RealFFT2(H, W, lmax, mmax), InverseRealFFT2(H, W, lmax, mmax),
+                RealFFT2(h, w, lmax, mmax), InverseRealFFT2(h, w, lmax, mmax))
+    kw = dict(matmul_dtype=cfg.sht_matmul_dtype, kernel_layout=kernel_layout,
+              lon_method=cfg.lon_method, fold_symmetry=cfg.sht_fold_symmetry)
+    return (RealSHT(H, W, lmax, mmax, grid=cfg.data_grid, **kw),
+            InverseRealSHT(H, W, lmax, mmax, grid=cfg.data_grid, **kw),
+            RealSHT(h, w, lmax, mmax, grid="legendre-gauss", **kw),
+            InverseRealSHT(h, w, lmax, mmax, grid="legendre-gauss", **kw))
 
-    The weight is dense (``weight (ci, co, lmax, 2)``) or, with
-    ``factorization="cp"``, the CP factors ``cp_A (ci, R, 2)``,
-    ``cp_B (co, R, 2)`` and ``cp_C (lmax, R, 2)`` with
-    ``R = max(1, int(rank * min(ci, co)))`` (the flax names). A CP filter
-    whose two transforms share a grid, with ``2R <= min(ci, co)``, runs the
-    rank pipeline: project to rank in grid space, transform 2R channels,
-    scale per l, inverse-transform, expand in grid space; the other CP
-    filters contract in spectral space (``contract_dhconv_cp``).
-    ``fused_rank`` runs the rank pipeline's spectral middle as the K4 kernel.
+
+class SpectralConvS2(nn.Module):
+    """The linear filter: transform -> spectral weight -> inverse transform
+    (+ bias). Returns ``(filtered, residual)``; the residual is the input
+    regridded through the inverse of the forward transform when the two
+    transforms' grids differ, else the input.
+
+    The weight (flax name ``weight``) is dense, ``(ci[, co], lmax[, mmax],
+    2)`` (co dropped when ``separable``, mmax added for "diagonal"), or with
+    ``factorization`` the flax-named factors ``{cp,tucker,tt}_*`` with
+    ``R = max(1, int(rank * min(ci, co)))``: CP ``A (ci, R, 2)``,
+    ``B (co, R, 2)``, ``C (lmax, R, 2)``; Tucker the same and
+    ``core (R, R, R, 2)``; TT ``G1 (ci, R, 2)``, ``G2 (R, co, R, 2)``,
+    ``G3 (R, lmax, 2)``. A CP or Tucker dhconv filter that is not separable,
+    whose two SHTs share a grid, with ``2R <= min(ci, co)``, runs the rank
+    pipeline: project to rank in grid space, transform 2R channels, scale
+    (CP) or mix (Tucker) per l, inverse-transform, expand in grid space;
+    every other factorized filter contracts in spectral space.
+
+    The dense dhconv filter that is not separable, between two SHTs and off
+    K1, takes the JAX package's stacked path when ``merged_dhconv`` or a
+    spectral-IO dtype is set (the merged product with ``merged_dhconv``):
+    only there, and in the rank pipeline, does ``io_dtype`` round the
+    spectral stages. ``fused_rank`` runs the CP rank pipeline's spectral
+    middle as the K4 kernel (unfolded matmul SHTs only).
     """
 
-    def __init__(self, forward_transform: RealSHT, inverse_transform: InverseRealSHT,
+    def __init__(self, forward_transform, inverse_transform,
                  in_channels: int, out_channels: int, use_pallas: bool = False,
                  operator_type: str = "dhconv", separable: bool = False,
                  factorization: Optional[str] = None, rank: float = 1.0,
                  rank_pipeline: bool = False, matmul_dtype: str = "float32",
-                 io_dtype: str = "", fused_rank: bool = False):
+                 io_dtype: str = "", fused_rank: bool = False,
+                 merged_dhconv: bool = False):
         super().__init__()
         # held outside the module tree: the SFNO owns the shared transforms
         self._transforms = (forward_transform, inverse_transform)
         self.use_pallas = use_pallas
+        self.operator_type = operator_type
+        self.separable = separable
         self.factorization = factorization or ""
         self.matmul_dtype = as_dtype(matmul_dtype)
-        lmax = forward_transform.lmax
-        if self.factorization == "cp":
-            R = max(1, int(rank * min(in_channels, out_channels)))
-            self.cp_A = nn.Parameter(torch.empty(in_channels, R, 2))
-            self.cp_B = nn.Parameter(torch.empty(out_channels, R, 2))
-            self.cp_C = nn.Parameter(torch.empty(lmax, R, 2))
-        elif self.factorization:
-            raise NotImplementedError(f"factorization {factorization!r} is not ported")
+        fwd, inv = forward_transform, inverse_transform
+        lmax = fwd.lmax
+        R = max(1, int(rank * min(in_channels, out_channels)))
+        if self.factorization:
+            shapes = _factor_shapes(self.factorization, in_channels, out_channels, lmax, R)
+            self._factor_keys = tuple(shapes)
+            for k, shape in shapes.items():
+                self.register_parameter(f"{self.factorization}_{k}",
+                                        nn.Parameter(torch.empty(shape)))
         else:
-            self.weight = nn.Parameter(torch.empty(in_channels, out_channels, lmax, 2))
+            shape = (in_channels,) + (() if separable else (out_channels,)) + (lmax,) + \
+                ((fwd.mmax,) if operator_type == "diagonal" else ()) + (2,)
+            self.weight = nn.Parameter(torch.empty(shape))
         # K1's weight images, made on the card once per weight version (not
         # saved): the forward's, and the backward's conjugate transpose
-        k1 = use_pallas and not self.factorization
+        k1 = use_pallas and not self.factorization and operator_type == "dhconv" \
+            and not separable
         self._k1_image = WeightImageCache() if k1 else None
         self._k1_image_t = WeightImageCache(conj_t=True) if k1 else None
         self.bias = nn.Parameter(torch.zeros(out_channels))
-        fwd, inv = forward_transform, inverse_transform
         self.scale_residual = (fwd.nlat, fwd.nlon, fwd.grid) != (inv.nlat, inv.nlon, inv.grid)
-        # the JAX package's gate (models/sfno.py:323-334), condition for
-        # condition
+        shts = isinstance(fwd, RealSHT) and isinstance(inv, InverseRealSHT)
+        # the JAX package's gates (models/sfno.py:323-334 and 358-366),
+        # condition for condition
         self.rank_pipeline = (
             rank_pipeline
             and self.factorization in ("cp", "tucker")
             and operator_type == "dhconv"
             and not separable
             and not self.scale_residual
-            and isinstance(fwd, RealSHT)
-            and isinstance(inv, InverseRealSHT)
+            and shts
             and 2 * R <= min(in_channels, out_channels)
         )
-        # the rank pipeline emits io_dtype; the dense filter only on the
-        # stacked path the JAX package takes for it (no Pallas kernel)
-        stackable = not self.factorization and not use_pallas
-        self.io_dtype = as_dtype(io_dtype) if (self.rank_pipeline or stackable) else None
-        self.fused_rank = fused_rank and self.rank_pipeline
+        stackable = (not self.factorization and operator_type == "dhconv" and not separable
+                     and not use_pallas and shts)
+        stacked = stackable and (merged_dhconv or bool(io_dtype))
+        self.merged = stacked and merged_dhconv
+        self.io_dtype = as_dtype(io_dtype) if (self.rank_pipeline or stacked) else None
+        self.fused_rank = (fused_rank and self.rank_pipeline and self.factorization == "cp"
+                           and not (fwd.folded or inv.folded or fwd.lon_fft or inv.lon_fft))
         if self.fused_rank and (self.matmul_dtype, self.io_dtype) not in (
                 (torch.float32, None), (torch.bfloat16, torch.bfloat16)):
             raise NotImplementedError(
@@ -244,19 +351,30 @@ class SpectralConvS2(nn.Module):
                                                                inv.synthesis_l_first),
                                  persistent=False)
 
+    def _factors(self) -> dict:
+        """The factorization's factors by their short names ("A", "core",
+        "G1", ...)."""
+        return {k: getattr(self, f"{self.factorization}_{k}") for k in self._factor_keys}
+
     def _rank_pipeline(self, x: torch.Tensor) -> torch.Tensor:
         fwd, inv = self._transforms
         md, io = self.matmul_dtype, self.io_dtype
-        z = cp_spatial_project(x.float(), self.cp_A, md, out_dtype=io)
+        f = self._factors()
+        z = cp_spatial_project(x.float(), f["A"], md, out_dtype=io)
         xf = fwd.longitude(z, out_dtype=io)
         if self.fused_rank:
             y = fused_rank_kernel(xf.contiguous(), fwd.analysis_mhl, inv.synthesis_mhl,
-                                  self.cp_C.float().contiguous(), self.rank_l_first)
+                                  f["C"].float().contiguous(), self.rank_l_first)
         else:
             zs = fwd.latitude(xf, out_dtype=io)
-            y = inv.latitude(cp_spectral_scale_stacked(zs, self.cp_C), out_dtype=io)
+            if self.factorization == "cp":
+                t = cp_spectral_scale_stacked(zs, f["C"])
+            else:
+                t = tucker_spectral_mix_stacked(zs, tucker_rank_kernel(f["core"], f["C"]), md,
+                                                out_dtype=io)
+            y = inv.latitude(t, out_dtype=io)
         g = inv.longitude(y, out_dtype=io)
-        return cp_spatial_expand(g, self.cp_B, md, out_dtype=io)
+        return cp_spatial_expand(g, f["B"], md, out_dtype=io)
 
     def forward(self, x: torch.Tensor):
         fwd, inv = self._transforms
@@ -264,46 +382,125 @@ class SpectralConvS2(nn.Module):
         residual = x
         if self.rank_pipeline:
             return (self._rank_pipeline(x) + self.bias).to(dtype), residual
-        io = self.io_dtype
+        io, md = self.io_dtype, self.matmul_dtype
         xs = fwd(x.float(), out_dtype=io)
         if self.scale_residual:
             residual = inv(xs).to(dtype)
-        if self.factorization == "cp":
-            factors = {"A": self.cp_A, "B": self.cp_B, "C": self.cp_C}
-            ys = contract_dhconv_cp(xs, factors, self.matmul_dtype)
+        if self.merged:
+            ys = contract_dhconv_stacked(xs, self.weight, md, out_dtype=io)
+        elif self.factorization == "cp":
+            ys = contract_dhconv_cp(xs, self._factors(), md)
+        elif self.factorization == "tucker":
+            ys = contract_dhconv_tucker(xs, self._factors())
+        elif self.factorization == "tt":
+            ys = contract_dhconv_tt(xs, self._factors())
         else:
             image = self._k1_image(self.weight) \
                 if self._k1_image is not None and self.weight.is_cuda else None
-            ys = contract(xs, self.weight, self.use_pallas, self.matmul_dtype, out_dtype=io,
-                          image=image, image_t=self._k1_image_t)
+            ys = contract(xs, self.weight, self.use_pallas, md, out_dtype=io, image=image,
+                          image_t=self._k1_image_t, operator_type=self.operator_type,
+                          separable=self.separable)
         out = inv(ys, out_dtype=io) + self.bias
         return out.to(dtype), residual
 
 
+class SpectralAttentionS2(nn.Module):
+    """The non-linear filter: a complex MLP per spectral mode (transform ->
+    ``spectral_layers`` complex layers with bias and complex activation ->
+    complex output layer -> inverse transform), no bias after it. Returns
+    ``(filtered, residual)`` as ``SpectralConvS2``.
+
+    ``operator_type="l-dependant"`` gives every degree l its own weights (a
+    leading lmax axis); any other shares one MLP across the modes. The
+    parameters keep the flax names: ``w{i}_re``/``_im`` ``([lmax,] in,
+    out)``, ``b{i}_re``/``_im`` ``(out,)`` and ``wout_re``/``_im``, with
+    ``hidden = int(embed_dim * hidden_size_factor)``. The complex
+    activations: "real" applies relu to the real part, "cartesian" to both
+    parts, "complex" the erf gelu to both. Computes in float32."""
+
+    def __init__(self, forward_transform, inverse_transform, embed_dim: int,
+                 hidden_size_factor: float = 2.0, spectral_layers: int = 3,
+                 complex_activation: str = "real", operator_type: str = "diagonal"):
+        super().__init__()
+        self._transforms = (forward_transform, inverse_transform)
+        self.complex_activation = complex_activation
+        self.spectral_layers = spectral_layers
+        self.l_dependant = operator_type == "l-dependant"
+        fwd, inv = forward_transform, inverse_transform
+        self.scale_residual = (fwd.nlat, fwd.nlon, fwd.grid) != (inv.nlat, inv.nlon, inv.grid)
+        hidden = int(embed_dim * hidden_size_factor)
+        dims = [embed_dim] + [hidden] * spectral_layers
+        lead = (fwd.lmax,) if self.l_dependant else ()
+        for i in range(spectral_layers):
+            for part in ("re", "im"):
+                self.register_parameter(f"w{i}_{part}", nn.Parameter(
+                    torch.empty(lead + (dims[i], dims[i + 1]))))
+            for part in ("re", "im"):
+                self.register_parameter(f"b{i}_{part}", nn.Parameter(torch.zeros(dims[i + 1])))
+        for part in ("re", "im"):
+            self.register_parameter(f"wout_{part}", nn.Parameter(
+                torch.empty(lead + (dims[-1], embed_dim))))
+
+    def _act(self, zr: torch.Tensor, zi: torch.Tensor):
+        if self.complex_activation == "real":
+            return torch.relu(zr), zi
+        if self.complex_activation == "cartesian":
+            return torch.relu(zr), torch.relu(zi)
+        return torch.nn.functional.gelu(zr), torch.nn.functional.gelu(zi)
+
+    def forward(self, x: torch.Tensor):
+        fwd, inv = self._transforms
+        dtype = x.dtype
+        residual = x
+        xs = fwd(x.float())
+        if self.scale_residual:
+            residual = inv(xs).to(dtype)
+        eq = "...lmi,lio->...lmo" if self.l_dependant else "...lmi,io->...lmo"
+        zr, zi = xs[..., 0].float(), xs[..., 1].float()
+        for i in range(self.spectral_layers):
+            zr, zi = complex_einsum(eq, zr, zi, getattr(self, f"w{i}_re"),
+                                    getattr(self, f"w{i}_im"))
+            zr, zi = self._act(zr + getattr(self, f"b{i}_re"), zi + getattr(self, f"b{i}_im"))
+        zr, zi = complex_einsum(eq, zr, zi, self.wout_re, self.wout_im)
+        return inv(torch.stack([zr, zi], dim=-1)).to(dtype), residual
+
+
 class FNOBlock(nn.Module):
-    """norm0 -> (time scale-shift) -> spectral filter -> + inner skip -> act
-    -> norm1 -> MLP -> (drop path) -> + outer skip."""
+    """norm0 -> (time scale-shift) -> spectral filter -> + inner skip ->
+    (act, for the linear filter) -> norm1 -> MLP -> (drop path) -> + outer
+    skip. A layer norm takes the block's input grid for norm0 and its output
+    grid for norm1 (they differ in the first and last block under
+    ``scale_factor`` 2)."""
 
     def __init__(self, cfg: SFNOConfig, forward_transform, inverse_transform,
-                 drop_path: float = 0.0, fused_rank: bool = False):
+                 drop_path: float = 0.0, fused_rank: bool = False,
+                 input_shape: Optional[Tuple[int, int]] = None,
+                 output_shape: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.cfg = cfg
         C = cfg.embed_dim
         compute = cfg.torch_compute_dtype
         self.drop_path_rate = drop_path
-        if cfg.normalization_layer == "instance_norm":
-            self.norm0 = InstanceNorm2d(C, exact=cfg.exact_norm)
-            self.norm1 = InstanceNorm2d(C, exact=cfg.exact_norm)
-        else:
-            self.norm0 = self.norm1 = nn.Identity()
+        self.norm0 = self._norm(input_shape or cfg.model_shape)
+        self.norm1 = self._norm(output_shape or cfg.model_shape)
         if cfg.with_time_emb:
             self.time_mlp = Dense(C * cfg.time_dim_mult, 2 * C)
-        self.filter = SpectralConvS2(
-            forward_transform, inverse_transform, C, C, use_pallas=cfg.use_pallas,
-            operator_type=cfg.operator_type, separable=cfg.separable,
-            factorization=cfg.factorization, rank=cfg.rank, rank_pipeline=cfg.rank_pipeline,
-            matmul_dtype=cfg.sht_matmul_dtype, io_dtype=cfg.spectral_io_dtype,
-            fused_rank=fused_rank)
+        if cfg.filter_type == "linear":
+            self.filter = SpectralConvS2(
+                forward_transform, inverse_transform, C, C, use_pallas=cfg.use_pallas,
+                operator_type=cfg.operator_type, separable=cfg.separable,
+                factorization=cfg.factorization, rank=cfg.rank,
+                rank_pipeline=cfg.rank_pipeline, matmul_dtype=cfg.sht_matmul_dtype,
+                io_dtype=cfg.spectral_io_dtype, fused_rank=fused_rank,
+                merged_dhconv=cfg.merged_dhconv)
+        else:
+            # the linear operator names both select the shared MLP
+            self.filter = SpectralAttentionS2(
+                forward_transform, inverse_transform, C, hidden_size_factor=cfg.mlp_ratio,
+                spectral_layers=cfg.spectral_layers,
+                complex_activation=cfg.complex_activation,
+                operator_type="l-dependant" if cfg.operator_type == "l-dependant"
+                else "diagonal")
         self.inner_skip = Dense(C, C, dtype=compute)
         # the fused tail folds norm1 and the time scale-shift into the K3
         # kernel (the JAX package's gating, models/sfno.py:596-598)
@@ -317,6 +514,14 @@ class FNOBlock(nn.Module):
                              fused=cfg.fused_mlp or self.use_tail,
                              exact_dropout=cfg.exact_dropout)
         self.drop_path = DropPath(drop_path)
+
+    def _norm(self, shape: Tuple[int, int]) -> nn.Module:
+        cfg = self.cfg
+        if cfg.normalization_layer == "instance_norm":
+            return InstanceNorm2d(cfg.embed_dim, exact=cfg.exact_norm)
+        if cfg.normalization_layer == "layer_norm":
+            return SpatialLayerNorm(shape, exact=cfg.exact_norm)
+        return nn.Identity()
 
     def _scale_shift(self, time_emb: torch.Tensor):
         emb = self.time_mlp(torch.nn.functional.silu(time_emb))
@@ -334,7 +539,9 @@ class FNOBlock(nn.Module):
         if time_emb is not None and cfg.time_scale_shift_before_filter:
             x_norm = self._time_scale_shift(x_norm, time_emb)
         x_f, residual = self.filter(x_norm)
-        x = get_activation(cfg.activation_function)(x_f + self.inner_skip(residual))
+        x = x_f + self.inner_skip(residual)
+        if cfg.filter_type == "linear":
+            x = get_activation(cfg.activation_function)(x)
         dp_active = self.drop_path_rate > 0.0 and not deterministic
         if self.use_tail:
             # norm1 (and the time scale-shift after the filter) as one
@@ -365,6 +572,28 @@ class FNOBlock(nn.Module):
         return x + residual
 
 
+def _checkpointed(block: FNOBlock, x: torch.Tensor, time_emb: Optional[torch.Tensor],
+                  deterministic: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``block(x, time_emb, deterministic, generator)`` under a
+    non-reentrant ``torch.utils.checkpoint``. The forward draws from
+    ``generator`` itself; the recompute in the backward draws from a copy
+    restored to the state the forward started from, so it makes the same
+    dropout and DropPath masks and leaves ``generator`` where the forward
+    left it."""
+    state = generator.get_state() if generator is not None else None
+    calls = []
+
+    def run(x, time_emb):
+        gen = generator
+        if calls and state is not None:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(state)
+        calls.append(None)
+        return block(x, time_emb, deterministic, gen)
+
+    return checkpoint(run, x, time_emb, use_reentrant=False)
+
+
 class SFNO(nn.Module):
     """The SFNO backbone: ``(inputs, time, condition, static_condition) ->
     outputs``, all (B, H, W, C), output float32."""
@@ -375,16 +604,12 @@ class SFNO(nn.Module):
         self.cfg = cfg
         compute = cfg.torch_compute_dtype
         C = cfg.embed_dim
-        lmax, mmax = cfg.modes
         H, W = cfg.img_shape
         h, w = cfg.model_shape
         # the JAX package's _build_transforms; K4's (m, h, l) matrices are
         # made here once, in the matmul dtype
-        kw = dict(matmul_dtype=cfg.sht_matmul_dtype, kernel_layout=fused_rank)
-        self.trans_down = RealSHT(H, W, lmax, mmax, grid=cfg.data_grid, **kw)
-        self.itrans_up = InverseRealSHT(H, W, lmax, mmax, grid=cfg.data_grid, **kw)
-        self.trans = RealSHT(h, w, lmax, mmax, grid="legendre-gauss", **kw)
-        self.itrans = InverseRealSHT(h, w, lmax, mmax, grid="legendre-gauss", **kw)
+        self.trans_down, self.itrans_up, self.trans, self.itrans = _build_transforms(
+            cfg, kernel_layout=fused_rank)
 
         width = cfg.in_chans
         for i in range(cfg.encoder_layers):
@@ -403,7 +628,9 @@ class SFNO(nn.Module):
             block = FNOBlock(cfg, self.trans_down if first else self.trans,
                              self.itrans_up if last else self.itrans,
                              drop_path=cfg.drop_path_rate * i / max(n - 1, 1),
-                             fused_rank=fused_rank)
+                             fused_rank=fused_rank,
+                             input_shape=(H, W) if first else (h, w),
+                             output_shape=(H, W) if last else (h, w))
             self.add_module(f"block_{i}", block)
             self.blocks.append(block)
         width = C + (cfg.in_chans if cfg.big_skip else 0)
@@ -416,21 +643,28 @@ class SFNO(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         """Random weights from ``generator`` (on the parameters' device),
         with the JAX package's initializers: truncated normal(0.02) for
-        Dense kernels and the position embedding, normal(1/(ci*co)) for the
-        dense spectral weights, normal((1/(ci*co))**(1/3)) for the CP
-        factors, ones for norm scales, zeros for biases."""
-        cp_std = (1.0 / (self.cfg.embed_dim * self.cfg.embed_dim)) ** (1.0 / 3.0)
+        Dense kernels and the position embedding; normal(1/(ci*co)) for the
+        dense spectral weight of every shape (separable and diagonal
+        included, ci = co = embed_dim); normal((1/(ci*co))**(1/3)) for the
+        CP, Tucker and TT factors; normal(1/sqrt(embed_dim * hidden)) for
+        the spectral-attention weights and zeros for their biases; ones for
+        norm scales, zeros for biases."""
+        C = self.cfg.embed_dim
+        factor_std = (1.0 / (C * C)) ** (1.0 / 3.0)
+        attention_std = 1.0 / math.sqrt(C * int(C * self.cfg.mlp_ratio))
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf == "kernel" or leaf == "pos_embed":
                 nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=generator)
             elif name.endswith("filter.weight"):
-                p.normal_(0.0, 1.0 / (p.shape[0] * p.shape[1]), generator=generator)
-            elif leaf.startswith("cp_"):
-                p.normal_(0.0, cp_std, generator=generator)
+                p.normal_(0.0, 1.0 / (C * C), generator=generator)
+            elif leaf.split("_", 1)[0] in ("cp", "tucker", "tt"):
+                p.normal_(0.0, factor_std, generator=generator)
+            elif re.fullmatch(r"w(\d+|out)_(re|im)", leaf):
+                p.normal_(0.0, attention_std, generator=generator)
             elif leaf == "scale":
                 p.fill_(1.0)
-            elif leaf == "bias":
+            elif leaf == "bias" or re.fullmatch(r"b\d+_(re|im)", leaf):
                 p.zero_()
             else:
                 raise KeyError(f"no initializer for parameter {name}")
@@ -461,8 +695,12 @@ class SFNO(nn.Module):
             if cfg.time_rescale:
                 t = (t - cfg.min_time) * (1000.0 / (cfg.max_time - cfg.min_time))
             t_repr = self.time_emb(t)
+        remat = cfg.checkpointing >= 3 and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, t_repr, deterministic, generator)
+            if remat:
+                x = _checkpointed(block, x, t_repr, deterministic, generator)
+            else:
+                x = block(x, t_repr, deterministic, generator)
         if cfg.big_skip:
             dtype = torch.promote_types(x.dtype, big_skip.dtype)
             x = torch.cat([x.to(dtype), big_skip.to(dtype)], dim=-1)

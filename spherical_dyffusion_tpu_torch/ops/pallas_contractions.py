@@ -24,9 +24,9 @@ weight and makes it again when the weight changes.
 Differentiable, as the JAX function is: under autograd ``dhconv`` runs
 ``DhconvFunction``, whose backward is JAX's ``_dhconv_rr_bwd``. The input
 gradient ``dx = g conj(W)^T`` is the forward's product shape, so on the card
-it is K1 itself (counted in ``dhconv.launches``) over the image of the
-conjugate transpose (``dhconv_weight_image(w, conj_t=True)``). The weight
-gradient ``dW = sum_{b,m} conj(x)^T g`` is a plain float32 product over l
+it is K1 itself (counted in ``dhconv.launches``, and apart in
+``dhconv.dx_launches``) over the image of the conjugate transpose
+(``dhconv_weight_image(w, conj_t=True)``). The weight gradient ``dW = sum_{b,m} conj(x)^T g`` is a plain float32 product over l
 (``dhconv_weight_grad``, one ``torch.bmm`` with TF32 off whatever the
 process's setting), as JAX leaves it to XLA: it is the same code on every
 device and no kernel of this repository.
@@ -243,6 +243,7 @@ class DhconvFunction(torch.autograd.Function):
                 img_t = (ctx.image_t(w) if ctx.image_t is not None
                          else dhconv_weight_image(w, conj_t=True))
                 dx = _launch(g, img_t, w.shape[0])
+                dhconv.dx_launches += 1
         if ctx.needs_input_grad[1]:
             dw = dhconv_weight_grad(x, g)
         return dx, dw, None, None
@@ -264,3 +265,4 @@ def dhconv(x: torch.Tensor, w: torch.Tensor, image: Optional[torch.Tensor] = Non
 
 
 dhconv.launches = 0
+dhconv.dx_launches = 0  # of dhconv.launches, those that computed a backward's dx

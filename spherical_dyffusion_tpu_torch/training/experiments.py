@@ -16,7 +16,7 @@ is not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Mapping, Optional, Sequence
 
 import torch
 
@@ -162,20 +162,32 @@ class InterpolationExperiment:
 
 class DYffusionForecastingExperiment:
     """Two-stage DYffusion forecasting: a frozen stochastic interpolator and
-    a forecaster, sampled with the cold sampler."""
+    a forecaster, sampled with the cold sampler.
+
+    ``interpolator_ema_params`` are the interpolator checkpoint's EMA
+    weights (a ``state_dict``, or None). With
+    ``diffusion_cfg.interpolator_use_ema`` they are loaded into the
+    interpolator's network, which every interpolation then runs, as the JAX
+    package runs its ``active_interpolator_params``; the flag without EMA
+    weights raises."""
 
     def __init__(self, forecaster_model, interpolator: InterpolationExperiment,
                  diffusion_cfg: DYffusionConfig, cfg: ExperimentConfig,
                  in_packer: Packer, out_packer: Packer,
                  normalizer: StandardNormalizer, forcing_names: Sequence[str] = (),
-                 forcing_normalizer: Optional[StandardNormalizer] = None):
+                 forcing_normalizer: Optional[StandardNormalizer] = None,
+                 interpolator_ema_params: Optional[Mapping[str, torch.Tensor]] = None):
         if diffusion_cfg.timesteps != cfg.horizon:
             raise ValueError("diffusion timesteps must equal horizon "
                              f"({diffusion_cfg.timesteps} != {cfg.horizon})")
-        if diffusion_cfg.interpolator_use_ema:
-            raise NotImplementedError("interpolator EMA weights are not ported")
+        if diffusion_cfg.interpolator_use_ema and interpolator_ema_params is None:
+            raise ValueError("diffusion.interpolator_use_ema=True but no interpolator EMA "
+                             "params were provided (the interpolator checkpoint has no "
+                             "ema_params)")
         self.model = forecaster_model
         self.interpolator = interpolator
+        if diffusion_cfg.interpolator_use_ema:
+            interpolator.model.load_state_dict(interpolator_ema_params)
         self.diffusion_cfg = diffusion_cfg
         self.sched = build_schedule(diffusion_cfg)
         self.cfg = cfg

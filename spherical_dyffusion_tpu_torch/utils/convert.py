@@ -1,8 +1,11 @@
 """Carry JAX-package SFNO weights into the port.
 
 The port's modules keep the flax parameter names and layouts
-(``models/modules.py``), so a flax parameter tree becomes a ``state_dict`` by
-flattening its nested dicts with "." as separator. Trees saved with
+(``models/modules.py``, ``models/sfno.py``: the dense, separable and
+diagonal filter ``weight``, the ``cp_*``, ``tucker_*`` and ``tt_*`` factors,
+the spectral-attention ``w{i}``/``b{i}``/``wout`` pairs, the layer norm's
+``(h, w, 1)`` ``scale`` and ``bias``), so a flax parameter tree becomes a
+``state_dict`` by flattening its nested dicts with "." as separator. Trees saved with
 ``SFNOConfig.scan_layers`` hold the middle blocks stacked under
 ``blocks_mid/block`` with a leading layer axis; they are first unstacked into
 ``block_1`` .. ``block_{L-2}``, as ``unstack_block_params`` of the JAX

@@ -884,3 +884,81 @@ def test_reference_checkpoint_on_the_card_draws_exact_dropout_there(cuda, cli_ru
 
     k, p = off(True), off(False)
     assert float((k - p).abs().max()) <= 1e-4 * float(p.abs().max())
+
+
+# ----------------------------------------------------------- model options
+
+def _small_window(path_kw, dtype="float32", dropout=False):
+    """A 6-step window at embed 32 x 3 on 32 x 64 on the card: (stepper,
+    preds)."""
+    st = main_path.build(embed=32, layers=3, dtype=dtype, img_shape=(32, 64), n_state=5,
+                         device="cuda", seed=0, enable_interpolator_dropout=dropout, **path_kw)
+    inp = main_path.window_inputs(6, (32, 64), 5, seed=3, device="cuda")
+    return st, lambda s: s.run_window(inp["x0"], inp["forcing"], inp["sst"], inp["mask"],
+                                      torch.Generator().manual_seed(0), 6)[1]
+
+
+def _same_weights(dst, src):
+    dst.exp.model.load_state_dict(src.exp.model.state_dict())
+    dst.exp.interpolator.model.load_state_dict(src.exp.interpolator.model.state_dict())
+
+
+def test_tucker_window_k3_matches_plain(cuda):
+    """The Tucker window (main_path.TUCKER_WINDOW: the Tucker rank pipeline
+    in the middle block, K3 in every block) against the plain path, float32,
+    dropout off; K3 launched once per block of every SFNO forward."""
+    kern, run = _small_window(main_path.TUCKER_WINDOW)
+    plain, _ = _small_window(dict(main_path.TUCKER_WINDOW, fused_tail=False))
+    _same_weights(plain, kern)
+    assert [b.filter.rank_pipeline for b in kern.exp.model.blocks] == [False, True, False]
+    k3 = fused_block_tail.launches
+    got = run(kern)
+    assert fused_block_tail.launches - k3 == 3 * 12  # 12 forwards in a peeled 6-step window
+    assert _rel_err(got, run(plain)) < 1e-4
+
+
+def test_folded_window_matches_unfolded(cuda):
+    """The fused-tail window (K1 and K3) with sht_fold_symmetry against the
+    unfolded one from the same weights, float32, dropout off."""
+    kw = dict(use_pallas=True, fused_tail=True, peel=True, scan_layers=True)
+    fold, run = _small_window(dict(kw, sht_fold_symmetry=True))
+    unfold, _ = _small_window(kw)
+    _same_weights(unfold, fold)
+    assert all(b.filter._transforms[0].folded for b in fold.exp.model.blocks)
+    k1 = dhconv.launches
+    got = run(fold)
+    assert dhconv.launches - k1 == 3 * 12
+    assert _rel_err(got, run(unfold)) < 1e-4
+
+
+def test_remat_training_step_with_k1_matches_no_remat(cuda):
+    """One training step of each experiment with remat (scan_layers,
+    checkpointing=3) through K1 against the same step without remat, with
+    dropout and DropPath live: losses and gradients within 1e-6 of each
+    tensor's largest entry, the generator's state equal, and K1 run for the
+    recompute (two forwards and one dx per block of the trained network)."""
+    kw = dict(embed=32, layers=3, img_shape=(32, 64), n_state=5, scan_layers=True,
+              n_samples=1, device="cuda")
+    with_remat = main_path.build_training(checkpointing=3, **kw)
+    without = main_path.build_training(checkpointing=0, **kw)
+    for name in ("interpolator", "forecaster"):
+        a, b = with_remat[name], without[name]
+        b.exp.model.load_state_dict(a.exp.model.state_dict())
+        if name == "forecaster":
+            b.exp.interpolator.model.load_state_dict(a.exp.interpolator.model.state_dict())
+        dyn, cond, _ = a.upload(next(iter(a.dm.train_batches(seed=0))))
+        out = []
+        for tr in (a, b):
+            gen = torch.Generator().manual_seed(9)
+            dhconv.launches = dhconv.dx_launches = 0
+            loss, _ = tr.exp.train_loss(tr.normalizer.normalize(dyn), gen,
+                                        dynamical_condition=cond)
+            grads = torch.autograd.grad(loss, list(tr.exp.model.parameters()))
+            out.append((float(loss), grads, gen.get_state(), dhconv.launches,
+                        dhconv.dx_launches))
+        (la, ga, sa, ka, da), (lb, gb, sb, kb, db) = out
+        frozen = 3 if name == "forecaster" else 0
+        assert (ka, da, kb, db) == (9 + frozen, 3, 6 + frozen, 3)
+        assert abs(la - lb) <= 1e-6 * abs(lb) and torch.equal(sa, sb)
+        for x, y in zip(ga, gb):
+            assert float((x - y).abs().max()) <= 1e-6 * float(y.abs().max())

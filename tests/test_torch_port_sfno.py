@@ -153,14 +153,32 @@ def test_dropout_is_live_only_when_not_deterministic():
     assert not torch.equal(a, det) and not torch.equal(a, c)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("operator_type", "diagonal"), ("factorization", "tucker"), ("merged_dhconv", True),
-    ("lon_method", "fft"), ("sht_fold_symmetry", True),
-    ("factorization", "tt"), ("normalization_layer", "layer_norm"),
-    ("filter_type", "non-linear"), ("checkpointing", 3)])
-def test_unsupported_config_fields_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        SFNOConfig(**{field: value})
+# values the JAX package rejects, each with the exception it raises there
+# (at model build: its SFNOConfig checks nothing itself); the port refuses
+# them too, with the same exception type
+REJECTED = [
+    (dict(operator_type="foo"), ValueError),
+    (dict(operator_type="l-dependant"), ValueError),  # a linear filter's operator
+    (dict(factorization="foo"), ValueError),
+    (dict(factorization="tucker", operator_type="diagonal"), NotImplementedError),
+    (dict(factorization="tt", operator_type="diagonal"), NotImplementedError),
+    (dict(filter_type="foo"), ValueError),
+    (dict(spectral_transform="foo"), ValueError),
+    (dict(normalization_layer="foo"), ValueError),
+    (dict(filter_type="non-linear", complex_activation="modulus"), ValueError),
+    (dict(activation_function="foo"), ValueError),
+    (dict(data_grid="foo"), ValueError),
+]
+
+
+@pytest.mark.parametrize("fields,exc", REJECTED,
+                         ids=["-".join(f"{k}={v}" for k, v in f.items()) for f, _ in REJECTED])
+def test_unsupported_config_fields_raise(fields, exc):
+    kw = dict(img_shape=(8, 16), in_chans=3, out_chans=3, embed_dim=8, num_layers=2, **fields)
+    with pytest.raises(exc):
+        JSFNO(JSFNOConfig(**kw)).init(jax.random.PRNGKey(0), jnp.zeros((1, 8, 16, 3)))
+    with pytest.raises(exc):
+        SFNO(SFNOConfig(**kw))
 
 
 def test_config_fields_mirror_jax():
