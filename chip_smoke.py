@@ -190,6 +190,24 @@ REMAT_CMP_STEPS = 3  # per experiment, remat against no remat, in phase 13 (c)
 # window inputs, about 20 MB, and small caches): its peak is read as the
 # trainers' own
 REMAT_LIVE_GB = 0.1
+# phase 14: width, depth and grid of the training modes; steps of the bf16
+# runs (c, d), of the fused epoch and the streamed one (a, b, batch 1), the
+# streaming segment, the rollout validation's steps (e: two horizon-6
+# windows) and the steps of the histogram fits (f)
+MODES_EMBED, MODES_LAYERS, MODES_SHAPE = 256, 8, (180, 360)
+MODES_STEPS, FUSED_STEPS, SEGMENT_SAMPLES = 3, 8, 4
+ROLLOUT_VAL_STEPS, HIST_STEPS = 12, 4
+# phase 14 (c): a bf16-compute step against the float32 step from the same
+# weights and batch. The losses' relative gap was 4.8e-6 (forecaster) and
+# 6.9e-6 (interpolator) at 256 x 8 on the H100 (this script's phase 14,
+# PERF.md): held to BF16_VS_F32_LOSS. The gradient norms (before clipping)
+# must differ by more than BF16_GRAD_NORM_FLOOR (relative), as the CPU test
+# (tests/test_torch_port_train_modes.py, F32_VS_BF16) holds the bf16
+# gradients apart from the float32 ones: a step that computed in float32
+# through the same kernels repeats the norm up to the order of its float32
+# sums (about 1e-7), so the floor shows that the bf16 path ran.
+BF16_VS_F32_LOSS = 5e-5
+BF16_GRAD_NORM_FLOOR = 1e-5
 # The fused-tail window in bf16 against the plain path in bf16, as a
 # multiple of the plain path's own bf16 error (bf16 against float32): the
 # fused tail rounds the folded norm input to bf16 once more. The CPU test
@@ -894,6 +912,492 @@ def phase13(smi_line, wrappers, report, runs, drive, pair, other, device="cuda")
     del trs, tr, state, dyn, cond
     free()
     report["options"] = opts
+
+
+def phase14(smi_line, wrappers, report, runs, device="cuda") -> None:
+    """Phase 14: training's other modes at MODES_EMBED x MODES_LAYERS on
+    MODES_SHAPE, batch 1, K1 on: (c) bf16-compute steps, (d) bf16 Adam
+    moments, (a) the fused epoch, (b) streaming, (e) the rollout validation
+    inside ``fit``, (f) gradient histograms, (g) the code snapshot (run in
+    this order: (c) and (d) measure peak memory from a card that holds only
+    their freshly built trainers, as phase 11 does)."""
+    import contextlib
+    import gc
+    import io
+    import tarfile
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spherical_dyffusion_tpu_torch import main_path
+    from spherical_dyffusion_tpu_torch.data.datamodule import DebugDataModule
+    from spherical_dyffusion_tpu_torch.ops.pallas_contractions import dhconv
+    from spherical_dyffusion_tpu_torch.training import trainer as trainer_mod
+    from spherical_dyffusion_tpu_torch.training.optim import AdamWLowMu
+    from spherical_dyffusion_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    L = MODES_LAYERS
+    size = dict(embed=MODES_EMBED, layers=L, img_shape=MODES_SHAPE, device=device)
+    modes = {}
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+        dhconv.dx_launches = 0
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    @contextlib.contextmanager
+    def no_sync(what):
+        """Fail on any synchronizing CUDA call inside (the sync debug mode
+        "error"), but for the epochs' ends: ``Trainer._read_epoch`` reads the
+        losses with an ordinary copy, outside the check, and is counted in
+        the list yielded (the caller holds it to the epochs run)."""
+        reads = [0]
+        real_read = Trainer._read_epoch
+
+        def read_outside(*a):
+            reads[0] += 1
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+            try:
+                return real_read(*a)
+            finally:
+                if cuda:
+                    torch.cuda.set_sync_debug_mode("error")
+
+        Trainer._read_epoch = staticmethod(read_outside)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield reads
+        except RuntimeError as e:
+            raise SystemExit(f"chip_smoke: FAILED: {what} made a synchronizing CUDA call: {e}")
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+            Trainer._read_epoch = staticmethod(real_read)
+
+    def reinit(trainers):
+        """The weights ``build_training`` draws (seed 0, interpolator first)."""
+        gen = torch.Generator(device=dev).manual_seed(0)
+        trainers["interpolator"].exp.model.init_weights(gen)
+        trainers["forecaster"].exp.model.init_weights(gen)
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    free()
+    live_gb = torch.cuda.memory_allocated() / 1e9 if cuda else 0.0
+    if live_gb > REMAT_LIVE_GB:
+        _, largest = live_cuda_tensors()
+        log(f"training modes: the largest CUDA tensors still live: {largest}")
+    log(f"training modes: {live_gb:.3f} GB allocated on the card before phase 14")
+    check(live_gb <= REMAT_LIVE_GB,
+          f"training modes: {live_gb:.3f} GB left live by the earlier phases, more than "
+          f"{REMAT_LIVE_GB} GB")
+    ref11 = report["training"]
+
+    # (c) bf16-compute training: 3 steps of each experiment, K1 float32
+    zero_counts()
+    bf = main_path.train_steps(n_steps=MODES_STEPS, trainers=main_path.build_training(
+        dtype="bfloat16", n_samples=FUSED_STEPS, **size))
+    off = {k: wrappers[k].launches for k in ("K2", "K3", "K4")}
+    check(not any(off.values()), f"bf16 training launched kernels without a backward: {off}")
+    k1_bf16 = sum(sum(r["k1_launches"]) for r in bf.values())
+    bf_rows = {name: dict(losses=r["losses"], grad_norms=r["grad_norms"],
+                          step_ms=float(np.median(r["step_ms"][1:])),
+                          step_ms_all=r["step_ms"],
+                          peak_gb=(r["peak_bytes"] or 0) / 1e9, k1=r["k1_launches"],
+                          dx=r["k1_dx"], dtype=r["trainer"].exp.model.cfg.compute_dtype)
+               for name, r in bf.items()}
+    del bf
+    free()
+    f32 = main_path.build_training(n_samples=FUSED_STEPS, **size)
+    # (d), timed: bf16 Adam moments on the fresh networks, whose peak counts
+    # what phase 11's does (no K1 image is made before the first step)
+    itr = f32["interpolator"]
+    mu_cfg = TrainerConfig(epochs=1, steps_per_epoch=FUSED_STEPS, scheduler="constant",
+                           adam_mu_dtype="bfloat16")
+    mu_live = torch.cuda.memory_allocated() / 1e9 if cuda else 0.0
+    timed_mu = main_path.train_steps(n_steps=MODES_STEPS, trainers={
+        "interpolator": Trainer(itr.exp, itr.dm, mu_cfg)})["interpolator"]
+    mu_ms = float(np.median(timed_mu["step_ms"][1:]))
+    mu_opt_ms = float(np.median([s["optimizer"] for s in timed_mu["split_ms"][1:]]))
+    mu_ms_all = timed_mu["step_ms"]
+    mu_peak = timed_mu["peak_bytes"] / 1e9 if timed_mu["peak_bytes"] else float("nan")
+    del timed_mu
+    free()
+    reinit(f32)
+    ref = main_path.train_steps(n_steps=MODES_STEPS, trainers=f32)
+    per_step = {"interpolator": (2 * L, L), "forecaster": (3 * L, L)}
+    for name, r in bf_rows.items():
+        gaps = [rel(a, b) for a, b in zip(r["losses"], ref[name]["losses"])]
+        gn_gap = max(rel(a, b) for a, b in zip(r["grad_norms"], ref[name]["grad_norms"]))
+        log(f"bf16 training {name}: losses {[round(v, 5) for v in r['losses']]} against float32 "
+            f"{[round(v, 5) for v in ref[name]['losses']]} (max rel gap {max(gaps):.3e}, "
+            f"tolerance {BF16_VS_F32_LOSS}); gradient norms max rel gap {gn_gap:.3e} (floor "
+            f"{BF16_GRAD_NORM_FLOOR}); median step after the first {r['step_ms']:.2f} ms "
+            f"(steps {[round(v, 2) for v in r['step_ms_all']]} ms; phase 11 float32 {ref11[name]['step_ms']:.2f} ms); peak {r['peak_gb']:.3f} GB "
+            f"(phase 11 {ref11[name]['peak_gb']:.3f} GB); K1 launches per step {r['k1']} "
+            f"(dx {r['dx']}) on {smi_line}")
+        check(r["dtype"] == "bfloat16" and all(np.isfinite(r["losses"])),
+              f"bf16 training {name}: not bf16, or a non-finite loss")
+        check(max(gaps) <= BF16_VS_F32_LOSS,
+              f"bf16 training {name}: loss {max(gaps):.3e} from the float32 run's")
+        check(gn_gap > BF16_GRAD_NORM_FLOOR,
+              f"bf16 training {name}: gradient norms {gn_gap:.3e} from the float32 run's, "
+              f"not above {BF16_GRAD_NORM_FLOOR}: the step did not compute in bf16")
+        want = per_step[name]
+        check(list(zip(r["k1"], r["dx"])) == [want] * MODES_STEPS,
+              f"bf16 training {name}: K1 (launches, dx) per step {list(zip(r['k1'], r['dx']))}, "
+              f"expected {want}")
+        r.update(f32_losses=ref[name]["losses"], loss_rel=max(gaps), grad_norm_rel=gn_gap,
+                 phase11_step_ms=ref11[name]["step_ms"], phase11_peak_gb=ref11[name]["peak_gb"])
+    modes["bf16_compute"] = bf_rows
+    runs["bf16"] = dict(launches={"K1": k1_bf16, "K2": 0, "K3": 0, "K4": 0})
+    del ref, r
+    free()  # the float32 run's states (moments, EMA) sit in reference cycles
+
+    # (d) bf16 Adam moments: the same 3 steps again with the gradients and
+    # weight decays the optimizer saw kept on the host, against float64 optax
+    reinit(f32)
+    mu_tr = Trainer(itr.exp, itr.dm, mu_cfg)
+    p0 = {n: p.detach().to("cpu", copy=True) for n, p in itr.exp.model.named_parameters()}
+    seen = []
+    real_step = AdamWLowMu.step
+
+    def record_step(self, closure=None):
+        seen.append([(p.grad.to("cpu"), g["weight_decay"], g["lr"])
+                     for g in self.param_groups for p in g["params"]])
+        return real_step(self, closure)
+
+    AdamWLowMu.step = record_step
+    try:
+        mu = main_path.train_steps(n_steps=MODES_STEPS, trainers={"interpolator": mu_tr})
+    finally:
+        AdamWLowMu.step = real_step
+    st = mu["interpolator"]["state"]
+    order = [p for g in st.optimizer.param_groups for p in g["params"]]
+    names = {id(p): n for n, p in itr.exp.model.named_parameters()}
+    all_bf16 = all(st.optimizer.state[p]["exp_avg"].dtype == torch.bfloat16 for p in order)
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    b1_mu = float(torch.tensor(b1, dtype=torch.bfloat16))
+    worst = 0.0
+    for i, p in enumerate(order):
+        # optax's rule in float64: mu = (1 - b1) g + bf16(bf16(b1) mu_stored),
+        # the update from that mu, then mu rounded to bf16 for storage
+        x = p0[names[id(p)]].to(dev, torch.float64)
+        m_st = torch.zeros_like(x)
+        v = torch.zeros_like(x)
+        for k, rec in enumerate(seen, start=1):
+            g, wd, lr = rec[i]
+            g = g.to(dev, torch.float64)
+            m = (1 - b1) * g + (b1_mu * m_st.to(torch.bfloat16).float()).to(
+                torch.bfloat16).double()
+            v = (1 - b2) * g * g + b2 * v
+            upd = (m / (1 - b1 ** k)) / (torch.sqrt(v / (1 - b2 ** k)) + eps) + wd * x
+            x = x - lr * upd
+            m_st = m.to(torch.bfloat16).double()
+        # 1e-6 of the tensor plus AdamW's response to one bf16 step of mu at
+        # each update (|mu_hat / sqrt(nu_hat)| is at most about 1)
+        tol = 1e-6 * float(x.abs().max()) + len(seen) * seen[0][i][2] * 2.0 ** -7
+        err = float((p.detach().double() - x).abs().max())
+        worst = max(worst, err / tol)
+    r = mu["interpolator"]
+    mu_row = dict(losses=r["losses"], step_ms=mu_ms, step_ms_all=mu_ms_all, peak_gb=mu_peak,
+                  phase11_peak_gb=ref11["interpolator"]["peak_gb"],
+                  phase11_step_ms=ref11["interpolator"]["step_ms"], live_gb_before=mu_live,
+                  optimizer_ms=mu_opt_ms,
+                  phase11_optimizer_ms=ref11["interpolator"]["split_ms"]["optimizer"],
+                  all_exp_avg_bf16=all_bf16,
+                  param_err_over_tol=worst, updates=len(seen))
+    log(f"bf16 Adam moments: {len(seen)} updates at lr 4e-4, every exp_avg bf16: {all_bf16}; the "
+        f"parameters against float64 optax with mu rounded to bf16: max error {worst:.3f} of "
+        f"its tolerance (1e-6 of the tensor plus one bf16 step of mu per update); peak "
+        f"{mu_row['peak_gb']:.3f} GB ({mu_live:.3f} GB live before it: both networks, as in "
+        f"phase 11) against "
+        f"phase 11's {mu_row['phase11_peak_gb']:.3f} GB "
+        f"({mu_row['peak_gb'] - mu_row['phase11_peak_gb']:+.3f} GB); median step after the "
+        f"first {mu_row['step_ms']:.2f} ms (steps {[round(v, 2) for v in mu_ms_all]} ms; phase "
+        f"11 {mu_row['phase11_step_ms']:.2f} ms; both "
+        f"from the run without the gradients kept), its optimizer and EMA "
+        f"{mu_opt_ms:.2f} ms (phase 11 {mu_row['phase11_optimizer_ms']:.2f} ms) on {smi_line}")
+    check(all_bf16 and len(seen) == MODES_STEPS, "bf16 Adam moments: an exp_avg is not bf16")
+    check(worst <= 1.0, f"bf16 Adam moments: parameters {worst:.3f} x their tolerance from optax")
+    modes["bf16_mu"] = mu_row
+    del mu, mu_tr, st, order, seen, p0, r
+    free()
+
+    # (a) the fused epoch: FUSED_STEPS interpolator steps over a dataset
+    # uploaded once; timed, then again under the dispatch mode, then fit
+    # over the same rows with the epoch's generator
+    reinit(f32)
+    zero_counts()
+    fused = main_path.fused_epoch(n_steps=FUSED_STEPS, trainer=itr)
+    k1_fused, dx_fused = wrappers["K1"].launches, dhconv.dx_launches
+    steps = fused["steps"]
+    med = float(np.median(fused["step_ms"][1:]))
+    log(f"fused epoch: {steps} steps in {fused['wall_s']:.3f} s (the call, dataset read and "
+        f"upload included), median step after the first {med:.2f} ms (phase 11's "
+        f"interpolator step {ref11['interpolator']['step_ms']:.2f} ms); the dataset "
+        f"{fused['upload_bytes'] / 1e9:.3f} GB read, stacked and pinned in "
+        f"{fused['upload_host_s']:.3f} s, copied in {fused['upload_copy_s']:.4f} s "
+        f"({fused['upload_bytes'] / 1e9 / fused['upload_copy_s']:.1f} GB/s); K1 launches "
+        f"{k1_fused} (dx {dx_fused}) on {smi_line}")
+    check(steps == FUSED_STEPS and all(np.isfinite(fused["losses"])),
+          f"fused epoch: {steps} steps or a non-finite loss")
+    check(k1_fused == 2 * L * steps and dx_fused == L * steps,
+          f"fused epoch: K1 {k1_fused} launches ({dx_fused} dx), expected {2 * L} ({L}) a step")
+    reinit(f32)
+    control = torch.ones(1 << 18)
+    with host_to_device() as seen_h2d:
+        control.to(dev)
+        counted = main_path.fused_epoch(n_steps=FUSED_STEPS, trainer=itr)
+    h2d = seen_h2d.copies
+    nbytes = control.numel() * 4
+    n_control = sum(b == nbytes for _, b in h2d)
+    total = sum(b for _, b in h2d) - n_control * nbytes
+    idx_bytes = FUSED_STEPS * 8
+    per_step_bytes = total - counted["upload_bytes"] - idx_bytes
+    log(f"fused epoch under the dispatch mode: {len(h2d) - n_control} host-to-device copies, "
+        f"{total} bytes: the dataset {counted['upload_bytes']}, the permutation index "
+        f"{idx_bytes}, the steps {per_step_bytes} (the 1 MiB control seen {n_control} time(s)); "
+        f"copies (op, bytes): {sorted({(op, b) for op, b in h2d if b != nbytes})}; "
+        f"losses {'equal' if counted['losses'] == fused['losses'] else 'DIFFERENT'} bit for bit "
+        f"to the timed epoch's")
+    check(not cuda or n_control == 1, f"the dispatch mode saw the control copy {n_control} times")
+    check(per_step_bytes == 0, f"fused epoch: the steps copied {per_step_bytes} bytes from "
+                               f"the host")
+    check(counted["losses"] == fused["losses"], "fused epoch: a rerun from the same weights "
+                                                "gave other losses")
+    del counted
+    reinit(f32)
+    fit_tr = Trainer(itr.exp, itr.dm, TrainerConfig(epochs=1, steps_per_epoch=FUSED_STEPS))
+    fit_tr.generator = fit_tr.epoch_generator(0)
+    by_fit = fit_tr.fit(val_every=2, verbose=False)["step_losses"]
+    fit_gap = max(rel(a, b) for a, b in zip(fused["losses"], by_fit))
+    log(f"fused epoch against fit over the same rows and generator: losses max rel gap "
+        f"{fit_gap:.3e} (tolerance 1e-5)")
+    check(len(by_fit) == steps and fit_gap <= 1e-5, "fused epoch: losses differ from fit's")
+    modes["fused_epoch"] = dict(steps=steps, wall_s=fused["wall_s"], step_ms=med,
+                                step_ms_all=fused["step_ms"], losses=fused["losses"],
+                                upload_bytes=fused["upload_bytes"],
+                                upload_host_s=fused["upload_host_s"],
+                                upload_copy_s=fused["upload_copy_s"],
+                                h2d_step_bytes=per_step_bytes, h2d_index_bytes=idx_bytes,
+                                fit_loss_rel=fit_gap, k1_launches=k1_fused, k1_dx=dx_fused,
+                                phase11_step_ms=ref11["interpolator"]["step_ms"])
+    runs["fused_epoch"] = dict(launches={"K1": k1_fused, "K2": 0, "K3": 0, "K4": 0})
+    del fused, fit_tr
+    free()
+
+    # (b) streaming: FUSED_STEPS samples in segments of SEGMENT_SAMPLES, no
+    # synchronizing call; against the same rows run by hand with each
+    # segment's generator
+    reinit(f32)
+    zero_counts()
+    st_tr = Trainer(itr.exp, itr.dm, TrainerConfig(epochs=1, steps_per_epoch=FUSED_STEPS))
+    t0 = time.perf_counter()
+    with no_sync("streaming") as reads:
+        hist = st_tr.fit_in_memory(epochs=1, val_every=2, verbose=False,
+                                   segment_samples=SEGMENT_SAMPLES)
+    check(reads == [1], f"streaming: {reads[0]} epoch-end reads in one epoch")
+    stream_s = time.perf_counter() - t0
+    k1_stream = wrappers["K1"].launches
+    streamed = hist["step_losses"]
+    waits = hist["segment_wait_s"][0]
+    reinit(f32)
+    ref_tr = Trainer(itr.exp, itr.dm, TrainerConfig(epochs=1, steps_per_epoch=FUSED_STEPS))
+    state = ref_tr.init_state()
+    ds = itr.dm.dataset("train")
+    perm = np.random.default_rng(0).permutation(len(ds))[:FUSED_STEPS]
+    keyed = []
+    for si in range(FUSED_STEPS // SEGMENT_SAMPLES):
+        gen = ref_tr.epoch_generator(0, si)
+        for row in perm[si * SEGMENT_SAMPLES:(si + 1) * SEGMENT_SAMPLES]:
+            b = ref_tr._read_rows(ds, [row], ["dynamics", "dynamical_condition"])
+            keyed.append(ref_tr.train_step(state, b["dynamics"].to(dev),
+                                           b["dynamical_condition"].to(dev), gen)["loss"])
+    keyed = [float(v) for v in keyed]
+    stream_gap = max(rel(a, b) for a, b in zip(streamed, keyed))
+    log(f"streaming: {len(streamed)} steps in {len(waits)} segments of {SEGMENT_SAMPLES} in "
+        f"{stream_s:.3f} s, no synchronizing CUDA call (sync debug mode 'error'); the host's "
+        f"wait for each segment {[round(w, 4) for w in waits]} s; losses against the same rows "
+        f"keyed the same way max rel gap {stream_gap:.3e} (tolerance 1e-5); K1 launches "
+        f"{k1_stream} on {smi_line}")
+    check(len(streamed) == FUSED_STEPS and len(waits) == FUSED_STEPS // SEGMENT_SAMPLES,
+          f"streaming: {len(streamed)} steps in {len(waits)} segments")
+    check(stream_gap <= 1e-5, "streaming: losses differ from the same rows keyed the same way")
+    check(k1_stream == 2 * L * FUSED_STEPS, f"streaming: K1 launched {k1_stream} times")
+    modes["streaming"] = dict(steps=len(streamed), seconds=stream_s, segment_wait_s=waits,
+                              loss_rel=stream_gap, k1_launches=k1_stream)
+    runs["streaming"] = dict(launches={"K1": k1_stream, "K2": 0, "K3": 0, "K4": 0})
+    del st_tr, ref_tr, state, hist
+    free()
+
+    # (e) the rollout validation of the forecaster inside fit, on its EMA
+    # weights: ROLLOUT_VAL_STEPS steps, no synchronizing call in the rollout
+    reinit(f32)
+    ftr = f32["forecaster"]
+    rv_tr = Trainer(ftr.exp, ftr.dm, TrainerConfig(epochs=1, steps_per_epoch=FUSED_STEPS,
+                                                   rollout_val_every=1,
+                                                   rollout_val_steps=ROLLOUT_VAL_STEPS))
+    nets = (ftr.exp.model, ftr.exp.interpolator.model)
+    rollout = {}
+    real_run = trainer_mod.run_inference
+
+    def counted_run(*a, **k):
+        forwards = [0]
+        hooks = [n.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+                 for n in nets]
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            with no_sync("the rollout validation"):
+                out = real_run(*a, **k)
+        finally:
+            for h in hooks:
+                h.remove()
+        rollout.update(seconds=time.perf_counter() - t0, forwards=forwards[0],
+                       k1=wrappers["K1"].launches)
+        return out
+
+    trainer_mod.run_inference = counted_run
+    try:
+        hist = rv_tr.fit(val_every=2, verbose=False)
+    finally:
+        trainer_mod.run_inference = real_run
+    rv = hist["rollout_val"][0]
+    # the key set: the port's at debug size on the CPU (held to the JAX
+    # package's there by tests/test_torch_port_train_modes.py), its names
+    # those of this run
+    debug = main_path.build_training(embed=16, layers=2, img_shape=(16, 32), horizon=3,
+                                     n_state=5, n_samples=12, device="cpu")["forecaster"]
+    debug = Trainer(debug.exp, debug.dm, TrainerConfig(rollout_val_steps=6))
+    debug_names = list(debug.exp.out_packer.names)
+    debug_keys = debug.rollout_validate(debug.init_state())
+    groups = {k.rsplit("/", 1)[0] for k in debug_keys if k.rsplit("/", 1)[1] in debug_names}
+    want = ({k for k in debug_keys if k.rsplit("/", 1)[1] not in debug_names}
+            | {f"{g}/{n}" for g in groups for n in ftr.exp.out_packer.names})
+    finite = all(np.isfinite(v) for v in rv.values())
+    rate = ROLLOUT_VAL_STEPS / rollout["seconds"]
+    log(f"rollout validation (EMA weights, {ROLLOUT_VAL_STEPS} steps): {len(rv)} keys, equal to "
+        f"the expected set: {set(rv) == want}; finite {finite}; val/avg/rmse "
+        f"{rv.get('val/avg/rmse', float('nan')):.5f}; {rollout['seconds']:.3f} s = {rate:.3f} "
+        f"steps/s with no synchronizing CUDA call; {rollout['forwards']} SFNO forwards, K1 "
+        f"launches {rollout['k1']} on {smi_line}")
+    check(set(rv) == want and finite, f"rollout validation: keys {sorted(set(rv) ^ want)[:6]} "
+                                      f"differ, or a value is not finite")
+    check(rollout["k1"] == L * rollout["forwards"] and rollout["forwards"] > 0,
+          f"rollout validation: K1 launched {rollout['k1']} times in {rollout['forwards']} "
+          f"forwards")
+    modes["rollout_val"] = dict(steps=ROLLOUT_VAL_STEPS, seconds=rollout["seconds"],
+                                steps_per_s=rate, keys=len(rv), forwards=rollout["forwards"],
+                                k1_launches=rollout["k1"], rmse=rv.get("val/avg/rmse"))
+    runs["rollout_val"] = dict(launches={"K1": rollout["k1"], "K2": 0, "K3": 0, "K4": 0})
+    del rv_tr, hist, debug
+    free()
+
+    # (f) gradient histograms: fit, log_every 2, HIST_STEPS steps, against
+    # the same steps without them; no synchronizing call in the fit
+    class Rows:
+        def __init__(self):
+            self.rows = []
+
+        def log(self, row, step=None):
+            self.rows.append((step, row))
+
+    hist_dm = DebugDataModule(channels=35, height=MODES_SHAPE[0], width=MODES_SHAPE[1],
+                              horizon=6, n_forcing=2, batch_size=1, n_timesteps=6 + HIST_STEPS,
+                              seed=0)
+    step_ms, logs = {}, {}
+    for watch in (False, True):
+        reinit(f32)
+        tr = Trainer(itr.exp, hist_dm, TrainerConfig(epochs=1, log_every=2, warmup_steps=1,
+                                                     watch_histograms=watch))
+        marks = []
+        step = tr.train_step
+
+        def timed_step(*a, step=step, marks=marks, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if cuda else []
+            for e in ev[:1]:
+                e.record()
+            t = time.perf_counter()
+            out = step(*a, **k)
+            for e in ev[1:]:
+                e.record()
+            marks.append((ev, time.perf_counter() - t))
+            return out
+
+        tr.train_step = timed_step
+        rows = Rows()
+        with no_sync("a fit with gradient histograms" if watch else "a fit") as reads:
+            tr.fit(val_every=2, verbose=False, logger=rows)
+        check(reads == [1], f"histograms: {reads[0]} epoch-end reads in one epoch")
+        step_ms[watch] = [ev[0].elapsed_time(ev[1]) if ev else host * 1e3 for ev, host in marks]
+        logs[watch] = rows.rows
+        del tr, step, timed_step
+    logged = [s for s, r in logs[True] if any(k.startswith("train/grad_hist/") for k in r)]
+    groups = {}
+    for n, p in itr.exp.model.named_parameters():
+        groups.setdefault(trainer_mod.subtree(itr.exp.model, n), 0)
+        groups[trainer_mod.subtree(itr.exp.model, n)] += p.numel()
+    sums_ok = True
+    for s, r in logs[True]:
+        for k, v in r.items():
+            if k.startswith("train/grad_hist/"):
+                sums_ok &= sum(v["values"]) == groups[k.split("/", 2)[2]] and len(v["bins"]) == 65
+    with_h = [step_ms[True][i] for i in range(0, HIST_STEPS, 2)]
+    without_h = [step_ms[False][i] for i in range(0, HIST_STEPS, 2)]
+    # the logged steps after the first (the first also makes the K1 images)
+    over = float(np.mean(np.subtract(with_h[1:], without_h[1:])))
+    max_bin = max(max(v["values"]) for _, r in logs[True] for k, v in r.items()
+                  if k.startswith("train/grad_hist/"))
+    log(f"gradient histograms: logged at steps {logged}, {len(groups)} subtrees, counts summing "
+        f"to each subtree's parameter count: {sums_ok}; the logged steps took "
+        f"{[round(v, 2) for v in with_h]} ms with histograms and {[round(v, 2) for v in without_h]} "
+        f"ms without (the first of each with the epoch's first K1 images): overhead "
+        f"{over:.2f} ms a logged step after the first, by CUDA events; no synchronizing CUDA "
+        f"call in either fit; the largest bin holds {max_bin} values (2^24 = {2 ** 24}) on "
+        f"{smi_line}")
+    check(logged == list(range(0, HIST_STEPS, 2)) and sums_ok,
+          f"gradient histograms: logged at {logged}, or counts not summing to the parameters")
+    modes["histograms"] = dict(logged_steps=logged, subtrees=len(groups), step_ms=step_ms[True],
+                               step_ms_without=step_ms[False], overhead_ms=over,
+                               max_bin=max_bin)
+
+    # (g) the code snapshot: two fits into one checkpoint directory
+    one = DebugDataModule(channels=35, height=MODES_SHAPE[0], width=MODES_SHAPE[1], horizon=6,
+                          n_forcing=2, batch_size=1, n_timesteps=7, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tars = []
+        for _ in range(2):
+            Trainer(itr.exp, one, TrainerConfig(epochs=1, warmup_steps=1, ckpt_dir=tmp)).fit(
+                val_every=2, verbose=False)
+            with open(os.path.join(tmp, "code.tar.gz"), "rb") as f:
+                tars.append(f.read())
+        with tarfile.open(fileobj=io.BytesIO(tars[0])) as tar:
+            members = set(tar.getnames())
+    csrc = os.path.join(os.path.dirname(os.path.abspath(main_path.__file__)), "csrc")
+    kernels = sorted(f"spherical_dyffusion_tpu_torch/csrc/{fn}" for fn in os.listdir(csrc)
+                     if fn.endswith(".cu"))
+    log(f"code snapshot: two fits into one directory left {len(tars[0])} and {len(tars[1])} "
+        f"bytes, identical: {tars[0] == tars[1]}; {len(members)} files, holding "
+        f"{[k for k in kernels if k in members]}")
+    check(tars[0] == tars[1] and all(k in members for k in kernels),
+          "code snapshot: not byte-stable, or a kernel source is missing")
+    modes["code_snapshot"] = dict(bytes=len(tars[0]), files=len(members), kernels=kernels)
+    del f32, itr, ftr, nets
+    free()
+    report["modes"] = modes
 
 
 def main() -> int:
@@ -1986,6 +2490,10 @@ def main() -> int:
     with Phase("13 model options at 256 x 8 (Tucker, fold, remat, the other options)"):
         phase13(smi_line, wrappers, report, runs, drive, pair, other)
 
+    with Phase("14 training modes at 256 x 8 (bf16, bf16 moments, fused, streaming, rollout "
+               "validation, histograms, code snapshot)"):
+        phase14(smi_line, wrappers, report, runs)
+
     sources = {"K1": "spherical_dyffusion_tpu_torch/csrc/dhconv.cu",
                "K2": "spherical_dyffusion_tpu_torch/csrc/fused_mlp.cu",
                "K3": "spherical_dyffusion_tpu_torch/csrc/fused_mlp.cu",
@@ -2017,6 +2525,7 @@ def main() -> int:
     print(json.dumps({"training": report["training"]}))
     print(json.dumps({"cli": report["cli"]}))
     print(json.dumps({"options": report["options"]}))
+    print(json.dumps({"modes": report["modes"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -30,8 +30,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..models.modules import draw_seed
-from ..utils.device import to_device
+from ..models.modules import device_generator
 
 __all__ = ["DYffusionConfig", "DiffusionSchedule", "build_schedule", "q_sample",
            "forward_noise", "predict_x_last", "p_losses", "sample_loop", "scan_compatible", "sample_loop_scan",
@@ -252,7 +251,7 @@ def forward_noise(x: torch.Tensor, generator: Optional[torch.Generator]) -> torc
     host."""
     if generator is None:
         raise ValueError("data+noise conditioning requires a generator")
-    device_gen = torch.Generator(device=x.device).manual_seed(draw_seed(generator))
+    device_gen = device_generator(generator, x.device)
     return torch.randn(x.shape, generator=device_gen, device=x.device, dtype=x.dtype)
 
 
@@ -308,8 +307,8 @@ def p_losses(interpolate_fn: InterpolateFn, forecast_fn: ForecastFn, cfg: DYffus
              **cond_kwargs: Any) -> Dict[str, torch.Tensor]:
     """The forecaster's training loss (the JAX package's ``p_losses``).
 
-    A diffusion step t ~ U{0..N-1} per sample, drawn from ``generator`` (a
-    host generator; the draw is copied to the card without waiting); for
+    A diffusion step t ~ U{0..N-1} per sample, drawn on the batch's device
+    from ``generator`` (a host generator seeds the draw there); for
     t > 0 the training input x_t comes from the interpolator (computed for
     every sample and masked, as in JAX); loss1 = criterion on the forecast
     of x_last. With ``lambda_reconstruction2 > 0`` a second term simulates
@@ -322,7 +321,8 @@ def p_losses(interpolate_fn: InterpolateFn, forecast_fn: ForecastFn, cfg: DYffus
         criterion = lambda a, b: torch.mean(torch.abs(a - b))  # noqa: E731 (l1)
     B = input_dynamics.shape[0]
     dev = input_dynamics.device
-    t = to_device(torch.randint(0, sched.num_timesteps, (B,), generator=generator), dev)
+    t = torch.randint(0, sched.num_timesteps, (B,), device=dev,
+                      generator=device_generator(generator, dev))
     x_interp = q_sample(interpolate_fn, sched, input_dynamics, xt_last, sched.d_to_i(t.float()),
                         generator, **cond_kwargs)
     tmask = (t > 0).reshape((B,) + (1,) * (input_dynamics.dim() - 1))

@@ -42,7 +42,9 @@ the trainer settings of ``configs/trainer/default.yaml``, batch 1 from a
 ``DebugDataModule`` at 180 x 360: the interpolator trains first, then the
 forecaster with it frozen inside ``p_losses``; ``scan_layers`` and
 ``checkpointing=3`` are ``bench.py``'s training at paper scale with remat
-(``BENCH_SCAN_LAYERS=1 BENCH_CKPT=3``).
+(``BENCH_SCAN_LAYERS=1 BENCH_CKPT=3``). ``fused_epoch`` is the fused-epoch
+part of ``bench.py:train_bench`` (``bench.py:459-467``): one
+``Trainer.fit_in_memory`` epoch of the interpolator.
 """
 
 from __future__ import annotations
@@ -75,7 +77,8 @@ from .utils.convert import flax_to_state_dict
 
 __all__ = ["state_names", "FORCING_NAMES", "MASK_NAME", "FAST_WINDOW", "TUCKER_WINDOW",
            "sfno_configs",
-           "build", "window_inputs", "product_rollout", "build_training", "train_steps"]
+           "build", "window_inputs", "product_rollout", "build_training", "train_steps",
+           "fused_epoch"]
 
 FORCING_NAMES = ("DSWRFtoa", "HGTsfc")
 MASK_NAME = "ocean_fraction"
@@ -243,16 +246,17 @@ def build_training(embed: int = 256, layers: int = 8, img_shape: Tuple[int, int]
                    horizon: int = 6, n_state: int = 35, use_pallas: bool = True,
                    dropout: bool = True, n_samples: int = 8, scheduler: str = "warmup_cosine",
                    scan_layers: bool = False, checkpointing: int = 0,
-                   forward_conditioning: str = "none",
-                   device: str = "cuda") -> Dict[str, Trainer]:
+                   forward_conditioning: str = "none", dtype: str = "float32",
+                   forecaster: bool = True, device: str = "cuda") -> Dict[str, Trainer]:
     """The two trainers of the training path, ``{"interpolator": ...,
-    "forecaster": ...}``, over one ``DebugDataModule`` (``n_state`` state
+    "forecaster": ...}`` (the interpolator's alone with ``forecaster=False``), over one ``DebugDataModule`` (``n_state`` state
     channels, two forcings, ``n_samples`` samples of batch 1): the
     interpolator (72 -> 35 channels, MLP dropout and DropPath 0.1 with
     ``dropout``) and the forecaster (37 -> 35) of ``fv3gfs_interpolation``
-    and ``fv3gfs_dyffusion``, float32 compute, weights from a
-    ``torch.Generator`` seeded with 0; the forecaster's loss runs the
-    interpolator frozen.
+    and ``fv3gfs_dyffusion``, ``dtype`` compute (float32, or bfloat16 with
+    the transforms' operands in bf16 as ``build`` sets them; K1 takes
+    float32 either way), weights from a ``torch.Generator`` seeded with 0;
+    the forecaster's loss runs the interpolator frozen.
     ``dropout=False`` turns the interpolator's dropout off in both losses.
     ``scan_layers`` and ``checkpointing`` (remat from 3) are the SFNO
     fields of both networks. ``forward_conditioning`` is DYffusion's; other
@@ -266,7 +270,7 @@ def build_training(embed: int = 256, layers: int = 8, img_shape: Tuple[int, int]
     dm = DebugDataModule(channels=n_state, height=img_shape[0], width=img_shape[1],
                          horizon=horizon, n_forcing=len(FORCING_NAMES), batch_size=1,
                          n_timesteps=horizon + n_samples, seed=0)
-    icfg, fcfg = sfno_configs(embed, layers, "float32", img_shape, horizon, n_state,
+    icfg, fcfg = sfno_configs(embed, layers, dtype, img_shape, horizon, n_state,
                               use_pallas=use_pallas, fused_mlp=False, scan_layers=scan_layers,
                               checkpointing=checkpointing)
     if not dropout:
@@ -274,20 +278,22 @@ def build_training(embed: int = 256, layers: int = 8, img_shape: Tuple[int, int]
     if forward_conditioning != "none":
         fcfg = dataclasses.replace(fcfg, in_chans=fcfg.in_chans + n_state)
     imodel = SFNO(icfg).to(device)
-    fmodel = SFNO(fcfg).to(device)
     gen = torch.Generator(device=device).manual_seed(0)
     imodel.init_weights(gen)
-    fmodel.init_weights(gen)
     interp = InterpolationExperiment(
         imodel, ExperimentConfig(horizon=horizon, enable_inference_dropout=True),
         dm.in_packer, dm.out_packer, dm.normalizer)
+    tcfg = TrainerConfig(epochs=1, steps_per_epoch=n_samples, scheduler=scheduler)
+    if not forecaster:
+        return {"interpolator": Trainer(interp, dm, tcfg)}
+    fmodel = SFNO(fcfg).to(device)
+    fmodel.init_weights(gen)
     dcfg = DYffusionConfig(timesteps=horizon, forward_conditioning=forward_conditioning,
                            time_encoding="dynamics")
     fexp = DYffusionForecastingExperiment(
         fmodel, interp, dcfg, ExperimentConfig(horizon=horizon), dm.in_packer, dm.out_packer,
         dm.normalizer, forcing_names=dm.cfg.forcing_names,
         forcing_normalizer=dm.forcing_normalizer)
-    tcfg = TrainerConfig(epochs=1, steps_per_epoch=n_samples, scheduler=scheduler)
     return {"interpolator": Trainer(interp, dm, tcfg), "forecaster": Trainer(fexp, dm, tcfg)}
 
 
@@ -299,7 +305,8 @@ def train_steps(n_steps: int = 6, embed: int = 256, layers: int = 8,
     forecaster, through ``Trainer.train_step`` (``build_training``'s
     trainers unless ``trainers`` is given). The batches are read first (set
     up), ``n_steps`` distinct ones, or the first one every step with
-    ``repeat``. Per experiment it returns the per-step ``losses``, ``step_ms``
+    ``repeat``. Per experiment it returns the per-step ``losses`` and
+    ``grad_norms`` (before clipping), ``step_ms``
     (host clock to the end-synced step), ``split_ms`` (forward, backward,
     optimizer and EMA per step: CUDA events recorded between the parts on
     the card, the host clock on the CPU), ``peak_bytes``
@@ -352,7 +359,52 @@ def train_steps(n_steps: int = 6, embed: int = 256, layers: int = 8,
                 for (_, a, _), (part, b, _) in zip(marks, marks[1:])})
             rec["k1_backward"].append(marks[2][2] - marks[1][2])
         rec["losses"] = [float(m["loss"]) for m in metrics]
+        rec["grad_norms"] = [float(m["grad_norm"]) for m in metrics]
         rec["peak_bytes"] = torch.cuda.max_memory_allocated(tr.device) if cuda else None
         rec.update(trainer=tr, state=state)
         out[name] = rec
     return out
+
+
+def fused_epoch(n_steps: int = 8, embed: int = 256, layers: int = 8,
+                img_shape: Tuple[int, int] = (180, 360), horizon: int = 6, n_state: int = 35,
+                device: str = "cuda", trainer: Optional[Trainer] = None) -> dict:
+    """One ``fit_in_memory`` epoch of the interpolator (``bench.py:459-467``):
+    batch 1, ``n_steps`` steps over a dataset of ``n_steps`` samples uploaded
+    once, validation beyond the epoch; ``build_training``'s interpolator
+    trainer unless ``trainer`` is given. Returns the epoch's ``wall_s``
+    (host clock, from the call to the epoch's end read), ``steps``, the
+    per-step ``losses``, ``step_ms`` per step (CUDA events recorded after
+    each step's work is queued, the host clock on the CPU; the first step
+    from the epoch's start), the dataset's ``upload_bytes``,
+    ``upload_host_s`` (reading, stacking, pinning) and ``upload_copy_s``
+    (its copy to the device), and the ``trainer``."""
+    if trainer is None:
+        trainer = build_training(embed, layers, img_shape, horizon, n_state,
+                                 n_samples=n_steps, forecaster=False,
+                                 device=device)["interpolator"]
+    cuda = trainer.device.type == "cuda"
+    marks = []
+
+    def stamp():
+        if cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+        else:
+            marks.append(time.perf_counter())
+
+    def mark(part):
+        if part == "optimizer":  # a step's end
+            stamp()
+
+    t0 = time.perf_counter()
+    stamp()
+    hist = trainer.fit_in_memory(epochs=1, val_every=2, verbose=False, steps_per_epoch=n_steps,
+                                 mark=mark)
+    wall = time.perf_counter() - t0
+    step_ms = [(a.elapsed_time(b) if cuda else (b - a) * 1e3) for a, b in zip(marks, marks[1:])]
+    up = hist["upload"]
+    return dict(wall_s=wall, steps=len(hist["step_losses"]), losses=hist["step_losses"],
+                step_ms=step_ms, upload_bytes=up["bytes"], upload_host_s=up["host_s"],
+                upload_copy_s=up["copy_s"], trainer=trainer)

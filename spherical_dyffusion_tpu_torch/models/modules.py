@@ -16,7 +16,10 @@ module draws ``jax.random.bits(..., uint8)``. Both keep an element iff its
 rule, from different bits. Exact-rate dropout (``exact_dropout``: the
 config's ``exact_dropout``, and where the JAX package's ``QuantizedDropout``
 leaves quantized dropout for it) draws a uniform on x's device, from a
-generator there seeded from the caller's.
+generator there seeded from the caller's. The per-sample draws for the card
+(DropPath's keep mask here, the timesteps of the training losses) are made
+there too, from ``device_generator``: a training step copies nothing from
+the host.
 """
 
 from __future__ import annotations
@@ -29,16 +32,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_mlp import fused_block_tail, fused_mlp
-from ..utils.device import to_device
 
 __all__ = ["Dense", "InstanceNorm2d", "SpatialLayerNorm", "QuantizedDropout", "MLP2d",
            "SinusoidalTimeEmbedding", "TimeEmbedMLP", "DropPath",
-           "get_activation", "draw_seed", "exact_dropout"]
+           "get_activation", "draw_seed", "device_generator", "exact_dropout"]
 
 
 def draw_seed(generator: torch.Generator) -> int:
     """A 63-bit dropout seed from a host-side generator (no device sync)."""
     return int(torch.randint(0, 2**63 - 1, (1,), generator=generator).item())
+
+
+def device_generator(generator: torch.Generator, device) -> torch.Generator:
+    """A generator on ``device`` seeded by a draw from ``generator`` (a host
+    generator), so that a draw for the card is made on the card and nothing
+    of it crosses from the host."""
+    return torch.Generator(device=device).manual_seed(draw_seed(generator))
 
 
 def exact_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
@@ -51,7 +60,7 @@ def exact_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> t
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    device_gen = torch.Generator(device=x.device).manual_seed(draw_seed(generator))
+    device_gen = device_generator(generator, x.device)
     u = torch.rand(x.shape, generator=device_gen, device=x.device)
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -171,7 +180,7 @@ class QuantizedDropout(nn.Module):
             return x
         if self.t <= 0 or x.shape[-1] % 4:
             return exact_dropout(x, self.rate, generator)
-        device_gen = torch.Generator(device=x.device).manual_seed(draw_seed(generator))
+        device_gen = device_generator(generator, x.device)
         bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, device=x.device,
                              generator=device_gen)
         return torch.where(bits < self.t, x * (256.0 / self.t),
@@ -273,7 +282,8 @@ class DropPath(nn.Module):
         if deterministic or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape[0], generator=generator) < keep
-        mask = to_device(mask, x.device).reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+        mask = torch.rand(x.shape[0], generator=device_generator(generator, x.device),
+                          device=x.device) < keep
+        mask = mask.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
         scale = torch.full((), 1.0 / keep, dtype=x.dtype, device=x.device)
         return torch.where(mask, x * scale, torch.zeros((), dtype=x.dtype, device=x.device))

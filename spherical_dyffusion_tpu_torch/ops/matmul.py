@@ -12,7 +12,11 @@ for a two-operand ``torch.einsum`` equation:
   bf16 GEMM with float32 accumulation, up to the order of the sums;
 - bf16 on the card: one bf16 ``torch.bmm`` with a float32 result
   (``out_dtype``), which runs on the tensor cores and returns the float32
-  sums that JAX keeps.
+  sums that JAX keeps. That call has no derivative in PyTorch, so it runs
+  inside ``Bf16Product``, whose backward is the CPU form's autograd: each
+  operand's gradient a float32 product of the float32 cotangent and the
+  other (bf16) operand, rounded to bf16 (the backward of the CPU form's
+  ``.float()`` cast).
 
 For bf16 the equation is lowered by hand to that one batched product (batch
 axes, then the free axes of each operand, then the contracted axes), the
@@ -83,9 +87,29 @@ def _lowered(eq: str, a: torch.Tensor, b: torch.Tensor, product) -> torch.Tensor
     return y.permute([order.index(c) for c in out])
 
 
+class Bf16Product(torch.autograd.Function):
+    """``torch.bmm(a3, b3, out_dtype=torch.float32)`` of bf16 operands, with
+    the backward of ``torch.bmm(a3.float(), b3.float())``."""
+
+    @staticmethod
+    def forward(ctx, a3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a3, b3)
+        return torch.bmm(a3, b3, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a3, b3 = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, b3.transpose(1, 2).float()).to(a3.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a3.transpose(1, 2).float(), g).to(b3.dtype)
+        return ga, gb
+
+
 def _bf16_product(a3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
     if a3.device.type == "cuda":
-        return torch.bmm(a3.contiguous(), b3.contiguous(), out_dtype=torch.float32)
+        return Bf16Product.apply(a3.contiguous(), b3.contiguous())
     return torch.bmm(a3.float(), b3.float())
 
 

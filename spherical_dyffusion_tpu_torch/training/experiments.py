@@ -9,7 +9,8 @@ parameter trees; here the networks are ``nn.Module``s that carry their
 weights, so the parameter arguments disappear: the frozen interpolator of
 the forecaster's loss runs under ``torch.no_grad()``, which is the same math
 as JAX passing its tree as ``aux_params``. Randomness (timesteps, dropout)
-comes from one host ``torch.Generator``. ``SimultaneousForecastingExperiment``
+comes from one host ``torch.Generator``; the timesteps are drawn on the
+batch's device (``models/modules.py:device_generator``). ``SimultaneousForecastingExperiment``
 is not ported yet.
 """
 
@@ -23,6 +24,7 @@ import torch
 from ..data.normalization import StandardNormalizer
 from ..data.packer import Packer
 from ..diffusion.dyffusion import DYffusionConfig, build_schedule, p_losses, select_sampler
+from ..models.modules import device_generator
 from ..utils.device import to_device
 from .losses import get_loss_fn
 
@@ -49,9 +51,15 @@ def stack_window(x: torch.Tensor) -> torch.Tensor:
     return torch.movedim(x, 1, -2).reshape(B, H, W, T * C)
 
 
-def _out_indices(in_packer: Packer, out_packer: Packer) -> list:
+def _out_indices(in_packer: Packer, out_packer: Packer):
+    """The output names' channels among the inputs: a slice where they are
+    consecutive (a view: a list index would copy itself from the host at
+    every use), else the list."""
     idx = in_packer.index
-    return [idx[n] for n in out_packer.names]
+    out = [idx[n] for n in out_packer.names]
+    if out == list(range(out[0], out[0] + len(out))):
+        return slice(out[0], out[0] + len(out))
+    return out
 
 
 class InterpolationExperiment:
@@ -112,8 +120,8 @@ class InterpolationExperiment:
             if dynamics.shape[1] != w + self.cfg.horizon:
                 raise ValueError(f"sequential interpolation training needs window+horizon="
                                  f"{w + self.cfg.horizon} frames, got {dynamics.shape[1]}")
-            t = to_device(torch.randint(1, self.cfg.horizon, (B,), generator=generator),
-                          dynamics.device)
+            t = torch.randint(1, self.cfg.horizon, (B,), device=dynamics.device,
+                              generator=device_generator(generator, dynamics.device))
             target_time = w + t - 1
             targets = dynamics[torch.arange(B, device=t.device), target_time][..., self._out_idx]
             cond = self.slice_condition(dynamical_condition, target_time)

@@ -102,9 +102,18 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]
     return {"params": params}
 
 
+def _get(node, field):
+    return node[field] if isinstance(node, Mapping) else getattr(node, field)
+
+
 def _find(tree, *fields):
-    """The first node of a (named)tuple/dict tree that has all ``fields``."""
-    if all(hasattr(tree, f) for f in fields):
+    """The first node of a (named)tuple/dict tree that has all ``fields``
+    (as attributes, or as keys of a dict: flax's state dict of a
+    namedtuple)."""
+    if isinstance(tree, Mapping):
+        if all(f in tree for f in fields):
+            return tree
+    elif all(hasattr(tree, f) for f in fields):
         return tree
     children = tree.values() if isinstance(tree, Mapping) else (
         tree if isinstance(tree, (tuple, list)) else ())
@@ -117,25 +126,38 @@ def _find(tree, *fields):
 
 def train_state_payload(state: Any) -> Dict[str, Any]:
     """A JAX ``TrainState`` (params, opt_state of the trainer's optax chain,
-    ema, step) -> the port trainer's ``restore_payload``: ``params`` and
-    ``ema_params`` as ``state_dict``s, and ``opt_state`` with ``exp_avg`` and
-    ``exp_avg_sq`` by parameter name, ``updates`` (Adam's count),
-    ``mini_step`` and ``acc_grads`` (``MultiSteps``; 0 and None without)."""
-    adam = _find(state.opt_state, "mu", "nu", "count")
-    if adam is None:
-        raise ValueError("no Adam state (mu, nu, count) in the optimizer state")
-    multi = _find(state.opt_state, "mini_step", "acc_grads")
-    mini = int(np.asarray(multi.mini_step)) if multi is not None else 0
-    ema = getattr(state, "ema", None)
-    return {
-        "params": flax_to_state_dict(state.params),
-        "ema_params": flax_to_state_dict(ema.params) if ema is not None else None,
-        "opt_state": {
-            "exp_avg": flax_to_state_dict(adam.mu),
-            "exp_avg_sq": flax_to_state_dict(adam.nu),
-            "updates": int(np.asarray(adam.count)),
+    ema, step), or the dict of a JAX msgpack checkpoint (``params``,
+    ``ema_params``, ``opt_state`` as flax's state dict, ``step``) -> the
+    port trainer's ``restore_payload``: ``params`` and ``ema_params`` as
+    ``state_dict``s, and ``opt_state`` with ``exp_avg`` and ``exp_avg_sq``
+    by parameter name, ``updates`` (Adam's count), ``mini_step`` and
+    ``acc_grads`` (``MultiSteps``; 0 and None without). The moments come as
+    float32 tensors (a bf16 ``mu`` exactly); the trainer stores ``exp_avg``
+    in its ``adam_mu_dtype``."""
+    if isinstance(state, Mapping):
+        ema = state.get("ema_params") or None
+        opt_state = state.get("opt_state")
+    else:
+        ema = getattr(state, "ema", None)
+        ema = ema.params if ema is not None else None
+        opt_state = state.opt_state
+    opt = None
+    if opt_state is not None:
+        adam = _find(opt_state, "mu", "nu", "count")
+        if adam is None:
+            raise ValueError("no Adam state (mu, nu, count) in the optimizer state")
+        multi = _find(opt_state, "mini_step", "acc_grads")
+        mini = int(np.asarray(_get(multi, "mini_step"))) if multi is not None else 0
+        opt = {
+            "exp_avg": flax_to_state_dict(_get(adam, "mu")),
+            "exp_avg_sq": flax_to_state_dict(_get(adam, "nu")),
+            "updates": int(np.asarray(_get(adam, "count"))),
             "mini_step": mini,
-            "acc_grads": flax_to_state_dict(multi.acc_grads) if mini else None,
-        },
-        "step": int(np.asarray(state.step)),
+            "acc_grads": flax_to_state_dict(_get(multi, "acc_grads")) if mini else None,
+        }
+    return {
+        "params": flax_to_state_dict(_get(state, "params")),
+        "ema_params": flax_to_state_dict(ema) if ema is not None else None,
+        "opt_state": opt,
+        "step": int(np.asarray(_get(state, "step"))),
     }

@@ -962,3 +962,181 @@ def test_remat_training_step_with_k1_matches_no_remat(cuda):
         assert abs(la - lb) <= 1e-6 * abs(lb) and torch.equal(sa, sb)
         for x, y in zip(ga, gb):
             assert float((x - y).abs().max()) <= 1e-6 * float(y.abs().max())
+
+
+# ---------------------------------------------------- training's other modes
+
+def _host_to_device_bytes():
+    """A dispatch mode summing the bytes of host tensors that aten ops read
+    into results on the card (the copies, and tensor constructors whose
+    result is on the card)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.nbytes = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(o, torch.Tensor) and o.is_cuda for o in tree_leaves(out)):
+                fresh = func is torch.ops.aten.lift_fresh.default
+                for a in tree_leaves((args, kwargs)):
+                    if isinstance(a, torch.Tensor) and (fresh or a.device.type == "cpu"):
+                        self.nbytes += a.numel() * a.element_size()
+            return out
+
+    return Count()
+
+
+_MODES_KW = dict(embed=32, layers=2, img_shape=(32, 64), horizon=3, n_state=5, device="cuda")
+
+
+def test_fused_epoch_copies_nothing_from_the_host_per_step(cuda):
+    """A fused epoch of 4 steps with dropout and DropPath live copies the
+    dataset and the permutation index from the host, and nothing else: the
+    timesteps and the dropout draws are made on the card."""
+    tr = main_path.build_training(n_samples=4, **_MODES_KW)["interpolator"]
+    main_path.fused_epoch(n_steps=4, trainer=tr)  # K1's images, cuBLAS, the allocator
+    with _host_to_device_bytes() as seen:
+        got = main_path.fused_epoch(n_steps=4, trainer=tr)
+    assert got["steps"] == 4 and all(np.isfinite(got["losses"]))
+    assert seen.nbytes == got["upload_bytes"] + 4 * 8
+
+
+def test_streaming_and_rollout_validation_never_wait_for_the_card(cuda, monkeypatch):
+    """A streamed epoch (2 segments) runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` but for its one epoch-end
+    read (``Trainer._read_epoch``, an ordinary copy, lifted out of the check
+    and counted); so does the rollout inside ``fit``'s rollout validation
+    (the aggregator's logs are read after it)."""
+    from spherical_dyffusion_tpu_torch.training import trainer as trainer_mod
+    from spherical_dyffusion_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    trs = main_path.build_training(n_samples=8, **_MODES_KW)
+    itr = trs["interpolator"]
+    tr = Trainer(itr.exp, itr.dm, TrainerConfig(epochs=1, steps_per_epoch=4))
+    tr.fit_in_memory(epochs=1, val_every=2, verbose=False, segment_samples=2)  # warm-up
+    real_read, reads = Trainer._read_epoch, []
+
+    def read_outside(*a):
+        reads.append(1)
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real_read(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(Trainer, "_read_epoch", staticmethod(read_outside))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hist = tr.fit_in_memory(epochs=1, val_every=2, verbose=False, segment_samples=2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(hist["step_losses"]) == 4 and len(hist["segment_wait_s"][0]) == 2
+    assert reads == [1]
+    real = trainer_mod.run_inference
+
+    def strict(*a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(trainer_mod, "run_inference", strict)
+    ftr = trs["forecaster"]
+    rv = Trainer(ftr.exp, ftr.dm, TrainerConfig(epochs=1, steps_per_epoch=2, rollout_val_every=1,
+                                                rollout_val_steps=6))
+    out = rv.fit(val_every=2, verbose=False)["rollout_val"][0]
+    assert out and all(np.isfinite(v) for v in out.values())
+
+
+def test_bf16_mu_step_matches_its_float64_rule(cuda):
+    """Four ``AdamWLowMu`` steps on the card against optax's rule in float64
+    with ``mu`` rounded to bf16 at the same point (``b1 * mu`` in bf16 with
+    b1 rounded to bf16, the update from the float32 ``mu``, then the
+    rounding): the parameters within 1e-6 of their scale plus the learning
+    rate times one bf16 step per update; ``exp_avg`` bf16 and within one
+    bf16 step of the rule's."""
+    from spherical_dyffusion_tpu_torch.training.optim import AdamWLowMu
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    p = torch.nn.Parameter(torch.randn((64, 33), device=cuda, generator=g))
+    x = p.detach().double()
+    lr, wd, b1, b2, eps = 1e-2, 5e-3, 0.9, 0.999, 1e-8
+    opt = AdamWLowMu([{"params": [p], "weight_decay": wd}], lr=lr)
+    b1_mu = float(torch.tensor(b1, dtype=torch.bfloat16))
+    m_st = torch.zeros_like(x)
+    v = torch.zeros_like(x)
+    for k in range(1, 5):
+        grad = torch.randn(p.shape, device=cuda, generator=g) * 10.0 ** -k
+        p.grad = grad.clone()
+        opt.step()
+        gd = grad.double()
+        m = (1 - b1) * gd + (b1_mu * m_st.to(torch.bfloat16).float()).to(torch.bfloat16).double()
+        v = (1 - b2) * gd * gd + b2 * v
+        x = x - lr * ((m / (1 - b1 ** k)) / (torch.sqrt(v / (1 - b2 ** k)) + eps) + wd * x)
+        m_st = m.to(torch.bfloat16).double()
+    mu = opt.state[p]["exp_avg"]
+    assert mu.dtype == torch.bfloat16
+    assert bool(((mu.double() - m_st).abs() <= 2.0 ** -7 * m_st.abs()).all())
+    assert float((p.detach().double() - x).abs().max()) <= 1e-6 * float(x.abs().max()) \
+        + 4 * lr * 2.0 ** -7
+
+
+@pytest.mark.parametrize("eq,sa,sb", [
+    ("...hwc,wmr->...hmcr", (2, 12, 64, 8), (64, 33, 2)),      # the DFT
+    ("...hmcr,hlm->...lmcr", (2, 12, 33, 8, 2), (12, 12, 33)),  # Legendre analysis
+])
+def test_bf16_einsum_on_the_card_is_the_cpu_form(cuda, eq, sa, sb):
+    """``ops/matmul.py:einsum`` in bf16 on the card (``Bf16Product``: one
+    ``torch.bmm`` with ``out_dtype``) against its CPU form (the bf16 values
+    multiplied in float32) on the same operands: forward and both gradients
+    within 1e-5 of the largest sum of |products| (float32 sums in another
+    order), and more than 2e-4 of it apart from the float32 einsum, so the
+    operands were rounded."""
+    from spherical_dyffusion_tpu_torch.ops.matmul import einsum
+
+    r = np.random.default_rng(11)
+    a0 = torch.from_numpy(r.standard_normal(sa).astype(np.float32))
+    b0 = torch.from_numpy(r.standard_normal(sb).astype(np.float32))
+    y32 = torch.einsum(eq, a0, b0)
+    g0 = torch.from_numpy(r.standard_normal(tuple(y32.shape)).astype(np.float32))
+    out = []
+    for dev in ("cpu", cuda):
+        a, b = (t.to(dev, copy=True).requires_grad_() for t in (a0, b0))
+        y = einsum(eq, a, b, torch.bfloat16)
+        assert y.dtype == torch.float32
+        out.append([t.detach().cpu() for t in (y, *torch.autograd.grad(y, (a, b), g0.to(dev)))])
+    (y_cpu, *g_cpu), (y_card, *g_card) = out
+    scale = float(torch.einsum(eq, a0.abs(), b0.abs()).max())
+    assert float((y_card - y_cpu).abs().max()) <= 1e-5 * scale
+    assert float((y32 - y_cpu).abs().max()) > 2e-4 * scale
+    for got, want in zip(g_card, g_cpu):  # each rounded to bf16: one step of 2^-8 apart
+        assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def test_bf16_compute_training_steps_on_the_card(cuda):
+    """Two bf16-compute steps of each experiment (the transforms' products
+    on the tensor cores through ``Bf16Product``, K1 float32): finite
+    float32 gradients, K1 launched as in float32, losses within
+    ``BF16_VS_F32_LOSS`` (5e-5) of the float32 steps' from the same weights
+    and batches, and gradient norms apart from theirs by more than
+    ``BF16_GRAD_NORM_FLOOR`` (1e-5), so the bf16 path is the one that ran
+    (``chip_smoke.py`` phase 14 (c) holds both at 256 x 8)."""
+    kw = dict(_MODES_KW, n_samples=2)
+    bf = main_path.train_steps(n_steps=2, trainers=main_path.build_training(dtype="bfloat16",
+                                                                           **kw))
+    f32 = main_path.train_steps(n_steps=2, trainers=main_path.build_training(**kw))
+    for name in ("interpolator", "forecaster"):
+        assert bf[name]["k1_launches"] == f32[name]["k1_launches"]
+        assert bf[name]["trainer"].exp.model.cfg.compute_dtype == "bfloat16"
+        for a, b in zip(bf[name]["losses"], f32[name]["losses"]):
+            assert np.isfinite(a) and abs(a - b) <= 5e-5 * abs(b)
+        assert max(abs(a - b) / abs(b) for a, b in zip(bf[name]["grad_norms"],
+                                                       f32[name]["grad_norms"])) > 1e-5
+        assert all(torch.isfinite(p).all() for p in bf[name]["trainer"].exp.model.parameters())

@@ -369,9 +369,8 @@ def test_adamw_clip_mask_schedule_match_the_optax_chain(accumulate):
 # ---------------------------------------------------------- TrainerConfig
 
 @pytest.mark.parametrize("field,value", [
-    ("fit_mode", "fit_in_memory"), ("fit_mode", "streaming"), ("grad_reduce_dtype", "bfloat16"),
-    ("zero_shard_opt_state", True), ("adam_mu_dtype", "bfloat16"), ("watch_histograms", True),
-    ("ckpt_mirror", "s3://bucket/prefix"), ("save_to_wandb", True), ("rollout_val_every", 10)])
+    ("grad_reduce_dtype", "bfloat16"), ("zero_shard_opt_state", True),
+    ("ckpt_mirror", "s3://bucket/prefix"), ("save_to_wandb", True)])
 def test_trainer_config_refuses_unported_values(field, value):
     with pytest.raises(NotImplementedError, match=field):
         TrainerConfig(**{field: value})
@@ -379,15 +378,17 @@ def test_trainer_config_refuses_unported_values(field, value):
 
 def test_trainer_config_keeps_the_jax_fields():
     """Same field names and defaults as the JAX TrainerConfig; the code
-    snapshot beside checkpoints refuses, rng_impl is accepted."""
+    snapshot beside checkpoints, rng_impl and the other fit modes are
+    accepted."""
     from spherical_dyffusion_tpu.training.trainer import TrainerConfig as JTrainerConfig
 
     jf = {f.name: f.default for f in dataclasses.fields(JTrainerConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(TrainerConfig)}
     assert jf == tf
-    with pytest.raises(NotImplementedError, match="code_snapshot"):
-        TrainerConfig(ckpt_dir="/nowhere")
+    TrainerConfig(ckpt_dir="/nowhere")
     TrainerConfig(ckpt_dir="/nowhere", code_snapshot=False, rng_impl="threefry")
+    TrainerConfig(fit_mode="streaming", segment_samples=4, adam_mu_dtype="bfloat16",
+                  watch_histograms=True, rollout_val_every=10)
 
 
 # ------------------------------------------------------------------- data
