@@ -120,7 +120,7 @@ Phases, each timed:
    dropout off, kernels against the plain path within 1e-4; (d)
    ``results/skill_fast08/forecaster.msgpack`` decoded by
    ``utils/flax_msgpack.py`` and loaded strictly into its SFNO;
-13. the model options at 256 x 8 on 180 x 360 (run last, after phase 9):
+13. the model options at 256 x 8 on 180 x 360 (run after phase 9):
    (a) the Tucker window (``main_path.TUCKER_WINDOW``: Tucker rank 0.25 on
    the rank pipeline, 2R = 128, bf16, scan and peel, K3 on): one warm-up
    and one timed 12-step window beside phase 7's, K3 launched 192 x and
@@ -147,13 +147,38 @@ Phases, each timed:
    ``data+noise-v2`` on a model built with the extra condition channels:
    its loss finite and, in one step under the dispatch mode, no
    activation-sized bytes copied from the host.
+14. (see ``phase14``) training's other modes at 256 x 8;
+15. the ACE family at 256 x 8 on 180 x 360, batch 1 (run last): (a)
+   ``main_path.ace_rollout`` (``bench.py:ace_bench``: 36 -> 35 channels,
+   the dry-air corrector and the prescribed ocean, bf16, K1 and K3 with
+   norm1's affine alone), 48 steps in 12-step windows with the aggregator
+   and the diagnostics on: each window's seconds on the device, the steady
+   steps/s and sim-yr/day, K1 and K3 96 launches a window; then the same
+   rollout counted by the dispatch mode (one window's upload a window, 0
+   bytes where the upload cache holds the looped source's window) under
+   the sync debug mode "error" up to its end sync; (b) one window with
+   the kernels against the plain path (erf gelu and two-pass norms, as the
+   ACE loader builds): float32 1e-4, bf16 at most BF16_TAIL_VS_PLAIN times
+   the plain path's own gap; (c) each step's global mean of dry-air
+   surface pressure equal to its input's (in Pa), the surface temperature
+   the target's where the mask rounds to 1, every field finite; (d) the
+   float32 kernel stepper saved as a native ACE checkpoint (reference
+   names), loaded, and run by ``run_inference`` with ``stepper_type: ace``
+   (12 steps, K1 and K3 96 launches): its fields equal to the stepper's
+   own on the same frames (1e-5); (e) ``main_path.simultaneous_steps``
+   (horizon 2, ``horizon_at_once`` 1, float32, K1): the median step ms, its
+   split and peak memory, 16 K1 forwards and 16 dx a step, K2-K4 never;
+   3 steps at constant lr through the kernels against the plain path
+   (losses 1e-5); (f) one warm ACE window under ``torch.profiler``: its
+   launches and kernel time by group against (a)'s steady window.
 
 It prints a ``training`` JSON line (phase 11's figures), a ``cli`` JSON line
-(phase 12's), an ``options`` JSON line (phase 13's), a ``kernels`` JSON line
+(phase 12's), an ``options`` JSON line (phase 13's), a ``modes`` JSON line
+(phase 14's), an ``ace`` JSON line (phase 15's), a ``kernels`` JSON line
 (K1's backward dx as its own entry; ``launches_by_path`` holds phase 12
-(b)'s counts as ``"cli"`` and phase 13's as ``"tucker"``, ``"fold"`` and
-``"remat"``), the
-``nvidia-smi`` line, and last
+(b)'s counts as ``"cli"``, phase 13's as ``"tucker"``, ``"fold"`` and
+``"remat"``, and phase 15's as ``"ace"``, ``"ace_cli"`` and
+``"simultaneous"``), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. It needs the port's package beside it
 and a CUDA card; without either it exits non-zero at once.
@@ -215,6 +240,13 @@ BF16_GRAD_NORM_FLOOR = 1e-5
 # 0.76 at debug size and holds it to 2; a ratio scales with width and depth
 # where an absolute gap does not.
 BF16_TAIL_VS_PLAIN = 2.0
+# phase 15: width, depth, grid, water levels and other prognostics of the
+# ACE runs (bench.py:ace_bench's), the rollout's steps and window, and the
+# simultaneous training's warm-up, timed and compared steps
+ACE_EMBED, ACE_LAYERS, ACE_SHAPE = 256, 8, (180, 360)
+ACE_LEVELS, ACE_OTHER = 8, 25
+ACE_STEPS, ACE_WINDOW = 48, 12
+SIM_WARMUP, SIM_STEPS, SIM_CMP_STEPS = 2, 3, 3
 
 
 def log(msg: str) -> None:
@@ -1400,6 +1432,394 @@ def phase14(smi_line, wrappers, report, runs, device="cuda") -> None:
     report["modes"] = modes
 
 
+def phase15(smi_line, wrappers, report, runs, device="cuda") -> None:
+    """Phase 15: the ACE family at ACE_EMBED x ACE_LAYERS on ACE_SHAPE, batch
+    1: (a) ``main_path.ace_rollout`` (bf16, K1 and K3, the aggregator and
+    the diagnostics on), then the same rollout counted (host-to-device bytes
+    per window, no synchronizing call before its end sync); (b) one window
+    with the kernels against the plain path, float32 and bf16; (c) the dry
+    air and the ocean on the card; (d) a native ACE checkpoint through
+    ``run_inference``; (e) simultaneous training."""
+    import gc
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spherical_dyffusion_tpu_torch import interface, main_path
+    from spherical_dyffusion_tpu_torch.data.coords import SigmaCoordinates
+    from spherical_dyffusion_tpu_torch.data.datasets import SyntheticTimeSeries
+    from spherical_dyffusion_tpu_torch.evaluation.aggregators import InferenceAggregator
+    from spherical_dyffusion_tpu_torch.evaluation.metrics import weighted_mean
+    from spherical_dyffusion_tpu_torch.inference import ace_stepper
+    from spherical_dyffusion_tpu_torch.inference.ace_stepper import (
+        SingleStepStepper,
+        ace_scored_names,
+        run_ace_inference,
+    )
+    from spherical_dyffusion_tpu_torch.inference.climate_data import ClimateData
+    from spherical_dyffusion_tpu_torch.ops.pallas_contractions import dhconv
+    from spherical_dyffusion_tpu_torch.run_inference import main_from_config
+    from spherical_dyffusion_tpu_torch.utils.convert import state_dict_to_flax
+    from spherical_dyffusion_tpu_torch.utils.torch_convert import sfno_flax_to_torch
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    L, T = ACE_LAYERS, ACE_WINDOW
+    size = dict(embed=ACE_EMBED, layers=L, img_shape=ACE_SHAPE, levels=ACE_LEVELS,
+                n_other=ACE_OTHER)
+    ace = {}
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+        dhconv.dx_launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+    # (a) the rollout: ace_bench through run_ace_inference, timed
+    n_windows = ACE_STEPS // T
+    out = main_path.ace_rollout(n_steps=ACE_STEPS, window=T, dtype="bfloat16", kernels=True,
+                                before_timed=zero_counts, device=device, **size)
+    launches = counts()
+    summary, ws = out["summary"], out["window_seconds"]
+    steady = summary["steady_steps_per_second"]
+    sim_yr = steady * 86400.0 / STEPS_PER_SIM_YEAR
+    check(launches["K1"] == launches["K3"] == n_windows * T * L
+          and launches["K2"] == launches["K4"] == 0,
+          f"ACE rollout launches {launches}: want K1 = K3 = {T * L} a window, K2 = K4 = 0")
+    logs_ok = all(np.isfinite(v) for v in out["logs"].values())
+    gen_ok = all(bool(torch.isfinite(v).all()) for v in out["gen"].values())
+    check(logs_ok and gen_ok and np.isfinite(summary["loss_last_window"]),
+          "ACE rollout: a log or a generated field is not finite")
+    log(f"ACE rollout (bf16, K1 + K3, aggregator and diagnostics on), {ACE_STEPS} steps in "
+        f"{n_windows} windows of {T}: window seconds on the device {[round(s, 4) for s in ws]}, "
+        f"steady {steady:.3f} steps/s = {sim_yr:.1f} sim-yr/day (x 86400 / "
+        f"{STEPS_PER_SIM_YEAR}), total {summary['total_steps_per_second']:.3f} steps/s, "
+        f"time/run_on_batch {summary['time/run_on_batch']:.3f} s (launching), data_loading "
+        f"{summary['time/data_loading']:.3f} s; K1 {launches['K1'] // n_windows} and K3 "
+        f"{launches['K3'] // n_windows} launches a window; {len(out['logs'])} logs finite, "
+        f"the last window's {len(out['gen'])} fields finite, on {smi_line}")
+    runs["ace"] = dict(launches=launches, seconds=ws[-1])
+    ace["rollout"] = dict(steps=ACE_STEPS, window=T, window_seconds=ws,
+                          steady_steps_per_second=steady, sim_years_per_day=sim_yr,
+                          total_steps_per_second=summary["total_steps_per_second"],
+                          run_on_batch_s=summary["time/run_on_batch"],
+                          data_loading_s=summary["time/data_loading"],
+                          launches_per_window={k: v // n_windows for k, v in launches.items()},
+                          loss_last_window=summary["loss_last_window"])
+
+    # the same rollout again, counted: host-to-device bytes per window (the
+    # later windows repeat the looped source's offsets: the upload cache
+    # holds them) and no synchronizing CUDA call before the end sync, whose
+    # read of the last loss is lifted out of the check
+    stepper, src = out["stepper"], out["source"]
+    names = list(stepper.cfg.all_names)
+    agg = InferenceAggregator(ace_scored_names(stepper, src, derived=True),
+                              src.horizontal.area_weights(), log_zonal_mean_images=False)
+    marks = []
+    real_read = ace_stepper.read_back
+
+    def read_outside(tensors):
+        if cuda:
+            torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real_read(tensors)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("error")
+
+    ace_stepper.read_back = read_outside
+    sync()
+    try:
+        with host_to_device() as seen:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("error")
+            run_ace_inference(stepper, src, ACE_STEPS, T,
+                              n_repeats=-(-(ACE_STEPS + 1) // src.n_timesteps), aggregator=agg,
+                              derived=True, verbose=False,
+                              on_window=lambda s, o: marks.append(len(seen.copies)))
+    except RuntimeError as e:
+        raise SystemExit(f"chip_smoke: FAILED: the ACE rollout made a synchronizing CUDA call "
+                         f"before its end sync: {e}")
+    finally:
+        if cuda:
+            torch.cuda.set_sync_debug_mode(0)
+        ace_stepper.read_back = real_read
+    bounds = [0] + marks
+    per_window = [sum(b for _, b in seen.copies[a:z]) for a, z in zip(bounds, bounds[1:])]
+    frame_bytes = len(names) * (T + 1) * ACE_SHAPE[0] * ACE_SHAPE[1] * 4
+    distinct = src.n_timesteps // T
+    log(f"ACE rollout counted: host-to-device bytes per window {per_window} (one window of "
+        f"{len(names)} names x {T + 1} frames x {ACE_SHAPE[0] * ACE_SHAPE[1]} points x 4 B = "
+        f"{frame_bytes}; the first window also the aggregator's area weights), "
+        f"{len(seen.copies)} copies; no synchronizing CUDA call before the end sync")
+    check(all(b >= frame_bytes and b - frame_bytes < (2 ** 20 if i == 0 else 1)
+              for i, b in enumerate(per_window[:distinct]))
+          and all(b == 0 for b in per_window[distinct:]),
+          f"ACE rollout: host-to-device bytes per window {per_window}, want {frame_bytes} for "
+          f"the first {distinct} and 0 after (the upload cache)")
+    ace["rollout"].update(h2d_bytes_per_window=per_window, window_bytes=frame_bytes)
+    del out, stepper, agg, seen
+    free()
+
+    # (b) one window, the kernels against the plain path from the same
+    # weights (erf gelu and two-pass norms, as the ACE loader builds every
+    # checkpoint's network), on ace_bench's data
+    ex = dict(size, exact=True, device=device)
+    steppers = {}
+    for dtype in ("float32", "bfloat16"):
+        for kernels in (True, False):
+            st = main_path.build_ace(dtype=dtype, kernels=kernels, **ex)
+            if steppers:
+                st.module.load_state_dict(next(iter(steppers.values())).module.state_dict())
+            steppers[(dtype, kernels)] = st
+    win = main_path.AceBenchSource(names, T + 1, ACE_SHAPE, seed=1)
+    data = {n: torch.from_numpy(v[None]).to(dev) for n, v in win.read_window(0, T + 1,
+                                                                               names).items()}
+    outs = {}
+    for key, st in steppers.items():
+        zero_counts()
+        outs[key] = st.run_on_batch(data, T)
+        sync()
+        c = counts()
+        want = T * L if key[1] else 0
+        check(c["K1"] == c["K3"] == want and c["K2"] == c["K4"] == 0,
+              f"ACE window {key}: launches {c}")
+    out_names = list(steppers[("float32", True)].cfg.out_names)
+
+    def gap(a, b):
+        return max(rel(outs[a].gen_data_norm[n], outs[b].gen_data_norm[n]) for n in out_names)
+
+    f32_gap = gap(("float32", True), ("float32", False))
+    bf_k, bf_p = gap(("bfloat16", True), ("float32", False)), gap(("bfloat16", False),
+                                                                  ("float32", False))
+    log(f"ACE window, {T} steps, the generated fields (normalized): float32 kernels against "
+        f"the plain path max gap {f32_gap:.3e} of each field's largest value (tolerance 1e-4); "
+        f"bf16 against float32 plain: kernels {bf_k:.3e}, plain path {bf_p:.3e} (ratio "
+        f"{bf_k / bf_p:.3f}, at most {BF16_TAIL_VS_PLAIN})")
+    check(f32_gap <= 1e-4, "ACE window: float32 kernels disagree with the plain path")
+    check(bf_k <= BF16_TAIL_VS_PLAIN * bf_p, "ACE window: bf16 kernels off the plain path")
+    ace["window"] = dict(f32_rel=f32_gap, bf16_kernels_rel=bf_k, bf16_plain_rel=bf_p)
+
+    # (c) the physics on the card: each step's global mean of dry-air
+    # surface pressure equals its input's, and the surface temperature is
+    # the target's where the mask rounds to 1. Tolerance in Pa: the float32
+    # step at 1e5 Pa is 0.0078 Pa; the emitted surface pressure is
+    # normalized and denormalized (one step), the correction's arithmetic
+    # rounds about two, and each of the two global means loses at most
+    # log2(64,800) = 16 roundings of half a step (0.0039 Pa) in torch's
+    # pairwise sums: 3 x 0.0078 + 2 x 16 x 0.0039 = 0.148 Pa.
+    dry_tol = 0.15
+    sigma, area = steppers[("float32", True)].sigma, steppers[("float32", True)].area
+    worst, sst_ok, finite = 0.0, True, True
+    for key in (("float32", True), ("bfloat16", True)):
+        gen = outs[key].gen_data
+        finite &= all(bool(torch.isfinite(v).all()) for v in gen.values())
+        for t in range(1, T + 1):
+            g = weighted_mean(ClimateData({n: v[:, t] for n, v in gen.items()})
+                              .surface_pressure_due_to_dry_air(sigma), area, dim=(-2, -1))
+            i = weighted_mean(ClimateData({n: v[:, t - 1] for n, v in data.items()})
+                              .surface_pressure_due_to_dry_air(sigma), area, dim=(-2, -1))
+            worst = max(worst, float((g.double() - i.double()).abs().max()))
+        region = torch.round(data[main_path.MASK_NAME][:, 1:]).to(torch.int32) == 1
+        sst_ok &= torch.equal(gen["surface_temperature"][:, 1:][region],
+                              data["surface_temperature"][:, 1:][region])
+    log(f"ACE physics on the card, float32 and bf16 windows: the global mean of dry-air "
+        f"surface pressure moved at most {worst:.4f} Pa from the input's in any step (tolerance "
+        f"{dry_tol} Pa); the surface temperature equals the target inside the ocean: {sst_ok}; "
+        f"every field finite: {finite}")
+    check(worst <= dry_tol and sst_ok and finite, "ACE physics: dry air, ocean or finiteness")
+    ace["physics"] = dict(dry_air_max_pa=worst, dry_air_tol_pa=dry_tol, sst_exact=sst_ok)
+    f32k = steppers.pop(("float32", True))
+    del steppers, outs, data
+    free()
+
+    # (d) a native ACE checkpoint of (b)'s float32 kernel stepper, in the
+    # reference's names, read back by run_inference (stepper_type ace). On
+    # the synthetic source's O(1) fields the run config's sigma (ak 0, bk to
+    # 0.1) keeps the dry-air correction's denominator near 1.
+    m = f32k.module
+    state = f32k.get_state()
+    state["config"].update(
+        loss={"type": "MSE"},
+        builder={"type": "SphericalFourierNeuralOperatorNet",
+                 "config": {"embed_dim": m.cfg.embed_dim, "num_layers": m.cfg.num_layers,
+                            "operator_type": "dhconv", "scale_factor": 1,
+                            "data_grid": "equiangular", "use_pallas": True,
+                            "fused_tail": True}})
+    state["module"] = {k: torch.from_numpy(v) for k, v in
+                       sfno_flax_to_torch(state_dict_to_flax(m.state_dict())).items()}
+    state["img_shape"] = tuple(ACE_SHAPE)
+    sg = {"ak": [0.0] * (ACE_LEVELS + 1), "bk": list(np.linspace(0.0, 0.1, ACE_LEVELS + 1))}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ace_") as tmp:
+        path = os.path.join(tmp, "ace.ckpt")
+        t0 = time.perf_counter()
+        torch.save({"stepper": state}, path)
+        write_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded, _ = interface.load_ace_stepper_checkpoint(path, device=device)
+        sync()
+        load_s = time.perf_counter() - t0
+        check(all(torch.equal(loaded.module.state_dict()[k], v)
+                  for k, v in m.state_dict().items()), "ACE checkpoint: the weights differ")
+        del loaded
+        recorded = []
+        real_run = SingleStepStepper.run_on_batch
+
+        def recording(self, *a, **k):
+            res = real_run(self, *a, **k)
+            recorded.append(res)
+            return res
+
+        SingleStepStepper.run_on_batch = recording
+        zero_counts()
+        try:
+            t0 = time.perf_counter()
+            res = main_from_config({"checkpoint_path": path, "stepper_type": "ace",
+                                    "n_forward_steps": T, "forward_steps_in_memory": T,
+                                    "verbose": False, "log_zonal_mean_images": False,
+                                    "experiment_dir": os.path.join(tmp, "out"),
+                                    "sigma_coordinates": sg, "platform": device})
+            sync()
+            cli_s = time.perf_counter() - t0
+        finally:
+            SingleStepStepper.run_on_batch = real_run
+    cli_launches = counts()
+    check(cli_launches["K1"] == cli_launches["K3"] == T * L and len(recorded) == 1,
+          f"ACE command line: launches {cli_launches}, {len(recorded)} windows")
+    syn = SyntheticTimeSeries(names, n_timesteps=T + 1, spatial_shape=ACE_SHAPE)
+    sdata = {n: torch.from_numpy(v[None]).to(dev) for n, v in syn.read_window(
+        0, T + 1, names).items()}
+    ref = SingleStepStepper(f32k.cfg, f32k.model_fn, f32k.normalizer, f32k.area,
+                            sigma=SigmaCoordinates.from_dict(sg), device=device,
+                            module=f32k.module).run_on_batch(sdata, T, lean=True)
+    ckpt_gap = max(rel(recorded[0].gen_data[n], ref.gen_data[n]) for n in out_names)
+    rate = res["summary"]["total_steps_per_second"]
+    log(f"ACE native checkpoint: {nbytes / 1e9:.3f} GB written in {write_s:.2f} s, loaded in "
+        f"{load_s:.2f} s (gelu_exact, exact_norm, K1 and K3 from its builder config, weights "
+        f"equal bit for bit); run_inference stepper_type ace, {T} steps: {cli_s:.2f} s with the "
+        f"load, {rate:.3f} steps/s, K1 {cli_launches['K1']} and K3 {cli_launches['K3']} "
+        f"launches; its fields against (b)'s float32 kernel stepper on the same frames: max gap "
+        f"{ckpt_gap:.3e} of each field's largest value (tolerance 1e-5)")
+    check(ckpt_gap <= 1e-5, "ACE checkpoint: the command line's fields differ")
+    runs["ace_cli"] = dict(launches=cli_launches)
+    ace["checkpoint"] = dict(bytes=nbytes, write_s=write_s, load_s=load_s, cli_s=cli_s,
+                             steps_per_second=rate, rel=ckpt_gap)
+    del f32k, m, state, recorded, ref, res, sdata
+    free()
+
+    # (e) simultaneous training: horizon 2, horizon_at_once 1, float32, K1
+    live_gb = torch.cuda.memory_allocated() / 1e9 if cuda else 0.0
+    zero_counts()
+    sim = main_path.simultaneous_steps(n_steps=SIM_WARMUP + SIM_STEPS, horizon=2,
+                                       horizon_at_once=1, device=device, embed=ACE_EMBED,
+                                       layers=L, img_shape=ACE_SHAPE)
+    c = counts()
+    steps_ms = sim["step_ms"][SIM_WARMUP:]
+    med = statistics.median(steps_ms)
+    split = {p: statistics.median(s[p] for s in sim["split_ms"][SIM_WARMUP:])
+             for p in sim["split_ms"][0]}
+    peak_gb = sim["peak_bytes"] / 1e9 if sim["peak_bytes"] is not None else float("nan")
+    k1_fwd = [a - b for a, b in zip(sim["k1_launches"], sim["k1_dx"])]
+    log(f"simultaneous training (horizon 2, horizon_at_once 1: two autoregressive forwards a "
+        f"step), {SIM_STEPS} steps after {SIM_WARMUP}: median {med:.2f} ms a step "
+        f"({1e3 / med:.3f} steps/s), split {({k: round(v, 2) for k, v in split.items()})} ms, "
+        f"peak {peak_gb:.3f} GB ({live_gb:.3f} GB live before); K1 per step {k1_fwd} forward and "
+        f"{sim['k1_dx']} dx, images {sim['k1_images']}; K2-K4 {[c[k] for k in ('K2', 'K3', 'K4')]}"
+        f"; losses {[round(v, 5) for v in sim['losses']]} on {smi_line}")
+    check(all(v == 2 * L for v in k1_fwd) and all(v == 2 * L for v in sim["k1_dx"])
+          and c["K2"] == c["K3"] == c["K4"] == 0 and all(np.isfinite(sim["losses"])),
+          "simultaneous training: K1 counts, another kernel launched, or a loss not finite")
+    runs["simultaneous"] = dict(launches=c)
+    ace["simultaneous"] = dict(step_ms=med, steps_ms=steps_ms, split_ms=split, peak_gb=peak_gb,
+                               live_gb_before=live_gb, k1_forward=k1_fwd, k1_dx=sim["k1_dx"],
+                               losses=sim["losses"])
+    del sim
+    free()
+    # the kernels against the plain path: SIM_CMP_STEPS steps at constant lr
+    trs = [main_path.build_simultaneous(use_pallas=kernels, scheduler="constant",
+                                        n_samples=SIM_CMP_STEPS, device=device,
+                                        embed=ACE_EMBED, layers=L, img_shape=ACE_SHAPE)
+           for kernels in (True, False)]
+    trs[1].exp.model.load_state_dict(trs[0].exp.model.state_dict())
+    losses = []
+    for tr in trs:
+        losses.append(main_path.train_steps(SIM_CMP_STEPS, trainers={"s": tr})["s"]["losses"])
+        tr.exp.model.cpu()  # the next trainer's peak without this one's weights
+        free()
+    l_rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    log(f"simultaneous training, {SIM_CMP_STEPS} steps at constant lr through the kernels and "
+        f"through the plain path from the same weights and batches: losses max gap {l_rel:.3e} "
+        f"relative (tolerance 1e-5)")
+    check(l_rel <= 1e-5, "simultaneous training: the kernels disagree with the plain path")
+    ace["simultaneous"].update(cmp_steps=SIM_CMP_STEPS, cmp_loss_rel=l_rel)
+    del trs
+    free()
+
+    # (f) where an ACE window's time goes: one warm window of (a)'s path
+    # under torch.profiler, its kernel time grouped as phase 9 groups it,
+    # against (a)'s steady window seconds (the unprofiled yardstick)
+    from torch.profiler import ProfilerActivity, profile
+
+    st = main_path.build_ace(dtype="bfloat16", kernels=True, device=device, **size)
+    src = main_path.AceBenchSource(names, T + 1, ACE_SHAPE)
+    run_ace_inference(st, src, T, T, verbose=False)
+    agg = InferenceAggregator(ace_scored_names(st, src, derived=True),
+                              src.horizontal.area_weights(), log_zonal_mean_images=False)
+    sync()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        prof_summary = run_ace_inference(st, src, T, T, aggregator=agg, derived=True,
+                                         verbose=False)
+    events = [e for e in prof.key_averages()
+              if "cuda" in str(getattr(e, "device_type", "")).lower()]
+    groups, n_launch = {}, 0
+    for e in events:
+        key = e.key
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        group = ("K1" if "dhconv" in key and "image" not in key else
+                 "K1 weight image" if "dhconv_weight_image" in key else
+                 "K3" if re.search(r"fused_mlp(_tc)?_kernel<true", key) else
+                 "K2/K3 weight repack" if "weight_image_kernel" in key else
+                 "host-to-device copy" if "HtoD" in key else
+                 "cuBLAS GEMM" if any(w in key.lower() for w in
+                                      ("gemm", "nvjet", "xmma", "cutlass")) else
+                 "copies" if "copy" in key.lower() else
+                 "reductions" if "reduce" in key.lower() else "other elementwise")
+        groups[group] = groups.get(group, 0.0) + us / 1e6
+        n_launch += e.count
+    busy = sum(groups.values())
+    steady_window = ace["rollout"]["window_seconds"][-1]
+    log(f"ACE window profile ({T} steps, bf16, K1 + K3, aggregator and diagnostics; the "
+        f"window's upload inside): {len(events)} CUDA kernels, {n_launch} launches "
+        f"({n_launch / T:.0f} a step), device time {busy:.3f} s = {busy / steady_window:.1%} of "
+        f"(a)'s unprofiled steady window ({steady_window:.4f} s); host launching "
+        f"{prof_summary['time/run_on_batch']:.3f} s with the profiler on; by group: " + ", ".join(
+            f"{k} {v:.4f} s ({v / max(busy, 1e-12):.1%})"
+            for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
+    ace["profile"] = dict(kernels=len(events), launches=n_launch, device_s=busy,
+                          steady_window_s=steady_window, groups=groups)
+    del st, agg, prof
+    free()
+    report["ace"] = ace
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -2494,6 +2914,10 @@ def main() -> int:
                "validation, histograms, code snapshot)"):
         phase14(smi_line, wrappers, report, runs)
 
+    with Phase("15 the ACE family at 256 x 8 (rollout, kernels, physics, native checkpoint, "
+               "simultaneous training)"):
+        phase15(smi_line, wrappers, report, runs)
+
     sources = {"K1": "spherical_dyffusion_tpu_torch/csrc/dhconv.cu",
                "K2": "spherical_dyffusion_tpu_torch/csrc/fused_mlp.cu",
                "K3": "spherical_dyffusion_tpu_torch/csrc/fused_mlp.cu",
@@ -2526,6 +2950,7 @@ def main() -> int:
     print(json.dumps({"cli": report["cli"]}))
     print(json.dumps({"options": report["options"]}))
     print(json.dumps({"modes": report["modes"]}))
+    print(json.dumps({"ace": report["ace"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

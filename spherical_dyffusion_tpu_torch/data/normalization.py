@@ -5,13 +5,15 @@ in-memory statistics (``from_dicts``). Reading the statistics files
 (netCDF) is not part of the port yet. ``subset`` selects the channels of
 another name list, as the rollout does for its output normalizer; ``to``
 moves the statistics to the device once, so that ``normalize`` does not
-copy them at every call.
+copy them at every call. ``normalize_dict`` and ``denormalize_dict`` act on
+named fields, and ``get_state`` / ``from_state`` are the JAX package's
+serializable form ({"means": {name: float}, "stds": {name: float}}).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Sequence
+from typing import Dict, Mapping, Sequence
 
 import torch
 
@@ -33,6 +35,25 @@ class StandardNormalizer:
 
     def denormalize(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.stds.to(x.device) + self.means.to(x.device)
+
+    def normalize_dict(self, d: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        idx = {n: i for i, n in enumerate(self.names)}
+        return {k: (v - self.means[idx[k]].to(v.device)) / self.stds[idx[k]].to(v.device)
+                for k, v in d.items()}
+
+    def denormalize_dict(self, d: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        idx = {n: i for i, n in enumerate(self.names)}
+        return {k: v * self.stds[idx[k]].to(v.device) + self.means[idx[k]].to(v.device)
+                for k, v in d.items()}
+
+    def get_state(self) -> dict:
+        means, stds = self.means.tolist(), self.stds.tolist()
+        return {"means": dict(zip(self.names, means)), "stds": dict(zip(self.names, stds))}
+
+    @classmethod
+    def from_state(cls, state: dict) -> "StandardNormalizer":
+        names = tuple(state["means"].keys())
+        return cls.from_dicts(state["means"], state["stds"], names)
 
     def to(self, device) -> "StandardNormalizer":
         return dataclasses.replace(self, means=to_device(self.means, device),

@@ -8,9 +8,9 @@ reduces on the card moves only the small results to the host.
 ``crps_ensemble`` sums the spread term over member pairs in a loop instead of
 building the (E, E, ...) difference tensor: at ensemble 4 and a 96-step
 window of 180 x 360 x 35 that tensor would take 13.9 GB in float32. The value
-is the same; only the summation order differs. The physics metrics of the
-ACE family (``vertical_integral``, ``surface_pressure_due_to_dry_air``) are
-not ported yet.
+is the same; only the summation order differs. The physics constants and
+the vertical metrics of the ACE family (``vertical_integral``,
+``surface_pressure_due_to_dry_air``) keep the JAX package's rounding points.
 """
 
 from __future__ import annotations
@@ -22,7 +22,14 @@ import torch
 
 Dimension = Union[int, Iterable[int]]
 
+GRAVITY = 9.80665  # m/s^2
+TIMESTEP_SECONDS = 21600.0  # 6 h
+LATENT_HEAT_OF_VAPORIZATION = 2.5e6  # J/kg
+
 __all__ = [
+    "GRAVITY",
+    "TIMESTEP_SECONDS",
+    "LATENT_HEAT_OF_VAPORIZATION",
     "spherical_area_weights",
     "weighted_mean",
     "weighted_std",
@@ -37,6 +44,8 @@ __all__ = [
     "gradient_magnitude_percent_diff",
     "rmse_of_time_mean",
     "time_and_global_mean_bias",
+    "vertical_integral",
+    "surface_pressure_due_to_dry_air",
 ]
 
 
@@ -180,3 +189,20 @@ def time_and_global_mean_bias(truth: torch.Tensor, predicted: torch.Tensor,
                               spatial_dims: Dimension = (-2, -1)) -> torch.Tensor:
     """Bias of the global- and time-mean."""
     return weighted_mean(torch.mean(predicted - truth, dim=time_dim), weights, spatial_dims)
+
+
+def vertical_integral(integrand: torch.Tensor, surface_pressure: torch.Tensor,
+                      ak: torch.Tensor, bk: torch.Tensor) -> torch.Tensor:
+    """(1/g) * sum_k dp_k x_k with dp = diff(ak + ps * bk); integrand
+    (..., K), ps (...), ak and bk (K+1,) on the integrand's device."""
+    p_interface = ak + surface_pressure[..., None] * bk  # (..., K+1)
+    dp = torch.diff(p_interface, dim=-1)
+    return torch.sum(dp * integrand, dim=-1) / GRAVITY
+
+
+def surface_pressure_due_to_dry_air(specific_total_water: torch.Tensor,
+                                    surface_pressure: torch.Tensor, ak: torch.Tensor,
+                                    bk: torch.Tensor) -> torch.Tensor:
+    """ps - g * TWP, the total water path TWP from ``vertical_integral``."""
+    twp = vertical_integral(specific_total_water, surface_pressure, ak, bk)
+    return surface_pressure - GRAVITY * twp

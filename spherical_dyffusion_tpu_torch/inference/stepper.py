@@ -36,7 +36,17 @@ from ..utils.convert import flax_to_state_dict
 from ..utils.device import to_device
 from .prescriber import NullPrescriber, PackedPrescriber
 
-__all__ = ["DYffusionStepper"]
+__all__ = ["DYffusionStepper", "round_params"]
+
+
+def round_params(net: torch.nn.Module, dtype: str) -> None:
+    """Round every floating parameter and buffer of ``net`` to ``dtype``
+    values in place; they stay float32 tensors."""
+    dt = getattr(torch, dtype)
+    with torch.no_grad():
+        for t in (*net.parameters(), *net.buffers()):
+            if t.is_floating_point():
+                t.copy_(t.to(dt))
 
 
 class DYffusionStepper:
@@ -74,12 +84,8 @@ class DYffusionStepper:
                                  "has no EMA weights)")
             experiment.model.load_state_dict(_as_state_dict(ema_params))
         if params_dtype:
-            dtype = getattr(torch, params_dtype)
-            with torch.no_grad():
-                for net in (experiment.model, experiment.interpolator.model):
-                    for t in (*net.parameters(), *net.buffers()):
-                        if t.is_floating_point():
-                            t.copy_(t.to(dtype))
+            for net in (experiment.model, experiment.interpolator.model):
+                round_params(net, params_dtype)
         self.preds_dtype = getattr(torch, preds_dtype) if preds_dtype else None
         self.prescriber = prescriber or NullPrescriber()
         self.inputs_noise = float(inputs_noise if inputs_noise is not None

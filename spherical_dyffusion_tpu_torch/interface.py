@@ -22,8 +22,17 @@ first read with ``weights_only=True``. A file that this refuses is read
 again with ``weights_only=False``, as the JAX package reads every reference
 checkpoint, only if its pickle's strings (read without running it) hold
 ``state_dict`` and ``hyper_parameters`` and not ``config_json``: a reference
-checkpoint whose hyperparameters hold other objects. Any other such file
-raises.
+checkpoint whose hyperparameters hold other objects, or a native ACE
+checkpoint (a ``stepper`` entry, or the dict itself, with ``module`` and
+``config``). Any other such file raises.
+
+``load_ace_stepper_checkpoint`` reads a native ACE checkpoint
+(``{"stepper": SingleModuleStepper.get_state()}``: weights in the reference
+names, normalizer, builder config, names, ocean, corrector, area and sigma)
+into a ready ``SingleStepStepper``, with the reference ACE builder's
+defaults for the keys its config leaves out (``data_grid`` legendre-gauss),
+the scale factor read from the position embedding, erf gelu and two-pass
+norm statistics, and identity statistics for physics-only fields.
 
 Models are built on the device that the config names: ``platform: cpu``
 runs on the CPU; otherwise the CUDA card, and without one ``resolve_device``
@@ -33,8 +42,7 @@ deep-merges ``interpolator_model`` (a model section) into that
 interpolator's config, as the JAX reference loader does for reference
 checkpoints; the JAX package ignores the key for its own checkpoints. Not
 ported, each raising and naming its ROADMAP item: the ``fv3gfs`` datamodule
-and statistics files (Queue 1 item 8), the UNet (item 6), the simultaneous
-experiment and the ACE loader (item 5).
+and statistics files (Queue 1 item 8) and the UNet (item 6).
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from .training.experiments import (
     DYffusionForecastingExperiment,
     ExperimentConfig,
     InterpolationExperiment,
+    SimultaneousForecastingExperiment,
 )
 from .utils import flax_msgpack
 from .utils.checkpointing import resolve_checkpoint_path
@@ -76,7 +85,8 @@ from .utils.torch_convert import (
 
 __all__ = ["resolve_device", "get_datamodule", "get_model", "get_experiment",
            "save_experiment_checkpoint", "load_experiment_checkpoint",
-           "load_reference_checkpoint"]
+           "load_reference_checkpoint", "load_ace_stepper_checkpoint", "ace_stepper_state",
+           "read_torch_checkpoint", "is_torch_file", "ace_normalizer", "ACE_BUILDER_DEFAULTS"]
 
 _TIME_KEYS = {"img_shape", "in_chans", "out_chans", "with_time_emb", "min_time", "max_time"}
 
@@ -200,8 +210,14 @@ def get_experiment(cfg: Dict[str, Any], dm, device=None, seed: int = 0):
             interpolator_ema_params=ip_ema)
 
     if kind == "simultaneous":
-        raise NotImplementedError("experiment 'simultaneous' is not ported (ROADMAP Queue 1 "
-                                  "item 5)")
+        hao = (cfg.get("module", {}) or {}).get("horizon_at_once") or horizon
+        model = get_model(model_cfg, HW, window * C + CF, hao * len(dm.cfg.out_names),
+                          with_time_emb=False, device=device, generator=gen)
+        return SimultaneousForecastingExperiment(
+            model, exp_cfg, dm.in_packer, dm.out_packer, dm.normalizer, horizon_at_once=hao,
+            autoregressive_loss_weights=(cfg.get("module", {}) or {}).get(
+                "autoregressive_loss_weights"),
+            forcing_names=dm.cfg.forcing_names, forcing_normalizer=dm.forcing_normalizer)
     raise ValueError(f"Unknown experiment {kind!r}")
 
 
@@ -229,20 +245,37 @@ def _pickle_strings(path: str) -> set:
     return strings
 
 
-def _read_torch(path: str):
+def read_torch_checkpoint(path: str):
+    """A torch file's payload, read with ``weights_only=True``, else (see
+    the module's docstring) only a reference or a native ACE checkpoint."""
     try:
         return torch.load(path, map_location="cpu", weights_only=True)
     except pickle.UnpicklingError as err:
         strings = _pickle_strings(path)
-        if "config_json" in strings or not {"state_dict", "hyper_parameters"} <= strings:
+        reference = {"state_dict", "hyper_parameters"} <= strings
+        ace = {"module", "config"} <= strings
+        if "config_json" in strings or not (reference or ace):
             raise pickle.UnpicklingError(
                 f"{path}: refused by torch.load(weights_only=True); only a reference "
-                f"checkpoint (state_dict and hyper_parameters) is read without it: {err}"
+                f"checkpoint (state_dict and hyper_parameters) or a native ACE checkpoint "
+                f"(module and config) is read without it: {err}"
             ) from err
         return torch.load(path, map_location="cpu", weights_only=False)
 
 
-def _is_torch_file(path: str) -> bool:
+def ace_stepper_state(payload) -> Optional[dict]:
+    """The stepper state of a loaded native ACE checkpoint (its ``stepper``
+    entry, or the dict itself, holding ``module`` and ``config``); None for
+    any other payload."""
+    if not isinstance(payload, dict):
+        return None
+    state = payload.get("stepper", payload)
+    if isinstance(state, dict) and "module" in state and "config" in state:
+        return state
+    return None
+
+
+def is_torch_file(path: str) -> bool:
     with open(path, "rb") as f:
         head = f.read(2)
     return head == b"PK" or head[:1] == b"\x80"
@@ -257,8 +290,8 @@ def load_experiment_checkpoint(path: str, overrides: Optional[Dict[str, Any]] = 
     ``ema_params`` are the network's ``state_dict``s (``ema_params`` None
     without an EMA)."""
     path = resolve_checkpoint_path(path)
-    if _is_torch_file(path):
-        payload = _read_torch(path)
+    if is_torch_file(path):
+        payload = read_torch_checkpoint(path)
         if not isinstance(payload, dict):
             raise ValueError(f"{path}: not a checkpoint dict")
         if "state_dict" in payload and "hyper_parameters" in payload:
@@ -404,3 +437,121 @@ def load_reference_checkpoint(path: str, overrides: Optional[Dict[str, Any]] = N
               if parts["ema"] else None)
     config.setdefault("experiment", "dyffusion")
     return exp, params, convert(ema_sd) if ema_sd else None, config
+
+
+# the reference ACE builder's defaults: a stored builder config holds only
+# the keys its training config set, so these, not SFNOConfig's defaults,
+# fill the rest (notably data_grid, legendre-gauss where the port's default
+# is equiangular)
+ACE_BUILDER_DEFAULTS = {
+    "spectral_transform": "sht",
+    "operator_type": "diagonal",
+    "scale_factor": 16,
+    "hard_thresholding_fraction": 1.0,
+    "normalization_layer": "instance_norm",
+    "activation_function": "gelu",
+    "big_skip": True,
+    "rank": 1.0,
+    "factorization": None,
+    "separable": False,
+    "complex_activation": "real",
+    "data_grid": "legendre-gauss",
+}
+# the reference loss names -> the port's criteria: LpLoss is the relative L2
+# norm; AreaWeightedMSE is read as plain MSE (the stepper's loss is a rollout
+# diagnostic here, not a training objective)
+ACE_LOSSES = {"LpLoss": "l2_rel", "MSE": "l2", "AreaWeightedMSE": "l2"}
+
+
+def load_ace_stepper_checkpoint(path: str, device=None, _preloaded: Optional[dict] = None):
+    """A native ACE checkpoint (``torch.save({"stepper": state, ...})``,
+    read by ``read_torch_checkpoint`` unless ``_preloaded`` holds it) as
+    ``(SingleStepStepper, the stored config)`` on ``device`` (the CUDA card
+    when None; raises without one). The SFNO takes its architecture from
+    the weights, the builder config over ``ACE_BUILDER_DEFAULTS``, the scale
+    factor from ``pos_embed`` where it divides the grid, erf gelu for "gelu"
+    and ``exact_norm``; fields of the names or the ocean without statistics
+    get mean 0 and std 1."""
+    from .data.coords import SigmaCoordinates
+    from .inference.ace_stepper import SingleStepStepper, SingleStepStepperConfig
+    from .inference.corrector import CorrectorConfig
+    from .inference.ocean import OceanConfig, SlabOceanConfig
+
+    ck = (_preloaded if _preloaded is not None
+          else read_torch_checkpoint(resolve_checkpoint_path(path)))
+    state = ace_stepper_state(ck)
+    if state is None:
+        raise ValueError(f"{path}: not a native ACE checkpoint (no stepper with module and "
+                         "config)")
+    device = torch.device(device) if device is not None else resolve_device({})
+    cfgd = dict(state["config"])
+    builder = dict(cfgd.get("builder") or {})
+    if builder.get("type") != "SphericalFourierNeuralOperatorNet":
+        raise NotImplementedError(f"ACE module type {builder.get('type')!r}; only the SFNO "
+                                  "family is implemented")
+    sd = {k: np.asarray(v) for k, v in state["module"].items()}
+    if sd and all(k.startswith("module.") for k in sd):  # a DDP-wrapped module
+        sd = {k[len("module."):]: v for k, v in sd.items()}
+    arch = infer_sfno_architecture(sd)
+    area_np = np.asarray(state["area"], np.float32)
+    img_shape = tuple(state.get("img_shape") or area_np.shape)
+    bcfg = {**ACE_BUILDER_DEFAULTS, **dict(builder.get("config") or {})}
+    cfg_kwargs = _fields(SFNOConfig, bcfg, _TIME_KEYS)
+    cfg_kwargs.update({k: arch[k] for k in (
+        "embed_dim", "num_layers", "encoder_layers", "operator_type", "pos_embed", "use_mlp",
+        "mlp_ratio", "filter_type", "spectral_layers")})
+    if "pos_embed" in sd:  # on the model grid, img_shape // scale_factor
+        pe_h = int(sd["pos_embed"].shape[2])
+        if pe_h and img_shape[0] % pe_h == 0:
+            cfg_kwargs["scale_factor"] = img_shape[0] // pe_h
+    if cfg_kwargs.get("activation_function") == "gelu":
+        cfg_kwargs["activation_function"] = "gelu_exact"
+    cfg_kwargs["exact_norm"] = True
+    mcfg = SFNOConfig(img_shape=img_shape, in_chans=arch["net_in_chans"],
+                      out_chans=arch["net_out_chans"], with_time_emb=arch["with_time_emb"],
+                      **cfg_kwargs)
+    model = SFNO(mcfg).to(device)
+    model.load_state_dict(flax_to_state_dict(sfno_torch_to_flax(sd, arch["num_layers"],
+                                                                arch["encoder_layers"])))
+    model.eval()
+
+    in_names, out_names = list(cfgd["in_names"]), list(cfgd["out_names"])
+    oc = cfgd.get("ocean")
+    ocean_cfg = None
+    if oc:
+        slab = oc.get("slab")
+        ocean_cfg = OceanConfig(oc["surface_temperature_name"], oc["ocean_fraction_name"],
+                                interpolate=bool(oc.get("interpolate", False)),
+                                slab=SlabOceanConfig(**slab) if slab else None)
+    co = dict(cfgd.get("corrector") or {})
+    corrector_cfg = CorrectorConfig(
+        conserve_dry_air=bool(co.get("conserve_dry_air", False)),
+        zero_global_mean_moisture_advection=bool(
+            co.get("zero_global_mean_moisture_advection", False)),
+        moisture_budget_correction=co.get("moisture_budget_correction")) if co else None
+    all_names = list(dict.fromkeys(in_names + out_names
+                                   + (list(ocean_cfg.names) if ocean_cfg else [])))
+    normalizer = ace_normalizer(state["normalizer"]["means"], state["normalizer"]["stds"],
+                                 all_names)
+    sc = state.get("sigma_coordinates")
+    sigma = SigmaCoordinates.from_dict(sc) if sc else None
+    loss = cfgd.get("loss")
+    ref_loss = str(loss.get("type", "LpLoss")) if isinstance(loss, dict) else "LpLoss"
+
+    def model_fn(x_norm: torch.Tensor) -> torch.Tensor:
+        return model(x_norm, deterministic=True)
+
+    stepper = SingleStepStepper(
+        SingleStepStepperConfig(in_names=in_names, out_names=out_names,
+                                loss=ACE_LOSSES.get(ref_loss, "l2"), corrector=corrector_cfg,
+                                ocean=ocean_cfg),
+        model_fn, normalizer, torch.from_numpy(area_np), sigma=sigma, device=device,
+        module=model)
+    return stepper, cfgd
+
+
+def ace_normalizer(means, stds, names) -> StandardNormalizer:
+    """Statistics over ``names``: the given ones, mean 0 and std 1 for a
+    name without them."""
+    return StandardNormalizer.from_dicts({n: float(means.get(n, 0.0)) for n in names},
+                                         {n: float(stds.get(n, 1.0)) for n in names}, names)

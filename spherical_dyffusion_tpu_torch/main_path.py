@@ -45,6 +45,16 @@ forecaster with it frozen inside ``p_losses``; ``scan_layers`` and
 (``BENCH_SCAN_LAYERS=1 BENCH_CKPT=3``). ``fused_epoch`` is the fused-epoch
 part of ``bench.py:train_bench`` (``bench.py:459-467``): one
 ``Trainer.fit_in_memory`` epoch of the interpolator.
+
+``ace_rollout`` is the port's counterpart of ``bench.py:ace_bench``
+(``BENCH_ACE=1``), the paper's ACE baseline: ``build_ace``'s single-step
+stepper (an SFNO at embed 256 x 8 with the dense dhconv, no time embedding,
+36 -> 35 channels on 180 x 360; ace_bench's names, normalizer, sigma, data
+recipe (``AceBenchSource``), dry-air corrector and prescribed ocean) rolled
+out by ``run_ace_inference`` with the aggregator on; ``kernels`` routes the
+dhconv through K1 and each block's tail through K3 (norm1's affine alone).
+``simultaneous_steps`` trains the simultaneous forecaster (the ACE-style
+training baseline) through ``Trainer.train_step`` at the same width.
 """
 
 from __future__ import annotations
@@ -58,11 +68,22 @@ import torch
 
 from .data.datamodule import DebugDataModule
 from .data.datasets import SyntheticTimeSeries
+from .data.coords import HorizontalCoordinates, SigmaCoordinates
+from .data.datasets import TimeSeriesSource
 from .data.normalization import StandardNormalizer
 from .data.packer import Packer
 from .diffusion.dyffusion import DYffusionConfig
 from .evaluation.aggregators import InferenceAggregator
+from .evaluation.metrics import spherical_area_weights
+from .inference.ace_stepper import (
+    SingleStepStepper,
+    SingleStepStepperConfig,
+    ace_scored_names,
+    run_ace_inference,
+)
+from .inference.corrector import CorrectorConfig
 from .inference.loop import InferenceConfig, run_inference
+from .inference.ocean import OceanConfig
 from .inference.prescriber import PrescriberConfig
 from .inference.stepper import DYffusionStepper
 from .models.sfno import SFNO, SFNOConfig
@@ -71,6 +92,7 @@ from .training.experiments import (
     DYffusionForecastingExperiment,
     ExperimentConfig,
     InterpolationExperiment,
+    SimultaneousForecastingExperiment,
 )
 from .training.trainer import Trainer, TrainerConfig
 from .utils.convert import flax_to_state_dict
@@ -78,7 +100,8 @@ from .utils.convert import flax_to_state_dict
 __all__ = ["state_names", "FORCING_NAMES", "MASK_NAME", "FAST_WINDOW", "TUCKER_WINDOW",
            "sfno_configs",
            "build", "window_inputs", "product_rollout", "build_training", "train_steps",
-           "fused_epoch"]
+           "fused_epoch", "ace_names", "AceBenchSource", "build_ace", "ace_rollout",
+           "build_simultaneous", "simultaneous_steps"]
 
 FORCING_NAMES = ("DSWRFtoa", "HGTsfc")
 MASK_NAME = "ocean_fraction"
@@ -408,3 +431,176 @@ def fused_epoch(n_steps: int = 8, embed: int = 256, layers: int = 8,
     return dict(wall_s=wall, steps=len(hist["step_losses"]), losses=hist["step_losses"],
                 step_ms=step_ms, upload_bytes=up["bytes"], upload_host_s=up["host_s"],
                 upload_copy_s=up["copy_s"], trainer=trainer)
+
+
+
+# ---------------------------------------------------------------------------
+# the ACE family: bench.py:ace_bench, and the simultaneous forecaster
+# ---------------------------------------------------------------------------
+
+
+def ace_names(levels: int = 8, n_other: int = 25) -> Tuple[list, list, list]:
+    """ace_bench's (in_names, out_names, all_names): the surface pressure,
+    the surface temperature, ``levels`` water levels and ``n_other`` more
+    prognostics (35 at the defaults); the forcing ``DSWRFtoa``; the mask
+    ``ocean_fraction``."""
+    out = (["PRESsfc", "surface_temperature"]
+           + [f"specific_total_water_{k}" for k in range(levels)]
+           + [f"v{i}" for i in range(n_other)])
+    inp = out + ["DSWRFtoa"]
+    return inp, out, inp + [MASK_NAME]
+
+
+def _ace_mean(n: str) -> float:
+    # realistic magnitudes: water about 1e-3 keeps the dry-air denominator
+    # 1 - sum(bk_diff * q) away from zero under an untrained network
+    return 1e5 if n == "PRESsfc" else 1e-3 if "water" in n else 1.0
+
+
+def _ace_std(n: str) -> float:
+    return 1e3 if n == "PRESsfc" else 1e-4 if "water" in n else 0.5
+
+
+class AceBenchSource(TimeSeriesSource):
+    """ace_bench's data recipe as a source of ``n_timesteps`` frames, made in
+    bulk from ``seed``: |N(0, 1)| + 1 for every name in order, then the
+    surface pressure 1e5 + 1e3 x, water 1e-3 x, and the mask x > 1.8. With
+    ``n_timesteps = window + 1`` the frames are ace_bench's window."""
+
+    def __init__(self, names, n_timesteps: int, spatial_shape: Tuple[int, int] = (180, 360),
+                 seed: int = 0):
+        self.names = list(names)
+        self.n_timesteps = n_timesteps
+        self.spatial_shape = tuple(spatial_shape)
+        rng = np.random.default_rng(seed)
+        self._data = {}
+        for n in self.names:
+            x = np.abs(rng.standard_normal((n_timesteps,) + self.spatial_shape,
+                                           np.float32)) + 1.0
+            if n == "PRESsfc":
+                x = 1e5 + 1e3 * x
+            elif "water" in n:
+                x = 1e-3 * x
+            elif n == MASK_NAME:
+                x = x > 1.8
+            self._data[n] = x.astype(np.float32)
+
+    @property
+    def horizontal(self) -> HorizontalCoordinates:
+        return HorizontalCoordinates.regular(*self.spatial_shape)
+
+    def read_window(self, start: int, length: int, names) -> Dict[str, np.ndarray]:
+        return {n: self._data[n][start:start + length] for n in names}
+
+
+def build_ace(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
+              img_shape: Tuple[int, int] = (180, 360), levels: int = 8, n_other: int = 25,
+              kernels: bool = True, exact: bool = False, device: str = "cuda",
+              seed: int = 0) -> SingleStepStepper:
+    """ace_bench's stepper: the SFNO (dense dhconv, ``dtype`` compute with the
+    transforms' operands in ``dtype``, no time embedding) with weights from
+    a ``torch.Generator`` seeded with ``seed`` on ``device``, the dry-air
+    corrector, the prescribed ocean, ak = linspace(0, 100, K + 1) and bk =
+    linspace(0, 1, K + 1), ace_bench's normalizer. ``kernels`` sets
+    ``use_pallas`` and ``fused_tail`` (K1 and K3); ``exact`` takes erf gelu
+    and two-pass norm statistics, which ``interface.load_ace_stepper_checkpoint``
+    builds for every ACE checkpoint."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("main path: CUDA is not available; pass device='cpu' "
+                           "to run on the CPU")
+    in_names, out_names, all_names = ace_names(levels, n_other)
+    H, W = img_shape
+    model = SFNO(SFNOConfig(
+        img_shape=img_shape, in_chans=len(in_names), out_chans=len(out_names),
+        embed_dim=embed, num_layers=layers, operator_type="dhconv", data_grid="equiangular",
+        compute_dtype=dtype, sht_matmul_dtype=dtype, use_pallas=kernels, fused_tail=kernels,
+        activation_function="gelu_exact" if exact else "gelu", exact_norm=exact)).to(device)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    model.eval()
+
+    def model_fn(x_norm: torch.Tensor) -> torch.Tensor:
+        return model(x_norm, deterministic=True)
+
+    norm = StandardNormalizer.from_dicts({n: _ace_mean(n) for n in all_names},
+                                         {n: _ace_std(n) for n in all_names}, all_names)
+    sigma = SigmaCoordinates(ak=np.linspace(0.0, 100.0, levels + 1),
+                             bk=np.linspace(0.0, 1.0, levels + 1))
+    cfg = SingleStepStepperConfig(in_names=in_names, out_names=out_names,
+                                  corrector=CorrectorConfig(conserve_dry_air=True),
+                                  ocean=OceanConfig("surface_temperature", MASK_NAME))
+    area = spherical_area_weights(np.linspace(-89.5, 89.5, H), W)
+    return SingleStepStepper(cfg, model_fn, norm, area, sigma, device=device, module=model)
+
+
+def ace_rollout(n_steps: int = 48, window: int = 12, dtype: str = "bfloat16",
+                kernels: bool = True, before_timed: Optional[Callable[[], None]] = None,
+                device: str = "cuda", **size) -> dict:
+    """``bench.py:ace_bench`` through the port's entry point:
+    ``build_ace(dtype=dtype, kernels=kernels, **size)``, one untimed warm-up
+    window (the K1 weight images, cuBLAS, the allocator), then
+    ``before_timed`` if given, then ``run_ace_inference`` of ``n_steps`` in
+    windows of ``window`` over an ``AceBenchSource`` of ``2 * window``
+    frames (the rollout loops it, so the later windows hit the upload
+    cache), with an ``InferenceAggregator`` over ``ace_scored_names`` and
+    the diagnostics. Returns ``summary``, ``window_seconds`` (each window's
+    seconds on the device), ``gen`` (the last window's generated fields,
+    initial state first), ``logs``, ``stepper`` and ``source``."""
+    stepper = build_ace(dtype=dtype, kernels=kernels, device=device, **size)
+    n_timesteps = 2 * window
+    src = AceBenchSource(stepper.cfg.all_names, n_timesteps, tuple(stepper.area.shape))
+    run_ace_inference(stepper, src, window, window, verbose=False)
+    if before_timed is not None:
+        before_timed()
+    agg = InferenceAggregator(ace_scored_names(stepper, src, derived=True),
+                              src.horizontal.area_weights(), log_zonal_mean_images=False)
+    last = {}
+    summary = run_ace_inference(
+        stepper, src, n_steps, window, n_repeats=-(-(n_steps + 1) // n_timesteps),
+        aggregator=agg, derived=True, verbose=False,
+        on_window=lambda start, out: last.update(gen=out.gen_data))
+    return dict(summary=summary, window_seconds=summary["window_seconds"], gen=last["gen"],
+                logs=agg.get_logs(), stepper=stepper, source=src)
+
+
+def build_simultaneous(embed: int = 256, layers: int = 8,
+                       img_shape: Tuple[int, int] = (180, 360), horizon: int = 2,
+                       horizon_at_once: int = 1, n_state: int = 35, use_pallas: bool = True,
+                       n_samples: int = 8, scheduler: str = "warmup_cosine",
+                       device: str = "cuda") -> Trainer:
+    """The trainer of the simultaneous forecaster over a ``DebugDataModule``
+    of ``build_training``'s data (``n_state`` state channels, two forcings,
+    ``n_samples`` samples of batch 1) at ``horizon``: an SFNO of ``window *
+    C + CF`` -> ``horizon_at_once * C`` channels (dense dhconv, no time
+    embedding, float32, K1 with ``use_pallas``) with weights from a
+    ``torch.Generator`` seeded with 0, the trainer settings of
+    ``build_training``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("main path: CUDA is not available; pass device='cpu' "
+                           "to run on the CPU")
+    dm = DebugDataModule(channels=n_state, height=img_shape[0], width=img_shape[1],
+                         horizon=horizon, n_forcing=len(FORCING_NAMES), batch_size=1,
+                         n_timesteps=horizon + n_samples, seed=0)
+    C, CF = n_state, len(FORCING_NAMES)
+    model = SFNO(SFNOConfig(img_shape=img_shape, in_chans=C + CF,
+                            out_chans=horizon_at_once * C, embed_dim=embed, num_layers=layers,
+                            operator_type="dhconv", data_grid="equiangular",
+                            use_pallas=use_pallas)).to(device)
+    model.init_weights(torch.Generator(device=device).manual_seed(0))
+    exp = SimultaneousForecastingExperiment(
+        model, ExperimentConfig(horizon=horizon), dm.in_packer, dm.out_packer, dm.normalizer,
+        horizon_at_once=horizon_at_once, forcing_names=dm.cfg.forcing_names,
+        forcing_normalizer=dm.forcing_normalizer)
+    return Trainer(exp, dm, TrainerConfig(epochs=1, steps_per_epoch=n_samples,
+                                          scheduler=scheduler))
+
+
+def simultaneous_steps(n_steps: int = 3, horizon: int = 2, horizon_at_once: int = 1,
+                       device: str = "cuda", **size) -> dict:
+    """``n_steps`` training steps of ``build_simultaneous``'s trainer through
+    ``train_steps``: the per-step losses, ``step_ms``, ``split_ms``,
+    ``peak_bytes`` and K1 counts of ``train_steps``."""
+    trainer = build_simultaneous(horizon=horizon, horizon_at_once=horizon_at_once,
+                                 n_samples=max(n_steps, 1), device=device, **size)
+    return train_steps(n_steps, trainers={"simultaneous": trainer})["simultaneous"]

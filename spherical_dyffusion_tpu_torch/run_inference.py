@@ -11,13 +11,23 @@ per-timestep ``metrics.jsonl``.
 
     python -m spherical_dyffusion_tpu_torch.run_inference config.json [k=v ...]
 
+With ``stepper_type: ace`` it runs the ACE rollout instead
+(``inference/ace_stepper.py``): from a native ACE checkpoint
+(``interface.load_ace_stepper_checkpoint``, with the run config's
+``corrector``, ``ocean`` or ``prescriber`` and ``sigma_coordinates`` over the
+checkpoint's), or from any one-step experiment checkpoint (a simultaneous
+forecaster with ``horizon_at_once`` 1 and window 1), whose forcings become
+the stepper's and whose prescriber, where the run config gives no ocean,
+becomes the prescribed ocean; ``derived: true`` also scores the registered
+diagnostics. ``metrics.json`` holds the summary and the aggregator's logs.
+
 It runs on the CUDA card unless the config says ``platform: cpu``
 (``platform=cpu`` on the command line sets it, as for ``train``). Not
 ported, each raising and naming its ROADMAP item: a dataset on disk (a
 ``validation_loader.dataset.data_path`` that exists), the data writers
-(any ``data_writer`` option set) and ``log_video`` (Queue 1 item 8), and
-``stepper_type: ace`` (item 5). Media are not written: where the JAX
-package plots snapshots or zonal means, one line says so.
+(any ``data_writer`` option set) and ``log_video`` (Queue 1 item 8). Media
+are not written: where the JAX package plots snapshots or zonal means, one
+line says so.
 """
 
 from __future__ import annotations
@@ -31,9 +41,6 @@ __all__ = ["main_from_config", "main"]
 
 
 def _refuse_unported(cfg: dict) -> None:
-    if cfg.get("stepper_type", "dyffusion") == "ace":
-        raise NotImplementedError("stepper_type 'ace': the ACE stepper is not ported (ROADMAP "
-                                  "Queue 1 item 5)")
     set_writer = sorted(k for k, v in (cfg.get("data_writer") or {}).items() if v)
     if set_writer:
         raise NotImplementedError(f"data_writer {set_writer}: the writers are not ported "
@@ -60,6 +67,8 @@ def main_from_config(cfg: dict) -> dict:
 
     _refuse_unported(cfg)
     device = resolve_device(cfg)
+    if cfg.get("stepper_type", "dyffusion") == "ace":
+        return _main_ace(cfg, device)
     exp, _, ema_params, full_cfg = load_experiment_checkpoint(
         cfg["checkpoint_path"], overrides=cfg.get("overrides"), device=device)
     use_ema = bool(cfg.get("use_ema", True)) and ema_params is not None
@@ -111,10 +120,203 @@ def main_from_config(cfg: dict) -> dict:
         for entry in agg.get_inference_logs():
             logger.log(entry, step=int(entry["timestep"]))
         logger.finish()
+    _media_line(agg)
+    print(json.dumps({k: round(float(v), 5) for k, v in summary.items()}))
+    return {"summary": summary, "logs": logs, "aggregator": agg, "stepper": stepper}
+
+
+def _media_line(agg) -> None:
     if agg.snapshots.snapshots or agg.zonal is not None:
         print("[media] snapshot panels and zonal-mean plots are not ported (ROADMAP Queue 1 "
               "item 8); not written")
-    print(json.dumps({k: round(float(v), 5) for k, v in summary.items()}))
+
+
+# ---------------------------------------------------------------------------
+# the ACE path
+# ---------------------------------------------------------------------------
+
+
+def _main_ace(cfg: dict, device) -> dict:
+    from .inference.stepper import round_params
+    from .interface import load_ace_stepper_checkpoint, load_experiment_checkpoint
+    from .utils.checkpointing import resolve_checkpoint_path
+
+    _guard_ace_knobs(cfg)  # before any checkpoint is read
+    path = resolve_checkpoint_path(cfg["checkpoint_path"])
+    ck = _load_if_ace_torch_checkpoint(path)
+    if ck is not None:
+        stepper, _ = load_ace_stepper_checkpoint(path, device=device, _preloaded=ck)
+        stepper = _apply_ace_physics_overrides(cfg, stepper)
+        if cfg.get("params_dtype"):
+            round_params(stepper.module, cfg["params_dtype"])
+        source, n_repeats = _ace_source(cfg, stepper.cfg.all_names, tuple(stepper.area.shape))
+        return _run_ace_rollout(cfg, stepper, source, n_repeats)
+    exp, _, ema_params, full_cfg = load_experiment_checkpoint(
+        path, overrides=cfg.get("overrides"), device=device)
+    if bool(cfg.get("use_ema", True)) and ema_params is not None:
+        exp.model.load_state_dict(ema_params)
+    return _run_ace_from_checkpoint(cfg, exp, full_cfg, device)
+
+
+def _load_if_ace_torch_checkpoint(path: str) -> Optional[dict]:
+    """The loaded payload when ``path`` is a native ACE checkpoint (read
+    once here and passed to the loader), else None."""
+    from .interface import ace_stepper_state, is_torch_file, read_torch_checkpoint
+
+    if not is_torch_file(path):
+        return None
+    payload = read_torch_checkpoint(path)
+    return payload if ace_stepper_state(payload) is not None else None
+
+
+def _ocean_cfg_from(o: dict):
+    """An ocean or prescriber block -> ``OceanConfig``."""
+    from .inference.ocean import OceanConfig, SlabOceanConfig
+
+    if int(o.get("mask_value", 1)) != 1:
+        raise ValueError(
+            "the ACE ocean prescribes where round(mask) == 1; "
+            f"mask_value={o['mask_value']} would be silently inverted; invert the mask "
+            "variable instead")
+    slab = o.get("slab")
+    return OceanConfig(o.get("surface_temperature_name") or o.get("prescribed_name"),
+                       o.get("ocean_fraction_name") or o.get("mask_name"),
+                       interpolate=bool(o.get("interpolate", False)),
+                       slab=SlabOceanConfig(**slab) if slab else None)
+
+
+def _apply_ace_physics_overrides(cfg: dict, stepper):
+    """The run config's ``ocean`` (or ``prescriber``), ``corrector`` and
+    ``sigma_coordinates`` over the native checkpoint's physics; a new
+    physics-only field gets mean 0 and std 1."""
+    o = cfg.get("ocean") or cfg.get("prescriber")
+    co = cfg.get("corrector")
+    sg = cfg.get("sigma_coordinates")
+    if not (o or co or sg):
+        return stepper
+    from .data.coords import SigmaCoordinates
+    from .inference.ace_stepper import SingleStepStepper, SingleStepStepperConfig
+    from .inference.corrector import CorrectorConfig
+    from .interface import ace_normalizer
+
+    new_cfg = SingleStepStepperConfig(
+        in_names=list(stepper.cfg.in_names), out_names=list(stepper.cfg.out_names),
+        loss=stepper.cfg.loss, corrector=CorrectorConfig(**co) if co else stepper.cfg.corrector,
+        ocean=_ocean_cfg_from(o) if o else stepper.cfg.ocean)
+    st = stepper.normalizer.get_state()
+    names = list(dict.fromkeys(list(stepper.normalizer.names) + list(new_cfg.all_names)))
+    return SingleStepStepper(new_cfg, stepper.model_fn,
+                             ace_normalizer(st["means"], st["stds"], names), stepper.area,
+                             sigma=SigmaCoordinates.from_dict(sg) if sg else stepper.sigma,
+                             device=stepper.device, module=stepper.module)
+
+
+def _guard_ace_knobs(cfg: dict) -> None:
+    for k in ("n_ensemble", "preds_dtype"):
+        if cfg.get(k) not in (None, 1):
+            raise ValueError(
+                f"{k!r} is not supported on the ACE path (a deterministic single-member "
+                "stepper whose fields stay float32); drop the key or use the DYffusion "
+                "stepper")
+
+
+def _ace_source(cfg: dict, names, spatial_shape):
+    """The rollout's source, the synthetic one over ``names`` (a dataset on
+    disk waits for the netCDF reader), and its repeats."""
+    from .data.datasets import SyntheticTimeSeries
+
+    source = SyntheticTimeSeries(list(names),
+                                 n_timesteps=int(cfg.get("forward_steps_in_memory", 50)) + 1,
+                                 spatial_shape=tuple(spatial_shape))
+    return source, max(4, int(cfg.get("n_forward_steps", 100)))
+
+
+def _run_ace_from_checkpoint(cfg: dict, exp, full_cfg: dict, device) -> dict:
+    """A ``SingleStepStepper`` around a loaded one-step experiment, then the
+    windowed ACE rollout."""
+    import torch
+
+    from .data.coords import SigmaCoordinates
+    from .inference.ace_stepper import SingleStepStepper, SingleStepStepperConfig
+    from .inference.corrector import CorrectorConfig
+    from .inference.stepper import round_params
+    from .interface import ace_normalizer
+
+    if getattr(exp, "horizon_at_once", 1) != 1:
+        raise ValueError(f"stepper_type=ace needs a one-step model (horizon_at_once="
+                         f"{exp.horizon_at_once})")
+    if getattr(exp.cfg, "window", 1) != 1:
+        raise ValueError(f"stepper_type=ace needs a single-frame input window (window="
+                         f"{exp.cfg.window})")
+    state_names = list(exp.in_packer.names)
+    out_names = list(exp.out_packer.names)
+    forcing_names = [n for n in (getattr(exp, "forcing_names", None) or [])
+                     if n not in state_names]
+    in_names = state_names + forcing_names
+    # the run config's ocean, else the checkpoint's prescriber: a model
+    # trained with prescribed SST does not roll out free-running
+    o = (cfg.get("ocean") or cfg.get("prescriber")
+         or full_cfg.get("datamodule", {}).get("prescriber"))
+    ocean_cfg = _ocean_cfg_from(o) if o else None
+    corr = cfg.get("corrector")
+    st = exp.normalizer.get_state()
+    means, stds = dict(st["means"]), dict(st["stds"])
+    fnorm = getattr(exp, "forcing_normalizer", None)
+    if fnorm is not None:
+        fst = fnorm.get_state()
+        means.update(fst["means"])
+        stds.update(fst["stds"])
+    all_names = list(dict.fromkeys(in_names + out_names
+                                   + (list(ocean_cfg.names) if ocean_cfg else [])))
+    model = exp.model
+    model.eval()
+    if cfg.get("params_dtype"):
+        round_params(model, cfg["params_dtype"])
+    n_state = len(state_names)
+    wants_time = bool(model.cfg.with_time_emb)
+
+    def model_fn(x_norm: torch.Tensor) -> torch.Tensor:
+        kwargs = {"deterministic": True}
+        if forcing_names:
+            kwargs["static_condition"] = x_norm[..., n_state:]
+        if wants_time:
+            kwargs["time"] = torch.zeros((x_norm.shape[0],), device=x_norm.device)
+        return model(x_norm[..., :n_state], **kwargs)
+
+    source, n_repeats = _ace_source(cfg, all_names, model.cfg.img_shape)
+    sg = cfg.get("sigma_coordinates")
+    stepper = SingleStepStepper(
+        SingleStepStepperConfig(in_names=in_names, out_names=out_names,
+                                corrector=CorrectorConfig(**corr) if corr else None,
+                                ocean=ocean_cfg),
+        model_fn, ace_normalizer(means, stds, all_names), source.horizontal.area_weights(),
+        sigma=SigmaCoordinates.from_dict(sg) if sg else source.sigma, device=device,
+        module=model)
+    return _run_ace_rollout(cfg, stepper, source, n_repeats)
+
+
+def _run_ace_rollout(cfg: dict, stepper, source, n_repeats: int) -> dict:
+    """Both ACE entries' tail: the aggregator, the rollout, ``metrics.json``."""
+    from .evaluation.aggregators import InferenceAggregator
+    from .inference.ace_stepper import ace_scored_names, run_ace_inference
+
+    out_dir = cfg.get("experiment_dir", "results/inference_ace")
+    os.makedirs(out_dir, exist_ok=True)
+    derived = bool(cfg.get("derived", False))
+    agg = InferenceAggregator(ace_scored_names(stepper, source, derived=derived),
+                              source.horizontal.area_weights(),
+                              log_zonal_mean_images=bool(cfg.get("log_zonal_mean_images", True)))
+    summary = run_ace_inference(
+        stepper, source, n_forward_steps=int(cfg.get("n_forward_steps", 100)),
+        forward_steps_in_memory=int(cfg.get("forward_steps_in_memory", 50)),
+        n_repeats=n_repeats, aggregator=agg, derived=derived,
+        verbose=bool(cfg.get("verbose", True)))
+    logs = agg.get_logs()
+    with open(os.path.join(out_dir, "metrics.json"), "w") as f:
+        json.dump({**summary, **logs}, f, indent=1)
+    _media_line(agg)
+    print(json.dumps({k: round(float(v), 5) for k, v in summary.items()
+                      if not isinstance(v, list)}))
     return {"summary": summary, "logs": logs, "aggregator": agg, "stepper": stepper}
 
 

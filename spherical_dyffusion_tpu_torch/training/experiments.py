@@ -10,8 +10,12 @@ weights, so the parameter arguments disappear: the frozen interpolator of
 the forecaster's loss runs under ``torch.no_grad()``, which is the same math
 as JAX passing its tree as ``aux_params``. Randomness (timesteps, dropout)
 comes from one host ``torch.Generator``; the timesteps are drawn on the
-batch's device (``models/modules.py:device_generator``). ``SimultaneousForecastingExperiment``
-is not ported yet.
+batch's device (``models/modules.py:device_generator``).
+``SimultaneousForecastingExperiment`` is the ACE-style baseline: ``horizon_at_once``
+steps in one forward, trained autoregressively with its predictions fed back
+detached; each autoregressive step's dropout draws come from a host
+generator seeded by mixing one draw from the step's generator with the step
+index (``fold_in``), the counterpart of JAX's ``fold_in(rng, step)``.
 """
 
 from __future__ import annotations
@@ -19,17 +23,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..data.normalization import StandardNormalizer
 from ..data.packer import Packer
 from ..diffusion.dyffusion import DYffusionConfig, build_schedule, p_losses, select_sampler
-from ..models.modules import device_generator
+from ..models.modules import device_generator, draw_seed
 from ..utils.device import to_device
 from .losses import get_loss_fn
 
 __all__ = ["ExperimentConfig", "InterpolationExperiment",
-           "DYffusionForecastingExperiment", "stack_window"]
+           "DYffusionForecastingExperiment", "SimultaneousForecastingExperiment",
+           "stack_window", "fold_in"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +55,13 @@ def stack_window(x: torch.Tensor) -> torch.Tensor:
     """(B, T, H, W, C) -> (B, H, W, T*C)."""
     B, T, H, W, C = x.shape
     return torch.movedim(x, 1, -2).reshape(B, H, W, T * C)
+
+
+def fold_in(seed: int, step: int) -> torch.Generator:
+    """A host generator for ``step``, seeded by mixing ``seed`` and ``step``
+    through numpy's ``SeedSequence``."""
+    word = int(np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0])
+    return torch.Generator().manual_seed(word >> 1)
 
 
 def _out_indices(in_packer: Packer, out_packer: Packer):
@@ -276,3 +289,82 @@ class DYffusionForecastingExperiment:
         sampler = select_sampler(self.diffusion_cfg, self.sched)
         return sampler(self._interp_fn(), self._forecast_fn(), self.diffusion_cfg,
                        self.sched, initial_condition, generator, **cond_kwargs)
+
+
+class SimultaneousForecastingExperiment:
+    """ACE-style baseline: ``horizon_at_once`` (hao) steps predicted in one
+    forward by stacking time into channels, trained autoregressively over
+    ``horizon / hao`` steps with per-step loss weights (``1 / steps`` each
+    unless ``autoregressive_loss_weights``). The network takes ``window``
+    frames of the state, the forcings (as ``condition``) and no time."""
+
+    def __init__(self, model, cfg: ExperimentConfig, in_packer: Packer, out_packer: Packer,
+                 normalizer: StandardNormalizer, horizon_at_once: Optional[int] = None,
+                 autoregressive_loss_weights: Optional[Sequence[float]] = None,
+                 forcing_names: Optional[Sequence[str]] = None,
+                 forcing_normalizer: Optional[StandardNormalizer] = None):
+        self.model = model
+        self.cfg = cfg
+        self.in_packer = in_packer
+        self.out_packer = out_packer
+        self.normalizer = normalizer
+        # the forcings' names and statistics, which the ACE rollout of a
+        # simultaneous checkpoint reads
+        self.forcing_names = list(forcing_names or [])
+        self.forcing_normalizer = forcing_normalizer
+        self.horizon_at_once = horizon_at_once or cfg.horizon
+        if cfg.horizon % self.horizon_at_once != 0:
+            raise ValueError("horizon must be divisible by horizon_at_once")
+        self.num_ar_steps = cfg.horizon // self.horizon_at_once
+        self.ar_weights = (list(autoregressive_loss_weights)
+                           if autoregressive_loss_weights is not None
+                           else [1.0 / self.num_ar_steps] * self.num_ar_steps)
+        self.criterion = get_loss_fn(cfg.loss_function)
+        self._out_idx = _out_indices(in_packer, out_packer)
+        self._n_out = len(out_packer.names)
+
+    def train_loss(self, dynamics: torch.Tensor, generator: torch.Generator,
+                   dynamical_condition: Optional[torch.Tensor] = None,
+                   static_condition: Optional[torch.Tensor] = None,
+                   random_timestep: Optional[torch.Tensor] = None):
+        """``(loss, {"loss", "loss_ar<i>"})`` on normalized ``dynamics``
+        (B, window + horizon, H, W, C): each autoregressive step predicts the
+        next hao frames from the last ``window`` frames predicted (detached),
+        with the condition at the frame before them and dropout drawn from
+        ``fold_in(seed, step)``, ``seed`` one draw from ``generator``."""
+        if random_timestep is not None:
+            raise ValueError("simultaneous multi-horizon training needs sequential frames; "
+                             "sparse 'random'/'interpolation' loader strategies are not "
+                             "supported")
+        w = self.cfg.window
+        hao = self.horizon_at_once
+        inputs = stack_window(dynamics[:, :w])
+        seed = draw_seed(generator)
+        total = 0.0
+        metrics = {}
+        for step in range(self.num_ar_steps):
+            lo = w + step * hao
+            targets = stack_window(dynamics[:, lo:lo + hao][..., self._out_idx])
+            cond = dynamical_condition[:, lo - 1] if dynamical_condition is not None else None
+            preds = self.model(inputs, condition=cond, static_condition=static_condition,
+                               deterministic=False, generator=fold_in(seed, step))
+            step_loss = self.criterion(preds, targets)
+            total = total + self.ar_weights[step] * step_loss
+            metrics[f"loss_ar{step}"] = step_loss
+            if step + 1 < self.num_ar_steps:
+                # the last predicted frame(s) are the next window
+                B, H, W_, _ = preds.shape
+                last = preds.reshape(B, H, W_, hao, self._n_out)[..., -w:, :]
+                inputs = last.reshape(B, H, W_, w * self._n_out).detach()
+        metrics["loss"] = total
+        return total, metrics
+
+    def predict(self, inputs: torch.Tensor, generator: Optional[torch.Generator] = None,
+                condition: Optional[torch.Tensor] = None,
+                static_condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One deterministic forward: (B, H, W, window * C_in) -> (B, hao, H,
+        W, C_out)."""
+        preds = self.model(inputs, condition=condition, static_condition=static_condition,
+                           deterministic=True)
+        B, H, W_, _ = preds.shape
+        return torch.movedim(preds.reshape(B, H, W_, self.horizon_at_once, self._n_out), -2, 1)

@@ -2,19 +2,21 @@
 
 Counterpart of ``spherical_dyffusion_tpu/training/losses.py``: ``lp_loss``,
 ``get_loss_fn``, ``area_weighted_mse`` and ``global_mean_loss``, channels
-last. ``conservation_loss`` and ``weighted_sum_loss`` belong to the ACE
-family and are not ported yet.
+last, and the ACE family's ``conservation_loss`` (on named fields with a
+time axis) and ``weighted_sum_loss``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Mapping, Optional
 
 import torch
 
 from ..evaluation.metrics import weighted_mean
+from ..inference.climate_data import ClimateData
 
-__all__ = ["lp_loss", "get_loss_fn", "area_weighted_mse", "global_mean_loss"]
+__all__ = ["lp_loss", "get_loss_fn", "area_weighted_mse", "global_mean_loss",
+           "conservation_loss", "weighted_sum_loss"]
 
 Criterion = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -61,5 +63,31 @@ def global_mean_loss(weights: torch.Tensor, base: Optional[Criterion] = None) ->
     def fn(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         w = weights[..., None].to(pred.device)
         return base(weighted_mean(pred, w, dim=(-3, -2)), weighted_mean(target, w, dim=(-3, -2)))
+
+    return fn
+
+
+def conservation_loss(area_weights: torch.Tensor, sigma,
+                      dry_air_penalty: float = 1.0) -> Callable[[Dict[str, torch.Tensor]],
+                                                                torch.Tensor]:
+    """Dry-air non-conservation penalty: the mean over the trajectory of
+    |d/dt global_mean(dry-air surface pressure)| between consecutive steps,
+    on a dict of named fields (B, T, H, W), the ACE stepper's view."""
+    def fn(gen_data: Dict[str, torch.Tensor]) -> torch.Tensor:
+        dry_air = ClimateData(gen_data).surface_pressure_due_to_dry_air(sigma)
+        gm = weighted_mean(dry_air, area_weights.to(dry_air.device), dim=(-2, -1))  # (B, T)
+        return dry_air_penalty * torch.mean(torch.abs(torch.diff(gm, dim=-1)))
+
+    return fn
+
+
+def weighted_sum_loss(losses: Mapping[str, Criterion], weights: Mapping[str, float]) -> Criterion:
+    """The weighted sum of named criteria (weight 1 where none is given)."""
+
+    def fn(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        total = 0.0
+        for name, loss in losses.items():
+            total = total + weights.get(name, 1.0) * loss(pred, target)
+        return total
 
     return fn

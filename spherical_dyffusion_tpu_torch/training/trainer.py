@@ -73,7 +73,7 @@ from ..utils.code_snapshot import snapshot_code
 from ..utils.convert import train_state_payload
 from ..utils.device import read_back, to_device
 from .ema import EMA
-from .experiments import stack_window
+from .experiments import SimultaneousForecastingExperiment, stack_window
 from .optim import AdamWLowMu
 from .schedules import get_scheduler
 
@@ -719,8 +719,17 @@ class Trainer:
         averaged, on the EMA weights, over up to ``max_batches`` validation
         batches; member and dropout draws from a host generator seeded
         ``cfg.seed + 7``, the inputs noise from a generator on the device
-        seeded alike."""
+        seeded alike. A simultaneous experiment raises, as JAX's validation
+        does (ROADMAP Queue 3)."""
         exp = self.exp
+        if isinstance(exp, SimultaneousForecastingExperiment):
+            raise ValueError(
+                "Trainer.validate: the JAX package cannot validate a simultaneous experiment: "
+                "its forecasting eval step (spherical_dyffusion_tpu/training/trainer.py:996) "
+                "calls exp.predict(params, init, key, dynamical_condition=..., aux_params=...), "
+                "which SimultaneousForecastingExperiment.predict "
+                "(spherical_dyffusion_tpu/training/experiments.py:487) does not take, and "
+                "raises TypeError; the port raises too. Fit with val_every above the epochs.")
         if self._area_weights is None:
             self._area_weights = to_device(self.dm.grid.horizontal.area_weights(), self.device)
         w = self._area_weights

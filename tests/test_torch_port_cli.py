@@ -464,8 +464,8 @@ def test_get_model_always_draws_its_weights():
 
 
 @pytest.mark.parametrize("cfg,match", [
-    ({"stepper_type": "ace"}, "item 5"), ({"data_writer": {"save_prediction_files": True}},
-                                          "item 8"),
+    ({"stepper_type": "ace", "log_video": True}, "item 8"),
+    ({"data_writer": {"save_prediction_files": True}}, "item 8"),
     ({"log_video": True}, "item 8")])
 def test_run_inference_refuses_unported_options(cfg, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -486,8 +486,9 @@ def test_unported_kinds_and_channels_name_their_item(tmp_path):
     with pytest.raises(NotImplementedError, match="item 8"):
         make_logger({"logger": {"wandb": {"project": "p"}}}, str(tmp_path))
     dm = DebugDataModule(channels=2, height=8, width=16, horizon=3)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        interface.get_experiment({"experiment": "simultaneous"}, dm, device="cpu")
+    # the simultaneous experiment is ported (item 5): it builds
+    exp = interface.get_experiment({"experiment": "simultaneous"}, dm, device="cpu")
+    assert exp.horizon_at_once == 3 and not exp.model.cfg.with_time_emb
     (tmp_path / "sub").mkdir()
     (tmp_path / "sub" / "a.ckpt").write_bytes(b"x")
     assert resolve_checkpoint_path(str(tmp_path)) == str(tmp_path / "sub" / "a.ckpt")

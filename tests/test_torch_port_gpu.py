@@ -1140,3 +1140,67 @@ def test_bf16_compute_training_steps_on_the_card(cuda):
         assert max(abs(a - b) / abs(b) for a, b in zip(bf[name]["grad_norms"],
                                                        f32[name]["grad_norms"])) > 1e-5
         assert all(torch.isfinite(p).all() for p in bf[name]["trainer"].exp.model.parameters())
+
+
+# ----------------------------------------------------------------- ACE family
+
+
+def test_ace_window_kernels_match_plain(cuda):
+    """One ACE window at debug size (``main_path.build_ace``: embed 32 x 2
+    layers, 16 x 32, 3 water levels, float32, the dry-air corrector and the
+    prescribed ocean), K1 and K3 against the plain path from the same
+    weights and data: the generated fields within 1e-4 of their largest
+    value, K1 and K3 launched once per layer and step, the fields finite, and
+    the generated surface temperature the target's where the mask rounds
+    to 1."""
+    from spherical_dyffusion_tpu_torch.ops.fused_mlp import fused_block_tail
+
+    size = dict(embed=32, layers=2, img_shape=(16, 32), levels=3, n_other=2, dtype="float32",
+                device="cuda")
+    plain = main_path.build_ace(kernels=False, **size)
+    fused = main_path.build_ace(kernels=True, **size)
+    fused.module.load_state_dict(plain.module.state_dict())
+    T = 4
+    src = main_path.AceBenchSource(plain.cfg.all_names, T + 1, (16, 32))
+    data = {n: v[None] for n, v in src.read_window(0, T + 1, src.names).items()}
+    want = plain.run_on_batch(data, T)
+    k1, k3 = dhconv.launches, fused_block_tail.launches
+    got = fused.run_on_batch(data, T)
+    torch.cuda.synchronize()
+    assert (dhconv.launches - k1, fused_block_tail.launches - k3) == (2 * T, 2 * T)
+    for n, v in want.gen_data.items():
+        assert torch.isfinite(got.gen_data[n]).all()
+        assert _rel_err(got.gen_data[n], v) <= 1e-4, n
+    mask = torch.from_numpy(data[main_path.MASK_NAME][:, 1:] == 1).to(cuda)
+    sst = got.gen_data["surface_temperature"][:, 1:]
+    tgt = torch.from_numpy(data["surface_temperature"][:, 1:]).to(cuda)
+    assert torch.equal(sst[mask], tgt[mask])
+
+
+def test_simultaneous_step_k1_dx_matches_autograd_of_plain(cuda):
+    """One simultaneous training loss at debug size (horizon 2,
+    ``horizon_at_once`` 1: two autoregressive forwards, embed 32 x 2
+    layers, 16 x 32, float32): its gradients through K1 (forward and dx on
+    the card) against autograd of the plain path from the same weights and
+    batch, 1e-4 of each tensor's largest entry (of 1e-4 of the network's
+    largest where a tensor's cancels); K1 launched 2 x 2 times forward and
+    2 x 2 times for dx."""
+    size = dict(embed=32, layers=2, img_shape=(16, 32), n_state=5, n_samples=1,
+                device="cuda")
+    trs = [main_path.build_simultaneous(use_pallas=p, **size) for p in (True, False)]
+    trs[1].exp.model.load_state_dict(trs[0].exp.model.state_dict())
+    batch = next(iter(trs[0].dm.train_batches(seed=0)))
+    grads = []
+    for i, tr in enumerate(trs):
+        dyn, cond, _ = tr.upload(batch)
+        before = (dhconv.launches, dhconv.dx_launches)
+        loss, _ = tr.exp.train_loss(tr.normalizer.normalize(dyn),
+                                    torch.Generator().manual_seed(0), dynamical_condition=cond)
+        grads.append(torch.autograd.grad(loss, list(tr.exp.model.parameters())))
+        torch.cuda.synchronize()
+        if i == 0:
+            assert (dhconv.launches - before[0], dhconv.dx_launches - before[1]) == (8, 4)
+    top = max(float(g.abs().max()) for g in grads[1])
+    for a, b in zip(*grads):
+        scale = max(float(b.abs().max()), 1e-4 * top)
+        assert float((a - b).abs().max()) <= 1e-4 * scale
