@@ -1650,9 +1650,12 @@ def phase15(smi_line, wrappers, report, runs, device="cuda") -> None:
     free()
 
     # (d) a native ACE checkpoint of (b)'s float32 kernel stepper, in the
-    # reference's names, read back by run_inference (stepper_type ace). On
-    # the synthetic source's O(1) fields the run config's sigma (ak 0, bk to
-    # 0.1) keeps the dry-air correction's denominator near 1.
+    # reference's names and with only the reference builder's keys, read
+    # back by run_inference (stepper_type ace); the run config's model
+    # overrides turn K1 and K3 on, as a user would for a published
+    # checkpoint. On the synthetic source's O(1) fields the run config's
+    # sigma (ak 0, bk to 0.1) keeps the dry-air correction's denominator
+    # near 1.
     m = f32k.module
     state = f32k.get_state()
     state["config"].update(
@@ -1660,8 +1663,7 @@ def phase15(smi_line, wrappers, report, runs, device="cuda") -> None:
         builder={"type": "SphericalFourierNeuralOperatorNet",
                  "config": {"embed_dim": m.cfg.embed_dim, "num_layers": m.cfg.num_layers,
                             "operator_type": "dhconv", "scale_factor": 1,
-                            "data_grid": "equiangular", "use_pallas": True,
-                            "fused_tail": True}})
+                            "data_grid": "equiangular"}})
     state["module"] = {k: torch.from_numpy(v) for k, v in
                        sfno_flax_to_torch(state_dict_to_flax(m.state_dict())).items()}
     state["img_shape"] = tuple(ACE_SHAPE)
@@ -1695,7 +1697,9 @@ def phase15(smi_line, wrappers, report, runs, device="cuda") -> None:
                                     "n_forward_steps": T, "forward_steps_in_memory": T,
                                     "verbose": False, "log_zonal_mean_images": False,
                                     "experiment_dir": os.path.join(tmp, "out"),
-                                    "sigma_coordinates": sg, "platform": device})
+                                    "sigma_coordinates": sg, "platform": device,
+                                    "overrides": {"model": {"use_pallas": True,
+                                                            "fused_tail": True}}})
             sync()
             cli_s = time.perf_counter() - t0
         finally:
@@ -1712,8 +1716,8 @@ def phase15(smi_line, wrappers, report, runs, device="cuda") -> None:
     ckpt_gap = max(rel(recorded[0].gen_data[n], ref.gen_data[n]) for n in out_names)
     rate = res["summary"]["total_steps_per_second"]
     log(f"ACE native checkpoint: {nbytes / 1e9:.3f} GB written in {write_s:.2f} s, loaded in "
-        f"{load_s:.2f} s (gelu_exact, exact_norm, K1 and K3 from its builder config, weights "
-        f"equal bit for bit); run_inference stepper_type ace, {T} steps: {cli_s:.2f} s with the "
+        f"{load_s:.2f} s (gelu_exact, exact_norm, weights equal bit for bit; K1 and K3 from "
+        f"the run config's overrides['model']); run_inference stepper_type ace, {T} steps: {cli_s:.2f} s with the "
         f"load, {rate:.3f} steps/s, K1 {cli_launches['K1']} and K3 {cli_launches['K3']} "
         f"launches; its fields against (b)'s float32 kernel stepper on the same frames: max gap "
         f"{ckpt_gap:.3e} of each field's largest value (tolerance 1e-5)")

@@ -9,10 +9,12 @@ the physics' constants (area weights, ak and bk, normalization statistics)
 are put on the stepper's device when it is built.
 
 ``run_ace_inference`` is the rollout driver. As the port's DYffusion loop
-(``inference/loop.py``) it reads the next window on a producer thread,
+(``inference/loop.py``, whose wrap-around reader ``wrapped_pieces`` and
+``UploadCache`` it shares) it reads the next window on a producer thread,
 stacks it into one pinned buffer, uploads it with ``non_blocking=True``,
-keeps up to 8 uploaded windows keyed as JAX's (``(t0 % n_timesteps,
-length)``), carries the normalized state across windows on the card, and
+keeps up to ``UPLOAD_CACHE_ENTRIES`` uploaded windows keyed as JAX's
+(``(t0 % n_timesteps, length)``), carries the normalized state across
+windows on the card, and
 synchronizes once, at the end: its ``time/run_on_batch`` measures launching,
 and ``loss_last_window`` is read after that synchronization. CUDA events
 recorded between windows give each window's seconds on the device
@@ -37,12 +39,11 @@ from ..training.losses import get_loss_fn
 from ..utils.device import read_back, to_device
 from .corrector import CorrectorConfig
 from .derived_variables import compute_derived_quantities
+from .loop import UploadCache, _synchronize, wrapped_pieces
 from .ocean import OceanConfig
 
 __all__ = ["SingleStepStepperConfig", "SingleStepStepper", "SteppedData",
-           "run_ace_inference", "ace_scored_names", "UPLOAD_CACHE_ENTRIES"]
-
-UPLOAD_CACHE_ENTRIES = 8
+           "run_ace_inference", "ace_scored_names"]
 
 
 @dataclasses.dataclass
@@ -222,11 +223,6 @@ def ace_scored_names(stepper: SingleStepStepper, source, derived: bool = False) 
                                   stepper.sigma)
 
 
-def _synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 @torch.inference_mode()
 def run_ace_inference(stepper: SingleStepStepper, source, n_forward_steps: int,
                       forward_steps_in_memory: int = 50, n_repeats: int = 1,
@@ -261,8 +257,7 @@ def run_ace_inference(stepper: SingleStepStepper, source, n_forward_steps: int,
         raise ValueError("derived=True requires stepper.sigma (the vertical coordinate of "
                          "the diagnostics)")
     scored = ace_scored_names(stepper, source, derived=derived)
-    upload_cache: Dict[tuple, torch.Tensor] = {}
-    cache_skips = 0
+    upload_cache = UploadCache()
 
     def windows():
         start = 0
@@ -282,14 +277,9 @@ def run_ace_inference(stepper: SingleStepStepper, source, n_forward_steps: int,
             buf = torch.empty((len(names), 1, n + 1) + tuple(source.spatial_shape),
                               dtype=torch.float32, pin_memory=cuda)
             view = buf.numpy()
-            got = 0
-            while got < n + 1:
-                s = (start + got) % n_src
-                take = min(n + 1 - got, n_src - s)
-                piece = source.read_window(s, take, names)
+            for got, piece in wrapped_pieces(source, start, n + 1, names):
                 for i, nm in enumerate(names):
-                    view[i, 0, got:got + take] = piece[nm]
-                got += take
+                    view[i, 0, got:got + len(piece[nm])] = piece[nm]
             yield start, n, buf
 
     def score_pack(gen_data, data):
@@ -325,10 +315,7 @@ def run_ace_inference(stepper: SingleStepStepper, source, n_forward_steps: int,
         dev = upload_cache.get(key)
         if dev is None:
             dev = to_device(buf, device)
-            if len(upload_cache) < UPLOAD_CACHE_ENTRIES:
-                upload_cache[key] = dev
-            else:
-                cache_skips += 1
+            upload_cache.put(key, dev)
         data = {nm: dev[i] for i, nm in enumerate(names)}
         timers["data_loading"] += time.time() - t0
 
@@ -367,6 +354,6 @@ def run_ace_inference(stepper: SingleStepStepper, source, n_forward_steps: int,
         "steady_steps_per_second": steady,
         "window_seconds": window_s,
         "loss_last_window": loss,
-        "upload_cache_skips": cache_skips,
+        "upload_cache_skips": upload_cache.skips,
         **{f"time/{k}": v for k, v in timers.items()},
     }

@@ -50,9 +50,12 @@ from ..data.datasets import TimeSeriesSource
 from ..utils.device import to_device
 from .stepper import DYffusionStepper
 
-__all__ = ["InferenceConfig", "InferenceWindows", "capped_window", "run_inference"]
+__all__ = ["InferenceConfig", "InferenceWindows", "capped_window", "run_inference",
+           "UploadCache", "wrapped_pieces", "UPLOAD_CACHE_ENTRIES"]
 
 TARGET_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# windows of device buffers kept by the upload cache of either rollout
+UPLOAD_CACHE_ENTRIES = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +80,7 @@ class InferenceConfig:
     # distinct repeating windows whose device buffers (targets, and the
     # forcing, prescribed-target and mask rows) stay resident; an aligned
     # source (n_timesteps a multiple of the window) needs one of each
-    upload_cache_entries: int = 8
+    upload_cache_entries: int = UPLOAD_CACHE_ENTRIES
     # windows of host arrays kept by the read cache when n_repeats > 1 (0:
     # off); read_window is a pure function of (start, length, names)
     host_read_cache_entries: int = 2
@@ -121,18 +124,9 @@ class InferenceWindows:
               names: Optional[Sequence[str]] = None) -> Dict[str, np.ndarray]:
         """Read with wrap-around across repeats of the source."""
         names = list(names) if names is not None else self.names
-        n = self.source.n_timesteps
-        out = {k: [] for k in names}
-        t, remaining = start, length
-        while remaining > 0:
-            local = t % n
-            take = min(remaining, n - local)
-            chunk = self.source.read_window(local, take, names)
-            for k in names:
-                out[k].append(chunk[k])
-            t += take
-            remaining -= take
-        return {k: (np.concatenate(v, axis=0) if len(v) > 1 else v[0]) for k, v in out.items()}
+        pieces = [p for _, p in wrapped_pieces(self.source, start, length, names)]
+        return {k: (np.concatenate([p[k] for p in pieces], axis=0) if len(pieces) > 1
+                    else pieces[0][k]) for k in names}
 
     def __iter__(self) -> Iterator[Tuple[int, Dict[str, np.ndarray]]]:
         """Yields (start_step, data): values (T+1, H, W) with one initial
@@ -163,6 +157,42 @@ class InferenceWindows:
     def iter_ranges(self) -> Iterator[Tuple[int, int]]:
         """(start_step, n_steps) pairs without reading any data."""
         return _ranges(self.cfg, self.cfg.forward_steps_in_memory)
+
+
+def wrapped_pieces(source: TimeSeriesSource, start: int, length: int,
+                   names: Sequence[str]) -> Iterator[Tuple[int, Dict[str, np.ndarray]]]:
+    """The frames [start, start + length) of ``source`` looped over its
+    repeats, as (offset in the window, ``read_window``'s dict) pieces."""
+    n = source.n_timesteps
+    got = 0
+    while got < length:
+        local = (start + got) % n
+        take = min(length - got, n - local)
+        yield got, source.read_window(local, take, names)
+        got += take
+
+
+class UploadCache:
+    """Device buffers of the windows that repeat, by key, up to ``cap`` of
+    them; a buffer that does not fit is uploaded again at each repeat, and
+    ``skips`` counts those uploads."""
+
+    def __init__(self, cap: int = UPLOAD_CACHE_ENTRIES):
+        self.cap = int(cap)
+        self.entries: Dict[tuple, object] = {}
+        self.skips = 0
+
+    def __contains__(self, key) -> bool:
+        return key in self.entries
+
+    def get(self, key):
+        return self.entries.get(key) if key is not None else None
+
+    def put(self, key, value) -> None:
+        if len(self.entries) < self.cap:
+            self.entries[key] = value
+        else:
+            self.skips += 1
 
 
 def _ranges(cfg: InferenceConfig, T: int) -> Iterator[Tuple[int, int]]:
@@ -314,21 +344,12 @@ def run_inference(stepper: DYffusionStepper, source: TimeSeriesSource, cfg: Infe
     timers["data_loading"] += time.time() - t0
 
     src_n = source.n_timesteps
-    upload_cache: Dict[tuple, object] = {}
-    cache_cap = int(cfg.upload_cache_entries)
-    cache_skips = 0
+    upload_cache = UploadCache(cfg.upload_cache_entries)
 
     def wkey(start_step: int, n_steps: int):
         if cfg.n_repeats <= 1:
             return None  # no window repeats: keep the cache free
         return tuple((s + start_step) % src_n for s in windows.start_indices) + (n_steps,)
-
-    def cache_put(key, value) -> None:
-        nonlocal cache_skips
-        if len(upload_cache) < cache_cap:
-            upload_cache[key] = value
-        else:
-            cache_skips += 1
 
     def host_rows(stream):
         """On the producer thread: the window's rows that the card does not
@@ -381,7 +402,7 @@ def run_inference(stepper: DYffusionStepper, source: TimeSeriesSource, cfg: Infe
             if tgt_dev is None:
                 tgt_dev = to_device(rows["tgt"], device)
                 if key is not None:
-                    cache_put(("tgt", key), tgt_dev)
+                    upload_cache.put(("tgt", key), tgt_dev)
         cached = upload_cache.get(("cond", key)) if key is not None else None
         if cached is not None:
             forcing_rows, tgt_rows, mask_rows = cached
@@ -399,7 +420,7 @@ def run_inference(stepper: DYffusionStepper, source: TimeSeriesSource, cfg: Infe
                 # prescribed with the mask at its own time
                 mask_rows = torch.repeat_interleave(to_device(rows["mask"], device), E, dim=0)
             if key is not None:
-                cache_put(("cond", key), (forcing_rows, tgt_rows, mask_rows))
+                upload_cache.put(("cond", key), (forcing_rows, tgt_rows, mask_rows))
 
         B_tot = n_ic * E
         chunk = cfg.ensemble_in_memory or B_tot
@@ -444,10 +465,11 @@ def run_inference(stepper: DYffusionStepper, source: TimeSeriesSource, cfg: Infe
     timers["writer_and_aggregator"] += time.time() - t0
 
     duration = time.time() - t_start
-    if cache_skips and verbose:
-        print(f"[run_inference] upload cache overflow: {cache_skips} window uploads exceeded "
-              f"upload_cache_entries={cache_cap} and were uploaded again each cycle; align "
-              "the source's n_timesteps to the window or raise upload_cache_entries.",
+    if upload_cache.skips and verbose:
+        print(f"[run_inference] upload cache overflow: {upload_cache.skips} window uploads "
+              f"exceeded upload_cache_entries={upload_cache.cap} and were uploaded again each "
+              "cycle; align the source's n_timesteps to the window or raise "
+              "upload_cache_entries.",
               flush=True)
     # steady rate: everything after the first window (which carries the
     # first reads and uploads), against the end-synced duration
@@ -461,7 +483,7 @@ def run_inference(stepper: DYffusionStepper, source: TimeSeriesSource, cfg: Infe
         "duration_s": duration,
         "total_steps_per_second": n_done * n_ic * E / duration,
         "steady_steps_per_second": steady_sps,
-        "upload_cache_skips": cache_skips,
+        "upload_cache_skips": upload_cache.skips,
         **{f"time/{k}": v for k, v in timers.items()},
     }
 

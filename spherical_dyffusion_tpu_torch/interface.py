@@ -20,11 +20,11 @@ A torch file is loaded once and told apart by its keys (``config_json``:
 the port's; ``state_dict`` and ``hyper_parameters``: a reference one). It is
 first read with ``weights_only=True``. A file that this refuses is read
 again with ``weights_only=False``, as the JAX package reads every reference
-checkpoint, only if its pickle's strings (read without running it) hold
-``state_dict`` and ``hyper_parameters`` and not ``config_json``: a reference
-checkpoint whose hyperparameters hold other objects, or a native ACE
-checkpoint (a ``stepper`` entry, or the dict itself, with ``module`` and
-``config``). Any other such file raises.
+checkpoint, only if its pickle's strings (read without running it) hold no
+``config_json`` and either ``state_dict`` and ``hyper_parameters`` (a
+reference checkpoint whose hyperparameters hold other objects) or
+``module``, ``config``, ``builder``, ``in_names`` and ``out_names`` (a native
+ACE checkpoint's stepper state). Any other such file raises.
 
 ``load_ace_stepper_checkpoint`` reads a native ACE checkpoint
 (``{"stepper": SingleModuleStepper.get_state()}``: weights in the reference
@@ -32,7 +32,9 @@ names, normalizer, builder config, names, ocean, corrector, area and sigma)
 into a ready ``SingleStepStepper``, with the reference ACE builder's
 defaults for the keys its config leaves out (``data_grid`` legendre-gauss),
 the scale factor read from the position embedding, erf gelu and two-pass
-norm statistics, and identity statistics for physics-only fields.
+norm statistics, and identity statistics for physics-only fields; a model
+section (``overrides["model"]`` of a run config) goes over the builder
+config, and sets ``use_pallas`` and ``fused_tail`` there.
 
 Models are built on the device that the config names: ``platform: cpu``
 runs on the CPU; otherwise the CUDA card, and without one ``resolve_device``
@@ -53,7 +55,7 @@ import os
 import pickle
 import pickletools
 import zipfile
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -253,12 +255,12 @@ def read_torch_checkpoint(path: str):
     except pickle.UnpicklingError as err:
         strings = _pickle_strings(path)
         reference = {"state_dict", "hyper_parameters"} <= strings
-        ace = {"module", "config"} <= strings
+        ace = {"module", "config", "builder", "in_names", "out_names"} <= strings
         if "config_json" in strings or not (reference or ace):
             raise pickle.UnpicklingError(
                 f"{path}: refused by torch.load(weights_only=True); only a reference "
                 f"checkpoint (state_dict and hyper_parameters) or a native ACE checkpoint "
-                f"(module and config) is read without it: {err}"
+                f"(module, config, builder, in_names and out_names) is read without it: {err}"
             ) from err
         return torch.load(path, map_location="cpu", weights_only=False)
 
@@ -463,15 +465,18 @@ ACE_BUILDER_DEFAULTS = {
 ACE_LOSSES = {"LpLoss": "l2_rel", "MSE": "l2", "AreaWeightedMSE": "l2"}
 
 
-def load_ace_stepper_checkpoint(path: str, device=None, _preloaded: Optional[dict] = None):
+def load_ace_stepper_checkpoint(path: str, device=None,
+                                model_overrides: Optional[Mapping[str, Any]] = None,
+                                _preloaded: Optional[dict] = None):
     """A native ACE checkpoint (``torch.save({"stepper": state, ...})``,
     read by ``read_torch_checkpoint`` unless ``_preloaded`` holds it) as
     ``(SingleStepStepper, the stored config)`` on ``device`` (the CUDA card
     when None; raises without one). The SFNO takes its architecture from
-    the weights, the builder config over ``ACE_BUILDER_DEFAULTS``, the scale
-    factor from ``pos_embed`` where it divides the grid, erf gelu for "gelu"
-    and ``exact_norm``; fields of the names or the ocean without statistics
-    get mean 0 and std 1."""
+    the weights, the builder config and then ``model_overrides`` (SFNO
+    config fields, ``use_pallas`` and ``fused_tail`` among them) over
+    ``ACE_BUILDER_DEFAULTS``, the scale factor from ``pos_embed`` where it
+    divides the grid, erf gelu for "gelu" and ``exact_norm``; fields of the
+    names or the ocean without statistics get mean 0 and std 1."""
     from .data.coords import SigmaCoordinates
     from .inference.ace_stepper import SingleStepStepper, SingleStepStepperConfig
     from .inference.corrector import CorrectorConfig
@@ -495,7 +500,8 @@ def load_ace_stepper_checkpoint(path: str, device=None, _preloaded: Optional[dic
     arch = infer_sfno_architecture(sd)
     area_np = np.asarray(state["area"], np.float32)
     img_shape = tuple(state.get("img_shape") or area_np.shape)
-    bcfg = {**ACE_BUILDER_DEFAULTS, **dict(builder.get("config") or {})}
+    bcfg = {**ACE_BUILDER_DEFAULTS, **dict(builder.get("config") or {}),
+            **dict(model_overrides or {})}
     cfg_kwargs = _fields(SFNOConfig, bcfg, _TIME_KEYS)
     cfg_kwargs.update({k: arch[k] for k in (
         "embed_dim", "num_layers", "encoder_layers", "operator_type", "pos_embed", "use_mlp",

@@ -15,7 +15,9 @@ With ``stepper_type: ace`` it runs the ACE rollout instead
 (``inference/ace_stepper.py``): from a native ACE checkpoint
 (``interface.load_ace_stepper_checkpoint``, with the run config's
 ``corrector``, ``ocean`` or ``prescriber`` and ``sigma_coordinates`` over the
-checkpoint's), or from any one-step experiment checkpoint (a simultaneous
+checkpoint's, and ``overrides["model"]`` over its builder config, where
+``use_pallas`` and ``fused_tail`` turn K1 and K3 on; no other ``overrides``
+key applies to it), or from any one-step experiment checkpoint (a simultaneous
 forecaster with ``horizon_at_once`` 1 and window 1), whose forcings become
 the stepper's and whose prescriber, where the run config gives no ocean,
 becomes the prescribed ocean; ``derived: true`` also scores the registered
@@ -145,7 +147,15 @@ def _main_ace(cfg: dict, device) -> dict:
     path = resolve_checkpoint_path(cfg["checkpoint_path"])
     ck = _load_if_ace_torch_checkpoint(path)
     if ck is not None:
-        stepper, _ = load_ace_stepper_checkpoint(path, device=device, _preloaded=ck)
+        overrides = dict(cfg.get("overrides") or {})
+        if set(overrides) - {"model"}:
+            raise ValueError(
+                f"overrides {sorted(set(overrides) - {'model'})}: a native ACE checkpoint takes "
+                "only overrides['model'] (over its builder config); its physics come from the "
+                "run config's corrector, ocean and sigma_coordinates")
+        stepper, _ = load_ace_stepper_checkpoint(path, device=device,
+                                                 model_overrides=overrides.get("model"),
+                                                 _preloaded=ck)
         stepper = _apply_ace_physics_overrides(cfg, stepper)
         if cfg.get("params_dtype"):
             round_params(stepper.module, cfg["params_dtype"])

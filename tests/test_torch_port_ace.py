@@ -8,7 +8,9 @@ seed go through both packages in float32.
 
 Debug size: 8 x 16 grids (16 x 32 for the SFNO stepper), K = 3 water
 levels, SFNOs at embed 8 x 2 layers; the JAX kernels run interpreted, the
-port's wrappers compute their plain versions. Tolerances: fields 1e-5 of
+port's wrappers compute their plain versions. The SFNO weights are the
+port's (seeded, with JAX's initializers' distributions), carried to JAX by
+``utils/convert.py``, so that no JAX initializer is compiled. Tolerances: fields 1e-5 of
 each field's largest value where a model runs (1e-6 for the physics alone),
 as each test states; aggregator logs as ``_assert_logs`` states.
 """
@@ -42,7 +44,7 @@ from spherical_dyffusion_tpu_torch.inference import corrector as corr
 from spherical_dyffusion_tpu_torch.inference import derived_variables as dv
 from spherical_dyffusion_tpu_torch.inference import ocean as ocean_mod
 from spherical_dyffusion_tpu_torch.training import losses
-from spherical_dyffusion_tpu_torch.utils.convert import flax_to_state_dict
+from spherical_dyffusion_tpu_torch.utils.convert import flax_to_state_dict, state_dict_to_flax
 
 torch.set_num_threads(2)
 
@@ -302,14 +304,17 @@ def test_derived_quantities_match_jax():
     js, ps = _sigmas()
     d = {k: np.stack([v, 1.01 * v, 0.98 * v], axis=1) for k, v in _sample(8).items()}
     jd, pd = _both(d)
-    want = jdv.compute_derived_quantities(jd, js)
+
+    def jderived(data):
+        return jdv.compute_derived_quantities(data, js)
+
+    want = jderived(jd)  # eagerly: jit would fuse the budget residual's cancellation
     got = dv.compute_derived_quantities(pd, ps)
     assert list(dv.DERIVED_VARIABLE_REGISTRY) == list(jdv.DERIVED_VARIABLE_REGISTRY)
     _close_dicts({k: v.numpy() for k, v in got.items()}, want, 1e-6)
     np.testing.assert_array_equal(got["total_water_path_budget_residual"][:, 0].numpy(), 0.0)
     partial = {k: v for k, v in pd.items() if k != "LHTFLsfc"}
-    want_keys = set(jdv.compute_derived_quantities(
-        {k: v for k, v in jd.items() if k != "LHTFLsfc"}, js))
+    want_keys = set(jax.eval_shape(jderived, {k: v for k, v in jd.items() if k != "LHTFLsfc"}))
     assert set(dv.compute_derived_quantities(partial, ps)) == want_keys
     assert "total_water_path_budget_residual" not in want_keys
     meta = {k: torch.empty((1, 2, H, W), device="meta") for k in d}
@@ -354,23 +359,30 @@ def _boost(tree):
             for k, v in tree.items()}
 
 
+def _jax_variables(model, params, *args):
+    """The JAX SFNO's variables for ``params``: its "constants" collection
+    (the SHT matrices) from a jitted apply that returns only that
+    collection, so no initializer and no forward is compiled."""
+    consts = jax.jit(lambda p, *a: model.apply({"params": p}, *a, mutable=["constants"])[1])(
+        params, *args)
+    return {"params": params, **consts}
+
+
 def _stepper_pair(kernels: bool):
     """(JAX stepper, port stepper): ace_bench's configuration at debug size
     (``main_path.build_ace``'s names, normalizer, sigma, corrector and
-    ocean), float32, the same SFNO weights (JAX's initializers, spectral
-    weights scaled up), ``use_pallas`` and ``fused_tail`` with
-    ``kernels``."""
+    ocean), float32, the same SFNO weights (the port's, spectral weights
+    scaled up), ``use_pallas`` and ``fused_tail`` with ``kernels``."""
     stepper = main_path.build_ace(embed=8, layers=2, dtype="float32", img_shape=(SH, SW),
                                   levels=LEVELS, n_other=N_OTHER, kernels=kernels,
                                   device="cpu")
     in_names, out_names, all_names = main_path.ace_names(LEVELS, N_OTHER)
     kw = dict(img_shape=(SH, SW), in_chans=len(in_names), out_chans=len(out_names),
-              embed_dim=8, num_layers=2, operator_type="dhconv", data_grid="equiangular",
-              use_pallas=kernels, fused_tail=kernels)
-    model = JSFNO(JSFNOConfig(**kw))
-    v = model.init(jax.random.PRNGKey(0), jnp.zeros((1, SH, SW, len(in_names))))
-    v = {**v, "params": _boost(v["params"])}
-    stepper.module.load_state_dict(flax_to_state_dict(v))
+              embed_dim=8, num_layers=2, operator_type="dhconv", data_grid="equiangular")
+    params = _boost(state_dict_to_flax(stepper.module.state_dict())["params"])
+    stepper.module.load_state_dict(flax_to_state_dict(params))
+    v = _jax_variables(JSFNO(JSFNOConfig(**kw)), params, jnp.zeros((1, SH, SW, len(in_names))))
+    model = JSFNO(JSFNOConfig(**kw, use_pallas=kernels, fused_tail=kernels))
     norm = stepper.normalizer
     jnorm = JNorm.from_dicts(dict(zip(norm.names, norm.means.tolist())),
                              dict(zip(norm.names, norm.stds.tolist())), norm.names)
@@ -459,10 +471,12 @@ def _ace_stats(n):
     return ((1e5, 1e3) if n == "PRESsfc" else (1e-3, 1e-4) if "water" in n else (1.0, 0.5))
 
 
-def _map_pair():
+@pytest.fixture(scope="module")
+def map_pair():
     """(JAX stepper, port stepper) over a small fixed map tanh(x W) (the
     rollout driver's logic, not the network, is under test), with the
-    dry-air corrector, the prescribed ocean and ace_bench's statistics."""
+    dry-air corrector, the prescribed ocean and ace_bench's statistics;
+    shared by the rollout tests, so that JAX compiles its window once."""
     js, ps = JSigma(ak=np.linspace(0, 100.0, K + 1), bk=np.linspace(0, 1.0, K + 1)), \
         SigmaCoordinates(ak=np.linspace(0, 100.0, K + 1), bk=np.linspace(0, 1.0, K + 1))
     ja, pa = _areas()
@@ -497,14 +511,14 @@ def _assert_logs(got: dict, want: dict, scales: dict):
 
 
 @pytest.mark.parametrize("derived", [False, True])
-def test_run_ace_inference_matches_jax(derived):
+def test_run_ace_inference_matches_jax(derived, map_pair):
     """12 steps in windows of 4 over a 13-frame source of ace_bench's data
     recipe (one numpy source read by both packages): the port's windowed
     rollout against its own single window (the last window's fields 1e-6
     from the carried state), and against JAX's summary (steps,
     ``loss_last_window`` 1e-5) and aggregator logs (``_assert_logs``), with
     ``derived`` off and on; ``ace_scored_names`` equal to JAX's."""
-    jstep, pstep = _map_pair()
+    jstep, pstep = map_pair
     jsrc = psrc = main_path.AceBenchSource(ALL_NAMES, 13, (H, W))
     scored = ace.ace_scored_names(pstep, psrc, derived=derived)
     assert scored == jace.ace_scored_names(jstep, jsrc, derived=derived)
@@ -531,13 +545,13 @@ def test_run_ace_inference_matches_jax(derived):
     _assert_logs(pagg.get_logs(), jagg.get_logs(), scales)
 
 
-def test_run_ace_inference_upload_cache_and_errors(monkeypatch):
+def test_run_ace_inference_upload_cache_and_errors(monkeypatch, map_pair):
     """A source looped by the rollout (8 frames, 16 steps in windows of 4):
     the windows at offsets 8 and 12 repeat those at 0 and 4, so two window
     buffers are uploaded; the generated fields equal one window over the
     wrapped frames (1e-6). Too short a source, and ``derived`` without
     sigma, raise."""
-    _, pstep = _map_pair()
+    _, pstep = map_pair
     src = main_path.AceBenchSource(ALL_NAMES, 8, (H, W))
     uploads = []
     real = ace.to_device

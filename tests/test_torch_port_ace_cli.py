@@ -5,7 +5,10 @@ Debug size: 8 x 16 grids (32 x 64 for the loader's quadrature check), 2
 state channels and 1 forcing from each package's ``DebugDataModule`` (the
 same numpy data), SFNOs at embed 8 x 1 layer with K1's route on (the JAX
 kernel's einsum form, the port's wrapper computing its plain version).
-Dropout is off, so both packages compute the same function. Tolerances:
+Dropout is off, so both packages compute the same function. The SFNO
+weights are the port's (seeded, with JAX's initializers' distributions),
+carried to JAX by ``utils/convert.py``, so that no JAX initializer is
+compiled; the JAX trainer is built and fitted once for the module. Tolerances:
 losses 1e-5 relative; gradients 1e-4 of each tensor's largest entry (of
 1e-4 of the network's largest where a tensor's cancels below that); model
 outputs 1e-5 of their largest value; ``metrics.json`` logs 1e-4 relative
@@ -31,11 +34,12 @@ from spherical_dyffusion_tpu.training import Trainer as JTrainer
 from spherical_dyffusion_tpu.training import TrainerConfig as JTrainerConfig
 from spherical_dyffusion_tpu.utils.torch_convert import sfno_flax_to_torch
 from spherical_dyffusion_tpu_torch import interface
+from spherical_dyffusion_tpu_torch.models.sfno import SFNO, SFNOConfig
 from spherical_dyffusion_tpu_torch.ops import pallas_contractions as pc
 from spherical_dyffusion_tpu_torch.run_inference import main_from_config
 from spherical_dyffusion_tpu_torch.training.experiments import SimultaneousForecastingExperiment
 from spherical_dyffusion_tpu_torch.training.trainer import Trainer, TrainerConfig
-from spherical_dyffusion_tpu_torch.utils.convert import flax_to_state_dict
+from spherical_dyffusion_tpu_torch.utils.convert import flax_to_state_dict, state_dict_to_flax
 
 torch.set_num_threads(2)
 
@@ -63,10 +67,26 @@ def _boost(tree):
             for k, v in tree.items()}
 
 
+def _jax_variables(model, params, *args, **kwargs):
+    """The JAX SFNO's variables for ``params``: its "constants" collection
+    (the SHT matrices) from a jitted apply that returns only that
+    collection, so no initializer and no forward is compiled."""
+    consts = jax.jit(lambda p, a, k: model.apply({"params": p}, *a, mutable=["constants"],
+                                                 **k)[1])(params, args, kwargs)
+    return {"params": params, **consts}
+
+
+def _port_sfno_params(**cfg):
+    """The flax tree of a port SFNO's seeded weights."""
+    model = SFNO(SFNOConfig(**cfg))
+    model.init_weights(torch.Generator().manual_seed(0))
+    return state_dict_to_flax(model.state_dict())["params"]
+
+
 def _pair(cfg):
     """(JAX experiment, its variables, port experiment, the datamodules):
-    the same weights (JAX's initializers, the spectral weights scaled up so
-    the filter shows) in both. The port routes the dhconv through K1's
+    the same weights (the port's, the spectral weights scaled up so the
+    filter shows) in both. The port routes the dhconv through K1's
     wrapper; JAX contracts it with its einsum (the same function: K1's own
     parity with JAX's interpreted kernel is ``test_torch_port_train_k1.py``'s,
     and tracing the interpreted kernel's backward costs seconds a call)."""
@@ -75,11 +95,10 @@ def _pair(cfg):
     dm = interface.get_datamodule(cfg)
     exp = interface.get_experiment(cfg, dm, device="cpu")
     C, CF = len(jdm.cfg.in_names), len(jdm.cfg.forcing_names)
-    v = jax.jit(lambda key: jexp.model.init(key, jnp.zeros((1, H, W, C)),
-                                            condition=jnp.zeros((1, H, W, CF))))(
-        jax.random.PRNGKey(0))
-    v = {**v, "params": _boost(v["params"])}
-    exp.model.load_state_dict(flax_to_state_dict(v))
+    params = _boost(state_dict_to_flax(exp.model.state_dict())["params"])
+    exp.model.load_state_dict(flax_to_state_dict(params))
+    v = _jax_variables(jexp.model, params, jnp.zeros((1, H, W, C)),
+                       condition=jnp.zeros((1, H, W, CF)))
     return jexp, v, exp, jdm, dm
 
 
@@ -204,51 +223,61 @@ class _Log:
         return [r["train/loss"] for r in self.rows if "train/loss" in r]
 
 
-def test_simultaneous_fit_matches_jax():
-    """``Trainer.fit``, 2 epochs of 2 steps at batch 1, lr 4e-4 after one
-    warm-up step, from the same weights: per-step and epoch losses 1e-5
-    relative; ``rollout_validate`` gives ``{}``, as in JAX."""
-    cfg = _cfg(horizon=2, hao=1, batch_size=1, n_timesteps=4)
-    jexp, v, exp, jdm, dm = _pair(cfg)
-    kw = dict(epochs=2, warmup_steps=1, log_every=1)
-    jtr = JTrainer(jexp, jdm, JTrainerConfig(**kw))
+FIT_CFG = _cfg(horizon=2, hao=1, batch_size=1, n_timesteps=4)
+FIT_KW = dict(epochs=2, warmup_steps=1, log_every=1)
+
+
+@pytest.fixture(scope="module")
+def jax_fit():
+    """JAX's ``Trainer.fit`` of ``FIT_CFG``: 2 epochs of 2 steps at batch
+    1, lr 4e-4 after one warm-up step, from ``_pair``'s weights; the port's
+    experiment and datamodule over the same weights beside it."""
+    jexp, v, exp, jdm, dm = _pair(FIT_CFG)
+    jtr = JTrainer(jexp, jdm, JTrainerConfig(**FIT_KW))
     jtr.restore_payload = {"params": v}
-    jlog, tlog = _Log(), _Log()
+    jlog = _Log()
     jhist = jtr.fit(val_every=100, verbose=False, logger=jlog)
-    ttr = Trainer(exp, dm, TrainerConfig(**kw))
-    thist = ttr.fit(val_every=100, verbose=False, logger=tlog)
+    return dict(trainer=jtr, log=jlog, hist=jhist, exp=exp, dm=dm)
+
+
+def test_simultaneous_fit_matches_jax(jax_fit):
+    """``Trainer.fit`` against ``jax_fit``'s, from the same weights:
+    per-step and epoch losses 1e-5 relative; ``rollout_validate`` gives
+    ``{}``, as in JAX."""
+    jtr, jlog = jax_fit["trainer"], jax_fit["log"]
+    ttr = Trainer(jax_fit["exp"], jax_fit["dm"], TrainerConfig(**FIT_KW))
+    thist = ttr.fit(val_every=100, verbose=False, logger=_Log())
     assert len(thist["step_losses"]) == len(jlog.step_losses()) == 4
     np.testing.assert_allclose(thist["step_losses"], jlog.step_losses(), rtol=1e-5)
-    np.testing.assert_allclose(thist["train_loss"], jhist["train_loss"], rtol=1e-5)
+    np.testing.assert_allclose(thist["train_loss"], jax_fit["hist"]["train_loss"], rtol=1e-5)
     assert ttr.rollout_validate(ttr.state) == {} == jtr.rollout_validate(jtr.state)
 
 
-def test_simultaneous_validate_raises_as_in_jax():
-    """JAX's ``fit`` cannot validate a simultaneous experiment: its
-    forecasting eval step calls ``predict`` with arguments the experiment
-    does not take (``TypeError``). The port raises a ``ValueError`` naming
-    both JAX lines, before any validation work."""
-    cfg = _cfg(horizon=1, hao=1, batch_size=1, n_timesteps=4)
-    jdm = jinterface.get_datamodule(_jax_cfg(cfg))
-    jtr = JTrainer(jinterface.get_experiment(_jax_cfg(cfg), jdm), jdm,
-                   JTrainerConfig(epochs=1, warmup_steps=1))
+def test_simultaneous_validate_raises_as_in_jax(jax_fit):
+    """JAX's ``fit`` cannot validate a simultaneous experiment: the
+    ``validate`` it calls at each ``val_every`` epoch builds a forecasting
+    eval step that calls ``predict`` with arguments the experiment does not
+    take (``TypeError``; here on ``jax_fit``'s trained state). The port's
+    ``fit`` raises a ``ValueError`` naming both JAX lines, before any
+    validation work."""
+    jtr = jax_fit["trainer"]
     with pytest.raises(TypeError, match="dynamical_condition"):
-        jtr.fit(val_every=1, verbose=False)
-    dm = interface.get_datamodule(cfg)
-    ttr = Trainer(interface.get_experiment(cfg, dm, device="cpu"), dm,
-                  TrainerConfig(epochs=1, warmup_steps=1))
+        jtr.validate(jtr.state)
+    dm = interface.get_datamodule(FIT_CFG)
+    ttr = Trainer(interface.get_experiment(FIT_CFG, dm, device="cpu"), dm,
+                  TrainerConfig(**FIT_KW))
     with pytest.raises(ValueError, match=r"trainer\.py:996.*experiments\.py:487"):
         ttr.fit(val_every=1, verbose=False)
 
 
 # ------------------------------------------------------- native ACE checkpoints
 
-def _native_state(in_names, out_names, base, variables, extra_builder, sigma_k=3, **cfg):
+def _native_state(in_names, out_names, base, params, extra_builder, sigma_k=3, **cfg):
     """A native ACE checkpoint's stepper state, as JAX's tests fabricate it."""
     H_, W_ = base["img_shape"]
     state = {
         "module": {k: torch.as_tensor(np.array(x))
-                   for k, x in sfno_flax_to_torch(variables["params"]).items()},
+                   for k, x in sfno_flax_to_torch(params).items()},
         "normalizer": {"means": {n: 1.0 for n in in_names},
                        "stds": {n: 0.5 for n in in_names}},
         "img_shape": (H_, W_),
@@ -268,25 +297,25 @@ def _native_state(in_names, out_names, base, variables, extra_builder, sigma_k=3
 def native(tmp_path_factory):
     """The JAX tests' native checkpoint: an SFNO (embed 8, 1 layer, erf
     gelu, exact norm) over PRESsfc, one water level and the forcing
-    DSWRFtoa, the dry-air corrector, data_grid given explicitly."""
+    DSWRFtoa, the dry-air corrector, data_grid given explicitly; the
+    weights the port's, seeded. JAX's loader reads it once here."""
     in_names = ["PRESsfc", "specific_total_water_0", "DSWRFtoa"]
     base = dict(img_shape=(H, W), in_chans=3, out_chans=2, embed_dim=8, num_layers=1,
                 with_time_emb=False, activation_function="gelu_exact", exact_norm=True)
-    model = JSFNO(JSFNOConfig(**base))
-    v = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.zeros((1, H, W, 3)))
-    state = _native_state(in_names, in_names[:-1], base, v,
+    state = _native_state(in_names, in_names[:-1], base, _port_sfno_params(**base),
                           {"scale_factor": 1, "data_grid": "equiangular"},
                           corrector={"conserve_dry_air": True})
     path = str(tmp_path_factory.mktemp("ace") / "ace_native.ckpt")
     torch.save({"stepper": state}, path)
-    return dict(path=path, model=model, variables=v, state=state)
+    jstep, jcfg = jinterface.load_ace_stepper_checkpoint(path)
+    return dict(path=path, state=state, jstep=jstep, jcfg=jcfg)
 
 
 def test_load_ace_stepper_checkpoint_matches_jax(native):
     """The loaded stepper: its network on a random input (1e-5 of the
     largest output), its config, loss (LpLoss -> l2_rel), corrector,
     normalizer and sigma, as JAX's loader gives them."""
-    jstep, jcfg = jinterface.load_ace_stepper_checkpoint(native["path"])
+    jstep, jcfg = native["jstep"], native["jcfg"]
     stepper, cfgd = interface.load_ace_stepper_checkpoint(native["path"], device="cpu")
     assert cfgd == jcfg
     assert dataclasses.asdict(stepper.cfg) == dataclasses.asdict(jstep.cfg)
@@ -312,16 +341,18 @@ def test_ace_loader_legendre_gauss_default_with_teeth(tmp_path):
                 with_time_emb=False, scale_factor=1, activation_function="gelu_exact",
                 exact_norm=True)
     model_lg = JSFNO(JSFNOConfig(data_grid="legendre-gauss", **base))
-    v = jax.jit(model_lg.init)(jax.random.PRNGKey(0), jnp.zeros((1, Hq, Wq, 2)))
+    params = _port_sfno_params(data_grid="legendre-gauss", **base)
     names = ["PRESsfc", "specific_total_water_0"]
-    state = _native_state(names, names, base, v, {"scale_factor": 1}, sigma_k=0,
+    state = _native_state(names, names, base, params, {"scale_factor": 1}, sigma_k=0,
                           corrector=None)
     path = str(tmp_path / "ace_lg.ckpt")
     torch.save({"stepper": state}, path)
     stepper, _ = interface.load_ace_stepper_checkpoint(path, device="cpu")
     assert stepper.module.cfg.data_grid == "legendre-gauss" and stepper.sigma is None
     x = np.random.default_rng(1).standard_normal((1, Hq, Wq, 2)).astype(np.float32)
-    want = np.asarray(jax.jit(model_lg.apply)(v, jnp.asarray(x)))
+    want = np.asarray(jax.jit(lambda p, a: model_lg.apply({"params": p}, a,
+                                                          mutable=["constants"])[0])(
+        params, jnp.asarray(x)))
     eq = interface.SFNO(dataclasses.replace(stepper.module.cfg, data_grid="equiangular"))
     eq.load_state_dict(stepper.module.state_dict())
     with torch.no_grad():
@@ -337,8 +368,9 @@ def test_only_a_native_ace_checkpoint_is_read_without_weights_only(native, tmp_p
                                                                    monkeypatch, legacy):
     """A native ACE checkpoint that ``weights_only=True`` refuses (an object
     in its config) is read again without it, and loads the same stepper;
-    a file with ``config_json`` (the port's own) or with neither a
-    reference's nor an ACE stepper's keys raises. Both torch formats."""
+    a file with ``config_json`` (the port's own), with neither a
+    reference's nor an ACE stepper's keys, or with only ``module`` and
+    ``config`` of them raises. Both torch formats."""
     def save(obj, name):
         torch.save(obj, str(tmp_path / name), _use_new_zipfile_serialization=not legacy)
         return str(tmp_path / name)
@@ -357,10 +389,11 @@ def test_only_a_native_ace_checkpoint_is_read_without_weights_only(native, tmp_p
     port = {"config_json": "{}", "module": {}, "config": {},
             "namespace": argparse.Namespace(a=1)}
     other = {"weights": {}, "namespace": argparse.Namespace(a=1)}
-    for payload, name in ((port, "port.ckpt"), (other, "other.pt")):
+    generic = {"module": {}, "config": {}, "namespace": argparse.Namespace(a=1)}
+    for payload, name in ((port, "port.ckpt"), (other, "other.pt"), (generic, "generic.pt")):
         with pytest.raises(pickle.UnpicklingError, match="native ACE checkpoint"):
             interface.load_ace_stepper_checkpoint(save(payload, name), device="cpu")
-    assert loads == [True, True]
+    assert loads == [True, True, True]
     with pytest.raises(ValueError, match="not a native ACE checkpoint"):
         interface.load_ace_stepper_checkpoint(save({"stepper": {"module": {}}}, "x.pt"),
                                               device="cpu")
@@ -413,15 +446,12 @@ def test_run_inference_ace_native_checkpoint_matches_jax(native, tmp_path):
 
 
 @pytest.fixture(scope="module")
-def simultaneous_ckpt(tmp_path_factory):
-    """A one-step simultaneous checkpoint of the JAX package (msgpack),
-    its weights and EMA from JAX's initializers."""
-    cfg = _jax_cfg(_cfg(horizon=1, hao=1, batch_size=4, n_timesteps=24))
-    dm = jinterface.get_datamodule(cfg)
-    tr = JTrainer(jinterface.get_experiment(cfg, dm), dm, JTrainerConfig(epochs=1))
-    tr.state = tr.init_state(next(iter(dm.train_batches())))
+def simultaneous_ckpt(tmp_path_factory, jax_fit):
+    """A one-step simultaneous checkpoint of the JAX package (msgpack):
+    ``jax_fit``'s trained weights and EMA (``horizon_at_once`` 1, window
+    1)."""
     path = str(tmp_path_factory.mktemp("sim") / "ace.ckpt")
-    jinterface.save_experiment_checkpoint(path, tr.state, cfg)
+    jinterface.save_experiment_checkpoint(path, jax_fit["trainer"].state, _jax_cfg(FIT_CFG))
     return path
 
 
@@ -453,7 +483,7 @@ def test_run_inference_ace_overrides_and_refusals(native, simultaneous_ckpt, tmp
     over = {"corrector": {"zero_global_mean_moisture_advection": False},
             "ocean": {"surface_temperature_name": "PRESsfc", "ocean_fraction_name": "land"},
             "sigma_coordinates": {"ak": [0.0, 5.0], "bk": [0.0, 1.0]}}
-    jstep, _ = jinterface.load_ace_stepper_checkpoint(native["path"])
+    jstep = native["jstep"]
     stepper, _ = interface.load_ace_stepper_checkpoint(native["path"], device="cpu")
     want, got = japply(over, jstep), _apply_ace_physics_overrides(over, stepper)
     assert dataclasses.asdict(got.cfg) == dataclasses.asdict(want.cfg)
@@ -471,9 +501,42 @@ def test_run_inference_ace_overrides_and_refusals(native, simultaneous_ckpt, tmp
             main_from_config({**base, **bad})
     with pytest.raises(NotImplementedError, match="item 8"):
         main_from_config({**base, "data_writer": {"save_prediction_files": True}})
+    with pytest.raises(ValueError, match="overrides"):
+        main_from_config({**base, "overrides": {"datamodule": {"horizon": 2}}})
     exp = interface.load_experiment_checkpoint(simultaneous_ckpt, device="cpu")[0]
     from spherical_dyffusion_tpu_torch.run_inference import _run_ace_from_checkpoint
 
     exp.horizon_at_once = 2
     with pytest.raises(ValueError, match="one-step"):
         _run_ace_from_checkpoint(base, exp, {}, torch.device("cpu"))
+
+
+def test_run_inference_ace_model_overrides_turn_the_kernels_on(native, tmp_path, monkeypatch):
+    """A native checkpoint whose builder config names no kernel, with the
+    run config's ``overrides["model"]`` setting ``use_pallas`` and
+    ``fused_tail``: the loaded network routes through K1's and K3's
+    wrappers (counted here through the plain versions they compute on the
+    CPU: K1 once and K3 once per layer and step), and ``metrics.json``
+    equals the run without the overrides bit for bit."""
+    from spherical_dyffusion_tpu_torch.ops import fused_mlp
+
+    calls = {"K1": 0, "K3": 0}
+    real_k1, real_k3 = pc.dhconv_plain, fused_mlp.fused_block_tail_plain
+    monkeypatch.setattr(pc, "dhconv_plain", lambda *a: calls.__setitem__(
+        "K1", calls["K1"] + 1) or real_k1(*a))
+    monkeypatch.setattr(fused_mlp, "fused_block_tail_plain", lambda *a, **k: calls.__setitem__(
+        "K3", calls["K3"] + 1) or real_k3(*a, **k))
+    cfg = {"checkpoint_path": native["path"], "stepper_type": "ace", "n_forward_steps": 4,
+           "forward_steps_in_memory": 2, "verbose": False, "log_zonal_mean_images": False,
+           "platform": "cpu"}
+    metrics = []
+    for over in (None, {"model": {"use_pallas": True, "fused_tail": True}}):
+        out_dir = tmp_path / ("kernels" if over else "plain")
+        res = main_from_config(dict(cfg, experiment_dir=str(out_dir),
+                                    **({"overrides": over} if over else {})))
+        mcfg = res["stepper"].module.cfg
+        assert (mcfg.use_pallas, mcfg.fused_tail) == ((True, True) if over else (False, False))
+        metrics.append(json.loads((out_dir / "metrics.json").read_text()))
+    assert calls == {"K1": 4, "K3": 4}
+    logs = [{k: v for k, v in m.items() if k.startswith("inference/")} for m in metrics]
+    assert logs[0] == logs[1]
