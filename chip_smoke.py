@@ -171,14 +171,41 @@ Phases, each timed:
    3 steps at constant lr through the kernels against the plain path
    (losses 1e-5); (f) one warm ACE window under ``torch.profiler``: its
    launches and kernel time by group against (a)'s steady window.
+16. (run after phase 10, before the profile, as is phase 17) the UNet at
+   the published width of ``configs/model/unet.json`` (dim
+   64, ``dim_mults`` (1, 2, 4, 8), dropouts 0.1, bilinear resampling 180 x
+   360 -> 184 x 368; 35.4 M parameters), float32, batch 1, the main path's
+   channels, cuDNN's TF32 convolutions at torch's default: (a) each
+   network's forward ms and peak memory; (b) a 12-step DYffusion window
+   with the interpolator's dropout live (``main_path.unet_window``): its
+   seconds, the forwards counted by hooks, steps/s; (c) 3 training steps of
+   each experiment (``main_path.unet_train_steps``): step ms and peak
+   memory; (d) the train command line with ``model=unet`` (2 steps of each
+   experiment), then ``run_inference`` for 12 steps from the forecaster's
+   checkpoint; K1-K4 launched no time in (a)-(d) (the UNet has no
+   hand-written kernel); (e) at debug size with dropout and TF32 off, the
+   card's output against the CPU's for the same weights (1e-4);
+17. the parallel path on one card: ``maybe_init_multihost`` with
+   ``SPHDY_COORDINATOR`` at a free local port, one process: an NCCL group
+   of one; ``distributed_sht``, ``distributed_isht`` and
+   ``distributed_dhconv`` (scatter on and off) at 256 channels on 180 x 360
+   against ``ops/sht.py``'s transforms and the dense contraction (1e-5
+   relative); 3 interpolator training steps at 256 x 8 through K1 with
+   ``grad_reduce_dtype="bfloat16"`` and ``zero_shard_opt_state=True``
+   against the plain trainer's, bit for bit (a mesh of one rank skips both,
+   as JAX does at mesh size 1), K1's launches counted; the group destroyed.
+   Two ranks cannot share one card's NCCL communicator: the multi-rank
+   numerics are the CPU tests' (gloo, 2 and 4 processes).
 
 It prints a ``training`` JSON line (phase 11's figures), a ``cli`` JSON line
 (phase 12's), an ``options`` JSON line (phase 13's), a ``modes`` JSON line
-(phase 14's), an ``ace`` JSON line (phase 15's), a ``kernels`` JSON line
-(K1's backward dx as its own entry; ``launches_by_path`` holds phase 12
-(b)'s counts as ``"cli"``, phase 13's as ``"tucker"``, ``"fold"`` and
-``"remat"``, and phase 15's as ``"ace"``, ``"ace_cli"`` and
-``"simultaneous"``), the ``nvidia-smi`` line, and last
+(phase 14's), an ``ace`` JSON line (phase 15's), a ``unet`` JSON line
+(phase 16's), a ``parallel`` JSON line (phase 17's), a ``kernels`` JSON
+line (K1's backward dx as its own entry; ``launches_by_path`` holds phase
+12 (b)'s counts as ``"cli"``, phase 13's as ``"tucker"``, ``"fold"`` and
+``"remat"``, phase 15's as ``"ace"``, ``"ace_cli"`` and
+``"simultaneous"``, phase 16's as ``"unet"`` (zero for every kernel) and
+phase 17's as ``"parallel"``), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. It needs the port's package beside it
 and a CUDA card; without either it exits non-zero at once.
@@ -247,6 +274,15 @@ ACE_EMBED, ACE_LAYERS, ACE_SHAPE = 256, 8, (180, 360)
 ACE_LEVELS, ACE_OTHER = 8, 25
 ACE_STEPS, ACE_WINDOW = 48, 12
 SIM_WARMUP, SIM_STEPS, SIM_CMP_STEPS = 2, 3, 3
+# phase 16: the UNet of configs/model/unet.json (its width, multipliers and
+# resampled grid), the main path's state channels, the forwards timed a
+# network and the training steps an experiment
+UNET_DIM, UNET_MULTS = 64, (1, 2, 4, 8)
+UNET_SHAPE, UNET_UPSAMPLE = (180, 360), (184, 368)
+UNET_STATE, UNET_REPS, UNET_TRAIN_STEPS = 35, 5, 3
+# phase 17: the transforms' channels and grid, and the SFNO trained through K1
+PAR_CHANNELS, PAR_SHAPE = 256, (180, 360)
+PAR_EMBED, PAR_LAYERS, PAR_STEPS = 256, 8, 3
 
 
 def log(msg: str) -> None:
@@ -1824,6 +1860,361 @@ def phase15(smi_line, wrappers, report, runs, device="cuda") -> None:
     report["ace"] = ace
 
 
+def phase16(smi_line, wrappers, report, runs, device="cuda") -> None:
+    """Phase 16: the UNet at the published width of ``configs/model/unet.json``
+    (UNET_DIM, UNET_MULTS, dropouts 0.1, bilinear resampling UNET_SHAPE ->
+    UNET_UPSAMPLE) in float32 at batch 1 with the main path's channels, cuDNN
+    at torch's default (TF32 convolutions) as a user runs it: (a) each
+    network's forward ms and peak memory, (b) a 12-step DYffusion window with
+    the interpolator's dropout live, (c) training steps of both experiments,
+    (d) the train command line with ``model=unet`` and ``run_inference``
+    from its checkpoint; then (e) at debug size with dropout off and TF32
+    off, the card's output against the CPU's for the same weights. The UNet
+    has no hand-written kernel: K1-K4 launch no time in (a)-(d)."""
+    import gc
+    import statistics
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from spherical_dyffusion_tpu_torch import main_path
+    from spherical_dyffusion_tpu_torch.models.unet import UNet, UNetConfig
+    from spherical_dyffusion_tpu_torch.run_inference import main_from_config
+    from spherical_dyffusion_tpu_torch.train import run_model
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    size = dict(img_shape=UNET_SHAPE, n_state=UNET_STATE)
+    unet_kw = dict(dim=UNET_DIM, dim_mults=UNET_MULTS, upsample_dims=UNET_UPSAMPLE)
+    rep = {"cudnn_allow_tf32": True}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # torch's default: what a user's run gets
+    for fn in wrappers.values():
+        fn.launches = 0
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+
+    def reset_peak():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    try:
+        # (a) each network's forward: ms (CUDA events around UNET_REPS calls)
+        # and the peak memory of one call above what was allocated before it
+        stepper = main_path.build_unet(device=device, **size, **unet_kw)
+        exp = stepper.exp
+        for name, net in (("interpolator", exp.interpolator.model), ("forecaster", exp.model)):
+            n_params = sum(p.numel() for p in net.parameters())
+            c = net.cfg
+            x = torch.randn((1,) + tuple(c.img_shape) + (c.in_chans,), device=dev)
+            t = torch.ones(1, device=dev)
+            with torch.no_grad():
+                for _ in range(2):
+                    y = net(x, time=t)
+                sync()
+                reset_peak()
+                base = torch.cuda.memory_allocated() / 1e9 if cuda else None
+                y = net(x, time=t)
+                sync()
+                peak = peak_gb()
+                if cuda:
+                    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                    ev[0].record()
+                    for _ in range(UNET_REPS):
+                        net(x, time=t)
+                    ev[1].record()
+                    ev[1].synchronize()
+                    ms = ev[0].elapsed_time(ev[1]) / UNET_REPS
+                else:
+                    t0 = time.perf_counter()
+                    net(x, time=t)
+                    ms = (time.perf_counter() - t0) * 1e3
+            check(tuple(y.shape) == (1,) + tuple(c.img_shape) + (c.out_chans,)
+                  and bool(torch.isfinite(y).all()), f"UNet {name} forward: shape or finiteness")
+            rep[name] = dict(params=n_params, in_chans=c.in_chans, forward_ms=ms,
+                             peak_gb=peak, peak_above_live_gb=(peak - base) if cuda else None)
+            log(f"UNet {name} ({c.in_chans} -> {c.out_chans} channels, {n_params / 1e6:.3f} M "
+                f"parameters): forward {ms:.3f} ms (mean of {UNET_REPS}, CUDA events), peak "
+                f"{peak if peak is None else round(peak, 3)} GB ({rep[name]['peak_above_live_gb']}"
+                f" GB above the live weights); on {smi_line}")
+            del x, y
+        if UNET_DIM == 64 and UNET_MULTS == (1, 2, 4, 8):
+            check(35.3e6 < rep["interpolator"]["params"] < 35.5e6,
+                  f"the published UNet has 35.4 M parameters, got {rep['interpolator']['params']}")
+
+        # (b) a 12-step window, horizon 6, the interpolator's dropout live
+        w = main_path.unet_window(stepper, n_steps=N_STEPS)
+        preds = w["preds"]
+        check(tuple(preds.shape) == (1, N_STEPS) + tuple(UNET_SHAPE) + (UNET_STATE,)
+              and bool(torch.isfinite(preds).all()) and bool(torch.isfinite(w["state"]).all()),
+              f"UNet window: predictions {tuple(preds.shape)} or non-finite")
+        check(w["forwards"]["interpolator"] > 0 and w["forwards"]["forecaster"] > 0,
+              f"UNet window forwards {w['forwards']}")
+        rep["window"] = dict(steps=N_STEPS, seconds=w["seconds"], steps_per_s=w["steps_per_s"],
+                             forwards=w["forwards"])
+        log(f"UNet window: {N_STEPS} steps in {w['seconds']:.3f} s = {w['steps_per_s']:.3f} "
+            f"steps/s (after a warm-up window), forwards {w['forwards']}; on {smi_line}")
+        del stepper, exp, w, preds
+        reset_peak()
+        # train_steps zeroes K1's count at every step and returns it per step
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        for fn in wrappers.values():
+            fn.launches = 0
+
+        # (c) training steps of both experiments
+        tr = main_path.unet_train_steps(UNET_TRAIN_STEPS, device=device, **size, **unet_kw)
+        launches["K1"] += sum(sum(r["k1_launches"]) for r in tr.values())
+        wrappers["K1"].launches = 0
+        rep["training"] = {}
+        for name, r in tr.items():
+            check(all(np.isfinite(r["losses"])), f"UNet {name} training: a non-finite loss")
+            warm = r["step_ms"][1:] or r["step_ms"]
+            rep["training"][name] = dict(
+                step_ms=r["step_ms"], median_step_ms=statistics.median(warm),
+                losses=r["losses"], split_ms=r["split_ms"],
+                peak_gb=r["peak_bytes"] / 1e9 if r["peak_bytes"] is not None else None)
+            log(f"UNet {name} training: step ms {[round(v, 2) for v in r['step_ms']]} (median "
+                f"after the first {statistics.median(warm):.2f}), losses "
+                f"{[round(v, 5) for v in r['losses']]}, peak "
+                f"{rep['training'][name]['peak_gb']} GB; on {smi_line}")
+        del tr
+        reset_peak()
+
+        # (d) the train command line with model=unet, 2 steps of each
+        # experiment, then run_inference from the forecaster's checkpoint
+        tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_unet_")
+        d = Path(tmp.name)
+        H, W = UNET_SHAPE
+        common = [f"ckpt_dir={d}", f"++log_dir={d / 'logs'}", "trainer.epochs=1",
+                  "++trainer.steps_per_epoch=2", "datamodule.n_timesteps=8",
+                  f"datamodule.height={H}", f"datamodule.width={W}",
+                  f"datamodule.channels={UNET_STATE}", "datamodule.n_forcing=2",
+                  "datamodule.batch_size=1", "++datamodule.max_val_samples=1",
+                  "++trainer.num_predictions=2", "model=unet", f"model.dim={UNET_DIM}",
+                  f"model.dim_mults={list(UNET_MULTS)}",
+                  f"model.upsample_dims={list(UNET_UPSAMPLE)}", "verbose=false"]
+        if device == "cpu":
+            common.append("platform=cpu")
+        cli = {}
+        t0 = time.perf_counter()
+        ip = run_model(None, ["experiment=debug_interpolation"] + common)
+        cli["interpolator_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fc = run_model(None, ["experiment=debug_dyffusion",
+                              f"diffusion.interpolator_checkpoint_path={ip['ckpt_path']}"]
+                       + common)
+        cli["forecaster_s"] = time.perf_counter() - t0
+        for name, run in (("interpolator", ip), ("forecaster", fc)):
+            model = run["trainer"].exp.model
+            check(isinstance(model, UNet) and model.cfg.upsample_dims == tuple(UNET_UPSAMPLE),
+                  f"train command line {name}: model=unet built {type(model).__name__}")
+            losses = run["history"]["step_losses"]
+            check(len(losses) == 2 and all(np.isfinite(losses)),
+                  f"train command line {name}: steps {losses}")
+            cli[name] = dict(losses=losses, ckpt_bytes=os.path.getsize(run["ckpt_path"]))
+        del ip, fc
+        reset_peak()
+        t0 = time.perf_counter()
+        out = main_from_config({"checkpoint_path": str(d / "debug-dyffusion_last.ckpt"),
+                                "n_forward_steps": N_STEPS, "forward_steps_in_memory": N_STEPS,
+                                "experiment_dir": str(d / "inference"),
+                                "log_zonal_mean_images": False, "verbose": False,
+                                **({"platform": "cpu"} if device == "cpu" else {})})
+        cli["inference_wall_s"] = time.perf_counter() - t0
+        summary = out["summary"]
+        metrics = json.loads((d / "inference" / "metrics.json").read_text())
+        logs = {k: v for k, v in metrics.items() if k.startswith("inference/")}
+        bad = [k for k, v in logs.items() if not np.isfinite(v)]
+        check(isinstance(out["stepper"].exp.model, UNet) and len(logs) > 20 and not bad
+              and metrics["n_forward_steps"] == N_STEPS,
+              f"run_inference from the UNet checkpoint: {len(logs)} metrics, non-finite {bad[:4]}")
+        cli["inference"] = dict(steps=N_STEPS, duration_s=summary["duration_s"],
+                                total_steps_per_second=summary["total_steps_per_second"])
+        rep["cli"] = cli
+        log(f"UNet command lines: train model=unet interpolator {cli['interpolator_s']:.2f} s, "
+            f"forecaster {cli['forecaster_s']:.2f} s (built, 2 steps, validated, saved; "
+            f"checkpoints {cli['interpolator']['ckpt_bytes'] / 1e9:.3f} and "
+            f"{cli['forecaster']['ckpt_bytes'] / 1e9:.3f} GB), losses "
+            f"{cli['interpolator']['losses']} / {cli['forecaster']['losses']}; run_inference "
+            f"{N_STEPS} steps: {summary['duration_s']:.3f} s, "
+            f"{summary['total_steps_per_second']:.3f} steps/s; on {smi_line}")
+        del out
+        tmp.cleanup()
+        launches = {k: launches[k] + fn.launches for k, fn in wrappers.items()}
+        runs["unet"] = dict(launches=launches)
+        check(not any(launches.values()), f"the UNet path launched a port kernel: {launches}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+    # (e) debug size, dropout off, TF32 off: the card against the CPU
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = UNetConfig(img_shape=(45, 90), in_chans=5, out_chans=3, dim=8, dim_mults=(1, 2, 4),
+                         with_time_emb=True, outer_sample_mode="bilinear", upsample_dims=(48, 96),
+                         block_dropout=0.0, block_dropout1=0.0, attn_dropout=0.0)
+        cpu_net = UNet(cfg)
+        cpu_net.init_weights(torch.Generator().manual_seed(0))
+        net = UNet(cfg).to(dev)
+        net.load_state_dict(cpu_net.state_dict())
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.standard_normal((2, 45, 90, 5)).astype(np.float32))
+        t = torch.tensor([1.0, 3.0])
+        with torch.no_grad():
+            want = cpu_net(x, time=t)
+            got = net(x.to(dev), time=t.to(dev)).cpu()
+        gap = float((got - want).abs().max() / want.abs().max())
+        rep["card_vs_cpu"] = dict(rel_gap=gap, tolerance=1e-4)
+        log(f"UNet at debug size (45 x 90, bilinear 48 x 96), dropout off, TF32 off: the card "
+            f"against the CPU, max gap {gap:.3e} of the largest output (tolerance 1e-4)")
+        check(gap <= 1e-4, f"UNet on the card differs from the CPU by {gap:.3e}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    report["unet"] = rep
+
+
+def phase17(smi_line, wrappers, report, runs, device="cuda") -> None:
+    """Phase 17: the parallel path on one card. ``maybe_init_multihost``
+    with ``SPHDY_COORDINATOR`` at a free local port, one process, rank 0: an
+    NCCL group of one ("gloo" on the CPU); ``distributed_sht``, ``isht`` and
+    ``dhconv`` (scatter on and off) at PAR_CHANNELS channels on PAR_SHAPE
+    against ``ops/sht.py``'s transforms and the dense contraction (1e-5
+    relative), each collective a call of NCCL's; PAR_STEPS training steps of
+    the interpolator at PAR_EMBED x PAR_LAYERS through K1 with
+    ``grad_reduce_dtype="bfloat16"`` and ``zero_shard_opt_state=True``
+    against the plain trainer's, bit for bit (a mesh of one rank skips both,
+    as JAX skips them at mesh size 1), K1's launches counted; the group
+    destroyed."""
+    import dataclasses
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from spherical_dyffusion_tpu_torch import main_path
+    from spherical_dyffusion_tpu_torch.ops.contractions import contract_dhconv
+    from spherical_dyffusion_tpu_torch.ops.sht import InverseRealSHT, RealSHT
+    from spherical_dyffusion_tpu_torch.parallel.distributed_sht import (
+        distributed_dhconv,
+        distributed_isht,
+        distributed_sht,
+    )
+    from spherical_dyffusion_tpu_torch.parallel.mesh import make_mesh
+    from spherical_dyffusion_tpu_torch.parallel.multihost import maybe_init_multihost
+    from spherical_dyffusion_tpu_torch.training.trainer import Trainer
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    rep = {}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"SPHDY_COORDINATOR": f"127.0.0.1:{port}", "SPHDY_NUM_PROCESSES": "1",
+           "SPHDY_PROCESS_ID": "0"}
+    t0 = time.perf_counter()
+    spec = maybe_init_multihost(env=env, backend="nccl" if cuda else "gloo")
+    try:
+        rep["init_s"] = time.perf_counter() - t0
+        backend = dist.get_backend()
+        check(spec is not None and dist.is_initialized() and dist.get_world_size() == 1
+              and backend == ("nccl" if cuda else "gloo"),
+              f"maybe_init_multihost: {spec}, backend {backend}")
+        mesh = make_mesh(data=1, h=1, w=1)
+        check(all(g is dist.group.WORLD for g in mesh.groups.values()),
+              "a world of one: every mesh axis should run its collectives on the world group")
+
+        def timed_ms(fn):
+            fn()
+            if not cuda:
+                return None
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            for _ in range(3):
+                fn()
+            ev[1].record()
+            ev[1].synchronize()
+            return ev[0].elapsed_time(ev[1]) / 3
+
+        H, W = PAR_SHAPE
+        C = PAR_CHANNELS
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn((1, H, W, C), generator=gen, device=dev)
+        wt = torch.randn((C, C, H, 2), generator=gen, device=dev) / C
+        sht, isht = RealSHT(H, W).to(dev), InverseRealSHT(H, W).to(dev)
+        want = sht(x)
+        cases = {
+            "sht": (lambda: distributed_sht(x, sht, mesh), lambda: want, lambda: sht(x)),
+            "isht": (lambda: distributed_isht(want, isht, mesh), lambda: isht(want),
+                     lambda: isht(want)),
+            "dhconv": (lambda: distributed_dhconv(want, wt, mesh),
+                       lambda: contract_dhconv(want, wt), lambda: contract_dhconv(want, wt)),
+            "dhconv_all_reduce": (lambda: distributed_dhconv(want, wt, mesh,
+                                                             scatter_output=False),
+                                  lambda: contract_dhconv(want, wt),
+                                  lambda: contract_dhconv(want, wt)),
+        }
+        for name, (fn, ref, plain) in cases.items():
+            got, r = fn(), ref()
+            gap = float((got - r).abs().max() / r.abs().max())
+            rep[name] = dict(rel_gap=gap, ms=timed_ms(fn), single_device_ms=timed_ms(plain))
+            log(f"distributed {name} at {C} channels on {H} x {W} over an {backend} group of "
+                f"one: {tuple(got.shape)}, max gap {gap:.3e} of the largest value (tolerance "
+                f"1e-5), {rep[name]['ms']} ms against the single-device "
+                f"{rep[name]['single_device_ms']} ms; on {smi_line}")
+            check(gap <= 1e-5, f"distributed {name} differs from the single-device transform")
+        del x, wt, want
+
+        # training through K1: the plain trainer, then bf16 gradient mean
+        # and ZeRO-1 from the same weights (skipped on a mesh of one rank)
+        tr = main_path.build_training(PAR_EMBED, PAR_LAYERS, PAR_SHAPE, n_samples=PAR_STEPS,
+                                      forecaster=False, device=device)["interpolator"]
+        init = {k: v.detach().clone() for k, v in tr.exp.model.state_dict().items()}
+        plain = main_path.train_steps(PAR_STEPS, trainers={"plain": tr})["plain"]
+        tr.exp.model.load_state_dict(init)
+        cfg = dataclasses.replace(tr.cfg, grad_reduce_dtype="bfloat16",
+                                  zero_shard_opt_state=True)
+        par_tr = Trainer(tr.exp, tr.dm, cfg)
+        check(par_tr.mesh.size == 1, f"the trainer's mesh {par_tr.mesh.shape}")
+        for fn in wrappers.values():
+            fn.launches = 0
+        par = main_path.train_steps(PAR_STEPS, trainers={"parallel": par_tr})["parallel"]
+        # train_steps zeroes K1's count at every step and returns it per step
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        for fn in wrappers.values():
+            fn.launches = 0
+        launches["K1"] = sum(par["k1_launches"])
+        runs["parallel"] = dict(launches=launches)
+        same = (par["losses"] == plain["losses"] and all(
+            torch.equal(a, b) for a, b in zip(plain["state"].model.state_dict().values(),
+                                              par["state"].model.state_dict().values())))
+        rep["training"] = dict(steps=PAR_STEPS, losses=par["losses"],
+                               plain_losses=plain["losses"], bit_for_bit=same,
+                               step_ms=par["step_ms"], plain_step_ms=plain["step_ms"],
+                               k1_launches=launches["K1"])
+        log(f"training at {PAR_EMBED} x {PAR_LAYERS} through K1 with grad_reduce_dtype "
+            f"bfloat16 and ZeRO-1 on a world of one: losses {par['losses']} against the plain "
+            f"trainer's {plain['losses']}, parameters bit for bit: {same}; K1 launched "
+            f"{launches['K1']} x; step ms {[round(v, 2) for v in par['step_ms']]} (plain "
+            f"{[round(v, 2) for v in plain['step_ms']]}); on {smi_line}")
+        check(same, "the parallel trainer on a world of one differs from the plain trainer")
+        check(launches["K1"] > 0 and par["k1_launches"] == plain["k1_launches"],
+              f"the parallel training steps launched K1 {par['k1_launches']} times a step, the "
+              f"plain trainer's {plain['k1_launches']}")
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived phase 17")
+    report["parallel"] = rep
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -2865,6 +3256,18 @@ def main() -> int:
         del det, run, record, outs, chained, loop_preds, raw, p64, y64, diff, agg, x, forcing
         del p, rollout_kw
 
+    # phases 16 and 17 run before the profile: a torch.profiler session
+    # leaves a launch cost behind in the process (the UNet's forward, bound
+    # by the host's launches at batch 1, took 19.9-21.4 ms before one
+    # profiled forward and 33.5-36.2 ms after it; PERF.md, PR 15)
+    with Phase("16 the UNet at its published width (forwards, window, training, command "
+               "lines, the card against the CPU)"):
+        phase16(smi_line, wrappers, report, runs)
+
+    with Phase("17 the parallel path on an NCCL group of one (distributed transforms, "
+               "bf16 gradient mean and ZeRO-1 through K1)"):
+        phase17(smi_line, wrappers, report, runs)
+
     with Phase("9 profile (one window of each path)"):
         activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         with profile(activities=activities):  # the profiler's own start-up, not measured
@@ -2955,6 +3358,8 @@ def main() -> int:
     print(json.dumps({"options": report["options"]}))
     print(json.dumps({"modes": report["modes"]}))
     print(json.dumps({"ace": report["ace"]}))
+    print(json.dumps({"unet": report["unet"]}))
+    print(json.dumps({"parallel": report["parallel"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

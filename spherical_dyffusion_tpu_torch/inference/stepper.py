@@ -23,14 +23,27 @@ are here: ``use_ema_params`` with ``ema_params``, ``params_dtype`` and
 ``preds_dtype``. The networks are ``nn.Module``s that hold their weights, so
 the EMA tree is loaded into the experiment's forecaster and ``params_dtype``
 rounds the weights of both networks in place (see ``__init__``).
+
+``mesh`` (``parallel/mesh.py``) splits the rows (initial conditions x
+ensemble members) over its "data" group, as the JAX stepper shards them
+over the mesh's data axis: each rank rolls out its rows with the
+generator folded with its data index, and ``run_window`` returns the rows
+gathered, so callers see the global batch; the weights are broadcast from
+the mesh's first rank. Rows that do not divide by the data size stay whole
+on every rank, as JAX leaves them replicated. JAX reaches latitude and
+longitude sharding of the window through XLA's partitioner; a mesh with
+"h", "w" or "matmul" above 1 raises here (ROADMAP Queue 1 item 7b).
 """
 
 from __future__ import annotations
 
 from typing import Any, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..models.modules import draw_seed
+from ..parallel.mesh import AXIS_DATA, Mesh, gather_batch, replicated, shard_batch
 from ..training.experiments import DYffusionForecastingExperiment
 from ..utils.convert import flax_to_state_dict
 from ..utils.device import to_device
@@ -58,7 +71,7 @@ class DYffusionStepper:
                  ema_params: Optional[Mapping[str, Any]] = None,
                  inputs_noise: Optional[float] = None,
                  params_dtype: Optional[str] = None,
-                 preds_dtype: Optional[str] = None):
+                 preds_dtype: Optional[str] = None, mesh: Optional[Mesh] = None):
         """``use_ema_params`` loads the forecaster's EMA weights,
         ``ema_params`` (a flax variable tree, converted by
         ``utils/convert.py``, or a ``state_dict``), into the experiment's
@@ -76,13 +89,24 @@ class DYffusionStepper:
         made again, once, at the next forward.
 
         ``preds_dtype`` is the dtype of the emitted predictions: only the
-        emitted copy is rounded, and the hand-off state stays float32."""
+        emitted copy is rounded, and the hand-off state stays float32.
+        ``mesh``: see the module's docstring."""
         self.exp = experiment
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            model_axes = {a: n for a, n in self.mesh.shape.items() if a != AXIS_DATA and n > 1}
+            if model_axes:
+                raise NotImplementedError(
+                    f"stepper mesh {self.mesh.shape}: latitude, longitude and channel "
+                    "sharding of the window is not ported (ROADMAP Queue 1 item 7b)")
         if use_ema_params:
             if ema_params is None:
                 raise ValueError("use_ema_params=True requires ema_params (the checkpoint "
                                  "has no EMA weights)")
             experiment.model.load_state_dict(_as_state_dict(ema_params))
+        if self.mesh is not None:
+            for net in (experiment.model, experiment.interpolator.model):
+                replicated(self.mesh, list(net.parameters()))
         if params_dtype:
             for net in (experiment.model, experiment.interpolator.model):
                 round_params(net, params_dtype)
@@ -137,7 +161,23 @@ class DYffusionStepper:
         (B, H, W) static, or None. ``generator`` is a host-side
         ``torch.Generator`` that drives the inputs noise and the
         interpolator's dropout. Returns (final state, preds
-        (B, n_steps, H, W, C_out))."""
+        (B, n_steps, H, W, C_out)); on a mesh, the rows of every rank."""
+        mesh = self.mesh
+        if mesh is not None and x0_norm.shape[0] % mesh.shape[AXIS_DATA] == 0:
+            x0_norm, window_forcing_norm, window_prescribed_target_norm, mask = shard_batch(
+                mesh, [x0_norm, window_forcing_norm, window_prescribed_target_norm, mask])
+            words = [draw_seed(generator), mesh.index(AXIS_DATA)]
+            generator = torch.Generator().manual_seed(
+                int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0]))
+            x, preds = self._run_window(x0_norm, window_forcing_norm,
+                                        window_prescribed_target_norm, mask, generator,
+                                        n_steps, apply_inputs_noise)
+            return gather_batch(mesh, x), gather_batch(mesh, preds)
+        return self._run_window(x0_norm, window_forcing_norm, window_prescribed_target_norm,
+                                mask, generator, n_steps, apply_inputs_noise)
+
+    def _run_window(self, x0_norm, window_forcing_norm, window_prescribed_target_norm, mask,
+                    generator, n_steps, apply_inputs_noise):
         H = self.horizon
         n_full, r = divmod(n_steps, H)
         n_seg = n_full + (1 if r > 0 else 0)

@@ -44,7 +44,10 @@ deep-merges ``interpolator_model`` (a model section) into that
 interpolator's config, as the JAX reference loader does for reference
 checkpoints; the JAX package ignores the key for its own checkpoints. Not
 ported, each raising and naming its ROADMAP item: the ``fv3gfs`` datamodule
-and statistics files (Queue 1 item 8) and the UNet (item 6).
+and statistics files (Queue 1 item 8). A reference checkpoint of a UNet
+raises as in JAX: its loader reads an SFNO's architecture from the weights
+(``infer_sfno_architecture``: "state_dict holds no SFNO blocks"), and
+neither package converts the reference UNet's names.
 """
 
 from __future__ import annotations
@@ -65,6 +68,7 @@ from .data.normalization import StandardNormalizer
 from .data.packer import Packer
 from .diffusion.dyffusion import DYffusionConfig, build_schedule
 from .models.sfno import SFNO, SFNOConfig
+from .models.unet import UNet, UNetConfig
 from .training.experiments import (
     DYffusionForecastingExperiment,
     ExperimentConfig,
@@ -128,23 +132,30 @@ def get_datamodule(cfg: Dict[str, Any]):
 def get_model(model_cfg: Dict[str, Any], img_shape: Tuple[int, int], in_chans: int,
               out_chans: int, with_time_emb: bool, min_time: float = 0.0,
               max_time: float = 1000.0, device=None,
-              generator: Optional[torch.Generator] = None) -> SFNO:
-    """The backbone named by ``model_cfg['kind']`` on ``device`` (the CUDA
-    card when None; raises without one), with random weights from
+              generator: Optional[torch.Generator] = None) -> torch.nn.Module:
+    """The backbone named by ``model_cfg['kind']`` (an ``SFNO`` or a
+    ``UNet``; the UNet, as in JAX, takes no time range) on ``device`` (the
+    CUDA card when None; raises without one), with random weights from
     ``generator`` (a generator on that device; seed 0 when None)."""
     cfg = dict(model_cfg)
     kind = cfg.pop("kind", "sfno")
-    if kind == "unet":
-        raise NotImplementedError("model kind 'unet' is not ported (ROADMAP Queue 1 item 6)")
-    if kind != "sfno":
+    common = dict(img_shape=tuple(img_shape), in_chans=in_chans, out_chans=out_chans,
+                  with_time_emb=with_time_emb)
+    if kind == "sfno":
+        model = SFNO(SFNOConfig(min_time=min_time, max_time=max_time, **common,
+                                **_fields(SFNOConfig, cfg, _TIME_KEYS)))
+    elif kind == "unet":
+        kw = _fields(UNetConfig, cfg, _TIME_KEYS)
+        for k in ("dim_mults", "upsample_dims"):  # JSON lists
+            if kw.get(k) is not None:
+                kw[k] = tuple(kw[k])
+        model = UNet(UNetConfig(**common, **kw))
+    else:
         raise ValueError(f"Unknown model kind {kind!r}")
-    c = SFNOConfig(img_shape=tuple(img_shape), in_chans=in_chans, out_chans=out_chans,
-                   with_time_emb=with_time_emb, min_time=min_time, max_time=max_time,
-                   **_fields(SFNOConfig, cfg, _TIME_KEYS))
     device = torch.device(device) if device is not None else resolve_device({})
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    model = SFNO(c).to(device)
+    model = model.to(device)
     model.init_weights(generator)
     return model
 

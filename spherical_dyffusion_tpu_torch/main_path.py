@@ -55,6 +55,13 @@ out by ``run_ace_inference`` with the aggregator on; ``kernels`` routes the
 dhconv through K1 and each block's tail through K3 (norm1's affine alone).
 ``simultaneous_steps`` trains the simultaneous forecaster (the ACE-style
 training baseline) through ``Trainer.train_step`` at the same width.
+
+``build_unet``, ``unet_window`` and ``unet_train_steps`` run the same
+DYffusion window and training with the UNet backbone at the published
+width of ``configs/model/unet.json`` (dim 64, ``dim_mults`` (1, 2, 4, 8),
+dropouts 0.1, bilinear outer resampling 180 x 360 -> 184 x 368), batch 1,
+float32. The UNet has no hand-written kernel: every kernel launch of these
+paths is cuDNN's, cuBLAS's or PyTorch's own.
 """
 
 from __future__ import annotations
@@ -87,6 +94,7 @@ from .inference.ocean import OceanConfig
 from .inference.prescriber import PrescriberConfig
 from .inference.stepper import DYffusionStepper
 from .models.sfno import SFNO, SFNOConfig
+from .models.unet import UNet, UNetConfig
 from .ops.pallas_contractions import dhconv, dhconv_weight_image
 from .training.experiments import (
     DYffusionForecastingExperiment,
@@ -101,7 +109,8 @@ __all__ = ["state_names", "FORCING_NAMES", "MASK_NAME", "FAST_WINDOW", "TUCKER_W
            "sfno_configs",
            "build", "window_inputs", "product_rollout", "build_training", "train_steps",
            "fused_epoch", "ace_names", "AceBenchSource", "build_ace", "ace_rollout",
-           "build_simultaneous", "simultaneous_steps"]
+           "build_simultaneous", "simultaneous_steps", "unet_configs", "build_unet",
+           "unet_window", "unet_train_steps"]
 
 FORCING_NAMES = ("DSWRFtoa", "HGTsfc")
 MASK_NAME = "ocean_fraction"
@@ -171,12 +180,6 @@ def build(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("main path: CUDA is not available; pass device='cpu' "
                            "to run on the CPU")
-    names = state_names(n_state)
-    unit = StandardNormalizer.from_dicts({n: 0.0 for n in names}, {n: 1.0 for n in names},
-                                         names)
-    funit = StandardNormalizer.from_dicts({n: 0.0 for n in FORCING_NAMES},
-                                          {n: 1.0 for n in FORCING_NAMES}, FORCING_NAMES)
-    packer = Packer(names)
     icfg, fcfg = sfno_configs(embed, layers, dtype, img_shape, horizon, n_state,
                               use_pallas, fused_mlp, fused_tail, scan_layers, factorization,
                               rank, thresh, spectral_io, sht_fold_symmetry)
@@ -189,6 +192,22 @@ def build(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
         gen = torch.Generator(device=device).manual_seed(seed)
         imodel.init_weights(gen)
         fmodel.init_weights(gen)
+    return _window_stepper(imodel, fmodel, horizon, n_state, peel, enable_interpolator_dropout,
+                           params_dtype=params_dtype, preds_dtype=preds_dtype,
+                           ema_params=ema_params)
+
+
+def _window_stepper(imodel, fmodel, horizon: int, n_state: int, peel: bool = False,
+                    enable_interpolator_dropout: bool = True, **stepper_kw) -> DYffusionStepper:
+    """The main path's experiments and stepper around two networks: unit
+    statistics, DYffusion at ``horizon`` (``forward_conditioning="none"``,
+    ``time_encoding="dynamics"``), the SST prescriber."""
+    names = state_names(n_state)
+    unit = StandardNormalizer.from_dicts({n: 0.0 for n in names}, {n: 1.0 for n in names},
+                                         names)
+    funit = StandardNormalizer.from_dicts({n: 0.0 for n in FORCING_NAMES},
+                                          {n: 1.0 for n in FORCING_NAMES}, FORCING_NAMES)
+    packer = Packer(names)
     imodel.eval()
     fmodel.eval()
     interp = InterpolationExperiment(
@@ -201,9 +220,9 @@ def build(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
         fmodel, interp, dcfg, ExperimentConfig(horizon=horizon), packer, packer, unit,
         forcing_names=FORCING_NAMES, forcing_normalizer=funit)
     prescriber = PrescriberConfig("surface_temperature", MASK_NAME, 1).build(names)
+    ema_params = stepper_kw.pop("ema_params", None)
     return DYffusionStepper(exp, prescriber=prescriber, use_ema_params=ema_params is not None,
-                            ema_params=ema_params, params_dtype=params_dtype,
-                            preds_dtype=preds_dtype)
+                            ema_params=ema_params, **stepper_kw)
 
 
 def window_inputs(n_steps: int, img_shape: Tuple[int, int] = (180, 360),
@@ -270,7 +289,8 @@ def build_training(embed: int = 256, layers: int = 8, img_shape: Tuple[int, int]
                    dropout: bool = True, n_samples: int = 8, scheduler: str = "warmup_cosine",
                    scan_layers: bool = False, checkpointing: int = 0,
                    forward_conditioning: str = "none", dtype: str = "float32",
-                   forecaster: bool = True, device: str = "cuda") -> Dict[str, Trainer]:
+                   forecaster: bool = True, device: str = "cuda",
+                   unet: Optional[Mapping] = None) -> Dict[str, Trainer]:
     """The two trainers of the training path, ``{"interpolator": ...,
     "forecaster": ...}`` (the interpolator's alone with ``forecaster=False``), over one ``DebugDataModule`` (``n_state`` state
     channels, two forcings, ``n_samples`` samples of batch 1): the
@@ -285,7 +305,9 @@ def build_training(embed: int = 256, layers: int = 8, img_shape: Tuple[int, int]
     fields of both networks. ``forward_conditioning`` is DYffusion's; other
     than "none" the forecaster gets the ``n_state`` condition channels that
     its forecasts feed it (for "data+noise-*" too, where the JAX package's
-    experiment builder leaves them out: ROADMAP Queue 3)."""
+    experiment builder leaves them out: ROADMAP Queue 3). ``unet`` (keyword
+    arguments of ``unet_configs``) builds both networks as UNets instead;
+    ``dropout=False`` then turns their dropouts off."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("main path: CUDA is not available; pass device='cpu' "
@@ -293,14 +315,20 @@ def build_training(embed: int = 256, layers: int = 8, img_shape: Tuple[int, int]
     dm = DebugDataModule(channels=n_state, height=img_shape[0], width=img_shape[1],
                          horizon=horizon, n_forcing=len(FORCING_NAMES), batch_size=1,
                          n_timesteps=horizon + n_samples, seed=0)
-    icfg, fcfg = sfno_configs(embed, layers, dtype, img_shape, horizon, n_state,
-                              use_pallas=use_pallas, fused_mlp=False, scan_layers=scan_layers,
-                              checkpointing=checkpointing)
-    if not dropout:
-        icfg = dataclasses.replace(icfg, dropout_mlp=0.0, drop_path_rate=0.0)
+    if unet is not None:
+        icfg, fcfg = unet_configs(img_shape, n_state, **dict(
+            unet, **({} if dropout else {"dropout": 0.0})))
+        net = UNet
+    else:
+        icfg, fcfg = sfno_configs(embed, layers, dtype, img_shape, horizon, n_state,
+                                  use_pallas=use_pallas, fused_mlp=False,
+                                  scan_layers=scan_layers, checkpointing=checkpointing)
+        if not dropout:
+            icfg = dataclasses.replace(icfg, dropout_mlp=0.0, drop_path_rate=0.0)
+        net = SFNO
     if forward_conditioning != "none":
         fcfg = dataclasses.replace(fcfg, in_chans=fcfg.in_chans + n_state)
-    imodel = SFNO(icfg).to(device)
+    imodel = net(icfg).to(device)
     gen = torch.Generator(device=device).manual_seed(0)
     imodel.init_weights(gen)
     interp = InterpolationExperiment(
@@ -309,7 +337,7 @@ def build_training(embed: int = 256, layers: int = 8, img_shape: Tuple[int, int]
     tcfg = TrainerConfig(epochs=1, steps_per_epoch=n_samples, scheduler=scheduler)
     if not forecaster:
         return {"interpolator": Trainer(interp, dm, tcfg)}
-    fmodel = SFNO(fcfg).to(device)
+    fmodel = net(fcfg).to(device)
     fmodel.init_weights(gen)
     dcfg = DYffusionConfig(timesteps=horizon, forward_conditioning=forward_conditioning,
                            time_encoding="dynamics")
@@ -604,3 +632,88 @@ def simultaneous_steps(n_steps: int = 3, horizon: int = 2, horizon_at_once: int 
     trainer = build_simultaneous(horizon=horizon, horizon_at_once=horizon_at_once,
                                  n_samples=max(n_steps, 1), device=device, **size)
     return train_steps(n_steps, trainers={"simultaneous": trainer})["simultaneous"]
+
+
+# ---------------------------------------------------------------------------
+# the UNet backbone at its published width (configs/model/unet.json)
+# ---------------------------------------------------------------------------
+
+
+def unet_configs(img_shape: Tuple[int, int] = (180, 360), n_state: int = 35, dim: int = 64,
+                 dim_mults: Tuple[int, ...] = (1, 2, 4, 8),
+                 upsample_dims: Optional[Tuple[int, int]] = (184, 368),
+                 dropout: float = 0.1) -> Tuple[UNetConfig, UNetConfig]:
+    """(interpolator, forecaster) UNet configs with ``build``'s channels
+    (2C + CF -> C and C + CF -> C) and ``configs/model/unet.json``'s
+    settings: ``dim``, ``dim_mults``, every dropout at ``dropout``, bilinear
+    outer resampling to ``upsample_dims`` (None: no resampling)."""
+    C, CF = n_state, len(FORCING_NAMES)
+    common = dict(img_shape=tuple(img_shape), out_chans=C, dim=dim,
+                  dim_mults=tuple(dim_mults), with_time_emb=True, block_dropout=dropout,
+                  block_dropout1=dropout, attn_dropout=dropout, input_dropout=0.0,
+                  outer_sample_mode="bilinear" if upsample_dims else None,
+                  upsample_dims=tuple(upsample_dims) if upsample_dims else None)
+    return UNetConfig(in_chans=2 * C + CF, **common), UNetConfig(in_chans=C + CF, **common)
+
+
+def build_unet(img_shape: Tuple[int, int] = (180, 360), n_state: int = 35, dim: int = 64,
+               dim_mults: Tuple[int, ...] = (1, 2, 4, 8),
+               upsample_dims: Optional[Tuple[int, int]] = (184, 368),
+               device: str = "cuda") -> DYffusionStepper:
+    """``build``'s window stepper at horizon 6 with UNet interpolator and
+    forecaster (``unet_configs``, every dropout 0.1), float32, weights from
+    a ``torch.Generator`` seeded with 0 on ``device``; the interpolator's
+    dropout live at inference. Raises without CUDA unless the caller asks
+    for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("main path: CUDA is not available; pass device='cpu' "
+                           "to run on the CPU")
+    icfg, fcfg = unet_configs(img_shape, n_state, dim, dim_mults, upsample_dims)
+    imodel, fmodel = UNet(icfg).to(device), UNet(fcfg).to(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    imodel.init_weights(gen)
+    fmodel.init_weights(gen)
+    return _window_stepper(imodel, fmodel, 6, n_state)
+
+
+def unet_window(stepper: DYffusionStepper, n_steps: int = 12) -> dict:
+    """One ``n_steps`` window of ``stepper`` (``build_unet``'s) from
+    ``window_inputs`` on its device, after one untimed warm-up window:
+    ``seconds`` (host clock to the synced end), ``steps_per_s``, the
+    network forwards counted by forward hooks (``forwards``:
+    ``{"interpolator": n, "forecaster": n}``), the final state and the
+    predictions."""
+    exp = stepper.exp
+    dev = next(exp.model.parameters()).device
+    img_shape = tuple(exp.model.cfg.img_shape)
+    inp = window_inputs(n_steps, img_shape, len(exp.in_packer.names), device=dev)
+    args = (inp["x0"], inp["forcing"], inp["sst"], inp["mask"])
+    stepper.run_window(*args, torch.Generator().manual_seed(0), n_steps)
+    counts = {"interpolator": 0, "forecaster": 0}
+    hooks = [net.register_forward_hook(lambda *a, k=k: counts.__setitem__(k, counts[k] + 1))
+             for k, net in (("interpolator", exp.interpolator.model), ("forecaster", exp.model))]
+    try:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        x, preds = stepper.run_window(*args, torch.Generator().manual_seed(1), n_steps)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        for h in hooks:
+            h.remove()
+    return dict(seconds=seconds, steps_per_s=n_steps / seconds, forwards=counts, state=x,
+                preds=preds)
+
+
+def unet_train_steps(n_steps: int = 3, img_shape: Tuple[int, int] = (180, 360),
+                     n_state: int = 35, device: str = "cuda", **unet) -> Dict[str, dict]:
+    """``n_steps`` training steps of the interpolation and the DYffusion
+    experiments on ``build_training``'s data with UNet networks
+    (``unet_configs(**unet)``), through ``train_steps``: per experiment the
+    losses, ``step_ms``, ``split_ms`` and ``peak_bytes``."""
+    trainers = build_training(img_shape=img_shape, n_state=n_state,
+                              n_samples=max(n_steps, 1), device=device, unet=unet)
+    return train_steps(n_steps, trainers=trainers)

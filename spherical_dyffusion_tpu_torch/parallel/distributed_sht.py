@@ -1,0 +1,116 @@
+"""Spherical harmonic transforms and the dhconv contraction over a process mesh.
+
+Counterpart of ``spherical_dyffusion_tpu/parallel/distributed_sht.py``.
+JAX writes each as a ``shard_map`` body over the local block with ``lax``
+collectives; here each rank runs the body on its own block and makes the
+collectives over the mesh's process groups:
+
+* the grid is sharded (latitudes over "h", longitudes over "w");
+* the longitude transform needs every longitude, so ``all_to_all_single``
+  over "w" trades the longitude shard for a channel shard;
+* the Legendre contraction sums over latitudes, so each rank contracts its
+  rows with its rows of the analysis matrix and ``all_reduce`` over "h"
+  sums them (l stays whole for the per-l spectral weights);
+* the spectral block comes out whole in (l, m) with the channels sharded
+  over "w", the layout that the channel-sharded ``distributed_dhconv``
+  takes.
+
+The inverse runs the adjoint. Spectral tensors use the port's stacked real
+layout ``(B, L, M, C, 2)`` (``ops/sht.py``); the longitude stage is the
+transform's own (its DFT matrix or FFT), the latitude stage its unfolded
+Legendre matrix. A collective runs over an axis wherever the mesh has a
+group for it, so on a world of one (an NCCL group of one rank) each runs
+with one rank; without a process group the functions are the single-device
+transforms. Latitudes, longitudes and channels must divide by their axis
+sizes.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from ..ops.contractions import contract_dhconv
+from ..ops.matmul import einsum
+from ..ops.sht import InverseRealSHT, RealSHT
+from .mesh import AXIS_H, AXIS_W, Mesh
+
+__all__ = ["distributed_sht", "distributed_isht", "distributed_dhconv"]
+
+
+def _all_to_all(x: torch.Tensor, group, n: int, split: int, concat: int) -> torch.Tensor:
+    """``lax.all_to_all(..., split_axis=split, concat_axis=concat,
+    tiled=True)`` over ``group`` of ``n`` ranks: ``split`` cut into n
+    chunks, chunk j sent to rank j, the received chunks joined along
+    ``concat`` in rank order."""
+    parts = torch.stack(x.chunk(n, dim=split)).flatten(0, 1).contiguous()  # chunk j, rank j
+    out = torch.empty_like(parts)
+    dist.all_to_all_single(out, parts, group=group)
+    return torch.cat(out.chunk(n), dim=concat)
+
+
+def _rows(mesh: Mesh, n_lat: int) -> slice:
+    nh = mesh.shape[AXIS_H]
+    if n_lat % nh:
+        raise ValueError(f"{n_lat} latitudes do not split over {nh} 'h' ranks")
+    k = n_lat // nh
+    i = mesh.index(AXIS_H) if nh > 1 else 0
+    return slice(i * k, (i + 1) * k)
+
+
+def distributed_sht(x: torch.Tensor, sht: RealSHT, mesh: Mesh) -> torch.Tensor:
+    """This rank's grid block ``(B, H/nh, W/nw, C)`` -> its spectral block
+    ``(B, L, M, C/nw, 2)``: JAX's input ``P(None, 'h', 'w', None)`` and
+    output ``P(None, None, None, 'w')``."""
+    nw = mesh.shape[AXIS_W]
+    gw, gh = mesh.groups[AXIS_W], mesh.groups[AXIS_H]
+    if x.shape[-1] % nw:
+        raise ValueError(f"{x.shape[-1]} channels do not split over {nw} 'w' ranks")
+    if gw is not None:  # the longitude shard for a channel shard
+        x = _all_to_all(x, gw, nw, split=3, concat=2)
+    xf = sht.longitude(x)  # (B, H/nh, M, C/nw, 2)
+    rows = _rows(mesh, sht.nlat)
+    part = einsum("...hmcr,hlm->...lmcr", xf, sht.analysis[rows], sht.matmul_dtype)
+    part = part.contiguous()
+    if gh is not None:  # the latitude sum over the latitude shards
+        dist.all_reduce(part, group=gh)
+    return part
+
+
+def distributed_isht(xs: torch.Tensor, isht: InverseRealSHT, mesh: Mesh) -> torch.Tensor:
+    """This rank's spectral block ``(B, L, M, C/nw, 2)`` -> its grid block
+    ``(B, H/nh, W/nw, C)``, the adjoint of ``distributed_sht``."""
+    nw = mesh.shape[AXIS_W]
+    gw = mesh.groups[AXIS_W]
+    rows = _rows(mesh, isht.nlat)
+    y = einsum("...lmcr,hlm->...hmcr", xs, isht.synthesis[rows], isht.matmul_dtype)
+    out = isht.longitude(y)  # (B, H/nh, W, C/nw)
+    if gw is not None:  # the channel shard back to a longitude shard
+        out = _all_to_all(out, gw, nw, split=2, concat=3)
+    return out
+
+
+def distributed_dhconv(xs: torch.Tensor, w: torch.Tensor, mesh: Mesh,
+                       scatter_output: bool = True) -> torch.Tensor:
+    """The channel-sharded Driscoll-Healy contraction: this rank's spectral
+    block ``(B, L, M, CI/nw, 2)`` and its rows of the weight ``(CI/nw, CO, L,
+    2)`` give the partial ``(B, L, M, CO, 2)``, summed over "w". With
+    ``scatter_output`` (JAX's default) the sum is a ``reduce_scatter`` over
+    the output channels, leaving this rank ``(B, L, M, CO/nw, 2)``, the
+    layout ``distributed_isht`` takes; else an ``all_reduce`` leaves every
+    rank the whole output."""
+    nw = mesh.shape[AXIS_W]
+    gw = mesh.groups[AXIS_W]
+    y = contract_dhconv(xs, w).contiguous()
+    if gw is None:
+        return y
+    if not scatter_output:
+        dist.all_reduce(y, group=gw)
+        return y
+    CO = y.shape[-2]
+    if CO % nw:
+        raise ValueError(f"{CO} output channels do not split over {nw} 'w' ranks")
+    parts = torch.stack(y.chunk(nw, dim=-2))  # (nw, B, L, M, CO/nw, 2)
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter_tensor(out, parts.flatten(0, 1).contiguous(), group=gw)
+    return out

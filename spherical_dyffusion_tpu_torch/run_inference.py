@@ -65,10 +65,14 @@ def main_from_config(cfg: dict) -> dict:
     from .inference.prescriber import PrescriberConfig
     from .inference.stepper import DYffusionStepper
     from .interface import load_experiment_checkpoint, resolve_device
+    from .parallel.multihost import maybe_init_multihost
     from .utils.loggers import JsonlLogger
 
     _refuse_unported(cfg)
     device = resolve_device(cfg)
+    # the process group (opt-in by SPHDY_MULTIHOST / SPHDY_COORDINATOR), before
+    # anything is built, as the JAX command line wires its hosts
+    maybe_init_multihost(backend="gloo" if device.type == "cpu" else "nccl")
     if cfg.get("stepper_type", "dyffusion") == "ace":
         return _main_ace(cfg, device)
     exp, _, ema_params, full_cfg = load_experiment_checkpoint(

@@ -14,7 +14,11 @@ runs validation only.
 JSON copies of the JAX package's configs). It runs on the CUDA card unless
 the config says ``platform: cpu``; ``platform=cpu`` on the command line sets
 it (the configs carry no such key, which the JAX command line would need as
-``++platform=cpu``).
+``++platform=cpu``). ``<group>=<name>`` chooses ``configs/<group>/<name>.json``
+for a config group (``model=unet``), as Hydra would. With ``SPHDY_MULTIHOST``
+or ``SPHDY_COORDINATOR`` set, each process joins the process group first
+(``parallel/multihost.py``) and the trainer averages its gradients over the
+ranks; rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -37,12 +41,20 @@ def run_model(config_path: Optional[str], overrides: List[str]) -> dict:
     ``mode=validate`` ``{"metrics", "config", "trainer"}``."""
     from .interface import get_datamodule, get_experiment, resolve_device, \
         save_experiment_checkpoint
+    from .parallel.multihost import maybe_init_multihost
     from .training.trainer import Trainer, TrainerConfig
     from .utils.config import CONFIG_DIR, load_config, with_platform
     from .utils.loggers import make_logger
 
     exp_override = [o for o in overrides if o.startswith("experiment=")]
-    plain_overrides = with_platform([o for o in overrides if not o.startswith("experiment=")])
+    groups = {}
+    for o in overrides:  # model=unet: a file of a config group, not a value
+        key, _, name = o.partition("=")
+        if (key not in ("experiment", "") and "." not in key and not key.startswith("+")
+                and os.path.exists(os.path.join(CONFIG_DIR, key, f"{name}.json"))):
+            groups[key] = name
+    plain_overrides = with_platform([o for o in overrides if not o.startswith("experiment=")
+                                     and o.partition("=")[0] not in groups])
     path = config_path or os.path.join(CONFIG_DIR, "main.json")
     if exp_override:
         name = exp_override[-1].split("=", 1)[1]
@@ -51,8 +63,11 @@ def run_model(config_path: Optional[str], overrides: List[str]) -> dict:
             path = cand
         else:
             plain_overrides.append(exp_override[-1])
-    cfg = load_config(path, plain_overrides)
+    cfg = load_config(path, plain_overrides, groups=groups)
     device = resolve_device(cfg)
+    # the process group (opt-in by SPHDY_MULTIHOST / SPHDY_COORDINATOR), before
+    # anything is built: NCCL on the card, gloo with platform: cpu
+    maybe_init_multihost(backend="gloo" if device.type == "cpu" else "nccl")
 
     seed = int(cfg.get("seed", 0))
     np.random.seed(seed)
@@ -80,7 +95,10 @@ def run_model(config_path: Optional[str], overrides: List[str]) -> dict:
     except (ValueError, AttributeError):  # not the main thread, or no SIGUSR1
         previous = None
 
-    logger = make_logger(cfg, out_dir=cfg.get("log_dir", "logs"))
+    log_dir = cfg.get("log_dir", "logs")
+    if torch.distributed.is_initialized() and torch.distributed.get_rank() > 0:
+        log_dir = os.path.join(log_dir, f"rank{torch.distributed.get_rank()}")
+    logger = make_logger(cfg, out_dir=log_dir)
     logger.log_hyperparams(cfg)
     try:
         mode = cfg.get("mode", "train")

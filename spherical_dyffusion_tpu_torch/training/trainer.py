@@ -32,6 +32,25 @@ Counterpart of ``spherical_dyffusion_tpu/training/trainer.py`` (``TrainerConfig`
   and once per trainer a byte-stable ``code.tar.gz`` of the package
   beside them (``code_snapshot``, ``utils/code_snapshot.py``).
 
+Data parallelism (``parallel/``): the trainer's mesh, by default
+``gcd(batch_size, world)`` ranks of the process group (``data_mesh``; JAX's
+default mesh of as many devices), splits each global batch into per-rank
+rows (``upload``, ``fit_in_memory``'s row indices); every rank holds the
+same replicated state (broadcast from the mesh's first rank at
+``init_state``), its step's draws come from the trainer's generator folded
+with its data index (JAX's ``fold_in(rng, axis_index("data"))``), and the
+gradients and the logged metrics are averaged over the "data" group: in
+float32, or in ``grad_reduce_dtype`` (JAX's explicit ``shard_map`` step,
+which needs a pure data-parallel mesh and otherwise raises as JAX does).
+``zero_shard_opt_state`` is ZeRO-1 by JAX's ``_zero_sharding`` rule: each
+parameter's Adam moments live only on this rank's slice of its largest axis
+that the data size divides (scalars and indivisible leaves whole), the
+update runs on that slice and is all-gathered. A checkpoint holds the
+gathered state, written by rank 0 alone, so it is the same file at any world
+size. On a mesh of one rank all of this is skipped, as JAX skips it at mesh
+size 1. A mesh with "h", "w" or "matmul" above 1 raises (ROADMAP Queue 1
+item 7b: JAX reaches spatial sharding through XLA's partitioner).
+
 The experiment's network arrives with its weights (the port's modules carry
 them; ``restore_payload`` or ``utils/convert.py:train_state_payload`` loads
 others) and the trainer runs where they lie. Gradients are taken for the
@@ -55,12 +74,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..data.datamodule import prefetched
@@ -68,6 +89,8 @@ from ..evaluation import metrics as M
 from ..evaluation.aggregators import InferenceAggregator
 from ..inference.loop import InferenceConfig, run_inference
 from ..inference.stepper import DYffusionStepper
+from ..models.modules import draw_seed
+from ..parallel.mesh import AXIS_DATA, Mesh, data_mesh, replicated, shard_batch
 from ..utils import flax_msgpack
 from ..utils.code_snapshot import snapshot_code
 from ..utils.convert import train_state_payload
@@ -83,8 +106,6 @@ __all__ = ["TrainerConfig", "TrainState", "Trainer", "decays", "grad_histogram",
 # field -> (the value the port implements, the JAX package's default; the
 # ROADMAP Queue 1 item that ports the others)
 _UNPORTED = {
-    "grad_reduce_dtype": (None, 7),
-    "zero_shard_opt_state": (False, 7),
     "ckpt_mirror": (None, 8),
     "save_to_wandb": (False, 8),
 }
@@ -98,10 +119,11 @@ class TrainerConfig:
 
     A field whose other values the port does not implement raises in
     ``__post_init__`` (``_UNPORTED``), naming the ROADMAP Queue 1 item that
-    ports it: the compressed gradient reduction (``grad_reduce_dtype``) and
-    the sharded optimizer state (``zero_shard_opt_state``) wait for
-    multi-GPU (item 7); the checkpoint mirror (``ckpt_mirror``) and the
-    wandb upload (``save_to_wandb``) wait for the network clients (item 8).
+    ports it: the checkpoint mirror (``ckpt_mirror``) and the wandb upload
+    (``save_to_wandb``) wait for the network clients (item 8).
+    ``grad_reduce_dtype`` names a floating dtype of torch's;
+    ``zero_shard_opt_state`` is ZeRO-1 (both act on a mesh of more than one
+    rank).
     ``adam_mu_dtype`` takes "float32" (``torch.optim.AdamW``, as None) and
     "bfloat16" (``training/optim.py:AdamWLowMu``); ``fit_mode`` is
     checked by ``fit``, with JAX's errors. Accepted and without effect here:
@@ -152,6 +174,10 @@ class TrainerConfig:
                                       f"{sorted(MU_DTYPES)}")
         if self.accumulate_grad_batches < 1:
             raise ValueError("accumulate_grad_batches must be >= 1")
+        if self.grad_reduce_dtype is not None and not (
+                isinstance(getattr(torch, str(self.grad_reduce_dtype), None), torch.dtype)
+                and getattr(torch, self.grad_reduce_dtype).is_floating_point):
+            raise ValueError(f"grad_reduce_dtype {self.grad_reduce_dtype!r}: a floating dtype")
 
 
 @dataclasses.dataclass
@@ -251,6 +277,23 @@ def histogram_wire(counts, edges) -> dict:
             "bins": [float(b) for b in np.asarray(edges)]}
 
 
+def zero_axis(shape, dp: int) -> Optional[int]:
+    """JAX's ``_zero_sharding`` rule: the largest axis of ``shape`` that
+    ``dp`` divides (the first of equal ones), or None (a scalar, a leaf
+    with no such axis, or ``dp`` 1): the leaf's Adam moments then stay
+    whole on every rank."""
+    if dp <= 1 or not len(shape):
+        return None
+    for ax in sorted(range(len(shape)), key=lambda a: -shape[a]):
+        if shape[ax] % dp == 0:
+            return ax
+    return None
+
+
+def _is_writer() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 @contextlib.contextmanager
 def _weights(model: nn.Module, params: Optional[Dict[str, torch.Tensor]]):
     """Run with ``params`` loaded into ``model``, then put its own back."""
@@ -272,6 +315,11 @@ class Trainer:
         self.dm = datamodule
         self.cfg = cfg
         self.run_config = run_config
+        # the process mesh (parallel/mesh.py): data_mesh(gcd(batch_size,
+        # world)), one rank without a process group
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        bs = int(getattr(getattr(datamodule, "cfg", None), "batch_size", 1) or 1)
+        self.mesh: Mesh = data_mesh(math.gcd(bs, world))
         self.device = next(experiment.model.parameters()).device
         # the statistics on the device once: normalize then copies nothing
         self.normalizer = experiment.normalizer.to(self.device)
@@ -284,19 +332,53 @@ class Trainer:
         self._code_snapshotted = False
 
     # ------------------------------------------------------------------ setup
+    @property
+    def _dp(self) -> int:
+        """The data-parallel size; 1 (nothing to share) on a mesh of one rank."""
+        return self.mesh.shape[AXIS_DATA] if self.mesh.size > 1 else 1
+
+    def _check_mesh(self) -> None:
+        if self.mesh.size == 1:
+            return
+        model_axes = {a: n for a, n in self.mesh.shape.items() if a != AXIS_DATA and n > 1}
+        if model_axes and self.cfg.grad_reduce_dtype is not None:
+            raise ValueError(
+                f"grad_reduce_dtype requires a pure data-parallel mesh (got {self.mesh.shape}); "
+                "model-parallel axes need the pjit step's automatic collectives (ROADMAP Queue 1 "
+                "item 7b)")
+        if model_axes:
+            raise NotImplementedError(
+                f"mesh {self.mesh.shape}: spatial and channel model parallelism of the "
+                "training step is not ported (ROADMAP Queue 1 item 7b)")
+
     def init_state(self) -> TrainState:
         """AdamW over the network's parameters in two groups, the schedule,
         the EMA; from ``restore_payload`` (a checkpoint) when set: weights,
         EMA (its count = the step), optimizer moments and counts (unless
-        ``reset_optimizer``)."""
+        ``reset_optimizer``). On a mesh of more than one rank the weights
+        are broadcast from its first rank, and with ``zero_shard_opt_state``
+        the optimizer holds this rank's slices (``zero_axis``)."""
         cfg = self.cfg
+        self._check_mesh()
         model = self.exp.model
         restore = self.restore_payload
         if restore is not None:
             model.load_state_dict(restore["params"])
         named = _named_trainable(model)
-        decay = [p for n, p in named if decays(model, n, p)]
-        no_decay = [p for n, p in named if not decays(model, n, p)]
+        replicated(self.mesh, [p for _, p in named])
+        # ZeRO-1: parameter -> (axis, this rank's slice, which the optimizer updates)
+        self._zero: Dict[torch.Tensor, tuple] = {}
+        dp = self._dp
+        if cfg.zero_shard_opt_state and dp > 1:
+            i = self.mesh.index(AXIS_DATA)
+            for _, p in named:
+                ax = zero_axis(p.shape, dp)
+                if ax is not None:
+                    k = p.shape[ax] // dp
+                    self._zero[p] = (ax, p.detach().narrow(ax, i * k, k).clone())
+        self._opt_tensor = {n: self._zero[p][1] if p in self._zero else p for n, p in named}
+        decay = [self._opt_tensor[n] for n, p in named if decays(model, n, p)]
+        no_decay = [self._opt_tensor[n] for n, p in named if not decays(model, n, p)]
         spe = cfg.steps_per_epoch
         if spe is None:
             spe = max(1, len(self.dm.dataset("train")) // self.dm.cfg.batch_size)
@@ -330,14 +412,38 @@ class Trainer:
         """The dtype of Adam's stored first moment."""
         return MU_DTYPES[self.cfg.adam_mu_dtype or "float32"]
 
+    def _shard(self, p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """This rank's ZeRO slice of ``t`` (shaped as parameter ``p``), or
+        ``t`` where ``p``'s moments are whole."""
+        if p not in self._zero:
+            return t
+        ax = self._zero[p][0]
+        k = p.shape[ax] // self._dp
+        return t.narrow(ax, self.mesh.index(AXIS_DATA) * k, k)
+
+    def _gather(self, p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """The inverse of ``_shard``: the slices of every rank of the
+        "data" group joined along ``p``'s ZeRO axis."""
+        if p not in self._zero:
+            return t
+        ax = self._zero[p][0]
+        part = t.movedim(ax, 0).contiguous()
+        out = torch.empty((self._dp * part.shape[0],) + tuple(part.shape[1:]),
+                          dtype=part.dtype, device=part.device)
+        dist.all_gather_into_tensor(out, part, group=self.mesh.groups[AXIS_DATA])
+        return out.movedim(0, ax)
+
     def _load_opt_state(self, state: TrainState, opt_state: dict) -> None:
         named = dict(_named_trainable(state.model))
         updates = int(opt_state["updates"])
         for n, p in named.items():
-            state.optimizer.state[p] = {
+            def moment(k, dtype):
+                return self._shard(p, opt_state[k][n]).to(p.device, dtype).clone()
+
+            state.optimizer.state[self._opt_tensor[n]] = {
                 "step": torch.tensor(float(updates)),
-                "exp_avg": opt_state["exp_avg"][n].to(p.device, self.mu_dtype).clone(),
-                "exp_avg_sq": opt_state["exp_avg_sq"][n].to(p.device, torch.float32).clone()}
+                "exp_avg": moment("exp_avg", self.mu_dtype),
+                "exp_avg_sq": moment("exp_avg_sq", torch.float32)}
         state.updates = updates
         state.mini_step = int(opt_state.get("mini_step", 0))
         acc = opt_state.get("acc_grads")
@@ -346,8 +452,12 @@ class Trainer:
                 p.grad = acc[n].to(p.device, torch.float32).clone()
 
     def _opt_state(self, state: TrainState) -> dict:
+        """The optimizer's state by parameter name, ZeRO slices gathered
+        (a collective over the "data" group under ``zero_shard_opt_state``)."""
         named = _named_trainable(state.model)
-        moments = {k: {n: state.optimizer.state[p][k].detach().cpu() for n, p in named}
+        opt = state.optimizer.state
+        moments = {k: {n: self._gather(p, opt[self._opt_tensor[n]][k]).detach().cpu()
+                       for n, p in named}
                    for k in ("exp_avg", "exp_avg_sq")} if state.updates else \
             {k: {n: torch.zeros_like(p, device="cpu", dtype=dt) for n, p in named}
              for k, dt in (("exp_avg", self.mu_dtype), ("exp_avg_sq", torch.float32))}
@@ -373,6 +483,11 @@ class Trainer:
         "forward", "backward" and "optimizer" as each part has been queued
         (``main_path.train_steps`` records CUDA events there)."""
         cfg = self.cfg
+        dp = self._dp
+        if dp > 1:  # this rank's draws: the generator folded with its data index
+            words = [draw_seed(generator), self.mesh.index(AXIS_DATA)]
+            generator = torch.Generator().manual_seed(
+                int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0]))
         dyn = self.normalizer.normalize(dynamics)
         extra = {} if random_timestep is None else {"random_timestep": random_timestep}
         loss, metrics = self.exp.train_loss(dyn, generator,
@@ -380,6 +495,10 @@ class Trainer:
         if mark is not None:
             mark("forward")
         grads = torch.autograd.grad(loss, self._params, materialize_grads=True)
+        if dp > 1:
+            grads = self._mean_over_data(grads, cfg.grad_reduce_dtype)
+            metrics = dict(zip(metrics, self._mean_over_data(
+                [v.detach().float() for v in metrics.values()], None)))
         if mark is not None:
             mark("backward")
         norms = torch._foreach_norm(grads)
@@ -409,8 +528,14 @@ class Trainer:
             lr = self.schedule(state.updates)
             for group in state.optimizer.param_groups:
                 group["lr"] = lr
+            for p, (_, part) in self._zero.items():
+                part.grad = self._shard(p, p.grad).contiguous()
+                p.grad = None
             state.optimizer.step()
             state.optimizer.zero_grad(set_to_none=True)
+            with torch.no_grad():
+                for p, (_, part) in self._zero.items():  # the update, all-gathered
+                    p.copy_(self._gather(p, part))
             state.updates += 1
             state.mini_step = 0
         if state.ema is not None:
@@ -420,8 +545,23 @@ class Trainer:
             mark("optimizer")
         return out
 
-    def upload(self, batch: Dict[str, torch.Tensor]):
-        """A host batch's tensors on the trainer's device (pinned, without waiting)."""
+    def _mean_over_data(self, tensors, dtype: Optional[str]) -> List[torch.Tensor]:
+        """The mean of ``tensors`` over the "data" group, as float32: one
+        ``all_reduce`` of their concatenation, summed and divided in
+        ``dtype`` (float32 when None; JAX's ``pmean(g.astype(dtype))``)."""
+        rd = getattr(torch, dtype) if dtype else torch.float32
+        flat = torch.cat([t.reshape(-1).to(rd) for t in tensors])
+        dist.all_reduce(flat, group=self.mesh.groups[AXIS_DATA])
+        flat = (flat / self._dp).float()
+        return [f.view(t.shape) for f, t in zip(flat.split([t.numel() for t in tensors]),
+                                                 tensors)]
+
+    def upload(self, batch: Dict[str, torch.Tensor], shard: bool = True):
+        """This rank's rows (``shard_batch``; all of them with ``shard``
+        False) of a host batch on the trainer's device (pinned, without
+        waiting)."""
+        if shard:
+            batch = shard_batch(self.mesh, batch)
         cond = batch.get("dynamical_condition")
         rt = batch.get("random_timestep")
         return (to_device(batch["dynamics"], self.device),
@@ -645,7 +785,8 @@ class Trainer:
                 idx = to_device(torch.from_numpy(perm.reshape(spe, bs)), self.device)
                 gen = self.epoch_generator(epoch)
                 for s in range(spe):
-                    batch = [data[k].index_select(0, idx[s]) if k in data else None
+                    rows = shard_batch(self.mesh, idx[s])
+                    batch = [data[k].index_select(0, rows) if k in data else None
                              for k in fields]
                     losses.append(self.train_step(state, batch[0], batch[1], gen,
                                                   batch[2], mark=mark)["loss"])
@@ -660,8 +801,8 @@ class Trainer:
                     seg = {k: to_device(v, self.device) for k, v in seg.items()}
                     gen = self.epoch_generator(epoch, si)
                     for s in range(segment_samples // bs):
-                        batch = [seg[k][s * bs:(s + 1) * bs] if k in seg else None
-                                 for k in fields]
+                        batch = [shard_batch(self.mesh, seg[k][s * bs:(s + 1) * bs])
+                                 if k in seg else None for k in fields]
                         losses.append(self.train_step(state, batch[0], batch[1], gen,
                                                       batch[2], mark=mark)["loss"])
                     del seg
@@ -751,7 +892,7 @@ class Trainer:
             for n, batch in enumerate(self.dm.val_batches(horizon=exp.cfg.horizon)):
                 if n >= max_batches:
                     break
-                dyn, cond, _ = self.upload(batch)
+                dyn, cond, _ = self.upload(batch, shard=False)  # every rank, every row
                 dyn_n = self.normalizer.normalize(dyn)
                 tables.append(self._eval_batch(dyn, dyn_n, cond, gen, perturb, w, out_norm,
                                                out_idx))
@@ -844,7 +985,7 @@ class Trainer:
             if self._best_monitor is None or v < self._best_monitor:
                 self._best_monitor = v
                 self.save_checkpoint(state, os.path.join(cfg.ckpt_dir, "best.ckpt"))
-        if cfg.code_snapshot and not self._code_snapshotted:
+        if cfg.code_snapshot and not self._code_snapshotted and _is_writer():
             snapshot_code(os.path.join(cfg.ckpt_dir, "code.tar.gz"))
             self._code_snapshotted = True
 
@@ -855,13 +996,17 @@ class Trainer:
         for an exact resume; the one writer of the port's checkpoints
         (``interface.save_experiment_checkpoint`` calls it).
         ``opt_state`` holds AdamW's moments by parameter name, the updates
-        applied, and the batches accumulated toward the next."""
+        applied, and the batches accumulated toward the next. Every rank
+        calls it (ZeRO slices are gathered); rank 0 writes the file."""
+        opt_state = self._opt_state(state)
+        if not _is_writer():
+            return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         payload = {
             "params": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
             "ema_params": ({k: v.cpu() for k, v in state.ema.state_dict().items()}
                            if state.ema is not None else None),
-            "opt_state": self._opt_state(state),
+            "opt_state": opt_state,
             "step": int(state.step),
             "epoch": int(self.epochs_done),
             "generator": self.generator.get_state(),

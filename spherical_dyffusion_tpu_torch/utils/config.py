@@ -10,7 +10,12 @@ the same way:
   file's own content, ``../main`` and the sibling-group fallback);
 * ``${a.b.c}`` interpolation;
 * dotlist overrides (``model.embed_dim=128``, ``++new.key=1``);
-* ``deep_update``, the merge of override dicts.
+* ``deep_update``, the merge of override dicts;
+* a group choice (``load_config(..., groups={"model": "unet"})``, which the
+  command line's ``model=unet`` makes): that file replaces the group's
+  entry in every ``defaults`` list, the files' own content still merged
+  over it, as Hydra composes a choice. The JAX command line reads
+  ``model=unet`` as a dotlist value; the port composes it.
 
 A dotlist value is parsed as ``yaml.safe_load`` parses it (YAML 1.1's
 implicit types: ``1e-3`` is a string, ``4.0e-3`` a float, ``yes``/``off``
@@ -199,10 +204,24 @@ def resolve_interpolations(cfg: Dict, root: Optional[Dict] = None) -> Dict:
     return out
 
 
-def load_config(path: str, overrides: Sequence[str] = ()) -> Dict:
-    """Load a JSON config, compose its ``defaults`` list, apply overrides
-    and resolve interpolations. Group references resolve relative to the
-    file being loaded, then to its parent directory."""
+def load_config(path: str, overrides: Sequence[str] = (),
+                groups: Optional[Dict[str, str]] = None) -> Dict:
+    """Load a JSON config, compose its ``defaults`` list (with ``groups``'
+    choices in place of its entries for those groups), apply overrides and
+    resolve interpolations. Group references resolve relative to the file
+    being loaded, then to its parent directory. A chosen group that no
+    ``defaults`` list holds raises ``ValueError``."""
+    used: set = set()
+    merged = _compose(path, dict(groups or {}), used)
+    missing = sorted(set(groups or {}) - used)
+    if missing:
+        raise ValueError(f"group choice {missing}: no defaults list of {path} holds that group")
+    if overrides:
+        merged = apply_dotlist(merged, overrides)
+    return resolve_interpolations(merged)
+
+
+def _compose(path: str, groups: Dict[str, str], used: set) -> Dict:
     config_dir = os.path.dirname(os.path.abspath(path))
     with open(path) as f:
         own = json.load(f) or {}
@@ -217,9 +236,13 @@ def load_config(path: str, overrides: Sequence[str] = ()) -> Dict:
                 merged = deep_update(merged, own)
                 placed_self = True
             elif isinstance(entry, str):
-                merged = deep_update(merged, load_config(_resolve_path(config_dir, entry)))
+                merged = deep_update(merged, _compose(_resolve_path(config_dir, entry), groups,
+                                                      used))
             elif isinstance(entry, dict):
                 (group, name), = entry.items()
+                if str(group) in groups:
+                    name = groups[str(group)]
+                    used.add(str(group))
                 if name in (None, "null"):
                     continue
                 rel = os.path.join(str(group), str(name))
@@ -228,7 +251,7 @@ def load_config(path: str, overrides: Sequence[str] = ()) -> Dict:
                     alt = _resolve_path(os.path.dirname(config_dir), rel)
                     if os.path.exists(alt):
                         sub_path = alt
-                sub = load_config(sub_path)
+                sub = _compose(sub_path, groups, used)
                 if sub.pop("_global_", False):
                     merged = deep_update(merged, sub)
                 else:
@@ -237,9 +260,7 @@ def load_config(path: str, overrides: Sequence[str] = ()) -> Dict:
                 raise ValueError(f"Bad defaults entry: {entry!r}")
         if not placed_self:
             merged = deep_update(merged, own)
-    if overrides:
-        merged = apply_dotlist(merged, overrides)
-    return resolve_interpolations(merged)
+    return merged
 
 
 def with_platform(overrides: Sequence[str]) -> list:

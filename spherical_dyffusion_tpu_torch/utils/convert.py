@@ -1,11 +1,13 @@
-"""Carry JAX-package SFNO weights into the port.
+"""Carry JAX-package SFNO and UNet weights into the port.
 
 The port's modules keep the flax parameter names and layouts
-(``models/modules.py``, ``models/sfno.py``: the dense, separable and
-diagonal filter ``weight``, the ``cp_*``, ``tucker_*`` and ``tt_*`` factors,
-the spectral-attention ``w{i}``/``b{i}``/``wout`` pairs, the layer norm's
-``(h, w, 1)`` ``scale`` and ``bias``), so a flax parameter tree becomes a
-``state_dict`` by flattening its nested dicts with "." as separator. Trees saved with
+(``models/modules.py``; ``models/unet.py``: HWIO conv kernels, flax's
+auto-names, the attentions in the UNet's own scope; ``models/sfno.py``: the
+dense, separable and diagonal filter ``weight``, the ``cp_*``, ``tucker_*``
+and ``tt_*`` factors, the spectral-attention ``w{i}``/``b{i}``/``wout``
+pairs, the layer norm's ``(h, w, 1)`` ``scale`` and ``bias``), so a flax
+parameter tree becomes a ``state_dict`` by flattening its nested dicts with
+"." as separator. Trees saved with
 ``SFNOConfig.scan_layers`` hold the middle blocks stacked under
 ``blocks_mid/block`` with a leading layer axis; they are first unstacked into
 ``block_1`` .. ``block_{L-2}``, as ``unstack_block_params`` of the JAX
@@ -67,9 +69,9 @@ def unstack_block_params(params: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A flax SFNO variable tree (``{"params": ...}`` or the params
+    """A flax SFNO or UNet variable tree (``{"params": ...}`` or the params
     themselves; other collections such as ``constants`` are ignored) ->
-    the port SFNO's ``state_dict`` as float32 CPU tensors."""
+    the port network's ``state_dict`` as float32 CPU tensors."""
     params = variables.get("params", variables)
     params = unstack_block_params(params)
     sd: Dict[str, torch.Tensor] = {}
@@ -90,8 +92,9 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The inverse of ``flax_to_state_dict`` in the unrolled layout: a port
-    SFNO's ``state_dict`` -> ``{"params": <nested dict of numpy arrays>}``,
-    the tree ``utils/torch_convert.py:sfno_flax_to_torch`` takes."""
+    network's ``state_dict`` -> ``{"params": <nested dict of numpy arrays>}``,
+    the tree the JAX package's ``apply`` and
+    ``utils/torch_convert.py:sfno_flax_to_torch`` take."""
     params: Dict[str, Any] = {}
     for name, t in state_dict.items():
         node = params

@@ -481,8 +481,11 @@ def test_unported_kinds_and_channels_name_their_item(tmp_path):
             resolve_checkpoint_path(spec)
     with pytest.raises(NotImplementedError, match="item 8"):
         interface.get_datamodule({"datamodule": {"kind": "fv3gfs"}})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        interface.get_model({"kind": "unet"}, (8, 16), 3, 3, True)
+    # the UNet is ported (item 6): get_model builds it
+    from spherical_dyffusion_tpu_torch.models.unet import UNet
+    net = interface.get_model({"kind": "unet", "dim": 8, "dim_mults": [1, 2]}, (8, 16), 3, 3,
+                              True, device="cpu")
+    assert isinstance(net, UNet) and net.cfg.in_chans == 3 and net.cfg.with_time_emb
     with pytest.raises(NotImplementedError, match="item 8"):
         make_logger({"logger": {"wandb": {"project": "p"}}}, str(tmp_path))
     dm = DebugDataModule(channels=2, height=8, width=16, horizon=3)

@@ -1204,3 +1204,63 @@ def test_simultaneous_step_k1_dx_matches_autograd_of_plain(cuda):
     for a, b in zip(*grads):
         scale = max(float(b.abs().max()), 1e-4 * top)
         assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+def test_unet_on_the_card_matches_the_cpu(cuda):
+    """The UNet (no hand-written kernel: cuDNN's convolutions, TF32 off) at
+    debug size with both outer resamplers: the card's output against the
+    CPU's for the same weights, 1e-4 of the largest output; a training
+    step's gradients finite."""
+    from spherical_dyffusion_tpu_torch.models.unet import UNet, UNetConfig
+
+    for mode in ("bilinear", "nearest"):
+        cfg = UNetConfig(img_shape=(45, 90), in_chans=5, out_chans=3, dim=8,
+                         dim_mults=(1, 2, 4), with_time_emb=True, outer_sample_mode=mode,
+                         upsample_dims=(48, 96), block_dropout=0.0, block_dropout1=0.0,
+                         attn_dropout=0.0)
+        cpu = UNet(cfg)
+        cpu.init_weights(torch.Generator().manual_seed(0))
+        net = UNet(cfg).to(cuda)
+        net.load_state_dict(cpu.state_dict())
+        x = torch.randn((2, 45, 90, 5), generator=torch.Generator().manual_seed(1))
+        t = torch.tensor([1.0, 3.0])
+        with torch.no_grad():
+            want = cpu(x, time=t)
+            got = net(x.to(cuda), time=t.to(cuda))
+        assert _rel_err(got.cpu(), want) < 1e-4
+        loss = net(x.to(cuda), time=t.to(cuda)).square().mean()
+        grads = torch.autograd.grad(loss, list(net.parameters()))
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def test_nccl_group_of_one_runs_the_distributed_transforms(cuda, tmp_path):
+    """An NCCL group of one rank (``file://`` rendezvous): the distributed
+    SHT, ISHT and dhconv (scatter on and off) equal the single-device
+    transforms, each collective a call of NCCL's."""
+    import torch.distributed as dist
+
+    from spherical_dyffusion_tpu_torch.ops.contractions import contract_dhconv
+    from spherical_dyffusion_tpu_torch.parallel.distributed_sht import (
+        distributed_dhconv,
+        distributed_isht,
+        distributed_sht,
+    )
+    from spherical_dyffusion_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(data=1)
+        assert all(g is dist.group.WORLD for g in mesh.groups.values())
+        g = torch.Generator(device=cuda).manual_seed(0)
+        x = torch.randn((2, 32, 64, 16), device=cuda, generator=g)
+        w = torch.randn((16, 16, 32, 2), device=cuda, generator=g) / 16
+        sht, isht = RealSHT(32, 64).to(cuda), InverseRealSHT(32, 64).to(cuda)
+        want = sht(x)
+        assert _rel_err(distributed_sht(x, sht, mesh), want) < 1e-6
+        assert _rel_err(distributed_isht(want, isht, mesh), isht(want)) < 1e-6
+        conv = contract_dhconv(want, w)
+        assert _rel_err(distributed_dhconv(want, w, mesh), conv) < 1e-6
+        assert _rel_err(distributed_dhconv(want, w, mesh, scatter_output=False), conv) < 1e-6
+    finally:
+        dist.destroy_process_group()

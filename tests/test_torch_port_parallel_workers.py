@@ -1,0 +1,185 @@
+"""The per-rank work of ``tests/test_torch_port_parallel.py``.
+
+Spawned processes import this module (and so no JAX): each joins a gloo
+group through a ``file://`` rendezvous, runs the distributed transforms,
+the trainer's gradient mean on seeded terms, data-parallel training steps
+(float32 mean, bf16 mean, ZeRO-1 with its checkpoint) and a stepper window
+over the group, and writes its results to
+``<out>/rank<r>.pt``. It holds no tests.
+"""
+
+import os
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from spherical_dyffusion_tpu_torch import main_path
+from spherical_dyffusion_tpu_torch.data.datamodule import DebugDataModule
+from spherical_dyffusion_tpu_torch.inference.stepper import DYffusionStepper
+from spherical_dyffusion_tpu_torch.models.sfno import SFNO, SFNOConfig
+from spherical_dyffusion_tpu_torch.ops.sht import InverseRealSHT, RealSHT
+from spherical_dyffusion_tpu_torch.parallel.distributed_sht import (
+    distributed_dhconv,
+    distributed_isht,
+    distributed_sht,
+)
+from spherical_dyffusion_tpu_torch.parallel.mesh import make_mesh, shard_batch
+from spherical_dyffusion_tpu_torch.training.experiments import (
+    ExperimentConfig,
+    InterpolationExperiment,
+)
+from spherical_dyffusion_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+# the transforms' sizes (tests/test_parallel.py's), and the training setup
+# of its _tiny_training_setup: batch 4, an SFNO at embed 8 x 1 layer on 8 x 16
+H, W, C = 16, 32, 8
+TRAIN_STEPS = 2
+TIMESTEPS = torch.tensor([1, 2, 2, 1])
+
+
+def transform_inputs():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, H, W, C)).astype(np.float32)
+    w = (rng.standard_normal((C, C, H, 2)) * 0.1).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(w)
+
+
+def reduce_inputs(world: int) -> torch.Tensor:
+    """(world, 4096) float32 values: row r is rank r's term of the
+    gradient-mean probe."""
+    rng = np.random.default_rng(world)
+    return torch.from_numpy(rng.standard_normal((world, 4096)).astype(np.float32))
+
+
+def transforms():
+    return (RealSHT(H, W, grid="legendre-gauss"), InverseRealSHT(H, W, grid="legendre-gauss"))
+
+
+def interpolation_trainer(**cfg) -> Trainer:
+    """The interpolation experiment of ``tests/test_parallel.py``'s tiny
+    setup, dropout off, weights from seed 0; ``cfg`` goes to
+    ``TrainerConfig``."""
+    dm = DebugDataModule(channels=2, height=8, width=16, horizon=3, batch_size=4,
+                         n_timesteps=24)
+    model = SFNO(SFNOConfig(img_shape=(8, 16), in_chans=4, out_chans=2, embed_dim=8,
+                            num_layers=1, with_time_emb=True, min_time=1, max_time=2))
+    model.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():  # spectral weights large enough that the filter shows
+        model.block_0.filter.weight.mul_(64.0)
+    exp = InterpolationExperiment(model, ExperimentConfig(horizon=3), dm.in_packer,
+                                  dm.out_packer, dm.normalizer)
+    return Trainer(exp, dm, TrainerConfig(epochs=1, steps_per_epoch=TRAIN_STEPS,
+                                          warmup_steps=1, **cfg))
+
+
+def train_batches(n: int = TRAIN_STEPS):
+    dm = DebugDataModule(channels=2, height=8, width=16, horizon=3, batch_size=4,
+                         n_timesteps=24)
+    return [b for _, b in zip(range(n), dm.train_batches(seed=0))]
+
+
+def train(tr: Trainer, ckpt: str = None) -> dict:
+    """``TRAIN_STEPS`` steps on ``train_batches``, each sample's diffusion
+    timestep pinned to ``TIMESTEPS`` (this rank's rows of it): the per-step
+    losses, one validation batch's metrics, the parameters after the steps,
+    the ZeRO slices' shapes, and the checkpoint written where one is
+    asked."""
+    state = tr.init_state()
+    gen = torch.Generator().manual_seed(1)
+    rows = shard_batch(tr.mesh, TIMESTEPS)
+    real = torch.randint
+
+    def pinned(low, high=None, size=None, *a, **k):
+        if size is not None and tuple(size) == tuple(rows.shape):
+            return rows.clone()
+        return real(low, high, size, *a, **k)
+
+    losses = []
+    torch.randint = pinned
+    try:
+        for batch in train_batches():
+            dyn, cond, rt = tr.upload(batch)
+            losses.append(float(tr.train_step(state, dyn, cond, gen, rt)["loss"]))
+    finally:
+        torch.randint = real
+    if ckpt:
+        tr.save_checkpoint(state, ckpt)
+    return dict(losses=losses, val=tr.validate(state, max_batches=1),
+                params={k: v.detach().clone() for k, v in state.model.state_dict().items()},
+                opt_sharded=[tuple(part.shape) for _, part in tr._zero.values()])
+
+
+def window_stepper(mesh=None) -> DYffusionStepper:
+    """A tiny main-path window (SFNO embed 8 x 1 on 8 x 16, 3 state
+    channels, horizon 3), every dropout off."""
+    st = main_path.build(embed=8, layers=1, img_shape=(8, 16), horizon=3, n_state=3,
+                         dtype="float32", use_pallas=False, fused_mlp=False, device="cpu",
+                         enable_interpolator_dropout=False)
+    return DYffusionStepper(st.exp, prescriber=st.prescriber, mesh=mesh)
+
+
+def window(stepper: DYffusionStepper):
+    inp = main_path.window_inputs(6, (8, 16), 3, batch=4, device="cpu")
+    return stepper.run_window(inp["x0"], inp["forcing"], inp["sst"], inp["mask"],
+                              torch.Generator().manual_seed(0), 6)
+
+
+def _worker(rank: int, world: int, init: str, out: str):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    try:
+        res = {}
+        # the transforms over (h, w) = (2, world / 2), or (1, 2) on two ranks
+        nh = 2 if world >= 4 else 1
+        mesh = make_mesh(data=1, h=nh, w=world // nh)
+        x, w = transform_inputs()
+        sht, isht = transforms()
+        hi, wi = mesh.index("h"), mesh.index("w")
+        nw = mesh.shape["w"]
+        x_blk = x[:, hi * H // nh:(hi + 1) * H // nh, wi * W // nw:(wi + 1) * W // nw]
+        spec = distributed_sht(x_blk, sht, mesh)
+        w_blk = w[wi * C // nw:(wi + 1) * C // nw]
+        conv = distributed_dhconv(spec, w_blk, mesh)
+        res.update(coords=(hi, wi), spec=spec, back=distributed_isht(spec, isht, mesh),
+                   conv=conv, conv_rep=distributed_dhconv(spec, w_blk, mesh,
+                                                          scatter_output=False),
+                   pipe=distributed_isht(conv, isht, mesh))
+        # the gradient mean over the world, in float32 and in bf16
+        tr = interpolation_trainer()
+        terms = reduce_inputs(world)[rank]
+        res["mean"] = {str(dt): tr._mean_over_data([terms], dt)[0]
+                       for dt in (None, "bfloat16")}
+        # data-parallel training over the world (batch 4 splits over 2 or 4)
+        res["dp"] = train(interpolation_trainer(), os.path.join(out, "dp.ckpt"))
+        res["bf16"] = train(interpolation_trainer(grad_reduce_dtype="bfloat16"))
+        res["zero"] = train(interpolation_trainer(zero_shard_opt_state=True),
+                            os.path.join(out, "zero.ckpt"))
+        # the stepper's rows over the world
+        res["window"] = window(window_stepper(make_mesh(data=world)))
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def start(world: int, out: str):
+    """Start ``_worker`` on ``world`` spawned processes, without waiting."""
+    os.makedirs(out, exist_ok=True)
+    init = "file://" + os.path.join(out, "rendezvous")
+    return mp.start_processes(_worker, args=(world, init, out), nprocs=world, join=False,
+                              start_method="spawn")
+
+
+def results(ctx, world: int, out: str, timeout_s: float = 300.0) -> list:
+    """Wait for ``start``'s processes (raising where one failed, and
+    killing them all after ``timeout_s``); their results by rank."""
+    deadline = time.monotonic() + timeout_s
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"the {world} ranks did not finish in {timeout_s} s")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]

@@ -369,7 +369,6 @@ def test_adamw_clip_mask_schedule_match_the_optax_chain(accumulate):
 # ---------------------------------------------------------- TrainerConfig
 
 @pytest.mark.parametrize("field,value", [
-    ("grad_reduce_dtype", "bfloat16"), ("zero_shard_opt_state", True),
     ("ckpt_mirror", "s3://bucket/prefix"), ("save_to_wandb", True)])
 def test_trainer_config_refuses_unported_values(field, value):
     with pytest.raises(NotImplementedError, match=field):
