@@ -68,8 +68,10 @@ Phases, each timed:
    two ``run_window`` calls chained by hand on inputs read from the source
    here, and the aggregator's per-step RMSE and bias tables against float64
    numpy;
-9. profile: one ``torch.profiler`` pass over one window of each path, the
-   top 10 CUDA kernels by total time and the kernel time by group;
+9. profile (run last: a ``torch.profiler`` session leaves a launch cost in
+   the process, which launch-bound figures of later phases would carry):
+   one ``torch.profiler`` pass over one window of each path, the top 10
+   CUDA kernels by total time and the kernel time by group;
 11. training (run right after the build, while the process holds nothing
    else, so that its peak memory is training's own): (a) K1's backward at the main path's shapes, batch
    1 and 2: dx (K1 over the conjugate-transposed image) and dW (a float32
@@ -120,7 +122,7 @@ Phases, each timed:
    dropout off, kernels against the plain path within 1e-4; (d)
    ``results/skill_fast08/forecaster.msgpack`` decoded by
    ``utils/flax_msgpack.py`` and loaded strictly into its SFNO;
-13. the model options at 256 x 8 on 180 x 360 (run after phase 9):
+13. the model options at 256 x 8 on 180 x 360 (run after phase 17):
    (a) the Tucker window (``main_path.TUCKER_WINDOW``: Tucker rank 0.25 on
    the rank pipeline, 2R = 128, bf16, scan and peel, K3 on): one warm-up
    and one timed 12-step window beside phase 7's, K3 launched 192 x and
@@ -148,7 +150,7 @@ Phases, each timed:
    its loss finite and, in one step under the dispatch mode, no
    activation-sized bytes copied from the host.
 14. (see ``phase14``) training's other modes at 256 x 8;
-15. the ACE family at 256 x 8 on 180 x 360, batch 1 (run last): (a)
+15. the ACE family at 256 x 8 on 180 x 360, batch 1 (run after phase 14): (a)
    ``main_path.ace_rollout`` (``bench.py:ace_bench``: 36 -> 35 channels,
    the dry-air corrector and the prescribed ocean, bf16, K1 and K3 with
    norm1's affine alone), 48 steps in 12-step windows with the aggregator
@@ -171,7 +173,7 @@ Phases, each timed:
    3 steps at constant lr through the kernels against the plain path
    (losses 1e-5); (f) one warm ACE window under ``torch.profiler``: its
    launches and kernel time by group against (a)'s steady window.
-16. (run after phase 10, before the profile, as is phase 17) the UNet at
+16. (run after phase 10, as is phase 17) the UNet at
    the published width of ``configs/model/unet.json`` (dim
    64, ``dim_mults`` (1, 2, 4, 8), dropouts 0.1, bilinear resampling 180 x
    360 -> 184 x 368; 35.4 M parameters), float32, batch 1, the main path's
@@ -196,16 +198,39 @@ Phases, each timed:
    as JAX does at mesh size 1), K1's launches counted; the group destroyed.
    Two ranks cannot share one card's NCCL communicator: the multi-rank
    numerics are the CPU tests' (gloo, 2 and 4 processes).
+18. the netCDF data layer (run after phase 15, before the profile), in a
+   temporary directory: a dataset written by ``data/hdf5.py:write_hdf5``
+   (this machine has no h5py) with the 34 state names, the two forcings and
+   the mask of ``configs/datamodule/fv3gfs.json`` on 180 x 360, float32
+   from a numpy seed (9.6 MB a step): ``data/ic_0001`` in two files of 8
+   steps, ``data/validation/ic_0011`` in files of 13 and 12, and
+   ``stats/centering.nc`` and ``scaling.nc``; (a) ``NetCDFTimeSeries``
+   windows equal to the written arrays bit for bit, a 12-step window's
+   bytes, seconds and MB/s; (c) ``train.run_model`` with
+   ``datamodule.kind: fv3gfs``: 2 interpolator steps at 256 x 8, float32,
+   K1 on, finite losses, the normalizer equal to the stats files, K1's
+   forward and dx launches a step; (b) ``run_inference`` over
+   ``validation_loader.dataset.data_path`` (the validation member) from a
+   forecaster checkpoint (seeded weights, (c)'s interpolator), 24 steps in
+   12-step windows, bf16, the fused-tail path (peel, ``scan_layers``, K1
+   and K3, 192 launches each a window): the predictions and logs equal bit
+   for bit to the same rollout over an in-memory source of the same arrays
+   (defined here, not in the package), steps/s with and without the first
+   window, ``time/data_loading``; (d) ``run_dataset_inference`` on a
+   predictions file of (b)'s denormalized predictions, (E, T, H, W) per
+   variable: its logs equal to the aggregator's on the same arrays (1e-6).
 
 It prints a ``training`` JSON line (phase 11's figures), a ``cli`` JSON line
 (phase 12's), an ``options`` JSON line (phase 13's), a ``modes`` JSON line
 (phase 14's), an ``ace`` JSON line (phase 15's), a ``unet`` JSON line
-(phase 16's), a ``parallel`` JSON line (phase 17's), a ``kernels`` JSON
+(phase 16's), a ``parallel`` JSON line (phase 17's), a ``data`` JSON line
+(phase 18's), a ``kernels`` JSON
 line (K1's backward dx as its own entry; ``launches_by_path`` holds phase
 12 (b)'s counts as ``"cli"``, phase 13's as ``"tucker"``, ``"fold"`` and
 ``"remat"``, phase 15's as ``"ace"``, ``"ace_cli"`` and
 ``"simultaneous"``, phase 16's as ``"unet"`` (zero for every kernel) and
-phase 17's as ``"parallel"``), the ``nvidia-smi`` line, and last
+phase 17's as ``"parallel"``, phase 18's as ``"data_train"`` and
+``"data"``), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. It needs the port's package beside it
 and a CUDA card; without either it exits non-zero at once.
@@ -283,6 +308,8 @@ UNET_STATE, UNET_REPS, UNET_TRAIN_STEPS = 35, 5, 3
 # phase 17: the transforms' channels and grid, and the SFNO trained through K1
 PAR_CHANNELS, PAR_SHAPE = 256, (180, 360)
 PAR_EMBED, PAR_LAYERS, PAR_STEPS = 256, 8, 3
+# phase 18: the networks' width and depth and the dataset's grid
+DATA_EMBED, DATA_LAYERS, DATA_SHAPE = 256, 8, (180, 360)
 
 
 def log(msg: str) -> None:
@@ -2215,6 +2242,335 @@ def phase17(smi_line, wrappers, report, runs, device="cuda") -> None:
     report["parallel"] = rep
 
 
+def phase18(smi_line, wrappers, report, runs, device="cuda") -> None:
+    """Phase 18: the netCDF data layer at DATA_EMBED x DATA_LAYERS on
+    DATA_SHAPE, in a temporary directory: a dataset written by
+    ``data/hdf5.py:write_hdf5`` (no h5py on this machine) with the FV3GFS
+    datamodule config's names; (a) ``NetCDFTimeSeries`` windows against the
+    written arrays; (c) the train command line with ``datamodule.kind:
+    fv3gfs`` (run before (b), whose forecaster loads its interpolator);
+    (b) ``run_inference`` over ``validation_loader.dataset.data_path`` on
+    the fused-tail path against the same rollout over an in-memory source
+    of the same arrays; (d) ``run_dataset_inference`` on a predictions file
+    against the aggregator on the same arrays."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from spherical_dyffusion_tpu_torch import interface
+    from spherical_dyffusion_tpu_torch.data.coords import HorizontalCoordinates, SigmaCoordinates
+    from spherical_dyffusion_tpu_torch.data.datasets import NetCDFTimeSeries, TimeSeriesSource
+    from spherical_dyffusion_tpu_torch.data.hdf5 import write_hdf5
+    from spherical_dyffusion_tpu_torch.data.netcdf import read_scalar_dataset
+    from spherical_dyffusion_tpu_torch.evaluation.aggregators import InferenceAggregator
+    from spherical_dyffusion_tpu_torch.inference.loop import (
+        InferenceConfig,
+        run_dataset_inference,
+        run_inference,
+    )
+    from spherical_dyffusion_tpu_torch.inference.stepper import DYffusionStepper
+    from spherical_dyffusion_tpu_torch.ops.pallas_contractions import dhconv
+    from spherical_dyffusion_tpu_torch.run_inference import main_from_config
+    from spherical_dyffusion_tpu_torch.train import run_model
+    from spherical_dyffusion_tpu_torch.training.trainer import Trainer
+    from spherical_dyffusion_tpu_torch.utils.config import CONFIG_DIR
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    rep = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_data_")
+    d = Path(tmp.name)
+    dm_json = json.loads(Path(CONFIG_DIR, "datamodule", "fv3gfs.json").read_text())
+    state, forcings = list(dm_json["in_names"]), list(dm_json["forcing_names"])
+    mask = dm_json["prescriber"]["mask_name"]
+    fields = state + forcings + [mask]
+    H, W = DATA_SHAPE
+    lat = (90.0 - (np.arange(H) + 0.5) * (180.0 / H)).astype(np.float64)
+    lon = ((np.arange(W) + 0.5) * (360.0 / W)).astype(np.float64)
+    ak, bk = np.linspace(0.0, 2e4, 9), np.linspace(0.0, 1.0, 9)
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    # the dataset: float32 fields from a numpy seed; each file's arrays kept
+    rng = np.random.default_rng(18)
+    written, nbytes = {}, 0
+    t0 = time.perf_counter()
+    for member, steps in (("ic_0001", (8, 8)), ("validation/ic_0011", (13, 12))):
+        os.makedirs(d / "data" / member)
+        for i, n in enumerate(steps):
+            arrays = {v: rng.standard_normal((n, H, W), dtype=np.float32) for v in fields}
+            arrays[mask] = (arrays[mask] > 0).astype(np.float32)
+            path = d / "data" / member / f"part_{i}.nc"
+            write_hdf5(str(path), {**arrays, "lat": lat, "lon": lon,
+                                   **{f"ak_{k}": np.float64(a) for k, a in enumerate(ak)},
+                                   **{f"bk_{k}": np.float64(b) for k, b in enumerate(bk)}},
+                       {"/": {"title": "chip_smoke phase 18"}})
+            written[(member, i)] = arrays
+            nbytes += path.stat().st_size
+    train_all = {v: np.concatenate([written[("ic_0001", i)][v] for i in (0, 1)])
+                 for v in state + forcings}
+    os.makedirs(d / "stats")
+    write_hdf5(str(d / "stats" / "centering.nc"),
+               {v: np.float32(a.mean()) for v, a in train_all.items()})
+    write_hdf5(str(d / "stats" / "scaling.nc"),
+               {v: np.float32(a.std()) for v, a in train_all.items()})
+    write_s = time.perf_counter() - t0
+    del train_all
+    per_step = len(fields) * H * W * 4
+    log(f"dataset: {len(fields)} fields of {H} x {W} float32 ({per_step / 1e6:.2f} MB a step), "
+        f"data/ic_0001 in files of 8 and 8 steps, data/validation/ic_0011 in 13 and 12, "
+        f"stats/centering.nc and scaling.nc: {nbytes / 1e6:.1f} MB written in {write_s:.2f} s "
+        f"by write_hdf5")
+    rep["dataset"] = dict(fields=len(fields), bytes=nbytes, write_s=write_s,
+                          step_bytes=per_step)
+
+    # (a) windows of the validation member against the written arrays
+    val_dir = str(d / "data" / "validation" / "ic_0011")
+    val = {v: np.concatenate([written[("validation/ic_0011", i)][v] for i in (0, 1)])
+           for v in fields}
+    src = NetCDFTimeSeries(val_dir)
+    check(src.n_timesteps == 25 and tuple(src.spatial_shape) == (H, W),
+          f"NetCDFTimeSeries: {src.n_timesteps} steps of {src.spatial_shape}")
+    for start, length in ((0, 13), (6, 12), (12, 13)):
+        got = src.read_window(start, length, fields)
+        bad = [v for v in fields if not np.array_equal(got[v], val[v][start:start + length])]
+        check(not bad, f"NetCDFTimeSeries window ({start}, {length}) differs in {bad[:4]}")
+    t0 = time.perf_counter()
+    got = src.read_window(6, N_STEPS, fields)
+    read_s = time.perf_counter() - t0
+    read_bytes = sum(a.nbytes for a in got.values())
+    check(np.array_equal(src.horizontal.lat, lat) and np.array_equal(src.sigma.bk, bk),
+          "NetCDFTimeSeries: horizontal or sigma differ from the files")
+    log(f"(a) NetCDFTimeSeries windows equal the written arrays bit for bit (three windows, "
+        f"one across the file boundary); a {N_STEPS}-step window of {len(fields)} fields: "
+        f"{read_bytes / 1e6:.1f} MB in {read_s:.3f} s = {read_bytes / 1e6 / read_s:.0f} MB/s "
+        f"(page cache warm: the files were just written); on {smi_line}")
+    rep["read"] = dict(bytes=read_bytes, seconds=read_s, mb_per_s=read_bytes / 1e6 / read_s)
+    del got
+
+    # (c) the train command line with datamodule.kind fv3gfs: 2 interpolator
+    # steps, float32, K1 on; each step's K1 launches and those of its dx
+    def run_config(experiment, **extra):
+        cfg = {"experiment": experiment, "name": f"data-{experiment}", "seed": 0,
+               "platform": device, "ckpt_dir": str(d / "ckpt"), "log_dir": str(d / "logs"),
+               "verbose": False,
+               "datamodule": dict(dm_json, out_names=state, data_dir=str(d / "data"),
+                                  data_dir_stats=str(d / "stats"), prediction_horizon=6,
+                                  prediction_horizon_long=6, max_val_samples=1,
+                                  max_train_samples=2),
+               "model": {"kind": "sfno", "embed_dim": DATA_EMBED, "num_layers": DATA_LAYERS,
+                         "use_pallas": True, "dropout_mlp": 0.1},
+               "module": {"enable_inference_dropout": True, "num_predictions": 2},
+               "diffusion": {"forward_conditioning": "none"},
+               "trainer": {"epochs": 1, "warmup_steps": 1, "lr": 4e-4, "use_ema": False}}
+        for k, v in extra.items():
+            cfg[k] = {**cfg.get(k, {}), **v}
+        path = d / f"{experiment}.json"
+        path.write_text(json.dumps(cfg))
+        return str(path), cfg
+
+    steps = []
+    real_step, real_grad = Trainer.train_step, torch.autograd.grad
+    backward = [0]
+
+    def timed_step(self, *a, **k):
+        sync()
+        n0, b0, t0 = dhconv.launches, backward[0], time.perf_counter()
+        out = real_step(self, *a, **k)
+        sync()
+        steps.append(dict(ms=(time.perf_counter() - t0) * 1e3, k1=dhconv.launches - n0,
+                          k1_backward=backward[0] - b0))
+        return out
+
+    def counted_grad(*a, **k):
+        n0 = dhconv.launches
+        out = real_grad(*a, **k)
+        backward[0] += dhconv.launches - n0
+        return out
+
+    ip_path, _ = run_config("interpolation")
+    Trainer.train_step, torch.autograd.grad = timed_step, counted_grad
+    try:
+        t0 = time.perf_counter()
+        ip = run_model(ip_path, [])
+        train_s = time.perf_counter() - t0
+    finally:
+        Trainer.train_step, torch.autograd.grad = real_step, real_grad
+    losses = ip["history"]["step_losses"]
+    check(len(losses) == 2 and all(np.isfinite(losses)), f"fv3gfs training losses {losses}")
+    check([(s["k1"], s["k1_backward"]) for s in steps] == [(2 * DATA_LAYERS, DATA_LAYERS)] * 2,
+          f"fv3gfs training: K1 launches a step {[(s['k1'], s['k1_backward']) for s in steps]},"
+          f" expected ({2 * DATA_LAYERS}, {DATA_LAYERS}) (forward and dx) as in phase 11")
+    means = read_scalar_dataset(str(d / "stats" / "centering.nc"))
+    stds = read_scalar_dataset(str(d / "stats" / "scaling.nc"))
+    norm = ip["trainer"].exp.normalizer
+    check(norm.names == tuple(state)
+          and norm.means.cpu().tolist() == [float(np.float32(means[v])) for v in state]
+          and norm.stds.cpu().tolist() == [float(np.float32(stds[v])) for v in state],
+          "fv3gfs training: the normalizer differs from the stats files")
+    log(f"(c) train command line, datamodule.kind fv3gfs, interpolator at {DATA_EMBED} x "
+        f"{DATA_LAYERS}, float32, K1 on: 2 steps, losses {[round(v, 5) for v in losses]}, "
+        f"step ms {[round(s['ms'], 2) for s in steps]} (synchronized; phase 11's median "
+        f"{report.get('training', {}).get('interpolator', {}).get('step_ms', float('nan')):.2f}"
+        f" ms on synthetic data), K1 launches a step {[s['k1'] for s in steps]} (dx "
+        f"{[s['k1_backward'] for s in steps]}); the normalizer equals the stats files; "
+        f"{train_s:.2f} s with building, validation and the checkpoint")
+    rep["train"] = dict(losses=losses, step_ms=[s["ms"] for s in steps],
+                        k1=[s["k1"] for s in steps], k1_backward=[s["k1_backward"] for s in steps],
+                        seconds=train_s)
+    runs["data_train"] = dict(launches={"K1": sum(s["k1"] for s in steps), "K2": 0, "K3": 0,
+                                        "K4": 0})
+    del ip
+    torch.cuda.empty_cache()
+
+    # (b) the forecaster's checkpoint (seeded weights over the fv3gfs
+    # datamodule, its interpolator (c)'s), then run_inference over the
+    # validation member's files: bf16, the fused-tail path
+    fc_path, fc_cfg = run_config("dyffusion", diffusion={
+        "interpolator_checkpoint_path": str(d / "ckpt" / "data-interpolation_last.ckpt")})
+    dm = interface.get_datamodule(fc_cfg)
+    fc = interface.get_experiment(fc_cfg, dm, device=device, seed=1)
+    ckpt = str(d / "ckpt" / "data-dyffusion.ckpt")
+    torch.save({"params": {k: v.detach().cpu() for k, v in fc.model.state_dict().items()},
+                "ema_params": None, "config_json": json.dumps(fc_cfg)}, ckpt)
+    del fc, dm
+    fused = dict(use_pallas=True, fused_tail=True, scan_layers=True, compute_dtype="bfloat16",
+                 sht_matmul_dtype="bfloat16")
+    overrides = {"model": fused, "interpolator_model": fused,
+                 "diffusion": {"peel_sampler": True}}
+    windows = []
+    real_window = DYffusionStepper.run_window
+
+    def recorded(self, *a, **k):
+        out = real_window(self, *a, **k)
+        windows.append(out[1])
+        return out
+
+    n_steps = 2 * N_STEPS
+    DYffusionStepper.run_window = recorded
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        out = main_from_config({
+            "checkpoint_path": ckpt, "platform": device, "n_forward_steps": n_steps,
+            "forward_steps_in_memory": N_STEPS, "experiment_dir": str(d / "inference"),
+            "log_zonal_mean_images": False, "verbose": False, "overrides": overrides,
+            "validation_loader": {"dataset": {"data_path": val_dir, "n_repeats": 1}}})
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        DYffusionStepper.run_window = real_window
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    runs["data"] = dict(launches=launches)
+    summary, stepper = out["summary"], out["stepper"]
+    file_preds = torch.cat(windows, dim=1)
+    n_windows = len(windows)
+    check(isinstance(out["aggregator"], InferenceAggregator) and n_windows == 2,
+          f"run_inference over the files: {n_windows} windows")
+    for k, n in (("K1", 192 * DATA_LAYERS // 8), ("K3", 192 * DATA_LAYERS // 8), ("K2", 0),
+                 ("K4", 0)):
+        check(launches[k] == n * n_windows,
+              f"run_inference over the files: {k} launched {launches[k]} times in {n_windows} "
+              f"windows, expected {n} a {N_STEPS}-step window (phase 7's path)")
+    check(bool(torch.isfinite(file_preds).all()), "run_inference over the files: non-finite")
+
+    # the same rollout over an in-memory source of the same arrays
+    class MemorySource(TimeSeriesSource):
+        def __init__(self, arrays):
+            self.arrays = arrays
+            self.n_timesteps = next(iter(arrays.values())).shape[0]
+            self.spatial_shape = (H, W)
+
+        @property
+        def horizontal(self):
+            return HorizontalCoordinates(lat, lon)
+
+        @property
+        def sigma(self):
+            return SigmaCoordinates(ak, bk)
+
+        def read_window(self, start, length, names):
+            return {n: self.arrays[n][start:start + length].copy() for n in names}
+
+    mem = MemorySource(val)
+    exp = stepper.exp
+    out_names = list(exp.out_packer.names)
+    agg = InferenceAggregator(out_names, mem.horizontal.area_weights(),
+                              log_zonal_mean_images=False,
+                              normalizer=exp.normalizer.subset(out_names))
+    windows.clear()
+    DYffusionStepper.run_window = recorded
+    zero_counts()
+    try:
+        mem_summary = run_inference(stepper, mem, InferenceConfig(
+            n_forward_steps=n_steps, forward_steps_in_memory=N_STEPS, n_repeats=1, seed=0),
+            aggregator=agg, mask_name=mask, verbose=False)
+    finally:
+        DYffusionStepper.run_window = real_window
+    mem_preds = torch.cat(windows, dim=1)
+    same = torch.equal(file_preds, mem_preds)
+    gap = float((file_preds.float() - mem_preds.float()).abs().max()
+                / mem_preds.float().abs().max())
+    mem_logs = agg.get_logs()
+    logs_same = mem_logs == out["logs"]
+    log(f"(b) run_inference over data_path (the validation member, its second window across "
+        f"the file boundary), {n_steps} steps in {N_STEPS}-step windows, {DATA_EMBED} x "
+        f"{DATA_LAYERS}, bf16, the fused-tail path (peel, scan_layers, K1 and K3): "
+        f"{wall:.2f} s with loading; duration {summary['duration_s']:.3f} s, total "
+        f"{summary['total_steps_per_second']:.3f} steps/s, steady (without the first window) "
+        f"{summary['steady_steps_per_second']:.3f} steps/s, time/data_loading "
+        f"{summary['time/data_loading']:.3f} s; launches {launches}; against the same rollout "
+        f"over an in-memory source of the same arrays ({mem_summary['duration_s']:.3f} s, "
+        f"time/data_loading {mem_summary['time/data_loading']:.3f} s): predictions "
+        f"{'equal bit for bit' if same else f'not bit-equal, max gap {gap:.3e}'}, logs "
+        f"{'equal' if logs_same else 'differ'}; on {smi_line}")
+    check(same and logs_same, f"run_inference over the files differs from the in-memory "
+                              f"source: max gap {gap:.3e} of the largest prediction")
+    rep["inference"] = dict(steps=n_steps, wall_s=wall, launches=launches, **{k: summary[k] for k in (
+        "duration_s", "total_steps_per_second", "steady_steps_per_second",
+        "time/data_loading", "time/run_on_batch")},
+        memory_source=dict(duration_s=mem_summary["duration_s"],
+                           data_loading_s=mem_summary["time/data_loading"]),
+        bit_equal=same)
+
+    # (d) run_dataset_inference on a predictions file, (E, T, H, W) per
+    # variable, against the aggregator fed the same arrays
+    onorm = exp.normalizer.subset(out_names).to(file_preds.device)
+    raw = (file_preds.float() * onorm.stds + onorm.means).cpu().numpy()
+    pred_path = str(d / "autoregressive_predictions.nc")
+    t0 = time.perf_counter()
+    write_hdf5(pred_path, {n: np.ascontiguousarray(raw[..., i]) for i, n in enumerate(out_names)},
+               {n: {"long_name": n} for n in out_names})
+    pw = time.perf_counter() - t0
+    area = src.horizontal.area_weights()
+    t0 = time.perf_counter()
+    scored = run_dataset_inference(pred_path, src, out_names, area, n_forward_steps=n_steps,
+                                   device=device)
+    sync()
+    score_s = time.perf_counter() - t0
+    ref = InferenceAggregator(out_names, area)
+    tgt = src.read_window(1, n_steps, out_names)
+    ref.record_batch(torch.from_numpy(raw).to(device),
+                     torch.from_numpy(np.stack([tgt[n] for n in out_names], -1)).to(device))
+    want_logs = ref.get_logs()
+    rel = max(abs(scored[k] - v) / max(abs(v), 1.0) for k, v in want_logs.items()) \
+        if set(scored) == set(want_logs) else float("inf")
+    log(f"(d) run_dataset_inference: a predictions file of {len(out_names)} variables of shape "
+        f"{raw.shape[:4]} written in {pw:.2f} s and re-scored in {score_s:.2f} s against the "
+        f"validation member: {len(scored)} logs, max gap to the aggregator on the same arrays "
+        f"{rel:.3e} (tolerance 1e-6)")
+    check(rel <= 1e-6, "run_dataset_inference differs from the aggregator on the same arrays")
+    rep["dataset_inference"] = dict(write_s=pw, seconds=score_s, logs=len(scored), max_rel=rel)
+    src.close()
+    del stepper, exp, out, file_preds, mem_preds, raw, val, written
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    report["data"] = rep
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -3256,10 +3612,6 @@ def main() -> int:
         del det, run, record, outs, chained, loop_preds, raw, p64, y64, diff, agg, x, forcing
         del p, rollout_kw
 
-    # phases 16 and 17 run before the profile: a torch.profiler session
-    # leaves a launch cost behind in the process (the UNet's forward, bound
-    # by the host's launches at batch 1, took 19.9-21.4 ms before one
-    # profiled forward and 33.5-36.2 ms after it; PERF.md, PR 15)
     with Phase("16 the UNet at its published width (forwards, window, training, command "
                "lines, the card against the CPU)"):
         phase16(smi_line, wrappers, report, runs)
@@ -3268,6 +3620,25 @@ def main() -> int:
                "bf16 gradient mean and ZeRO-1 through K1)"):
         phase17(smi_line, wrappers, report, runs)
 
+    with Phase("13 model options at 256 x 8 (Tucker, fold, remat, the other options)"):
+        phase13(smi_line, wrappers, report, runs, drive, pair, other)
+
+    with Phase("14 training modes at 256 x 8 (bf16, bf16 moments, fused, streaming, rollout "
+               "validation, histograms, code snapshot)"):
+        phase14(smi_line, wrappers, report, runs)
+
+    with Phase("15 the ACE family at 256 x 8 (rollout, kernels, physics, native checkpoint, "
+               "simultaneous training)"):
+        phase15(smi_line, wrappers, report, runs)
+
+    with Phase("18 the netCDF data layer at 256 x 8 (files, windows, the train and inference "
+               "command lines on them, re-scoring)"):
+        phase18(smi_line, wrappers, report, runs)
+
+    # the profile runs last: a torch.profiler session leaves a launch cost
+    # behind in the process (the UNet's forward, bound by the host's
+    # launches at batch 1, took 19.9-21.4 ms before one profiled forward and
+    # 33.5-36.2 ms after it; PERF.md, PR 15)
     with Phase("9 profile (one window of each path)"):
         activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         with profile(activities=activities):  # the profiler's own start-up, not measured
@@ -3314,17 +3685,6 @@ def main() -> int:
                 for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
             del stepper, prof
 
-    with Phase("13 model options at 256 x 8 (Tucker, fold, remat, the other options)"):
-        phase13(smi_line, wrappers, report, runs, drive, pair, other)
-
-    with Phase("14 training modes at 256 x 8 (bf16, bf16 moments, fused, streaming, rollout "
-               "validation, histograms, code snapshot)"):
-        phase14(smi_line, wrappers, report, runs)
-
-    with Phase("15 the ACE family at 256 x 8 (rollout, kernels, physics, native checkpoint, "
-               "simultaneous training)"):
-        phase15(smi_line, wrappers, report, runs)
-
     sources = {"K1": "spherical_dyffusion_tpu_torch/csrc/dhconv.cu",
                "K2": "spherical_dyffusion_tpu_torch/csrc/fused_mlp.cu",
                "K3": "spherical_dyffusion_tpu_torch/csrc/fused_mlp.cu",
@@ -3360,6 +3720,7 @@ def main() -> int:
     print(json.dumps({"ace": report["ace"]}))
     print(json.dumps({"unet": report["unet"]}))
     print(json.dumps({"parallel": report["parallel"]}))
+    print(json.dumps({"data": report["data"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

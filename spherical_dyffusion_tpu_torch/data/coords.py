@@ -4,7 +4,8 @@ Counterpart of ``spherical_dyffusion_tpu/data/coords.py`` as far as the
 sources return it: ``SigmaCoordinates`` and ``HorizontalCoordinates``, numpy
 arrays as in the JAX package; ``HorizontalCoordinates.area_weights`` gives a
 float32 CPU tensor, which the aggregators move to their tensors' device.
-``GridMetadata`` bundles them for the datamodules. ``SigmaCoordinates.tensors``
+``VariableMetadata`` holds a variable's units and long name.
+``GridMetadata`` bundles the grid for the datamodules. ``SigmaCoordinates.tensors``
 gives ak and bk as float32 tensors on a device, made once there, so that the
 ACE physics, which reads them every step, copies nothing from the host.
 """
@@ -20,7 +21,7 @@ import torch
 from ..evaluation.metrics import spherical_area_weights
 from ..utils.device import to_device
 
-__all__ = ["SigmaCoordinates", "HorizontalCoordinates", "GridMetadata"]
+__all__ = ["SigmaCoordinates", "HorizontalCoordinates", "VariableMetadata", "GridMetadata"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +81,12 @@ class HorizontalCoordinates:
         lat = 90.0 - (np.arange(nlat) + 0.5) * (180.0 / nlat)
         lon = (np.arange(nlon) + 0.5) * (360.0 / nlon)
         return cls(lat, lon)
+
+
+@dataclasses.dataclass(frozen=True)
+class VariableMetadata:
+    units: str = ""
+    long_name: str = ""
 
 
 @dataclasses.dataclass(frozen=True)

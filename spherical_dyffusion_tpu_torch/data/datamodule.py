@@ -2,18 +2,19 @@
 
 Counterpart of ``spherical_dyffusion_tpu/data/datamodule.py``: ``prefetched``
 (copied: that module imports the JAX package's netCDF sources),
-``batch_iterator``, ``DataModuleConfig``, ``BaseDataModule`` and
+``batch_iterator``, ``DataModuleConfig``, ``BaseDataModule``,
+``normalizer_for``, ``FV3GFSDataModule`` (the production datamodule over
+netCDF directories), ``StochasticDataModule`` (the skill-study systems) and
 ``DebugDataModule``. Batches are stacked with numpy, as in the JAX package;
 ``train_batches`` and ``val_batches`` hand them on as torch tensors, pinned
 when there is a card, so that ``utils/device.py:to_device`` uploads them
 without waiting for it; the stacking and pinning run on the prefetch thread.
-The netCDF datamodule (``FV3GFSDataModule``) and ``StochasticDataModule``
-are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue
 import threading
 from typing import Dict, Iterable, Iterator, Optional, Sequence
@@ -22,12 +23,20 @@ import numpy as np
 import torch
 
 from .coords import GridMetadata
-from .datasets import SyntheticTimeSeries, TimeSeriesSource, WindowedDataset
-from .normalization import StandardNormalizer
+from .datasets import (
+    ChaoticModalTimeSeries,
+    ConcatSource,
+    NetCDFTimeSeries,
+    StochasticModalTimeSeries,
+    SyntheticTimeSeries,
+    TimeSeriesSource,
+    WindowedDataset,
+)
+from .normalization import StandardNormalizer, get_normalizer
 from .packer import Packer
 
 __all__ = ["prefetched", "batch_iterator", "DataModuleConfig", "BaseDataModule",
-           "DebugDataModule"]
+           "normalizer_for", "FV3GFSDataModule", "StochasticDataModule", "DebugDataModule"]
 
 
 def prefetched(iterable: Iterable, depth: int = 2) -> Iterator:
@@ -119,7 +128,7 @@ class BaseDataModule:
         self.out_packer = Packer(cfg.out_names)
         self.forcing_packer = Packer(cfg.forcing_names) if cfg.forcing_names else None
         self.forcing_normalizer = (
-            normalizer.subset(list(cfg.forcing_names))
+            normalizer_for(cfg.forcing_names, normalizer)
             if cfg.forcing_names and all(n in normalizer.names for n in cfg.forcing_names)
             else None)
 
@@ -157,6 +166,88 @@ class BaseDataModule:
     def grid(self) -> GridMetadata:
         src = self._source("train")
         return GridMetadata(horizontal=src.horizontal, sigma=src.sigma)
+
+
+def normalizer_for(names: Sequence[str], base: StandardNormalizer) -> StandardNormalizer:
+    return base.subset(list(names))
+
+
+class FV3GFSDataModule(BaseDataModule):
+    """The production datamodule: statistics from ``centering.nc`` and
+    ``scaling.nc`` in ``data_dir_stats`` (else ``data_dir``), training on
+    the ensemble members ``ic_*`` under ``data_dir`` (or
+    ``training_sub_paths``; the first alone with ``debug_mode``; the
+    directory itself when it has none), validation on the held-out member
+    ``validation/ic_0011`` (else ``data_dir``)."""
+
+    def __init__(self, cfg: DataModuleConfig):
+        stats_dir = cfg.data_dir_stats or cfg.data_dir
+        all_names = list(dict.fromkeys(list(cfg.in_names) + list(cfg.forcing_names)))
+        self._full_normalizer = get_normalizer(os.path.join(stats_dir, "centering.nc"),
+                                               os.path.join(stats_dir, "scaling.nc"), all_names)
+        super().__init__(cfg, self._full_normalizer.subset(list(cfg.in_names)))
+        if cfg.forcing_names:
+            self.forcing_normalizer = self._full_normalizer.subset(list(cfg.forcing_names))
+
+    def _source(self, split: str) -> TimeSeriesSource:
+        root = self.cfg.data_dir
+        if split == "train":
+            subs = self.cfg.training_sub_paths
+            if subs is None:
+                subs = sorted(d for d in os.listdir(root)
+                              if d.startswith("ic_") and os.path.isdir(os.path.join(root, d)))
+            if self.cfg.debug_mode:
+                subs = subs[:1]
+            if not subs:
+                return NetCDFTimeSeries(root)
+            return ConcatSource([NetCDFTimeSeries(os.path.join(root, s)) for s in subs])
+        val_dir = os.path.join(root, "validation", "ic_0011")
+        if not os.path.isdir(val_dir):
+            val_dir = root
+        return NetCDFTimeSeries(val_dir)
+
+
+class StochasticDataModule(BaseDataModule):
+    """A datamodule over the skill-study systems: ``system`` "ou"
+    (``StochasticModalTimeSeries``: decaying perturbations) or "chaotic"
+    (``ChaoticModalTimeSeries``: growing ones). Train and val share the
+    structure seed and draw independent trajectories (noise seeds seed + 1
+    and seed + 2); the statistics are those of the first (up to) 64
+    training frames."""
+
+    def __init__(self, channels: int = 2, height: int = 64, width: int = 128,
+                 horizon: int = 6, window: int = 1, n_timesteps: int = 4096,
+                 n_val_timesteps: int = 1024, batch_size: int = 8, seed: int = 0,
+                 omega_px: int = 2, n_modes: int = 8, rho: float = 0.9, sigma: float = 0.35,
+                 system: str = "ou", dt: float = 0.1, **cfg_kwargs):
+        in_names = [f"var_{i}" for i in range(channels)]
+        cfg = DataModuleConfig(
+            in_names=in_names, out_names=in_names, horizon=horizon, window=window,
+            batch_size=batch_size,
+            prediction_horizon=cfg_kwargs.pop("prediction_horizon", horizon),
+            prediction_horizon_long=cfg_kwargs.pop("prediction_horizon_long", horizon),
+            **cfg_kwargs)
+        common = dict(spatial_shape=(height, width), seed=seed, omega_px=omega_px,
+                      n_modes=n_modes, sigma=sigma)
+        if system == "chaotic":
+            src_cls = ChaoticModalTimeSeries
+            common["dt"] = dt
+        elif system == "ou":
+            src_cls = StochasticModalTimeSeries
+            common["rho"] = rho
+        else:
+            raise ValueError(f"Unknown system {system!r}")
+        self._train_src = src_cls(in_names, n_timesteps=n_timesteps, noise_seed=seed + 1,
+                                  **common)
+        self._val_src = src_cls(in_names, n_timesteps=n_val_timesteps, noise_seed=seed + 2,
+                                **common)
+        sample = self._train_src.read_window(0, min(64, n_timesteps), in_names)
+        means = {n: float(np.mean(v)) for n, v in sample.items()}
+        stds = {n: float(np.std(v) + 1e-6) for n, v in sample.items()}
+        super().__init__(cfg, StandardNormalizer.from_dicts(means, stds, in_names))
+
+    def _source(self, split: str) -> TimeSeriesSource:
+        return self._train_src if split == "train" else self._val_src
 
 
 class DebugDataModule(BaseDataModule):

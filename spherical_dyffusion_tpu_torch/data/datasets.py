@@ -1,29 +1,34 @@
 """Time-series sources of named (T, H, W) fields, and the windowed dataset
 over them, on the host in numpy.
 
-A copy of the generated sources of ``spherical_dyffusion_tpu/data/datasets.py``
-(that module imports the JAX package's netCDF reader, so it is repeated here,
-not imported): ``TimeSeriesSource``, ``SyntheticTimeSeries`` (the source the
-product rollout and the training slice read) and
-``StochasticModalTimeSeries`` (the skill-study system). The same numpy
+Counterpart of ``spherical_dyffusion_tpu/data/datasets.py`` (a copy: that
+module imports the JAX package): ``TimeSeriesSource``, ``NetCDFTimeSeries``
+(a directory of netCDF files read through ``data/netcdf.py``, windows
+crossing file boundaries), ``SyntheticTimeSeries`` (the source the product
+rollout and the training slice read), ``StochasticModalTimeSeries`` and
+``ChaoticModalTimeSeries`` (the skill-study systems) and ``ConcatSource``
+(ensemble members, which a window never crosses). The same numpy
 generators from the same seeds give the same float32 arrays;
-``tests/test_torch_port_inference.py`` pins the copy to the original.
-``WindowedDataset`` maps a sample index to its window of packed frames, as
-the JAX package's does with its numpy packing. ``NetCDFTimeSeries`` and
-``ConcatSource`` (several ensemble members) are not ported: the reader needs
-h5py.
+``tests/test_torch_port_inference.py`` and ``tests/test_torch_port_data.py``
+pin the copies to the originals. ``WindowedDataset`` maps a sample index to
+its window of packed frames, as the JAX package's does with its numpy
+packing.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+import glob
+import os
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from .coords import HorizontalCoordinates, SigmaCoordinates
+from .netcdf import NetCDFFile
 
-__all__ = ["TimeSeriesSource", "SyntheticTimeSeries", "StochasticModalTimeSeries",
+__all__ = ["TimeSeriesSource", "NetCDFTimeSeries", "SyntheticTimeSeries",
+           "StochasticModalTimeSeries", "ChaoticModalTimeSeries", "ConcatSource",
            "WindowedDataset", "pack_normalize"]
 
 
@@ -43,6 +48,112 @@ class TimeSeriesSource:
     @property
     def sigma(self) -> Optional[SigmaCoordinates]:
         return None
+
+
+class NetCDFTimeSeries(TimeSeriesSource):
+    """Multi-file netCDF time series with a cumulative timestep index:
+    windows may cross file boundaries.
+
+    Files are the sorted ``*.nc`` members of ``path`` (or a single file).
+    Variables with a leading time dimension (3-D) are time-dependent; 2-D
+    ones are broadcast over a window's steps. Each file stays open once
+    read; every read is an ``os.pread``.
+    """
+
+    def __init__(self, path: str):
+        if os.path.isdir(path):
+            self.files = sorted(glob.glob(os.path.join(path, "*.nc")))
+        else:
+            self.files = [path]
+        if not self.files:
+            raise FileNotFoundError(f"No .nc files under {path}")
+        self._handles: Dict[int, NetCDFFile] = {}
+        counts = []
+        f0 = self._file(0)
+        # the spatial dims from a 3-D variable
+        self._time_dependent: Dict[str, bool] = {}
+        spatial = None
+        for name in f0.variables:
+            shp = f0.shape(name)
+            if len(shp) == 3:
+                spatial = shp[1:]
+                self._time_dependent[name] = True
+            elif len(shp) == 2:
+                self._time_dependent[name] = False
+        if spatial is None:
+            raise ValueError(f"No (time, lat, lon) variables found in {self.files[0]}")
+        self.spatial_shape = spatial
+        for i in range(len(self.files)):
+            f = self._file(i)
+            n = None
+            for name, td in self._time_dependent.items():
+                if td and name in f.variables:
+                    n = f.shape(name)[0]
+                    break
+            counts.append(n or 0)
+        self._counts = np.asarray(counts)
+        self._starts = np.concatenate([[0], np.cumsum(self._counts)])
+        self.n_timesteps = int(self._starts[-1])
+
+    def _file(self, i: int) -> NetCDFFile:
+        if i not in self._handles:
+            self._handles[i] = NetCDFFile(self.files[i])
+        return self._handles[i]
+
+    def close(self) -> None:
+        for f in self._handles.values():
+            f.close()
+        self._handles.clear()
+
+    @property
+    def horizontal(self) -> HorizontalCoordinates:
+        f = self._file(0)
+        lat = lon = None
+        for cand in ("lat", "grid_yt", "latitude"):
+            if cand in f.variables:
+                lat = np.asarray(f.read(cand))
+                break
+        for cand in ("lon", "grid_xt", "longitude"):
+            if cand in f.variables:
+                lon = np.asarray(f.read(cand))
+                break
+        if lat is None or lon is None:
+            return HorizontalCoordinates.regular(*self.spatial_shape)
+        return HorizontalCoordinates(lat, lon)
+
+    @property
+    def sigma(self) -> Optional[SigmaCoordinates]:
+        f = self._file(0)
+        aks = sorted([v for v in f.variables if v.startswith("ak_")],
+                     key=lambda s: int(s.split("_")[1]))
+        bks = sorted([v for v in f.variables if v.startswith("bk_")],
+                     key=lambda s: int(s.split("_")[1]))
+        if aks and bks:
+            ak = np.asarray([float(f.read(v)) for v in aks])
+            bk = np.asarray([float(f.read(v)) for v in bks])
+            return SigmaCoordinates(ak, bk)
+        if "ak" in f.variables and "bk" in f.variables:
+            return SigmaCoordinates(np.asarray(f.read("ak")), np.asarray(f.read("bk")))
+        return None
+
+    def read_window(self, start: int, length: int, names: Sequence[str]) -> Dict[str, np.ndarray]:
+        out = {n: [] for n in names}
+        remaining = length
+        t = start
+        while remaining > 0:
+            fi = int(np.searchsorted(self._starts, t, side="right") - 1)
+            local = t - int(self._starts[fi])
+            take = min(remaining, int(self._counts[fi]) - local)
+            f = self._file(fi)
+            for n in names:
+                if self._time_dependent.get(n, True):
+                    out[n].append(np.asarray(f.read(n, slice(local, local + take))))
+                else:
+                    arr = np.asarray(f.read(n))
+                    out[n].append(np.broadcast_to(arr, (take,) + arr.shape))
+            t += take
+            remaining -= take
+        return {n: np.concatenate(v, axis=0) if len(v) > 1 else v[0] for n, v in out.items()}
 
 
 class SyntheticTimeSeries(TimeSeriesSource):
@@ -156,6 +267,149 @@ class StochasticModalTimeSeries(TimeSeriesSource):
         return out
 
 
+class ChaoticModalTimeSeries(TimeSeriesSource):
+    """Chaotic spherical dynamics for skill studies: the spatial
+    decomposition of ``StochasticModalTimeSeries`` (a solid-body-rotating
+    base field plus modal coefficients over fixed spatial modes) with
+    coefficients that follow Lorenz-96,
+
+        da_k/dt = (a_{k+1} - a_{k-2}) a_{k-1} - a_k + F,   F = 8,
+
+    whose leading Lyapunov exponent is positive: perturbations grow
+    (``empirical_growth_factor``). ``dt`` is the model time per frame."""
+
+    def __init__(self, names: Sequence[str], n_timesteps: int = 4096,
+                 spatial_shape: tuple = (64, 128), seed: int = 0, omega_px: int = 2,
+                 n_modes: int = 8, sigma: float = 0.35, dt: float = 0.1,
+                 forcing: float = 8.0, noise_seed: Optional[int] = None):
+        if n_modes < 4:
+            raise ValueError("Lorenz-96 needs at least 4 modes")
+        self.names = list(names)
+        self.n_timesteps = int(n_timesteps)
+        self.spatial_shape = tuple(spatial_shape)
+        self.omega_px = int(omega_px)
+        self.amp_sigma = float(sigma)
+        self.dt = float(dt)
+        self.forcing = float(forcing)
+        H, W = self.spatial_shape
+        V, K = len(self.names), int(n_modes)
+        rng = np.random.default_rng(seed)
+        yy = np.linspace(0, np.pi, H, endpoint=False)[:, None]
+        xx = np.linspace(0, 2 * np.pi, W, endpoint=False)[None, :]
+        base = np.zeros((V, H, W), np.float32)
+        for v in range(V):
+            for _ in range(6):
+                ky, kx = rng.integers(1, 5), rng.integers(1, 5)
+                ph = rng.uniform(0, 2 * np.pi, 2)
+                base[v] += rng.normal(0, 0.5) * (
+                    np.sin(ky * yy + ph[0]) * np.cos(kx * xx + ph[1])).astype(np.float32)
+        self._base = base
+        modes = np.zeros((V, K, H, W), np.float32)
+        for v in range(V):
+            for k in range(K):
+                ky, kx = rng.integers(1, 6), rng.integers(1, 6)
+                ph = rng.uniform(0, 2 * np.pi, 2)
+                modes[v, k] = (np.sin(ky * yy + ph[0]) * np.sin(kx * xx + ph[1])).astype(np.float32)
+                modes[v, k] /= np.sqrt(np.mean(modes[v, k] ** 2) + 1e-8)
+        self._modes = modes
+        # Lorenz-96 per variable: spin up onto the attractor, then record
+        nrng = np.random.default_rng(noise_seed if noise_seed is not None else seed + 1000)
+        s = self.forcing + 0.5 * nrng.standard_normal((V, K))
+        s = self._integrate(s, 10.0)
+        raw = np.empty((self.n_timesteps, V, K), np.float64)
+        for t in range(self.n_timesteps):
+            raw[t] = s
+            s = self._integrate(s, self.dt)
+        # standardized to about ``sigma`` (at F = 8: mean about 2.3, std 3.6)
+        self._coef_mean = raw.mean(axis=(0, 2), keepdims=True)
+        self._coef_std = raw.std(axis=(0, 2), keepdims=True) + 1e-8
+        self._a = (self.amp_sigma * (raw - self._coef_mean) / self._coef_std).astype(np.float32)
+        self._raw = raw
+
+    def _l96_rhs(self, s: np.ndarray) -> np.ndarray:
+        return (np.roll(s, -1, -1) - np.roll(s, 2, -1)) * np.roll(s, 1, -1) - s + self.forcing
+
+    def _integrate(self, s: np.ndarray, total_t: float) -> np.ndarray:
+        """RK4 in sub-steps of at most 0.01 model time."""
+        n_sub = max(1, int(np.ceil(total_t / 0.01)))
+        h = total_t / n_sub
+        for _ in range(n_sub):
+            k1 = self._l96_rhs(s)
+            k2 = self._l96_rhs(s + 0.5 * h * k1)
+            k3 = self._l96_rhs(s + 0.5 * h * k2)
+            k4 = self._l96_rhs(s + h * k3)
+            s = s + (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+        return s
+
+    @property
+    def horizontal(self) -> HorizontalCoordinates:
+        return HorizontalCoordinates.regular(*self.spatial_shape)
+
+    def read_window(self, start: int, length: int, names: Sequence[str]) -> Dict[str, np.ndarray]:
+        out = {}
+        t_idx = np.arange(start, start + length)
+        for n in names:
+            v = self.names.index(n)
+            frames = np.empty((length,) + self.spatial_shape, np.float32)
+            for i, t in enumerate(t_idx):
+                det = np.roll(self._base[v], (self.omega_px * int(t)) % self.spatial_shape[1],
+                              axis=1)
+                frames[i] = det + np.einsum("k,khw->hw", self._a[t, v], self._modes[v])
+            out[n] = frames
+        return out
+
+    def empirical_growth_factor(self, h: int, eps: float = 1e-5, n_probe: int = 16) -> float:
+        """Mean h-step growth ||delta(h)|| / ||delta(0)|| of perturbed twins
+        started from states on the recorded trajectory (> 1: the positive
+        Lyapunov exponent)."""
+        rng = np.random.default_rng(0)
+        T = self.n_timesteps
+        starts = np.linspace(0, max(1, T - h - 1), n_probe).astype(int)
+        factors = []
+        for t0 in starts:
+            s0 = self._raw[t0]
+            d0 = eps * rng.standard_normal(s0.shape)
+            s_p = s0 + d0
+            s_t = s0
+            for _ in range(h):
+                s_t = self._integrate(s_t, self.dt)
+                s_p = self._integrate(s_p, self.dt)
+            factors.append(float(np.linalg.norm(s_p - s_t) / np.linalg.norm(d0)))
+        return float(np.mean(factors))
+
+
+class ConcatSource(TimeSeriesSource):
+    """Concatenated ensemble-member sources: a window never crosses a
+    member's boundary."""
+
+    def __init__(self, sources: List[TimeSeriesSource]):
+        if not sources:
+            raise ValueError("ConcatSource needs at least one source")
+        self.sources = sources
+        self.spatial_shape = sources[0].spatial_shape
+        self.n_timesteps = sum(s.n_timesteps for s in sources)
+
+    @property
+    def horizontal(self):
+        return self.sources[0].horizontal
+
+    @property
+    def sigma(self):
+        return self.sources[0].sigma
+
+    def member_bounds(self) -> List[tuple]:
+        starts = np.cumsum([0] + [s.n_timesteps for s in self.sources])
+        return [(int(a), int(b)) for a, b in zip(starts[:-1], starts[1:])]
+
+    def read_window(self, start: int, length: int, names: Sequence[str]) -> Dict[str, np.ndarray]:
+        for (a, b), src in zip(self.member_bounds(), self.sources):
+            if a <= start < b:
+                if start + length > b:
+                    raise IndexError("window crosses ensemble-member boundary")
+                return src.read_window(start - a, length, names)
+        raise IndexError(start)
+
+
 def pack_normalize(arrays: Sequence[np.ndarray], means: Optional[np.ndarray] = None,
                    stds: Optional[np.ndarray] = None) -> np.ndarray:
     """Per-variable (T, H, W) arrays -> channels-last (T, H, W, C) float32,
@@ -192,10 +446,26 @@ class WindowedDataset:
 
     def __len__(self) -> int:
         total = self.window + self.horizon
+        if isinstance(self.source, ConcatSource):
+            return sum(max(0, (b - a - total) // self.stride + 1)
+                       for a, b in self.source.member_bounds())
         return max(0, (self.source.n_timesteps - total) // self.stride + 1)
 
+    def _start_index(self, i: int) -> int:
+        """The first frame of sample ``i``; over a ``ConcatSource``, the
+        samples of each member in turn."""
+        total = self.window + self.horizon
+        if isinstance(self.source, ConcatSource):
+            for a, b in self.source.member_bounds():
+                m = max(0, (b - a - total) // self.stride + 1)
+                if i < m:
+                    return a + i * self.stride
+                i -= m
+            raise IndexError(i)
+        return i * self.stride
+
     def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
-        start = i * self.stride
+        start = self._start_index(i)
         total = self.window + self.horizon
         names = list(self.in_names) + [n for n in self.forcing_names if n not in self.in_names]
         random_timestep = None

@@ -1,8 +1,8 @@
 """Standard (z-score) normalization over packed channel vectors.
 
-Counterpart of ``spherical_dyffusion_tpu/data/normalization.py`` built from
-in-memory statistics (``from_dicts``). Reading the statistics files
-(netCDF) is not part of the port yet. ``subset`` selects the channels of
+Counterpart of ``spherical_dyffusion_tpu/data/normalization.py``: built from
+in-memory statistics (``from_dicts``) or, by ``get_normalizer``, from the
+``centering.nc`` / ``scaling.nc`` statistics files. ``subset`` selects the channels of
 another name list, as the rollout does for its output normalizer; ``to``
 moves the statistics to the device once, so that ``normalize`` does not
 copy them at every call. ``normalize_dict`` and ``denormalize_dict`` act on
@@ -18,8 +18,9 @@ from typing import Dict, Mapping, Sequence
 import torch
 
 from ..utils.device import to_device
+from .netcdf import read_scalar_dataset
 
-__all__ = ["StandardNormalizer"]
+__all__ = ["StandardNormalizer", "get_normalizer"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,3 +71,16 @@ class StandardNormalizer:
         return cls(means=torch.tensor([means[n] for n in names], dtype=torch.float32),
                    stds=torch.tensor([stds[n] for n in names], dtype=torch.float32),
                    names=tuple(names))
+
+
+def get_normalizer(global_means_path: str, global_stds_path: str,
+                   names: Sequence[str]) -> StandardNormalizer:
+    """A normalizer over ``names`` from the centering.nc / scaling.nc
+    statistics files of the reference's ``data_statistics/``; raises
+    ``KeyError`` naming the variables either file lacks."""
+    means = read_scalar_dataset(global_means_path)
+    stds = read_scalar_dataset(global_stds_path)
+    missing = [n for n in names if n not in means or n not in stds]
+    if missing:
+        raise KeyError(f"Variables missing from normalization stats: {missing}")
+    return StandardNormalizer.from_dicts(means, stds, names)

@@ -32,8 +32,9 @@ The host pipeline around the card:
 Randomness: one host ``torch.Generator`` seeded from ``cfg.seed``; each
 chunk of each window draws from it the seed of the generator its
 ``run_window`` call gets (``_next_window_generator``), where the JAX loop
-splits its key. The netCDF writers and ``run_dataset_inference`` are not
-ported.
+splits its key. ``run_dataset_inference`` re-scores a predictions file (the
+layout of the JAX package's ``PredictionWriter``) against a source, reading
+it through ``data/hdf5.py``. The netCDF writers are not ported.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ from ..utils.device import to_device
 from .stepper import DYffusionStepper
 
 __all__ = ["InferenceConfig", "InferenceWindows", "capped_window", "run_inference",
-           "UploadCache", "wrapped_pieces", "UPLOAD_CACHE_ENTRIES"]
+           "UploadCache", "wrapped_pieces", "UPLOAD_CACHE_ENTRIES", "run_dataset_inference",
+           "exp_forcing_normalizer"]
 
 TARGET_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # windows of device buffers kept by the upload cache of either rollout
@@ -316,7 +318,7 @@ def run_inference(stepper: DYffusionStepper, source: TimeSeriesSource, cfg: Infe
     in_norm = exp.normalizer.to(device)
     out_norm = exp.normalizer.subset(out_names).to(device)
     out_stds, out_means = out_norm.stds, out_norm.means
-    forcing_norm = _forcing_normalizer(exp).to(device) if forcing_names else None
+    forcing_norm = exp_forcing_normalizer(exp).to(device) if forcing_names else None
     pin = device.type == "cuda"
     tgt_dtype = TARGET_DTYPES[cfg.targets_dtype]
 
@@ -488,7 +490,39 @@ def run_inference(stepper: DYffusionStepper, source: TimeSeriesSource, cfg: Infe
     }
 
 
-def _forcing_normalizer(exp):
+def run_dataset_inference(predictions_path: str, source: TimeSeriesSource, out_names,
+                          area_weights: torch.Tensor, n_forward_steps: Optional[int] = None,
+                          aggregator=None, device=None) -> Dict[str, float]:
+    """Re-score saved predictions against the dataset: reads the
+    ``(E, T, H, W)`` variables of a predictions file (``PredictionWriter``'s
+    layout), at most ``n_forward_steps`` of them, against the source's
+    frames from 1 on, and returns the aggregator's logs. The reductions run
+    on ``device``: the CUDA card unless the caller names another (without a
+    card it raises)."""
+    from ..data import hdf5
+    from ..evaluation.aggregators import InferenceAggregator
+
+    if aggregator is None:
+        aggregator = InferenceAggregator(list(out_names), area_weights)
+    with hdf5.File(predictions_path) as f:
+        E, T = f[out_names[0]].shape[:2]
+        n = min(T, n_forward_steps) if n_forward_steps else T
+        # one member at a time, so that a variable's T steps are held for
+        # one member only, not for all E
+        preds = np.stack([np.concatenate([f[v][e:e + 1][:, :n] for e in range(E)])
+                          for v in out_names], axis=-1)  # (E, n, H, W, C)
+    targets_raw = source.read_window(1, n, list(out_names))
+    targets = np.stack([targets_raw[v] for v in out_names], axis=-1)
+    device = torch.device(device if device is not None else "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    aggregator.record_batch(torch.from_numpy(preds).to(device),
+                            torch.from_numpy(np.ascontiguousarray(targets)).to(device),
+                            start_step=0)
+    return aggregator.get_logs()
+
+
+def exp_forcing_normalizer(exp):
     if getattr(exp, "forcing_normalizer", None) is not None:
         return exp.forcing_normalizer
     raise ValueError("experiment has no forcing normalizer but forcings requested")

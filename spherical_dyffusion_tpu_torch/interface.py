@@ -42,9 +42,9 @@ raises rather than fall back. One departure: a DYffusion experiment that
 loads its interpolator from ``diffusion.interpolator_checkpoint_path`` also
 deep-merges ``interpolator_model`` (a model section) into that
 interpolator's config, as the JAX reference loader does for reference
-checkpoints; the JAX package ignores the key for its own checkpoints. Not
-ported, each raising and naming its ROADMAP item: the ``fv3gfs`` datamodule
-and statistics files (Queue 1 item 8). A reference checkpoint of a UNet
+checkpoints; the JAX package ignores the key for its own checkpoints. The
+``fv3gfs`` datamodule reads netCDF directories and its statistics files
+(``data/datamodule.py:FV3GFSDataModule``). A reference checkpoint of a UNet
 raises as in JAX: its loader reads an SFNO's architecture from the weights
 (``infer_sfno_architecture``: "state_dict holds no SFNO blocks"), and
 neither package converts the reference UNet's names.
@@ -63,8 +63,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from .data.datamodule import DebugDataModule
-from .data.normalization import StandardNormalizer
+from .data.datamodule import DataModuleConfig, DebugDataModule, FV3GFSDataModule
+from .data.normalization import StandardNormalizer, get_normalizer
 from .data.packer import Packer
 from .diffusion.dyffusion import DYffusionConfig, build_schedule
 from .models.sfno import SFNO, SFNOConfig
@@ -124,8 +124,7 @@ def get_datamodule(cfg: Dict[str, Any]):
     if kind == "debug":
         return DebugDataModule(**dm_cfg)
     if kind == "fv3gfs":
-        raise NotImplementedError("datamodule kind 'fv3gfs': the netCDF data layer is not "
-                                  "ported (ROADMAP Queue 1 item 8)")
+        return FV3GFSDataModule(DataModuleConfig(**_fields(DataModuleConfig, dm_cfg)))
     raise ValueError(f"Unknown datamodule kind {kind!r}")
 
 
@@ -346,10 +345,11 @@ def load_reference_checkpoint(path: str, overrides: Optional[Dict[str, Any]] = N
     interpolator embedded in the forecaster's ``state_dict`` (else
     ``overrides['interpolator_checkpoint_path']`` or the config's),
     patched by ``overrides['interpolator_model']``; LitEma shadows
-    (``model_ema.*``) become ``ema_params``. Statistics files
-    (``datamodule.data_dir_stats``) wait for the netCDF reader (ROADMAP
-    Queue 1 item 8); without them the normalization is the identity and
-    ``config['_unit_normalization']`` is set, as in JAX."""
+    (``model_ema.*``) become ``ema_params``. The normalizers come from the
+    statistics files ``centering.nc`` and ``scaling.nc`` in
+    ``datamodule.data_dir_stats`` (else ``data_dir``); without them the
+    normalization is the identity and ``config['_unit_normalization']`` is
+    set, as in JAX."""
     sd, hparams = lightning_parts(_loaded) if _loaded is not None else \
         load_lightning_checkpoint(path)
     config = translate_reference_hparams(hparams)
@@ -369,13 +369,18 @@ def load_reference_checkpoint(path: str, overrides: Optional[Dict[str, Any]] = N
     window = int(dm_cfg.get("window", 1))
 
     stats_dir = dm_cfg.get("data_dir_stats") or dm_cfg.get("data_dir")
-    if stats_dir and os.path.exists(os.path.join(str(stats_dir), "centering.nc")):
-        raise NotImplementedError("datamodule statistics files (centering.nc, scaling.nc): "
-                                  "the netCDF reader is not ported (ROADMAP Queue 1 item 8)")
     norm_names = list(dict.fromkeys(state_names + out_names))
-    normalizer = _unit_normalizer(norm_names).subset(state_names)
-    forcing_normalizer = _unit_normalizer(forcing_names) if forcing_names else None
-    config["_unit_normalization"] = True
+    mean_p = os.path.join(str(stats_dir), "centering.nc") if stats_dir else ""
+    if stats_dir and os.path.exists(mean_p):
+        std_p = os.path.join(str(stats_dir), "scaling.nc")
+        normalizer = get_normalizer(mean_p, std_p, norm_names)
+        forcing_normalizer = (get_normalizer(mean_p, std_p, forcing_names)
+                              if forcing_names else None)
+    else:
+        normalizer = _unit_normalizer(norm_names)
+        forcing_normalizer = _unit_normalizer(forcing_names) if forcing_names else None
+        config["_unit_normalization"] = True
+    normalizer = normalizer.subset(state_names)
 
     exp_cfg = _experiment_config(config, horizon, window, int(
         (config.get("module", {}) or {}).get("num_predictions", 1) or 1))

@@ -4,9 +4,11 @@ Counterpart of ``spherical_dyffusion_tpu/run_inference.py`` on its DYffusion
 path: loads a checkpoint (``interface.load_experiment_checkpoint``, any of
 its three formats, with the config's ``overrides`` deep-merged in), builds
 the prescriber, the ``DYffusionStepper`` (``use_ema``, ``params_dtype``,
-``preds_dtype``), the synthetic source where no dataset is given, the
-``InferenceAggregator`` with the training normalizer, runs ``run_inference``
-and writes ``metrics.json`` (the summary and the aggregator's logs) and the
+``preds_dtype``), the source (the netCDF files of
+``validation_loader.dataset.data_path`` where it exists, repeated
+``n_repeats`` times; else a synthetic one), the ``InferenceAggregator``
+with the training normalizer, runs ``run_inference`` and writes
+``metrics.json`` (the summary and the aggregator's logs) and the
 per-timestep ``metrics.jsonl``.
 
     python -m spherical_dyffusion_tpu_torch.run_inference config.json [k=v ...]
@@ -24,12 +26,12 @@ becomes the prescribed ocean; ``derived: true`` also scores the registered
 diagnostics. ``metrics.json`` holds the summary and the aggregator's logs.
 
 It runs on the CUDA card unless the config says ``platform: cpu``
-(``platform=cpu`` on the command line sets it, as for ``train``). Not
-ported, each raising and naming its ROADMAP item: a dataset on disk (a
-``validation_loader.dataset.data_path`` that exists), the data writers
-(any ``data_writer`` option set) and ``log_video`` (Queue 1 item 8). Media
-are not written: where the JAX package plots snapshots or zonal means, one
-line says so.
+(``platform=cpu`` on the command line sets it, as for ``train``). Both
+paths read ``validation_loader.dataset.data_path`` as the JAX command line
+does. Not ported, each raising and naming its ROADMAP item: the data
+writers (any ``data_writer`` option set) and ``log_video`` (Queue 1 item
+8). Media are not written: where the JAX package plots snapshots or zonal
+means, one line says so.
 """
 
 from __future__ import annotations
@@ -50,16 +52,32 @@ def _refuse_unported(cfg: dict) -> None:
     if cfg.get("log_video"):
         raise NotImplementedError("log_video: the video aggregator is not ported (ROADMAP "
                                   "Queue 1 item 8)")
-    data_path = ((cfg.get("validation_loader") or {}).get("dataset") or {}).get("data_path")
+
+
+def _source(cfg: dict, names, spatial_shape, ace: bool = False):
+    """The rollout's source and its repeats: the netCDF files of the
+    config's ``data_path`` where it exists (repeated ``n_repeats`` times),
+    else a synthetic source over ``names`` on ``spatial_shape``, repeated
+    ``max(4, n_forward_steps)`` times, as in the JAX command line. Where
+    ``data_path`` is set but missing, the DYffusion path (``ace`` false)
+    keeps ``n_repeats``, as JAX's ``main_from_config`` does; the ACE path
+    does not, as JAX's ``_ace_source`` does not."""
+    from .data.datasets import NetCDFTimeSeries, SyntheticTimeSeries
+
+    ds = (cfg.get("validation_loader") or {}).get("dataset") or {}
+    data_path, n_repeats = ds.get("data_path"), int(ds.get("n_repeats", 1) or 1)
     if data_path and os.path.exists(data_path):
-        raise NotImplementedError(f"validation_loader.dataset.data_path {data_path!r}: the "
-                                  "netCDF reader is not ported (ROADMAP Queue 1 item 8)")
+        return NetCDFTimeSeries(data_path), n_repeats
+    source = SyntheticTimeSeries(list(names),
+                                 n_timesteps=int(cfg.get("forward_steps_in_memory", 50)) + 1,
+                                 spatial_shape=tuple(spatial_shape))
+    return source, (n_repeats if data_path and not ace
+                    else max(4, int(cfg.get("n_forward_steps", 100))))
 
 
 def main_from_config(cfg: dict) -> dict:
     """Run the rollout a config describes; returns ``{"summary", "logs",
     "aggregator", "stepper"}``."""
-    from .data.datasets import SyntheticTimeSeries
     from .evaluation.aggregators import InferenceAggregator
     from .inference.loop import InferenceConfig, run_inference
     from .inference.prescriber import PrescriberConfig
@@ -94,19 +112,13 @@ def main_from_config(cfg: dict) -> dict:
                                params_dtype=cfg.get("params_dtype"),
                                preds_dtype=cfg.get("preds_dtype"))
 
-    loader_cfg = cfg.get("validation_loader", {}) or {}
-    data_path = (loader_cfg.get("dataset") or {}).get("data_path")
     names = list(dict.fromkeys(list(exp.in_packer.names) + list(exp.forcing_names)
                                + ([mask_name] if mask_name else [])))
-    source = SyntheticTimeSeries(names, n_timesteps=int(cfg.get("forward_steps_in_memory", 50))
-                                 + 1, spatial_shape=exp.model.cfg.img_shape)
-    n_steps = int(cfg.get("n_forward_steps", 100))
+    source, n_repeats = _source(cfg, names, exp.model.cfg.img_shape)
     icfg = InferenceConfig(
-        n_forward_steps=n_steps,
+        n_forward_steps=int(cfg.get("n_forward_steps", 100)),
         forward_steps_in_memory=int(cfg.get("forward_steps_in_memory", 50)),
-        n_ensemble=int(cfg.get("n_ensemble", 1)),
-        n_repeats=(int((loader_cfg.get("dataset") or {}).get("n_repeats", 1) or 1)
-                   if data_path else max(4, n_steps)),
+        n_ensemble=int(cfg.get("n_ensemble", 1)), n_repeats=n_repeats,
         seed=int(cfg.get("seed", 0)))
 
     out_dir = cfg.get("experiment_dir", "results/inference")
@@ -163,7 +175,8 @@ def _main_ace(cfg: dict, device) -> dict:
         stepper = _apply_ace_physics_overrides(cfg, stepper)
         if cfg.get("params_dtype"):
             round_params(stepper.module, cfg["params_dtype"])
-        source, n_repeats = _ace_source(cfg, stepper.cfg.all_names, tuple(stepper.area.shape))
+        source, n_repeats = _source(cfg, stepper.cfg.all_names, tuple(stepper.area.shape),
+                                     ace=True)
         return _run_ace_rollout(cfg, stepper, source, n_repeats)
     exp, _, ema_params, full_cfg = load_experiment_checkpoint(
         path, overrides=cfg.get("overrides"), device=device)
@@ -234,17 +247,6 @@ def _guard_ace_knobs(cfg: dict) -> None:
                 "stepper")
 
 
-def _ace_source(cfg: dict, names, spatial_shape):
-    """The rollout's source, the synthetic one over ``names`` (a dataset on
-    disk waits for the netCDF reader), and its repeats."""
-    from .data.datasets import SyntheticTimeSeries
-
-    source = SyntheticTimeSeries(list(names),
-                                 n_timesteps=int(cfg.get("forward_steps_in_memory", 50)) + 1,
-                                 spatial_shape=tuple(spatial_shape))
-    return source, max(4, int(cfg.get("n_forward_steps", 100)))
-
-
 def _run_ace_from_checkpoint(cfg: dict, exp, full_cfg: dict, device) -> dict:
     """A ``SingleStepStepper`` around a loaded one-step experiment, then the
     windowed ACE rollout."""
@@ -297,7 +299,7 @@ def _run_ace_from_checkpoint(cfg: dict, exp, full_cfg: dict, device) -> dict:
             kwargs["time"] = torch.zeros((x_norm.shape[0],), device=x_norm.device)
         return model(x_norm[..., :n_state], **kwargs)
 
-    source, n_repeats = _ace_source(cfg, all_names, model.cfg.img_shape)
+    source, n_repeats = _source(cfg, all_names, model.cfg.img_shape, ace=True)
     sg = cfg.get("sigma_coordinates")
     stepper = SingleStepStepper(
         SingleStepStepperConfig(in_names=in_names, out_names=out_names,

@@ -11,7 +11,9 @@ runs validation only.
     python -m spherical_dyffusion_tpu_torch.train [config.json] experiment=<name> [k=v ...]
 
 ``experiment=<name>`` loads ``configs/experiment/<name>.json`` (the port's
-JSON copies of the JAX package's configs). It runs on the CUDA card unless
+JSON copies of the JAX package's configs). ``datamodule.kind: fv3gfs``
+trains on netCDF directories (``data/datamodule.py:FV3GFSDataModule``), the
+debug datamodule on synthetic fields. It runs on the CUDA card unless
 the config says ``platform: cpu``; ``platform=cpu`` on the command line sets
 it (the configs carry no such key, which the JAX command line would need as
 ``++platform=cpu``). ``<group>=<name>`` chooses ``configs/<group>/<name>.json``

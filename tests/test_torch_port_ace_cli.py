@@ -470,6 +470,83 @@ def test_run_inference_ace_from_simultaneous_checkpoint_matches_jax(simultaneous
     assert st.cfg.in_names == ["var_0", "var_1", "forcing_0"] and st.ocean is not None
 
 
+def _ace_run(kind, native, simultaneous_ckpt):
+    """The run configs of ``test_run_inference_ace_native_checkpoint_matches_jax``
+    and ``test_run_inference_ace_from_simultaneous_checkpoint_matches_jax``,
+    4 steps in windows of 2."""
+    base = {"stepper_type": "ace", "n_forward_steps": 4, "forward_steps_in_memory": 2,
+            "verbose": False, "log_zonal_mean_images": False}
+    if kind == "native":
+        return dict(base, checkpoint_path=native["path"], derived=True,
+                    sigma_coordinates={"ak": [0.0] * 4, "bk": [0.0, 0.03, 0.06, 0.1]})
+    return dict(base, checkpoint_path=simultaneous_ckpt,
+                prescriber={"prescribed_name": "var_0", "mask_name": "forcing_0"})
+
+
+@pytest.mark.parametrize("kind", ["native", "simultaneous"])
+def test_run_inference_ace_params_dtype_matches_jax(native, simultaneous_ckpt, tmp_path, kind):
+    """``params_dtype: bfloat16`` on both ACE entries (a native checkpoint;
+    an experiment checkpoint): the weights rounded to bf16 values, as JAX
+    casts them (``_cast_tree_jit``), and ``metrics.json`` as JAX's
+    (``_assert_metrics``). The rounding shows: weights moved off their
+    float32 values, and from the experiment checkpoint (the native
+    network's small spectral weights barely move its logs) a float32 run's
+    ``metrics.json`` fails that check."""
+    cfg = dict(_ace_run(kind, native, simultaneous_ckpt), params_dtype="bfloat16")
+    out, got, want = _run_both(cfg, tmp_path)
+    _assert_metrics(got, want)
+    rounded = dict(out["stepper"].module.named_parameters())
+    assert all(torch.equal(p, p.to(torch.bfloat16).float()) for p in rounded.values())
+    f32 = main_from_config(dict(cfg, params_dtype=None, platform="cpu",
+                                experiment_dir=str(tmp_path / "f32")))
+    assert any(not torch.equal(p, rounded[k])
+               for k, p in f32["stepper"].module.named_parameters())
+    if kind == "simultaneous":
+        with pytest.raises(AssertionError):
+            _assert_metrics(json.loads((tmp_path / "f32" / "metrics.json").read_text()), want)
+
+
+@pytest.mark.parametrize("kind", ["native", "simultaneous"])
+def test_run_inference_ace_reads_a_data_path_as_jax(native, simultaneous_ckpt, tmp_path, kind):
+    """Both ACE entries over ``validation_loader.dataset.data_path``: two
+    netCDF files written by ``write_hdf5`` (a window crosses them) with the
+    stepper's fields, ``lat``/``lon`` and, for the experiment checkpoint,
+    whose sigma comes from the source, ``ak_*``/``bk_*``; ``metrics.json``
+    as JAX's, the source's sigma in the stepper. A ``data_path`` that does
+    not exist falls back to the synthetic source repeated ``max(4,
+    n_forward_steps)`` times, as JAX's ``_ace_source`` does, so a rollout
+    longer than a window still runs: ``metrics.json`` as JAX's."""
+    from spherical_dyffusion_tpu_torch.data.hdf5 import write_hdf5
+
+    names = (["PRESsfc", "specific_total_water_0", "DSWRFtoa"] if kind == "native"
+             else ["var_0", "var_1", "forcing_0"])
+    rng = np.random.default_rng(7)
+    d = tmp_path / "data"
+    d.mkdir()
+    for i, n in enumerate((3, 4)):
+        variables = {v: (1.0 + 0.2 * rng.standard_normal((n, H, W))).astype(np.float32)
+                     for v in names}
+        variables.update(lat=np.linspace(-78.75, 78.75, H), lon=np.linspace(0, 337.5, W),
+                         ak_0=np.float64(0.0), ak_1=np.float64(10.0), bk_0=np.float64(0.0),
+                         bk_1=np.float64(0.5))
+        write_hdf5(str(d / f"part_{i}.nc"), variables)
+    cfg = dict(_ace_run(kind, native, simultaneous_ckpt), n_forward_steps=6,
+               validation_loader={"dataset": {"data_path": str(d)}})
+    out, got, want = _run_both(cfg, tmp_path)
+    _assert_metrics(got, want)
+    assert got["n_forward_steps"] == 6
+    if kind == "simultaneous":
+        assert out["stepper"].sigma.as_dict() == {"ak": [0.0, 10.0], "bk": [0.0, 0.5]}
+
+    missing = dict(_ace_run(kind, native, simultaneous_ckpt),
+                   validation_loader={"dataset": {"data_path": str(tmp_path / "absent")}})
+    assert missing["n_forward_steps"] > missing["forward_steps_in_memory"]
+    (tmp_path / "missing").mkdir()
+    _, got, want = _run_both(missing, tmp_path / "missing")
+    _assert_metrics(got, want)
+    assert got["n_forward_steps"] == 4
+
+
 def test_run_inference_ace_overrides_and_refusals(native, simultaneous_ckpt, tmp_path):
     """The run config's corrector, ocean and sigma override the native
     checkpoint's (a new mask name gets mean 0 and std 1, as in JAX); the

@@ -347,3 +347,33 @@ def test_reference_checkpoint_cli_logs_match_jax(reference, tmp_path):
     logs = [k for k in want if k.startswith("inference/")]
     assert logs
     _close({k: got[k] for k in logs}, {k: want[k] for k in logs})
+
+
+def test_reference_checkpoint_reads_stats_files_as_jax(reference, tmp_path):
+    """``datamodule.data_dir_stats`` holding ``centering.nc`` and
+    ``scaling.nc`` (written by ``data/hdf5.py:write_hdf5``): the loader's
+    normalizers are the files' (no ``_unit_normalization``), and the
+    inference command line's logs equal JAX's with the same files."""
+    from spherical_dyffusion_tpu_torch.data.hdf5 import write_hdf5
+
+    means = {n: np.float32(0.5 + 0.1 * i) for i, n in enumerate(STATE + FORCING)}
+    stds = {n: np.float32(2.0 - 0.2 * i) for i, n in enumerate(STATE + FORCING)}
+    write_hdf5(str(tmp_path / "centering.nc"), means)
+    write_hdf5(str(tmp_path / "scaling.nc"), stds)
+    over = {"datamodule": {"data_dir_stats": str(tmp_path)},
+            "diffusion": {"enable_interpolator_dropout": False}}
+    exp, _, _, cfg = interface.load_experiment_checkpoint(str(reference["dyffusion"]),
+                                                          overrides=over, device="cpu")
+    assert "_unit_normalization" not in cfg
+    assert exp.normalizer.get_state() == {"means": {n: float(means[n]) for n in STATE},
+                                          "stds": {n: float(stds[n]) for n in STATE}}
+    assert exp.forcing_normalizer.get_state()["stds"] == {"f0": float(stds["f0"])}
+    cfg = dict(_inference_cfg(reference["dyffusion"], "", n_forward_steps=6,
+                              forward_steps_in_memory=3), overrides=over)
+    jmain_from_config(dict(cfg, experiment_dir=str(tmp_path / "jax")))
+    main_from_config(dict(cfg, experiment_dir=str(tmp_path / "port"), platform="cpu"))
+    want = json.loads((tmp_path / "jax" / "metrics.json").read_text())
+    got = json.loads((tmp_path / "port" / "metrics.json").read_text())
+    logs = [k for k in want if k.startswith("inference/")]
+    assert logs
+    _close({k: got[k] for k in logs}, {k: want[k] for k in logs})

@@ -479,8 +479,24 @@ def test_unported_kinds_and_channels_name_their_item(tmp_path):
     for spec in ("hf:org/repo/x.ckpt", "wandb:e/p/r"):
         with pytest.raises(NotImplementedError, match="item 8"):
             resolve_checkpoint_path(spec)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        interface.get_datamodule({"datamodule": {"kind": "fv3gfs"}})
+    # the fv3gfs datamodule is ported (item 8a): built from a stats
+    # directory; without one, JAX's error (a path join of None)
+    import spherical_dyffusion_tpu.interface as jinterface
+    from spherical_dyffusion_tpu_torch.data.datamodule import FV3GFSDataModule
+    from spherical_dyffusion_tpu_torch.data.hdf5 import write_hdf5
+
+    fv3 = {"kind": "fv3gfs", "in_names": ["a"], "out_names": ["a"]}
+    errors = []
+    for get in (interface.get_datamodule, jinterface.get_datamodule):
+        with pytest.raises(TypeError) as e:
+            get({"datamodule": fv3})
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+    for name, value in (("centering.nc", 1.5), ("scaling.nc", 2.0)):
+        write_hdf5(str(tmp_path / name), {"a": np.float32(value)})
+    dm = interface.get_datamodule({"datamodule": dict(fv3, data_dir_stats=str(tmp_path))})
+    assert isinstance(dm, FV3GFSDataModule)
+    assert dm.normalizer.get_state() == {"means": {"a": 1.5}, "stds": {"a": 2.0}}
     # the UNet is ported (item 6): get_model builds it
     from spherical_dyffusion_tpu_torch.models.unet import UNet
     net = interface.get_model({"kind": "unet", "dim": 8, "dim_mults": [1, 2]}, (8, 16), 3, 3,
