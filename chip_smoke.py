@@ -61,8 +61,17 @@ Phases, each timed:
    ``run_inference`` of 288 steps in three 96-step windows with the
    aggregator on, its rate, sim-yr/day and ``time/*`` splits, K1 and K3
    1,536 launches a window and no K1 weight image made; every log and the
-   final state finite; one 12-step rollout at ensemble 2 (CRPS and SSR in
-   its logs); with dropout off, a 24-step ``run_inference`` in two 12-step
+   final state finite; then the same timed rollout with the prediction
+   writer (``bench.py:product_bench``'s default, ``main_path.product_rollout``
+   with ``writer_dir``) into a temporary directory on the same stepper and
+   seed (``phase10_writer``): the free space first, the timed run under the
+   sync debug mode "error" (each window's host copy waited on by an event,
+   which the mode does not count), both runs' steady rates, sim-yr/day and
+   ``time/*`` splits, the bytes written, the appends' MB/s and the close's
+   seconds, K1 and K3 1,536 launches a window, the logs equal bit for bit
+   to the run without the writer, and ``run_dataset_inference`` over the
+   written file against the rollout's per-step logs (1e-6); one 12-step
+   rollout at ensemble 2 (CRPS and SSR in its logs); with dropout off, a 24-step ``run_inference`` in two 12-step
    windows over a source that does not repeat, run under the sync debug
    mode "error" (no synchronizing CUDA call before the end sync), against
    two ``run_window`` calls chained by hand on inputs read from the source
@@ -219,18 +228,37 @@ Phases, each timed:
    window, ``time/data_loading``; (d) ``run_dataset_inference`` on a
    predictions file of (b)'s denormalized predictions, (E, T, H, W) per
    variable: its logs equal to the aggregator's on the same arrays (1e-6).
+19. the rollout's output files (run after phase 18, before the profile), in a
+   temporary directory, through ``run_inference.main_from_config``, each
+   file read back through ``data/hdf5.py``: (a) DYffusion from seeded
+   checkpoints over the debug datamodule at 256 x 8 on 180 x 360 (35 state
+   fields, two forcings), the fused-tail path with K1 and K3 from the run
+   config's overrides, bf16, ensemble 2, two 12-step windows, every
+   ``data_writer`` option with ``time_coarsen_factor`` 4 and 7 of the 35
+   names saved, and ``log_video``: the prediction file equal to the
+   recorded predictions coarsened in numpy, each histogram's counts summing
+   to the values written and equal, with its edges, to ``DynamicHistogram``
+   over the same windows, the video file's ``gen_mean`` the coarsened
+   ensemble mean, ``videos.nc`` one ``{key}/{name}`` dataset per key and
+   name with the ensemble mean, K1 and K3 192 launches a window; (b) ACE
+   from a native checkpoint of ``ace_bench``'s float32 stepper (K1 and K3
+   from the overrides) with the prediction file, two 12-step windows: the
+   file equal to the predictions ``run_ace_inference``'s ``on_window``
+   hands over, K1 and K3 96 launches a window.
 
 It prints a ``training`` JSON line (phase 11's figures), a ``cli`` JSON line
 (phase 12's), an ``options`` JSON line (phase 13's), a ``modes`` JSON line
 (phase 14's), an ``ace`` JSON line (phase 15's), a ``unet`` JSON line
 (phase 16's), a ``parallel`` JSON line (phase 17's), a ``data`` JSON line
-(phase 18's), a ``kernels`` JSON
+(phase 18's), a ``writers`` JSON line (phase 10's writer run and phase
+19's), a ``kernels`` JSON
 line (K1's backward dx as its own entry; ``launches_by_path`` holds phase
 12 (b)'s counts as ``"cli"``, phase 13's as ``"tucker"``, ``"fold"`` and
 ``"remat"``, phase 15's as ``"ace"``, ``"ace_cli"`` and
 ``"simultaneous"``, phase 16's as ``"unet"`` (zero for every kernel) and
 phase 17's as ``"parallel"``, phase 18's as ``"data_train"`` and
-``"data"``), the ``nvidia-smi`` line, and last
+``"data"``, phase 19's as ``"outputs"`` and ``"outputs_ace"``), the
+``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. It needs the port's package beside it
 and a CUDA card; without either it exits non-zero at once.
@@ -310,6 +338,10 @@ PAR_CHANNELS, PAR_SHAPE = 256, (180, 360)
 PAR_EMBED, PAR_LAYERS, PAR_STEPS = 256, 8, 3
 # phase 18: the networks' width and depth and the dataset's grid
 DATA_EMBED, DATA_LAYERS, DATA_SHAPE = 256, 8, (180, 360)
+# phase 19: the networks' width, depth and grid, the ensemble and the time
+# coarsening of the output files
+OUT_EMBED, OUT_LAYERS, OUT_SHAPE = 256, 8, (180, 360)
+OUT_ENSEMBLE, OUT_COARSEN = 2, 4
 
 
 def log(msg: str) -> None:
@@ -386,6 +418,160 @@ def live_cuda_tensors(top: int = 10):
             seen.setdefault(st.data_ptr(), (st.nbytes() / 1e9, tuple(o.shape), str(o.dtype)))
     return (sum(v[0] for v in seen.values()) * 1e9,
             sorted(seen.values(), key=lambda v: -v[0])[:top])
+
+
+def ace_native_state(stepper, img_shape) -> dict:
+    """The stepper state of a native ACE checkpoint of ``stepper``: its
+    network in the reference's names and only the reference builder's keys
+    (phases 15 (d) and 19)."""
+    import torch
+
+    from spherical_dyffusion_tpu_torch.utils.convert import state_dict_to_flax
+    from spherical_dyffusion_tpu_torch.utils.torch_convert import sfno_flax_to_torch
+
+    m = stepper.module
+    state = stepper.get_state()
+    state["config"].update(
+        loss={"type": "MSE"},
+        builder={"type": "SphericalFourierNeuralOperatorNet",
+                 "config": {"embed_dim": m.cfg.embed_dim, "num_layers": m.cfg.num_layers,
+                            "operator_type": "dhconv", "scale_factor": 1,
+                            "data_grid": "equiangular"}})
+    state["module"] = {k: torch.from_numpy(v) for k, v in
+                       sfno_flax_to_torch(state_dict_to_flax(m.state_dict())).items()}
+    state["img_shape"] = tuple(img_shape)
+    return state
+
+
+def phase10_writer(smi_line, wrappers, report, stepper, zero_counts, off,
+                   device="cuda") -> None:
+    """Phase 10's second run: the product rollout with the prediction writer,
+    as ``bench.py:product_bench`` times it by default, on the stepper and
+    seed of the run without it (``off``: its summary and logs), into a
+    temporary directory that is removed afterwards. The timed run goes under
+    the sync debug mode "error"; its logs must equal the run without the
+    writer bit for bit, K1 and K3 launch 1,536 times a window, and
+    ``run_dataset_inference`` over the written file gives the rollout's own
+    per-step logs (1e-6)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spherical_dyffusion_tpu_torch import main_path
+    from spherical_dyffusion_tpu_torch.data.datasets import SyntheticTimeSeries
+    from spherical_dyffusion_tpu_torch.evaluation.aggregators import InferenceAggregator
+    from spherical_dyffusion_tpu_torch.inference.loop import run_dataset_inference
+    from spherical_dyffusion_tpu_torch.inference.writers import DataWriter
+
+    exp = stepper.exp
+    names = list(exp.out_packer.names)
+    H, W = exp.model.cfg.img_shape
+    # the product source, as product_rollout makes it, looped without end
+    src = SyntheticTimeSeries(list(exp.in_packer.names) + list(exp.forcing_names)
+                              + [main_path.MASK_NAME], n_timesteps=ROLLOUT_WINDOW,
+                              spatial_shape=(H, W))
+
+    frames = src.read_window(0, ROLLOUT_WINDOW, names)  # made once, then indexed
+
+    class Looped:
+        def read_window(self, start, length, wanted):
+            at = np.arange(start, start + length) % ROLLOUT_WINDOW
+            return {n: frames[n][at] for n in wanted}
+
+    wdir = tempfile.mkdtemp(prefix="chip_smoke_writer_")
+    try:
+        free_gb = shutil.disk_usage(wdir).free / 1e9
+        expect = ROLLOUT_STEPS * len(names) * H * W * 4
+        log(f"writer run: temporary directory on a file system with {free_gb:.1f} GB free; "
+            f"{ROLLOUT_STEPS} steps x {len(names)} fields x {H * W * 4} B = {expect / 1e9:.3f} GB "
+            "to write")
+        check(free_gb * 1e9 > 2 * expect, f"writer run: {free_gb:.1f} GB free")
+        append_s = [0.0]
+        real_append = DataWriter.append
+
+        def timed_append(self, *a, **k):
+            t0 = time.perf_counter()
+            real_append(self, *a, **k)
+            append_s[0] += time.perf_counter() - t0
+
+        def before_timed():
+            zero_counts()
+            if device == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+
+        DataWriter.append = timed_append
+        try:
+            t0 = time.perf_counter()
+            summary, agg = main_path.product_rollout(stepper, n_steps=ROLLOUT_STEPS,
+                                                     window=ROLLOUT_WINDOW,
+                                                     before_timed=before_timed, writer_dir=wdir)
+            wall = time.perf_counter() - t0
+        finally:
+            if device == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+            DataWriter.append = real_append
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        n_windows = ROLLOUT_STEPS // ROLLOUT_WINDOW
+        for k, n in (("K1", 1536), ("K2", 0), ("K3", 1536), ("K4", 0)):
+            check(launches[k] == n * n_windows,
+                  f"writer run: {k} launched {launches[k]} times in {n_windows} windows, expected "
+                  f"{n} a window")
+        logs = agg.get_logs()
+        same = logs == off["logs"]
+        nbytes = summary["writer_bytes"]
+        check(nbytes >= expect, f"writer run: {nbytes} bytes written, expected {expect} or more")
+        rates = {}
+        for label, s in (("without the writer", off["summary"]), ("with the writer", summary)):
+            steady = s["steady_steps_per_second"]
+            rates[label] = steady
+            log(f"rollout {label}: {ROLLOUT_STEPS} steps in {n_windows} windows of "
+                f"{ROLLOUT_WINDOW}: duration {s['duration_s']:.3f} s, total "
+                f"{s['total_steps_per_second']:.3f} steps/s, steady {steady:.3f} steps/s = "
+                f"{steady * 86400 / STEPS_PER_SIM_YEAR:.1f} sim-yr/day; "
+                + ", ".join(f"{k} {v:.3f} s" for k, v in s.items() if k.startswith("time/"))
+                + f"; on {smi_line}")
+        log(f"writer: {nbytes / 1e9:.3f} GB written (autoregressive_predictions.nc), appends "
+            f"{append_s[0]:.3f} s = {nbytes / 1e6 / append_s[0]:.0f} MB/s (the drain's event wait "
+            f"and the host's bf16 widening are outside the appends), close (the chunk index and "
+            f"the headers) {summary['writer_close_s']:.3f} s; steady rate with the writer "
+            f"{rates['with the writer'] / rates['without the writer']:.2%} of the rate without; "
+            f"the timed run under the sync debug mode 'error' with one event wait a window (the "
+            f"mode does not count it); logs {'equal bit for bit' if same else 'differ'} to the run "
+            f"without the writer ({len(logs)} logs); launches {launches}; {wall:.2f} s with the "
+            f"warm-up window")
+        check(same, "writer run: the aggregator's logs differ from the run without the writer")
+        # the written file, re-scored against the looped source
+        ds_agg = InferenceAggregator(names, src.horizontal.area_weights(),
+                                     log_zonal_mean_images=False)
+        t0 = time.perf_counter()
+        run_dataset_inference(os.path.join(wdir, "autoregressive_predictions.nc"), Looped(), names,
+                              src.horizontal.area_weights(), aggregator=ds_agg, device=device)
+        rescore_s = time.perf_counter() - t0
+        want, got = agg.get_inference_logs(), ds_agg.get_inference_logs()
+        check(len(want) == len(got) == ROLLOUT_STEPS and all(set(a) == set(b)
+                                                              for a, b in zip(want, got)),
+              f"re-scoring: {len(got)} steps of logs against {len(want)}")
+        rel = max(abs(b[k] - v) / max(abs(v), 1.0) for a, b in zip(want, got) for k, v in a.items())
+        log(f"run_dataset_inference over the written file ({ROLLOUT_STEPS} steps read back through "
+            f"data/hdf5.py, {rescore_s:.2f} s): per-step logs against the rollout's own, max gap "
+            f"{rel:.3e} (tolerance 1e-6)")
+        check(rel <= 1e-6, "run_dataset_inference over the written file differs from the rollout")
+    finally:
+        shutil.rmtree(wdir, ignore_errors=True)
+    report.setdefault("writers", {})["product"] = {
+        "without": {k: off["summary"][k] for k in (
+            "duration_s", "total_steps_per_second", "steady_steps_per_second",
+            "time/writer_and_aggregator", "time/run_on_batch", "time/data_loading")},
+        "with": {k: summary[k] for k in (
+            "duration_s", "total_steps_per_second", "steady_steps_per_second",
+            "time/writer_and_aggregator", "time/run_on_batch", "time/data_loading",
+            "writer_close_s", "writer_bytes")},
+        "append_s": append_s[0], "mb_per_s": nbytes / 1e6 / append_s[0],
+        "rescore_s": rescore_s, "rescore_max_rel": rel, "logs_bit_equal": same,
+        "launches": launches}
 
 
 def phase12(smi_line, wrappers, report, runs) -> None:
@@ -1524,8 +1710,6 @@ def phase15(smi_line, wrappers, report, runs, device="cuda") -> None:
     from spherical_dyffusion_tpu_torch.inference.climate_data import ClimateData
     from spherical_dyffusion_tpu_torch.ops.pallas_contractions import dhconv
     from spherical_dyffusion_tpu_torch.run_inference import main_from_config
-    from spherical_dyffusion_tpu_torch.utils.convert import state_dict_to_flax
-    from spherical_dyffusion_tpu_torch.utils.torch_convert import sfno_flax_to_torch
 
     dev = torch.device(device)
     cuda = dev.type == "cuda"
@@ -1720,16 +1904,7 @@ def phase15(smi_line, wrappers, report, runs, device="cuda") -> None:
     # sigma (ak 0, bk to 0.1) keeps the dry-air correction's denominator
     # near 1.
     m = f32k.module
-    state = f32k.get_state()
-    state["config"].update(
-        loss={"type": "MSE"},
-        builder={"type": "SphericalFourierNeuralOperatorNet",
-                 "config": {"embed_dim": m.cfg.embed_dim, "num_layers": m.cfg.num_layers,
-                            "operator_type": "dhconv", "scale_factor": 1,
-                            "data_grid": "equiangular"}})
-    state["module"] = {k: torch.from_numpy(v) for k, v in
-                       sfno_flax_to_torch(state_dict_to_flax(m.state_dict())).items()}
-    state["img_shape"] = tuple(ACE_SHAPE)
+    state = ace_native_state(f32k, ACE_SHAPE)
     sg = {"ak": [0.0] * (ACE_LEVELS + 1), "bk": list(np.linspace(0.0, 0.1, ACE_LEVELS + 1))}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ace_") as tmp:
         path = os.path.join(tmp, "ace.ckpt")
@@ -2569,6 +2744,247 @@ def phase18(smi_line, wrappers, report, runs, device="cuda") -> None:
     tmp.cleanup()
     torch.cuda.empty_cache()
     report["data"] = rep
+
+
+def phase19(smi_line, wrappers, report, runs, device="cuda") -> None:
+    """Phase 19: the rollout's output files at OUT_EMBED x OUT_LAYERS on
+    OUT_SHAPE through ``run_inference.main_from_config``, in a temporary
+    directory, each file read back through ``data/hdf5.py`` (this machine
+    has no h5py) and held against numpy on the host: (a) DYffusion from
+    seeded checkpoints on the fused-tail path (K1 and K3 from the run
+    config's overrides, bf16, ensemble OUT_ENSEMBLE), two 12-step windows
+    with every ``data_writer`` option, ``time_coarsen_factor``
+    OUT_COARSEN, a subset of names saved and ``log_video``; (b) ACE from a
+    native checkpoint with the prediction file, against the predictions
+    that ``run_ace_inference``'s ``on_window`` hands over."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from spherical_dyffusion_tpu_torch import interface, main_path
+    from spherical_dyffusion_tpu_torch.data import hdf5
+    from spherical_dyffusion_tpu_torch.inference import ace_stepper
+    from spherical_dyffusion_tpu_torch.inference.stepper import DYffusionStepper
+    from spherical_dyffusion_tpu_torch.inference.writers import DynamicHistogram
+    from spherical_dyffusion_tpu_torch.run_inference import main_from_config
+    from spherical_dyffusion_tpu_torch.utils.naming import long_name
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    dev = torch.device(device)
+    rep = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_out_")
+    d = Path(tmp.name)
+    H, W = OUT_SHAPE
+    n_steps, E, f = 2 * N_STEPS, OUT_ENSEMBLE, OUT_COARSEN
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    # (a) seeded interpolator and forecaster checkpoints over the debug
+    # datamodule at the main path's channels and grid (35 state fields, two
+    # forcings), then the inference command line with every writer
+    dm_cfg = {"kind": "debug", "channels": 35, "height": H, "width": W, "horizon": 6,
+              "n_forcing": 2, "batch_size": 1, "n_timesteps": 8}
+
+    def experiment_cfg(experiment, **diffusion):
+        return {"experiment": experiment, "seed": 0, "datamodule": dm_cfg,
+                "model": {"kind": "sfno", "embed_dim": OUT_EMBED, "num_layers": OUT_LAYERS,
+                          "use_pallas": True, "dropout_mlp": 0.1},
+                "module": {"enable_inference_dropout": True},
+                "diffusion": {"forward_conditioning": "none", **diffusion}}
+
+    def save(cfg, path, seed):
+        dm = interface.get_datamodule(cfg)
+        exp = interface.get_experiment(cfg, dm, device=device, seed=seed)
+        torch.save({"params": {k: v.detach().cpu() for k, v in exp.model.state_dict().items()},
+                    "ema_params": None, "config_json": json.dumps(cfg)}, path)
+        names = list(exp.out_packer.names)
+        del exp, dm
+        return names
+
+    t0 = time.perf_counter()
+    save(experiment_cfg("interpolation"), str(d / "ip.ckpt"), 0)
+    names = save(experiment_cfg("dyffusion", interpolator_checkpoint_path=str(d / "ip.ckpt")),
+                 str(d / "fc.ckpt"), 1)
+    ckpt_s = time.perf_counter() - t0
+    saved = names[::5]
+    fused = dict(use_pallas=True, fused_tail=True, scan_layers=True, compute_dtype="bfloat16",
+                 sht_matmul_dtype="bfloat16")
+    windows = []
+    real_window = DYffusionStepper.run_window
+
+    def recorded(self, *a, **k):
+        out = real_window(self, *a, **k)
+        windows.append(out[1])
+        return out
+
+    out_dir = d / "dyffusion"
+    DYffusionStepper.run_window = recorded
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        res = main_from_config({
+            "checkpoint_path": str(d / "fc.ckpt"), "platform": device,
+            "n_forward_steps": n_steps, "forward_steps_in_memory": N_STEPS, "n_ensemble": E,
+            "preds_dtype": "bfloat16", "experiment_dir": str(out_dir),
+            "log_zonal_mean_images": False, "verbose": False, "log_video": True,
+            "overrides": {"model": fused, "interpolator_model": fused,
+                          "diffusion": {"peel_sampler": True}},
+            "data_writer": {"save_prediction_files": True, "save_histogram_files": True,
+                            "log_extended_video_netcdfs": True, "time_coarsen_factor": f,
+                            "save_raw_prediction_names": saved}})
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        DYffusionStepper.run_window = real_window
+    launches = counts()
+    runs["outputs"] = dict(launches=launches)
+    check(len(windows) == 2, f"outputs: {len(windows)} windows")
+    for k, n in (("K1", 192 * OUT_LAYERS // 8), ("K3", 192 * OUT_LAYERS // 8), ("K2", 0),
+                 ("K4", 0)):
+        check(launches[k] == 2 * n, f"outputs: {k} launched {launches[k]} times in 2 windows, "
+                                    f"expected {n} a {N_STEPS}-step window (phase 7's path)")
+    summary = res["summary"]
+    # the predictions the writers got: denormalized on the card in the
+    # emitted dtype, as the rollout loop does, then widened on the host
+    norm = res["stepper"].exp.normalizer.subset(names).to(dev)
+    raw = np.concatenate([((p * norm.stds + norm.means).to(p.dtype)).float().cpu().numpy()
+                          for p in windows], axis=1)  # (E, T, H, W, C)
+    check(raw.shape == (E, n_steps, H, W, len(names)) and bool(np.isfinite(raw).all()),
+          f"outputs: predictions {raw.shape}, finite {bool(np.isfinite(raw).all())}")
+    coarse = raw.reshape((E, n_steps // f, f) + raw.shape[2:]).mean(axis=2)
+    files = {p.name: p.stat().st_size for p in sorted(out_dir.iterdir())}
+    check({"autoregressive_predictions.nc", "reduced_autoregressive_predictions.nc",
+           "histograms.nc", "videos.nc", "metrics.json"} <= set(files),
+          f"outputs: files {sorted(files)}")
+    t0 = time.perf_counter()
+    bad = []
+    with hdf5.File(str(out_dir / "autoregressive_predictions.nc")) as pf:
+        kept = sorted(k for k in pf.keys() if k not in ("lat", "lon"))
+        check(kept == sorted(saved), f"outputs: prediction file holds {kept}, not {saved}")
+        for n in saved:
+            i = names.index(n)
+            got = pf[n][()]
+            if got.shape != (E, n_steps // f, H, W) or not np.array_equal(got, coarse[..., i]):
+                bad.append(f"prediction {n}")
+        check(pf[saved[0]].attrs["long_name"] == long_name(saved[0]),
+              "outputs: long_name attribute")
+    with hdf5.File(str(out_dir / "histograms.nc")) as hf:
+        for i, n in enumerate(names):
+            h = DynamicHistogram(300)
+            for w in range(2):
+                h.add(raw[:, w * N_STEPS:(w + 1) * N_STEPS, ..., i])
+            c, e = hf[f"{n}_counts"][()], hf[f"{n}_edges"][()]
+            if (int(c.sum()) != E * n_steps * H * W or not np.array_equal(c, h.counts)
+                    or not np.array_equal(e, h.bin_edges)):
+                bad.append(f"histogram {n}")
+    gen_coarse = coarse.astype(np.float64).mean(axis=0).astype(np.float32)
+    with hdf5.File(str(out_dir / "reduced_autoregressive_predictions.nc")) as vf:
+        keys = sorted(k for k in vf.keys() if k not in ("lat", "lon"))
+        check(keys == sorted(f"{k}-{n}" for k in ("gen_mean", "gen_variance", "target_mean",
+                                                 "error_mean") for n in names),
+              f"outputs: video file datasets {keys[:5]} ...")
+        for i, n in enumerate(names):
+            if not np.array_equal(vf[f"gen_mean-{n}"][()], gen_coarse[..., i]):
+                bad.append(f"video gen_mean-{n}")
+        check(vf[f"gen_mean-{names[0]}"].attrs["dims"] == "time,lat,lon", "outputs: dims")
+    gen = raw.astype(np.float64).mean(axis=0).astype(np.float32)
+    with hdf5.File(str(out_dir / "videos.nc")) as vf:
+        groups = {k: sorted(vf[k].keys()) for k in vf.keys()}
+        check(groups == {k: sorted(names) for k in ("gen_mean", "gen_variance", "target_mean",
+                                                   "error_mean")},
+              f"outputs: videos.nc groups {list(groups)}")
+        for i, n in enumerate(names):
+            if not np.array_equal(vf[f"gen_mean/{n}"][()], gen[..., i]):
+                bad.append(f"videos.nc gen_mean/{n}")
+    check_s = time.perf_counter() - t0
+    metrics = json.loads((out_dir / "metrics.json").read_text())
+    finite = all(np.isfinite(v) for k, v in metrics.items() if k.startswith("inference/"))
+    log(f"(a) run_inference, DYffusion at {OUT_EMBED} x {OUT_LAYERS} on {H} x {W}, ensemble {E}, "
+        f"bf16, the fused-tail path (K1 and K3 from overrides['model']), {n_steps} steps in "
+        f"{N_STEPS}-step windows, every data_writer option, time_coarsen_factor {f}, "
+        f"{len(saved)} of {len(names)} names saved, log_video: {wall:.2f} s with loading "
+        f"(checkpoints written in {ckpt_s:.2f} s), total "
+        f"{summary['total_steps_per_second']:.3f} steps/s, time/writer_and_aggregator "
+        f"{summary['time/writer_and_aggregator']:.3f} s; launches {launches}; files "
+        + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in files.items())
+        + f"; read back through data/hdf5.py in {check_s:.2f} s: the prediction file equals the "
+        f"recorded predictions coarsened by {f} in numpy, every histogram's counts sum to the "
+        f"{E * n_steps * H * W} values and equal DynamicHistogram's over the same windows, "
+        f"with its edges, the video file's gen_mean equals the coarsened ensemble mean and "
+        f"videos.nc holds one dataset per key and name, its gen_mean the ensemble mean: "
+        f"{'all equal' if not bad else 'differ: ' + ', '.join(bad[:6])}; metrics finite "
+        f"{finite}; on {smi_line}")
+    check(not bad and finite, f"outputs: {bad[:6]}, metrics finite {finite}")
+    rep["dyffusion"] = dict(steps=n_steps, ensemble=E, coarsen=f, wall_s=wall,
+                            launches=launches, files=files, check_s=check_s,
+                            writer_and_aggregator_s=summary["time/writer_and_aggregator"],
+                            total_steps_per_second=summary["total_steps_per_second"])
+    del res, windows, raw, coarse, gen, gen_coarse, norm
+    torch.cuda.empty_cache()
+
+    # (b) ACE: a native checkpoint of ace_bench's float32 stepper (erf gelu,
+    # exact norms), the kernels from the run config's overrides, the
+    # prediction file against on_window's predictions
+    st = main_path.build_ace(embed=OUT_EMBED, layers=OUT_LAYERS, dtype="float32",
+                             img_shape=OUT_SHAPE, exact=True, device=device)
+    out_names = list(st.cfg.out_names)
+    path = str(d / "ace.ckpt")
+    torch.save({"stepper": ace_native_state(st, OUT_SHAPE)}, path)
+    del st
+    handed = []
+    real_run = ace_stepper.run_ace_inference
+
+    def on_window(start, out):
+        handed.append(torch.stack([out.gen_data[n][:, 1:] for n in out_names], -1).clone())
+
+    def hooked(*a, **k):
+        return real_run(*a, on_window=on_window, **k)
+
+    sg = {"ak": [0.0] * 9, "bk": list(np.linspace(0.0, 0.1, 9))}
+    ace_stepper.run_ace_inference = hooked
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        res = main_from_config({
+            "checkpoint_path": path, "stepper_type": "ace", "platform": device,
+            "n_forward_steps": n_steps, "forward_steps_in_memory": N_STEPS,
+            "experiment_dir": str(d / "ace"), "verbose": False, "log_zonal_mean_images": False,
+            "sigma_coordinates": sg,
+            "overrides": {"model": {"use_pallas": True, "fused_tail": True}},
+            "data_writer": {"save_prediction_files": True}})
+        sync()
+        ace_wall = time.perf_counter() - t0
+    finally:
+        ace_stepper.run_ace_inference = real_run
+    ace_launches = counts()
+    runs["outputs_ace"] = dict(launches=ace_launches)
+    L = OUT_LAYERS
+    check(ace_launches["K1"] == ace_launches["K3"] == n_steps * L and len(handed) == 2,
+          f"outputs (ACE): launches {ace_launches}, {len(handed)} windows")
+    want = torch.cat(handed, dim=1).float().cpu().numpy()  # (1, T, H, W, C)
+    with hdf5.File(str(d / "ace" / "autoregressive_predictions.nc")) as pf:
+        kept = sorted(k for k in pf.keys() if k not in ("lat", "lon"))
+        ace_bad = [n for i, n in enumerate(out_names)
+                   if not np.array_equal(pf[n][()], want[..., i])]
+    log(f"(b) run_inference, ACE native checkpoint at {OUT_EMBED} x {OUT_LAYERS}, float32, K1 "
+        f"and K3 from overrides['model'], {n_steps} steps in {N_STEPS}-step windows with the "
+        f"prediction file: {ace_wall:.2f} s with loading, launches {ace_launches}; the file's "
+        f"{len(kept)} prognostic fields against on_window's predictions: "
+        f"{'equal bit for bit' if not ace_bad and kept == sorted(out_names) else ace_bad[:4]}")
+    check(not ace_bad and kept == sorted(out_names), f"outputs (ACE): {ace_bad[:4]}, {kept[:4]}")
+    rep["ace"] = dict(steps=n_steps, wall_s=ace_wall, launches=ace_launches,
+                      bytes=os.path.getsize(d / "ace" / "autoregressive_predictions.nc"))
+    del res, handed, want
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    report.setdefault("writers", {})["outputs"] = rep
 
 
 def main() -> int:
@@ -3493,8 +3909,10 @@ def main() -> int:
                 fn.launches = 0
 
         t0 = time.perf_counter()
-        summary, logs = main_path.product_rollout(stepper, n_steps=ROLLOUT_STEPS,
-                                                  window=ROLLOUT_WINDOW, before_timed=zero_counts)
+        summary, agg = main_path.product_rollout(stepper, n_steps=ROLLOUT_STEPS,
+                                                 window=ROLLOUT_WINDOW, before_timed=zero_counts)
+        logs = agg.get_logs()
+        del agg
         launches = {k: fn.launches for k, fn in wrappers.items()}
         n_windows = ROLLOUT_STEPS // ROLLOUT_WINDOW
         per_window = {k: v / n_windows for k, v in launches.items()}
@@ -3525,10 +3943,14 @@ def main() -> int:
             f"{logs['inference/avg/rmse']:.4f}, time-mean rmse of v0 "
             f"{logs['inference/time_mean/rmse/v0']:.4f}; final state finite")
         runs["rollout"] = dict(launches=launches, summary=summary)
+        phase10_writer(smi_line, wrappers, report, stepper, zero_counts,
+                       dict(summary=summary, logs=logs))
 
         t0 = time.perf_counter()
-        _, logs2 = main_path.product_rollout(stepper, n_steps=N_STEPS, window=N_STEPS,
-                                             n_ensemble=2)
+        _, agg2 = main_path.product_rollout(stepper, n_steps=N_STEPS, window=N_STEPS,
+                                            n_ensemble=2)
+        logs2 = agg2.get_logs()
+        del agg2
         ens = {k: logs2.get(f"inference/avg/{k}") for k in ("crps", "ssr")}
         check(all(v is not None and np.isfinite(v) for v in ens.values()),
               f"ensemble 2: CRPS and SSR missing or not finite: {ens}")
@@ -3635,6 +4057,10 @@ def main() -> int:
                "command lines on them, re-scoring)"):
         phase18(smi_line, wrappers, report, runs)
 
+    with Phase("19 the output files at 256 x 8 (DYffusion and ACE through the inference "
+               "command line with every writer, read back through data/hdf5.py)"):
+        phase19(smi_line, wrappers, report, runs)
+
     # the profile runs last: a torch.profiler session leaves a launch cost
     # behind in the process (the UNet's forward, bound by the host's
     # launches at batch 1, took 19.9-21.4 ms before one profiled forward and
@@ -3721,6 +4147,7 @@ def main() -> int:
     print(json.dumps({"unet": report["unet"]}))
     print(json.dumps({"parallel": report["parallel"]}))
     print(json.dumps({"data": report["data"]}))
+    print(json.dumps({"writers": report["writers"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -48,8 +48,8 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["File", "Group", "Dataset", "Reference", "AttributeManager", "write_hdf5",
-           "lookup3"]
+__all__ = ["File", "Group", "Dataset", "Reference", "AttributeManager", "Writer",
+           "GrowingDataset", "write_hdf5", "lookup3"]
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
 
@@ -926,22 +926,32 @@ class Dataset:
     # -- reading
     def __getitem__(self, key) -> Any:
         """``[()]`` (or ``[...]``): the whole dataset (a numpy scalar for a
-        scalar one); ``[a:b]`` or ``[a:b:k]``: rows of the leading axis."""
+        scalar one); ``[a:b]`` or ``[a:b:k]``: rows of the leading axis;
+        ``[a:b, c:d]``: a range of each of the first two axes. Only the
+        chunks, or the byte ranges, that the slice touches are read."""
         if key is Ellipsis or (isinstance(key, tuple) and not key):
-            out = self._rows(0, self.shape[0] if self.shape else 0)
+            out = self._read([(0, self.shape[0])] if self.shape else [])
             return out[()] if self.shape == () else out
-        if not isinstance(key, slice) or not self.shape:
-            raise NotImplementedError(f"{self.name}[{key!r}]: this reader reads [()] or a "
-                                      "slice of the leading axis")
-        if key.step is not None and key.step < 1:
-            raise ValueError(f"Step must be >= 1 (got {key.step})")
-        start, stop, step = key.indices(self.shape[0])
-        rows = self._rows(start, max(start, stop))
-        return rows if step == 1 else np.ascontiguousarray(rows[::step])
+        keys = key if isinstance(key, tuple) else (key,)
+        if (not self.shape or len(keys) > min(2, len(self.shape))
+                or not all(isinstance(k, slice) for k in keys)):
+            raise NotImplementedError(f"{self.name}[{key!r}]: this reader reads [()], a slice "
+                                      "of the leading axis or slices of the first two axes")
+        ranges, steps = [], []
+        for k, n in zip(keys, self.shape):
+            if k.step is not None and k.step < 1:
+                raise ValueError(f"Step must be >= 1 (got {k.step})")
+            start, stop, step = k.indices(n)
+            ranges.append((start, max(start, stop)))
+            steps.append(step)
+        out = self._read(ranges)
+        if any(s != 1 for s in steps):
+            out = np.ascontiguousarray(out[tuple(slice(None, None, s) for s in steps)])
+        return out
 
-    def _rows(self, start: int, stop: int) -> np.ndarray:
-        """Rows ``[start, stop)`` of the leading axis (the whole dataset for
-        a scalar), as a writable array."""
+    def _read(self, ranges: List[Tuple[int, int]]) -> np.ndarray:
+        """The ranges ``[start, stop)`` of the leading axes (none: the whole
+        of a scalar), as a writable array."""
         if self._null:
             raise NotImplementedError(f"{self.name}: a dataset with a null dataspace")
         t = self._type
@@ -950,25 +960,34 @@ class Dataset:
                 raise NotImplementedError(f"{self.name}: HDF5 {t.what}")
             raise NotImplementedError(f"{self.name}: a dataset of variable-length values or "
                                       "references")
-        shape = ((stop - start,) + self.shape[1:]) if self.shape else ()
-        if not self.shape:  # a scalar: its one element
-            start, stop = 0, 1
+        shape = tuple(b - a for a, b in ranges) + self.shape[len(ranges):]
         kind = self._layout[0]
         if kind == "unsupported":
             raise NotImplementedError(f"{self.name}: HDF5 {self._layout[1]}")
         if kind == "chunked":
-            return self._read_chunked(start, stop, shape)
-        row = math.prod(self.shape[1:]) * t.size if self.shape else t.size
+            return self._read_chunked(ranges, shape)
         if kind == "compact":
-            raw = self._layout[1][start * row:stop * row]
-            return np.frombuffer(bytes(raw), t.dtype).reshape(shape).copy()
+            whole = np.frombuffer(bytes(self._layout[1]), t.dtype,
+                                  math.prod(self.shape)).reshape(self.shape)
+            return whole[tuple(slice(a, b) for a, b in ranges)].copy()
+        if not self.shape:  # a scalar: its one element
+            ranges = [(0, 1)]
         addr = self._layout[1]
         out = np.empty(shape, t.dtype)
         if addr is None:  # never written: the fill value
             self._fill_into(out)
             return out
-        if out.nbytes:
-            self.file.read_into(memoryview(out.reshape(-1).view(np.uint8)), addr + start * row)
+        if not out.nbytes:
+            return out
+        row = math.prod(self.shape[1:]) * t.size
+        (a0, b0), rest = ranges[0], ranges[1:]
+        if not rest or rest[0] == (0, self.shape[1]):
+            self.file.read_into(memoryview(out.reshape(-1).view(np.uint8)), addr + a0 * row)
+            return out
+        (a1, _), inner = rest[0], math.prod(self.shape[2:]) * t.size
+        for i in range(b0 - a0):  # one read of the second axis's range a row
+            self.file.read_into(memoryview(out[i].reshape(-1).view(np.uint8)),
+                                addr + (a0 + i) * row + a1 * inner)
         return out
 
     def _fill_into(self, out: np.ndarray) -> None:
@@ -991,7 +1010,7 @@ class Dataset:
             self._chunks = out
         return self._chunks
 
-    def _read_chunked(self, start: int, stop: int, shape: tuple) -> np.ndarray:
+    def _read_chunked(self, ranges: List[Tuple[int, int]], shape: tuple) -> np.ndarray:
         t = self._type
         chunk = self._layout[2]
         out = np.empty(shape, t.dtype)
@@ -1001,9 +1020,31 @@ class Dataset:
             if fid not in (1, 2):
                 raise NotImplementedError(
                     f"{self.name}: HDF5 {_FILTER_NAMES.get(fid, f'filter {fid}')} filter")
+
+        def overlap(offs):
+            """(source, destination) slices of a chunk at ``offs``, or None
+            where it misses the ranges."""
+            src, dst = [], []
+            for d, (o, c) in enumerate(zip(offs, chunk)):
+                start, stop = ranges[d] if d < len(ranges) else (0, self.shape[d])
+                a, b = max(o, start), min(o + c, stop)
+                if a >= b:
+                    return None
+                src.append(slice(a - o, b - o))
+                dst.append(slice(a - start, b - start))
+            return tuple(src), tuple(dst)
+
         for offs, addr, size, mask in self._chunk_index():
-            lo = offs[0] if offs else 0
-            if offs and (lo >= stop or lo + chunk[0] <= start):
+            where = overlap(offs)
+            if where is None:
+                continue
+            n = math.prod(chunk) * t.size
+            dst = out[where[1]]
+            stored = all(mask & (1 << i) for i in range(len(self._filters)))
+            if stored and size >= n and dst.shape == chunk and dst.flags.c_contiguous:
+                # a whole chunk stored as is: read straight into the output
+                self.file.read_into(memoryview(dst.reshape(-1).view(np.uint8)), addr)
+                covered += dst.size
                 continue
             raw = bytes(self.file.pread(addr, size))
             for i in reversed(range(len(self._filters))):
@@ -1011,27 +1052,17 @@ class Dataset:
                     continue
                 fid, vals = self._filters[i]
                 raw = zlib.decompress(raw) if fid == 1 else _unshuffle(raw, t.size)
-            n = math.prod(chunk) * t.size
             if len(raw) < n:
                 raise ValueError(f"{self.name}: a chunk decodes to {len(raw)} of {n} bytes")
-            arr = np.frombuffer(raw[:n], t.dtype).reshape(chunk)
-            src, dst = [], []
-            for d, (o, c) in enumerate(zip(offs, chunk)):
-                a, b = (max(o, start), min(o + c, stop)) if d == 0 else (o, min(o + c,
-                                                                              self.shape[d]))
-                src.append(slice(a - o, b - o))
-                dst.append(slice(a - start, b - start) if d == 0 else slice(a, b))
-            block = arr[tuple(src)]
-            out[tuple(dst)] = block
+            block = np.frombuffer(raw[:n], t.dtype).reshape(chunk)[where[0]]
+            out[where[1]] = block
             covered += block.size
         if covered < need:  # chunks never written hold the fill value
             mask_out = np.ones(shape, bool)
             for offs, _, _, _ in self._chunk_index():
-                if offs and (offs[0] >= stop or offs[0] + chunk[0] <= start):
-                    continue
-                sl = tuple(slice(max(o, start) - start, min(o + c, stop) - start) if d == 0
-                           else slice(o, o + c) for d, (o, c) in enumerate(zip(offs, chunk)))
-                mask_out[sl] = False
+                where = overlap(offs)
+                if where is not None:
+                    mask_out[where[1]] = False
             fill = np.empty((), t.dtype)
             self._fill_into(fill)
             out[mask_out] = fill
@@ -1049,6 +1080,13 @@ def _unshuffle(raw: bytes, size: int) -> bytes:
 # ------------------------------------------------------------------- writing
 
 _UNDEF8 = b"\xff" * 8
+_UNLIMITED = 0xFFFFFFFFFFFFFFFF  # H5S_UNLIMITED
+# a version-0 superblock does not state the chunk index's B-tree K, so HDF5
+# takes its default, 32: a node holds at most 2K = 64 chunks
+_CHUNK_K = 32
+# the K of the groups' B-tree nodes, which the superblock states
+_GROUP_NODE_K = 16
+_SUPERBLOCK_SIZE = 96
 
 
 def _type_message(value: np.ndarray) -> bytes:
@@ -1069,7 +1107,7 @@ def _type_message(value: np.ndarray) -> bytes:
                 + struct.pack("<HHBBBBI", 0, 8 * dt.itemsize, mbits, ebits, 0, mbits, bias))
     if dt.kind == "S":
         return bytes([0x13, 0x00, 0, 0]) + struct.pack("<I", max(dt.itemsize, 1))
-    raise TypeError(f"write_hdf5: no HDF5 type for dtype {dt}")
+    raise TypeError(f"HDF5 writer: no HDF5 type for dtype {dt}")
 
 
 def _vlen_str_type() -> bytes:
@@ -1077,9 +1115,15 @@ def _vlen_str_type() -> bytes:
     return bytes([0x19, 0x01, 0x01, 0]) + struct.pack("<I", 16) + base
 
 
-def _space_message(shape: Tuple[int, ...]) -> bytes:
-    return (bytes([1, len(shape), 0, 0]) + b"\0" * 4
-            + b"".join(struct.pack("<Q", n) for n in shape))
+def _space_message(shape: Tuple[int, ...],
+                   maxshape: Optional[Tuple[Optional[int], ...]] = None) -> bytes:
+    """A version-1 dataspace; ``maxshape`` (None on an unlimited axis) is
+    written where given, as h5py writes a resizable dataset's."""
+    out = (bytes([1, len(shape), 0 if maxshape is None else 1, 0]) + b"\0" * 4
+           + b"".join(struct.pack("<Q", n) for n in shape))
+    if maxshape is not None:
+        out += b"".join(struct.pack("<Q", _UNLIMITED if n is None else n) for n in maxshape)
+    return out
 
 
 def _message(mtype: int, data: bytes, flags: int = 0) -> bytes:
@@ -1091,149 +1135,391 @@ def _pad8(b: bytes) -> bytes:
     return b + b"\0" * ((-len(b)) % 8)
 
 
-class _Writer:
-    """Lays out a file: blocks appended at increasing addresses."""
+def _object_header(messages: bytes) -> bytes:
+    """A version-1 object header around encoded messages."""
+    count = 0
+    pos = 0
+    while pos < len(messages):
+        count += 1
+        pos += 8 + struct.unpack_from("<H", messages, pos + 2)[0]
+    return struct.pack("<BBHII4x", 1, 0, count, 1, len(messages)) + messages
 
-    def __init__(self, start: int):
-        self.parts: List[bytes] = []
-        self.end = start
 
-    def add(self, data: bytes, align: int = 8) -> int:
-        pad = (-self.end) % align
+class _Stored:
+    """A dataset awaiting its object header: its shape, dtype, attributes,
+    and a contiguous address or a growing dataset's chunk blocks."""
+
+    def __init__(self, shape, dtype, attrs, addr=None, growing=None):
+        self.shape, self.dtype, self.attrs = tuple(shape), np.dtype(dtype), attrs
+        self.addr, self.growing = addr, growing
+
+
+class GrowingDataset:
+    """A chunked dataset with one unlimited axis, written by ``append``.
+
+    A chunk holds one index of every axis up to and including the growing
+    one and the whole of every later axis: ``(1, 1, H, W)`` for an ``(E,
+    T, H, W)`` dataset growing along T. ``append`` writes its chunks at the
+    end of the file at once and keeps only their addresses; the chunk index
+    is written by the file's ``close``."""
+
+    def __init__(self, writer: "Writer", name: str, shape, dtype, axis: int):
+        self._writer, self.name, self.axis = writer, name, axis
+        self.dtype = np.dtype(dtype)
+        self.shape = list(shape)
+        self.shape[axis] = 0
+        self.chunk = (1,) * (axis + 1) + tuple(self.shape[axis + 1:])
+        self.chunk_bytes = math.prod(self.chunk) * self.dtype.itemsize
+        if self.chunk_bytes >= 2 ** 32:
+            raise ValueError(f"HDF5 writer: {name}: a chunk of {self.chunk_bytes} bytes")
+        # (leading index, first index along the axis, count, address): the
+        # chunks of one append for one leading index, consecutive in the file
+        self._blocks: List[Tuple[Tuple[int, ...], int, int, int]] = []
+
+    def append(self, values) -> None:
+        """Appends ``values`` along the growing axis: their other axes are
+        the dataset's; they are cast to its dtype as h5py casts them."""
+        v = np.asarray(values)
+        want = self.shape[:self.axis] + self.shape[self.axis + 1:]
+        got = list(v.shape[:self.axis]) + list(v.shape[self.axis + 1:])
+        if v.ndim != len(self.shape) or got != want:
+            raise ValueError(f"HDF5 writer: {self.name}: cannot append an array of shape "
+                             f"{v.shape} to one of shape {tuple(self.shape)} along axis "
+                             f"{self.axis}")
+        k = v.shape[self.axis]
+        if not k:
+            return
+        v = np.ascontiguousarray(v, dtype=self.dtype)
+        for idx in np.ndindex(*v.shape[:self.axis]):
+            addr = self._writer._put(v[idx])
+            self._blocks.append((idx, self.shape[self.axis], k, addr))
+        self.shape[self.axis] += k
+
+    def _index(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(offsets of every chunk, rank + 1 columns with the element
+        axis's 0; their addresses), in the index's order."""
+        rank, ax = len(self.shape), self.axis
+        n = sum(b[2] for b in self._blocks)
+        offs = np.zeros((n, rank + 1), np.uint64)
+        addrs = np.empty(n, np.uint64)
+        p = 0
+        for idx, start, k, addr in self._blocks:
+            offs[p:p + k, :ax] = idx
+            offs[p:p + k, ax] = np.arange(start, start + k, dtype=np.uint64)
+            addrs[p:p + k] = addr + self.chunk_bytes * np.arange(k, dtype=np.uint64)
+            p += k
+        order = np.lexsort(offs[:, :ax + 1].T[::-1])  # the first axis most significant
+        return offs[order], addrs[order]
+
+
+class Writer:
+    """An HDF5 file written as its data arrives, readable by h5py and by
+    this module's ``File``.
+
+    ``write`` stores a whole array as a contiguous dataset; ``create_growing``
+    gives a ``GrowingDataset`` whose time axis is unlimited and whose chunks
+    go to the end of the file as they are appended, so no variable's series
+    is held in memory. A name with ``/`` makes the groups above it.
+    ``attrs(name)`` holds the attributes of a dataset or a group ("/" for
+    the file): a ``str`` is stored as a variable-length UTF-8 string, as
+    h5py stores one, ``bytes`` as a fixed-length string, numbers and arrays
+    as numeric attributes.
+
+    The file is written under a temporary name; ``close`` writes the
+    metadata (the global heap of the string attributes, each chunked
+    dataset's index as version-1 B-tree nodes of type 1, the object
+    headers, the groups as symbol tables bottom-up, last the version-0
+    superblock at offset 0) and only then renames it to ``path``: a writer
+    that is never closed leaves no file that looks whole. The chunk index
+    uses HDF5's default K of 32, which a version-0 superblock implies: nodes
+    of 64 entries at their full size, as many levels as the chunks need (two
+    past 64 chunks, three past 4,096), each key bounding the chunks below
+    it, so that h5py can also append to the file in mode "a". Leaving the
+    ``with`` block on an exception removes the temporary file."""
+
+    def __init__(self, path: str):
+        self.path = str(path)
+        self._tmp = f"{self.path}.tmp{os.getpid()}"
+        self._fh = open(self._tmp, "wb")
+        self._fh.write(bytes(_SUPERBLOCK_SIZE))
+        self._end = _SUPERBLOCK_SIZE
+        self._datasets: Dict[str, _Stored] = {}
+        self._groups: Dict[str, Dict[str, Any]] = {"": {}}  # path -> attributes
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        if exc_type is None:
+            self.close()
+        else:
+            self.abort()
+
+    def _put(self, data) -> int:
+        """Writes bytes or an array's buffer at the end of the file, 8-byte
+        aligned; their address."""
+        pad = (-self._end) % 8
         if pad:
-            self.parts.append(b"\0" * pad)
-            self.end += pad
-        addr = self.end
-        self.parts.append(data)
-        self.end += len(data)
+            self._fh.write(bytes(pad))
+            self._end += pad
+        addr = self._end
+        if isinstance(data, np.ndarray):
+            data = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
+        self._fh.write(data)
+        self._end += len(data)
         return addr
+
+    def _claim(self, name: str) -> str:
+        path = name.strip("/")
+        parts = path.split("/")
+        if not path or any(not p or "\0" in p for p in parts):
+            raise ValueError(f"HDF5 writer: invalid name {name!r}")
+        for i in range(1, len(parts)):
+            group = "/".join(parts[:i])
+            if group in self._datasets:
+                raise ValueError(f"HDF5 writer: {group!r} is a dataset, not a group")
+            self._groups.setdefault(group, {})
+        if path in self._datasets or path in self._groups:
+            raise ValueError(f"HDF5 writer: {path!r} exists")
+        return path
+
+    def write(self, name: str, data, attrs: Optional[Mapping[str, Any]] = None) -> None:
+        """A contiguous dataset holding ``data`` (integers, IEEE floats or
+        fixed-length strings, in the array's byte order)."""
+        arr = np.asarray(data)
+        if arr.dtype.kind == "U":
+            raise TypeError(f"HDF5 writer: variable {name!r}: store strings as bytes")
+        _type_message(arr)
+        path = self._claim(name)
+        addr = self._put(arr) if arr.nbytes else None
+        self._datasets[path] = _Stored(arr.shape, arr.dtype, dict(attrs or {}), addr=addr)
+
+    def create_growing(self, name: str, shape, dtype, axis: int,
+                       attrs: Optional[Mapping[str, Any]] = None) -> GrowingDataset:
+        """A dataset of ``shape`` whose ``axis`` starts empty and grows by
+        ``append`` (``maxshape`` None there)."""
+        if not 0 <= axis < len(shape):
+            raise ValueError(f"HDF5 writer: axis {axis} of a rank-{len(shape)} dataset")
+        _type_message(np.empty(0, dtype))
+        path = self._claim(name)
+        ds = GrowingDataset(self, path, shape, dtype, axis)
+        self._datasets[path] = _Stored(shape, dtype, dict(attrs or {}), growing=ds)
+        return ds
+
+    def attrs(self, name: str) -> Dict[str, Any]:
+        """The attribute dict of a dataset or a group ("/": the file's)."""
+        path = name.strip("/")
+        if path in self._groups:
+            return self._groups[path]
+        if path in self._datasets:
+            return self._datasets[path].attrs
+        raise KeyError(f"HDF5 writer: no member {name!r}")
+
+    def abort(self) -> None:
+        """Closes and removes the temporary file."""
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+            os.unlink(self._tmp)
+
+    def close(self) -> None:
+        if self._fh is None:
+            return
+        try:
+            root, root_scratch, leaf_k = self._metadata()
+            sb = (SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0])
+                  + struct.pack("<HHI", leaf_k, _GROUP_NODE_K, 0) + struct.pack("<Q", 0)
+                  + _UNDEF8 + struct.pack("<Q", self._end) + _UNDEF8
+                  + struct.pack("<QQII", 0, root, 1, 0) + root_scratch)
+            self._fh.seek(0)
+            self._fh.write(sb)
+            self._fh.flush()
+            os.replace(self._tmp, self.path)
+        except BaseException:
+            self.abort()
+            raise
+        self._fh.close()
+        self._fh = None
+
+    # -- the metadata, written by close
+    def _metadata(self) -> Tuple[int, bytes, int]:
+        """Writes everything but the superblock: (the root group's header,
+        its symbol-table scratch pad, the groups' leaf K)."""
+        # variable-length strings go to one global heap collection
+        vlen: List[bytes] = []
+        group_order = sorted(self._groups, key=lambda g: -g.count("/") - (1 if g else 0))
+        owners = [d.attrs for d in self._datasets.values()] + [self._groups[g] for g in
+                                                               group_order]
+        for amap in owners:
+            for av in amap.values():
+                if isinstance(av, str):
+                    vlen.append(av.encode("utf-8"))
+        heap_addr = None
+        if vlen:
+            objs = b""
+            for i, s in enumerate(vlen, 1):
+                objs += struct.pack("<HH4xQ", i, 1, len(s)) + _pad8(s)
+            size = max(4096, 16 + len(objs) + 16)
+            free = size - 16 - len(objs)
+            coll = b"GCOL" + bytes([1, 0, 0, 0]) + struct.pack("<Q", size) + objs
+            coll += struct.pack("<HH4xQ", 0, 0, free) + b"\0" * (free - 16)
+            heap_addr = self._put(coll)
+        counter = iter(range(1, len(vlen) + 1))  # heap indices, in the order encoded
+
+        def encode_attrs(amap: Mapping[str, Any]) -> bytes:
+            out = b""
+            for an, av in amap.items():
+                name = an.encode("utf-8") + b"\0"
+                if isinstance(av, str):
+                    i = next(counter)
+                    tmsg, space = _vlen_str_type(), _space_message(())
+                    data = struct.pack("<IQI", len(vlen[i - 1]), heap_addr, i)
+                else:
+                    arr = np.asarray(av)
+                    if arr.dtype.kind == "U":
+                        raise TypeError(f"HDF5 writer: attribute {an!r}: give one str, or bytes")
+                    tmsg, space, data = _type_message(arr), _space_message(arr.shape), \
+                        arr.tobytes()
+                body = (struct.pack("<BBHHH", 1, 0, len(name), len(tmsg), len(space))
+                        + _pad8(name) + _pad8(tmsg) + _pad8(space) + data)
+                out += _message(_ATTRIBUTE, body)
+            return out
+
+        headers: Dict[str, int] = {}
+        for path, d in self._datasets.items():
+            typ = _message(_DATATYPE, _type_message(np.empty(0, d.dtype)), flags=1)
+            if d.growing is None:
+                nbytes = math.prod(d.shape) * d.dtype.itemsize
+                fill = bytes([2, 2, 0, 1]) + struct.pack("<I", d.dtype.itemsize) + bytes(
+                    d.dtype.itemsize)
+                layout = bytes([3, 1]) + (struct.pack("<Q", d.addr) if d.addr is not None
+                                          else _UNDEF8) + struct.pack("<Q", nbytes)
+                msgs = _message(_DATASPACE, _space_message(d.shape))
+            else:
+                g = d.growing
+                tree = self._chunk_btree(g) if g._blocks else None
+                maxshape = tuple(None if i == g.axis else n for i, n in enumerate(g.shape))
+                fill = bytes([2, 3, 2, 1]) + struct.pack("<I", 0)  # h5py's, for a chunked one
+                layout = (bytes([3, 2, len(g.shape) + 1])
+                          + (struct.pack("<Q", tree) if tree is not None else _UNDEF8)
+                          + struct.pack(f"<{len(g.chunk) + 1}I", *g.chunk, d.dtype.itemsize))
+                msgs = _message(_DATASPACE, _space_message(tuple(g.shape), maxshape), flags=0)
+            msgs += (typ + _message(_FILL, fill, flags=1) + _message(_LAYOUT, layout)
+                     + encode_attrs(d.attrs))
+            headers[path] = self._put(_object_header(msgs))
+
+        # the groups, deepest first, each a symbol table (local heap of
+        # names, SNODs of at most 2 * leaf_k entries under one B-tree node of
+        # at most 2 * _GROUP_NODE_K children)
+        members: Dict[str, List[str]] = {g: [] for g in self._groups}
+        for path in list(self._datasets) + [g for g in self._groups if g]:
+            members[path.rpartition("/")[0]].append(path)
+        most = max(len(m) for m in members.values())
+        leaf_k = max(4, math.ceil(most / (4 * _GROUP_NODE_K)))
+        scratch = {}
+        for group in group_order:
+            entries = {m.rpartition("/")[2]: headers[m] for m in members[group]}
+            tree, heap = self._symbol_table(entries, leaf_k)
+            msgs = _message(_SYMBOL_TABLE, struct.pack("<QQ", tree, heap)) \
+                + encode_attrs(self._groups[group])
+            headers[group] = self._put(_object_header(msgs))
+            scratch[group] = struct.pack("<QQ", tree, heap)
+        return headers[""], scratch[""], leaf_k
+
+    def _symbol_table(self, entries: Mapping[str, int], leaf_k: int) -> Tuple[int, int]:
+        """Writes a group's local heap, SNODs and B-tree node; (the node's
+        address, the heap's)."""
+        names = sorted(entries, key=lambda n: n.encode("utf-8"))
+        heap = bytearray(8)  # offset 0: the empty string
+        offsets = {}
+        for n in names:
+            offsets[n] = len(heap)
+            heap += _pad8(n.encode("utf-8") + b"\0")
+        heap += struct.pack("<QQ", 1, 16)  # one free block at the end (HDF5 needs room)
+        heap_data = self._put(bytes(heap))
+        local_heap = self._put(b"HEAP" + bytes([0, 0, 0, 0])
+                               + struct.pack("<QQQ", len(heap), len(heap) - 16, heap_data))
+        groups = [names[i:i + 2 * leaf_k] for i in range(0, len(names), 2 * leaf_k)]
+        node = b"TREE" + bytes([0, 0]) + struct.pack("<H", len(groups)) + _UNDEF8 + _UNDEF8
+        node += struct.pack("<Q", 0)
+        for chunk in groups:
+            ent = b"".join(struct.pack("<QQII16x", offsets[n], entries[n], 0, 0) for n in chunk)
+            ent += b"\0" * (40 * (2 * leaf_k - len(chunk)))
+            snod = self._put(b"SNOD" + bytes([1, 0]) + struct.pack("<H", len(chunk)) + ent)
+            node += struct.pack("<QQ", snod, offsets[chunk[-1]])
+        node += b"\0" * (16 * (2 * _GROUP_NODE_K - len(groups)))
+        return self._put(node), local_heap
+
+    def _chunk_btree(self, g: GrowingDataset) -> int:
+        """Writes the chunk index of a growing dataset, level by level;
+        the root's address. Each node is written at its full size; a node's
+        last key is its right neighbour's first, and the last node's is the
+        bound past the last chunk (each chunked axis's offset + 1), as HDF5
+        writes it."""
+        offs, addrs = g._index()
+        rank = len(g.shape)
+        key_t = np.dtype([("size", "<u4"), ("mask", "<u4"), ("offs", "<u8", (rank + 1,))])
+        ks = key_t.itemsize
+        keys = np.zeros(len(offs), key_t)
+        keys["size"] = g.chunk_bytes
+        keys["offs"] = offs
+        right = np.zeros(1, key_t)
+        right["offs"] = np.asarray([int(o) + c for o, c in zip(offs[-1][:rank], g.chunk)]
+                                   + [g.dtype.itemsize], np.uint64)
+        keys, right = keys.view(np.uint8).reshape(-1, ks), right.view(np.uint8).reshape(ks)
+        cap, level = 2 * _CHUNK_K, 0
+        node_size = 24 + cap * 8 + (cap + 1) * ks
+        children = addrs
+        while True:
+            n = len(children)
+            n_nodes = -(-n // cap)
+            pad = (-self._end) % 8
+            base = self._end + pad
+            body = np.zeros((n_nodes, node_size), np.uint8)
+            pairs = np.zeros((n_nodes * cap, ks + 8), np.uint8)
+            pairs[:n, :ks] = keys
+            pairs[:n, ks:] = children.astype("<u8").view(np.uint8).reshape(n, 8)
+            body[:, 24:24 + cap * (ks + 8)] = pairs.reshape(n_nodes, -1)
+            body[:-1, 24 + cap * (ks + 8):] = keys[cap::cap]
+            used = n - cap * (n_nodes - 1)
+            body[-1, 24 + used * (ks + 8):24 + used * (ks + 8) + ks] = right
+            node_addrs = base + node_size * np.arange(n_nodes, dtype=np.uint64)
+            head = np.zeros(n_nodes, np.dtype([("sig", "S4"), ("type", "u1"), ("level", "u1"),
+                                               ("used", "<u2"), ("left", "<u8"),
+                                               ("right", "<u8")]))
+            head["sig"], head["type"], head["level"], head["used"] = b"TREE", 1, level, cap
+            head["used"][-1] = used
+            head["left"] = _UNLIMITED
+            head["left"][1:] = node_addrs[:-1]
+            head["right"] = _UNLIMITED
+            head["right"][:-1] = node_addrs[1:]
+            body[:, :24] = head.view(np.uint8).reshape(n_nodes, 24)
+            if self._put(body) != base:
+                raise AssertionError("HDF5 writer: B-tree nodes misplaced")
+            if n_nodes == 1:
+                return base
+            keys, children, level = keys[::cap], node_addrs, level + 1
 
 
 def write_hdf5(path: str, variables: Mapping[str, np.ndarray],
                attrs: Optional[Mapping[str, Mapping[str, Any]]] = None) -> None:
     """Write ``variables`` (name -> array: integers, IEEE floats or fixed
     strings, stored contiguous, in the array's byte order) to a new HDF5
-    file at ``path``, readable by h5py. ``attrs`` maps a variable name, or
-    "/" for the file itself, to its attributes: ``str`` values become
-    variable-length UTF-8 strings (h5py reads them as ``str``), ``bytes``
-    fixed-length strings, numbers and arrays numeric attributes (a Python
-    float a float64, an int an int64, as numpy converts them). Members are
-    listed by name (a symbol-table root group, superblock v0)."""
+    file at ``path``, readable by h5py, through ``Writer``. ``attrs`` maps a
+    variable name, or "/" for the file itself, to its attributes: ``str``
+    values become variable-length UTF-8 strings (h5py reads them as
+    ``str``), ``bytes`` fixed-length strings, numbers and arrays numeric
+    attributes (a Python float a float64, an int an int64, as numpy converts
+    them). Members are listed by name (a symbol-table root group,
+    superblock v0)."""
     attrs = dict(attrs or {})
     unknown = set(attrs) - set(variables) - {"/"}
     if unknown:
         raise KeyError(f"write_hdf5: attributes of unknown variables {sorted(unknown)}")
-    names = sorted(variables, key=lambda n: n.encode("utf-8"))
-    for n in names:
+    for n in variables:
         if not n or "/" in n or "\0" in n:
             raise ValueError(f"write_hdf5: invalid variable name {n!r}")
-    w = _Writer(96)  # after the superblock
-
-    # variable-length strings go to one global heap collection
-    vlen: List[bytes] = []
-
-    def attr_messages(amap: Mapping[str, Any]) -> List[bytes]:
-        msgs = []
-        for an, av in amap.items():
-            name = an.encode("utf-8") + b"\0"
-            if isinstance(av, str):
-                vlen.append(av.encode("utf-8"))
-                tmsg, space, data = _vlen_str_type(), _space_message(()), ("vlen", len(vlen))
-            else:
-                arr = np.asarray(av)
-                if arr.dtype.kind == "U":
-                    raise TypeError(f"write_hdf5: attribute {an!r}: give one str, or bytes")
-                tmsg, space, data = _type_message(arr), _space_message(arr.shape), arr.tobytes()
-            msgs.append((name, tmsg, space, data))
-        return msgs
-
-    pending = {n: attr_messages(attrs.get(n, {})) for n in names}
-    root_attrs = attr_messages(attrs.get("/", {}))
-    heap_addr = None
-    if vlen:
-        objs = b""
-        for i, s in enumerate(vlen, 1):
-            objs += struct.pack("<HH4xQ", i, 1, len(s)) + _pad8(s)
-        size = max(4096, 16 + len(objs) + 16)
-        free = size - 16 - len(objs)
-        coll = b"GCOL" + bytes([1, 0, 0, 0]) + struct.pack("<Q", size) + objs
-        coll += struct.pack("<HH4xQ", 0, 0, free) + b"\0" * (free - 16)
-        heap_addr = w.add(coll)
-
-    def encode_attrs(msgs) -> bytes:
-        out = b""
-        for name, tmsg, space, data in msgs:
-            if isinstance(data, tuple):
-                s = vlen[data[1] - 1]
-                data = struct.pack("<IQI", len(s), heap_addr, data[1])
-            body = (struct.pack("<BBHHH", 1, 0, len(name), len(tmsg), len(space))
-                    + _pad8(name) + _pad8(tmsg) + _pad8(space) + data)
-            out += _message(_ATTRIBUTE, body)
-        return out
-
-    def header(messages: bytes) -> bytes:
-        count = 0
-        pos = 0
-        while pos < len(messages):
-            count += 1
-            pos += 8 + struct.unpack_from("<H", messages, pos + 2)[0]
-        return struct.pack("<BBHII4x", 1, 0, count, 1, len(messages)) + messages
-
-    # the datasets: raw data, then their object headers
-    headers = {}
-    for n in names:
-        arr = np.asarray(variables[n])
-        if arr.dtype.kind == "U":
-            raise TypeError(f"write_hdf5: variable {n!r}: store strings as bytes")
-        data_addr = w.add(arr.tobytes()) if arr.nbytes else None
-        fill = bytes([2, 2, 0, 1]) + struct.pack("<I", arr.dtype.itemsize) + bytes(
-            arr.dtype.itemsize)
-        layout = bytes([3, 1]) + (struct.pack("<Q", data_addr) if data_addr is not None
-                                  else _UNDEF8) + struct.pack("<Q", arr.nbytes)
-        msgs = (_message(_DATASPACE, _space_message(arr.shape))
-                + _message(_DATATYPE, _type_message(arr), flags=1)
-                + _message(_FILL, fill, flags=1)
-                + _message(_LAYOUT, layout)
-                + encode_attrs(pending[n]))
-        headers[n] = w.add(header(msgs))
-
-    # the root group: local heap of names, SNODs of at most 2 * leaf_k
-    # entries, one level-0 B-tree node of at most 2 * node_k children
-    node_k = 16
-    leaf_k = max(4, math.ceil(len(names) / (4 * node_k)))
-    heap = bytearray(8)  # offset 0: the empty string
-    offsets = {}
-    for n in names:
-        offsets[n] = len(heap)
-        heap += _pad8(n.encode("utf-8") + b"\0")
-    heap += struct.pack("<QQ", 1, 16)  # one free block at the end (HDF5 needs room)
-    heap_data = w.add(bytes(heap))
-    local_heap = w.add(b"HEAP" + bytes([0, 0, 0, 0]) + struct.pack("<QQQ", len(heap),
-                                                                    len(heap) - 16, heap_data))
-    groups = [names[i:i + 2 * leaf_k] for i in range(0, len(names), 2 * leaf_k)] or [[]]
-    snods = []
-    for members in groups:
-        ent = b"".join(struct.pack("<QQII16x", offsets[n], headers[n], 0, 0) for n in members)
-        ent += b"\0" * (40 * (2 * leaf_k - len(members)))
-        snods.append(w.add(b"SNOD" + bytes([1, 0]) + struct.pack("<H", len(members)) + ent))
-    if not names:
-        snods = []
-    node = b"TREE" + bytes([0, 0]) + struct.pack("<H", len(snods)) + _UNDEF8 + _UNDEF8
-    node += struct.pack("<Q", 0)
-    for members, snod in zip(groups, snods):
-        node += struct.pack("<QQ", snod, offsets[members[-1]])
-    node += b"\0" * (16 * (2 * node_k - len(snods)))
-    tree = w.add(node)
-    root_msgs = _message(_SYMBOL_TABLE, struct.pack("<QQ", tree, local_heap)) \
-        + encode_attrs(root_attrs)
-    root = w.add(header(root_msgs))
-    eof = w.end
-    sb = (SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0]) + struct.pack("<HHI", leaf_k, node_k, 0)
-          + struct.pack("<Q", 0) + _UNDEF8 + struct.pack("<Q", eof) + _UNDEF8
-          + struct.pack("<QQII", 0, root, 1, 0) + struct.pack("<QQ", tree, local_heap))
-    tmp = f"{path}.tmp{os.getpid()}"
-    with open(tmp, "wb") as fh:
-        fh.write(sb)
-        for part in w.parts:
-            fh.write(part)
-    os.replace(tmp, path)
+    with Writer(path) as w:
+        for n in sorted(variables, key=lambda n: n.encode("utf-8")):
+            w.write(n, variables[n], attrs.get(n))
+        w.attrs("/").update(attrs.get("/", {}))

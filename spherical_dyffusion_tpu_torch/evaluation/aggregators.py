@@ -9,8 +9,9 @@ reduction per window; here the reductions are plain PyTorch on the tensors'
 device, and every table and snapshot stays there until ``series()``, a
 ``get_logs`` call or ``snapshots`` reads it: recording a window never moves
 data to the host, so it does not wait for the device.
-Predictions may arrive in bf16 and are reduced in float32. The video
-aggregator is not ported.
+Predictions may arrive in bf16 and are reduced in float32. With
+``log_video`` a ``VideoAggregator`` (``evaluation/video.py``) records each
+window from host copies that the caller hands ``record_batch``.
 """
 
 from __future__ import annotations
@@ -222,21 +223,35 @@ class ZonalMeanAggregator:
 
 class InferenceAggregator:
     """The aggregators of one rollout: per-step tables, time means,
-    snapshots and (optionally) zonal means, fed one window at a time."""
+    snapshots, (optionally) zonal means and (``log_video``) the video, fed
+    one window at a time."""
 
     def __init__(self, names: Sequence[str], area_weights: torch.Tensor,
                  log_zonal_mean_images: bool = True,
-                 snapshot_steps: Optional[Sequence[int]] = None, normalizer=None):
+                 snapshot_steps: Optional[Sequence[int]] = None, normalizer=None,
+                 log_video: bool = False):
+        from .video import VideoAggregator
+
         self.names = list(names)
         self.time_mean = TimeMeanAggregator(names, area_weights)
         self.reduced = ReducedMetricsAggregator(names, area_weights, normalizer=normalizer)
         self.snapshots = SnapshotAggregator(names, snapshot_steps)
         self.zonal = ZonalMeanAggregator(names) if log_zonal_mean_images else None
+        self.video = VideoAggregator(names) if log_video else None
 
-    def record_batch(self, preds: torch.Tensor, targets: torch.Tensor, start_step: int = 0):
+    def record_batch(self, preds: torch.Tensor, targets: torch.Tensor, start_step: int = 0,
+                     host=None):
         """preds (E, T, H, W, C) or (T, H, W, C) and targets (T, H, W, C),
         both raw (denormalized), on one device. Every reduction runs there;
-        the float32 upcast of bf16 preds is made once and shared."""
+        the float32 upcast of bf16 preds is made once and shared. ``host``:
+        the same window's (preds, targets) as host numpy arrays, which the
+        video records, and which it needs (recording never reads the
+        window's tensors back, so never waits for the card)."""
+        if self.video is not None:
+            if host is None:
+                raise ValueError("log_video: record_batch needs the window's host copies "
+                                 "(host=(preds, targets))")
+            self.video.record_batch(host[0], host[1], start_step)
         if preds.dim() == 4:
             preds = preds[None]
         preds = preds.float()

@@ -19,7 +19,11 @@ synchronizes once, at the end: its ``time/run_on_batch`` measures launching,
 and ``loss_last_window`` is read after that synchronization. CUDA events
 recorded between windows give each window's seconds on the device
 (``window_seconds``) and the steady rate of the windows after the first.
-The data writers are not ported (ROADMAP Queue 1 item 8).
+With a writer (``inference/writers.py``), or the aggregator's video, each
+window's scored predictions and targets are copied to the host into reused
+pinned buffers behind the window (``utils/device.py:HostCopies``) and
+handed on one window later, once the next window is launched: the drain
+waits on the copy's event, not on the card's queue.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from ..data.coords import SigmaCoordinates
 from ..data.datamodule import prefetched
 from ..data.normalization import StandardNormalizer
 from ..training.losses import get_loss_fn
-from ..utils.device import read_back, to_device
+from ..utils.device import HostCopies, read_back, to_device
 from .corrector import CorrectorConfig
 from .derived_variables import compute_derived_quantities
 from .loop import UploadCache, _synchronize, wrapped_pieces
@@ -226,7 +230,8 @@ def ace_scored_names(stepper: SingleStepStepper, source, derived: bool = False) 
 @torch.inference_mode()
 def run_ace_inference(stepper: SingleStepStepper, source, n_forward_steps: int,
                       forward_steps_in_memory: int = 50, n_repeats: int = 1,
-                      aggregator=None, derived: bool = False, verbose: bool = True,
+                      aggregator=None, writer=None, derived: bool = False,
+                      verbose: bool = True,
                       on_window: Optional[Callable[[int, SteppedData], None]] = None
                       ) -> Dict[str, object]:
     """The windowed ACE rollout over ``source`` (a ``TimeSeriesSource``
@@ -235,7 +240,10 @@ def run_ace_inference(stepper: SingleStepStepper, source, n_forward_steps: int,
     from the previous window's final state. With ``aggregator``, the
     generated fields and the targets of every window, with ``derived`` also
     every computable registered diagnostic (it needs ``stepper.sigma``), are
-    recorded, in the order of ``ace_scored_names``. ``on_window(start,
+    recorded, in the order of ``ace_scored_names``. ``writer`` gets the
+    prognostic part of each window's predictions (1, n, H, W, C) and targets
+    (n, H, W, C) on the host, as in JAX: derived fields extend the
+    aggregator's names, not the writer's. ``on_window(start,
     out)``, if given, receives each window's lean ``SteppedData`` once it is
     launched (nothing of it has been read on the host).
 
@@ -258,6 +266,11 @@ def run_ace_inference(stepper: SingleStepStepper, source, n_forward_steps: int,
                          "the diagnostics)")
     scored = ace_scored_names(stepper, source, derived=derived)
     upload_cache = UploadCache()
+    n_prog = len(out_names)  # the prognostic names lead the scored ones
+    video = getattr(aggregator, "video", None) is not None
+    to_host = writer is not None or video
+    host_copies = HostCopies()
+    pending = []  # scored windows awaiting their host copies
 
     def windows():
         start = 0
@@ -304,6 +317,14 @@ def run_ace_inference(stepper: SingleStepStepper, source, n_forward_steps: int,
             return ev
         return time.perf_counter()
 
+    def drain(item):
+        preds, tgts, start, ticket = item
+        host = HostCopies.wait(ticket) if ticket is not None else None
+        if aggregator is not None:
+            aggregator.record_batch(preds, tgts, start_step=start, host=host if video else None)
+        if writer is not None:
+            writer.append(host[0][..., :n_prog], host[1][..., :n_prog])
+
     timers = {"data_loading": 0.0, "run_on_batch": 0.0, "writer_and_aggregator": 0.0}
     t_start = time.time()
     x_norm, last = None, None
@@ -325,9 +346,16 @@ def run_ace_inference(stepper: SingleStepStepper, source, n_forward_steps: int,
         timers["run_on_batch"] += time.time() - t0
 
         t0 = time.time()
-        if aggregator is not None:
+        if aggregator is not None or writer is not None:
             preds, tgts = score_pack(out.gen_data, data)
-            aggregator.record_batch(preds, tgts, start_step=start)
+            ticket = None
+            if to_host:
+                keep = slice(None) if video else slice(0, n_prog)
+                ticket = host_copies.copy([preds[..., keep], tgts[..., keep]])
+            pending.append((preds, tgts, start, ticket))
+        # with host copies, the previous window's, once this one is queued
+        while len(pending) > (1 if to_host else 0):
+            drain(pending.pop(0))
         timers["writer_and_aggregator"] += time.time() - t0
         if on_window is not None:
             on_window(start, out)
@@ -341,6 +369,8 @@ def run_ace_inference(stepper: SingleStepStepper, source, n_forward_steps: int,
 
     # end-synced: the duration covers the device's completion of every window
     t0 = time.time()
+    for item in pending:
+        drain(item)
     _synchronize(device)
     timers["writer_and_aggregator"] += time.time() - t0
     duration = time.time() - t_start

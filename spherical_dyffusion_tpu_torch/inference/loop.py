@@ -21,10 +21,19 @@ The host pipeline around the card:
 * windows whose wrapped read offsets coincide (``n_repeats > 1``) carry the
   same data, so a host read cache and a device upload cache reuse them;
 * the deferred drain: window k's predictions are denormalized on the card
-  and handed to the aggregator only after window k+1 is launched, and
-  nothing in the drain moves data to the host, so with an aggregator the
-  host never waits for the card inside the loop (without one, each window
-  ends with a synchronization, as the JAX loop blocks on the carried state);
+  and handed to the aggregator only after window k+1 is launched, and the
+  aggregator's reductions stay on the card, so with an aggregator alone the
+  host never waits for the card inside the loop (without a consumer, each
+  window ends with a synchronization, as the JAX loop blocks on the carried
+  state);
+* the host copies: with a writer, or the aggregator's video, each window's
+  denormalized predictions are copied to the host once, queued behind the
+  window into one of two reused pinned buffers (``utils/device.py:
+  HostCopies``); the drain, once window k+1 is launched, waits on that
+  copy's event (the loop's one wait on the card a window) and hands the
+  host arrays to ``writer.append`` and the video with the window's float32
+  target rows, which the producer thread keeps on the host for every
+  window;
 * the summary is end-synced: ``duration_s`` ends after
   ``torch.cuda.synchronize``, so it counts every step's completion on the
   card, not its launch.
@@ -34,7 +43,7 @@ chunk of each window draws from it the seed of the generator its
 ``run_window`` call gets (``_next_window_generator``), where the JAX loop
 splits its key. ``run_dataset_inference`` re-scores a predictions file (the
 layout of the JAX package's ``PredictionWriter``) against a source, reading
-it through ``data/hdf5.py``. The netCDF writers are not ported.
+it through ``data/hdf5.py``; the writers are ``inference/writers.py``.
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ import torch
 
 from ..data.datamodule import prefetched
 from ..data.datasets import TimeSeriesSource
-from ..utils.device import to_device
+from ..utils.device import HostCopies, to_device
 from .stepper import DYffusionStepper
 
 __all__ = ["InferenceConfig", "InferenceWindows", "capped_window", "run_inference",
@@ -220,7 +229,7 @@ def _resident_target_windows(cfg: InferenceConfig, n_timesteps: int, T: int) -> 
 
 def capped_window(cfg: InferenceConfig, n_rows: int, spatial, n_out: int, preds_itemsize: int,
                   horizon: int, target_rows: int = 0,
-                  n_timesteps: Optional[int] = None) -> int:
+                  n_timesteps: Optional[int] = None, to_host: bool = False) -> int:
     """The window the rollout runs: ``forward_steps_in_memory``, or, when the
     resident-memory estimate exceeds ``cfg.hbm_budget_gb``, the largest
     multiple of ``horizon`` (at least ``horizon``) that fits. The window is
@@ -232,8 +241,11 @@ def capped_window(cfg: InferenceConfig, n_rows: int, spatial, n_out: int, preds_
     estimate leaves out: with an aggregator attached (``target_rows`` = the
     number of initial conditions, ``n_timesteps`` = the source's length) the
     uploaded target windows (target_rows x T x H x W x n_out in
-    ``cfg.targets_dtype``) that are resident at once. Where that term does
-    not bind, the result is the JAX package's."""
+    ``cfg.targets_dtype``) that are resident at once; with ``to_host`` (a
+    writer or the video on) one more window of predictions, the
+    channel-first copy that ``HostCopies.copy`` makes on the card while the
+    window before is still held. Where neither term binds, the result is the
+    JAX package's."""
     T_req = int(cfg.forward_steps_in_memory)
     if not cfg.auto_window_cap:
         return T_req
@@ -242,7 +254,8 @@ def capped_window(cfg: InferenceConfig, n_rows: int, spatial, n_out: int, preds_
     if per_step <= 0:
         return T_req
     budget = cfg.hbm_budget_gb * 1e9
-    max_T = int(budget / (2.5 * per_step))
+    held = 2.5 + (1 if to_host else 0)  # windows of predictions
+    max_T = int(budget / (held * per_step))
     max_T = max(horizon, (max_T // horizon) * horizon)
     T = min(T_req, max_T)
     if target_rows > 0:
@@ -250,7 +263,7 @@ def capped_window(cfg: InferenceConfig, n_rows: int, spatial, n_out: int, preds_
 
         def fits(t):
             windows = _resident_target_windows(cfg, n_timesteps, t)
-            return 2.5 * per_step * t + windows * tgt_step * t <= budget
+            return held * per_step * t + windows * tgt_step * t <= budget
 
         while T > horizon and not fits(T):
             T = max(horizon, ((T - 1) // horizon) * horizon)
@@ -277,19 +290,24 @@ def _synchronize(device: torch.device) -> None:
 
 @torch.inference_mode()
 def run_inference(stepper: DYffusionStepper, source: TimeSeriesSource, cfg: InferenceConfig,
-                  aggregator=None, mask_name: Optional[str] = None,
+                  aggregator=None, writer=None, mask_name: Optional[str] = None,
                   verbose: bool = True) -> Dict[str, float]:
     """Run the rollout on the device of the stepper's networks; returns the
     summary: steps, end-synced duration, total and steady steps per second
     (ensemble members and initial conditions counted), upload-cache skips and
     the ``time/*`` host splits (data loading, running the windows, the
-    aggregator)."""
+    writer and the aggregator). ``writer`` (``inference/writers.py``'s
+    ``DataWriter``, or None: nothing crosses to the host) gets each
+    window's predictions (E, T, H, W, C) and float32 targets (T, H, W, C)
+    on the host, one initial condition only, as in JAX."""
     exp = stepper.exp
     device = next(exp.model.parameters()).device
     in_names = list(exp.in_packer.names)
     out_names = list(exp.out_packer.names)
     forcing_names = list(getattr(exp, "forcing_names", ()))
-    consume = aggregator is not None
+    consume = aggregator is not None or writer is not None
+    video = getattr(aggregator, "video", None) is not None
+    to_host = writer is not None or video
     prescribed_name = getattr(stepper.prescriber, "prescribed_name", None)
     # read only what each window consumes; the full in_names only for the
     # initial condition
@@ -305,8 +323,8 @@ def run_inference(stepper: DYffusionStepper, source: TimeSeriesSource, cfg: Infe
     E = cfg.n_ensemble
     itemsize = stepper.preds_dtype.itemsize if stepper.preds_dtype is not None else 4
     T_eff = capped_window(cfg, n_ic * E, source.spatial_shape, len(out_names), itemsize,
-                          stepper.horizon, target_rows=n_ic if consume else 0,
-                          n_timesteps=source.n_timesteps)
+                          stepper.horizon, target_rows=n_ic if aggregator is not None else 0,
+                          n_timesteps=source.n_timesteps, to_host=to_host)
     if T_eff < cfg.forward_steps_in_memory:
         if verbose:
             print(f"[rollout] forward_steps_in_memory {cfg.forward_steps_in_memory} -> {T_eff}: "
@@ -314,6 +332,11 @@ def run_inference(stepper: DYffusionStepper, source: TimeSeriesSource, cfg: Infe
                   "(results unchanged; auto_window_cap=False overrides)", flush=True)
         cfg = dataclasses.replace(cfg, forward_steps_in_memory=T_eff)
     windows = InferenceWindows(source, needed, cfg)
+    if writer is not None and n_ic > 1:
+        raise ValueError(
+            "data writers support a single initial condition; score multi-IC "
+            "rollouts through the aggregator"
+        )
     # the statistics on the card once, not copied at every normalize
     in_norm = exp.normalizer.to(device)
     out_norm = exp.normalizer.subset(out_names).to(device)
@@ -358,15 +381,19 @@ def run_inference(stepper: DYffusionStepper, source: TimeSeriesSource, cfg: Infe
         hold yet, stacked, cast and pinned: the targets (n_ic, T, H, W, C) in
         the targets dtype, the forcings (n_ic, T+1, H, W, F), the prescribed
         target and the mask frames (n_ic, T+1, H, W). A row the upload cache
-        holds stays there, so a row skipped here is found in the cache."""
+        holds stays there, so a row skipped here is found in the cache. With
+        host copies on, the targets as read ("tgt_host") for every window."""
         for start_step, data in stream:
             n_steps = min(cfg.forward_steps_in_memory, cfg.n_forward_steps - start_step)
             key = wkey(start_step, n_steps)
             rows = {}
-            if consume and (key is None or ("tgt", key) not in upload_cache):
-                tgt = torch.from_numpy(np.stack(
-                    [ic_view(data[n])[:, 1:n_steps + 1] for n in out_names], axis=-1))
-                rows["tgt"] = pinned(tgt.to(tgt_dtype))
+            upload = aggregator is not None and (key is None or ("tgt", key) not in upload_cache)
+            if upload or to_host:
+                tgt = np.stack([ic_view(data[n])[:, 1:n_steps + 1] for n in out_names], axis=-1)
+                if upload:
+                    rows["tgt"] = pinned(torch.from_numpy(tgt).to(tgt_dtype))
+                if to_host:
+                    rows["tgt_host"] = tgt
             if key is None or ("cond", key) not in upload_cache:
                 if forcing_names:
                     rows["forcing"] = pinned(torch.from_numpy(
@@ -379,13 +406,27 @@ def run_inference(stepper: DYffusionStepper, source: TimeSeriesSource, cfg: Infe
     it = prefetched(host_rows(iter(windows)), depth=2)
     n_done = 0
     window_wall = []  # (n_steps, wall seconds) of each window
-    pending = []  # denormalized predictions awaiting the aggregator
+    pending = []  # denormalized predictions awaiting the aggregator and the writer
+    host_copies = HostCopies()
+
+    def video_targets(tgt: np.ndarray) -> np.ndarray:
+        """The targets the video records: the uploaded ones, in the targets
+        dtype, as the JAX aggregator's video gets them."""
+        if tgt_dtype == torch.float32:
+            return tgt
+        return torch.from_numpy(tgt).to(tgt_dtype).float().numpy()
 
     def drain(item):
-        preds, w_tgt, w_start = item
+        preds, w_tgt, w_start, ticket, tgt_host = item
+        preds_host = HostCopies.wait(ticket)[0] if ticket is not None else None
         for ic in range(n_ic):
-            p = preds if n_ic == 1 else preds[ic * E:(ic + 1) * E]
-            aggregator.record_batch(p, w_tgt[ic], start_step=w_start)
+            rows = slice(ic * E, (ic + 1) * E)
+            if aggregator is not None:
+                p = preds if n_ic == 1 else preds[rows]
+                host = (preds_host[rows], video_targets(tgt_host[ic])) if video else None
+                aggregator.record_batch(p, w_tgt[ic], start_step=w_start, host=host)
+            if writer is not None:
+                writer.append(preds_host[rows], tgt_host[ic])
 
     while True:
         t_win = time.time()
@@ -399,7 +440,7 @@ def run_inference(stepper: DYffusionStepper, source: TimeSeriesSource, cfg: Infe
         n_steps = min(cfg.forward_steps_in_memory, cfg.n_forward_steps - start_step)
         key = wkey(start_step, n_steps)
         tgt_dev = None
-        if consume:
+        if aggregator is not None:
             tgt_dev = upload_cache.get(("tgt", key)) if key is not None else None
             if tgt_dev is None:
                 tgt_dev = to_device(rows["tgt"], device)
@@ -440,14 +481,18 @@ def run_inference(stepper: DYffusionStepper, source: TimeSeriesSource, cfg: Infe
         x_norm = torch.cat(new_states) if len(new_states) > 1 else new_states[0]
         preds_norm = torch.cat(pred_parts) if len(pred_parts) > 1 else pred_parts[0]
         if consume:
-            pending.append((_denorm_cast(preds_norm, out_stds, out_means), tgt_dev, start_step))
+            denorm = _denorm_cast(preds_norm, out_stds, out_means)
+            # queued behind the window: the drain waits for it a window later
+            ticket = host_copies.copy([denorm]) if to_host else None
+            pending.append((denorm, tgt_dev, start_step, ticket, rows.get("tgt_host")))
         else:
             # nothing reads the predictions: only the carried state matters
             _synchronize(device)
         timers["run_on_batch"] += time.time() - t0
 
         t0 = time.time()
-        # the previous window's reductions, queued behind this window
+        # the previous window's reductions, queued behind this window, and
+        # its host copies, handed on once this window is launched
         while len(pending) > 1:
             drain(pending.pop(0))
         timers["writer_and_aggregator"] += time.time() - t0
@@ -504,21 +549,30 @@ def run_dataset_inference(predictions_path: str, source: TimeSeriesSource, out_n
 
     if aggregator is None:
         aggregator = InferenceAggregator(list(out_names), area_weights)
-    with hdf5.File(predictions_path) as f:
-        E, T = f[out_names[0]].shape[:2]
-        n = min(T, n_forward_steps) if n_forward_steps else T
-        # one member at a time, so that a variable's T steps are held for
-        # one member only, not for all E
-        preds = np.stack([np.concatenate([f[v][e:e + 1][:, :n] for e in range(E)])
-                          for v in out_names], axis=-1)  # (E, n, H, W, C)
-    targets_raw = source.read_window(1, n, list(out_names))
-    targets = np.stack([targets_raw[v] for v in out_names], axis=-1)
     device = torch.device(device if device is not None else "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
-    aggregator.record_batch(torch.from_numpy(preds).to(device),
-                            torch.from_numpy(np.ascontiguousarray(targets)).to(device),
-                            start_step=0)
+
+    def stacked(arrays):
+        """(..., C) on the device: the variables stacked there, not on the
+        host, where a last-axis stack is a strided copy."""
+        return torch.stack([to_device(torch.from_numpy(np.ascontiguousarray(a)), device)
+                            for a in arrays], dim=-1)
+
+    video = getattr(aggregator, "video", None) is not None
+    with hdf5.File(predictions_path) as f:
+        T = f[out_names[0]].shape[1]
+        n = min(T, n_forward_steps) if n_forward_steps else T
+        # [:, :n] decodes only the chunks of the first n steps
+        arrays = [f[v][:, :n] for v in out_names]
+    preds = stacked(arrays)  # (E, n, H, W, C)
+    targets_raw = source.read_window(1, n, list(out_names))
+    # the video records the host arrays, stacked on the host only for it
+    host = (np.stack(arrays, -1), np.stack([targets_raw[v] for v in out_names], -1)) \
+        if video else None
+    del arrays
+    aggregator.record_batch(preds, stacked(targets_raw[v] for v in out_names), start_step=0,
+                            host=host)
     return aggregator.get_logs()
 
 

@@ -31,9 +31,10 @@ options of the 10-year config. ``build`` runs on ``device="cuda"`` unless
 the caller asks for another device; without CUDA that default raises rather
 than falling back to the CPU.
 
-``product_rollout`` is the product path of ``bench.py:product_bench``
-without the writer: ``run_inference`` over an aligned ``SyntheticTimeSeries``
-with the ``InferenceAggregator`` reducing on the card.
+``product_rollout`` is the product path of ``bench.py:product_bench``:
+``run_inference`` over an aligned ``SyntheticTimeSeries`` with the
+``InferenceAggregator`` reducing on the card, and with ``writer_dir`` the
+prediction writer that ``product_bench`` runs by default.
 
 ``train_steps`` is the training path of ``bench.py:train_bench``: both
 experiments of the paper at their full width, in float32 with K1 on (its
@@ -67,6 +68,7 @@ paths is cuDNN's, cuBLAS's or PyTorch's own.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
@@ -93,6 +95,7 @@ from .inference.loop import InferenceConfig, run_inference
 from .inference.ocean import OceanConfig
 from .inference.prescriber import PrescriberConfig
 from .inference.stepper import DYffusionStepper
+from .inference.writers import DataWriter, DataWriterConfig
 from .models.sfno import SFNO, SFNOConfig
 from .models.unet import UNet, UNetConfig
 from .ops.pallas_contractions import dhconv, dhconv_weight_image
@@ -249,39 +252,62 @@ def window_inputs(n_steps: int, img_shape: Tuple[int, int] = (180, 360),
 
 def product_rollout(stepper: DYffusionStepper, n_steps: int = 288, window: int = 96,
                     n_ensemble: int = 1,
-                    before_timed: Optional[Callable[[], None]] = None) -> Tuple[dict, dict]:
-    """The product path of ``bench.py:product_bench`` without the writer:
-    ``run_inference`` of ``n_steps`` steps in windows of ``window`` over a
-    ``SyntheticTimeSeries`` of the state, forcing and mask names that is
-    ``window`` frames long (aligned: every window hits one read-cache and one
-    upload-cache entry), looped ``n_steps // window + 2`` times, with an
-    ``InferenceAggregator`` over the output names (zonal means off, as the
-    10-year config sets them). One untimed warm-up window runs first (the
+                    before_timed: Optional[Callable[[], None]] = None,
+                    writer_dir: Optional[str] = None
+                    ) -> Tuple[dict, InferenceAggregator]:
+    """The product path of ``bench.py:product_bench``: ``run_inference`` of
+    ``n_steps`` steps in windows of ``window`` over a ``SyntheticTimeSeries``
+    of the state, forcing and mask names that is ``window`` frames long
+    (aligned: every window hits one read-cache and one upload-cache entry),
+    looped ``n_steps // window + 2`` times, with an ``InferenceAggregator``
+    over the output names (zonal means off, as the 10-year config sets
+    them). With ``writer_dir`` the timed run also writes the predictions,
+    as ``product_bench`` does by default: a
+    ``DataWriter(DataWriterConfig(save_prediction_files=True))`` into
+    ``writer_dir`` (``autoregressive_predictions.nc``), closed after the
+    rollout (aborted if it fails), and the summary gains ``writer_close_s`` (the index and the
+    headers) and ``writer_bytes`` (the file's size); without it there is no
+    writer (``BENCH_WRITER=0``). One untimed warm-up window runs first (the
     K1 weight images, cuBLAS and the allocator), then ``before_timed`` if
     given (``chip_smoke.py`` zeroes the kernels' launch counts there). Runs
     on the stepper's device; returns (the timed run's summary, its
-    aggregator's logs)."""
+    aggregator), and reads nothing from the card."""
     exp = stepper.exp
     names = list(exp.out_packer.names)
     src = SyntheticTimeSeries(list(exp.in_packer.names) + list(exp.forcing_names) + [MASK_NAME],
                               n_timesteps=window, spatial_shape=exp.model.cfg.img_shape)
 
-    def aggregator():
+    def new_aggregator():
         return InferenceAggregator(names, src.horizontal.area_weights(),
                                    log_zonal_mean_images=False)
 
     run_inference(stepper, src,
                   InferenceConfig(n_forward_steps=window, forward_steps_in_memory=window,
                                   n_ensemble=n_ensemble, n_repeats=3),
-                  aggregator=aggregator(), mask_name=MASK_NAME, verbose=False)
+                  aggregator=new_aggregator(), mask_name=MASK_NAME, verbose=False)
     if before_timed is not None:
         before_timed()
-    agg = aggregator()
+    agg = new_aggregator()
     cfg = InferenceConfig(n_forward_steps=n_steps, forward_steps_in_memory=window,
                           n_ensemble=n_ensemble, n_repeats=n_steps // window + 2)
-    summary = run_inference(stepper, src, cfg, aggregator=agg, mask_name=MASK_NAME,
-                            verbose=False)
-    return summary, agg.get_logs()
+    writer = None
+    if writer_dir is not None:
+        writer = DataWriter(DataWriterConfig(save_prediction_files=True), writer_dir, names,
+                            src.horizontal.lat, src.horizontal.lon, n_ensemble)
+    try:
+        summary = run_inference(stepper, src, cfg, aggregator=agg, writer=writer,
+                                mask_name=MASK_NAME, verbose=False)
+    except BaseException:
+        if writer is not None:
+            writer.abort()
+        raise
+    if writer is not None:
+        t0 = time.perf_counter()
+        writer.close()
+        summary["writer_close_s"] = time.perf_counter() - t0
+        summary["writer_bytes"] = os.path.getsize(
+            os.path.join(writer_dir, "autoregressive_predictions.nc"))
+    return summary, agg
 
 
 def build_training(embed: int = 256, layers: int = 8, img_shape: Tuple[int, int] = (180, 360),

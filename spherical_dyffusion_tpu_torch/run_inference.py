@@ -28,10 +28,16 @@ diagnostics. ``metrics.json`` holds the summary and the aggregator's logs.
 It runs on the CUDA card unless the config says ``platform: cpu``
 (``platform=cpu`` on the command line sets it, as for ``train``). Both
 paths read ``validation_loader.dataset.data_path`` as the JAX command line
-does. Not ported, each raising and naming its ROADMAP item: the data
-writers (any ``data_writer`` option set) and ``log_video`` (Queue 1 item
-8). Media are not written: where the JAX package plots snapshots or zonal
-means, one line says so.
+does, and both write the files that ``data_writer`` asks for
+(``inference/writers.py``: ``save_prediction_files``,
+``save_histogram_files``, ``log_extended_video_netcdfs``,
+``save_raw_prediction_names``, ``time_coarsen_factor``) into
+``experiment_dir``, on the grid of the source; the ACE path writes the
+prognostic fields. ``log_video`` records the aggregator's video and writes
+it to ``videos.nc`` (``{key}/{name}`` datasets); an error writing it
+raises, where the JAX command line prints it and goes on. The ACE path
+takes ``log_video`` too, which the JAX one drops. The snapshot and
+zonal-mean plots need matplotlib and are not ported: one line says so.
 """
 
 from __future__ import annotations
@@ -44,14 +50,13 @@ from typing import List, Optional
 __all__ = ["main_from_config", "main"]
 
 
-def _refuse_unported(cfg: dict) -> None:
-    set_writer = sorted(k for k, v in (cfg.get("data_writer") or {}).items() if v)
-    if set_writer:
-        raise NotImplementedError(f"data_writer {set_writer}: the writers are not ported "
-                                  "(ROADMAP Queue 1 item 8)")
-    if cfg.get("log_video"):
-        raise NotImplementedError("log_video: the video aggregator is not ported (ROADMAP "
-                                  "Queue 1 item 8)")
+def _data_writer(cfg: dict, out_dir: str, names, source, n_ensemble: int):
+    """The config's ``data_writer`` over ``names`` on the source's grid."""
+    from .inference.writers import DataWriter, DataWriterConfig
+
+    hc = source.horizontal
+    return DataWriter(DataWriterConfig.from_dict(cfg.get("data_writer")), out_dir, names,
+                      hc.lat, hc.lon, n_ensemble)
 
 
 def _source(cfg: dict, names, spatial_shape, ace: bool = False):
@@ -86,7 +91,9 @@ def main_from_config(cfg: dict) -> dict:
     from .parallel.multihost import maybe_init_multihost
     from .utils.loggers import JsonlLogger
 
-    _refuse_unported(cfg)
+    from .inference.writers import DataWriterConfig
+
+    DataWriterConfig.from_dict(cfg.get("data_writer"))  # its errors before any checkpoint read
     device = resolve_device(cfg)
     # the process group (opt-in by SPHDY_MULTIHOST / SPHDY_COORDINATOR), before
     # anything is built, as the JAX command line wires its hosts
@@ -125,9 +132,14 @@ def main_from_config(cfg: dict) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     agg = InferenceAggregator(out_names, source.horizontal.area_weights(),
                               log_zonal_mean_images=bool(cfg.get("log_zonal_mean_images", True)),
-                              normalizer=exp.normalizer.subset(out_names))
-    summary = run_inference(stepper, source, icfg, aggregator=agg, mask_name=mask_name,
-                            verbose=bool(cfg.get("verbose", True)))
+                              normalizer=exp.normalizer.subset(out_names),
+                              log_video=bool(cfg.get("log_video", False)))
+    # closed after the rollout, aborted if it fails; no writer on: nothing
+    # crosses to the host
+    with _data_writer(cfg, out_dir, out_names, source, icfg.n_ensemble) as writer:
+        summary = run_inference(stepper, source, icfg, aggregator=agg,
+                                writer=writer if writer.writers else None,
+                                mask_name=mask_name, verbose=bool(cfg.get("verbose", True)))
     logs = agg.get_logs()
     with open(os.path.join(out_dir, "metrics.json"), "w") as f:
         json.dump({**summary, **logs}, f, indent=1)
@@ -138,15 +150,18 @@ def main_from_config(cfg: dict) -> dict:
         for entry in agg.get_inference_logs():
             logger.log(entry, step=int(entry["timestep"]))
         logger.finish()
-    _media_line(agg)
+    _save_media(agg, out_dir)
     print(json.dumps({k: round(float(v), 5) for k, v in summary.items()}))
     return {"summary": summary, "logs": logs, "aggregator": agg, "stepper": stepper}
 
 
-def _media_line(agg) -> None:
+def _save_media(agg, out_dir: str) -> None:
+    """``videos.nc`` from the aggregator's video; one line for the plots."""
+    if agg.video is not None:
+        agg.video.save(os.path.join(out_dir, "videos.nc"))
     if agg.snapshots.snapshots or agg.zonal is not None:
-        print("[media] snapshot panels and zonal-mean plots are not ported (ROADMAP Queue 1 "
-              "item 8); not written")
+        print("[media] snapshot panels and zonal-mean plots need matplotlib and are not "
+              "ported; not written")
 
 
 # ---------------------------------------------------------------------------
@@ -321,16 +336,19 @@ def _run_ace_rollout(cfg: dict, stepper, source, n_repeats: int) -> dict:
     derived = bool(cfg.get("derived", False))
     agg = InferenceAggregator(ace_scored_names(stepper, source, derived=derived),
                               source.horizontal.area_weights(),
-                              log_zonal_mean_images=bool(cfg.get("log_zonal_mean_images", True)))
-    summary = run_ace_inference(
-        stepper, source, n_forward_steps=int(cfg.get("n_forward_steps", 100)),
-        forward_steps_in_memory=int(cfg.get("forward_steps_in_memory", 50)),
-        n_repeats=n_repeats, aggregator=agg, derived=derived,
-        verbose=bool(cfg.get("verbose", True)))
+                              log_zonal_mean_images=bool(cfg.get("log_zonal_mean_images", True)),
+                              log_video=bool(cfg.get("log_video", False)))
+    with _data_writer(cfg, out_dir, list(stepper.cfg.out_names), source, 1) as writer:
+        summary = run_ace_inference(
+            stepper, source, n_forward_steps=int(cfg.get("n_forward_steps", 100)),
+            forward_steps_in_memory=int(cfg.get("forward_steps_in_memory", 50)),
+            n_repeats=n_repeats, aggregator=agg, writer=writer if writer.writers else None,
+            derived=derived,
+            verbose=bool(cfg.get("verbose", True)))
     logs = agg.get_logs()
     with open(os.path.join(out_dir, "metrics.json"), "w") as f:
         json.dump({**summary, **logs}, f, indent=1)
-    _media_line(agg)
+    _save_media(agg, out_dir)
     print(json.dumps({k: round(float(v), 5) for k, v in summary.items()
                       if not isinstance(v, list)}))
     return {"summary": summary, "logs": logs, "aggregator": agg, "stepper": stepper}

@@ -34,6 +34,7 @@ from spherical_dyffusion_tpu.training import Trainer as JTrainer
 from spherical_dyffusion_tpu.training import TrainerConfig as JTrainerConfig
 from spherical_dyffusion_tpu.utils.torch_convert import sfno_flax_to_torch
 from spherical_dyffusion_tpu_torch import interface
+from spherical_dyffusion_tpu_torch.data import hdf5
 from spherical_dyffusion_tpu_torch.models.sfno import SFNO, SFNOConfig
 from spherical_dyffusion_tpu_torch.ops import pallas_contractions as pc
 from spherical_dyffusion_tpu_torch.run_inference import main_from_config
@@ -551,7 +552,7 @@ def test_run_inference_ace_overrides_and_refusals(native, simultaneous_ckpt, tmp
     """The run config's corrector, ocean and sigma override the native
     checkpoint's (a new mask name gets mean 0 and std 1, as in JAX); the
     ACE path refuses an ensemble, ``preds_dtype``, ``mask_value`` other
-    than 1, a model of more than one step, and the unported writers."""
+    than 1, a model of more than one step; it writes the prediction file."""
     from spherical_dyffusion_tpu.run_inference import (
         _apply_ace_physics_overrides as japply,
     )
@@ -576,8 +577,14 @@ def test_run_inference_ace_overrides_and_refusals(native, simultaneous_ckpt, tmp
                                         "mask_value": 0}}, "mask_value")):
         with pytest.raises(ValueError, match=match):
             main_from_config({**base, **bad})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main_from_config({**base, "data_writer": {"save_prediction_files": True}})
+    # the writers are ported (Queue 1 item 8b): the prognostic fields, (1, T, H, W)
+    out = main_from_config({**base, "n_forward_steps": 4, "forward_steps_in_memory": 2,
+                            "data_writer": {"save_prediction_files": True}})
+    with hdf5.File(str(tmp_path / "autoregressive_predictions.nc")) as f:
+        assert sorted(k for k in f.keys() if k not in ("lat", "lon")) == sorted(
+            out["stepper"].cfg.out_names)
+        assert all(f[n].shape == (1, 4) + tuple(stepper.area.shape)
+                   for n in out["stepper"].cfg.out_names)
     with pytest.raises(ValueError, match="overrides"):
         main_from_config({**base, "overrides": {"datamodule": {"horizon": 2}}})
     exp = interface.load_experiment_checkpoint(simultaneous_ckpt, device="cpu")[0]

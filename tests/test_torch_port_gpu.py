@@ -576,15 +576,22 @@ def test_run_inference_on_card_is_chained_run_window(cuda, preds_dtype):
         assert np.abs(got[k] - v).max() <= 1e-5 * max(np.abs(v).max(), 1.0), k
 
 
-@pytest.mark.parametrize("n_repeats", [1, 2])
-def test_run_inference_never_waits_for_the_card(cuda, n_repeats):
+@pytest.mark.parametrize("n_repeats,writer", [(1, False), (2, False), (2, True)])
+def test_run_inference_never_waits_for_the_card(cuda, n_repeats, writer, tmp_path):
     """The rollout loop issues no synchronizing CUDA call before its end
     sync: run_inference (the fused-tail path at embed 32 x 2 layers, 16 x
     32, horizon 3, three 3-step windows, aggregator on with a snapshot in
     the second window) runs under ``torch.cuda.set_sync_debug_mode("error")``,
     which raises on a pageable upload or a device-to-host copy. With
     ``n_repeats=1`` every window misses the upload cache (a source that
-    does not repeat); with 2 the aligned source hits it after the first."""
+    does not repeat); with 2 the aligned source hits it after the first.
+    With the prediction writer and the aggregator's video on, each window
+    crosses to the host through one pinned copy whose event the next
+    window's drain waits on (an event wait, which the mode does not count):
+    the file holds the rollout's predictions."""
+    from spherical_dyffusion_tpu_torch.data import hdf5
+    from spherical_dyffusion_tpu_torch.inference.writers import DataWriter, DataWriterConfig
+
     grid = (16, 32)
     st = main_path.build(embed=32, layers=2, img_shape=grid, n_state=5, horizon=3,
                          use_pallas=True, fused_tail=True, peel=True, scan_layers=True,
@@ -597,17 +604,38 @@ def test_run_inference_never_waits_for_the_card(cuda, n_repeats):
     # the first call builds K1's weight images and warms the allocators
     run_inference(st, src, cfg, aggregator=InferenceAggregator(names,
                   src.horizontal.area_weights()), mask_name=main_path.MASK_NAME, verbose=False)
-    agg = InferenceAggregator(names, src.horizontal.area_weights(), snapshot_steps=[4])
+    agg = InferenceAggregator(names, src.horizontal.area_weights(), snapshot_steps=[4],
+                              log_video=writer)
+    out = (DataWriter(DataWriterConfig(save_prediction_files=True), str(tmp_path), names,
+                      src.horizontal.lat, src.horizontal.lon) if writer else None)
+    preds = []
+    run = st.run_window
+
+    def record(*args, **kwargs):
+        x, p = run(*args, **kwargs)
+        preds.append(p)
+        return x, p
+
+    st.run_window = record
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        summary = run_inference(st, src, cfg, aggregator=agg, mask_name=main_path.MASK_NAME,
-                                verbose=False)
+        summary = run_inference(st, src, cfg, aggregator=agg, writer=out,
+                                mask_name=main_path.MASK_NAME, verbose=False)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+        st.run_window = run
     assert summary["n_forward_steps"] == 9
     assert set(agg.snapshots.snapshots) == {4}
     assert all(np.isfinite(v) for v in agg.get_logs().values())
+    if writer:
+        out.close()
+        norm = st.exp.normalizer.subset(names)
+        want = (torch.cat(preds, 1) * norm.stds.to(cuda) + norm.means.to(cuda)).cpu().numpy()
+        with hdf5.File(str(tmp_path / "autoregressive_predictions.nc")) as f:
+            got = np.stack([f[n][()] for n in names], -1)
+        assert np.array_equal(got, want)
+        assert np.array_equal(agg.video.get_videos()["gen_mean"], want[0])
 
 
 # ------------------------------------------------------------------ training

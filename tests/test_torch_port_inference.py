@@ -317,6 +317,22 @@ def test_capped_window_counts_resident_targets():
     assert capped_window(aligned, 1, PAPER, 35, 2, 6, target_rows=1, n_timesteps=96) == 96
 
 
+def test_capped_window_counts_the_host_copy():
+    """With a writer or the video on (``to_host``) the estimate holds one
+    more window of predictions, the channel-first copy made on the card for
+    the host: four rows of bf16 predictions keep window 96 without it
+    (2.5 windows: 4.35 GB of 4.5) and are capped to 66 with it (3.5 windows:
+    4.19 GB; 72 would take 4.57). The product rollout with its writer (one
+    row of float32 predictions, one cached target window) keeps 96."""
+    cfg = InferenceConfig(n_forward_steps=14600, forward_steps_in_memory=96)
+    args = (4, PAPER, 35, 2, 6)
+    assert capped_window(cfg, *args) == 96
+    assert capped_window(cfg, *args, to_host=True) == 66
+    aligned = dataclasses.replace(cfg, n_forward_steps=288, n_repeats=5)
+    assert capped_window(aligned, 1, PAPER, 35, 4, 6, target_rows=1, n_timesteps=96,
+                         to_host=True) == 96
+
+
 def test_targets_dtype_is_checked_when_the_config_is_made():
     with pytest.raises(ValueError, match="targets_dtype"):
         InferenceConfig(targets_dtype="float16")
