@@ -244,20 +244,39 @@ Phases, each timed:
    from a native checkpoint of ``ace_bench``'s float32 stepper (K1 and K3
    from the overrides) with the prediction file, two 12-step windows: the
    file equal to the predictions ``run_ace_inference``'s ``on_window``
-   hands over, K1 and K3 96 launches a window.
+   hands over, K1 and K3 96 launches a window; (a)'s snapshot and zonal-mean
+   PNGs read back through ``evaluation/plots.py:read_png`` against the
+   aggregator's maps coloured.
+20. the port against the float64 oracles and the last utilities (run
+   after phase 19, before the profile): (a) a reference-format checkpoint
+   pair fabricated at PARITY_EMBED x PARITY_LAYERS on PARITY_SHAPE
+   (``utils/parity_window.py``), loaded through ``load_reference_checkpoint``
+   on the card in float32, one PARITY_STEPS-step window with K1 and K3 and
+   one with K1 and K2 (``run_window_parity_check``), each step within 1e-4
+   of the float64 window oracle, which a process of its own computes on the
+   CPU from phase 0 on (``start_parity_oracle``), with its host seconds and
+   the launches; (b) ``activation_parity_report`` of one forecaster forward
+   (K1 and K3) per block against the SFNO oracle (2e-5 of each block's
+   scale); (c) the native packer against numpy on a window of phase 18's
+   shape, bit for bit, with both times; (d) ``Timers`` and ``timing_scope``
+   around the window, ``trace_scope``'s Chrome trace naming K1 and K3,
+   ``device_memory_stats`` against ``torch.cuda``; (e) ``save_orbax`` and
+   ``restore_orbax`` (``torch.distributed.checkpoint``) of a DCP_EMBED x
+   DCP_LAYERS SFNO's state on the card, bit for bit, with bytes and seconds.
 
 It prints a ``training`` JSON line (phase 11's figures), a ``cli`` JSON line
 (phase 12's), an ``options`` JSON line (phase 13's), a ``modes`` JSON line
 (phase 14's), an ``ace`` JSON line (phase 15's), a ``unet`` JSON line
 (phase 16's), a ``parallel`` JSON line (phase 17's), a ``data`` JSON line
 (phase 18's), a ``writers`` JSON line (phase 10's writer run and phase
-19's), a ``kernels`` JSON
+19's), a ``parity`` JSON line (phase 20's), a ``kernels`` JSON
 line (K1's backward dx as its own entry; ``launches_by_path`` holds phase
 12 (b)'s counts as ``"cli"``, phase 13's as ``"tucker"``, ``"fold"`` and
 ``"remat"``, phase 15's as ``"ace"``, ``"ace_cli"`` and
 ``"simultaneous"``, phase 16's as ``"unet"`` (zero for every kernel) and
 phase 17's as ``"parallel"``, phase 18's as ``"data_train"`` and
-``"data"``, phase 19's as ``"outputs"`` and ``"outputs_ace"``), the
+``"data"``, phase 19's as ``"outputs"`` and ``"outputs_ace"``, phase 20's
+as ``"parity"`` and ``"parity_k2"``), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. It needs the port's package beside it
@@ -342,6 +361,19 @@ DATA_EMBED, DATA_LAYERS, DATA_SHAPE = 256, 8, (180, 360)
 # coarsening of the output files
 OUT_EMBED, OUT_LAYERS, OUT_SHAPE = 256, 8, (180, 360)
 OUT_ENSEMBLE, OUT_COARSEN = 2, 4
+# phase 20: the parity checkpoints' width, depth, grid and horizon, the
+# window's steps (the float64 oracle takes about 33 s of host time an SFNO
+# forward at 64 x 2 on 180 x 360, so two horizon-2 passes), the longest wait
+# for the oracle's process, and the SFNO whose state DCP saves
+PARITY_EMBED, PARITY_LAYERS, PARITY_SHAPE = 64, 2, (180, 360)
+PARITY_HORIZON, PARITY_STEPS, ORACLE_WAIT_S = 2, 3, 900
+DCP_EMBED, DCP_LAYERS = 256, 8
+# the model overrides of phase 20's two windows: the reference checkpoint
+# loader turns exact_dropout on, which keeps the MLP off K2 and K3 (they
+# quantize the dropout rate); with the interpolator's dropout off the
+# windows draw no dropout, so turning it off only routes the MLP through them
+PARITY_K3 = {"use_pallas": True, "fused_tail": True, "exact_dropout": False}
+PARITY_K2 = {"use_pallas": True, "fused_mlp": True, "exact_dropout": False}
 
 
 def log(msg: str) -> None:
@@ -2765,6 +2797,7 @@ def phase19(smi_line, wrappers, report, runs, device="cuda") -> None:
 
     from spherical_dyffusion_tpu_torch import interface, main_path
     from spherical_dyffusion_tpu_torch.data import hdf5
+    from spherical_dyffusion_tpu_torch.evaluation import plots
     from spherical_dyffusion_tpu_torch.inference import ace_stepper
     from spherical_dyffusion_tpu_torch.inference.stepper import DYffusionStepper
     from spherical_dyffusion_tpu_torch.inference.writers import DynamicHistogram
@@ -2833,7 +2866,7 @@ def phase19(smi_line, wrappers, report, runs, device="cuda") -> None:
             "checkpoint_path": str(d / "fc.ckpt"), "platform": device,
             "n_forward_steps": n_steps, "forward_steps_in_memory": N_STEPS, "n_ensemble": E,
             "preds_dtype": "bfloat16", "experiment_dir": str(out_dir),
-            "log_zonal_mean_images": False, "verbose": False, "log_video": True,
+            "log_zonal_mean_images": True, "verbose": False, "log_video": True,
             "overrides": {"model": fused, "interpolator_model": fused,
                           "diffusion": {"peel_sampler": True}},
             "data_writer": {"save_prediction_files": True, "save_histogram_files": True,
@@ -2922,11 +2955,39 @@ def phase19(smi_line, wrappers, report, runs, device="cuda") -> None:
         f"{'all equal' if not bad else 'differ: ' + ', '.join(bad[:6])}; metrics finite "
         f"{finite}; on {smi_line}")
     check(not bad and finite, f"outputs: {bad[:6]}, metrics finite {finite}")
-    rep["dyffusion"] = dict(steps=n_steps, ensemble=E, coarsen=f, wall_s=wall,
+    # the plots, read back: each PNG's pixels are the aggregator's maps
+    # through the colour mapping of evaluation/plots.py
+    def png_row(p, t):
+        p, t = np.asarray(p, np.float64), np.asarray(t, np.float64)
+        vmin, vmax = np.percentile(t, [2, 98])
+        e = p - t
+        return np.concatenate([plots.colorize(p, vmin, vmax, "viridis"),
+                               plots.colorize(t, vmin, vmax, "viridis"),
+                               plots.colorize(e, np.nanmin(e), np.nanmax(e), "RdBu_r")], axis=1)
+
+    agg, png_bad, n_png = res["aggregator"], [], 0
+    for step, snap in agg.snapshots.snapshots.items():
+        got = plots.read_png(str(out_dir / "snapshots" / f"snapshot_t{step}.png"))
+        want = np.concatenate([png_row(snap["preds"][..., i], snap["targets"][..., i])
+                               for i in range(min(4, len(names)))], axis=0)
+        n_png += 1
+        if not np.array_equal(got, want):
+            png_bad.append(f"snapshot_t{step}")
+    pz, tz = agg.zonal.get_maps()
+    for i, n in enumerate(names[:4]):
+        got = plots.read_png(str(out_dir / "zonal_means" / f"zonal_mean_{n}.png"))
+        n_png += 1
+        if not np.array_equal(got, png_row(pz[..., i].T, tz[..., i].T)):
+            png_bad.append(f"zonal_mean_{n}")
+    log(f"(a) the plots: {n_png} PNGs (snapshot steps {sorted(agg.snapshots.snapshots)}, the "
+        f"zonal means of the first 4 names) read back through evaluation/plots.py:read_png: "
+        f"{'equal to the aggregator maps coloured' if not png_bad else png_bad}")
+    check(n_png >= 5 and not png_bad, f"outputs: plots {n_png}, {png_bad}")
+    rep["dyffusion"] = dict(steps=n_steps, ensemble=E, coarsen=f, wall_s=wall, pngs=n_png,
                             launches=launches, files=files, check_s=check_s,
                             writer_and_aggregator_s=summary["time/writer_and_aggregator"],
                             total_steps_per_second=summary["total_steps_per_second"])
-    del res, windows, raw, coarse, gen, gen_coarse, norm
+    del res, windows, raw, coarse, gen, gen_coarse, norm, agg, pz, tz
     torch.cuda.empty_cache()
 
     # (b) ACE: a native checkpoint of ace_bench's float32 stepper (erf gelu,
@@ -2985,6 +3046,330 @@ def phase19(smi_line, wrappers, report, runs, device="cuda") -> None:
     tmp.cleanup()
     torch.cuda.empty_cache()
     report.setdefault("writers", {})["outputs"] = rep
+
+
+def parity_block_inputs(oracle):
+    """Phase 20 (b)'s input to the forecaster, (1, H, W, C_in) float32, and
+    its time, from a numpy seed: the same in the oracle's process and here."""
+    import numpy as np
+
+    r = np.random.default_rng(20)
+    c_in = oracle.sd["encoder.0.weight"].shape[1]
+    x = r.standard_normal((1, *oracle.img_shape, c_in)).astype(np.float32)
+    t = np.asarray([0.5 * (oracle.min_time + oracle.max_time)], np.float32)
+    return x, t
+
+
+def parity_oracle_child(out_dir: str) -> None:
+    """The host half of phase 20, run by ``start_parity_oracle`` in a
+    process of its own on the CPU while the card runs the other phases (the
+    float64 oracle takes tens of seconds an SFNO forward at 180 x 360):
+    fabricates the reference-format checkpoint pair into ``out_dir``, runs
+    the oracle's window over the check's inputs and (b)'s forward of the
+    forecaster, and writes them to ``oracle.npz`` with their host seconds."""
+    import numpy as np
+    import torch
+
+    from spherical_dyffusion_tpu_torch.utils import parity_window as pw
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    facts = pw.fabricate_reference_checkpoints(
+        out_dir, embed_dim=PARITY_EMBED, num_layers=PARITY_LAYERS, horizon=PARITY_HORIZON,
+        img_shape=PARITY_SHAPE)
+    fab_s = time.perf_counter() - t0
+    fc = facts["forecaster"]
+    stepper, config = pw.load_parity_stepper(fc, device="cpu")
+    inputs = pw.window_inputs(stepper.exp, config, PARITY_STEPS)
+    xf, preds, window_s = pw.oracle_window(fc, stepper.exp, config, inputs, PARITY_STEPS)
+    oracle = pw.reference_oracles(fc, PARITY_SHAPE)[0]
+    x, t = parity_block_inputs(oracle)
+    t0 = time.perf_counter()
+    out, acts = oracle.forward(np.moveaxis(x, -1, 1), time=t)
+    block_s = time.perf_counter() - t0
+    keep = {f"b_{k}": v for k, v in acts.items() if k.startswith("block_") or k == "time_emb"}
+    tmp = os.path.join(out_dir, "oracle.tmp.npz")
+    np.savez(tmp, xf=xf, preds=preds, window_s=window_s, b_out=out, block_s=block_s,
+             fabricate_s=fab_s, **keep)
+    os.replace(tmp, os.path.join(out_dir, "oracle.npz"))
+    with open(os.path.join(out_dir, "facts.json"), "w") as f:
+        json.dump(facts, f)
+    print(f"oracle: window {window_s:.1f} s, forward {block_s:.1f} s", flush=True)
+
+
+def start_parity_oracle():
+    """Start ``parity_oracle_child`` in a process of its own (one thread, no
+    card) and return ``(process, directory)``; the process is killed at exit
+    if it is still running."""
+    import atexit
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = tempfile.mkdtemp(prefix="chip_smoke_parity_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH"))
+                                          if p))
+    with open(os.path.join(d, "oracle.log"), "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.parity_oracle_child({d!r})"],
+            cwd=here, env=env, stdout=out, stderr=subprocess.STDOUT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, d
+
+
+def phase20(smi_line, wrappers, report, runs, oracle_job, device="cuda") -> None:
+    """Phase 20: the port on the card against the float64 oracles, and the
+    last utilities. (a) ``run_window_parity_check`` of a fabricated
+    reference-format checkpoint pair (PARITY_EMBED x PARITY_LAYERS on
+    PARITY_SHAPE, horizon PARITY_HORIZON, PARITY_STEPS steps), loaded through
+    ``load_reference_checkpoint`` on the card in float32, with K1 and K3 and
+    then with K1 and K2, against the oracle's window computed in another
+    process (``start_parity_oracle``), per step within 1e-4; (b)
+    ``activation_parity_report`` of one forecaster forward (K1 and K3) per
+    block against the oracle; (c) the native packer against numpy on a
+    window of phase 18's shape; (d) ``Timers``, ``timing_scope``,
+    ``trace_scope`` and ``device_memory_stats`` around the window; (e)
+    ``save_orbax`` and ``restore_orbax`` (DCP) of a DCP_EMBED x DCP_LAYERS
+    SFNO's state on the card."""
+    import collections
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spherical_dyffusion_tpu_torch.data.datasets import pack_normalize
+    from spherical_dyffusion_tpu_torch.interface import get_model
+    from spherical_dyffusion_tpu_torch.utils import native, orbax_ckpt, profiling
+    from spherical_dyffusion_tpu_torch.utils import parity as par
+    from spherical_dyffusion_tpu_torch.utils import parity_window as pw
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    rep = {}
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    # (a) the window against the float64 oracle
+    proc, d = oracle_job
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=ORACLE_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = None
+    waited = time.perf_counter() - t0
+    with open(os.path.join(d, "oracle.log")) as f:
+        child_log = f.read()
+    check(rc == 0, f"parity: the oracle's process ended with {rc}: {child_log[-2000:]}")
+    data = np.load(os.path.join(d, "oracle.npz"))
+    with open(os.path.join(d, "facts.json")) as f:
+        fc = json.load(f)["forecaster"]
+    oracle = (data["xf"], data["preds"], float(data["window_s"]))
+    log(f"(a) the oracle's process: checkpoints fabricated in {float(data['fabricate_s']):.1f} "
+        f"s, its window ({PARITY_STEPS} steps, horizon {PARITY_HORIZON}) {oracle[2]:.1f} s and "
+        f"(b)'s forward {float(data['block_s']):.1f} s of host time, on the CPU beside the "
+        f"earlier phases; waited {waited:.1f} s for it here")
+    L = PARITY_LAYERS
+    windows = {}
+    for label, over, on in (("K1+K3", PARITY_K3, ("K1", "K3")), ("K1+K2", PARITY_K2, ("K1", "K2"))):
+        zero_counts()
+        try:
+            r = pw.run_window_parity_check(fc, n_steps=PARITY_STEPS, tol=1e-4, device=device,
+                                           model_overrides=over, oracle=oracle, verbose=False)
+        except AssertionError as e:
+            check(False, f"parity ({label}): {e}")
+        c = counts()
+        log(f"(a) {label}: {PARITY_EMBED} x {L} on {PARITY_SHAPE[0]} x {PARITY_SHAPE[1]}, "
+            f"float32, the reference checkpoint loaded on the card: per-step max |diff| "
+            + ", ".join(f"{v:.3e}" for v in r["per_step_max_abs_diff"])
+            + f", final state {r['final_state_max_abs_diff']:.3e} (tolerance 1e-4; largest "
+            f"prediction {r['pred_scale']:.3f}); the card's window {r['port_s']:.3f} s; "
+            f"launches {c}")
+        check(c[on[0]] > 0 and c[on[0]] == c[on[1]] and c[on[0]] % L == 0
+              and all(v == 0 for k, v in c.items() if k not in on),
+              f"parity ({label}): launches {c}")
+        key = "parity" if label == "K1+K3" else "parity_k2"
+        runs[key] = dict(launches=c)
+        windows[label] = dict(per_step_max_abs_diff=r["per_step_max_abs_diff"],
+                              final_state_max_abs_diff=r["final_state_max_abs_diff"],
+                              pred_scale=r["pred_scale"], port_s=r["port_s"], launches=c)
+    rep["window"] = dict(embed=PARITY_EMBED, layers=L, shape=list(PARITY_SHAPE),
+                         horizon=PARITY_HORIZON, steps=PARITY_STEPS, tol=1e-4,
+                         oracle_host_s=oracle[2], waited_s=waited, **windows)
+
+    # (b) one forecaster forward, block by block
+    fc_oracle = pw.reference_oracles(fc, PARITY_SHAPE)[0]
+    model = par.load_reference_sfno(fc_oracle.sd, PARITY_SHAPE, device=device,
+                                    min_time=fc_oracle.min_time, max_time=fc_oracle.max_time,
+                                    **PARITY_K3)
+    x, t = parity_block_inputs(fc_oracle)
+    reference = (data["b_out"], {k[2:]: data[k] for k in data.files
+                                 if k.startswith("b_block_") or k == "b_time_emb"})
+    zero_counts()
+    block = par.activation_parity_report(model, fc_oracle, x, time=t, reference=reference)
+    c = counts()
+    log("(b) activation_parity_report, one forecaster forward with K1 and K3 on the card: "
+        + ", ".join(f"{k} {v['max_abs']:.3e} (rel {v['rel']:.3e})" for k, v in block.items())
+        + f"; the oracle's forward {float(data['block_s']):.1f} s of host time; launches {c}")
+    check(c["K1"] == c["K3"] == L and c["K2"] == c["K4"] == 0, f"parity (b): launches {c}")
+    try:
+        par.assert_activation_parity(block)
+    except AssertionError as e:
+        check(False, f"parity (b): {e}")
+    rep["blocks"] = block
+    del model
+
+    # (c) the native packer on a window of phase 18's shape: the state
+    # unnormalized, the forcings normalized
+    with open(os.path.join(os.path.dirname(os.path.abspath(native.__file__)), "..", "configs",
+                           "datamodule", "fv3gfs.json")) as f:
+        fv3 = json.load(f)
+    r = np.random.default_rng(18)
+    frames = (N_STEPS + 1,) + tuple(DATA_SHAPE)
+    state = [(r.standard_normal(frames) * 10 + 280).astype(np.float32) for _ in fv3["in_names"]]
+    forcing = [(r.standard_normal(frames) * 100 + 300).astype(np.float32)
+               for _ in fv3["forcing_names"]]
+    means = np.float32([300.0, 250.0][:len(forcing)])
+    stds = np.float32([90.0, 110.0][:len(forcing)])
+    packer = {}
+    for name, fn in (("native", native.pack_normalize), ("numpy", pack_normalize)):
+        times, outs = [], None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            outs = (fn(state), fn(forcing, means, stds))
+            times.append(time.perf_counter() - t0)
+        packer[name] = (outs, 1e3 * float(np.median(times)))
+    same = all(np.array_equal(a, b) for a, b in zip(packer["native"][0], packer["numpy"][0]))
+    nbytes = sum(a.nbytes for a in packer["native"][0])
+    log(f"(c) the native packer on a {N_STEPS + 1}-frame window of phase 18's shape "
+        f"({len(state)} state fields, {len(forcing)} normalized forcings on {DATA_SHAPE[0]} x "
+        f"{DATA_SHAPE[1]}, {nbytes / 1e6:.1f} MB out): {packer['native'][1]:.2f} ms against "
+        f"numpy's {packer['numpy'][1]:.2f} ms (median of 3), "
+        f"{'bit for bit equal' if same else 'DIFFERENT'}; on the host of {smi_line}")
+    check(same, "parity (c): the native packer differs from the numpy version")
+    rep["packer"] = dict(ms=packer["native"][1], numpy_ms=packer["numpy"][1], bytes=nbytes)
+    del packer, state, forcing
+
+    # (d) Timers, timing_scope, trace_scope and device_memory_stats around
+    # the K1+K3 window
+    stepper, config = pw.load_parity_stepper(fc, model_overrides=PARITY_K3, device=device)
+    inputs = pw.window_inputs(stepper.exp, config, PARITY_STEPS)
+    dev = torch.device(device)
+    args = [torch.from_numpy(a).to(dev) if a is not None else None
+            for a in (inputs["x0_norm"], inputs["forcing_norm"], inputs["tgt_norm"],
+                      inputs["mask"])]
+
+    def window():
+        with torch.no_grad():
+            return stepper.run_window(*args, torch.Generator(device=dev).manual_seed(0),
+                                      PARITY_STEPS)
+
+    window()
+    sync()
+    timers = profiling.Timers(sync=True)
+    for _ in range(2):
+        with timers("window"):
+            window()
+    logged = []
+
+    class Collect:
+        def log(self, metrics, step=None):
+            logged.append(metrics)
+
+    with profiling.timing_scope("window", verbose=False, logger=Collect(), sync=True):
+        window()
+    summary = timers.summary()
+    check(list(summary) == ["time/window", "time/window_mean"] and summary["time/window"] > 0
+          and list(logged[0]) == ["time/window"], f"parity (d): {summary}, {logged}")
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(native.__file__)), "..", "build",
+                             "chip_smoke_trace")
+    with profiling.trace_scope(trace_dir):
+        window()
+        sync()
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    k1 = sum("dhconv_tc_kernel" in n for n in names)
+    k3 = sum(bool(re.search(r"fused_mlp(_tc)?_kernel<true", n)) for n in names)
+    trace_bytes = os.path.getsize(os.path.join(trace_dir, "trace.json"))
+    shutil.rmtree(trace_dir)
+    stats = profiling.device_memory_stats()
+    gb = 1024 ** 3
+    mem_ok = device != "cuda" or (
+        stats["peak_bytes_in_use_gb"] == torch.cuda.max_memory_allocated() / gb
+        and stats["bytes_in_use_gb"] == torch.cuda.memory_allocated() / gb)
+    log(f"(d) Timers around the window (synchronized): {summary['time/window_mean']:.4f} s a "
+        f"window over {timers.counts['window']}, timing_scope {logged[0]['time/window']:.4f} "
+        f"s; trace_scope's Chrome trace ({trace_bytes / 1e6:.1f} MB) names {len(names)} kernel "
+        f"launches, {k1} of them K1 (dhconv_tc_kernel) and {k3} K3 (fused_mlp_kernel<true>); "
+        f"device_memory_stats {stats} against torch.cuda.max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / gb if device == 'cuda' else 0:.4f} GB")
+    check(device != "cuda" or (k1 > 0 and k3 > 0), f"parity (d): the trace names K1 {k1} and "
+                                                   f"K3 {k3} times")
+    check(mem_ok, f"parity (d): device_memory_stats {stats}")
+    rep["profiling"] = dict(window_s=summary["time/window_mean"],
+                            timing_scope_s=logged[0]["time/window"], trace_kernels=len(names),
+                            trace_k1=k1, trace_k3=k3, memory=stats)
+    del stepper, args
+
+    # (e) DCP save and restore of a DCP_EMBED x DCP_LAYERS SFNO's state on
+    # the card
+    State = collections.namedtuple("State", "model ema step")
+
+    def sfno(seed):
+        return get_model({"kind": "sfno", "embed_dim": DCP_EMBED, "num_layers": DCP_LAYERS},
+                         PARITY_SHAPE, 72, 35, True, 0.0, 5.0, device=device,
+                         generator=torch.Generator(device=dev).manual_seed(seed))
+
+    src, into = State(sfno(0), sfno(1), 7), State(sfno(2), sfno(3), 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dcp_")
+    path = os.path.join(tmp, "ckpt")
+    sync()
+    t0 = time.perf_counter()
+    orbax_ckpt.save_orbax(path, src, config={"embed_dim": DCP_EMBED})
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(a, n)) for a, _, ns in os.walk(path) for n in ns)
+    t0 = time.perf_counter()
+    payload, cfg = orbax_ckpt.restore_orbax(path, into)
+    sync()
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host, _ = orbax_ckpt.restore_orbax(path)
+    host_s = time.perf_counter() - t0
+    equal = all(torch.equal(a, b) for m, n in ((src.model, into.model), (src.ema, into.ema))
+                for a, b in zip(m.state_dict().values(), n.state_dict().values()))
+    equal_host = all(torch.equal(v.cpu(), host["params"][k])
+                     for k, v in src.model.state_dict().items())
+    n_params = sum(p.numel() for p in src.model.parameters())
+    log(f"(e) save_orbax/restore_orbax (torch.distributed.checkpoint) of a {DCP_EMBED} x "
+        f"{DCP_LAYERS} SFNO on {PARITY_SHAPE[0]} x {PARITY_SHAPE[1]} ({n_params / 1e6:.1f} M "
+        f"parameters, params and EMA) from the card: {nbytes / 1e6:.1f} MB written in "
+        f"{save_s:.2f} s ({nbytes / 1e9 / save_s:.2f} GB/s), restored onto the card in place in "
+        f"{restore_s:.2f} s, to the host in {host_s:.2f} s; "
+        f"{'bit for bit equal' if equal and equal_host else 'DIFFERENT'}, step "
+        f"{payload['step']}, config {cfg}; on {smi_line}")
+    check(equal and equal_host and payload["step"] == 7 and cfg == {"embed_dim": DCP_EMBED},
+          "parity (e): the DCP round trip differs")
+    rep["dcp"] = dict(bytes=nbytes, save_s=save_s, restore_s=restore_s, host_restore_s=host_s,
+                      params=n_params)
+    shutil.rmtree(tmp)
+    shutil.rmtree(d)
+    del src, into, payload, host
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    report["parity"] = rep
 
 
 def main() -> int:
@@ -3085,6 +3470,8 @@ def main() -> int:
         log(f"device: {kind} (count {count}); nvidia-smi: {smi_line}")
         log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
             f"cuda {torch.version.cuda}")
+        # phase 20's float64 oracle, on the CPU in a process of its own
+        oracle_job = start_parity_oracle()
 
     with Phase("1 build"):
         info = _cuda.build_info()
@@ -4061,6 +4448,10 @@ def main() -> int:
                "command line with every writer, read back through data/hdf5.py)"):
         phase19(smi_line, wrappers, report, runs)
 
+    with Phase("20 the port against the float64 oracles (window and blocks), the native "
+               "packer, profiling, DCP checkpoints"):
+        phase20(smi_line, wrappers, report, runs, oracle_job)
+
     # the profile runs last: a torch.profiler session leaves a launch cost
     # behind in the process (the UNet's forward, bound by the host's
     # launches at batch 1, took 19.9-21.4 ms before one profiled forward and
@@ -4148,6 +4539,7 @@ def main() -> int:
     print(json.dumps({"parallel": report["parallel"]}))
     print(json.dumps({"data": report["data"]}))
     print(json.dumps({"writers": report["writers"]}))
+    print(json.dumps({"parity": report["parity"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

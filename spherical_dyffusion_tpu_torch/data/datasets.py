@@ -11,8 +11,8 @@ rollout and the training slice read), ``StochasticModalTimeSeries`` and
 generators from the same seeds give the same float32 arrays;
 ``tests/test_torch_port_inference.py`` and ``tests/test_torch_port_data.py``
 pin the copies to the originals. ``WindowedDataset`` maps a sample index to
-its window of packed frames, as the JAX package's does with its numpy
-packing.
+its window of packed frames through the native packer
+(``utils/native.py``), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..utils import native
 from .coords import HorizontalCoordinates, SigmaCoordinates
 from .netcdf import NetCDFFile
 
@@ -413,11 +414,14 @@ class ConcatSource(TimeSeriesSource):
 def pack_normalize(arrays: Sequence[np.ndarray], means: Optional[np.ndarray] = None,
                    stds: Optional[np.ndarray] = None) -> np.ndarray:
     """Per-variable (T, H, W) arrays -> channels-last (T, H, W, C) float32,
-    z-scored per channel when ``means`` and ``stds`` are given: the numpy
-    form of the JAX package's ``utils/native.py:pack_normalize``."""
+    z-scored per channel as ``(x - mean) * (1 / std)`` when ``means`` and
+    ``stds`` are given: the plain version of the native packer
+    (``utils/native.py:pack_normalize``, which ``WindowedDataset`` runs),
+    equal to it bit for bit."""
     out = np.stack([np.asarray(a, np.float32) for a in arrays], axis=-1)
     if means is not None:
-        out = (out - np.asarray(means, np.float32)) / np.asarray(stds, np.float32)
+        inv = np.float32(1.0) / np.asarray(stds, np.float32)
+        out = (out - np.asarray(means, np.float32)) * inv
     return out
 
 
@@ -485,12 +489,12 @@ class WindowedDataset:
             raw = {k: np.stack([c[k][0] for c in chunks]) for k in names}
         else:
             raise ValueError(f"Unknown strategy {self.strategy!r}")
-        out = {"dynamics": pack_normalize([raw[n] for n in self.in_names])}
+        out = {"dynamics": native.pack_normalize([raw[n] for n in self.in_names])}
         if random_timestep is not None:
             out["random_timestep"] = np.int64(random_timestep)
         if self.forcing_names:
             fn = self.forcing_normalizer
-            out["dynamical_condition"] = pack_normalize(
+            out["dynamical_condition"] = native.pack_normalize(
                 [raw[n] for n in self.forcing_names],
                 means=fn.means.numpy() if fn is not None else None,
                 stds=fn.stds.numpy() if fn is not None else None)

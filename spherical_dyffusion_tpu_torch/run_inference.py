@@ -34,10 +34,13 @@ does, and both write the files that ``data_writer`` asks for
 ``save_raw_prediction_names``, ``time_coarsen_factor``) into
 ``experiment_dir``, on the grid of the source; the ACE path writes the
 prognostic fields. ``log_video`` records the aggregator's video and writes
-it to ``videos.nc`` (``{key}/{name}`` datasets); an error writing it
-raises, where the JAX command line prints it and goes on. The ACE path
-takes ``log_video`` too, which the JAX one drops. The snapshot and
-zonal-mean plots need matplotlib and are not ported: one line says so.
+it to ``videos.nc`` (``{key}/{name}`` datasets). Both paths write the
+snapshot panels (``snapshots/snapshot_t{step}.png``) and, with
+``log_zonal_mean_images``, the zonal-mean Hovmoellers
+(``zonal_means/zonal_mean_{name}.png``) through ``evaluation/plots.py``,
+PNGs without matplotlib; an error writing a media file raises, where the JAX
+command line prints it and goes on. The ACE path takes ``log_video`` too,
+which the JAX one drops.
 """
 
 from __future__ import annotations
@@ -150,18 +153,24 @@ def main_from_config(cfg: dict) -> dict:
         for entry in agg.get_inference_logs():
             logger.log(entry, step=int(entry["timestep"]))
         logger.finish()
-    _save_media(agg, out_dir)
+    _save_media(agg, out_names, out_dir)
     print(json.dumps({k: round(float(v), 5) for k, v in summary.items()}))
     return {"summary": summary, "logs": logs, "aggregator": agg, "stepper": stepper}
 
 
-def _save_media(agg, out_dir: str) -> None:
-    """``videos.nc`` from the aggregator's video; one line for the plots."""
+def _save_media(agg, names, out_dir: str) -> None:
+    """The snapshot panels, the zonal-mean Hovmoellers and ``videos.nc``
+    of the aggregator, as JAX's command line writes them."""
+    from .evaluation.plots import plot_snapshot_panels, plot_zonal_mean_hovmoeller
+
+    snapshots = agg.snapshots.snapshots
+    if snapshots:
+        plot_snapshot_panels(snapshots, names, os.path.join(out_dir, "snapshots"))
+    maps = agg.zonal.get_maps() if agg.zonal is not None else None
+    if maps is not None:
+        plot_zonal_mean_hovmoeller(*maps, names, os.path.join(out_dir, "zonal_means"))
     if agg.video is not None:
         agg.video.save(os.path.join(out_dir, "videos.nc"))
-    if agg.snapshots.snapshots or agg.zonal is not None:
-        print("[media] snapshot panels and zonal-mean plots need matplotlib and are not "
-              "ported; not written")
 
 
 # ---------------------------------------------------------------------------
@@ -348,7 +357,7 @@ def _run_ace_rollout(cfg: dict, stepper, source, n_repeats: int) -> dict:
     logs = agg.get_logs()
     with open(os.path.join(out_dir, "metrics.json"), "w") as f:
         json.dump({**summary, **logs}, f, indent=1)
-    _save_media(agg, out_dir)
+    _save_media(agg, agg.names, out_dir)
     print(json.dumps({k: round(float(v), 5) for k, v in summary.items()
                       if not isinstance(v, list)}))
     return {"summary": summary, "logs": logs, "aggregator": agg, "stepper": stepper}

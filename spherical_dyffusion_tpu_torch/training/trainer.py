@@ -30,7 +30,11 @@ Counterpart of ``spherical_dyffusion_tpu/training/trainer.py`` (``TrainerConfig`
 * checkpoints holding the JAX entries (``params``, ``ema_params``,
   ``opt_state``, ``step``, ``config_json``) written with ``torch.save``,
   and once per trainer a byte-stable ``code.tar.gz`` of the package
-  beside them (``code_snapshot``, ``utils/code_snapshot.py``).
+  beside them (``code_snapshot``, ``utils/code_snapshot.py``); the saved
+  files mirrored to S3 (``ckpt_mirror``, ``utils/checkpointing.py:
+  CheckpointMirror``) and uploaded into the logger's wandb run
+  (``save_to_wandb``, ``utils/loggers.py:WandbLogger``), both with hash
+  dedup.
 
 Data parallelism (``parallel/``): the trainer's mesh, by default
 ``gcd(batch_size, world)`` ranks of the process group (``data_mesh``; JAX's
@@ -92,6 +96,7 @@ from ..inference.stepper import DYffusionStepper
 from ..models.modules import draw_seed
 from ..parallel.mesh import AXIS_DATA, Mesh, data_mesh, replicated, shard_batch
 from ..utils import flax_msgpack
+from ..utils.checkpointing import CheckpointMirror
 from ..utils.code_snapshot import snapshot_code
 from ..utils.convert import train_state_payload
 from ..utils.device import read_back, to_device
@@ -103,12 +108,6 @@ from .schedules import get_scheduler
 __all__ = ["TrainerConfig", "TrainState", "Trainer", "decays", "grad_histogram",
            "histogram_wire"]
 
-# field -> (the value the port implements, the JAX package's default; the
-# ROADMAP Queue 1 item that ports the others)
-_UNPORTED = {
-    "ckpt_mirror": (None, 8),
-    "save_to_wandb": (False, 8),
-}
 MU_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 HIST_BINS = 64
 
@@ -117,10 +116,6 @@ HIST_BINS = 64
 class TrainerConfig:
     """The JAX package's trainer settings, same names and defaults.
 
-    A field whose other values the port does not implement raises in
-    ``__post_init__`` (``_UNPORTED``), naming the ROADMAP Queue 1 item that
-    ports it: the checkpoint mirror (``ckpt_mirror``) and the wandb upload
-    (``save_to_wandb``) wait for the network clients (item 8).
     ``grad_reduce_dtype`` names a floating dtype of torch's;
     ``zero_shard_opt_state`` is ZeRO-1 (both act on a mesh of more than one
     rank).
@@ -163,11 +158,6 @@ class TrainerConfig:
     code_snapshot: bool = True
 
     def __post_init__(self):
-        for name, (value, item) in _UNPORTED.items():
-            if getattr(self, name) != value:
-                raise NotImplementedError(f"TrainerConfig.{name}={getattr(self, name)!r}: the "
-                                          f"port implements only {value!r} (ROADMAP Queue 1 "
-                                          f"item {item})")
         if self.adam_mu_dtype is not None and self.adam_mu_dtype not in MU_DTYPES:
             raise NotImplementedError(f"TrainerConfig.adam_mu_dtype={self.adam_mu_dtype!r}: "
                                       f"the port stores Adam's first moment in "
@@ -330,6 +320,8 @@ class Trainer:
         self._area_weights = None
         self._best_monitor = None
         self._code_snapshotted = False
+        self._ckpt_mirror = None
+        self._logger = None
 
     # ------------------------------------------------------------------ setup
     @property
@@ -606,6 +598,7 @@ class Trainer:
                 segment_samples=cfg.segment_samples if cfg.fit_mode == "streaming" else None)
         if cfg.fit_mode != "fit":
             raise ValueError(f"Unknown fit_mode {cfg.fit_mode!r}")
+        self._logger = logger  # for the uploads of _save_epoch
         epochs = epochs if epochs is not None else cfg.epochs
         first_epoch = self._start()
         state = self.state
@@ -746,6 +739,7 @@ class Trainer:
         ``mark`` goes to every ``train_step`` (``main_path.fused_epoch``
         times the steps with it)."""
         cfg = self.cfg
+        self._logger = logger  # for the uploads of _save_epoch
         epochs = epochs if epochs is not None else cfg.epochs
         ds = self.dm.dataset("train")
         bs = self.dm.cfg.batch_size
@@ -975,19 +969,39 @@ class Trainer:
         """last.ckpt every epoch; best.ckpt when ``ckpt_monitor`` improves
         (lower is better); with ``code_snapshot``, once per trainer, the
         package's source as ``code.tar.gz`` beside them
-        (``utils/code_snapshot.py``)."""
+        (``utils/code_snapshot.py``). Then, as JAX's ``_save_and_mirror``,
+        with ``ckpt_mirror`` the files saved now (and the snapshot) mirrored
+        to S3, and with ``save_to_wandb`` uploaded through the fit's logger
+        (its ``save_file``), both skipping unchanged bytes."""
         cfg = self.cfg
         if not cfg.ckpt_dir:
             return
-        self.save_checkpoint(state, os.path.join(cfg.ckpt_dir, "last.ckpt"))
+        last = os.path.join(cfg.ckpt_dir, "last.ckpt")
+        best_path = os.path.join(cfg.ckpt_dir, "best.ckpt")
+        self.save_checkpoint(state, last)
+        improved = False
         if cfg.ckpt_monitor and val and cfg.ckpt_monitor in val:
             v = float(val[cfg.ckpt_monitor])
             if self._best_monitor is None or v < self._best_monitor:
                 self._best_monitor = v
-                self.save_checkpoint(state, os.path.join(cfg.ckpt_dir, "best.ckpt"))
-        if cfg.code_snapshot and not self._code_snapshotted and _is_writer():
-            snapshot_code(os.path.join(cfg.ckpt_dir, "code.tar.gz"))
+                self.save_checkpoint(state, best_path)
+                improved = True
+        code_tar = os.path.join(cfg.ckpt_dir, "code.tar.gz") if cfg.code_snapshot else None
+        if code_tar and not self._code_snapshotted and _is_writer():
+            snapshot_code(code_tar)
             self._code_snapshotted = True
+        if not _is_writer():
+            return
+        files = [last] + ([best_path] if improved else []) + ([code_tar] if code_tar else [])
+        if cfg.ckpt_mirror:
+            if self._ckpt_mirror is None:
+                self._ckpt_mirror = CheckpointMirror(cfg.ckpt_mirror)
+            for path in files:
+                self._ckpt_mirror.mirror(path)
+        logger = self._logger
+        if cfg.save_to_wandb and logger is not None and hasattr(logger, "save_file"):
+            for path in files:
+                logger.save_file(path, name=os.path.basename(path))
 
     def save_checkpoint(self, state: TrainState, path: str) -> None:
         """The JAX checkpoint's entries (``params``, ``ema_params``,

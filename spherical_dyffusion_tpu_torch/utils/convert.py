@@ -10,9 +10,8 @@ parameter tree becomes a ``state_dict`` by flattening its nested dicts with
 "." as separator. Trees saved with
 ``SFNOConfig.scan_layers`` hold the middle blocks stacked under
 ``blocks_mid/block`` with a leading layer axis; they are first unstacked into
-``block_1`` .. ``block_{L-2}``, as ``unstack_block_params`` of the JAX
-package (``utils/params.py``) does. That module imports JAX, so its logic is
-repeated here, on numpy arrays.
+``block_1`` .. ``block_{L-2}`` (``utils/params.py:unstack_block_params``),
+the layout of every port SFNO.
 
 ``train_state_payload`` carries a JAX ``TrainState`` across as the port
 trainer's checkpoint payload: params, EMA params, and optax's Adam state
@@ -29,43 +28,10 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["unstack_block_params", "flax_to_state_dict", "state_dict_to_flax",
+from .params import unstack_block_params
+
+__all__ = ["flax_to_state_dict", "state_dict_to_flax",
            "train_state_payload"]
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, Mapping):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _as_leaf(a):
-    """numpy arrays as they are; torch tensors (the bfloat16 leaves of
-    ``utils/flax_msgpack.py``) too; anything else through ``np.asarray``."""
-    return a if isinstance(a, torch.Tensor) else np.asarray(a)
-
-
-def _first_leaf(tree):
-    while isinstance(tree, Mapping):
-        tree = next(iter(tree.values()))
-    return tree
-
-
-def unstack_block_params(params: Mapping[str, Any]) -> Dict[str, Any]:
-    """Explode ``blocks_mid/block`` (leading layer axis) into
-    ``block_1`` .. ``block_{L-2}``; trees without it pass through."""
-    if "blocks_mid" not in params:
-        return dict(params)
-    stacked = _tree_map(_as_leaf, params["blocks_mid"]["block"])
-    n_mid = _first_leaf(stacked).shape[0]
-    n = 1 + max(int(k.split("_")[1]) for k in params if k.startswith("block_"))
-    if n != n_mid + 2:
-        raise ValueError(f"stacked layout holds {n_mid} middle blocks but the "
-                         f"unrolled ends imply {n - 2}")
-    out = {k: v for k, v in params.items() if k != "blocks_mid"}
-    for i in range(n_mid):
-        out[f"block_{i + 1}"] = _tree_map(lambda a, i=i: a[i], stacked)
-    return out
 
 
 def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -73,7 +39,8 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     themselves; other collections such as ``constants`` are ignored) ->
     the port network's ``state_dict`` as float32 CPU tensors."""
     params = variables.get("params", variables)
-    params = unstack_block_params(params)
+    if "blocks_mid" in params:
+        params = unstack_block_params(params)
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(tree, prefix):

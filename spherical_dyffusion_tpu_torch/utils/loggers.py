@@ -1,9 +1,12 @@
-"""Experiment tracking: local metric logging.
+"""Experiment tracking: local metric logging with an optional wandb mirror.
 
-Counterpart of ``spherical_dyffusion_tpu/utils/loggers.py`` without its
-wandb mirror: the record is a local JSONL file (one metric dict per line,
-with step and time). A config's ``logger.wandb`` section raises
-``NotImplementedError`` (ROADMAP Queue 1 item 8, the network clients).
+Counterpart of ``spherical_dyffusion_tpu/utils/loggers.py``. The record is
+a local JSONL file (one metric dict per line, with step and time). A
+config's ``logger.wandb`` section adds ``WandbLogger``, which mirrors the
+metrics, files and code snapshot to a wandb-protocol server through the
+native client (``utils/wandb_client.py:NativeWandbRun``) when
+``WANDB_BASE_URL`` names one, and does nothing otherwise. It never imports
+the wandb SDK (JAX's uses the SDK where it is installed).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import os
 import time
 from typing import Any, Dict, List, Optional
 
-__all__ = ["JsonlLogger", "MultiLogger", "make_logger", "run_name_from_config"]
+__all__ = ["JsonlLogger", "WandbLogger", "MultiLogger", "make_logger", "run_name_from_config"]
 
 
 class JsonlLogger:
@@ -45,6 +48,48 @@ class JsonlLogger:
         self._f.close()
 
 
+class WandbLogger:
+    """The wandb mirror over the native client, active when
+    ``WANDB_BASE_URL`` names a server (the entity from ``entity``, else
+    ``WANDB_ENTITY``, else "local"); a no-op otherwise, and when the run
+    cannot be created there (printed). Uploads after the start are
+    best-effort (``NativeWandbRun``)."""
+
+    def __init__(self, project: str, name: Optional[str] = None,
+                 entity: Optional[str] = None):
+        self._native = None
+        if os.environ.get("WANDB_BASE_URL"):
+            from .wandb_client import NativeWandbRun
+
+            try:
+                self._native = NativeWandbRun(
+                    entity or os.environ.get("WANDB_ENTITY", "local"), project, name or "run")
+            except Exception as e:
+                print(f"[wandb-mirror] native run init failed (disabled): {e}")
+
+    def log_hyperparams(self, config: Dict[str, Any]):
+        if self._native is not None:
+            self._native.update_config(config)
+
+    def log(self, metrics: Dict[str, Any], step: Optional[int] = None):
+        if self._native is not None:
+            self._native.log(metrics, step=step)
+
+    def save_file(self, path: str, name: Optional[str] = None):
+        """Upload a file into the run's files (the SDK's ``wandb.save``)."""
+        if self._native is not None:
+            self._native.save(path, name=name)
+
+    def log_code(self, root: str):
+        """A snapshot of the source tree into the run's files."""
+        if self._native is not None:
+            self._native.log_code(root)
+
+    def finish(self):
+        if self._native is not None:
+            self._native.finish()
+
+
 class MultiLogger:
     def __init__(self, loggers: List[Any]):
         self.loggers = [lg for lg in loggers if lg is not None]
@@ -57,6 +102,16 @@ class MultiLogger:
         for lg in self.loggers:
             lg.log(metrics, step=step)
 
+    def save_file(self, path, name=None):
+        for lg in self.loggers:
+            if hasattr(lg, "save_file"):
+                lg.save_file(path, name=name)
+
+    def log_code(self, root):
+        for lg in self.loggers:
+            if hasattr(lg, "log_code"):
+                lg.log_code(root)
+
     def finish(self):
         for lg in self.loggers:
             lg.finish()
@@ -64,13 +119,16 @@ class MultiLogger:
 
 def make_logger(cfg: Dict[str, Any], out_dir: str = "logs"):
     """Loggers from a config's ``logger:`` section: the JSONL file under
-    ``out_dir/<run name>``."""
+    ``out_dir/<run name>``, and with ``logger.wandb`` the wandb mirror
+    (project ``logger.wandb.project``)."""
     log_cfg = cfg.get("logger", {}) or {}
-    if log_cfg.get("wandb"):
-        raise NotImplementedError("logger.wandb: the wandb mirror is not ported (ROADMAP "
-                                  "Queue 1 item 8, the network clients); remove the section")
     name = cfg.get("name") or run_name_from_config(cfg)
-    return MultiLogger([JsonlLogger(os.path.join(out_dir, name))])
+    loggers: List[Any] = [JsonlLogger(os.path.join(out_dir, name))]
+    if log_cfg.get("wandb"):
+        w = log_cfg["wandb"] or {}
+        loggers.append(WandbLogger(project=w.get("project", "spherical-dyffusion-tpu"),
+                                   name=name))
+    return MultiLogger(loggers)
 
 
 def run_name_from_config(cfg: Dict[str, Any]) -> str:

@@ -478,13 +478,19 @@ def test_run_inference_refuses_unported_options(cfg, match):
         main_from_config({"platform": "cpu", "checkpoint_path": "unused", **cfg})
 
 
-def test_unported_kinds_and_channels_name_their_item(tmp_path):
-    from spherical_dyffusion_tpu_torch.utils.checkpointing import resolve_checkpoint_path
-    from spherical_dyffusion_tpu_torch.utils.loggers import make_logger
+def test_unported_kinds_and_channels_name_their_item(tmp_path, monkeypatch):
+    import urllib.error
 
+    from spherical_dyffusion_tpu_torch.utils.checkpointing import resolve_checkpoint_path
+    from spherical_dyffusion_tpu_torch.utils.loggers import WandbLogger, make_logger
+
+    # the network channels are ported (item 8e): against a closed local port
+    # they reach the network and fail there
+    monkeypatch.setenv("HF_ENDPOINT", "http://127.0.0.1:9")
+    monkeypatch.setenv("WANDB_BASE_URL", "http://127.0.0.1:9")
     for spec in ("hf:org/repo/x.ckpt", "wandb:e/p/r"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            resolve_checkpoint_path(spec)
+        with pytest.raises(urllib.error.URLError):
+            resolve_checkpoint_path(spec, cache_dir=str(tmp_path / "cache"))
     # the fv3gfs datamodule is ported (item 8a): built from a stats
     # directory; without one, JAX's error (a path join of None)
     import spherical_dyffusion_tpu.interface as jinterface
@@ -508,8 +514,10 @@ def test_unported_kinds_and_channels_name_their_item(tmp_path):
     net = interface.get_model({"kind": "unet", "dim": 8, "dim_mults": [1, 2]}, (8, 16), 3, 3,
                               True, device="cpu")
     assert isinstance(net, UNet) and net.cfg.in_chans == 3 and net.cfg.with_time_emb
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_logger({"logger": {"wandb": {"project": "p"}}}, str(tmp_path))
+    monkeypatch.delenv("WANDB_BASE_URL")
+    lg = make_logger({"logger": {"wandb": {"project": "p"}}}, str(tmp_path))
+    assert isinstance(lg.loggers[-1], WandbLogger) and lg.loggers[-1]._native is None
+    lg.finish()
     dm = DebugDataModule(channels=2, height=8, width=16, horizon=3)
     # the simultaneous experiment is ported (item 5): it builds
     exp = interface.get_experiment({"experiment": "simultaneous"}, dm, device="cpu")

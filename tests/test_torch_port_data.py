@@ -9,9 +9,8 @@ time-independent field, ``lat``/``lon`` and ``ak_*``/``bk_*``, a variable
 packed as int16 with ``scale_factor``, ``add_offset`` and ``_FillValue``,
 and ``centering.nc``/``scaling.nc``. Tolerances: arrays from the files and
 the synthetic systems bit for bit; normalized batches bit for bit against
-the JAX packer's numpy form, ``(x - mean) / std`` in float32 (its native
-library, where it loads, multiplies by ``1 / std`` instead, one float32 ulp
-away; the fixture ``numpy_packer`` turns it off); ``run_dataset_inference``'s
+the JAX package's native packer (both packages' multiply by ``1 / std`` in
+float32); ``run_dataset_inference``'s
 logs 1e-5 of each value (or of 1 where smaller; a percent difference of
 100).
 """
@@ -183,13 +182,6 @@ def test_chaotic_modal_timeseries_matches_jax():
             cls(["a"], n_modes=3)
 
 
-@pytest.fixture
-def numpy_packer(monkeypatch):
-    from spherical_dyffusion_tpu.utils import native
-
-    monkeypatch.setattr(native, "_load", lambda: None)
-
-
 def _batches_equal(got_iter, want_iter):
     n = 0
     for got, want in zip(got_iter, want_iter):
@@ -208,7 +200,7 @@ def _dm_cfg(root, **kw):
 
 
 @pytest.mark.parametrize("kw", [{}, {"debug_mode": True}, {"training_sub_paths": ["ic_0002"]}])
-def test_fv3gfs_datamodule_matches_jax(root, kw, numpy_packer):
+def test_fv3gfs_datamodule_matches_jax(root, kw):
     """Normalizers from the stats files, the train batches (both members,
     shuffled) and the val batches (``validation/ic_0011``), the grid."""
     dm = datamodule.FV3GFSDataModule(datamodule.DataModuleConfig(**_dm_cfg(root, **kw)))
@@ -229,7 +221,7 @@ def test_fv3gfs_datamodule_matches_jax(root, kw, numpy_packer):
     _same(sub.means.numpy(), np.asarray(jsub.means))
 
 
-def test_fv3gfs_datamodule_falls_back_as_jax(root, tmp_path, numpy_packer):
+def test_fv3gfs_datamodule_falls_back_as_jax(root, tmp_path):
     """A data directory without ``ic_*`` members and without
     ``validation/ic_0011`` is read itself for both splits; without a
     stats directory both packages raise the same error."""

@@ -294,10 +294,10 @@ def test_videos_nc_errors_raise(tmp_path, capsys):
     jsave_media(jagg, NAMES, str(tmp_path))
     assert "[media] skipped" in capsys.readouterr().out
     with pytest.raises(OSError):
-        _save_media(agg, str(tmp_path))
+        _save_media(agg, NAMES, str(tmp_path))
     assert [f.name for f in tmp_path.iterdir()] == ["videos.nc"]  # no temporary left
     (tmp_path / "videos.nc").rmdir()
-    _save_media(agg, str(tmp_path))
+    _save_media(agg, NAMES, str(tmp_path))
     jagg.video.save(str(tmp_path / "jvideos.nc"))
     _same_files(str(tmp_path / "videos.nc"), str(tmp_path / "jvideos.nc"))
 
