@@ -207,6 +207,18 @@ Phases, each timed:
    as JAX does at mesh size 1), K1's launches counted; the group destroyed.
    Two ranks cannot share one card's NCCL communicator: the multi-rank
    numerics are the CPU tests' (gloo, 2 and 4 processes).
+21. spatial model parallelism (run after phase 17; ``phase21``): (a) K1
+   on the channel shards of "w" = 2 and 4 (CI 128 and 64 -> 256 on (1,
+   180, 181)) against its plain version (1e-5) with its ms, bound and
+   complex ``torch.matmul``'s ms; (b) K3 and K2 in bf16 at batch 2 with
+   dropout 0.1 on the four blocks of h = 2, w = 2 and the two of h = 2, at
+   their origins: the whole grid's dropped elements, bit for bit or not,
+   and within 1e-2 of the plain version at the origin, with the ms at an
+   origin beside the whole grid's and the same rows without the row map;
+   (c) phase 7's fused-tail window with ``make_mesh(1, 1, 1)`` over an NCCL
+   group of one attached to both SFNOs, against the same window without the
+   mesh (at most BF16_TAIL_VS_PLAIN times the route's own bf16 error), K1
+   and K3 launched as without the mesh, its seconds beside phase 7's.
 18. the netCDF data layer (run after phase 15, before the profile), in a
    temporary directory: a dataset written by ``data/hdf5.py:write_hdf5``
    (this machine has no h5py) with the 34 state names, the two forcings and
@@ -267,14 +279,16 @@ Phases, each timed:
 It prints a ``training`` JSON line (phase 11's figures), a ``cli`` JSON line
 (phase 12's), an ``options`` JSON line (phase 13's), a ``modes`` JSON line
 (phase 14's), an ``ace`` JSON line (phase 15's), a ``unet`` JSON line
-(phase 16's), a ``parallel`` JSON line (phase 17's), a ``data`` JSON line
+(phase 16's), a ``parallel`` JSON line (phase 17's), a ``spatial`` JSON
+line (phase 21's), a ``data`` JSON line
 (phase 18's), a ``writers`` JSON line (phase 10's writer run and phase
 19's), a ``parity`` JSON line (phase 20's), a ``kernels`` JSON
 line (K1's backward dx as its own entry; ``launches_by_path`` holds phase
 12 (b)'s counts as ``"cli"``, phase 13's as ``"tucker"``, ``"fold"`` and
 ``"remat"``, phase 15's as ``"ace"``, ``"ace_cli"`` and
 ``"simultaneous"``, phase 16's as ``"unet"`` (zero for every kernel) and
-phase 17's as ``"parallel"``, phase 18's as ``"data_train"`` and
+phase 17's as ``"parallel"``, phase 21's as ``"spatial"``, phase 18's
+as ``"data_train"`` and
 ``"data"``, phase 19's as ``"outputs"`` and ``"outputs_ace"``, phase 20's
 as ``"parity"`` and ``"parity_k2"``), the
 ``nvidia-smi`` line, and last
@@ -355,6 +369,11 @@ UNET_STATE, UNET_REPS, UNET_TRAIN_STEPS = 35, 5, 3
 # phase 17: the transforms' channels and grid, and the SFNO trained through K1
 PAR_CHANNELS, PAR_SHAPE = 256, (180, 360)
 PAR_EMBED, PAR_LAYERS, PAR_STEPS = 256, 8, 3
+# phase 21: spatial model parallelism at the main path's width, depth and
+# grid: K1 on the channel shards of "w" = 2 and 4 (CI = embed / 2 and / 4),
+# K2 and K3 on the blocks of h = 2, w = 2 and of h = 2 at batch 2 (the
+# interpolator's double batch), the fused-tail window on the spatial route
+SPATIAL_EMBED, SPATIAL_LAYERS, SPATIAL_SHAPE = 256, 8, (180, 360)
 # phase 18: the networks' width and depth and the dataset's grid
 DATA_EMBED, DATA_LAYERS, DATA_SHAPE = 256, 8, (180, 360)
 # phase 19: the networks' width, depth and grid, the ensemble and the time
@@ -2449,6 +2468,291 @@ def phase17(smi_line, wrappers, report, runs, device="cuda") -> None:
     report["parallel"] = rep
 
 
+def phase21(smi_line, wrappers, report, runs, device="cuda") -> None:
+    """Phase 21: spatial model parallelism on one card. Two ranks cannot
+    share one card's NCCL communicator, so the multi-rank numerics are the
+    gloo tests' (``tests/test_torch_port_parallel.py``); here the kernels
+    run at the shard shapes and the spatial route at full width over an
+    NCCL group of one. (a) K1 on the channel shards of "w" = 2 and 4 (CI =
+    SPATIAL_EMBED / 2 and / 4, CO = SPATIAL_EMBED, (1, L, M)) against its
+    plain version (float32, 1e-5), with its ms, bound and complex
+    ``torch.matmul``'s ms. (b) K3 and K2 (bf16, batch 2, dropout 0.1) on
+    the four blocks of h = 2, w = 2 and the two of h = 2, at their origins:
+    each equal to the whole grid's launch restricted to the block in its
+    dropped elements (and whether bit for bit), and to its plain version at
+    the origin (1e-2); the ms at an origin beside the whole grid's. (c)
+    Phase 7's fused-tail path (K1, K3, peeled sampler, ``scan_layers``,
+    the interpolator's dropout live) with ``make_mesh(1, 1, 1)`` over the
+    NCCL group of one attached to both SFNOs (``SFNO.set_mesh``: every
+    transform, norm sum and reduce-scatter a call of NCCL's): a 12-step
+    window against the same stepper's window without the mesh, from the
+    same weights and seed (the same masks), within BF16_TAIL_VS_PLAIN of
+    the route's own bf16 error (the float32 window from the same weights);
+    K1 and K3 launched as on the window without the mesh; its seconds
+    beside phase 7's. The group is destroyed."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from spherical_dyffusion_tpu_torch import main_path
+    from spherical_dyffusion_tpu_torch.ops.fused_mlp import (
+        fused_block_tail,
+        fused_block_tail_plain,
+        fused_mlp,
+        fused_mlp_plain,
+        weight_image,
+    )
+    from spherical_dyffusion_tpu_torch.ops.pallas_contractions import (
+        dhconv,
+        dhconv_plain,
+        dhconv_weight_image,
+    )
+    from spherical_dyffusion_tpu_torch.parallel.mesh import Block, make_mesh
+    from spherical_dyffusion_tpu_torch.parallel.multihost import maybe_init_multihost
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed_ms(fn, reps):
+        fn()
+        if not cuda:
+            return None
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(reps):
+            fn()
+        ev[1].record()
+        ev[1].synchronize()
+        return ev[0].elapsed_time(ev[1]) / reps
+
+    def rel(got, want):
+        d = float((got.float() - want.float()).abs().max())
+        return d, d / float(want.float().abs().max())
+
+    rep = {}
+    H, W = SPATIAL_SHAPE
+    C = SPATIAL_EMBED
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    # (a) K1 on the channel shards
+    L, M = H, W // 2 + 1
+    for CI in (C // 2, C // 4):
+        x = torch.randn((1, L, M, CI, 2), generator=g, device=dev)
+        w = torch.randn((CI, C, L, 2), generator=g, device=dev) / (CI * C) ** 0.5
+        img = dhconv_weight_image(w)
+        y = dhconv(x, w, img)
+        sync()
+        want = dhconv_plain(x, w)
+        abs_err, rel_err = rel(y, want)
+        xc = torch.view_as_complex(x)
+        wc = torch.view_as_complex(w.permute(2, 0, 1, 3).contiguous())  # (L, CI, CO)
+        flops = 8.0 * L * M * CI * C
+        bound_ms, bound_by = bound(flops, 4.0 * (x.numel() + w.numel() + y.numel()), TF32_PEAK)
+        k1 = dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=timed_ms(lambda: dhconv(x, w, img), 20),
+                  plain_ms=timed_ms(lambda: dhconv_plain(x, w), 5),
+                  library_ms=timed_ms(lambda: torch.matmul(xc, wc), 20), bound_ms=bound_ms,
+                  bound_by=bound_by, shape=[1, L, M, CI, C])
+        log(f"K1 on a 'w' channel shard (1, {L}, {M}) x {CI} -> {C}: max abs err {abs_err:.3e}, "
+            f"rel {rel_err:.3e} (tolerance 1e-5); kernel {k1['ms']} ms, plain {k1['plain_ms']} ms, "
+            f"complex torch.matmul {k1['library_ms']} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+            f"on {smi_line}")
+        check(rel_err <= 1e-5, f"K1 at CI = {CI} disagrees with its plain version")
+        rep[f"K1_ci{CI}"] = k1
+        del x, w, img, y, want, xc, wc
+    report["K1"]["shard"] = {k: v for k, v in rep.items() if k.startswith("K1_")}
+
+    # (b) K3 and K2 on the blocks, at their origins
+    Hd = 2 * C
+    x = torch.randn((2, H, W, C), generator=g, device=dev).bfloat16()
+    a = 1.0 + 0.1 * torch.randn((2, 1, 1, C), generator=g, device=dev)
+    c = 0.1 * torch.randn((2, 1, 1, C), generator=g, device=dev)
+    w1 = torch.randn((C, Hd), generator=g, device=dev) / C ** 0.5
+    b1 = 0.1 * torch.randn((Hd,), generator=g, device=dev)
+    w2 = torch.randn((Hd, C), generator=g, device=dev) / Hd ** 0.5
+    b2 = 0.1 * torch.randn((C,), generator=g, device=dev)
+    w1b, w2b, b1b, b2b = w1.bfloat16(), w2.bfloat16(), b1.bfloat16(), b2.bfloat16()
+    kw = dict(seed=20260121, drop_rate=0.1)
+    kernel = {"K2": lambda xx, blk=None: fused_mlp(xx, w1, b1, w2, b2, block=blk, **kw),
+              "K3": lambda xx, blk=None: fused_block_tail(xx, a, c, w1, b1, w2, b2, block=blk,
+                                                          **kw)}
+    plain = {"K2": lambda xx, blk: fused_mlp_plain(xx, w1, b1, w2, b2, block=blk, **kw),
+             "K3": lambda xx, blk: fused_block_tail_plain(xx, a, c, w1, b1, w2, b2, block=blk,
+                                                          **kw)}
+    library = {"K2": lambda xx: F.gelu(xx @ w1b + b1b, approximate="tanh") @ w2b + b2b,
+               "K3": lambda xx: F.gelu((xx.float() * a + c).bfloat16() @ w1b + b1b,
+                                       approximate="tanh") @ w2b + b2b}
+    hb, wb = H // 2, W // 2
+    blocks = [Block(h0, w0, (hb, wb), (H, W)) for h0 in (0, hb) for w0 in (0, wb)]
+    blocks += [Block(h0, 0, (hb, W), (H, W)) for h0 in (0, hb)]
+    for k in ("K3", "K2"):
+        whole = kernel[k](x)
+        sync()
+        bitwise, worst = [], 0.0
+        for blk in blocks:
+            xb = x[:, blk.rows(), blk.cols()].contiguous()
+            y = kernel[k](xb, blk)
+            sync()
+            want = whole[:, blk.rows(), blk.cols()]
+            p = plain[k](xb, blk)
+            same = torch.equal(y == 0, want == 0) and torch.equal(y == 0, p == 0)
+            bitwise.append(bool(torch.equal(y, want)))
+            worst = max(worst, rel(y, p)[1])
+            check(same, f"{k} at origin ({blk.h0}, {blk.w0}) of a {blk.local} block drops other "
+                        f"elements than the whole grid's launch or its plain version")
+            check(rel(y, p)[1] <= 1e-2, f"{k} at origin ({blk.h0}, {blk.w0}) disagrees with its "
+                                        f"plain version")
+            del y, want, p
+        quarter = blocks[3]  # the h = 2, w = 2 block at (H/2, W/2)
+        half = blocks[5]  # the h = 2 block at (H/2, 0)
+        xq = x[:, quarter.rows(), quarter.cols()].contiguous()
+        xh = x[:, half.rows(), half.cols()].contiguous()
+        rows = xq.numel() // C
+        nbytes = 2.0 * (2 * xq.numel() + w1.numel() + w2.numel()) + 4.0 * (Hd + C) + (
+            8.0 * a.numel() if k == "K3" else 0.0)
+        bound_ms, bound_by = bound(4.0 * rows * C * Hd, nbytes, BF16_PEAK)
+        o = dict(blocks=[[b.h0, b.w0, *b.local] for b in blocks], same_drops=True,
+                 bit_for_bit=bitwise, max_rel_err_vs_plain=worst,
+                 ms_whole=timed_ms(lambda: kernel[k](x), 10),
+                 ms=timed_ms(lambda: kernel[k](xq, quarter), 10),
+                 ms_unmapped=timed_ms(lambda: kernel[k](xq), 10),
+                 ms_h2=timed_ms(lambda: kernel[k](xh, half), 10),
+                 plain_ms=timed_ms(lambda: plain[k](xq, quarter), 3),
+                 library_ms=timed_ms(lambda: library[k](xq), 10),
+                 bound_ms=bound_ms, bound_by=bound_by)
+        log(f"{k} bf16 batch 2, dropout 0.1, on the blocks {o['blocks']} of {H} x {W}: the whole "
+            f"grid's dropped elements at every origin, bit for bit {bitwise}; max rel err against "
+            f"the plain version at the origin {worst:.3e} (tolerance 1e-2); a {hb} x {wb} block "
+            f"at ({hb}, {wb}) {o['ms']} ms (the same rows without the row map "
+            f"{o['ms_unmapped']} ms; plain {o['plain_ms']} ms; bf16 chain without dropout "
+            f"{o['library_ms']} ms; bound {bound_ms:.4f} ms, {bound_by}), a {hb} x {W} block at "
+            f"({hb}, 0) {o['ms_h2']} ms, the whole grid {o['ms_whole']} ms, on {smi_line}")
+        report[k]["origin"] = o
+        rep[f"{k}_origin"] = o
+        del whole, xq, xh
+    del x, a, c, w1, b1, w2, b2, w1b, w2b, b1b, b2b
+
+    # (c) the fused-tail window on the spatial route over an NCCL group of one
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = {"SPHDY_COORDINATOR": f"127.0.0.1:{port}", "SPHDY_NUM_PROCESSES": "1",
+           "SPHDY_PROCESS_ID": "0"}
+    maybe_init_multihost(env=env, backend="nccl" if cuda else "gloo")
+    try:
+        mesh = make_mesh(data=1, h=1, w=1)
+        check(all(grp is dist.group.WORLD for grp in mesh.groups.values()),
+              "a world of one: every mesh axis should run its collectives on the world group")
+        path = dict(embed=SPATIAL_EMBED, layers=SPATIAL_LAYERS, img_shape=SPATIAL_SHAPE,
+                    device=device, seed=0, use_pallas=True, fused_tail=True, peel=True,
+                    scan_layers=True)
+        st = main_path.build(dtype="bfloat16", **path)
+        inp = main_path.window_inputs(N_STEPS, SPATIAL_SHAPE, device=device)
+        nets = (st.exp.model, st.exp.interpolator.model)
+        forwards = []
+        hooks = [net.register_forward_pre_hook(lambda mod, args: forwards.append(1))
+                 for net in nets]
+
+        def window(stepper, seed):
+            out = stepper.run_window(inp["x0"], inp["forcing"], inp["sst"], inp["mask"],
+                                     torch.Generator().manual_seed(seed), N_STEPS)
+            sync()
+            return out
+
+        def counted(fn):
+            for f in (*wrappers.values(), weight_image, dhconv_weight_image):
+                f.launches = 0
+            forwards.clear()
+            t0 = time.perf_counter()
+            out = fn()
+            seconds = time.perf_counter() - t0
+            launches = {k: f.launches for k, f in wrappers.items()}
+            launches["K1 images"] = dhconv_weight_image.launches
+            for f in (*wrappers.values(), weight_image, dhconv_weight_image):
+                f.launches = 0
+            return out, seconds, launches, len(forwards)
+
+        window(st, 1)  # warm-up: K1's images, cuBLAS, the allocator
+        (_, one), one_s, one_launches, n_fwd = counted(lambda: window(st, 2))
+        # the collectives of the spatial route, counted by name
+        names = ("all_reduce", "all_to_all_single", "reduce_scatter_tensor",
+                 "all_gather_into_tensor")
+        real = {n: getattr(dist, n) for n in names}
+        calls = dict.fromkeys(names, 0)
+
+        def counting(n):
+            def call(*args, **kwargs):
+                calls[n] += 1
+                return real[n](*args, **kwargs)
+            return call
+
+        for net in nets:
+            net.set_mesh(mesh)
+        try:
+            window(st, 1)  # the spatial route's warm-up
+            for n in names:
+                setattr(dist, n, counting(n))
+            (_, sp), sp_s, launches, sp_fwd = counted(lambda: window(st, 2))
+        finally:
+            for n in names:
+                setattr(dist, n, real[n])
+            for net in nets:
+                net.set_mesh(None)
+        for hk in hooks:
+            hk.remove()
+        st32 = main_path.build(dtype="float32", **path)
+        st32.exp.model.load_state_dict(st.exp.model.state_dict())
+        st32.exp.interpolator.model.load_state_dict(st.exp.interpolator.model.state_dict())
+        _, p32 = window(st32, 2)
+        del st32
+        other = [ch for ch in range(sp.shape[-1]) if ch != 1]  # the model-driven channels
+        scale = float(p32[..., other].abs().max())
+        gap = float((sp - one).abs().max())
+        noise = float((one - p32).abs().max())
+        runs["spatial"] = dict(launches=launches, seconds=sp_s, forwards=sp_fwd)
+        phase7_s = runs.get("fused_tail", {}).get("seconds")
+        rep["window"] = dict(seconds=sp_s, one_process_seconds=one_s, phase7_seconds=phase7_s,
+                             launches=launches, one_process_launches=one_launches,
+                             forwards=sp_fwd, collectives=calls, gap=gap,
+                             bit_for_bit=bool(torch.equal(sp, one)), bf16_noise=noise,
+                             scale=scale, ratio=gap / noise if noise else None)
+        log(f"the fused-tail window on the spatial route over an NCCL group of one, "
+            f"{SPATIAL_EMBED} x {SPATIAL_LAYERS} on {SPATIAL_SHAPE}, bf16, dropout live: "
+            f"{N_STEPS} steps in {sp_s:.3f} s against {one_s:.3f} s without the mesh in this "
+            f"phase and phase 7's {phase7_s} s; launches {launches} over {sp_fwd} SFNO forwards "
+            f"(without the mesh {one_launches}, {n_fwd} forwards); collectives {calls}; max "
+            f"|spatial - one process| {gap:.3e} = {gap / scale:.3e} of the largest model-driven "
+            f"prediction (bit for bit: {rep['window']['bit_for_bit']}), the route's "
+            f"own bf16 error max |bf16 - float32| {noise:.3e}; ratio "
+            f"{rep['window']['ratio']} (tolerance {BF16_TAIL_VS_PLAIN:g}); on {smi_line}")
+        check(bool(torch.isfinite(sp).all()) and tuple(sp.shape) == tuple(one.shape),
+              f"the spatial window: non-finite or shaped {tuple(sp.shape)}")
+        check(gap <= BF16_TAIL_VS_PLAIN * noise,
+              "the spatial route's window disagrees with the window without the mesh")
+        check(calls["all_to_all_single"] > 0 and calls["all_reduce"] > 0 and
+              calls["reduce_scatter_tensor"] > 0,
+              f"the spatial window made the collectives {calls}: the route was not taken")
+        per_forward = SPATIAL_LAYERS * sp_fwd
+        check(sp_fwd == n_fwd and launches["K1"] == one_launches["K1"] == per_forward and
+              launches["K3"] == one_launches["K3"] == per_forward and launches["K2"] == 0
+              and launches["K1 images"] == 0,
+              f"the spatial window launched {launches} over {sp_fwd} forwards; without the mesh "
+              f"{one_launches} over {n_fwd}; expected {per_forward} of K1 and of K3 and no image")
+        del st, inp, one, sp, p32
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived phase 21")
+    if cuda:
+        torch.cuda.empty_cache()
+    report["spatial"] = rep
+
+
 def phase18(smi_line, wrappers, report, runs, device="cuda") -> None:
     """Phase 18: the netCDF data layer at DATA_EMBED x DATA_LAYERS on
     DATA_SHAPE, in a temporary directory: a dataset written by
@@ -4429,6 +4733,10 @@ def main() -> int:
                "bf16 gradient mean and ZeRO-1 through K1)"):
         phase17(smi_line, wrappers, report, runs)
 
+    with Phase("21 spatial model parallelism (K1 on the channel shards, K2 and K3 at block "
+               "origins, the fused-tail window on the spatial route over an NCCL group of one)"):
+        phase21(smi_line, wrappers, report, runs)
+
     with Phase("13 model options at 256 x 8 (Tucker, fold, remat, the other options)"):
         phase13(smi_line, wrappers, report, runs, drive, pair, other)
 
@@ -4537,6 +4845,7 @@ def main() -> int:
     print(json.dumps({"ace": report["ace"]}))
     print(json.dumps({"unet": report["unet"]}))
     print(json.dumps({"parallel": report["parallel"]}))
+    print(json.dumps({"spatial": report["spatial"]}))
     print(json.dumps({"data": report["data"]}))
     print(json.dumps({"writers": report["writers"]}))
     print(json.dumps({"parity": report["parity"]}))

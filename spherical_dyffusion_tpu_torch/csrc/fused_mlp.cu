@@ -42,6 +42,16 @@
 // elements. The TPU kernels draw per-tile hardware bits, which cannot be
 // reproduced: the port agrees with them in distribution only.
 //
+// On a block of a grid split over a process mesh (x the rows of B samples of
+// Hl x Wl pixels at origin (h0, w0) of an H x W grid) the row above is not
+// the local row r = b*Hl*Wl + i*Wl + j but its pixel's row on the whole grid,
+// g = b*H*W + (h0+i)*W + (w0+j) (RowMap; the identity when lw == 0, and on
+// the whole grid g = r), so a sharded run drops what the one-process run
+// drops. A thread's rows r and r + 8 then need not share a counter: the
+// epilogues make a second Philox call where their counters differ (for
+// instance where Wl is not a multiple of 16) and one where they agree, as
+// always on the whole grid.
+//
 // What bounds them on the H100: at the main path's shapes (N = 64,800 rows,
 // C = 256 -> 512 -> 256, bf16 inputs, f32 residual and output) K2 does 34 GFLOP
 // against 166 MB of compulsory traffic: 0.034 ms at the bf16 tensor-core rate
@@ -91,7 +101,7 @@
 // about 1e-6 of v of the tanhf form, before the bf16 rounding. Widths: C, Hd
 // and C2 multiples of 16, C and C2 at most 256; the wrapper raises on any
 // other bf16 call. At B = 1 the grid is 1,013 blocks on 132 SMs. ptxas gives
-// the kernel 205 registers, no spill.
+// the kernel 218 registers, no spill.
 //
 // Why not a producer warpgroup with setmaxnreg: with three warpgroups the
 // launch bound caps the whole kernel at 168 registers, and ptxas kept the
@@ -155,6 +165,20 @@ __device__ __forceinline__ uint32_t word_of(uint4 w, int i) {
   return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
 }
 
+// The dropout row map (see the note above): lw local rows per sample (0: the
+// identity), wl and gw the local and global row widths, ghw the global rows
+// per sample, off = h0 * gw + w0.
+struct RowMap {
+  int lw, wl, gw, ghw, off;
+};
+
+__device__ __forceinline__ uint32_t global_row(uint32_t r, const RowMap& m) {
+  if (m.lw == 0) return r;
+  const uint32_t b = r / (uint32_t)m.lw, rem = r - b * (uint32_t)m.lw;
+  const uint32_t i = rem / (uint32_t)m.wl, j = rem - i * (uint32_t)m.wl;
+  return b * (uint32_t)m.ghw + i * (uint32_t)m.gw + j + (uint32_t)m.off;
+}
+
 // The counter's first two words for (row, col): see the note above.
 __device__ __forceinline__ uint32_t mask_c0(uint32_t col) { return (col >> 5) * 4 + ((col & 7) >> 1); }
 __device__ __forceinline__ uint32_t mask_c1(uint32_t row) { return (row >> 4) * 8 + (row & 7); }
@@ -208,7 +232,7 @@ fused_mlp_kernel(const T* __restrict__ x, const float* __restrict__ aff_a,
                  const float* __restrict__ b1, const T* __restrict__ w2,
                  const float* __restrict__ b2, const R* __restrict__ res,
                  O* __restrict__ y, int N, int C, int Hd, int C2, int t,
-                 uint64_t seed, int exact_gelu) {
+                 uint64_t seed, int exact_gelu, RowMap map) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);  // [kRows][C]
   T* hs = xs + kRows * C;                  // [kRows][kHidden]
@@ -272,7 +296,8 @@ fused_mlp_kernel(const T* __restrict__ x, const float* __restrict__ aff_a,
         float v = 0.f;
         if (col < Hd) {
           v = gelu(hacc[i][h] + b1[col], exact_gelu);
-          if (t > 0) v = qdrop(v, t, seed, (uint32_t)(r0 + rbase + i), (uint32_t)col, 0u);
+          if (t > 0)
+            v = qdrop(v, t, seed, global_row((uint32_t)(r0 + rbase + i), map), (uint32_t)col, 0u);
         }
         hs[(rbase + i) * kHidden + lane + 32 * h] = from_f<T>(v);
       }
@@ -308,7 +333,7 @@ fused_mlp_kernel(const T* __restrict__ x, const float* __restrict__ aff_a,
       const int col = lane + 32 * c;
       if (col >= C2) continue;
       float v = acc[i][c] + b2[col];
-      if (t > 0) v = qdrop(v, t, seed, (uint32_t)row, (uint32_t)col, 1u);
+      if (t > 0) v = qdrop(v, t, seed, global_row((uint32_t)row, map), (uint32_t)col, 1u);
       if (res != nullptr) v += to_f(res[(size_t)row * C2 + col]);
       y[(size_t)row * C2 + col] = from_f<O>(v);
     }
@@ -319,7 +344,7 @@ template <bool kAffine, typename R>
 int launch_simt(const void* x, const float* aff_a, const float* aff_c, int n_per_sample,
                 const void* w1, const float* b1, const void* w2, const float* b2,
                 const void* res, void* y, int N, int C, int Hd, int C2, int t, uint64_t seed,
-                int exact_gelu, cudaStream_t stream) {
+                int exact_gelu, RowMap map, cudaStream_t stream) {
   const int wsw = C2 > kHidden ? C2 : kHidden;
   const size_t smem =
       sizeof(float) * ((size_t)kRows * C + kRows * kHidden + (size_t)kSlice * wsw);
@@ -331,7 +356,7 @@ int launch_simt(const void* x, const float* aff_a, const float* aff_c, int n_per
   if (blocks == 0) return 0;
   kern<<<blocks, kThreads, smem, stream>>>(
       (const float*)x, aff_a, aff_c, n_per_sample, (const float*)w1, b1, (const float*)w2, b2,
-      (const R*)res, (float*)y, N, C, Hd, C2, t, seed, exact_gelu);
+      (const R*)res, (float*)y, N, C, Hd, C2, t, seed, exact_gelu, map);
   return (int)cudaGetLastError();
 }
 
@@ -340,17 +365,18 @@ template <bool kAffine>
 int dispatch_simt(const void* x, const float* aff_a, const float* aff_c, int n_per_sample,
                   const void* w1, const void* b1, const void* w2, const void* b2,
                   const void* res, void* y, int N, int C, int Hd, int C2, int x_dtype,
-                  int res_dtype, int t, uint64_t seed, int exact_gelu, void* stream) {
+                  int res_dtype, int t, uint64_t seed, int exact_gelu, RowMap map,
+                  void* stream) {
   if (x_dtype != 0 || C2 > kMaxOut || C2 <= 0 || C <= 0 || Hd <= 0 || N < 0) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   const void* r = res_dtype < 0 ? nullptr : res;
   if (res_dtype == 1)
     return launch_simt<kAffine, __nv_bfloat16>(x, aff_a, aff_c, n_per_sample, w1,
                                                (const float*)b1, w2, (const float*)b2, r, y,
-                                               N, C, Hd, C2, t, seed, exact_gelu, s);
+                                               N, C, Hd, C2, t, seed, exact_gelu, map, s);
   return launch_simt<kAffine, float>(x, aff_a, aff_c, n_per_sample, w1, (const float*)b1, w2,
                                      (const float*)b2, r, y, N, C, Hd, C2, t, seed,
-                                     exact_gelu, s);
+                                     exact_gelu, map, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -438,7 +464,7 @@ fused_mlp_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
                     const __nv_bfloat16* __restrict__ img, const float* __restrict__ b1,
                     const float* __restrict__ b2, const O* __restrict__ res,
                     O* __restrict__ y, int N, int C, int Hd, int C2, int t, uint64_t seed,
-                    int exact_gelu) {
+                    int exact_gelu, RowMap map) {
   using namespace tc;
   extern __shared__ __align__(1024) unsigned char smem_tc[];
   const uint32_t raw = smem_u32(smem_tc);
@@ -539,9 +565,14 @@ fused_mlp_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
   fence_async_smem();
   __syncthreads();
 
-  // the thread's rows: rowa and rowa + 8, in the 16-row block of its warp
+  // the thread's rows: rowa and rowa + 8, in the 16-row block of its warp;
+  // their dropout rows ga and gb share a counter (one Philox call) unless a
+  // row map puts them in different ones. The byte half is bit 3 of the row.
   const int rowa = row0 + 16 * warp + (lane >> 2);
-  const uint32_t c1 = mask_c1((uint32_t)rowa);
+  const uint32_t ga = global_row((uint32_t)rowa, map), gb = global_row((uint32_t)rowa + 8u, map);
+  const uint32_t c1 = mask_c1(ga), c1b = mask_c1(gb);
+  const bool two_calls = c1b != c1;
+  const uint32_t half[2] = {(ga >> 3) & 1u, (gb >> 3) & 1u};
   const float scale = t > 0 ? 256.f / (float)t : 1.f;
 
   float acc_o[128];
@@ -578,21 +609,22 @@ fused_mlp_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
     const int j0 = j * kChunk;
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
-      const uint4 bits = t > 0 ? philox4(seed, (uint32_t)((j0 >> 5) + q) * 4 + (lane & 3), c1, 0u)
-                               : make_uint4(0u, 0u, 0u, 0u);
+      const uint32_t cq = (uint32_t)((j0 >> 5) + q) * 4 + (lane & 3);
+      const uint4 bits = t > 0 ? philox4(seed, cq, c1, 0u) : make_uint4(0u, 0u, 0u, 0u);
+      const uint4 bits_b = t > 0 && two_calls ? philox4(seed, cq, c1b, 0u) : bits;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int j8 = 4 * q + jj;
         const int cl = 8 * j8 + 2 * (lane & 3);  // column in the chunk
         const float2 bia = *reinterpret_cast<const float2*>(b1s + j0 + cl);
-        const uint32_t word = word_of(bits, jj);
+        const uint32_t words[2] = {word_of(bits, jj), word_of(bits_b, jj)};
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float v0 = gelu_bf16(acc_h[4 * j8 + 2 * h] + bia.x, exact_gelu);
           float v1 = gelu_bf16(acc_h[4 * j8 + 2 * h + 1] + bia.y, exact_gelu);
           if (t > 0) {
-            v0 = keep_or_zero(v0, (word >> (8 * h)) & 255u, t, scale);
-            v1 = keep_or_zero(v1, (word >> (8 * (2 + h))) & 255u, t, scale);
+            v0 = keep_or_zero(v0, (words[h] >> (8 * half[h])) & 255u, t, scale);
+            v1 = keep_or_zero(v1, (words[h] >> (8 * (2 + half[h]))) & 255u, t, scale);
           }
           const int r = 16 * warp + (lane >> 2) + 8 * h;
           *reinterpret_cast<__nv_bfloat162*>(sgen + hs + r * 128 + ((j8 ^ (r & 7)) << 4) +
@@ -633,22 +665,23 @@ fused_mlp_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
         rv[jj][h] = res != nullptr ? load_pair(res + (size_t)min(rowa + 8 * h, N - 1) * C2 + col)
                                    : make_float2(0.f, 0.f);
       }
-    const uint4 bits = t > 0 ? philox4(seed, (uint32_t)q * 4 + (lane & 3), c1, 1u)
-                             : make_uint4(0u, 0u, 0u, 0u);
+    const uint32_t cq = (uint32_t)q * 4 + (lane & 3);
+    const uint4 bits = t > 0 ? philox4(seed, cq, c1, 1u) : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 bits_b = t > 0 && two_calls ? philox4(seed, cq, c1b, 1u) : bits;
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int j8 = 4 * q + jj;
       const int col = 8 * j8 + 2 * (lane & 3);
       const float2 bia = *reinterpret_cast<const float2*>(b2s + col);
-      const uint32_t word = word_of(bits, jj);
+      const uint32_t words[2] = {word_of(bits, jj), word_of(bits_b, jj)};
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = rowa + 8 * h;
         float v0 = acc_o[4 * j8 + 2 * h] + bia.x;
         float v1 = acc_o[4 * j8 + 2 * h + 1] + bia.y;
         if (t > 0) {
-          v0 = keep_or_zero(v0, (word >> (8 * h)) & 255u, t, scale);
-          v1 = keep_or_zero(v1, (word >> (8 * (2 + h))) & 255u, t, scale);
+          v0 = keep_or_zero(v0, (words[h] >> (8 * half[h])) & 255u, t, scale);
+          v1 = keep_or_zero(v1, (words[h] >> (8 * (2 + half[h]))) & 255u, t, scale);
         }
         if (row < N && col < C2) store_pair(y + (size_t)row * C2 + col, v0 + rv[jj][h].x,
                                             v1 + rv[jj][h].y);
@@ -697,7 +730,7 @@ __global__ void weight_image_kernel(const W* __restrict__ w1, const W* __restric
 template <bool kAffine, typename O>
 int launch_tc(const void* x, const float* aff_a, const float* aff_c, int n_per_sample,
               const void* img, const float* b1, const float* b2, const void* res, void* y,
-              int N, int C, int Hd, int C2, int t, uint64_t seed, int exact_gelu,
+              int N, int C, int Hd, int C2, int t, uint64_t seed, int exact_gelu, RowMap map,
               cudaStream_t stream) {
   using namespace tc;
   const int nkb = (C + 63) / 64;
@@ -712,13 +745,24 @@ int launch_tc(const void* x, const float* aff_a, const float* aff_c, int n_per_s
   if (blocks == 0) return 0;
   kern<<<blocks, tc::kThreads, smem, stream>>>(
       (const __nv_bfloat16*)x, aff_a, aff_c, n_per_sample, (const __nv_bfloat16*)img, b1, b2,
-      (const O*)res, (O*)y, N, C, Hd, C2, t, seed, exact_gelu);
+      (const O*)res, (O*)y, N, C, Hd, C2, t, seed, exact_gelu, map);
   return (int)cudaGetLastError();
+}
+
+// The row map of the entry points' last five integers, checked: the
+// identity (all 0), or lw = Hl * Wl and ghw = H * W with Wl <= gw.
+bool make_map(int lw, int wl, int gw, int ghw, int off, RowMap* m) {
+  *m = RowMap{lw, wl, gw, ghw, off};
+  if (lw == 0) return wl == 0 && gw == 0 && ghw == 0 && off == 0;
+  return lw > 0 && wl > 0 && lw % wl == 0 && gw >= wl && ghw >= lw && ghw % gw == 0 &&
+         off >= 0 && off + (lw / wl - 1) * gw + wl <= ghw;
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16; res_dtype -1 = no residual.
+// dtype codes: 0 = float32, 1 = bfloat16; res_dtype -1 = no residual. The
+// last five integers before the stream are the dropout row map (RowMap: lw,
+// wl, gw, ghw, off; all 0 for the identity); -1 for a map that is not one.
 // The float32 kernels (K2 and K3 with x float32): x (N, C), w1 (C, Hd), w2
 // (Hd, C2) float32; b1, b2 float32; res (N, C2) float32 or bfloat16; y (N, C2)
 // float32. All contiguous. Returns the cudaError_t of the launch (0 on
@@ -726,9 +770,12 @@ int launch_tc(const void* x, const float* aff_a, const float* aff_c, int n_per_s
 extern "C" int sdt_fused_mlp(const void* x, const void* w1, const void* b1, const void* w2,
                              const void* b2, const void* res, void* y, int N, int C,
                              int Hd, int C2, int x_dtype, int res_dtype, int t,
-                             unsigned long long seed, int exact_gelu, void* stream) {
+                             unsigned long long seed, int exact_gelu, int lw, int wl, int gw,
+                             int ghw, int off, void* stream) {
+  RowMap map;
+  if (!make_map(lw, wl, gw, ghw, off, &map)) return -1;
   return dispatch_simt<false>(x, nullptr, nullptr, 1, w1, b1, w2, b2, res, y, N, C, Hd, C2,
-                              x_dtype, res_dtype, t, seed, exact_gelu, stream);
+                              x_dtype, res_dtype, t, seed, exact_gelu, map, stream);
 }
 
 // K3: as sdt_fused_mlp, with x (B * n_per_sample, C) the pre-norm rows of B
@@ -740,11 +787,14 @@ extern "C" int sdt_fused_block_tail(const void* x, const void* a, const void* c,
                                     const void* b2, const void* res, void* y, int N,
                                     int n_per_sample, int C, int Hd, int C2, int x_dtype,
                                     int res_dtype, int t, unsigned long long seed,
-                                    int exact_gelu, void* stream) {
-  if (n_per_sample <= 0 || N % n_per_sample != 0) return -1;
+                                    int exact_gelu, int lw, int wl, int gw, int ghw, int off,
+                                    void* stream) {
+  RowMap map;
+  if (n_per_sample <= 0 || N % n_per_sample != 0 || !make_map(lw, wl, gw, ghw, off, &map))
+    return -1;
   return dispatch_simt<true>(x, (const float*)a, (const float*)c, n_per_sample, w1, b1, w2,
                              b2, res, y, N, C, Hd, C2, x_dtype, res_dtype, t, seed,
-                             exact_gelu, stream);
+                             exact_gelu, map, stream);
 }
 
 // The weight image for the bf16 kernels: w1 (C, Hd) and w2 (Hd, C2), both
@@ -779,7 +829,9 @@ extern "C" int sdt_fused_mlp_tc(const void* x, const void* a, const void* c, int
                                 const void* img, const void* b1, const void* b2,
                                 const void* res, void* y, int N, int C, int Hd, int C2,
                                 int res_dtype, int t, unsigned long long seed, int exact_gelu,
-                                void* stream) {
+                                int lw, int wl, int gw, int ghw, int off, void* stream) {
+  RowMap map;
+  if (!make_map(lw, wl, gw, ghw, off, &map)) return -1;
   if (N < 0 || C <= 0 || C > tc::kMaxC || C % 16 || Hd <= 0 || Hd % 16 || C2 <= 0 ||
       C2 > tc::kN2 || C2 % 16 || res_dtype < -1 || res_dtype > 1)
     return -1;
@@ -794,11 +846,11 @@ extern "C" int sdt_fused_mlp_tc(const void* x, const void* a, const void* c, int
   const void* r = res_dtype < 0 ? nullptr : res;
   if (res_dtype == 0)
     return affine ? launch_tc<true, float>(x, fa, fc, n_per_sample, img, fb1, fb2, r, y, N, C,
-                                           Hd, C2, t, seed, exact_gelu, s)
+                                           Hd, C2, t, seed, exact_gelu, map, s)
                   : launch_tc<false, float>(x, fa, fc, 1, img, fb1, fb2, r, y, N, C, Hd, C2,
-                                            t, seed, exact_gelu, s);
+                                            t, seed, exact_gelu, map, s);
   return affine ? launch_tc<true, __nv_bfloat16>(x, fa, fc, n_per_sample, img, fb1, fb2, r, y,
-                                                 N, C, Hd, C2, t, seed, exact_gelu, s)
+                                                 N, C, Hd, C2, t, seed, exact_gelu, map, s)
                 : launch_tc<false, __nv_bfloat16>(x, fa, fc, 1, img, fb1, fb2, r, y, N, C, Hd,
-                                                  C2, t, seed, exact_gelu, s);
+                                                  C2, t, seed, exact_gelu, map, s);
 }

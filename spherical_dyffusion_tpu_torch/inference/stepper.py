@@ -25,25 +25,41 @@ the EMA tree is loaded into the experiment's forecaster and ``params_dtype``
 rounds the weights of both networks in place (see ``__init__``).
 
 ``mesh`` (``parallel/mesh.py``) splits the rows (initial conditions x
-ensemble members) over its "data" group, as the JAX stepper shards them
-over the mesh's data axis: each rank rolls out its rows with the
-generator folded with its data index, and ``run_window`` returns the rows
-gathered, so callers see the global batch; the weights are broadcast from
-the mesh's first rank. Rows that do not divide by the data size stay whole
-on every rank, as JAX leaves them replicated. JAX reaches latitude and
-longitude sharding of the window through XLA's partitioner; a mesh with
-"h", "w" or "matmul" above 1 raises here (ROADMAP Queue 1 item 7b).
+ensemble members) over its "data" group and the grid over "h" (latitudes)
+and "w" (longitudes), as the JAX stepper's ``shard_rows`` places the
+window's arrays: each rank rolls out its rows of its block, with the
+generator folded with its data index (so the ranks of one data index draw
+alike), both networks attached to the mesh for the window
+(``SFNO.set_mesh``) where "h" or "w" is above 1, and ``run_window`` returns
+the window gathered, so callers see the global batch; the weights are
+broadcast from the mesh's first rank. Rows that do not divide by the data
+size stay whole on every rank, as JAX leaves them replicated; the grid must
+divide by "h" and "w". Ranks that differ only in "matmul" hold replicas, as
+JAX shards no window array over it. The inputs noise is drawn for the whole
+grid and sliced to the block. The sampler is pointwise but for its network
+calls and its generator (``diffusion/dyffusion.py``), so it needs no change;
+the noised forecaster conditionings ("data+noise"), which draw over the
+block, raise on a split grid (ROADMAP Queue 1 item 7c).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Mapping, Optional, Tuple
 
-import numpy as np
 import torch
 
-from ..models.modules import draw_seed
-from ..parallel.mesh import AXIS_DATA, Mesh, gather_batch, replicated, shard_batch
+from ..models.modules import fold_generator, refuse_split_grid
+from ..parallel.mesh import (
+    AXIS_DATA,
+    AXIS_H,
+    AXIS_W,
+    Mesh,
+    gather,
+    replicated,
+    shard,
+    spatial_block,
+)
 from ..training.experiments import DYffusionForecastingExperiment
 from ..utils.convert import flax_to_state_dict
 from ..utils.device import to_device
@@ -93,19 +109,24 @@ class DYffusionStepper:
         ``mesh``: see the module's docstring."""
         self.exp = experiment
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
-        if self.mesh is not None:
-            model_axes = {a: n for a, n in self.mesh.shape.items() if a != AXIS_DATA and n > 1}
-            if model_axes:
-                raise NotImplementedError(
-                    f"stepper mesh {self.mesh.shape}: latitude, longitude and channel "
-                    "sharding of the window is not ported (ROADMAP Queue 1 item 7b)")
+        self._nets = ((experiment.model, experiment.interpolator.model)
+                      if self.mesh is not None else ())
+        if self.mesh is not None and self.mesh.spatial:
+            dcfg = getattr(experiment, "diffusion_cfg", None)
+            if "noise" in str(getattr(dcfg, "forward_conditioning", "")):
+                refuse_split_grid(self.mesh, "the noised forecaster conditioning")
+            for net in self._nets:  # raises here for what has no split-grid route
+                if not hasattr(net, "set_mesh"):
+                    refuse_split_grid(self.mesh, f"the {type(net).__name__} backbone")
+                net.set_mesh(self.mesh)
+                net.set_mesh(None)
         if use_ema_params:
             if ema_params is None:
                 raise ValueError("use_ema_params=True requires ema_params (the checkpoint "
                                  "has no EMA weights)")
             experiment.model.load_state_dict(_as_state_dict(ema_params))
         if self.mesh is not None:
-            for net in (experiment.model, experiment.interpolator.model):
+            for net in self._nets:
                 replicated(self.mesh, list(net.parameters()))
         if params_dtype:
             for net in (experiment.model, experiment.interpolator.model):
@@ -161,23 +182,50 @@ class DYffusionStepper:
         (B, H, W) static, or None. ``generator`` is a host-side
         ``torch.Generator`` that drives the inputs noise and the
         interpolator's dropout. Returns (final state, preds
-        (B, n_steps, H, W, C_out)); on a mesh, the rows of every rank."""
+        (B, n_steps, H, W, C_out)); on a mesh, the window of every rank
+        gathered."""
         mesh = self.mesh
-        if mesh is not None and x0_norm.shape[0] % mesh.shape[AXIS_DATA] == 0:
-            x0_norm, window_forcing_norm, window_prescribed_target_norm, mask = shard_batch(
-                mesh, [x0_norm, window_forcing_norm, window_prescribed_target_norm, mask])
-            words = [draw_seed(generator), mesh.index(AXIS_DATA)]
-            generator = torch.Generator().manual_seed(
-                int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0]))
-            x, preds = self._run_window(x0_norm, window_forcing_norm,
-                                        window_prescribed_target_norm, mask, generator,
-                                        n_steps, apply_inputs_noise)
-            return gather_batch(mesh, x), gather_batch(mesh, preds)
-        return self._run_window(x0_norm, window_forcing_norm, window_prescribed_target_norm,
-                                mask, generator, n_steps, apply_inputs_noise)
+        if mesh is None:
+            return self._run_window(x0_norm, window_forcing_norm, window_prescribed_target_norm,
+                                    mask, generator, n_steps, apply_inputs_noise)
+        rows = mesh.shape[AXIS_DATA] > 1 and x0_norm.shape[0] % mesh.shape[AXIS_DATA] == 0
+        if not rows and not mesh.spatial:
+            return self._run_window(x0_norm, window_forcing_norm, window_prescribed_target_norm,
+                                    mask, generator, n_steps, apply_inputs_noise)
+
+        def spec(x, lat):
+            """JAX's ``shard_rows(x, spatial_dims=(lat, lat + 1))``: rows over
+            "data" where they divide, latitudes and longitudes over "h"/"w"."""
+            if x is None:
+                return None
+            out = [None] * x.dim()
+            out[0] = AXIS_DATA if rows else None
+            if mesh.spatial:
+                out[lat], out[lat + 1] = AXIS_H, AXIS_W
+            return tuple(out)
+
+        specs = [spec(x0_norm, 1), spec(window_forcing_norm, 2),
+                 spec(window_prescribed_target_norm, 2),
+                 spec(mask, mask.dim() - 2) if mask is not None else None]
+        args = [shard(mesh, a, sp) if a is not None else None
+                for a, sp in zip((x0_norm, window_forcing_norm, window_prescribed_target_norm,
+                                  mask), specs)]
+        if rows:
+            generator = fold_generator(generator, mesh.index(AXIS_DATA))
+        with contextlib.ExitStack() as stack:
+            if mesh.spatial:
+                for net in self._nets:
+                    net.set_mesh(mesh)
+                    stack.callback(net.set_mesh, None)
+            x, preds = self._run_window(*args, generator, n_steps, apply_inputs_noise,
+                                        whole=tuple(x0_norm.shape[1:3]) if mesh.spatial else None)
+        return gather(mesh, x, specs[0]), gather(mesh, preds, spec(preds, 2))
 
     def _run_window(self, x0_norm, window_forcing_norm, window_prescribed_target_norm, mask,
-                    generator, n_steps, apply_inputs_noise):
+                    generator, n_steps, apply_inputs_noise, whole=None):
+        """The window on this rank's block; ``whole``: the whole grid's (H, W)
+        where the block is a part of it (the inputs noise is drawn for the
+        whole grid and sliced)."""
         H = self.horizon
         n_full, r = divmod(n_steps, H)
         n_seg = n_full + (1 if r > 0 else 0)
@@ -195,7 +243,12 @@ class DYffusionStepper:
 
         x = x0_norm
         if apply_inputs_noise and self.inputs_noise > 0.0:
-            noise = torch.randn(x.shape, generator=generator, dtype=x.dtype)
+            if whole is None:
+                noise = torch.randn(x.shape, generator=generator, dtype=x.dtype)
+            else:
+                blk = spatial_block(self.mesh, x.shape[1:3])
+                noise = torch.randn((x.shape[0],) + whole + x.shape[3:], generator=generator,
+                                    dtype=x.dtype)[:, blk.rows(), blk.cols()]
             x = x + self.inputs_noise * to_device(noise, dev)
         parts = []
         for s in range(n_seg):

@@ -98,6 +98,7 @@ from .inference.stepper import DYffusionStepper
 from .inference.writers import DataWriter, DataWriterConfig
 from .models.sfno import SFNO, SFNOConfig
 from .models.unet import UNet, UNetConfig
+from .parallel.mesh import Mesh
 from .ops.pallas_contractions import dhconv, dhconv_weight_image
 from .training.experiments import (
     DYffusionForecastingExperiment,
@@ -171,14 +172,16 @@ def build(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
           seed: int = 0, flax_params: Optional[Mapping[str, Mapping]] = None,
           enable_interpolator_dropout: bool = True, params_dtype: Optional[str] = None,
           preds_dtype: Optional[str] = None,
-          ema_params: Optional[Mapping] = None) -> DYffusionStepper:
+          ema_params: Optional[Mapping] = None, mesh: Optional[Mesh] = None) -> DYffusionStepper:
     """The window stepper of the main path.
 
     ``flax_params``: optional ``{"interpolator": ..., "forecaster": ...}``
     JAX-package variable trees; otherwise weights are drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``. ``ema_params``
     (a flax tree or a ``state_dict``) turns on ``use_ema_params``: the
-    forecaster runs its EMA weights, as the 10-year config's ``use_ema``."""
+    forecaster runs its EMA weights, as the 10-year config's ``use_ema``.
+    ``mesh``: the stepper's process mesh (``parallel/mesh.py``; rows over
+    "data", the grid over "h" and "w")."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("main path: CUDA is not available; pass device='cpu' "
@@ -197,14 +200,15 @@ def build(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
         fmodel.init_weights(gen)
     return _window_stepper(imodel, fmodel, horizon, n_state, peel, enable_interpolator_dropout,
                            params_dtype=params_dtype, preds_dtype=preds_dtype,
-                           ema_params=ema_params)
+                           ema_params=ema_params, mesh=mesh)
 
 
 def _window_stepper(imodel, fmodel, horizon: int, n_state: int, peel: bool = False,
                     enable_interpolator_dropout: bool = True, **stepper_kw) -> DYffusionStepper:
     """The main path's experiments and stepper around two networks: unit
     statistics, DYffusion at ``horizon`` (``forward_conditioning="none"``,
-    ``time_encoding="dynamics"``), the SST prescriber."""
+    ``time_encoding="dynamics"``), the SST prescriber; ``stepper_kw`` go to
+    ``DYffusionStepper`` (``mesh`` among them)."""
     names = state_names(n_state)
     unit = StandardNormalizer.from_dicts({n: 0.0 for n in names}, {n: 1.0 for n in names},
                                          names)

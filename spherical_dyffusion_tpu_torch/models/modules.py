@@ -20,6 +20,16 @@ generator there seeded from the caller's. The per-sample draws for the card
 (DropPath's keep mask here, the timesteps of the training losses) are made
 there too, from ``device_generator``: a training step copies nothing from
 the host.
+
+On a grid split over a process mesh (``SFNO.set_mesh``: each rank holds a
+block of latitudes and longitudes, ``parallel/mesh.py``) a module that
+reads ``_mesh`` computes what it computes on the whole grid: the norms sum
+their statistics over the "h" and "w" groups and slice their per-pixel
+affine to the block, the fused MLP draws each row's bits at its pixel's
+row of the whole grid, and ``QuantizedDropout`` draws the whole grid's bits
+and keeps the block's. DropPath draws one value a sample, the same on the
+ranks of one "data" index, which share a generator. Exact-rate dropout on a
+split grid raises (ROADMAP Queue 1 item 7c).
 """
 
 from __future__ import annotations
@@ -27,20 +37,33 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_mlp import fused_block_tail, fused_mlp
+from ..parallel.mesh import Mesh, all_reduce_spatial, spatial_block
 
 __all__ = ["Dense", "InstanceNorm2d", "SpatialLayerNorm", "QuantizedDropout", "MLP2d",
            "SinusoidalTimeEmbedding", "TimeEmbedMLP", "DropPath",
-           "get_activation", "draw_seed", "device_generator", "exact_dropout"]
+           "get_activation", "draw_seed", "fold_generator", "device_generator", "exact_dropout",
+           "spatial_moments", "refuse_split_grid"]
 
 
 def draw_seed(generator: torch.Generator) -> int:
     """A 63-bit dropout seed from a host-side generator (no device sync)."""
     return int(torch.randint(0, 2**63 - 1, (1,), generator=generator).item())
+
+
+def fold_generator(generator: torch.Generator, index: int) -> torch.Generator:
+    """A host generator seeded from a draw of ``generator`` and ``index``
+    through numpy's ``SeedSequence`` (JAX's ``fold_in(rng, index)``): each
+    rank's generator from its "data" index, so the ranks of one index draw
+    alike."""
+    words = [draw_seed(generator), int(index)]
+    return torch.Generator().manual_seed(
+        int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0]))
 
 
 def device_generator(generator: torch.Generator, device) -> torch.Generator:
@@ -63,6 +86,41 @@ def exact_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> t
     device_gen = device_generator(generator, x.device)
     u = torch.rand(x.shape, generator=device_gen, device=x.device)
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def refuse_split_grid(mesh: Optional[Mesh], what: str) -> None:
+    """Raise for an option that has no route over a grid split over "h" or
+    "w" (ROADMAP Queue 1 item 7c)."""
+    if mesh is not None and mesh.spatial:
+        raise NotImplementedError(
+            f"{what} on a grid split over the mesh {mesh.shape} is not ported (ROADMAP "
+            f"Queue 1 item 7c)")
+
+
+def spatial_moments(x: torch.Tensor, exact: bool, mesh: Optional[Mesh] = None):
+    """Per (sample, channel) mean and variance over (H, W) of (..., H, W, C)
+    in float32, ``keepdim``: one-pass ``max(E[x^2] - E[x]^2, 0)``, or with
+    ``exact`` the mean first and then the centred square. With a ``mesh``
+    x is this rank's block: each block's means, weighted by its share of the
+    grid, are summed over the "h" and "w" groups, so every block gets the
+    whole grid's moments (and a block that is the whole grid its own, to
+    the bit)."""
+    xf = x.float()
+
+    def means(*ts):  # each block's means weighted by its share, in one collective
+        ms = [t.mean(dim=(-3, -2), keepdim=True) for t in ts]
+        if mesh is None:
+            return ms
+        blk = spatial_block(mesh, x.shape[-3:-1])
+        share = (blk.local[0] * blk.local[1]) / (blk.shape[0] * blk.shape[1])
+        st = torch.stack(ms)
+        return list(all_reduce_spatial(st if share == 1.0 else st * share, mesh))
+
+    if exact:
+        mu, = means(xf)
+        return mu, means((xf - mu).square())[0]
+    mu, sq = means(xf, xf.square())
+    return mu, (sq - mu.square()).clamp_min(0.0)
 
 
 def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -103,7 +161,10 @@ class InstanceNorm2d(nn.Module):
 
     ``fold=True`` returns the per-(sample, channel) pair ``(A, B)`` with
     ``norm(x) == x * A + B`` (float32, shape (B, 1, 1, C)) instead of the
-    normalized tensor, for the fused block tail (K3)."""
+    normalized tensor, for the fused block tail (K3). On a split grid
+    (``_mesh``) the statistics are the whole grid's (``spatial_moments``)."""
+
+    _mesh: Optional[Mesh] = None
 
     def __init__(self, features: int, eps: float = 1e-6, exact: bool = False):
         super().__init__()
@@ -114,11 +175,7 @@ class InstanceNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor, fold: bool = False):
         xf = x.float()
-        mean = xf.mean(dim=(-3, -2), keepdim=True)
-        if self.exact:
-            var = (xf - mean).square().mean(dim=(-3, -2), keepdim=True)
-        else:
-            var = (xf.square().mean(dim=(-3, -2), keepdim=True) - mean.square()).clamp_min(0.0)
+        mean, var = spatial_moments(xf, self.exact, self._mesh)
         rstd = torch.rsqrt(var + self.eps)
         if fold:
             return rstd * self.scale, self.bias - mean * rstd * self.scale
@@ -131,7 +188,11 @@ class SpatialLayerNorm(nn.Module):
     (H, W) slice normalized jointly (float32 statistics, eps 1e-6, one-pass
     ``max(E[x^2] - E[x]^2, 0)`` unless ``exact``), then the per-pixel
     ``scale`` and ``bias`` of shape ``(h, w, 1)``, shared by the channels
-    (the JAX package's module and parameter layout)."""
+    (the JAX package's module and parameter layout). On a split grid
+    (``_mesh``) the statistics are the whole grid's and the affine is
+    sliced to the block."""
+
+    _mesh: Optional[Mesh] = None
 
     def __init__(self, spatial_shape: Tuple[int, int], eps: float = 1e-6,
                  exact: bool = False):
@@ -144,13 +205,13 @@ class SpatialLayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        mean = xf.mean(dim=(-3, -2), keepdim=True)
-        if self.exact:
-            var = (xf - mean).square().mean(dim=(-3, -2), keepdim=True)
-        else:
-            var = (xf.square().mean(dim=(-3, -2), keepdim=True) - mean.square()).clamp_min(0.0)
+        mean, var = spatial_moments(xf, self.exact, self._mesh)
         y = (xf - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.scale + self.bias).to(x.dtype)
+        scale, bias = self.scale, self.bias
+        if self._mesh is not None:
+            blk = spatial_block(self._mesh, x.shape[-3:-1])
+            scale, bias = (p[blk.rows(), blk.cols()] for p in (scale, bias))
+        return (y * scale + bias).to(x.dtype)
 
 
 class QuantizedDropout(nn.Module):
@@ -162,7 +223,12 @@ class QuantizedDropout(nn.Module):
     not a multiple of 4 or the rate rounds to keep-nothing (``rate >= 1 -
     1/512``) the module drops at the exact rate (``exact_dropout``).
     ``exact=True`` always drops at the exact rate (the config's
-    ``exact_dropout``, which the loader of reference checkpoints turns on)."""
+    ``exact_dropout``, which the loader of reference checkpoints turns on).
+    On a split grid (``_mesh``; x ``(..., Hl, Wl, C)``) the bits are drawn
+    for the whole grid and the block's kept, so every block drops what the
+    one-process run drops there; exact-rate dropout raises there."""
+
+    _mesh: Optional[Mesh] = None
 
     def __init__(self, rate: float, exact: bool = False):
         super().__init__()
@@ -174,15 +240,20 @@ class QuantizedDropout(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if deterministic or self.rate <= 0.0:
             return x
-        if self.exact:
+        if self.exact or self.t <= 0 or (self.t < 256 and x.shape[-1] % 4):
+            refuse_split_grid(self._mesh, "exact-rate dropout")
             return exact_dropout(x, self.rate, generator)
         if self.t >= 256:
             return x
-        if self.t <= 0 or x.shape[-1] % 4:
-            return exact_dropout(x, self.rate, generator)
         device_gen = device_generator(generator, x.device)
-        bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, device=x.device,
-                             generator=device_gen)
+        if self._mesh is None:
+            bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, device=x.device,
+                                 generator=device_gen)
+        else:
+            blk = spatial_block(self._mesh, x.shape[-3:-1])
+            bits = torch.randint(0, 256, x.shape[:-3] + blk.shape + x.shape[-1:],
+                                 dtype=torch.uint8, device=x.device, generator=device_gen)
+            bits = bits[..., blk.rows(), blk.cols(), :]
         return torch.where(bits < self.t, x * (256.0 / self.t),
                            torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -199,7 +270,11 @@ class MLP2d(nn.Module):
     share the parameter tree ``Dense_0``/``Dense_1``. A live dropout rate
     that rounds to keep-nothing leaves the fused form for the unfused one, as
     in the JAX package (the kernels quantize the rate), and ``exact_dropout``
-    never takes it: K2 and K3 draw quantized masks only."""
+    never takes it: K2 and K3 draw quantized masks only. On a split grid
+    (``_mesh``) the kernels draw each row's bits at its pixel's row of the
+    whole grid (``block``)."""
+
+    _mesh: Optional[Mesh] = None
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
                  activation: str = "gelu", drop_rate: float = 0.0,
@@ -224,7 +299,9 @@ class MLP2d(nn.Module):
         if self.fused and not (drop_active and self.drop.t <= 0):
             kw = dict(residual=residual, seed=draw_seed(generator) if drop_active else None,
                       drop_rate=self.drop_rate if drop_active else 0.0,
-                      exact_gelu=self.activation == "gelu_exact")
+                      exact_gelu=self.activation == "gelu_exact",
+                      block=(spatial_block(self._mesh, x.shape[-3:-1])
+                             if self._mesh is not None else None))
             params = (self.Dense_0.kernel, self.Dense_0.bias, self.Dense_1.kernel,
                       self.Dense_1.bias)
             x = x.to(self.dtype or x.dtype)

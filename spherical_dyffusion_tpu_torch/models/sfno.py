@@ -69,6 +69,23 @@ without it. It is a keyword of the port's model, not a config field,
 because ``SFNOConfig`` mirrors the JAX package's config field for field; it
 is off by default, so a config computes the JAX package's three separate
 stages unless asked.
+
+Spatial model parallelism (``SFNO.set_mesh``): with a process mesh attached
+(``parallel/mesh.py``) each rank runs the network on its block of the grid,
+latitudes over "h" and longitudes over "w" (ranks that differ only in
+"data" or "matmul" hold their own rows or replicas), as JAX's
+``jit``-with-shardings partitions the same program. The filter runs
+``distributed_sht``, the channel-sharded dense dhconv on K1's wrapper
+(``distributed_dhconv``, this rank's rows of the weight) with the
+reduce-scatter over "w", and ``distributed_isht``; the norms sum their
+statistics over the "h" and "w" groups; the position embedding and a layer
+norm's affine are sliced to the block; the fused MLP and ``QuantizedDropout``
+drop by the whole grid's bits (``models/modules.py``). The parameters stay
+whole and replicated, so attaching and detaching a mesh touches no weight,
+name or checkpoint. Under "h" or "w" above 1, everything outside the dense,
+non-separable dhconv filter on unfolded SHTs of one grid raises (ROADMAP
+Queue 1 item 7c), as does autograd: the trainer replicates its step over
+"h" and "w", as JAX's does.
 """
 
 from __future__ import annotations
@@ -97,9 +114,11 @@ from ..ops.contractions import (
 )
 from ..ops.fft import InverseRealFFT2, RealFFT2
 from ..ops.fused_rank import fused_rank as fused_rank_kernel
-from ..ops.matmul import as_dtype
+from ..ops.matmul import as_dtype, emit
 from ..ops.pallas_contractions import WeightImageCache
 from ..ops.sht import InverseRealSHT, RealSHT
+from ..parallel.distributed_sht import distributed_dhconv, distributed_isht, distributed_sht
+from ..parallel.mesh import AXIS_H, AXIS_W, Mesh, spatial_block
 from .modules import (
     Dense,
     DropPath,
@@ -109,6 +128,7 @@ from .modules import (
     SpatialLayerNorm,
     TimeEmbedMLP,
     get_activation,
+    refuse_split_grid,
 )
 
 __all__ = ["SFNOConfig", "SFNO", "FNOBlock", "SpectralConvS2", "SpectralAttentionS2"]
@@ -284,7 +304,13 @@ class SpectralConvS2(nn.Module):
     only there, and in the rank pipeline, does ``io_dtype`` round the
     spectral stages. ``fused_rank`` runs the CP rank pipeline's spectral
     middle as the K4 kernel (unfolded matmul SHTs only).
+
+    With a mesh (``_mesh``) the input is this rank's block and the dense
+    dhconv runs over it (``_distributed``); ``split_grid_refusal`` names
+    what has no such route.
     """
+
+    _mesh: Optional[Mesh] = None
 
     def __init__(self, forward_transform, inverse_transform,
                  in_channels: int, out_channels: int, use_pallas: bool = False,
@@ -320,6 +346,7 @@ class SpectralConvS2(nn.Module):
             and not separable
         self._k1_image = WeightImageCache() if k1 else None
         self._k1_image_t = WeightImageCache(conj_t=True) if k1 else None
+        self._k1_shard_image: Optional[WeightImageCache] = None  # of the weight's rows
         self.bias = nn.Parameter(torch.zeros(out_channels))
         self.scale_residual = (fwd.nlat, fwd.nlon, fwd.grid) != (inv.nlat, inv.nlon, inv.grid)
         shts = isinstance(fwd, RealSHT) and isinstance(inv, InverseRealSHT)
@@ -351,6 +378,48 @@ class SpectralConvS2(nn.Module):
                                                                inv.synthesis_l_first),
                                  persistent=False)
 
+    def split_grid_refusal(self) -> Optional[str]:
+        """What of this filter has no route over a split grid, or None."""
+        fwd, inv = self._transforms
+        if self.factorization:
+            return f"the {self.factorization} factorized filter"
+        if self.operator_type != "dhconv" or self.separable:
+            return f"the {'separable ' if self.separable else ''}{self.operator_type} filter"
+        if not (isinstance(fwd, RealSHT) and isinstance(inv, InverseRealSHT)):
+            return "the planar FFT transform"
+        if fwd.folded or inv.folded:
+            return "the folded Legendre stage (sht_fold_symmetry)"
+        if not self.use_pallas and (self.matmul_dtype != torch.float32 or self.io_dtype
+                                    is not None or self.merged):
+            return "the XLA-form dense dhconv off K1 with bf16 operands or spectral IO"
+        return None
+
+    def _distributed(self, x: torch.Tensor):
+        """The forward on this rank's block: ``distributed_sht``, K1 on the
+        channel shard against this rank's rows of the weight (its image made
+        once per weight version, ``WeightImageCache``), the reduce-scatter,
+        ``distributed_isht``; the residual regridded likewise."""
+        fwd, inv = self._transforms
+        mesh, io, dtype = self._mesh, self.io_dtype, x.dtype
+        residual = x
+        xs = distributed_sht(x.float(), fwd, mesh, out_dtype=io)
+        if self.scale_residual:
+            residual = distributed_isht(xs, inv, mesh).to(dtype)
+        nw = mesh.shape[AXIS_W]
+        k = self.weight.shape[0] // nw
+        w = self.weight.narrow(0, mesh.index(AXIS_W) * k, k) if nw > 1 else self.weight
+        image = None
+        if w.is_cuda:  # the whole weight's image where "w" is 1, else its rows'
+            if nw == 1 and self._k1_image is not None:
+                image = self._k1_image(w)
+            else:
+                if self._k1_shard_image is None:
+                    self._k1_shard_image = WeightImageCache()
+                image = self._k1_shard_image(w)
+        ys = emit(distributed_dhconv(xs, w, mesh, image=image), io)
+        out = distributed_isht(ys, inv, mesh, out_dtype=io) + self.bias
+        return out.to(dtype), residual
+
     def _factors(self) -> dict:
         """The factorization's factors by their short names ("A", "core",
         "G1", ...)."""
@@ -377,6 +446,8 @@ class SpectralConvS2(nn.Module):
         return cp_spatial_expand(g, f["B"], md, out_dtype=io)
 
     def forward(self, x: torch.Tensor):
+        if self._mesh is not None and self.split_grid_refusal() is None:
+            return self._distributed(x)
         fwd, inv = self._transforms
         dtype = x.dtype
         residual = x
@@ -598,10 +669,13 @@ class SFNO(nn.Module):
     """The SFNO backbone: ``(inputs, time, condition, static_condition) ->
     outputs``, all (B, H, W, C), output float32."""
 
+    _mesh: Optional[Mesh] = None
+
     def __init__(self, cfg: SFNOConfig, fused_rank: bool = False):
         super().__init__()
         cfg = cfg.resolved()
         self.cfg = cfg
+        self.fused_rank = fused_rank
         compute = cfg.torch_compute_dtype
         C = cfg.embed_dim
         H, W = cfg.img_shape
@@ -638,6 +712,38 @@ class SFNO(nn.Module):
             self.add_module(f"decoder_{i}", Dense(width, C, dtype=compute))
             width = C
         self.decoder_out = Dense(width, cfg.out_chans, use_bias=False, dtype=compute)
+
+    def set_mesh(self, mesh: Optional[Mesh]) -> None:
+        """Attach a process mesh (``parallel/mesh.py``; None detaches it):
+        from then on ``forward`` takes this rank's block of the grid,
+        latitudes over "h" and longitudes over "w", and returns its block of
+        the output. Parameters, their names and shapes are left as they are.
+        Under "h" or "w" above 1 every option without a split-grid route
+        raises here (ROADMAP Queue 1 item 7c); with both at 1 the block is
+        the whole grid and every option runs, its collectives over groups of
+        one."""
+        if mesh is not None and mesh.spatial:
+            cfg = self.cfg
+            for what, off in (
+                    ("the non-linear filter (SpectralAttentionS2)", cfg.filter_type != "linear"),
+                    ("img_shape != model_shape (scale_factor)", cfg.scale_factor != 1),
+                    ("exact_dropout", cfg.exact_dropout),
+                    ("the folded Legendre stage (sht_fold_symmetry)", cfg.sht_fold_symmetry),
+                    ("fused_rank (K4)", self.fused_rank)):
+                if off:
+                    refuse_split_grid(mesh, what)
+            for block in self.blocks:
+                why = block.filter.split_grid_refusal()
+                if why is not None:
+                    refuse_split_grid(mesh, why)
+            H, W = cfg.img_shape
+            nh, nw = mesh.shape[AXIS_H], mesh.shape[AXIS_W]
+            if H % nh or W % nw or cfg.embed_dim % nw:
+                raise ValueError(f"SFNO on the mesh {mesh.shape}: {H} latitudes, {W} longitudes "
+                                 f"and {cfg.embed_dim} channels must split over h={nh}, w={nw}")
+        for m in self.modules():
+            if hasattr(type(m), "_mesh"):
+                m._mesh = mesh
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -677,6 +783,12 @@ class SFNO(nn.Module):
         cfg = self.cfg
         act = get_activation(cfg.activation_function)
         compute = cfg.torch_compute_dtype
+        mesh = self._mesh
+        if mesh is not None and mesh.spatial and torch.is_grad_enabled() and any(
+                p.requires_grad for p in self.parameters()):
+            raise NotImplementedError(
+                "SFNO on a split grid computes forwards only (the trainer replicates its step "
+                "over 'h' and 'w'); run it under torch.no_grad() or inference")
         conds = [c for c in (condition, static_condition) if c is not None]
         x = torch.cat([inputs] + conds, dim=-1) if conds else inputs
         x = x.to(compute)
@@ -685,7 +797,11 @@ class SFNO(nn.Module):
             x = act(getattr(self, f"encoder_{i}")(x))
         x = self.encoder_out(x)
         if cfg.pos_embed:
-            x = x + self.pos_embed
+            pos = self.pos_embed
+            if mesh is not None:
+                blk = spatial_block(mesh, x.shape[-3:-1])
+                pos = pos[:, blk.rows(), blk.cols()]
+            x = x + pos
             x = self.pos_drop(x, deterministic, generator)
         t_repr = None
         if cfg.with_time_emb:

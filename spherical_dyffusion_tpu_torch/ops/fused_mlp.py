@@ -34,6 +34,13 @@ bytes, so the plain versions and the kernels drop the same elements, and K3
 with ``A = 1, C = 0`` drops what K2 drops. The TPU's hardware PRNG cannot be
 reproduced, so the port and the JAX package agree on the distribution of the
 mask, not on its bits.
+
+On a block of a grid split over a mesh (``block``, ``parallel/mesh.py``:
+x is ``(B, Hl, Wl, C)`` at origin ``(h0, w0)`` of an ``(H, W)`` grid) a row
+takes the bits of its pixel's row on the whole grid (``global_rows``):
+local row ``b*Hl*Wl + i*Wl + j`` draws as row ``b*H*W + (h0+i)*W + (w0+j)``,
+so the blocks of a sharded run drop exactly the elements of the one-process
+run. On the whole grid that map is the identity, and the bits are the same.
 """
 
 from __future__ import annotations
@@ -44,10 +51,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import Block
 from . import _cuda
 
 __all__ = ["fused_mlp", "fused_mlp_plain", "fused_block_tail", "fused_block_tail_plain",
-           "philox4x32", "philox_layout", "philox_bits", "quantized_dropout",
+           "philox4x32", "philox_layout", "philox_bits", "global_rows", "quantized_dropout",
            "keep_threshold", "weight_image", "weight_image_plain", "refuse_grad"]
 
 _MASK32 = 0xFFFFFFFF
@@ -82,7 +90,36 @@ def philox4x32(counter, key):
     return c0, c1, c2, c3
 
 
-def philox_layout(rows: int, cols: int, device=None):
+def global_rows(rows: int, block: Optional[Block] = None, device=None) -> torch.Tensor:
+    """The row whose dropout bits each of ``rows`` local rows takes, int64:
+    the row itself, or on a ``block`` (rows the flattened ``(B, Hl, Wl)``
+    leading axes of x) the row of the same pixel on the whole grid,
+    ``b*H*W + (h0+i)*W + (w0+j)``."""
+    r = torch.arange(rows, device=device, dtype=torch.int64)
+    if block is None or block.whole:
+        return r
+    (Hl, Wl), (H, W) = block.local, block.shape
+    b, rem = r // (Hl * Wl), r % (Hl * Wl)
+    return b * (H * W) + (block.h0 + rem // Wl) * W + block.w0 + rem % Wl
+
+
+def _map_args(block: Optional[Block]) -> list:
+    """The kernels' row map (csrc/fused_mlp.cu, ``RowMap``): local rows per
+    sample, local and global row width, global rows per sample and the
+    origin's offset; all 0 for the identity."""
+    if block is None or block.whole:
+        return [0, 0, 0, 0, 0]
+    (Hl, Wl), (H, W) = block.local, block.shape
+    return [Hl * Wl, Wl, W, H * W, block.h0 * W + block.w0]
+
+
+def _check_block(name: str, x: torch.Tensor, block: Optional[Block]) -> None:
+    if block is not None and tuple(x.shape[-3:-1]) != tuple(block.local):
+        raise ValueError(f"{name}: x {tuple(x.shape)} is not a (..., {block.local[0]}, "
+                         f"{block.local[1]}, C) block")
+
+
+def philox_layout(rows: int, cols: int, device=None, row_index: Optional[torch.Tensor] = None):
     """Where each element of a ``(rows, cols)`` grid takes its dropout byte:
     int64 tensors ``(c0, c1, byte)`` broadcastable to ``(rows, cols)``.
     Element (r, c) takes byte ``b = 4*((c % 32)//8) + 2*(c % 2) + (r % 16)//8``
@@ -91,8 +128,10 @@ def philox_layout(rows: int, cols: int, device=None):
     ``c0 = (c // 32)*4 + (c % 8)//2`` and ``c1 = (r // 16)*8 + r % 8``. In each
     16-row by 32-column block the 16 elements of one counter are those that
     one thread holds in its ``wgmma`` accumulator fragment, so one call serves
-    16 elements, and no byte serves two."""
-    row = torch.arange(rows, device=device, dtype=torch.int64)[:, None]
+    16 elements, and no byte serves two. ``row_index`` (int64, ``(rows,)``)
+    gives each row the r it draws as (``global_rows``)."""
+    row = (row_index if row_index is not None
+           else torch.arange(rows, device=device, dtype=torch.int64))[:, None]
     col = torch.arange(cols, device=device, dtype=torch.int64)[None, :]
     c0 = (col // 32) * 4 + (col % 8) // 2
     c1 = (row // 16) * 8 + row % 8
@@ -100,22 +139,24 @@ def philox_layout(rows: int, cols: int, device=None):
     return c0, c1, byte
 
 
-def philox_bits(seed: int, rows: int, cols: int, stream: int,
-                device=None) -> torch.Tensor:
+def philox_bits(seed: int, rows: int, cols: int, stream: int, device=None,
+                block: Optional[Block] = None) -> torch.Tensor:
     """The dropout byte of every (row, col) of a ``(rows, cols)`` grid, as
-    int64 in [0, 256): the byte that ``philox_layout`` assigns it, of
-    Philox4x32-10 keyed by ``(seed & 0xffffffff, seed >> 32)`` at counter
-    ``(c0, c1, stream, 0)``. The CUDA kernels compute the same bytes
-    (``philox4`` and the epilogues in ``csrc/fused_mlp.cu``). Each counter is
-    evaluated once and its four words gathered."""
-    c0, c1, byte = philox_layout(rows, cols, device)
-    n1, n0 = -(-rows // 16) * 8, -(-cols // 32) * 4
-    g0 = torch.arange(n0, device=device, dtype=torch.int64).expand(n1, n0)
-    g1 = torch.arange(n1, device=device, dtype=torch.int64)[:, None].expand(n1, n0)
-    zero = torch.zeros((n1, n0), device=device, dtype=torch.int64)
+    int64 in [0, 256): the byte that ``philox_layout`` assigns it (at its
+    ``global_rows`` row on a ``block``), of Philox4x32-10 keyed by
+    ``(seed & 0xffffffff, seed >> 32)`` at counter ``(c0, c1, stream, 0)``.
+    The CUDA kernels compute the same bytes (``philox4`` and the epilogues in
+    ``csrc/fused_mlp.cu``). Each counter is evaluated once and its four words
+    gathered."""
+    c0, c1, byte = philox_layout(rows, cols, device, global_rows(rows, block, device))
+    c1u, c1i = torch.unique(c1[:, 0], return_inverse=True)
+    n0 = -(-cols // 32) * 4
+    g0 = torch.arange(n0, device=device, dtype=torch.int64).expand(len(c1u), n0)
+    g1 = c1u[:, None].expand(len(c1u), n0)
+    zero = torch.zeros_like(g0)
     words = torch.stack(philox4x32((g0, g1, zero + stream, zero),
                                    (seed & _MASK32, (seed >> 32) & _MASK32)))
-    return (words[byte // 4, c1, c0] >> (8 * (byte % 4))) & 255
+    return (words[byte // 4, c1i[:, None], c0] >> (8 * (byte % 4))) & 255
 
 
 def keep_threshold(drop_rate: float) -> int:
@@ -129,14 +170,18 @@ def keep_threshold(drop_rate: float) -> int:
     return 0 if t >= 256 else t
 
 
-def quantized_dropout(x: torch.Tensor, t: int, seed: int, stream: int = 0) -> torch.Tensor:
+def quantized_dropout(x: torch.Tensor, t: int, seed: int, stream: int = 0,
+                      block: Optional[Block] = None) -> torch.Tensor:
     """Quantized dropout over ``x`` viewed as rows of its last axis, with the
-    bytes of ``philox_bits``; returns x unchanged for ``t == 0``. These are
-    the kernels' bytes, for any width, reproduced by their plain versions."""
+    bytes of ``philox_bits`` (on a ``block``: x ``(..., Hl, Wl, C)``, each
+    row at its pixel's row of the whole grid); returns x unchanged for
+    ``t == 0``. These are the kernels' bytes, for any width, reproduced by
+    their plain versions."""
     if t == 0:
         return x
+    _check_block("quantized_dropout", x, block)
     cols = x.shape[-1]
-    bits = philox_bits(seed, x.numel() // cols, cols, stream, x.device)
+    bits = philox_bits(seed, x.numel() // cols, cols, stream, x.device, block)
     keep = bits.lt(t).reshape(x.shape)
     return torch.where(keep, x * (256.0 / t), torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -155,17 +200,19 @@ def _dropout_args(name: str, drop_rate: float, seed: Optional[int]):
 def fused_mlp_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                     b2: torch.Tensor, residual: Optional[torch.Tensor] = None,
                     seed: Optional[int] = None, *, drop_rate: float = 0.0,
-                    exact_gelu: bool = False) -> torch.Tensor:
+                    exact_gelu: bool = False, block: Optional[Block] = None) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch, with ``fused_mlp``'s
     signature: float32 accumulation, the hidden tensor rounded to x's dtype,
-    the same Philox dropout bits (rows are x's leading axes flattened)."""
+    the same Philox dropout bits (rows are x's leading axes flattened; on a
+    ``block``, their pixels' rows of the whole grid)."""
     t, seed = _dropout_args("fused_mlp", drop_rate, seed)
+    _check_block("fused_mlp", x, block)
     out_dtype = torch.promote_types(x.dtype, residual.dtype) if residual is not None else x.dtype
     h = x.float() @ w1.to(x.dtype).float() + b1.float()
-    h = quantized_dropout(_gelu(h, exact_gelu), t, seed, stream=0)
+    h = quantized_dropout(_gelu(h, exact_gelu), t, seed, stream=0, block=block)
     h = h.to(x.dtype).float()
     y = h @ w2.to(x.dtype).float() + b2.float()
-    y = quantized_dropout(y, t, seed, stream=1)
+    y = quantized_dropout(y, t, seed, stream=1, block=block)
     if residual is not None:
         y = y + residual.float()
     return y.to(out_dtype)
@@ -184,7 +231,8 @@ def fused_block_tail_plain(x: torch.Tensor, affine_a: torch.Tensor, affine_c: to
                            w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                            b2: torch.Tensor, residual: Optional[torch.Tensor] = None,
                            seed: Optional[int] = None, *, drop_rate: float = 0.0,
-                           exact_gelu: bool = False) -> torch.Tensor:
+                           exact_gelu: bool = False,
+                           block: Optional[Block] = None) -> torch.Tensor:
     """K3's arithmetic in plain PyTorch, with ``fused_block_tail``'s
     signature: ``x * A[b] + C[b]`` in float32 rounded to x's dtype, then
     ``fused_mlp_plain`` over the flattened rows (so the dropout rows are
@@ -195,7 +243,7 @@ def fused_block_tail_plain(x: torch.Tensor, affine_a: torch.Tensor, affine_c: to
     c = _fold_rows("fused_block_tail", x, affine_c)[:, None, :]
     xn = (x.reshape(B, -1, C).float() * a + c).to(x.dtype).reshape(x.shape)
     return fused_mlp_plain(xn, w1, b1, w2, b2, residual, seed, drop_rate=drop_rate,
-                           exact_gelu=exact_gelu)
+                           exact_gelu=exact_gelu, block=block)
 
 
 _CHUNK = 64  # hidden units per chunk of the bf16 kernel
@@ -279,7 +327,7 @@ def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 def _launch(name: str, x: torch.Tensor, affine, w1, b1, w2, b2, residual, seed,
-            drop_rate: float, exact_gelu: bool) -> torch.Tensor:
+            drop_rate: float, exact_gelu: bool, block: Optional[Block]) -> torch.Tensor:
     """Checks and launch of K2 (``affine`` None) or K3 (``affine`` the
     float32 (B, C) pair) on CUDA tensors: the bf16 tensor-core kernel for
     bf16 x, the float32 kernel for float32 x; raises on what the kernels do
@@ -287,6 +335,7 @@ def _launch(name: str, x: torch.Tensor, affine, w1, b1, w2, b2, residual, seed,
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     t, seed = _dropout_args(name, drop_rate, seed)
+    _check_block(name, x, block)
     C = x.shape[-1]
     lead = x.shape[:-1]
     Hd, C2 = w1.shape[-1], w2.shape[-1]
@@ -323,7 +372,7 @@ def _launch(name: str, x: torch.Tensor, affine, w1, b1, w2, b2, residual, seed,
         code = lib.sdt_fused_mlp_tc(
             x2.data_ptr(), ptr(a), ptr(c), nps, img.data_ptr(), b1.data_ptr(), b2.data_ptr(),
             ptr(res2), y2.data_ptr(), N, C, Hd, C2, res_code, t, seed, int(exact_gelu),
-            _cuda.stream_ptr(x.device))
+            *_map_args(block), _cuda.stream_ptr(x.device))
     else:
         x2, w1, w2 = x2.contiguous(), w1.to(x.dtype).contiguous(), w2.to(x.dtype).contiguous()
         res2 = res2.contiguous() if res2 is not None else None
@@ -331,7 +380,7 @@ def _launch(name: str, x: torch.Tensor, affine, w1, b1, w2, b2, residual, seed,
         args += [w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ptr(res2),
                  y2.data_ptr(), N] + ([nps] if affine is not None else [])
         args += [C, Hd, C2, _DTYPE_CODES[x.dtype], res_code, t, seed, int(exact_gelu),
-                 _cuda.stream_ptr(x.device)]
+                 *_map_args(block), _cuda.stream_ptr(x.device)]
         entry = lib.sdt_fused_block_tail if affine is not None else lib.sdt_fused_mlp
         code = entry(*args)
     _cuda.check(code, name)
@@ -351,19 +400,23 @@ def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
               b2: torch.Tensor, residual: Optional[torch.Tensor] = None,
               seed: Optional[int] = None, *, drop_rate: float = 0.0,
-              exact_gelu: bool = False) -> torch.Tensor:
+              exact_gelu: bool = False, block: Optional[Block] = None) -> torch.Tensor:
     """Fused pointwise MLP over the trailing channel axis.
 
     x ``(..., C)``; w1 ``(C, H)``; w2 ``(H, C2)`` (cast to x's dtype, as in
     the JAX wrapper); b1, b2 float32; residual optional ``(..., C2)`` added
     after the output dropout. ``seed`` (a Python int) is required when
-    ``drop_rate > 0``. Returns ``(..., C2)`` in ``promote(x, residual)``.
-    Forward only: raises under autograd (``refuse_grad``)."""
+    ``drop_rate > 0``. ``block``: x is ``(B, Hl, Wl, C)``, this rank's block
+    of a grid split over a mesh, whose rows draw the dropout bits of their
+    pixels' rows on the whole grid. Returns ``(..., C2)`` in
+    ``promote(x, residual)``. Forward only: raises under autograd
+    (``refuse_grad``)."""
     refuse_grad("fused_mlp", x, w1, b1, w2, b2, residual)
     if x.device.type == "cpu":
         return fused_mlp_plain(x, w1, b1, w2, b2, residual, seed, drop_rate=drop_rate,
-                               exact_gelu=exact_gelu)
-    y = _launch("fused_mlp", x, None, w1, b1, w2, b2, residual, seed, drop_rate, exact_gelu)
+                               exact_gelu=exact_gelu, block=block)
+    y = _launch("fused_mlp", x, None, w1, b1, w2, b2, residual, seed, drop_rate, exact_gelu,
+                block)
     fused_mlp.launches += 1
     return y
 
@@ -374,22 +427,23 @@ fused_mlp.launches = 0
 def fused_block_tail(x: torch.Tensor, affine_a: torch.Tensor, affine_c: torch.Tensor,
                      w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                      residual: Optional[torch.Tensor] = None, seed: Optional[int] = None, *,
-                     drop_rate: float = 0.0, exact_gelu: bool = False) -> torch.Tensor:
+                     drop_rate: float = 0.0, exact_gelu: bool = False,
+                     block: Optional[Block] = None) -> torch.Tensor:
     """Fused norm-apply, time scale-shift, MLP and outer skip.
 
     x ``(B, ..., C)``: the PRE-norm activations, in the compute dtype;
     ``affine_a``/``affine_c``: float32 per-(sample, channel) fold,
-    broadcastable as ``(B, 1, ..., 1, C)``; the rest as ``fused_mlp``.
-    Returns ``(B, ..., C2)`` in ``promote(x, residual)``. Forward only:
-    raises under autograd (``refuse_grad``)."""
+    broadcastable as ``(B, 1, ..., 1, C)``; the rest, ``block`` too, as
+    ``fused_mlp``. Returns ``(B, ..., C2)`` in ``promote(x, residual)``.
+    Forward only: raises under autograd (``refuse_grad``)."""
     refuse_grad("fused_block_tail", x, affine_a, affine_c, w1, b1, w2, b2, residual)
     if x.device.type == "cpu":
         return fused_block_tail_plain(x, affine_a, affine_c, w1, b1, w2, b2, residual, seed,
-                                      drop_rate=drop_rate, exact_gelu=exact_gelu)
+                                      drop_rate=drop_rate, exact_gelu=exact_gelu, block=block)
     affine = (_fold_rows("fused_block_tail", x, affine_a),
               _fold_rows("fused_block_tail", x, affine_c))
     y = _launch("fused_block_tail", x, affine, w1, b1, w2, b2, residual, seed, drop_rate,
-                exact_gelu)
+                exact_gelu, block)
     fused_block_tail.launches += 1
     return y
 

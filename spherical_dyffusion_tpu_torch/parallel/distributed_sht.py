@@ -16,9 +16,13 @@ collectives over the mesh's process groups:
   takes.
 
 The inverse runs the adjoint. Spectral tensors use the port's stacked real
-layout ``(B, L, M, C, 2)`` (``ops/sht.py``); the longitude stage is the
-transform's own (its DFT matrix or FFT), the latitude stage its unfolded
-Legendre matrix. A collective runs over an axis wherever the mesh has a
+layout ``(B, L, M, C, 2)`` (``ops/sht.py``), contiguous, the layout K1
+reads; the longitude stage is the transform's own (its DFT matrix or FFT),
+the latitude stage its unfolded Legendre matrix, and ``out_dtype`` rounds
+each stage's output where the transform's own ``out_dtype`` does (after the
+latitude sum over "h"). The contraction is K1's wrapper
+(``ops/pallas_contractions.py:dhconv``): the kernel on the card, its plain
+version on the CPU. A collective runs over an axis wherever the mesh has a
 group for it, so on a world of one (an NCCL group of one rank) each runs
 with one rank; without a process group the functions are the single-device
 transforms. Latitudes, longitudes and channels must divide by their axis
@@ -27,11 +31,13 @@ sizes.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.distributed as dist
 
-from ..ops.contractions import contract_dhconv
-from ..ops.matmul import einsum
+from ..ops.matmul import einsum, emit
+from ..ops.pallas_contractions import dhconv
 from ..ops.sht import InverseRealSHT, RealSHT
 from .mesh import AXIS_H, AXIS_W, Mesh
 
@@ -58,50 +64,57 @@ def _rows(mesh: Mesh, n_lat: int) -> slice:
     return slice(i * k, (i + 1) * k)
 
 
-def distributed_sht(x: torch.Tensor, sht: RealSHT, mesh: Mesh) -> torch.Tensor:
+def distributed_sht(x: torch.Tensor, sht: RealSHT, mesh: Mesh,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """This rank's grid block ``(B, H/nh, W/nw, C)`` -> its spectral block
     ``(B, L, M, C/nw, 2)``: JAX's input ``P(None, 'h', 'w', None)`` and
-    output ``P(None, None, None, 'w')``."""
+    output ``P(None, None, None, 'w')``; ``out_dtype`` as ``sht``'s."""
     nw = mesh.shape[AXIS_W]
     gw, gh = mesh.groups[AXIS_W], mesh.groups[AXIS_H]
     if x.shape[-1] % nw:
         raise ValueError(f"{x.shape[-1]} channels do not split over {nw} 'w' ranks")
     if gw is not None:  # the longitude shard for a channel shard
         x = _all_to_all(x, gw, nw, split=3, concat=2)
-    xf = sht.longitude(x)  # (B, H/nh, M, C/nw, 2)
+    xf = sht.longitude(x, out_dtype)  # (B, H/nh, M, C/nw, 2)
     rows = _rows(mesh, sht.nlat)
     part = einsum("...hmcr,hlm->...lmcr", xf, sht.analysis[rows], sht.matmul_dtype)
     part = part.contiguous()
     if gh is not None:  # the latitude sum over the latitude shards
         dist.all_reduce(part, group=gh)
-    return part
+    return emit(part, out_dtype)
 
 
-def distributed_isht(xs: torch.Tensor, isht: InverseRealSHT, mesh: Mesh) -> torch.Tensor:
+def distributed_isht(xs: torch.Tensor, isht: InverseRealSHT, mesh: Mesh,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """This rank's spectral block ``(B, L, M, C/nw, 2)`` -> its grid block
-    ``(B, H/nh, W/nw, C)``, the adjoint of ``distributed_sht``."""
+    ``(B, H/nh, W/nw, C)``, the adjoint of ``distributed_sht``;
+    ``out_dtype`` as ``isht``'s."""
     nw = mesh.shape[AXIS_W]
     gw = mesh.groups[AXIS_W]
     rows = _rows(mesh, isht.nlat)
     y = einsum("...lmcr,hlm->...hmcr", xs, isht.synthesis[rows], isht.matmul_dtype)
-    out = isht.longitude(y)  # (B, H/nh, W, C/nw)
+    if isht._emits:
+        y = emit(y, out_dtype)
+    out = isht.longitude(y, out_dtype)  # (B, H/nh, W, C/nw)
     if gw is not None:  # the channel shard back to a longitude shard
         out = _all_to_all(out, gw, nw, split=2, concat=3)
     return out
 
 
 def distributed_dhconv(xs: torch.Tensor, w: torch.Tensor, mesh: Mesh,
-                       scatter_output: bool = True) -> torch.Tensor:
+                       scatter_output: bool = True,
+                       image: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The channel-sharded Driscoll-Healy contraction: this rank's spectral
     block ``(B, L, M, CI/nw, 2)`` and its rows of the weight ``(CI/nw, CO, L,
-    2)`` give the partial ``(B, L, M, CO, 2)``, summed over "w". With
-    ``scatter_output`` (JAX's default) the sum is a ``reduce_scatter`` over
-    the output channels, leaving this rank ``(B, L, M, CO/nw, 2)``, the
-    layout ``distributed_isht`` takes; else an ``all_reduce`` leaves every
-    rank the whole output."""
+    2)`` give the partial ``(B, L, M, CO, 2)`` on K1 (``image``: those rows'
+    K1 weight image, made once by the caller; the wrapper makes one where it
+    is None), summed over "w". With ``scatter_output`` (JAX's default) the
+    sum is a ``reduce_scatter`` over the output channels, leaving this rank
+    ``(B, L, M, CO/nw, 2)``, the layout ``distributed_isht`` takes; else an
+    ``all_reduce`` leaves every rank the whole output."""
     nw = mesh.shape[AXIS_W]
     gw = mesh.groups[AXIS_W]
-    y = contract_dhconv(xs, w).contiguous()
+    y = dhconv(xs.float().contiguous(), w.float(), image)
     if gw is None:
         return y
     if not scatter_output:

@@ -21,14 +21,15 @@ run and the layout checks use it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "make_mesh", "data_mesh", "batch_sharding", "shard_batch", "gather_batch",
-           "replicated", "AXIS_DATA", "AXIS_H", "AXIS_W", "AXIS_MATMUL", "AXES"]
+__all__ = ["Mesh", "Block", "make_mesh", "data_mesh", "batch_sharding", "shard", "gather",
+           "shard_batch", "gather_batch", "spatial_block", "all_reduce_spatial", "replicated",
+           "AXIS_DATA", "AXIS_H", "AXIS_W", "AXIS_MATMUL", "AXES"]
 
 AXIS_DATA = "data"
 AXIS_H = "h"
@@ -64,6 +65,11 @@ class Mesh:
         if not len(where):
             raise ValueError(f"rank {self.rank} is not in the mesh {self.ranks.ravel().tolist()}")
         return int(where[0][AXES.index(axis)])
+
+    @property
+    def spatial(self) -> bool:
+        """Whether the grid is split: "h" or "w" above 1."""
+        return self.shape[AXIS_H] * self.shape[AXIS_W] > 1
 
     def fiber(self, axis: str) -> list:
         """The global ranks of this rank's fiber along ``axis``, in order."""
@@ -127,14 +133,19 @@ def data_mesh(data: int) -> Mesh:
     return _build(np.arange(world).reshape(world // data, data, 1, 1, 1))
 
 
-def batch_sharding(mesh: Mesh, ndim: int) -> tuple:
-    """The partition of a (B, ...) batch: B over "data" (JAX's
-    ``PartitionSpec`` entries). Latitudes and longitudes over "h" and "w"
-    wait for spatial model parallelism (ROADMAP Queue 1 item 7b)."""
-    return (AXIS_DATA,) + (None,) * (ndim - 1)
+def batch_sharding(mesh: Mesh, ndim: int, spatial: bool = False) -> tuple:
+    """The partition of a (B, ..., H, W, C) batch, as JAX's ``PartitionSpec``
+    entries: B over "data" and, with ``spatial`` (and ``ndim >= 3``), the
+    latitudes (dim -3) over "h" and the longitudes (dim -2) over "w"."""
+    spec = [AXIS_DATA] + [None] * (ndim - 1)
+    if spatial and ndim >= 3:
+        spec[-3], spec[-2] = AXIS_H, AXIS_W
+    return tuple(spec)
 
 
-def _block(mesh: Mesh, x: torch.Tensor, spec: tuple) -> torch.Tensor:
+def shard(mesh: Mesh, x: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec`` (one mesh axis or None per
+    dim): each named dim narrowed to this rank's part along its axis."""
     for dim, axis in enumerate(spec):
         if axis is None or mesh.shape[axis] == 1:
             continue
@@ -147,30 +158,91 @@ def _block(mesh: Mesh, x: torch.Tensor, spec: tuple) -> torch.Tensor:
     return x
 
 
-def shard_batch(mesh: Mesh, batch):
+def gather(mesh: Mesh, x: Optional[torch.Tensor], spec: tuple) -> Optional[torch.Tensor]:
+    """The inverse of ``shard``: this rank's block gathered over the groups
+    of the axes that ``spec`` names, "w" first, then "h", then "data", into
+    the global tensor on every rank of those groups."""
+    if x is None:
+        return x
+    for axis in (AXIS_W, AXIS_H, AXIS_DATA):
+        if axis not in spec or mesh.shape[axis] == 1 or mesh.groups[axis] is None:
+            continue
+        dim = spec.index(axis)
+        n = mesh.shape[axis]
+        part = x.movedim(dim, 0).contiguous()
+        out = torch.empty((n * part.shape[0],) + tuple(part.shape[1:]), dtype=part.dtype,
+                          device=part.device)
+        dist.all_gather_into_tensor(out, part, group=mesh.groups[axis])
+        x = out.movedim(0, dim)
+    return x
+
+
+def shard_batch(mesh: Mesh, batch, spatial: bool = False):
     """This rank's block of a batch (a tensor, or a dict or list of them;
-    None passes): its rows over "data". On a mesh of one rank the batch
-    itself."""
+    None passes) under ``batch_sharding``: its rows over "data" and, with
+    ``spatial``, its latitudes and longitudes over "h" and "w". On a mesh of
+    one rank the batch itself."""
     if batch is None or mesh.size == 1:
         return batch
     if isinstance(batch, dict):
-        return {k: shard_batch(mesh, v) for k, v in batch.items()}
+        return {k: shard_batch(mesh, v, spatial) for k, v in batch.items()}
     if isinstance(batch, (list, tuple)):
-        return type(batch)(shard_batch(mesh, v) for v in batch)
-    return _block(mesh, batch, batch_sharding(mesh, batch.dim()))
+        return type(batch)(shard_batch(mesh, v, spatial) for v in batch)
+    return shard(mesh, batch, batch_sharding(mesh, batch.dim(), spatial))
 
 
-def gather_batch(mesh: Mesh, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """The inverse of ``shard_batch`` over the rows: this rank's rows
-    gathered over the "data" group into the global batch."""
-    group = mesh.groups[AXIS_DATA]
-    if x is None or mesh.shape[AXIS_DATA] == 1 or group is None:
+def gather_batch(mesh: Mesh, x: Optional[torch.Tensor],
+                 spatial: bool = False) -> Optional[torch.Tensor]:
+    """The inverse of ``shard_batch``: this rank's block gathered over "w",
+    then "h" (with ``spatial``), then "data" into the global batch."""
+    if x is None or mesh.size == 1:
         return x
-    x = x.contiguous()
-    out = torch.empty((mesh.shape[AXIS_DATA] * x.shape[0],) + tuple(x.shape[1:]),
-                      dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x, group=group)
-    return out
+    return gather(mesh, x, batch_sharding(mesh, x.dim(), spatial))
+
+
+@dataclasses.dataclass(frozen=True)
+class Block:
+    """This rank's block of a (..., H, W, C) grid: its origin ``(h0, w0)``,
+    its ``local`` (Hl, Wl) and the ``shape`` (H, W) of the whole grid."""
+
+    h0: int
+    w0: int
+    local: Tuple[int, int]
+    shape: Tuple[int, int]
+
+    @property
+    def whole(self) -> bool:
+        return self.local == self.shape
+
+    def rows(self) -> slice:
+        return slice(self.h0, self.h0 + self.local[0])
+
+    def cols(self) -> slice:
+        return slice(self.w0, self.w0 + self.local[1])
+
+
+def spatial_block(mesh: Optional[Mesh], local: Tuple[int, int]) -> Block:
+    """The block of this rank whose local grid is ``local`` (Hl, Wl): the
+    latitudes split over "h" and the longitudes over "w" in rank order;
+    without a mesh the whole grid."""
+    Hl, Wl = int(local[0]), int(local[1])
+    if mesh is None:
+        return Block(0, 0, (Hl, Wl), (Hl, Wl))
+    nh, nw = mesh.shape[AXIS_H], mesh.shape[AXIS_W]
+    hi = mesh.index(AXIS_H) if nh > 1 else 0
+    wi = mesh.index(AXIS_W) if nw > 1 else 0
+    return Block(hi * Hl, wi * Wl, (Hl, Wl), (nh * Hl, nw * Wl))
+
+
+def all_reduce_spatial(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """``t`` summed in place over this rank's "h" group, then its "w" group
+    (every group the mesh has, a group of one included); a partial sum over
+    a block becomes the sum over the grid."""
+    if mesh is not None:
+        for axis in (AXIS_H, AXIS_W):
+            if mesh.groups[axis] is not None:
+                dist.all_reduce(t, group=mesh.groups[axis])
+    return t
 
 
 def replicated(mesh: Mesh, tensors: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:

@@ -52,8 +52,13 @@ that the data size divides (scalars and indivisible leaves whole), the
 update runs on that slice and is all-gathered. A checkpoint holds the
 gathered state, written by rank 0 alone, so it is the same file at any world
 size. On a mesh of one rank all of this is skipped, as JAX skips it at mesh
-size 1. A mesh with "h", "w" or "matmul" above 1 raises (ROADMAP Queue 1
-item 7b: JAX reaches spatial sharding through XLA's partitioner).
+size 1. On a mesh with "h", "w" or "matmul" above 1 (``mesh``, as JAX's
+``Trainer(..., mesh=...)``) the batch is still split over "data" alone, as
+JAX's pjit step shards it, so the ranks of one data index run the same rows
+with the same generator: the step is replicated over the model axes, the
+gradient mean and ZeRO-1 stay over "data", and rank 0 writes the
+checkpoint; the rollout validation builds its stepper on the mesh, so it
+runs the window over the split grid (``inference/stepper.py``).
 
 The experiment's network arrives with its weights (the port's modules carry
 them; ``restore_payload`` or ``utils/convert.py:train_state_payload`` loads
@@ -93,7 +98,7 @@ from ..evaluation import metrics as M
 from ..evaluation.aggregators import InferenceAggregator
 from ..inference.loop import InferenceConfig, run_inference
 from ..inference.stepper import DYffusionStepper
-from ..models.modules import draw_seed
+from ..models.modules import fold_generator
 from ..parallel.mesh import AXIS_DATA, Mesh, data_mesh, replicated, shard_batch
 from ..utils import flax_msgpack
 from ..utils.checkpointing import CheckpointMirror
@@ -300,16 +305,16 @@ def _weights(model: nn.Module, params: Optional[Dict[str, torch.Tensor]]):
 
 class Trainer:
     def __init__(self, experiment, datamodule, cfg: TrainerConfig,
-                 run_config: Optional[Dict[str, Any]] = None):
+                 run_config: Optional[Dict[str, Any]] = None, mesh: Optional[Mesh] = None):
         self.exp = experiment
         self.dm = datamodule
         self.cfg = cfg
         self.run_config = run_config
-        # the process mesh (parallel/mesh.py): data_mesh(gcd(batch_size,
-        # world)), one rank without a process group
+        # the process mesh (parallel/mesh.py): the caller's, else
+        # data_mesh(gcd(batch_size, world)), one rank without a process group
         world = dist.get_world_size() if dist.is_initialized() else 1
         bs = int(getattr(getattr(datamodule, "cfg", None), "batch_size", 1) or 1)
-        self.mesh: Mesh = data_mesh(math.gcd(bs, world))
+        self.mesh: Mesh = mesh if mesh is not None else data_mesh(math.gcd(bs, world))
         self.device = next(experiment.model.parameters()).device
         # the statistics on the device once: normalize then copies nothing
         self.normalizer = experiment.normalizer.to(self.device)
@@ -336,12 +341,7 @@ class Trainer:
         if model_axes and self.cfg.grad_reduce_dtype is not None:
             raise ValueError(
                 f"grad_reduce_dtype requires a pure data-parallel mesh (got {self.mesh.shape}); "
-                "model-parallel axes need the pjit step's automatic collectives (ROADMAP Queue 1 "
-                "item 7b)")
-        if model_axes:
-            raise NotImplementedError(
-                f"mesh {self.mesh.shape}: spatial and channel model parallelism of the "
-                "training step is not ported (ROADMAP Queue 1 item 7b)")
+                "model-parallel axes need the pjit step's automatic collectives")
 
     def init_state(self) -> TrainState:
         """AdamW over the network's parameters in two groups, the schedule,
@@ -477,9 +477,7 @@ class Trainer:
         cfg = self.cfg
         dp = self._dp
         if dp > 1:  # this rank's draws: the generator folded with its data index
-            words = [draw_seed(generator), self.mesh.index(AXIS_DATA)]
-            generator = torch.Generator().manual_seed(
-                int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0]))
+            generator = fold_generator(generator, self.mesh.index(AXIS_DATA))
         dyn = self.normalizer.normalize(dynamics)
         extra = {} if random_timestep is None else {"random_timestep": random_timestep}
         loss, metrics = self.exp.train_loss(dyn, generator,
@@ -940,7 +938,7 @@ class Trainer:
         other): ``run_inference`` of ``cfg.rollout_val_steps`` steps (else
         ``min(prediction_horizon or 8 * horizon, n_timesteps - 1)``) in
         windows of ``min(steps, 8 * horizon)``, one member, through a
-        ``DYffusionStepper`` on the trainer's device with the forecaster's
+        ``DYffusionStepper`` on the trainer's device and mesh with the forecaster's
         EMA weights where there are any, reduced by an
         ``InferenceAggregator`` without zonal-mean images; its keys renamed
         ``val/<rest>``. The forecaster's own weights are put back after it
@@ -961,7 +959,8 @@ class Trainer:
                                   log_zonal_mean_images=False)
         ema = state.ema.state_dict() if state.ema is not None else None
         with _weights(exp.model, ema):
-            run_inference(DYffusionStepper(exp), src, icfg, aggregator=agg, verbose=False)
+            run_inference(DYffusionStepper(exp, mesh=self.mesh), src, icfg, aggregator=agg,
+                          verbose=False)
         return {f"val/{k.split('/', 1)[1]}": v for k, v in agg.get_logs().items()}
 
     # ------------------------------------------------------------ checkpoint

@@ -287,6 +287,37 @@ def test_fused_bf16_tensor_core_dropout_masks_match_plain(cuda):
     assert torch.equal(unit.reshape(-1, 256)[:1000], y2)
 
 
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernels_at_block_origins_drop_the_whole_grids_elements(cuda, x_dtype):
+    """Dropout 0.1, no residual, on blocks of a (2, 36, 72) grid: an h=2, w=2
+    block (its 36-wide rows split a thread's 16-row groups), an h=2 block,
+    and an odd one. K2 and K3 at the block's origin drop exactly the
+    elements that the whole grid's launch drops there, and agree with their
+    plain versions at the origin."""
+    from spherical_dyffusion_tpu_torch.parallel.mesh import Block
+
+    H, W, C = 36, 72, 256
+    o = _tail_operands(cuda, 16, B=2, N=H * W, x_dtype=x_dtype)
+    x = o["x"].reshape(2, H, W, C)
+    a, c = o["a"][:, None], o["c"][:, None]
+    w = [o[k] for k in ("w1", "b1", "w2", "b2")]
+    kw = dict(seed=2**41 + 7, drop_rate=0.1)
+    tol = 1e-5 if x_dtype == torch.float32 else 1e-2
+    whole = {"K2": fused_mlp(x, *w, **kw), "K3": fused_block_tail(x, a, c, *w, **kw)}
+    for blk in (Block(18, 36, (18, 36), (H, W)), Block(0, 0, (18, 72), (H, W)),
+                Block(5, 9, (7, 11), (H, W))):
+        xb = x[:, blk.rows(), blk.cols()].contiguous()
+        got = {"K2": fused_mlp(xb, *w, block=blk, **kw),
+               "K3": fused_block_tail(xb, a, c, *w, block=blk, **kw)}
+        plain = {"K2": fused_mlp_plain(xb, *w, block=blk, **kw),
+                 "K3": fused_block_tail_plain(xb, a, c, *w, block=blk, **kw)}
+        for k in got:
+            want = whole[k][:, blk.rows(), blk.cols()]
+            assert torch.equal(got[k] == 0, want == 0), (k, blk)
+            assert torch.equal(got[k] == 0, plain[k] == 0), (k, blk)
+            assert _rel_err(got[k], plain[k]) < tol
+
+
 def test_fused_bf16_tensor_core_refuses_widths(cuda):
     """The bf16 kernel takes C, Hd and C2 multiples of 16 with C and C2 at
     most 256; any other bf16 call raises before a launch (float32 calls of

@@ -24,7 +24,20 @@ refusals of a model-parallel mesh. On gloo with 2 and 4 spawned processes
   bf16 step than its float32 one);
 * ZeRO-1 (``zero_shard_opt_state``): at least one moment sharded, and its
   checkpoint equal to the unsharded run's, bit for bit;
-* the stepper's rows over the world against the one-process window (1e-6).
+* the stepper's rows over the world against the one-process window (1e-6);
+* spatial model parallelism on h=2 and w=2 (two ranks), h=2, w=2 and
+  data=2, h=2 (four): the SFNO forward (K3, K2, the exact instance norm,
+  the layer norm) with its dropout live, gathered, against the one-process
+  forward (1e-5 of its largest value: the masks are the same, the sums over
+  ranks reorder float32 additions), and with dropout off against JAX's SFNO
+  jitted on the same mesh layout of the virtual CPU devices (2e-5 abs, 1e-4
+  rel, as ``tests/test_parallel.py``); the main path's window (K3 and K2
+  paths, SST mask and forcings) with the interpolator's dropout live against
+  the one-process window (1e-5 of its largest value; rows split over "data"
+  against the one-process window of each data index's rows with its folded
+  generator), and with dropout off against JAX's sharded
+  ``DYffusionStepper`` (1e-5); on four ranks a training step on
+  ``make_mesh(data=2, h=2)`` against JAX's ``Trainer`` on that mesh.
 """
 
 import dataclasses
@@ -37,12 +50,21 @@ import pytest
 import torch
 
 import test_torch_port_parallel_workers as workers
+from jax.sharding import NamedSharding
+from jax.sharding import PartitionSpec as P
+
 from spherical_dyffusion_tpu.data import DebugDataModule as JDebugDataModule
+from spherical_dyffusion_tpu.data.normalization import StandardNormalizer as JNormalizer
+from spherical_dyffusion_tpu.data.packer import Packer as JPacker
+from spherical_dyffusion_tpu.diffusion import DYffusionConfig as JDYffusionConfig
+from spherical_dyffusion_tpu.inference.prescriber import PrescriberConfig as JPrescriberConfig
+from spherical_dyffusion_tpu.inference.stepper import DYffusionStepper as JStepper
 from spherical_dyffusion_tpu.models import SFNO as JSFNO
 from spherical_dyffusion_tpu.models import SFNOConfig as JSFNOConfig
 from spherical_dyffusion_tpu.ops import InverseRealSHT as JISHT
 from spherical_dyffusion_tpu.ops import RealSHT as JSHT
 from spherical_dyffusion_tpu.ops.contractions import contract_dhconv as jcontract
+from spherical_dyffusion_tpu.parallel import batch_sharding as jbatch_sharding
 from spherical_dyffusion_tpu.parallel import make_mesh as jmake_mesh
 from spherical_dyffusion_tpu.parallel import multihost as jmultihost
 from spherical_dyffusion_tpu.parallel import shard_batch as jshard_batch
@@ -50,6 +72,14 @@ from spherical_dyffusion_tpu.training import ExperimentConfig as JExperimentConf
 from spherical_dyffusion_tpu.training import InterpolationExperiment as JInterp
 from spherical_dyffusion_tpu.training import Trainer as JTrainer
 from spherical_dyffusion_tpu.training import TrainerConfig as JTrainerConfig
+from spherical_dyffusion_tpu.training.experiments import (
+    DYffusionForecastingExperiment as JForecasting,
+)
+from spherical_dyffusion_tpu_torch import main_path
+from spherical_dyffusion_tpu_torch.models.modules import fold_generator
+from spherical_dyffusion_tpu_torch.inference.stepper import DYffusionStepper
+from spherical_dyffusion_tpu_torch.models.modules import QuantizedDropout
+from spherical_dyffusion_tpu_torch.models.sfno import SFNO, SFNOConfig
 from spherical_dyffusion_tpu_torch.ops.contractions import contract_dhconv
 from spherical_dyffusion_tpu_torch.parallel import multihost
 from spherical_dyffusion_tpu_torch.parallel.mesh import make_mesh
@@ -135,21 +165,65 @@ def test_maybe_init_multihost_maps_the_spec_to_a_process_group(monkeypatch):
         assert not calls
 
 
-def test_model_parallel_mesh_refusals():
-    """JAX's explicit bf16 step needs a pure data-parallel mesh
-    (``tests/test_parallel.py:172``); the port's other spatial and channel
-    sharding waits for ROADMAP Queue 1 item 7b."""
-    mesh = make_mesh(data=2, h=2, ranks=range(4))
-    tr = workers.interpolation_trainer(grad_reduce_dtype="bfloat16")
-    tr.mesh = mesh
+SPLIT_GRID_REFUSALS = {
+    "factorized": dict(factorization="cp", rank=0.5),
+    "diagonal": dict(operator_type="diagonal"),
+    "separable": dict(separable=True),
+    "l-dependant": dict(filter_type="non-linear", operator_type="l-dependant"),
+    "attention": dict(filter_type="non-linear"),
+    "fold": dict(sht_fold_symmetry=True),
+    "scale_factor": dict(scale_factor=2),
+    "exact_dropout": dict(exact_dropout=True),
+    "fft_transform": dict(spectral_transform="fft"),
+}
+
+
+@pytest.mark.parametrize("option", sorted(SPLIT_GRID_REFUSALS) + ["fused_rank"])
+@pytest.mark.parametrize("mesh_kw", [dict(data=1, h=2, w=2), dict(data=2, w=2)])
+def test_model_parallel_mesh_refusals(option, mesh_kw):
+    """On a grid split over "h" or "w" every option outside the dense
+    dhconv filter on unfolded SHTs of one grid raises, naming ROADMAP Queue
+    1 item 7c; with "h" and "w" at 1 the same mesh runs it on the whole
+    grid; JAX's explicit bf16 step needs a pure data-parallel mesh
+    (``tests/test_parallel.py:172``), which the model axes break."""
+    mesh = make_mesh(ranks=range(4), **mesh_kw)
+    kw = dict(img_shape=(16, 32), in_chans=3, out_chans=3, embed_dim=8, num_layers=2)
+    model = SFNO(SFNOConfig(**kw, **SPLIT_GRID_REFUSALS.get(option, {})),
+                 fused_rank=option == "fused_rank")
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        model.set_mesh(mesh)
+    model.set_mesh(make_mesh(data=4, ranks=range(4)))  # the whole grid: every option runs
+    model.set_mesh(None)
+    tr = workers.interpolation_trainer(mesh, grad_reduce_dtype="bfloat16")
     with pytest.raises(ValueError, match="data-parallel mesh"):
         tr.init_state()
-    tr = workers.interpolation_trainer()
-    tr.mesh = mesh
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tr.init_state()
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        workers.window_stepper(make_mesh(data=1, w=4, ranks=range(4)))
+
+
+def test_split_grid_refusals_of_the_stepper_and_the_modules():
+    """The stepper checks both networks when it is built; the noised
+    conditionings, exact-rate dropout, autograd and a grid that does not
+    divide raise too; ``TrainerConfig`` checks the reduction dtype."""
+    mesh = make_mesh(data=1, h=2, ranks=range(2))
+    st = workers.window_stepper()
+    exact = st.exp.interpolator.model
+    exact.cfg = dataclasses.replace(exact.cfg, exact_dropout=True)
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        DYffusionStepper(st.exp, mesh=mesh)
+    st = workers.window_stepper()
+    st.exp.diffusion_cfg = dataclasses.replace(st.exp.diffusion_cfg,
+                                               forward_conditioning="data+noise-v1")
+    with pytest.raises(NotImplementedError, match="noised forecaster conditioning"):
+        DYffusionStepper(st.exp, mesh=mesh)
+    drop = QuantizedDropout(0.1, exact=True)
+    drop._mesh = mesh
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        drop(torch.ones(1, 8, 16, 4), deterministic=False, generator=torch.Generator())
+    model = workers.spatial_sfno("k3")
+    model.set_mesh(mesh)
+    with pytest.raises(NotImplementedError, match="forwards only"):
+        model(torch.zeros(1, 8, 32, workers.IN), time=torch.ones(1))
+    with pytest.raises(ValueError, match="must split"):
+        model.set_mesh(make_mesh(data=1, w=3, ranks=range(3)))
     with pytest.raises(ValueError, match="floating dtype"):
         TrainerConfig(grad_reduce_dtype="int8")
 
@@ -174,9 +248,10 @@ def all_runs(out_dirs):
     ``(runs by world, one process, JAX)``."""
     ctxs = {n: workers.start(n, d) for n, d in out_dirs.items()}
     one = dict(dp=workers.train(workers.interpolation_trainer()),
-               window=workers.window(workers.window_stepper()))
+               window=workers.window(workers.window_stepper()), spatial=_spatial_one_process())
     with pytest.MonkeyPatch.context() as mp:
         jax_out = _jax_steps(mp)
+    jax_out["spatial"] = _jax_spatial()
     return {n: workers.results(c, n, out_dirs[n]) for n, c in ctxs.items()}, one, jax_out
 
 
@@ -280,6 +355,185 @@ def test_stepper_rows_over_ranks_equal_one_process(runs, one_process, world):
         assert float((p - p1).abs().max()) <= 1e-6 and float((x - x1).abs().max()) <= 1e-6
 
 
+# ------------------------------------------------- spatial model parallelism
+
+def _data_rows(key):
+    """The row blocks of the batch of 2 over the mesh's "data" axis."""
+    return [slice(0, 1), slice(1, 2)] if workers.MESHES[key]["data"] == 2 else [slice(None)]
+
+
+def _spatial_one_process():
+    """The one-process references of ``workers.spatial``, by data split (1
+    or 2): the SFNO forwards (each data index's rows with the same seed, as
+    every rank gets it) and the windows (each data index's rows with the
+    generator folded with that index, as the stepper folds it)."""
+    x, t = workers.sfno_inputs()
+    out = {}
+    for split, rows in ((1, [slice(None)]), (2, [slice(0, 1), slice(1, 2)])):
+        sfno = {o: torch.cat([workers.sfno_forward(workers.spatial_sfno(o), x[r], t[r])
+                              for r in rows]) for o in workers.SFNO_OPTS}
+        windows = {}
+        for p in workers.WINDOW_PATHS:
+            st = workers.spatial_window_stepper(p, True)
+            parts = [workers.spatial_window(st, r, None if split == 1 else fold_generator(
+                torch.Generator().manual_seed(0), d)) for d, r in enumerate(rows)]
+            windows[p] = tuple(torch.cat([q[i] for q in parts]) for i in range(2))
+        out[split] = dict(sfno=sfno, window=windows)
+    out["sfno_det"] = {o: workers.sfno_forward(workers.spatial_sfno(o, dropout=False), x, t)
+                       for o in ("k3", "k2")}
+    out["window_det"] = workers.spatial_window(workers.spatial_window_stepper("k3", False))
+    return out
+
+
+def _jax_variables(model, params, *args, **kwargs):
+    """The JAX SFNO's variables for ``params``, its "constants" (the SHT
+    matrices) from a jitted apply that returns only them."""
+    consts = jax.jit(lambda p, *a, **k: model.apply({"params": p}, *a, mutable=["constants"],
+                                                    **k)[1])(params, *args, **kwargs)
+    return {"params": params, **consts}
+
+
+def _fields(cfg):
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def _jax_spatial():
+    """JAX on each mesh layout of ``workers.MESHES`` (the virtual CPU
+    devices), dropout off, from the port's weights: the SFNO forward jitted
+    with the input sharded ``P("data", "h", "w", None)`` and the window of
+    ``DYffusionStepper(..., mesh=...)`` (the XLA paths, no Pallas kernel:
+    the same math as the port's K3 and K2 routes)."""
+    x, t = workers.sfno_inputs()
+    port = workers.spatial_sfno("k3", dropout=False)
+    kw = dict(img_shape=workers.GRID, in_chans=workers.IN, out_chans=workers.OUT, embed_dim=8,
+              num_layers=2, with_time_emb=True)
+    model = JSFNO(JSFNOConfig(**kw))
+    xj, tj = jnp.asarray(x.numpy()), jnp.asarray(t.numpy())
+    variables = _jax_variables(model, state_dict_to_flax(port.state_dict())["params"], xj[:1],
+                               time=tj[:1])
+    fwd = jax.jit(lambda v, x, t: model.apply(v, x, time=t))
+
+    # the window: bench.py:build() at the workers' size, the port's weights
+    st = workers.spatial_window_stepper("k3", False)
+    names = main_path.state_names(workers.STATE)
+    forcing = list(main_path.FORCING_NAMES)
+    norm = JNormalizer.from_dicts({n: 0.0 for n in names}, {n: 1.0 for n in names}, names)
+    fnorm = JNormalizer.from_dicts({n: 0.0 for n in forcing}, {n: 1.0 for n in forcing},
+                                   forcing)
+    packer = JPacker(names)
+    icfg, fcfg = main_path.sfno_configs(8, 2, "float32", workers.GRID, 3, workers.STATE,
+                                        use_pallas=False, fused_mlp=False)
+    imodel, fmodel = JSFNO(JSFNOConfig(**_fields(icfg))), JSFNO(JSFNOConfig(**_fields(fcfg)))
+    g = (1,) + workers.GRID
+    cond = dict(time=jnp.ones((1,)), static_condition=jnp.zeros(g + (2,)))
+    ip = _jax_variables(imodel, state_dict_to_flax(
+        st.exp.interpolator.model.state_dict())["params"], jnp.zeros(g + (2 * workers.STATE,)),
+        **cond)
+    fp = _jax_variables(fmodel, state_dict_to_flax(st.exp.model.state_dict())["params"],
+                        jnp.zeros(g + (workers.STATE,)), **cond)
+    interp = JInterp(imodel, JExperimentConfig(horizon=3, window=1, enable_inference_dropout=True),
+                     packer, packer, norm)
+    dcfg = JDYffusionConfig(timesteps=3, forward_conditioning="none", time_encoding="dynamics",
+                            enable_interpolator_dropout=False)
+    exp = JForecasting(fmodel, interp, ip, dcfg, JExperimentConfig(horizon=3), packer, packer,
+                       norm, forcing_names=forcing, forcing_normalizer=fnorm)
+    prescriber = JPrescriberConfig("surface_temperature", main_path.MASK_NAME, 1).build(names)
+    inp = main_path.window_inputs(workers.WINDOW_STEPS, workers.GRID, workers.STATE, batch=2,
+                                  seed=3, device="cpu")
+    out = {}
+    for key, kw in workers.MESHES.items():
+        mesh = jmake_mesh(**kw, devices=jax.devices()[:4 if key in ("h2w2", "d2h2") else 2])
+        y = fwd(jax.device_put(variables, NamedSharding(mesh, P())),
+                jax.device_put(xj, jbatch_sharding(mesh, 4, spatial=True)),
+                jax.device_put(tj, NamedSharding(mesh, P("data"))))
+        jx, jp = JStepper(exp, fp, prescriber=prescriber, mesh=mesh).run_window(
+            *(jnp.asarray(inp[k].numpy()) for k in ("x0", "forcing", "sst", "mask")),
+            jax.random.PRNGKey(0), workers.WINDOW_STEPS)
+        out[key] = dict(sfno=np.asarray(y), window=(np.asarray(jx), np.asarray(jp)))
+    return out
+
+
+def _spatial_ranks(runs, key):
+    world = next(w for w, keys in workers.SPATIAL_MESHES.items() if key in keys)
+    return [r["spatial"][key] for r in runs[world]]
+
+
+MESH_KEYS = [k for keys in workers.SPATIAL_MESHES.values() for k in keys]
+
+
+def _close(got, want, tol):
+    assert got.shape == want.shape
+    err = float((got - want).abs().max())
+    assert err <= tol * float(want.abs().max()), (err, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("key", MESH_KEYS)
+@pytest.mark.parametrize("opts", sorted(workers.SFNO_OPTS))
+def test_spatial_sfno_with_dropout_equals_one_process(runs, one_process, key, opts):
+    """Every rank's gathered output: the one-process forward of its data
+    index's rows, within 1e-5 of the largest value (K3's and K2's masks at
+    each pixel's global row, ``QuantizedDropout``'s from the whole grid's
+    bits, the norms' sums over "h" and "w")."""
+    want = one_process["spatial"][len(_data_rows(key))]["sfno"][opts]
+    if opts in one_process["spatial"]["sfno_det"]:  # the dropout did run
+        assert not torch.allclose(want, one_process["spatial"]["sfno_det"][opts])
+    for r in _spatial_ranks(runs, key):
+        _close(r["sfno"][opts], want, 1e-5)
+
+
+@pytest.mark.parametrize("key", MESH_KEYS)
+@pytest.mark.parametrize("opts", ["k3", "k2"])
+def test_spatial_sfno_without_dropout_matches_jax_on_the_mesh(runs, one_process, jax_steps,
+                                                             key, opts):
+    want = jax_steps["spatial"][key]["sfno"]
+    for r in _spatial_ranks(runs, key):
+        np.testing.assert_allclose(r["sfno_det"][opts].numpy(), want, atol=2e-5, rtol=1e-4)
+    _close(_spatial_ranks(runs, key)[0]["sfno_det"][opts], one_process["spatial"]["sfno_det"][opts],
+           1e-5)
+
+
+@pytest.mark.parametrize("key", MESH_KEYS)
+@pytest.mark.parametrize("path", sorted(workers.WINDOW_PATHS))
+def test_spatial_window_with_dropout_equals_one_process(runs, one_process, key, path):
+    """The main path's window with the SST mask, the forcings and the
+    interpolator's dropout live: the final state and the predictions of
+    every rank, gathered, within 1e-5 of the largest prediction."""
+    x1, p1 = one_process["spatial"][len(_data_rows(key))]["window"][path]
+    assert p1.shape == (2, workers.WINDOW_STEPS) + workers.GRID + (workers.STATE,)
+    assert not torch.allclose(p1, one_process["spatial"]["window_det"][1])  # dropout ran
+    for r in _spatial_ranks(runs, key):
+        x, p = r["window"][path]
+        _close(p, p1, 1e-5)
+        assert float((x - x1).abs().max()) <= 1e-5 * float(p1.abs().max())
+
+
+@pytest.mark.parametrize("key", MESH_KEYS)
+def test_spatial_window_without_dropout_matches_jax_sharded_stepper(runs, one_process,
+                                                                    jax_steps, key):
+    """With dropout off the sharded window (K3 path, peeled sampler) equals
+    JAX's ``DYffusionStepper(..., mesh=make_mesh(...))`` on that layout
+    (1e-5 of the largest prediction), and the one-process window."""
+    jx, jp = jax_steps["spatial"][key]["window"]
+    scale = np.abs(jp).max()
+    for r in _spatial_ranks(runs, key):
+        x, p = r["window_det"]
+        assert np.abs(p.numpy() - jp).max() <= 1e-5 * scale
+        assert np.abs(x.numpy() - jx).max() <= 1e-5 * scale
+        _close(p, one_process["spatial"]["window_det"][1], 1e-5)
+
+
+def test_stepper_rows_and_latitudes_over_the_mesh_match_unsharded(runs, one_process):
+    """The counterpart of ``tests/test_inference.py:343`` (rows over "data"
+    and latitudes over "h" on ``make_mesh(data=4, h=2)``) on the four ranks
+    of ``make_mesh(data=2, h=2)``: with dropout off the gathered window is
+    the unsharded one, on every rank."""
+    x1, p1 = one_process["spatial"]["window_det"]
+    for r in _spatial_ranks(runs, "d2h2"):
+        x, p = r["window_det"]
+        _close(p, p1, 1e-5)
+        _close(x, x1, 1e-5)
+
+
 # ------------------------------------------------------------- against JAX
 
 def _flat(params) -> dict:
@@ -329,6 +583,19 @@ def _jax_steps(monkeypatch):
                                   jax.random.PRNGKey(i), None)
             losses.append(float(metrics["loss"]))
         out[rd or "float32"] = dict(losses=losses, params=_flat(state.params["params"]))
+    # the pjit step on a mesh with a model axis: the batch over "data" alone
+    mesh4 = jmake_mesh(data=2, h=2, devices=jax.devices()[:4])
+    tr = JTrainer(exp, dm, JTrainerConfig(epochs=1, steps_per_epoch=workers.TRAIN_STEPS,
+                                          warmup_steps=1), mesh=mesh4)
+    tr.tx = tx
+    state = jax.device_put(state0, NamedSharding(mesh4, P()))
+    step = tr._make_train_step()
+    losses = []
+    for i, b in enumerate(batches):
+        state, metrics = step(state, jshard_batch(mesh4, b["dynamics"]), None,
+                              jax.random.PRNGKey(i), None)
+        losses.append(float(metrics["loss"]))
+    out["model_mesh"] = dict(losses=losses, params=_flat(state.params["params"]))
     return out
 
 
@@ -346,6 +613,18 @@ def test_data_parallel_step_matches_jax_two_device_mesh(runs, jax_steps):
     for r in runs[2]:
         np.testing.assert_allclose(r["dp"]["losses"], want["losses"], rtol=1e-5)
         _assert_params(r["dp"]["params"], want["params"], 1e-2 * 4e-4)
+
+
+def test_model_axis_step_matches_jax_trainer_on_the_mesh(runs, jax_steps):
+    """On ``make_mesh(data=2, h=2)`` the ranks of one data index run the
+    same rows with the same generator (the step replicated over "h", as
+    JAX's pjit step shards the batch over "data" alone): every rank's
+    losses and parameters match JAX's ``Trainer`` on that mesh, at
+    ``test_data_parallel_step_matches_jax_two_device_mesh``'s tolerance."""
+    want = jax_steps["model_mesh"]
+    for r in runs[4]:
+        np.testing.assert_allclose(r["mp"]["losses"], want["losses"], rtol=1e-5)
+        _assert_params(r["mp"]["params"], want["params"], 1e-2 * 4e-4)
 
 
 def test_bf16_gradient_mean_matches_jax_shard_map_step(runs, jax_steps):

@@ -3,9 +3,11 @@
 Spawned processes import this module (and so no JAX): each joins a gloo
 group through a ``file://`` rendezvous, runs the distributed transforms,
 the trainer's gradient mean on seeded terms, data-parallel training steps
-(float32 mean, bf16 mean, ZeRO-1 with its checkpoint) and a stepper window
-over the group, and writes its results to
-``<out>/rank<r>.pt``. It holds no tests.
+(float32 mean, bf16 mean, ZeRO-1 with its checkpoint), a stepper window
+over the group, and spatial model parallelism on the meshes of
+``SPATIAL_MESHES`` (the SFNO forward and the window over "h" and "w", and
+on four ranks a training step on ``make_mesh(data=2, h=2)``), and writes
+its results to ``<out>/rank<r>.pt``. It holds no tests.
 """
 
 import os
@@ -26,7 +28,7 @@ from spherical_dyffusion_tpu_torch.parallel.distributed_sht import (
     distributed_isht,
     distributed_sht,
 )
-from spherical_dyffusion_tpu_torch.parallel.mesh import make_mesh, shard_batch
+from spherical_dyffusion_tpu_torch.parallel.mesh import gather_batch, make_mesh, shard_batch
 from spherical_dyffusion_tpu_torch.training.experiments import (
     ExperimentConfig,
     InterpolationExperiment,
@@ -58,10 +60,10 @@ def transforms():
     return (RealSHT(H, W, grid="legendre-gauss"), InverseRealSHT(H, W, grid="legendre-gauss"))
 
 
-def interpolation_trainer(**cfg) -> Trainer:
+def interpolation_trainer(mesh=None, **cfg) -> Trainer:
     """The interpolation experiment of ``tests/test_parallel.py``'s tiny
     setup, dropout off, weights from seed 0; ``cfg`` goes to
-    ``TrainerConfig``."""
+    ``TrainerConfig``; ``mesh`` is the trainer's (else its default)."""
     dm = DebugDataModule(channels=2, height=8, width=16, horizon=3, batch_size=4,
                          n_timesteps=24)
     model = SFNO(SFNOConfig(img_shape=(8, 16), in_chans=4, out_chans=2, embed_dim=8,
@@ -72,7 +74,7 @@ def interpolation_trainer(**cfg) -> Trainer:
     exp = InterpolationExperiment(model, ExperimentConfig(horizon=3), dm.in_packer,
                                   dm.out_packer, dm.normalizer)
     return Trainer(exp, dm, TrainerConfig(epochs=1, steps_per_epoch=TRAIN_STEPS,
-                                          warmup_steps=1, **cfg))
+                                          warmup_steps=1, **cfg), mesh=mesh)
 
 
 def train_batches(n: int = TRAIN_STEPS):
@@ -127,6 +129,100 @@ def window(stepper: DYffusionStepper):
                               torch.Generator().manual_seed(0), 6)
 
 
+# spatial model parallelism: the meshes of each world, the SFNO's options
+# (K3, K2, the exact instance norm, the layer norm), its debug size
+MESHES = {"h2": dict(data=1, h=2), "w2": dict(data=1, w=2), "h2w2": dict(data=1, h=2, w=2),
+          "d2h2": dict(data=2, h=2)}
+SPATIAL_MESHES = {2: ("h2", "w2"), 4: ("h2w2", "d2h2")}
+SFNO_OPTS = {"k3": dict(fused_tail=True), "k2": dict(fused_mlp=True),
+             "exact_norm": dict(exact_norm=True), "layer_norm": dict(normalization_layer="layer_norm")}
+GRID, IN, OUT, STATE = (16, 32), 5, 3, 5
+WINDOW_PATHS = {"k3": dict(fused_tail=True, peel=True, scan_layers=True),
+                "k2": dict(fused_mlp=True)}
+WINDOW_STEPS = 6
+
+
+def boost_filters(model) -> None:
+    """Spectral weights large enough that the sharded filter shows."""
+    with torch.no_grad():
+        for block in model.blocks:
+            block.filter.weight.mul_(64.0)
+
+
+def spatial_sfno(opts: str, dropout: bool = True) -> SFNO:
+    """The debug SFNO (embed 8 x 2 on 16 x 32, a time embedding, K1 on) with
+    the options ``SFNO_OPTS[opts]``; MLP dropout, DropPath and the position
+    embedding's dropout 0.1 with ``dropout``; weights from seed 0."""
+    rate = 0.1 if dropout else 0.0
+    model = SFNO(SFNOConfig(img_shape=GRID, in_chans=IN, out_chans=OUT, embed_dim=8,
+                            num_layers=2, with_time_emb=True, use_pallas=True,
+                            dropout_mlp=rate, drop_path_rate=rate, pos_emb_dropout=rate,
+                            **SFNO_OPTS[opts]))
+    model.init_weights(torch.Generator().manual_seed(0))
+    boost_filters(model)
+    return model
+
+
+def sfno_inputs():
+    rng = np.random.default_rng(2)
+    return (torch.from_numpy(rng.standard_normal((2,) + GRID + (IN,)).astype(np.float32)),
+            torch.tensor([1.0, 2.0]))
+
+
+def sfno_forward(model: SFNO, x, t, mesh=None, seed: int = 5) -> torch.Tensor:
+    """One forward (dropout live where the model has it, from ``seed``); on
+    ``mesh``, this rank's block of rows and grid, gathered."""
+    if mesh is not None:
+        model.set_mesh(mesh)
+        x, t = shard_batch(mesh, x, spatial=True), shard_batch(mesh, t)
+    try:
+        with torch.no_grad():
+            y = model(x, time=t, deterministic=False,
+                      generator=torch.Generator().manual_seed(seed))
+    finally:
+        model.set_mesh(None)
+    return gather_batch(mesh, y, spatial=True) if mesh is not None else y
+
+
+def spatial_window_stepper(path: str, dropout: bool, mesh=None) -> DYffusionStepper:
+    """The main path's window (both SFNOs at embed 8 x 2 on 16 x 32, 5 state
+    channels, horizon 3, K1 and ``WINDOW_PATHS[path]``, the SST prescriber)
+    with the interpolator's dropout live with ``dropout``, on ``mesh``."""
+    st = main_path.build(embed=8, layers=2, img_shape=GRID, horizon=3, n_state=STATE,
+                         dtype="float32", device="cpu", enable_interpolator_dropout=dropout,
+                         **WINDOW_PATHS[path])
+    for net in (st.exp.model, st.exp.interpolator.model):
+        boost_filters(net)
+    return DYffusionStepper(st.exp, prescriber=st.prescriber, mesh=mesh)
+
+
+def spatial_window(stepper: DYffusionStepper, rows=slice(None), generator=None):
+    inp = main_path.window_inputs(WINDOW_STEPS, GRID, STATE, batch=2, seed=3, device="cpu")
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    return stepper.run_window(inp["x0"][rows], inp["forcing"][rows], inp["sst"][rows],
+                              inp["mask"][rows], gen, WINDOW_STEPS)
+
+
+def spatial(world: int) -> dict:
+    """Per mesh of ``SPATIAL_MESHES[world]``: the SFNO forward of every
+    option with dropout live ("sfno") and of K3 and K2 with it off
+    ("sfno_det"), the window of each path with the interpolator's dropout
+    live ("window") and the K3 window with it off ("window_det"), all
+    gathered."""
+    out = {}
+    x, t = sfno_inputs()
+    for key in SPATIAL_MESHES[world]:
+        mesh = make_mesh(**MESHES[key])
+        out[key] = dict(
+            sfno={o: sfno_forward(spatial_sfno(o), x, t, mesh) for o in SFNO_OPTS},
+            sfno_det={o: sfno_forward(spatial_sfno(o, dropout=False), x, t, mesh)
+                      for o in ("k3", "k2")},
+            window={p: spatial_window(spatial_window_stepper(p, True, mesh))
+                    for p in WINDOW_PATHS},
+            window_det=spatial_window(spatial_window_stepper("k3", False, mesh)))
+    return out
+
+
 def _worker(rank: int, world: int, init: str, out: str):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
@@ -159,6 +255,11 @@ def _worker(rank: int, world: int, init: str, out: str):
                             os.path.join(out, "zero.ckpt"))
         # the stepper's rows over the world
         res["window"] = window(window_stepper(make_mesh(data=world)))
+        # spatial model parallelism, and on four ranks a training step on a
+        # mesh with a model axis (the step replicated over "h")
+        res["spatial"] = spatial(world)
+        if world == 4:
+            res["mp"] = train(interpolation_trainer(make_mesh(data=2, h=2)))
         torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
