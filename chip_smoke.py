@@ -218,7 +218,17 @@ Phases, each timed:
    (c) phase 7's fused-tail window with ``make_mesh(1, 1, 1)`` over an NCCL
    group of one attached to both SFNOs, against the same window without the
    mesh (at most BF16_TAIL_VS_PLAIN times the route's own bf16 error), K1
-   and K3 launched as without the mesh, its seconds beside phase 7's.
+   and K3 launched as without the mesh, its seconds beside phase 7's; (d)
+   K4 at the fast window's shape (B 1, h 180, l = m = 144, R 64) on the
+   channel shards of "w" = 2 and 4 and with the whole analysis and the 90
+   synthesis rows of each "h" = 2 block, bf16 and float32, against its
+   plain version (1e-2, 1e-5), its ms (event loop and queued behind a
+   spin), plain, library and bound beside the whole grid's; (e) phase 8's
+   fast window on the same route, as (c), K4 launched 144 x both ways,
+   its seconds beside phase 8's; (f) one float32 forward of each routed
+   filter option at 256 x 8 (the diagonal filters at embed OPT_DIAG_EMBED)
+   on the route against the same model without the mesh (1e-4), with the
+   collectives its route makes.
 18. the netCDF data layer (run after phase 15, before the profile), in a
    temporary directory: a dataset written by ``data/hdf5.py:write_hdf5``
    (this machine has no h5py) with the 34 state names, the two forcings and
@@ -287,7 +297,8 @@ line (K1's backward dx as its own entry; ``launches_by_path`` holds phase
 12 (b)'s counts as ``"cli"``, phase 13's as ``"tucker"``, ``"fold"`` and
 ``"remat"``, phase 15's as ``"ace"``, ``"ace_cli"`` and
 ``"simultaneous"``, phase 16's as ``"unet"`` (zero for every kernel) and
-phase 17's as ``"parallel"``, phase 21's as ``"spatial"``, phase 18's
+phase 17's as ``"parallel"``, phase 21's as ``"spatial"`` and
+``"spatial_fast"``, phase 18's
 as ``"data_train"`` and
 ``"data"``, phase 19's as ``"outputs"`` and ``"outputs_ace"``, phase 20's
 as ``"parity"`` and ``"parity_k2"``), the
@@ -370,9 +381,11 @@ UNET_STATE, UNET_REPS, UNET_TRAIN_STEPS = 35, 5, 3
 PAR_CHANNELS, PAR_SHAPE = 256, (180, 360)
 PAR_EMBED, PAR_LAYERS, PAR_STEPS = 256, 8, 3
 # phase 21: spatial model parallelism at the main path's width, depth and
-# grid: K1 on the channel shards of "w" = 2 and 4 (CI = embed / 2 and / 4),
-# K2 and K3 on the blocks of h = 2, w = 2 and of h = 2 at batch 2 (the
-# interpolator's double batch), the fused-tail window on the spatial route
+# grid: K1 and K4 on the channel shards of "w" = 2 and 4 (CI = embed / 2 and
+# / 4; 2R / 2 and / 4), K4 on the rows of an "h" = 2 block, K2 and K3 on the
+# blocks of h = 2, w = 2 and of h = 2 at batch 2 (the interpolator's double
+# batch), the fused-tail and fast windows and each filter option on the
+# spatial route
 SPATIAL_EMBED, SPATIAL_LAYERS, SPATIAL_SHAPE = 256, 8, (180, 360)
 # phase 18: the networks' width and depth and the dataset's grid
 DATA_EMBED, DATA_LAYERS, DATA_SHAPE = 256, 8, (180, 360)
@@ -422,6 +435,38 @@ def check(ok: bool, what: str) -> None:
 def bound(flops: float, nbytes: float, peak: float):
     t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def k4_library(xf, A, S, C):
+    """K4's yardstick: the bf16 (or float32) torch.bmm chain, batched over
+    m, with the float32 CP scale between the two products and the layout
+    permutes to and from the port's layout; S may hold a block's rows."""
+    import torch
+
+    B, H, M, R2, _ = xf.shape
+    R, L, Ho = R2 // 2, A.shape[2], S.shape[1]
+    xm = xf.permute(2, 1, 0, 3, 4).reshape(M, H, B * R2 * 2)
+    t = torch.bmm(A.transpose(1, 2), xm).view(M, L, B, R2, 2).float()
+    Sr, Si = t[..., :R, :], t[..., R:, :]
+    p_re, p_im = Sr[..., 0] - Si[..., 1], Sr[..., 1] + Si[..., 0]
+    Cr, Ci = C[:, None, :, 0], C[:, None, :, 1]
+    s_re, s_im = p_re * Cr - p_im * Ci, p_re * Ci + p_im * Cr
+    s = torch.cat([torch.stack([s_re, s_im], -1), torch.stack([-s_im, s_re], -1)], -2)
+    y = torch.bmm(S, s.to(xf.dtype).reshape(M, L, B * R2 * 2))
+    return y.view(M, Ho, B, R2, 2).permute(2, 1, 0, 3, 4).contiguous()
+
+
+def k4_bound(xf, A, S, C, l_first, dense=False):
+    """K4's bound over what these inputs need: the rows l >= l_first[m] of
+    A[m] and S[m] (the triangle; dense=True: all of them), xf read and y
+    (S's rows) written once, C."""
+    B, H, M, R2, _ = xf.shape
+    L, Ho = A.shape[2], S.shape[1]
+    rows = M * L if dense else int((L - l_first.clamp(0, L)).sum())
+    flops = 2.0 * rows * 2 * R2 * B * (H + Ho)
+    nbytes = xf.element_size() * (xf.numel() + B * Ho * M * R2 * 2 + (H + Ho) * rows) + \
+        4.0 * C.numel()
+    return bound(flops, nbytes, BF16_PEAK if xf.element_size() == 2 else F32_PEAK)
 
 
 def host_to_device():
@@ -2489,7 +2534,22 @@ def phase21(smi_line, wrappers, report, runs, device="cuda") -> None:
     same weights and seed (the same masks), within BF16_TAIL_VS_PLAIN of
     the route's own bf16 error (the float32 window from the same weights);
     K1 and K3 launched as on the window without the mesh; its seconds
-    beside phase 7's. The group is destroyed."""
+    beside phase 7's. (d) K4 at the fast window's shape on the channel
+    shards of "w" = 2 and 4 (2R/2 and 2R/4 columns, their columns of C)
+    and on the "h" = 2 route (the whole analysis, each block's 90 synthesis
+    rows), bf16 and float32, against its plain version, with its ms, its
+    device ms, the plain version's and the bf16 ``torch.bmm`` chain's, and
+    its bound, beside the whole grid's launch. (e) Phase 8's fast window
+    on the route as (c): K4 launched 144 x both ways, its seconds beside
+    phase 8's. (f) One float32 forward of each routed filter option (the
+    XLA-form, merged, separable and diagonal filters, CP, Tucker and TT in
+    spectral space, the CP and Tucker rank pipelines, K4 in float32,
+    spectral attention shared and per degree, ``scale_factor``) at
+    SPATIAL_EMBED x SPATIAL_LAYERS (the diagonal filters at
+    OPT_DIAG_EMBED) with the mesh attached against the same model without
+    it (1e-4), each making the collectives of its route. The group is
+    destroyed."""
+    import dataclasses
     import socket
 
     import torch
@@ -2497,6 +2557,7 @@ def phase21(smi_line, wrappers, report, runs, device="cuda") -> None:
     import torch.nn.functional as F
 
     from spherical_dyffusion_tpu_torch import main_path
+    from spherical_dyffusion_tpu_torch.models.sfno import SFNO
     from spherical_dyffusion_tpu_torch.ops.fused_mlp import (
         fused_block_tail,
         fused_block_tail_plain,
@@ -2504,11 +2565,13 @@ def phase21(smi_line, wrappers, report, runs, device="cuda") -> None:
         fused_mlp_plain,
         weight_image,
     )
+    from spherical_dyffusion_tpu_torch.ops.fused_rank import fused_rank, fused_rank_plain
     from spherical_dyffusion_tpu_torch.ops.pallas_contractions import (
         dhconv,
         dhconv_plain,
         dhconv_weight_image,
     )
+    from spherical_dyffusion_tpu_torch.ops.sht import InverseRealSHT, RealSHT
     from spherical_dyffusion_tpu_torch.parallel.mesh import Block, make_mesh
     from spherical_dyffusion_tpu_torch.parallel.multihost import maybe_init_multihost
 
@@ -2519,16 +2582,25 @@ def phase21(smi_line, wrappers, report, runs, device="cuda") -> None:
         if cuda:
             torch.cuda.synchronize()
 
-    def timed_ms(fn, reps):
+    def timed_ms(fn, reps, spin=False):
+        """ms a call of ``fn`` in a loop of ``reps`` between CUDA events;
+        with ``spin``, the calls queued behind a spin kernel (``main``'s
+        ``device_ms``: the device's time, without the host's work between
+        launches)."""
         fn()
         if not cuda:
             return None
         torch.cuda.synchronize()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         ev[0].record()
         for _ in range(reps):
             fn()
         ev[1].record()
+        if spin:
+            check(not ev[0].query(), "the device reached the timed launches before the host "
+                                     "had queued them all; lengthen the spin")
         ev[1].synchronize()
         return ev[0].elapsed_time(ev[1]) / reps
 
@@ -2638,113 +2710,266 @@ def phase21(smi_line, wrappers, report, runs, device="cuda") -> None:
         del whole, xq, xh
     del x, a, c, w1, b1, w2, b2, w1b, w2b, b1b, b2b
 
-    # (c) the fused-tail window on the spatial route over an NCCL group of one
+    # (d) K4 on the channel shards of "w" and on the "h" = 2 route
+    fast_cfg = main_path.sfno_configs(C, SPATIAL_LAYERS, "bfloat16", SPATIAL_SHAPE,
+                                      thresh=main_path.FAST_WINDOW["thresh"])[1]
+    L4, M4 = fast_cfg.modes
+    R = int(main_path.FAST_WINDOW["rank"] * C)
+    k4 = {}
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        kw = dict(grid="legendre-gauss", matmul_dtype=dtype, kernel_layout=True)
+        fwd = RealSHT(H, W, L4, M4, **kw).to(dev)
+        inv = InverseRealSHT(H, W, L4, M4, **kw).to(dev)
+        A, S = fwd.analysis_mhl, inv.synthesis_mhl
+        l_first = torch.minimum(fwd.analysis_l_first, inv.synthesis_l_first)
+        C4 = torch.randn((L4, R, 2), generator=g, device=dev) * 0.5
+        xf = torch.randn((1, H, M4, 2 * R, 2), generator=g, device=dev).to(dtype)
+        hb = H // 2
+        cases = {"whole": (xf, S, C4)}
+        for nw in (2, 4):
+            cases[f"w{nw}"] = (xf[..., :2 * R // nw, :].contiguous(), S,
+                               C4[:, :R // nw].contiguous())
+        for h0 in (0, hb):
+            cases[f"h2_rows{h0}"] = (xf, S[:, h0:h0 + hb].contiguous(), C4)
+        for name, (xx, SS, CC) in cases.items():
+            ops = (xx, A, SS, CC, l_first)
+            y = fused_rank(*ops)
+            sync()
+            want = fused_rank_plain(*ops[:4])
+            abs_err, rel_err = rel(y, want)
+            check(tuple(y.shape) == (1, SS.shape[1], M4) + tuple(xx.shape[3:]),
+                  f"K4 {name} {dtype}: output {tuple(y.shape)}")
+            check(rel_err <= tol, f"K4 {name} {dtype} disagrees with its plain version "
+                                  f"({rel_err:.3e} > {tol:g})")
+            o = dict(max_abs_err=abs_err, max_rel_err=rel_err, tolerance=tol,
+                     xf=list(xx.shape), S_rows=SS.shape[1])
+            if dtype == torch.bfloat16:
+                bound_ms, bound_by = k4_bound(*ops)
+                o.update(ms=timed_ms(lambda: fused_rank(*ops), 20),
+                         device_ms=timed_ms(lambda: fused_rank(*ops), 20, spin=True),
+                         plain_ms=timed_ms(lambda: fused_rank_plain(*ops[:4]), 5),
+                         library_ms=timed_ms(lambda: k4_library(*ops[:4]), 20),
+                         bound_ms=bound_ms, bound_by=bound_by)
+                log(f"K4 {name} bf16, xf {o['xf']}, {o['S_rows']} synthesis rows: max rel err "
+                    f"{rel_err:.3e} (tolerance {tol:g}); kernel {o['ms']} ms (on the device, "
+                    f"queued behind a spin, {o['device_ms']} ms), plain "
+                    f"{o['plain_ms']} ms, bf16 torch.bmm chain {o['library_ms']} ms, bound "
+                    f"{bound_ms:.4f} ms ({bound_by}) on {smi_line}")
+            else:
+                log(f"K4 {name} float32, xf {o['xf']}, {o['S_rows']} synthesis rows: max rel "
+                    f"err {rel_err:.3e} (tolerance {tol:g})")
+            k4[f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"] = o
+            del y, want
+        del fwd, inv, A, S, xf, C4, cases
+    report["K4"]["shard"] = k4
+    rep["K4"] = k4
+
+    # (c), (e), (f): the spatial route over an NCCL group of one
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
     env = {"SPHDY_COORDINATOR": f"127.0.0.1:{port}", "SPHDY_NUM_PROCESSES": "1",
            "SPHDY_PROCESS_ID": "0"}
     maybe_init_multihost(env=env, backend="nccl" if cuda else "gloo")
+    names = ("all_reduce", "all_to_all_single", "reduce_scatter_tensor",
+             "all_gather_into_tensor")
+    real = {n: getattr(dist, n) for n in names}
+    calls = dict.fromkeys(names, 0)
+
+    def counting(n):
+        def call(*args, **kwargs):
+            calls[n] += 1
+            return real[n](*args, **kwargs)
+        return call
+
+    def zero_counts():
+        for f in (*wrappers.values(), weight_image, dhconv_weight_image):
+            f.launches = 0
+
+    def counted(fn):
+        """``fn()`` with the kernels' launches and the collectives counted
+        (from 0), and its seconds."""
+        zero_counts()
+        for n in names:
+            calls[n] = 0
+            setattr(dist, n, counting(n))
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            seconds = time.perf_counter() - t0
+        finally:
+            for n in names:
+                setattr(dist, n, real[n])
+        launches = {k: f.launches for k, f in wrappers.items()}
+        launches["K1 images"] = dhconv_weight_image.launches
+        zero_counts()
+        return out, seconds, launches, dict(calls)
+
     try:
         mesh = make_mesh(data=1, h=1, w=1)
         check(all(grp is dist.group.WORLD for grp in mesh.groups.values()),
               "a world of one: every mesh axis should run its collectives on the world group")
-        path = dict(embed=SPATIAL_EMBED, layers=SPATIAL_LAYERS, img_shape=SPATIAL_SHAPE,
-                    device=device, seed=0, use_pallas=True, fused_tail=True, peel=True,
-                    scan_layers=True)
-        st = main_path.build(dtype="bfloat16", **path)
         inp = main_path.window_inputs(N_STEPS, SPATIAL_SHAPE, device=device)
-        nets = (st.exp.model, st.exp.interpolator.model)
-        forwards = []
-        hooks = [net.register_forward_pre_hook(lambda mod, args: forwards.append(1))
-                 for net in nets]
+        size = dict(embed=SPATIAL_EMBED, layers=SPATIAL_LAYERS, img_shape=SPATIAL_SHAPE,
+                    device=device, seed=0)
 
-        def window(stepper, seed):
-            out = stepper.run_window(inp["x0"], inp["forcing"], inp["sst"], inp["mask"],
-                                     torch.Generator().manual_seed(seed), N_STEPS)
-            sync()
-            return out
+        def route_window(what, path, f32_path, per_forward, needs, phase_key):
+            """One 12-step window of ``path`` at full width, bf16, dropout live,
+            with ``make_mesh(1, 1, 1)`` attached to both SFNOs against the same
+            stepper's window without it (the same weights and seed: the same
+            masks), within BF16_TAIL_VS_PLAIN of the route's own bf16 error
+            (the float32 window of ``f32_path`` from the same weights); the
+            kernels launched ``per_forward`` a forward both ways, the
+            collectives ``needs`` made."""
+            st = main_path.build(dtype="bfloat16", **size, **path)
+            nets = (st.exp.model, st.exp.interpolator.model)
+            forwards = []
+            hooks = [net.register_forward_pre_hook(lambda mod, args: forwards.append(1))
+                     for net in nets]
 
-        def counted(fn):
-            for f in (*wrappers.values(), weight_image, dhconv_weight_image):
-                f.launches = 0
+            def window(stepper, seed):
+                out = stepper.run_window(inp["x0"], inp["forcing"], inp["sst"], inp["mask"],
+                                         torch.Generator().manual_seed(seed), N_STEPS)
+                sync()
+                return out
+
+            window(st, 1)  # warm-up: K1's images, cuBLAS, the allocator
             forwards.clear()
-            t0 = time.perf_counter()
-            out = fn()
-            seconds = time.perf_counter() - t0
-            launches = {k: f.launches for k, f in wrappers.items()}
-            launches["K1 images"] = dhconv_weight_image.launches
-            for f in (*wrappers.values(), weight_image, dhconv_weight_image):
-                f.launches = 0
-            return out, seconds, launches, len(forwards)
-
-        window(st, 1)  # warm-up: K1's images, cuBLAS, the allocator
-        (_, one), one_s, one_launches, n_fwd = counted(lambda: window(st, 2))
-        # the collectives of the spatial route, counted by name
-        names = ("all_reduce", "all_to_all_single", "reduce_scatter_tensor",
-                 "all_gather_into_tensor")
-        real = {n: getattr(dist, n) for n in names}
-        calls = dict.fromkeys(names, 0)
-
-        def counting(n):
-            def call(*args, **kwargs):
-                calls[n] += 1
-                return real[n](*args, **kwargs)
-            return call
-
-        for net in nets:
-            net.set_mesh(mesh)
-        try:
-            window(st, 1)  # the spatial route's warm-up
-            for n in names:
-                setattr(dist, n, counting(n))
-            (_, sp), sp_s, launches, sp_fwd = counted(lambda: window(st, 2))
-        finally:
-            for n in names:
-                setattr(dist, n, real[n])
+            (_, one), one_s, one_launches, _ = counted(lambda: window(st, 2))
+            n_fwd = len(forwards)
             for net in nets:
-                net.set_mesh(None)
-        for hk in hooks:
-            hk.remove()
-        st32 = main_path.build(dtype="float32", **path)
-        st32.exp.model.load_state_dict(st.exp.model.state_dict())
-        st32.exp.interpolator.model.load_state_dict(st.exp.interpolator.model.state_dict())
-        _, p32 = window(st32, 2)
-        del st32
-        other = [ch for ch in range(sp.shape[-1]) if ch != 1]  # the model-driven channels
-        scale = float(p32[..., other].abs().max())
-        gap = float((sp - one).abs().max())
-        noise = float((one - p32).abs().max())
-        runs["spatial"] = dict(launches=launches, seconds=sp_s, forwards=sp_fwd)
-        phase7_s = runs.get("fused_tail", {}).get("seconds")
-        rep["window"] = dict(seconds=sp_s, one_process_seconds=one_s, phase7_seconds=phase7_s,
-                             launches=launches, one_process_launches=one_launches,
-                             forwards=sp_fwd, collectives=calls, gap=gap,
-                             bit_for_bit=bool(torch.equal(sp, one)), bf16_noise=noise,
-                             scale=scale, ratio=gap / noise if noise else None)
-        log(f"the fused-tail window on the spatial route over an NCCL group of one, "
-            f"{SPATIAL_EMBED} x {SPATIAL_LAYERS} on {SPATIAL_SHAPE}, bf16, dropout live: "
-            f"{N_STEPS} steps in {sp_s:.3f} s against {one_s:.3f} s without the mesh in this "
-            f"phase and phase 7's {phase7_s} s; launches {launches} over {sp_fwd} SFNO forwards "
-            f"(without the mesh {one_launches}, {n_fwd} forwards); collectives {calls}; max "
-            f"|spatial - one process| {gap:.3e} = {gap / scale:.3e} of the largest model-driven "
-            f"prediction (bit for bit: {rep['window']['bit_for_bit']}), the route's "
-            f"own bf16 error max |bf16 - float32| {noise:.3e}; ratio "
-            f"{rep['window']['ratio']} (tolerance {BF16_TAIL_VS_PLAIN:g}); on {smi_line}")
-        check(bool(torch.isfinite(sp).all()) and tuple(sp.shape) == tuple(one.shape),
-              f"the spatial window: non-finite or shaped {tuple(sp.shape)}")
-        check(gap <= BF16_TAIL_VS_PLAIN * noise,
-              "the spatial route's window disagrees with the window without the mesh")
-        check(calls["all_to_all_single"] > 0 and calls["all_reduce"] > 0 and
-              calls["reduce_scatter_tensor"] > 0,
-              f"the spatial window made the collectives {calls}: the route was not taken")
-        per_forward = SPATIAL_LAYERS * sp_fwd
-        check(sp_fwd == n_fwd and launches["K1"] == one_launches["K1"] == per_forward and
-              launches["K3"] == one_launches["K3"] == per_forward and launches["K2"] == 0
-              and launches["K1 images"] == 0,
-              f"the spatial window launched {launches} over {sp_fwd} forwards; without the mesh "
-              f"{one_launches} over {n_fwd}; expected {per_forward} of K1 and of K3 and no image")
-        del st, inp, one, sp, p32
+                net.set_mesh(mesh)
+            try:
+                window(st, 1)  # the spatial route's warm-up
+                forwards.clear()
+                (_, sp), sp_s, launches, coll = counted(lambda: window(st, 2))
+                sp_fwd = len(forwards)
+            finally:
+                for net in nets:
+                    net.set_mesh(None)
+            for hk in hooks:
+                hk.remove()
+            st32 = main_path.build(dtype="float32", **size, **f32_path)
+            st32.exp.model.load_state_dict(st.exp.model.state_dict())
+            st32.exp.interpolator.model.load_state_dict(st.exp.interpolator.model.state_dict())
+            _, p32 = window(st32, 2)
+            del st32
+            other = [ch for ch in range(sp.shape[-1]) if ch != 1]  # the model-driven channels
+            scale = float(p32[..., other].abs().max())
+            gap = float((sp - one).abs().max())
+            noise = float((one - p32).abs().max())
+            phase_s = runs.get(phase_key, {}).get("seconds")
+            o = dict(seconds=sp_s, one_process_seconds=one_s, phase_seconds=phase_s,
+                     launches=launches, one_process_launches=one_launches, forwards=sp_fwd,
+                     collectives=coll, gap=gap, bit_for_bit=bool(torch.equal(sp, one)),
+                     bf16_noise=noise, scale=scale, ratio=gap / noise if noise else None)
+            log(f"{what} on the spatial route over an NCCL group of one, {SPATIAL_EMBED} x "
+                f"{SPATIAL_LAYERS} on {SPATIAL_SHAPE}, bf16, dropout live: {N_STEPS} steps in "
+                f"{sp_s:.3f} s against {one_s:.3f} s without the mesh in this phase and "
+                f"{phase_key}'s {phase_s} s; launches {launches} over {sp_fwd} SFNO forwards "
+                f"(without the mesh {one_launches}, {n_fwd} forwards); collectives {coll}; max "
+                f"|spatial - one process| {gap:.3e} = {gap / scale:.3e} of the largest "
+                f"model-driven prediction (bit for bit: {o['bit_for_bit']}), the route's own "
+                f"bf16 error max |bf16 - float32| {noise:.3e}; ratio {o['ratio']} (tolerance "
+                f"{BF16_TAIL_VS_PLAIN:g}); on {smi_line}")
+            check(bool(torch.isfinite(sp).all()) and tuple(sp.shape) == tuple(one.shape),
+                  f"{what}: the spatial window is non-finite or shaped {tuple(sp.shape)}")
+            check(gap <= BF16_TAIL_VS_PLAIN * noise,
+                  f"{what}: the spatial route's window disagrees with the window without "
+                  f"the mesh")
+            check(all(coll[n] > 0 for n in needs),
+                  f"{what}: the spatial window made the collectives {coll}: the route was "
+                  f"not taken")
+            want = {k: n * sp_fwd for k, n in per_forward.items()}
+            check(sp_fwd == n_fwd and all(launches[k] == one_launches[k] == n
+                                          for k, n in want.items())
+                  and launches["K1 images"] == 0,
+                  f"{what}: the spatial window launched {launches} over {sp_fwd} forwards; "
+                  f"without the mesh {one_launches} over {n_fwd}; expected {want} and no image")
+            del st, one, sp, p32
+            return o
+
+        # (c) phase 7's fused-tail window
+        tail = dict(use_pallas=True, fused_tail=True, peel=True, scan_layers=True)
+        runs["spatial"] = rep["window"] = route_window(
+            "the fused-tail window", tail, tail,
+            {"K1": SPATIAL_LAYERS, "K2": 0, "K3": SPATIAL_LAYERS, "K4": 0},
+            ("all_to_all_single", "all_reduce", "reduce_scatter_tensor"), "fused_tail")
+        # (e) phase 8's fast window: K4 on the "w" shard (the "h" gather of
+        # one rank is no call)
+        fast = dict(main_path.FAST_WINDOW)
+        runs["spatial_fast"] = rep["fast_window"] = route_window(
+            "the fast window", fast, dict(fast, spectral_io=""),
+            {"K1": 0, "K2": 0, "K3": 0, "K4": SPATIAL_LAYERS - 2},
+            ("all_to_all_single", "all_reduce"), "fast")
+
+        # (f) one float32 forward of each routed option on the route
+        base = main_path.sfno_configs(C, SPATIAL_LAYERS, "float32", SPATIAL_SHAPE,
+                                      use_pallas=False, fused_mlp=False)[1]
+        x = torch.randn((1, H, W, base.out_chans), device=dev, generator=g)
+        forcing = torch.randn((1, H, W, base.in_chans - base.out_chans), device=dev,
+                              generator=g)
+        t = torch.ones(1, device=dev)
+        pipe = dict(rank=0.25, hard_thresholding_fraction=main_path.FAST_WINDOW["thresh"])
+        scatter, reduced, trade = "reduce_scatter_tensor", "all_reduce", "all_to_all_single"
+        cases = {
+            "dense dhconv, XLA form": ({}, scatter),
+            "merged dhconv": (dict(merged_dhconv=True), scatter),
+            "separable dhconv": (dict(separable=True), trade),
+            f"diagonal filter at embed {OPT_DIAG_EMBED}": (
+                dict(operator_type="diagonal", embed_dim=OPT_DIAG_EMBED), scatter),
+            f"separable diagonal filter at embed {OPT_DIAG_EMBED}": (
+                dict(operator_type="diagonal", separable=True, embed_dim=OPT_DIAG_EMBED), trade),
+            "CP rank 0.25 in spectral space": (
+                dict(factorization="cp", rank=0.25, rank_pipeline=False), reduced),
+            "Tucker rank 0.25 in spectral space": (
+                dict(factorization="tucker", rank=0.25, rank_pipeline=False), reduced),
+            "TT rank 0.25": (dict(factorization="tt", rank=0.25), reduced),
+            "CP rank pipeline": (dict(factorization="cp", **pipe), reduced),
+            "CP rank pipeline, K4 (float32)": (dict(factorization="cp", fused_rank=True, **pipe),
+                                               trade),
+            "Tucker rank pipeline": (dict(factorization="tucker", **pipe), scatter),
+            "non-linear filter, shared": (dict(filter_type="non-linear"), trade),
+            "non-linear filter, per degree": (
+                dict(filter_type="non-linear", operator_type="l-dependant"), trade),
+            "scale_factor 2": (dict(scale_factor=2), scatter),
+        }
+        forwards = {}
+        for name, (kw, need) in cases.items():
+            kw = dict(kw)
+            fused = kw.pop("fused_rank", False)
+            net = SFNO(dataclasses.replace(base, **kw), fused_rank=fused).to(dev)
+            net.init_weights(torch.Generator(device=dev).manual_seed(0))
+            with torch.no_grad():
+                want = net(x, time=t, static_condition=forcing)
+                net.set_mesh(mesh)
+                try:
+                    sync()
+                    got, seconds, launches, coll = counted(
+                        lambda: (net(x, time=t, static_condition=forcing), sync())[0])
+                finally:
+                    net.set_mesh(None)
+            abs_err, rel_err = rel(got, want)
+            k4_want = sum(bool(getattr(b.filter, "fused_rank", False)) for b in net.blocks)
+            forwards[name] = dict(ms=seconds * 1e3, max_abs_err=abs_err, max_rel_err=rel_err,
+                                  launches=launches, collectives=coll)
+            log(f"option on the spatial route, {name}: float32 forward {seconds * 1e3:.2f} ms "
+                f"(the route's first), max rel err against the forward without the mesh "
+                f"{rel_err:.3e} (tolerance 1e-4), K4 launches {launches['K4']}, collectives "
+                f"{coll}")
+            check(bool(torch.isfinite(got).all()) and rel_err <= 1e-4,
+                  f"option {name}: the spatial route disagrees with the forward without the "
+                  f"mesh ({rel_err:.3e})")
+            check(coll[need] > 0 and coll[trade] > 0,
+                  f"option {name}: the collectives {coll}, expected {need}: the route was not "
+                  f"taken")
+            check(launches["K4"] == k4_want, f"option {name}: K4 launched {launches['K4']} "
+                                             f"times, expected {k4_want}")
+            del net, want, got
+            if cuda:
+                torch.cuda.empty_cache()
+        rep["options"] = forwards
+        del inp, x, forcing
     finally:
         dist.destroy_process_group()
     check(not dist.is_initialized(), "the process group outlived phase 21")
@@ -4345,33 +4570,6 @@ def main() -> int:
                 l_first = torch.minimum(fwd.analysis_l_first, inv.synthesis_l_first).to(dev)
             return xf, A, S, C, l_first
 
-        def rank_library(xf, A, S, C):
-            """The yardstick: the bf16 (or float32) torch.bmm chain, batched
-            over m, with the float32 CP scale between the two products and
-            the layout permutes to and from the port's layout."""
-            B, H, M, R2, _ = xf.shape
-            R, L = R2 // 2, A.shape[2]
-            xm = xf.permute(2, 1, 0, 3, 4).reshape(M, H, B * R2 * 2)
-            t = torch.bmm(A.transpose(1, 2), xm).view(M, L, B, R2, 2).float()
-            Sr, Si = t[..., :R, :], t[..., R:, :]
-            p_re, p_im = Sr[..., 0] - Si[..., 1], Sr[..., 1] + Si[..., 0]
-            Cr, Ci = C[:, None, :, 0], C[:, None, :, 1]
-            s_re, s_im = p_re * Cr - p_im * Ci, p_re * Ci + p_im * Cr
-            s = torch.cat([torch.stack([s_re, s_im], -1), torch.stack([-s_im, s_re], -1)], -2)
-            y = torch.bmm(S, s.to(xf.dtype).reshape(M, L, B * R2 * 2))
-            return y.view(M, H, B, R2, 2).permute(2, 1, 0, 3, 4).contiguous()
-
-        def rank_bound(xf, A, S, C, l_first, dense=False):
-            """Over what these inputs need: the rows l >= l_first[m] of A[m]
-            and S[m] (the triangle; dense=True: all of them), xf and y once,
-            C."""
-            B, H, M, R2, _ = xf.shape
-            L = A.shape[2]
-            rows = M * L if dense else int((L - l_first.clamp(0, L)).sum())
-            flops = 2 * 2.0 * H * rows * 2 * R2 * B
-            nbytes = xf.element_size() * (2 * xf.numel() + 2 * H * rows) + 4.0 * C.numel()
-            return bound(flops, nbytes, BF16_PEAK if xf.dtype == torch.bfloat16 else F32_PEAK)
-
         cases = {
             "fast shape B=1 bf16 (the forecaster)": ((1, 180, 144, 144, 64), torch.bfloat16,
                                                       "legendre-gauss", tol_bf16),
@@ -4404,13 +4602,13 @@ def main() -> int:
                 f"(tolerance {tol:g} of max |plain|)")
             check(rel_err <= tol, f"K4 disagrees with its plain version ({name})")
             if name.startswith("fast shape") and dtype == torch.bfloat16:
-                lib_err = errs(rank_library(*ops[:4]), want)[1]
+                lib_err = errs(k4_library(*ops[:4]), want)[1]
                 ms = timed(lambda: fused_rank(*ops), 20)
                 dev_ms = device_ms(lambda: fused_rank(*ops), 20)
                 plain_ms = timed(lambda: fused_rank_plain(*ops[:4]), 5)
-                library_ms = timed(lambda: rank_library(*ops[:4]), 20)
-                bound_ms, bound_by = rank_bound(*ops)
-                dense_ms, _ = rank_bound(*ops, dense=True)
+                library_ms = timed(lambda: k4_library(*ops[:4]), 20)
+                bound_ms, bound_by = k4_bound(*ops)
+                dense_ms, _ = k4_bound(*ops, dense=True)
                 log(f"K4 {name}: kernel {ms:.4f} ms a call in a loop through the wrapper "
                     f"({dev_ms:.4f} ms on the device, queued behind a spin), plain {plain_ms:.4f} ms, "
                     f"bf16 torch.bmm chain {library_ms:.4f} ms (its max rel err {lib_err:.3e}), "
@@ -4733,8 +4931,9 @@ def main() -> int:
                "bf16 gradient mean and ZeRO-1 through K1)"):
         phase17(smi_line, wrappers, report, runs)
 
-    with Phase("21 spatial model parallelism (K1 on the channel shards, K2 and K3 at block "
-               "origins, the fused-tail window on the spatial route over an NCCL group of one)"):
+    with Phase("21 spatial model parallelism (K1 and K4 on the channel shards, K4 on a "
+               "block's rows, K2 and K3 at block origins, the fused-tail and fast windows and "
+               "every filter option on the spatial route over an NCCL group of one)"):
         phase21(smi_line, wrappers, report, runs)
 
     with Phase("13 model options at 256 x 8 (Tucker, fold, remat, the other options)"):

@@ -11,8 +11,11 @@
 //     s[l, k] = p[l, k] * C[l, k]                        Si = t[l, R + k])
 //     y[b, h, m, :] = sum_l S[m, h, l] [s | i s][l, :]
 //
-// Layout: xf and y (B, H, M, 2R, 2), A and S (M, H, L), all in one dtype T
-// (float or bf16); C (L, R, 2) float; l_first (M,) int32. Rounding points
+// Layout: xf (B, H, M, 2R, 2), A (M, H, L), S (M, H_out, L), y (B, H_out, M,
+// 2R, 2), all in one dtype T (float or bf16); C (L, R, 2) float; l_first (M,)
+// int32. The synthesis has its own row count H_out: on a grid split over
+// latitudes a rank analyses every latitude and synthesizes its block's rows
+// (H_out = H on one device). Rounding points
 // are the model path's (ops/fused_rank.py): under bf16, t, s and y are
 // rounded to bf16 where the plain version rounds them, and the scale is
 // float32 without FMA contraction, as the plain version computes it.
@@ -102,8 +105,8 @@ template <int NI>
 __global__ void __launch_bounds__(kThreads)
 fused_rank_kernel(const float* __restrict__ xf, const float* __restrict__ At,
                   const float* __restrict__ St, const float* __restrict__ C,
-                  const int* __restrict__ l_first, float* __restrict__ y, int H, int M,
-                  int L, int R) {
+                  const int* __restrict__ l_first, float* __restrict__ y, int H, int H_out,
+                  int M, int L, int R) {
   constexpr int Lp = 16 * NI;
   extern __shared__ float smem[];
   float* ts = smem;                  // [Lp][kCols]: t (row l - lb), then s in columns 0..31
@@ -121,9 +124,9 @@ fused_rank_kernel(const float* __restrict__ xf, const float* __restrict__ At,
   const int ty = tid / 16;
   const size_t row = (size_t)M * 4 * R;  // elements between two h of xf and y
   const float* xb = xf + (size_t)b * H * row + (size_t)m * 4 * R;
-  float* yb = y + (size_t)b * H * row + (size_t)m * 4 * R;
+  float* yb = y + (size_t)b * H_out * row + (size_t)m * 4 * R;
   const float* Am = At + (size_t)m * H * L;
-  const float* Sm = St + (size_t)m * H * L;
+  const float* Sm = St + (size_t)m * H_out * L;
 
   // local column j < 32: Sr of rank k0 + j / 2, (re, im) = j % 2;
   // j >= 32: Si of rank k0 + (j - 32) / 2
@@ -189,7 +192,7 @@ fused_rank_kernel(const float* __restrict__ xf, const float* __restrict__ At,
   // k0 + q / 2, re or im of s), u[h][q] = sum_l S[m, h, l] s[l][q]; then
   // y(k0 + q/2, q%2) = u and y(R + k0 + q/2, 1 - q%2) = +u (q even) or -u
   // (q odd)
-  for (int h0 = 0; h0 < H; h0 += kTileH) {
+  for (int h0 = 0; h0 < H_out; h0 += kTileH) {
     float u[4][2];
 #pragma unroll
     for (int i = 0; i < 4; ++i) u[i][0] = u[i][1] = 0.f;
@@ -197,7 +200,7 @@ fused_rank_kernel(const float* __restrict__ xf, const float* __restrict__ At,
       for (int e = tid; e < kTileH * kChunk; e += kThreads) {
         const int hh = e / kChunk, ll = e % kChunk, l = lb + l0 + ll;
         float v = 0.f;
-        if (h0 + hh < H && l < L) v = Sm[(size_t)(h0 + hh) * L + l];
+        if (h0 + hh < H_out && l < L) v = Sm[(size_t)(h0 + hh) * L + l];
         sst[hh * (kChunk + 1) + ll] = v;
       }
       __syncthreads();
@@ -218,7 +221,7 @@ fused_rank_kernel(const float* __restrict__ xf, const float* __restrict__ At,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int h = h0 + ty + 16 * i;
-      if (h >= H) continue;
+      if (h >= H_out) continue;
       float* yr = yb + (size_t)h * row;
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -233,7 +236,7 @@ fused_rank_kernel(const float* __restrict__ xf, const float* __restrict__ At,
 
 template <int NI>
 int launch_simt(const void* xf, const void* At, const void* St, const float* C,
-                const int* l_first, void* y, int B, int H, int M, int L, int R,
+                const int* l_first, void* y, int B, int H, int H_out, int M, int L, int R,
                 cudaStream_t stream) {
   constexpr int Lp = 16 * NI;
   const size_t smem = sizeof(float) * ((size_t)Lp * kCols + kChunk * kCols + kChunk * Lp);
@@ -243,7 +246,7 @@ int launch_simt(const void* xf, const void* At, const void* St, const float* C,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((R + kRanks - 1) / kRanks, M, B);
   kernel<<<grid, kThreads, smem, stream>>>((const float*)xf, (const float*)At, (const float*)St,
-                                           C, l_first, (float*)y, H, M, L, R);
+                                           C, l_first, (float*)y, H, H_out, M, L, R);
   return (int)cudaGetLastError();
 }
 
@@ -361,7 +364,7 @@ __global__ void __launch_bounds__(tc::kThreads, 2)
 fused_rank_tc_kernel(const __nv_bfloat16* __restrict__ xf, const __nv_bfloat16* __restrict__ At,
                      const __nv_bfloat16* __restrict__ St, const float2* __restrict__ C,
                      const int* __restrict__ l_first, __nv_bfloat16* __restrict__ y, int H,
-                     int M, int L, int R) {
+                     int H_out, int M, int L, int R) {
   using namespace tc;
   extern __shared__ __align__(1024) unsigned char smem_k4[];
   const uint32_t raw = smem_u32(smem_k4);
@@ -369,7 +372,8 @@ fused_rank_tc_kernel(const __nv_bfloat16* __restrict__ xf, const __nv_bfloat16* 
   unsigned char* const sgen = smem_k4 + (base - raw);  // generic pointer to base
 
   // h goes in chunks of Hc rows (one chunk up to H 192): the analysis sums
-  // over the chunks, the synthesis writes the rows of one chunk at a time
+  // over the chunks of H, the synthesis writes the rows of one chunk of H_out
+  // at a time
   const int Hc = min((H + 63) & ~63, kMaxHL);
   const uint32_t xs = 0;                                     // xf: [Hc][64 columns]
   const uint32_t ms = (uint32_t)Hc * 128;                    // A_m, then S_m
@@ -384,9 +388,9 @@ fused_rank_tc_kernel(const __nv_bfloat16* __restrict__ xf, const __nv_bfloat16* 
   const int nlt = (nl + 63) / 64;  // l tiles = K blocks of 64 of the synthesis
   const size_t row = (size_t)M * 4 * R;  // elements between two h of xf and y
   const __nv_bfloat16* xb = xf + (size_t)b * H * row + (size_t)m * 4 * R;
-  __nv_bfloat16* yb = y + (size_t)b * H * row + (size_t)m * 4 * R;
+  __nv_bfloat16* yb = y + (size_t)b * H_out * row + (size_t)m * 4 * R;
   const __nv_bfloat16* Am = At + (size_t)m * H * L;
-  const __nv_bfloat16* Sm = St + (size_t)m * H * L;
+  const __nv_bfloat16* Sm = St + (size_t)m * H_out * L;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   // ---- Legendre analysis: t (l x 64) = A_m^T xf_m, both operands MN-major,
@@ -448,15 +452,15 @@ fused_rank_tc_kernel(const __nv_bfloat16* __restrict__ xf, const __nv_bfloat16* 
         [&](int e, int& valid) {
           const int ht = e / per_tile, r = e - ht * per_tile, kb = r >> 9, rr = r & 511;
           const int h = h0 + 64 * ht + (rr >> 3), l = lb + 64 * kb + 8 * (rr & 7);
-          valid = h < H ? max(0, min(8, L - l)) : 0;
-          return Sm + (size_t)min(h, H - 1) * L + (valid > 0 ? l : 0);
+          valid = h < H_out ? max(0, min(8, L - l)) : 0;
+          return Sm + (size_t)min(h, H_out - 1) * L + (valid > 0 ? l : 0);
         },
         [&](int e) {
           const int ht = e / per_tile, r = e - ht * per_tile, kb = r >> 9, rr = r & 511;
           return ms + (uint32_t)(ht * nlt + kb) * kTile + swz(rr >> 3, rr & 7);
         });
   };
-  stage_S(0, min(Hc, (H + 63) & ~63) / 64);  // in flight during the scale
+  stage_S(0, min(Hc, (H_out + 63) & ~63) / 64);  // in flight during the scale
 
   // ---- the CP scale in registers: row lr = l - lb of t; the thread holds Sr
   // (columns 8q + 2(lane % 4) + {0, 1}) and Si (the same + 32) of rank
@@ -493,8 +497,8 @@ fused_rank_tc_kernel(const __nv_bfloat16* __restrict__ xf, const __nv_bfloat16* 
 
   // ---- Legendre synthesis, chunk by chunk of h: u (h x 32) = S_m s, both
   // operands K-major
-  for (int h0 = 0; h0 < H; h0 += Hc) {
-    const int nht = min(Hc, (H - h0 + 63) & ~63) / 64;
+  for (int h0 = 0; h0 < H_out; h0 += Hc) {
+    const int nht = min(Hc, (H_out - h0 + 63) & ~63) / 64;
     if (h0 > 0) {
       __syncthreads();  // the previous chunk's products have read S_m
       stage_S(h0, nht);
@@ -531,7 +535,7 @@ fused_rank_tc_kernel(const __nv_bfloat16* __restrict__ xf, const __nv_bfloat16* 
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2) {
         const int h = h0 + 64 * ht + 16 * warp + (lane >> 2) + 8 * h2;
-        if (h >= H) continue;
+        if (h >= H_out) continue;
         __nv_bfloat16* yr = yb + (size_t)h * row;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -550,7 +554,7 @@ fused_rank_tc_kernel(const __nv_bfloat16* __restrict__ xf, const __nv_bfloat16* 
 
 template <bool kVec>
 int launch_tc(const void* xf, const void* At, const void* St, const float* C,
-              const int* l_first, void* y, int B, int H, int M, int L, int R,
+              const int* l_first, void* y, int B, int H, int H_out, int M, int L, int R,
               cudaStream_t stream) {
   using namespace tc;
   const size_t Hc = std::min((size_t)(H + 63) / 64 * 64, (size_t)kMaxHL);
@@ -563,7 +567,7 @@ int launch_tc(const void* xf, const void* At, const void* St, const float* C,
   dim3 grid(((R + kRanks - 1) / kRanks) * B, M);
   kernel<<<grid, tc::kThreads, smem, stream>>>(
       (const __nv_bfloat16*)xf, (const __nv_bfloat16*)At, (const __nv_bfloat16*)St,
-      (const float2*)C, l_first, (__nv_bfloat16*)y, H, M, L, R);
+      (const float2*)C, l_first, (__nv_bfloat16*)y, H, H_out, M, L, R);
   return (int)cudaGetLastError();
 }
 
@@ -571,30 +575,32 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
-// xf, y: (B, H, M, 2R, 2); At, St: (M, H, L); all contiguous in one dtype
-// (dtype 0 float32, 1 bf16); C: (L, R, 2) float32; l_first: (M,) int32, per m
-// a column before which A[m] and S[m] are zero (0 skips nothing). L <= 192.
-// Returns the cudaError_t of the launch (0 on success).
+// xf: (B, H, M, 2R, 2); At: (M, H, L); St: (M, H_out, L); y: (B, H_out, M,
+// 2R, 2); all contiguous in one dtype (dtype 0 float32, 1 bf16); C: (L, R, 2)
+// float32; l_first: (M,) int32, per m a column before which A[m] and S[m] are
+// zero (0 skips nothing). L <= 192. Returns the cudaError_t of the launch (0
+// on success).
 extern "C" int sdt_fused_rank(const void* xf, const void* At, const void* St, const void* C,
-                              const void* l_first, void* y, int B, int H, int M, int L, int R,
-                              int dtype, void* stream) {
+                              const void* l_first, void* y, int B, int H, int H_out, int M,
+                              int L, int R, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float* c = (const float*)C;
   const int* lf = (const int*)l_first;
-  if (B <= 0 || H <= 0 || M <= 0 || L <= 0 || R <= 0 || L > tc::kMaxHL || M > 65535)
+  if (B <= 0 || H <= 0 || H_out <= 0 || M <= 0 || L <= 0 || R <= 0 || L > tc::kMaxHL ||
+      M > 65535)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     if (B > 65535) return (int)cudaErrorInvalidValue;
-    if (L <= 48) return launch_simt<3>(xf, At, St, c, lf, y, B, H, M, L, R, s);
-    if (L <= 96) return launch_simt<6>(xf, At, St, c, lf, y, B, H, M, L, R, s);
-    if (L <= 144) return launch_simt<9>(xf, At, St, c, lf, y, B, H, M, L, R, s);
-    return launch_simt<12>(xf, At, St, c, lf, y, B, H, M, L, R, s);
+    if (L <= 48) return launch_simt<3>(xf, At, St, c, lf, y, B, H, H_out, M, L, R, s);
+    if (L <= 96) return launch_simt<6>(xf, At, St, c, lf, y, B, H, H_out, M, L, R, s);
+    if (L <= 144) return launch_simt<9>(xf, At, St, c, lf, y, B, H, H_out, M, L, R, s);
+    return launch_simt<12>(xf, At, St, c, lf, y, B, H, H_out, M, L, R, s);
   }
   if (dtype == 1) {
     const bool vec = R % 4 == 0 && L % 8 == 0 && aligned16(xf) && aligned16(At) &&
                      aligned16(St);
-    return vec ? launch_tc<true>(xf, At, St, c, lf, y, B, H, M, L, R, s)
-               : launch_tc<false>(xf, At, St, c, lf, y, B, H, M, L, R, s);
+    return vec ? launch_tc<true>(xf, At, St, c, lf, y, B, H, H_out, M, L, R, s)
+               : launch_tc<false>(xf, At, St, c, lf, y, B, H, H_out, M, L, R, s);
   }
   return (int)cudaErrorInvalidValue;
 }

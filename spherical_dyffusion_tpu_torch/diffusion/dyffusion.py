@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..models.modules import device_generator
+from ..parallel.mesh import Mesh, spatial_block
 
 __all__ = ["DYffusionConfig", "DiffusionSchedule", "build_schedule", "q_sample",
            "forward_noise", "predict_x_last", "p_losses", "sample_loop", "scan_compatible", "sample_loop_scan",
@@ -244,15 +245,22 @@ def q_sample(interpolate_fn: InterpolateFn, sched: DiffusionSchedule,
     return interpolate_fn(x_end, x0, i_t, generator, **kwargs)
 
 
-def forward_noise(x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+def forward_noise(x: torch.Tensor, generator: Optional[torch.Generator],
+                  mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Standard normal noise of x's shape and dtype for the ``data+noise``
     conditionings, drawn on x's device from a generator there seeded from
     ``generator`` (a host generator): nothing of x's size comes from the
-    host."""
+    host. With a ``mesh`` x ``(B, Hl, Wl, C)`` is this rank's block: the
+    noise is drawn for the whole grid and the block's kept, as the one
+    process draws it."""
     if generator is None:
         raise ValueError("data+noise conditioning requires a generator")
     device_gen = device_generator(generator, x.device)
-    return torch.randn(x.shape, generator=device_gen, device=x.device, dtype=x.dtype)
+    if mesh is None:
+        return torch.randn(x.shape, generator=device_gen, device=x.device, dtype=x.dtype)
+    blk = spatial_block(mesh, x.shape[-3:-1])
+    return torch.randn(x.shape[:-3] + blk.shape + x.shape[-1:], generator=device_gen,
+                       device=x.device, dtype=x.dtype)[..., blk.rows(), blk.cols(), :]
 
 
 def predict_x_last(forecast_fn: ForecastFn, cfg: DYffusionConfig,
@@ -267,7 +275,9 @@ def predict_x_last(forecast_fn: ForecastFn, cfg: DYffusionConfig,
     (``forward_noise``, from ``generator``) by the per-sample factor
     ``f = t / (N - 1)``: ``f x0 + (1 - f) noise`` ("data+noise-v1") or
     ``(1 - f) x0 + f noise`` ("data+noise-v2"); the forcings of
-    ``dynamical_condition`` follow it."""
+    ``dynamical_condition`` follow it. A ``forecast_fn`` whose ``mesh``
+    attribute is set runs on that mesh's block of the grid, and the noise
+    is the whole grid's, sliced."""
     B = initial_condition.shape[0]
     if isinstance(t, torch.Tensor):
         tt = t.float()
@@ -280,7 +290,7 @@ def predict_x_last(forecast_fn: ForecastFn, cfg: DYffusionConfig,
         forward_cond = None
     elif ctype in ("data+noise-v1", "data+noise-v2"):
         f = (tt / (sched.num_timesteps - 1)).reshape((B,) + (1,) * (initial_condition.dim() - 1))
-        noise = forward_noise(initial_condition, generator)
+        noise = forward_noise(initial_condition, generator, getattr(forecast_fn, "mesh", None))
         if ctype == "data+noise-v1":
             forward_cond = f * initial_condition + (1 - f) * noise
         else:

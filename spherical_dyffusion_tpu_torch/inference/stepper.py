@@ -36,10 +36,13 @@ broadcast from the mesh's first rank. Rows that do not divide by the data
 size stay whole on every rank, as JAX leaves them replicated; the grid must
 divide by "h" and "w". Ranks that differ only in "matmul" hold replicas, as
 JAX shards no window array over it. The inputs noise is drawn for the whole
-grid and sliced to the block. The sampler is pointwise but for its network
-calls and its generator (``diffusion/dyffusion.py``), so it needs no change;
-the noised forecaster conditionings ("data+noise"), which draw over the
-block, raise on a split grid (ROADMAP Queue 1 item 7c).
+grid and sliced to the block, and so is the noise of the noised forecaster
+conditionings ("data+noise", ``diffusion/dyffusion.py:forward_noise``, from
+the forecaster's mesh). The sampler is pointwise but for its network calls
+and its generator, so it needs no change. Every SFNO option but the folded
+Legendre stage and the planar FFT transform has a split-grid route; those
+two and the UNet backbone, whose convolutions need a halo exchange, raise
+here when the stepper is built (ROADMAP Queue 1 item 7c).
 """
 
 from __future__ import annotations
@@ -112,9 +115,6 @@ class DYffusionStepper:
         self._nets = ((experiment.model, experiment.interpolator.model)
                       if self.mesh is not None else ())
         if self.mesh is not None and self.mesh.spatial:
-            dcfg = getattr(experiment, "diffusion_cfg", None)
-            if "noise" in str(getattr(dcfg, "forward_conditioning", "")):
-                refuse_split_grid(self.mesh, "the noised forecaster conditioning")
             for net in self._nets:  # raises here for what has no split-grid route
                 if not hasattr(net, "set_mesh"):
                     refuse_split_grid(self.mesh, f"the {type(net).__name__} backbone")

@@ -27,9 +27,9 @@ reads ``_mesh`` computes what it computes on the whole grid: the norms sum
 their statistics over the "h" and "w" groups and slice their per-pixel
 affine to the block, the fused MLP draws each row's bits at its pixel's
 row of the whole grid, and ``QuantizedDropout`` draws the whole grid's bits
-and keeps the block's. DropPath draws one value a sample, the same on the
-ranks of one "data" index, which share a generator. Exact-rate dropout on a
-split grid raises (ROADMAP Queue 1 item 7c).
+(or, at the exact rate, its uniforms) and keeps the block's. DropPath draws
+one value a sample, the same on the ranks of one "data" index, which share
+a generator.
 """
 
 from __future__ import annotations
@@ -73,24 +73,32 @@ def device_generator(generator: torch.Generator, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(draw_seed(generator))
 
 
-def exact_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def exact_dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+                  mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Inverted dropout at the exact rate (``flax.linen.Dropout``): keep
     each element with probability ``1 - rate`` and scale kept ones by
     ``1 / (1 - rate)`` in x's dtype; rate 1 drops everything. The uniform
     draw is made on x's device, from a generator there seeded from
     ``generator`` (a host generator): nothing of x's size crosses from the
-    host."""
+    host. With a ``mesh`` x ``(..., Hl, Wl, C)`` is this rank's block: the
+    uniforms are drawn for the whole grid and the block's kept."""
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
     device_gen = device_generator(generator, x.device)
-    u = torch.rand(x.shape, generator=device_gen, device=x.device)
+    if mesh is None:
+        u = torch.rand(x.shape, generator=device_gen, device=x.device)
+    else:
+        blk = spatial_block(mesh, x.shape[-3:-1])
+        u = torch.rand(x.shape[:-3] + blk.shape + x.shape[-1:], generator=device_gen,
+                       device=x.device)[..., blk.rows(), blk.cols(), :]
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def refuse_split_grid(mesh: Optional[Mesh], what: str) -> None:
     """Raise for an option that has no route over a grid split over "h" or
-    "w" (ROADMAP Queue 1 item 7c)."""
+    "w" (ROADMAP Queue 1 item 7c: the folded Legendre stage, the planar FFT
+    transform, the UNet)."""
     if mesh is not None and mesh.spatial:
         raise NotImplementedError(
             f"{what} on a grid split over the mesh {mesh.shape} is not ported (ROADMAP "
@@ -224,9 +232,9 @@ class QuantizedDropout(nn.Module):
     1/512``) the module drops at the exact rate (``exact_dropout``).
     ``exact=True`` always drops at the exact rate (the config's
     ``exact_dropout``, which the loader of reference checkpoints turns on).
-    On a split grid (``_mesh``; x ``(..., Hl, Wl, C)``) the bits are drawn
-    for the whole grid and the block's kept, so every block drops what the
-    one-process run drops there; exact-rate dropout raises there."""
+    On a split grid (``_mesh``; x ``(..., Hl, Wl, C)``) the bits (at the
+    exact rate, the uniforms) are drawn for the whole grid and the block's
+    kept, so every block drops what the one-process run drops there."""
 
     _mesh: Optional[Mesh] = None
 
@@ -241,8 +249,7 @@ class QuantizedDropout(nn.Module):
         if deterministic or self.rate <= 0.0:
             return x
         if self.exact or self.t <= 0 or (self.t < 256 and x.shape[-1] % 4):
-            refuse_split_grid(self._mesh, "exact-rate dropout")
-            return exact_dropout(x, self.rate, generator)
+            return exact_dropout(x, self.rate, generator, self._mesh)
         if self.t >= 256:
             return x
         device_gen = device_generator(generator, x.device)

@@ -74,18 +74,42 @@ Spatial model parallelism (``SFNO.set_mesh``): with a process mesh attached
 (``parallel/mesh.py``) each rank runs the network on its block of the grid,
 latitudes over "h" and longitudes over "w" (ranks that differ only in
 "data" or "matmul" hold their own rows or replicas), as JAX's
-``jit``-with-shardings partitions the same program. The filter runs
-``distributed_sht``, the channel-sharded dense dhconv on K1's wrapper
-(``distributed_dhconv``, this rank's rows of the weight) with the
-reduce-scatter over "w", and ``distributed_isht``; the norms sum their
-statistics over the "h" and "w" groups; the position embedding and a layer
-norm's affine are sliced to the block; the fused MLP and ``QuantizedDropout``
-drop by the whole grid's bits (``models/modules.py``). The parameters stay
-whole and replicated, so attaching and detaching a mesh touches no weight,
-name or checkpoint. Under "h" or "w" above 1, everything outside the dense,
-non-separable dhconv filter on unfolded SHTs of one grid raises (ROADMAP
-Queue 1 item 7c), as does autograd: the trainer replicates its step over
-"h" and "w", as JAX's does.
+``jit``-with-shardings partitions the same program. Every filter runs
+between ``distributed_sht`` and ``distributed_isht``
+(``parallel/distributed_sht.py``), on the channel shard of "w":
+
+- a filter linear in its input channels (the dense dhconv on K1 or in its
+  XLA form, merged or not, with bf16 operands or spectral IO; the diagonal
+  filter) forms its partial product from this rank's input-channel rows of
+  the weight, sums it over "w" in float32 and scatters it over the output
+  channels, then rounds where the one-device path rounds;
+- a separable filter scales this rank's channels by their rows, with no
+  sum;
+- the spectral-space CP, Tucker and TT filters project this rank's rows of
+  A (G1), sum the rank-space projection over "w", and expand to this
+  rank's output channels (B's rows; TT: G2's);
+- the rank pipeline projects in grid space with its 2R columns permuted so
+  that each "w" shard holds whole re/im pairs (``pair_order``; R must
+  divide by "w"), transforms them, scales them by its columns of C (CP) or
+  mixes them by its rows of the per-l kernel with a reduce-scatter
+  (Tucker), and expands with the rows permuted alike. With ``fused_rank``,
+  K4 runs on the shard: the longitude-transformed rank channels of every
+  latitude shard are gathered over "h", and K4 analyses all latitudes and
+  synthesizes only this block's rows;
+- spectral attention trades the channel shard for a shard of the orders m
+  and runs its MLP there with the whole weights;
+- under ``scale_factor`` the first block transforms from the image grid and
+  returns on the model grid, the last the reverse.
+
+The norms sum their statistics over the "h" and "w" groups; the position
+embedding and a layer norm's affine are sliced to the block; the fused MLP,
+``QuantizedDropout`` (quantized or at the exact rate) and the noised
+conditionings draw the whole grid's bits and keep the block's
+(``models/modules.py``). The parameters stay whole and replicated, so
+attaching and detaching a mesh touches no weight, name or checkpoint.
+Under "h" or "w" above 1 the folded Legendre stage and the planar FFT
+transform raise (ROADMAP Queue 1 item 7c), as does autograd: the trainer
+replicates its step over "h" and "w", as JAX's does.
 """
 
 from __future__ import annotations
@@ -109,6 +133,7 @@ from ..ops.contractions import (
     cp_spatial_expand,
     cp_spatial_project,
     cp_spectral_scale_stacked,
+    pair_order,
     tucker_rank_kernel,
     tucker_spectral_mix_stacked,
 )
@@ -117,8 +142,18 @@ from ..ops.fused_rank import fused_rank as fused_rank_kernel
 from ..ops.matmul import as_dtype, emit
 from ..ops.pallas_contractions import WeightImageCache
 from ..ops.sht import InverseRealSHT, RealSHT
-from ..parallel.distributed_sht import distributed_dhconv, distributed_isht, distributed_sht
-from ..parallel.mesh import AXIS_H, AXIS_W, Mesh, spatial_block
+from ..parallel.distributed_sht import (
+    all_reduce_w,
+    channels_to_orders,
+    distributed_dhconv,
+    distributed_ilongitude,
+    distributed_isht,
+    distributed_longitude,
+    distributed_sht,
+    orders_to_channels,
+    reduce_scatter_w,
+)
+from ..parallel.mesh import AXIS_H, AXIS_W, Mesh, gather, shard, spatial_block
 from .modules import (
     Dense,
     DropPath,
@@ -280,6 +315,16 @@ def _build_transforms(cfg: SFNOConfig, kernel_layout: bool = False):
             InverseRealSHT(h, w, lmax, mmax, grid="legendre-gauss", **kw))
 
 
+def _transform_refusal(fwd, inv) -> Optional[str]:
+    """The transforms of a filter that have no route over a split grid
+    (ROADMAP Queue 1 item 7c), or None."""
+    if not (isinstance(fwd, RealSHT) and isinstance(inv, InverseRealSHT)):
+        return "the planar FFT transform"
+    if fwd.folded or inv.folded:
+        return "the folded Legendre stage (sht_fold_symmetry)"
+    return None
+
+
 class SpectralConvS2(nn.Module):
     """The linear filter: transform -> spectral weight -> inverse transform
     (+ bias). Returns ``(filtered, residual)``; the residual is the input
@@ -305,9 +350,9 @@ class SpectralConvS2(nn.Module):
     spectral stages. ``fused_rank`` runs the CP rank pipeline's spectral
     middle as the K4 kernel (unfolded matmul SHTs only).
 
-    With a mesh (``_mesh``) the input is this rank's block and the dense
-    dhconv runs over it (``_distributed``); ``split_grid_refusal`` names
-    what has no such route.
+    With a mesh (``_mesh``) the input is this rank's block and the filter
+    runs over it (``_distributed``, the routes of the module docstring);
+    ``split_grid_refusal`` names the transforms that have no such route.
     """
 
     _mesh: Optional[Mesh] = None
@@ -380,70 +425,112 @@ class SpectralConvS2(nn.Module):
 
     def split_grid_refusal(self) -> Optional[str]:
         """What of this filter has no route over a split grid, or None."""
-        fwd, inv = self._transforms
-        if self.factorization:
-            return f"the {self.factorization} factorized filter"
-        if self.operator_type != "dhconv" or self.separable:
-            return f"the {'separable ' if self.separable else ''}{self.operator_type} filter"
-        if not (isinstance(fwd, RealSHT) and isinstance(inv, InverseRealSHT)):
-            return "the planar FFT transform"
-        if fwd.folded or inv.folded:
-            return "the folded Legendre stage (sht_fold_symmetry)"
-        if not self.use_pallas and (self.matmul_dtype != torch.float32 or self.io_dtype
-                                    is not None or self.merged):
-            return "the XLA-form dense dhconv off K1 with bf16 operands or spectral IO"
-        return None
+        return _transform_refusal(*self._transforms)
+
+    def _contract(self, xs: torch.Tensor, w, out_dtype: Optional[torch.dtype] = None,
+                  image: Optional[torch.Tensor] = None, reduce=None) -> torch.Tensor:
+        """The spectral contraction of ``xs`` with the dense weight or the
+        factors ``w``; ``reduce`` sums a factorized filter's rank-space
+        projection over the ranks (``ops/contractions.py``)."""
+        md = self.matmul_dtype
+        if self.merged:
+            return contract_dhconv_stacked(xs, w, md, out_dtype=out_dtype)
+        if self.factorization == "cp":
+            return contract_dhconv_cp(xs, w, md, reduce=reduce)
+        if self.factorization == "tucker":
+            return contract_dhconv_tucker(xs, w, reduce=reduce)
+        if self.factorization == "tt":
+            return contract_dhconv_tt(xs, w, reduce=reduce)
+        return contract(xs, w, self.use_pallas, md, out_dtype=out_dtype, image=image,
+                        image_t=self._k1_image_t, operator_type=self.operator_type,
+                        separable=self.separable)
 
     def _distributed(self, x: torch.Tensor):
-        """The forward on this rank's block: ``distributed_sht``, K1 on the
-        channel shard against this rank's rows of the weight (its image made
-        once per weight version, ``WeightImageCache``), the reduce-scatter,
-        ``distributed_isht``; the residual regridded likewise."""
+        """The forward on this rank's block: ``distributed_sht``, the
+        spectral weight on the channel shard (``_sharded_contract``),
+        ``distributed_isht``; the residual regridded likewise; the rank
+        pipeline over the mesh."""
         fwd, inv = self._transforms
         mesh, io, dtype = self._mesh, self.io_dtype, x.dtype
         residual = x
+        if self.rank_pipeline:
+            return (self._rank_pipeline(x, mesh) + self.bias).to(dtype), residual
         xs = distributed_sht(x.float(), fwd, mesh, out_dtype=io)
         if self.scale_residual:
             residual = distributed_isht(xs, inv, mesh).to(dtype)
-        nw = mesh.shape[AXIS_W]
-        k = self.weight.shape[0] // nw
-        w = self.weight.narrow(0, mesh.index(AXIS_W) * k, k) if nw > 1 else self.weight
+        ys = self._sharded_contract(xs, mesh)
+        out = distributed_isht(ys, inv, mesh, out_dtype=io) + self.bias
+        return out.to(dtype), residual
+
+    def _sharded_contract(self, xs: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+        """The spectral weight on this rank's channel shard ``(B, L, M,
+        CI/nw, 2)`` -> its output channel shard ``(B, L, M, CO/nw, 2)``."""
+        io = self.io_dtype
+        if self.factorization:  # the rank-space projection summed over "w"
+            f = self._factors()
+            first, last, dim = ("G1", "G2", 1) if self.factorization == "tt" else ("A", "B", 0)
+            f.update({first: shard(mesh, f[first], (AXIS_W,)),
+                      last: shard(mesh, f[last], (None,) * dim + (AXIS_W,))})
+            return self._contract(xs, f, reduce=lambda t: all_reduce_w(t, mesh))
+        w = shard(mesh, self.weight, (AXIS_W,))
+        if self.separable:  # channel by channel: this rank's rows, no sum
+            return self._contract(xs, w, io)
+        if self._k1_image is None:
+            return emit(reduce_scatter_w(self._contract(xs, w), mesh), io)
         image = None
         if w.is_cuda:  # the whole weight's image where "w" is 1, else its rows'
-            if nw == 1 and self._k1_image is not None:
+            if mesh.shape[AXIS_W] == 1:
                 image = self._k1_image(w)
             else:
                 if self._k1_shard_image is None:
                     self._k1_shard_image = WeightImageCache()
                 image = self._k1_shard_image(w)
-        ys = emit(distributed_dhconv(xs, w, mesh, image=image), io)
-        out = distributed_isht(ys, inv, mesh, out_dtype=io) + self.bias
-        return out.to(dtype), residual
+        return emit(distributed_dhconv(xs, w, mesh, image=image), io)
 
     def _factors(self) -> dict:
         """The factorization's factors by their short names ("A", "core",
         "G1", ...)."""
         return {k: getattr(self, f"{self.factorization}_{k}") for k in self._factor_keys}
 
-    def _rank_pipeline(self, x: torch.Tensor) -> torch.Tensor:
+    def _rank_pipeline(self, x: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
+        """Project, transform 2R channels, scale (CP; K4 with
+        ``fused_rank``) or mix (Tucker), inverse-transform, expand. With a
+        ``mesh``, on this rank's block: the 2R channels in ``pair_order``,
+        this rank's columns of C or rows of the Tucker kernel."""
         fwd, inv = self._transforms
         md, io = self.matmul_dtype, self.io_dtype
         f = self._factors()
-        z = cp_spatial_project(x.float(), f["A"], md, out_dtype=io)
-        xf = fwd.longitude(z, out_dtype=io)
+        C, order = f["C"], None
+        if mesh is not None:
+            if mesh.shape[AXIS_W] > 1:
+                order = pair_order(C.shape[1], mesh.shape[AXIS_W])
+            C = shard(mesh, C, (None, AXIS_W))
+        z = cp_spatial_project(x.float(), f["A"], md, out_dtype=io, order=order)
         if self.fused_rank:
-            y = fused_rank_kernel(xf.contiguous(), fwd.analysis_mhl, inv.synthesis_mhl,
-                                  f["C"].float().contiguous(), self.rank_l_first)
+            S_t = inv.synthesis_mhl
+            if mesh is None:
+                xf = fwd.longitude(z, out_dtype=io)
+            else:  # every latitude analysed, this block's synthesized
+                xf = gather(mesh, distributed_longitude(z, fwd, mesh, io), (None, AXIS_H))
+                S_t = S_t[:, spatial_block(mesh, x.shape[-3:-1]).rows()].contiguous()
+            y = fused_rank_kernel(xf.contiguous(), fwd.analysis_mhl, S_t,
+                                  C.float().contiguous(), self.rank_l_first)
+            g = inv.longitude(y, out_dtype=io) if mesh is None else \
+                distributed_ilongitude(y, inv, mesh, io)
         else:
-            zs = fwd.latitude(xf, out_dtype=io)
+            zs = fwd(z, out_dtype=io) if mesh is None else \
+                distributed_sht(z, fwd, mesh, out_dtype=io)
             if self.factorization == "cp":
-                t = cp_spectral_scale_stacked(zs, f["C"])
+                t = cp_spectral_scale_stacked(zs, C)
             else:
-                t = tucker_spectral_mix_stacked(zs, tucker_rank_kernel(f["core"], f["C"]), md,
-                                                out_dtype=io)
-            y = inv.latitude(t, out_dtype=io)
-        g = inv.longitude(y, out_dtype=io)
-        return cp_spatial_expand(g, f["B"], md, out_dtype=io)
+                K, reduce = tucker_rank_kernel(f["core"], f["C"]), None
+                if mesh is not None:  # this shard's p, q summed over "w" and scattered
+                    K = shard(mesh, K, (None, AXIS_W))
+                    reduce = lambda q: reduce_scatter_w(q, mesh)  # noqa: E731
+                t = tucker_spectral_mix_stacked(zs, K, md, out_dtype=io, reduce=reduce)
+            g = inv(t, out_dtype=io) if mesh is None else \
+                distributed_isht(t, inv, mesh, out_dtype=io)
+        return cp_spatial_expand(g, f["B"], md, out_dtype=io, order=order)
 
     def forward(self, x: torch.Tensor):
         if self._mesh is not None and self.split_grid_refusal() is None:
@@ -453,24 +540,16 @@ class SpectralConvS2(nn.Module):
         residual = x
         if self.rank_pipeline:
             return (self._rank_pipeline(x) + self.bias).to(dtype), residual
-        io, md = self.io_dtype, self.matmul_dtype
+        io = self.io_dtype
         xs = fwd(x.float(), out_dtype=io)
         if self.scale_residual:
             residual = inv(xs).to(dtype)
-        if self.merged:
-            ys = contract_dhconv_stacked(xs, self.weight, md, out_dtype=io)
-        elif self.factorization == "cp":
-            ys = contract_dhconv_cp(xs, self._factors(), md)
-        elif self.factorization == "tucker":
-            ys = contract_dhconv_tucker(xs, self._factors())
-        elif self.factorization == "tt":
-            ys = contract_dhconv_tt(xs, self._factors())
+        if self.factorization:
+            ys = self._contract(xs, self._factors())
         else:
             image = self._k1_image(self.weight) \
                 if self._k1_image is not None and self.weight.is_cuda else None
-            ys = contract(xs, self.weight, self.use_pallas, md, out_dtype=io, image=image,
-                          image_t=self._k1_image_t, operator_type=self.operator_type,
-                          separable=self.separable)
+            ys = self._contract(xs, self.weight, io, image=image)
         out = inv(ys, out_dtype=io) + self.bias
         return out.to(dtype), residual
 
@@ -487,7 +566,14 @@ class SpectralAttentionS2(nn.Module):
     out)``, ``b{i}_re``/``_im`` ``(out,)`` and ``wout_re``/``_im``, with
     ``hidden = int(embed_dim * hidden_size_factor)``. The complex
     activations: "real" applies relu to the real part, "cartesian" to both
-    parts, "complex" the erf gelu to both. Computes in float32."""
+    parts, "complex" the erf gelu to both. Computes in float32.
+
+    With a mesh (``_mesh``) the input is this rank's block: the spectral
+    block's channel shard is traded over "w" for a shard of the orders m
+    (``channels_to_orders``), the MLP runs there on every channel with the
+    whole weights, and the output is traded back for ``distributed_isht``."""
+
+    _mesh: Optional[Mesh] = None
 
     def __init__(self, forward_transform, inverse_transform, embed_dim: int,
                  hidden_size_factor: float = 2.0, spectral_layers: int = 3,
@@ -519,13 +605,12 @@ class SpectralAttentionS2(nn.Module):
             return torch.relu(zr), torch.relu(zi)
         return torch.nn.functional.gelu(zr), torch.nn.functional.gelu(zi)
 
-    def forward(self, x: torch.Tensor):
-        fwd, inv = self._transforms
-        dtype = x.dtype
-        residual = x
-        xs = fwd(x.float())
-        if self.scale_residual:
-            residual = inv(xs).to(dtype)
+    def split_grid_refusal(self) -> Optional[str]:
+        """What of this filter has no route over a split grid, or None."""
+        return _transform_refusal(*self._transforms)
+
+    def _mlp(self, xs: torch.Tensor) -> torch.Tensor:
+        """The complex MLP on every mode of ``xs`` ``(..., l, m, c, 2)``."""
         eq = "...lmi,lio->...lmo" if self.l_dependant else "...lmi,io->...lmo"
         zr, zi = xs[..., 0].float(), xs[..., 1].float()
         for i in range(self.spectral_layers):
@@ -533,7 +618,23 @@ class SpectralAttentionS2(nn.Module):
                                     getattr(self, f"w{i}_im"))
             zr, zi = self._act(zr + getattr(self, f"b{i}_re"), zi + getattr(self, f"b{i}_im"))
         zr, zi = complex_einsum(eq, zr, zi, self.wout_re, self.wout_im)
-        return inv(torch.stack([zr, zi], dim=-1)).to(dtype), residual
+        return torch.stack([zr, zi], dim=-1)
+
+    def forward(self, x: torch.Tensor):
+        fwd, inv = self._transforms
+        dtype = x.dtype
+        residual = x
+        mesh = self._mesh if self.split_grid_refusal() is None else None
+        if mesh is None:
+            xs = fwd(x.float())
+            if self.scale_residual:
+                residual = inv(xs).to(dtype)
+            return inv(self._mlp(xs)).to(dtype), residual
+        xs = distributed_sht(x.float(), fwd, mesh)
+        if self.scale_residual:
+            residual = distributed_isht(xs, inv, mesh).to(dtype)
+        ys = orders_to_channels(self._mlp(channels_to_orders(xs, mesh)), mesh, xs.shape[-3])
+        return distributed_isht(ys.contiguous(), inv, mesh).to(dtype), residual
 
 
 class FNOBlock(nn.Module):
@@ -718,29 +819,29 @@ class SFNO(nn.Module):
         from then on ``forward`` takes this rank's block of the grid,
         latitudes over "h" and longitudes over "w", and returns its block of
         the output. Parameters, their names and shapes are left as they are.
-        Under "h" or "w" above 1 every option without a split-grid route
-        raises here (ROADMAP Queue 1 item 7c); with both at 1 the block is
-        the whole grid and every option runs, its collectives over groups of
-        one."""
+        Under "h" or "w" above 1 the folded Legendre stage and the planar
+        FFT transform raise here (ROADMAP Queue 1 item 7c), and a grid,
+        width or rank-pipeline rank that does not split raises
+        ``ValueError``; with both at 1 the block is the whole grid and every
+        option runs, its collectives over groups of one."""
         if mesh is not None and mesh.spatial:
             cfg = self.cfg
-            for what, off in (
-                    ("the non-linear filter (SpectralAttentionS2)", cfg.filter_type != "linear"),
-                    ("img_shape != model_shape (scale_factor)", cfg.scale_factor != 1),
-                    ("exact_dropout", cfg.exact_dropout),
-                    ("the folded Legendre stage (sht_fold_symmetry)", cfg.sht_fold_symmetry),
-                    ("fused_rank (K4)", self.fused_rank)):
-                if off:
-                    refuse_split_grid(mesh, what)
             for block in self.blocks:
                 why = block.filter.split_grid_refusal()
                 if why is not None:
                     refuse_split_grid(mesh, why)
-            H, W = cfg.img_shape
             nh, nw = mesh.shape[AXIS_H], mesh.shape[AXIS_W]
-            if H % nh or W % nw or cfg.embed_dim % nw:
-                raise ValueError(f"SFNO on the mesh {mesh.shape}: {H} latitudes, {W} longitudes "
-                                 f"and {cfg.embed_dim} channels must split over h={nh}, w={nw}")
+            for H, W in dict.fromkeys((cfg.img_shape, cfg.model_shape)):
+                if H % nh or W % nw or cfg.embed_dim % nw:
+                    raise ValueError(
+                        f"SFNO on the mesh {mesh.shape}: {H} latitudes, {W} longitudes and "
+                        f"{cfg.embed_dim} channels must split over h={nh}, w={nw}")
+            for block in self.blocks:
+                f = block.filter
+                R = f._factors()["C"].shape[1] if getattr(f, "rank_pipeline", False) else 0
+                if R % nw:
+                    raise ValueError(f"SFNO on the mesh {mesh.shape}: the rank pipeline's "
+                                     f"rank {R} must split over w={nw}")
         for m in self.modules():
             if hasattr(type(m), "_mesh"):
                 m._mesh = mesh

@@ -28,7 +28,14 @@ carry over as they are.
 
 ``matmul_dtype`` rounds both operands of each product and keeps the float32
 sums, and ``out_dtype`` rounds a stage's output, at the JAX package's
-rounding points (``ops/matmul.py``). The JAX package's spectral-space Tucker
+rounding points (``ops/matmul.py``).
+
+On a grid split over a process mesh (``models/sfno.py``) a rank holds a
+shard of the channels. The factorized contractions then take the rank's
+rows of their input and output factors and a ``reduce`` that sums their
+rank-space projection over the ranks; the rank pipeline's stages take an
+``order`` of the 2R rank channels that keeps each re/im pair on one rank,
+and Tucker's per-l mix a ``reduce`` that sums and scatters its output. The JAX package's spectral-space Tucker
 and TT contractions compute in complex64 whatever the matmul dtype, and so
 do these, in float32 pairs. Its separable products are elementwise; here
 they take the operands rounded to the matmul dtype and multiply in float32.
@@ -42,7 +49,9 @@ import torch
 
 from .matmul import einsum, emit
 
-__all__ = ["complex_einsum", "contract_dhconv", "contract_dhconv_stacked", "contract_diagonal",
+Reduce = Callable[[torch.Tensor], torch.Tensor]
+
+__all__ = ["complex_einsum", "pair_order", "contract_dhconv", "contract_dhconv_stacked", "contract_diagonal",
            "contract", "contract_dhconv_cp", "cp_spatial_project", "cp_spectral_scale_stacked",
            "cp_spatial_expand", "tucker_rank_kernel", "tucker_spectral_mix_stacked",
            "contract_dhconv_tucker", "contract_dhconv_tt"]
@@ -142,12 +151,23 @@ def contract(x: torch.Tensor, w: torch.Tensor, use_pallas: bool = False,
     raise ValueError(f"Unsupported operator_type {operator_type!r}")
 
 
+def _reduced(reduce: Optional[Reduce], re: torch.Tensor, im: torch.Tensor):
+    """``(re, im)`` of a rank-space projection, summed by ``reduce`` (over
+    ``(2, ...)``, the pair stacked first) where one is given."""
+    if reduce is None:
+        return re, im
+    return reduce(torch.stack([re, im])).unbind(0)
+
+
 def contract_dhconv_cp(x: torch.Tensor, factors: Mapping[str, torch.Tensor],
-                       matmul_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                       matmul_dtype: Optional[torch.dtype] = None,
+                       reduce: Optional[Reduce] = None) -> torch.Tensor:
     """CP-factorized Driscoll-Healy contraction in spectral space:
     ``weight[ci, co, l] = sum_r A[ci, r] B[co, r] C[l, r]`` (complex), so
     ``y = ((x @ A) * C[l]) @ B^T``. x ``(..., l, m, ci, 2)`` ->
-    ``(..., l, m, co, 2)`` float32; ``factors`` holds "A", "B" and "C"."""
+    ``(..., l, m, co, 2)`` float32; ``factors`` holds "A", "B" and "C".
+    ``reduce`` sums ``x @ A`` (float32) over the ranks that hold the other
+    rows of x's channels and of A, before it is scaled and rounded."""
     A, B, C = factors["A"], factors["B"], factors["C"]
 
     def mm(a, b, sub="...lmi,ir->...lmr"):
@@ -156,6 +176,7 @@ def contract_dhconv_cp(x: torch.Tensor, factors: Mapping[str, torch.Tensor],
     xr, xi = x[..., 0], x[..., 1]
     pr = mm(xr, A[..., 0]) - mm(xi, A[..., 1])
     pi = mm(xr, A[..., 1]) + mm(xi, A[..., 0])
+    pr, pi = _reduced(reduce, pr, pi)
     sr, si = _cmul(pr, pi, C[..., 0][:, None, :].float(), C[..., 1][:, None, :].float())
     Bt_r, Bt_i = B[..., 0].T, B[..., 1].T
     yr = mm(sr, Bt_r, "...lmr,ro->...lmo") - mm(si, Bt_i, "...lmr,ro->...lmo")
@@ -163,14 +184,29 @@ def contract_dhconv_cp(x: torch.Tensor, factors: Mapping[str, torch.Tensor],
     return torch.stack([yr, yi], dim=-1)
 
 
+def pair_order(R: int, shards: int) -> torch.Tensor:
+    """The order of the 2R rank channels ``[x@Ar | x@Ai]`` that cuts into
+    ``shards`` contiguous chunks, chunk k ``[x@Ar_k | x@Ai_k]`` for the k-th
+    run of R / shards ranks: each re/im pair on one shard, in the layout of
+    a pipeline of R / shards ranks."""
+    if R % shards:
+        raise ValueError(f"rank {R} does not split over {shards} shards")
+    k = R // shards
+    return torch.arange(2 * R).view(2, shards, k).transpose(0, 1).reshape(-1)
+
+
 def cp_spatial_project(x: torch.Tensor, A: torch.Tensor,
                        matmul_dtype: Optional[torch.dtype] = None,
-                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                       out_dtype: Optional[torch.dtype] = None,
+                       order: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rank pipeline stage 1: the CP input projection in grid space,
     ``SHT(x) @ A = SHT(x @ Ar) + i SHT(x @ Ai)``. x ``(..., h, w, ci)``,
     A ``(ci, R, 2)`` -> ``(..., h, w, 2R)`` with channels
-    ``[x @ Ar | x @ Ai]``."""
+    ``[x @ Ar | x @ Ai]``, or those channels in ``order`` (``pair_order``:
+    the projection's columns permuted, so each channel is the same sum)."""
     A2 = torch.cat([A[..., 0], A[..., 1]], dim=-1)
+    if order is not None:
+        A2 = A2[:, order.to(A2.device)]
     return emit(einsum("...hwc,cr->...hwr", x, A2, matmul_dtype), out_dtype)
 
 
@@ -197,12 +233,17 @@ def cp_spectral_scale_stacked(zs: torch.Tensor, C: torch.Tensor) -> torch.Tensor
 
 def cp_spatial_expand(g: torch.Tensor, B: torch.Tensor,
                       matmul_dtype: Optional[torch.dtype] = None,
-                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                      out_dtype: Optional[torch.dtype] = None,
+                      order: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rank pipeline stage 3: the output projection in grid space. g
     ``(..., h, w, 2R)``: the inverse SHT of the scaled pair, channels
-    ``[G | H]``; B ``(co, R, 2)``. ``out_o = sum_r Br[o, r] G_r + Bi[o, r] H_r``,
-    one real product -> ``(..., h, w, co)``."""
+    ``[G | H]`` (or those channels in ``order``, as ``cp_spatial_project``
+    made them: the rows of the projection permuted alike); B ``(co, R, 2)``.
+    ``out_o = sum_r Br[o, r] G_r + Bi[o, r] H_r``, one real product ->
+    ``(..., h, w, co)``."""
     W2 = torch.cat([B[..., 0], B[..., 1]], dim=-1).T
+    if order is not None:
+        W2 = W2[order.to(W2.device)]
     return emit(einsum("...hwr,ro->...hwo", g, W2, matmul_dtype), out_dtype)
 
 
@@ -217,47 +258,60 @@ def tucker_rank_kernel(core: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
 
 def tucker_spectral_mix_stacked(zs: torch.Tensor, K: torch.Tensor,
                                 matmul_dtype: Optional[torch.dtype] = None,
-                                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                                out_dtype: Optional[torch.dtype] = None,
+                                reduce: Optional[Reduce] = None) -> torch.Tensor:
     """The Tucker rank pipeline's stage 2: the per-l complex R -> R mix
     ``q = p @ K[l]`` of the rank spectrum ``p = S_r + i S_i``, returned as
     the stacked pair ``[q | i q]`` ``(..., l, m, 2R, 2)`` (the structure of
     ``cp_spectral_scale_stacked``). zs ``(..., l, m, 2R, 2)`` as the
     transform emitted it: p is formed in zs's dtype, as the JAX package
-    forms it, then rounded with K to the matmul dtype for the product."""
+    forms it, then rounded with K to the matmul dtype for the product.
+    On a shard of p (K's rows of those ranks, ``(l, R/n, R, 2)``),
+    ``reduce`` sums the float32 partial of q ``(..., l, m, R, 2)`` over the
+    shards and keeps this shard's ranks of it, before the emit."""
     R = zs.shape[-2] // 2
     Sr, Si = zs[..., :R, :], zs[..., R:, :]
     p_re = Sr[..., 0] - Si[..., 1]
     p_im = Sr[..., 1] + Si[..., 0]
     q_re, q_im = complex_einsum("...lmp,lpq->...lmq", p_re, p_im, K[..., 0], K[..., 1],
                                 matmul_dtype)
+    if reduce is not None:
+        q_re, q_im = reduce(torch.stack([q_re, q_im], dim=-1)).unbind(-1)
     return emit(torch.cat([torch.stack([q_re, q_im], dim=-1),
                            torch.stack([-q_im, q_re], dim=-1)], dim=-2), out_dtype)
 
 
-def contract_dhconv_tucker(x: torch.Tensor, factors: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def contract_dhconv_tucker(x: torch.Tensor, factors: Mapping[str, torch.Tensor],
+                           reduce: Optional[Reduce] = None) -> torch.Tensor:
     """Tucker-factorized Driscoll-Healy contraction in spectral space,
     ``W[i, o, l] = sum G[p, q, r] A[i, p] B[o, q] C[l, r]`` (complex), as
     project -> per-l core mix -> expand. x ``(..., l, m, ci, 2)`` ->
     ``(..., l, m, co, 2)`` float32; ``factors`` holds "A", "B", "C" and
-    "core"."""
+    "core"; ``reduce`` sums the projection ``x @ A`` over the ranks that
+    hold the other rows of x's channels and of A."""
     A, B = factors["A"].float(), factors["B"].float()
     K = tucker_rank_kernel(factors["core"], factors["C"])
     pr, pi = complex_einsum("...lmi,ip->...lmp", x[..., 0].float(), x[..., 1].float(),
                             A[..., 0], A[..., 1])
+    pr, pi = _reduced(reduce, pr, pi)
     qr, qi = complex_einsum("...lmp,lpq->...lmq", pr, pi, K[..., 0], K[..., 1])
     yr, yi = complex_einsum("...lmq,oq->...lmo", qr, qi, B[..., 0], B[..., 1])
     return torch.stack([yr, yi], dim=-1)
 
 
-def contract_dhconv_tt(x: torch.Tensor, factors: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def contract_dhconv_tt(x: torch.Tensor, factors: Mapping[str, torch.Tensor],
+                       reduce: Optional[Reduce] = None) -> torch.Tensor:
     """Tensor-train-factorized Driscoll-Healy contraction,
     ``W[i, o, l] = sum_{a b} G1[i, a] G2[a, o, b] G3[b, l]`` (complex), in
     the JAX package's order: its middle product holds a
     ``(..., l, m, co, R)`` pair. x ``(..., l, m, ci, 2)`` ->
-    ``(..., l, m, co, 2)`` float32; ``factors`` holds "G1", "G2" and "G3"."""
+    ``(..., l, m, co, 2)`` float32; ``factors`` holds "G1", "G2" and "G3";
+    ``reduce`` sums the projection ``x @ G1`` over the ranks that hold the
+    other rows of x's channels and of G1."""
     G1, G2, G3 = (factors[k].float() for k in ("G1", "G2", "G3"))
     pr, pi = complex_einsum("...lmi,ia->...lma", x[..., 0].float(), x[..., 1].float(),
                             G1[..., 0], G1[..., 1])
+    pr, pi = _reduced(reduce, pr, pi)
     qr, qi = complex_einsum("...lma,aob->...lmob", pr, pi, G2[..., 0], G2[..., 1])
     del pr, pi
     yr, yi = complex_einsum("...lmob,bl->...lmo", qr, qi, G3[..., 0], G3[..., 1])

@@ -31,6 +31,11 @@ channels ``[x@Ar | x@Ai]`` with a trailing (re, im) axis), the matrices are
 ``(m, h, l)`` in the matmul dtype (made once per model by the transforms,
 ``kernel_layout=True``), C is the float32 CP factor ``(l, R, 2)``.
 
+The synthesis has its own row count: S_t may hold ``h_out`` rows of the
+synthesis matrix, ``(m, h_out, l)``, and y is then ``(B, h_out, m, 2R, 2)``.
+On a grid split over latitudes (``models/sfno.py``) a rank runs the whole
+analysis over every latitude's xf and synthesizes only its block's rows.
+
 Rounding points are the model path's under ``sht_matmul_dtype`` =
 ``spectral_io_dtype`` = bfloat16: products of bf16 operands summed in
 float32; t rounded to bf16 (the SHT's ``_emit``), the scale computed in
@@ -58,9 +63,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def fused_rank_plain(xf: torch.Tensor, A_t: torch.Tensor, S_t: torch.Tensor,
                      C: torch.Tensor) -> torch.Tensor:
     """The three stages as torch products with K4's rounding points:
-    xf ``(B, h, m, 2R, 2)`` and A_t, S_t ``(m, h, l)`` in one dtype
-    (float32 or bf16), C ``(l, R, 2)`` -> ``(B, h, m, 2R, 2)`` in that
-    dtype."""
+    xf ``(B, h, m, 2R, 2)``, A_t ``(m, h, l)`` and S_t ``(m, h_out, l)`` in
+    one dtype (float32 or bf16), C ``(l, R, 2)`` -> ``(B, h_out, m, 2R, 2)``
+    in that dtype."""
     dtype = xf.dtype
     t = einsum("bhmcr,mhl->blmcr", xf, A_t, dtype).to(dtype)
     s = cp_spectral_scale_stacked(t, C).to(dtype)
@@ -87,7 +92,8 @@ def fused_rank(xf: torch.Tensor, A_t: torch.Tensor, S_t: torch.Tensor,
     if any(t.device != xf.device for t in (A_t, S_t, C)):
         raise ValueError("fused_rank: all operands must lie on xf's device")
     if xf.dim() != 5 or xf.shape[-1] != 2 or xf.shape[-2] % 2 or A_t.dim() != 3 \
-            or S_t.shape != A_t.shape or C.dim() != 3 or C.shape[-1] != 2:
+            or S_t.dim() != 3 or S_t.shape[::2] != A_t.shape[::2] or S_t.shape[1] < 1 \
+            or C.dim() != 3 or C.shape[-1] != 2:
         raise ValueError(f"fused_rank: bad shapes xf {tuple(xf.shape)}, A_t "
                          f"{tuple(A_t.shape)}, S_t {tuple(S_t.shape)}, C {tuple(C.shape)}")
     B, H, M, R2 = xf.shape[:4]
@@ -105,11 +111,12 @@ def fused_rank(xf: torch.Tensor, A_t: torch.Tensor, S_t: torch.Tensor,
     if l_first.shape != (M,) or l_first.dtype != torch.int32 or l_first.device != xf.device:
         raise ValueError(f"fused_rank: l_first must be int32 ({M},) on xf's device, got "
                          f"{l_first.dtype} {tuple(l_first.shape)}")
-    y = torch.empty_like(xf)
+    H_out = S_t.shape[1]
+    y = xf.new_empty((B, H_out) + tuple(xf.shape[2:]))
     lib = _cuda.library()
     _cuda.check(lib.sdt_fused_rank(xf.data_ptr(), A_t.data_ptr(), S_t.data_ptr(), C.data_ptr(),
-                                   l_first.contiguous().data_ptr(), y.data_ptr(), B, H, M, L, R,
-                                   _DTYPE_CODES[xf.dtype], _cuda.stream_ptr(xf.device)),
+                                   l_first.contiguous().data_ptr(), y.data_ptr(), B, H, H_out,
+                                   M, L, R, _DTYPE_CODES[xf.dtype], _cuda.stream_ptr(xf.device)),
                 "fused_rank")
     fused_rank.launches += 1
     return y

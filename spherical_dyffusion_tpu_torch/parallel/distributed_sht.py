@@ -27,6 +27,27 @@ group for it, so on a world of one (an NCCL group of one rank) each runs
 with one rank; without a process group the functions are the single-device
 transforms. Latitudes, longitudes and channels must divide by their axis
 sizes.
+
+The filters share three more collectives over "w":
+
+* ``reduce_scatter_w``: the sum of a filter that is linear in its input
+  channels. Each rank forms its partial product from its input-channel
+  rows of the weight; the partials are summed in float32 and scattered over
+  the output channels (``distributed_dhconv`` on K1; the dense, merged and
+  diagonal filters off it; Tucker's per-l rank mix);
+* ``all_reduce_w``: the sum of a rank-space projection (the spectral-space
+  CP, Tucker and TT filters), after which each rank expands to its own
+  output channels;
+* ``channels_to_orders`` and back: the channel shard traded for a shard of
+  the orders m (padded to a multiple of "w"), for a filter that acts per
+  mode across all channels (spectral attention).
+
+``distributed_longitude`` and ``distributed_ilongitude`` are the
+transforms' longitude stages with the all-to-alls around them, so that K4
+can run between them (the model gathers the longitude-transformed rank
+channels of every latitude shard over "h" for it, ``parallel/mesh.py:
+gather``: this rank's channel shard only). None of these gathers the whole
+grid onto one rank.
 """
 
 from __future__ import annotations
@@ -41,7 +62,9 @@ from ..ops.pallas_contractions import dhconv
 from ..ops.sht import InverseRealSHT, RealSHT
 from .mesh import AXIS_H, AXIS_W, Mesh
 
-__all__ = ["distributed_sht", "distributed_isht", "distributed_dhconv"]
+__all__ = ["distributed_sht", "distributed_isht", "distributed_dhconv", "distributed_longitude",
+           "distributed_ilongitude", "reduce_scatter_w", "all_reduce_w",
+           "channels_to_orders", "orders_to_channels"]
 
 
 def _all_to_all(x: torch.Tensor, group, n: int, split: int, concat: int) -> torch.Tensor:
@@ -64,18 +87,27 @@ def _rows(mesh: Mesh, n_lat: int) -> slice:
     return slice(i * k, (i + 1) * k)
 
 
+def distributed_longitude(x: torch.Tensor, sht: RealSHT, mesh: Mesh,
+                          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The longitude stage of ``distributed_sht``: this rank's grid block
+    ``(B, H/nh, W/nw, C)`` -> ``(B, H/nh, M, C/nw, 2)``, the longitude shard
+    traded for a channel shard first."""
+    nw = mesh.shape[AXIS_W]
+    gw = mesh.groups[AXIS_W]
+    if x.shape[-1] % nw:
+        raise ValueError(f"{x.shape[-1]} channels do not split over {nw} 'w' ranks")
+    if gw is not None:  # the longitude shard for a channel shard
+        x = _all_to_all(x, gw, nw, split=3, concat=2)
+    return sht.longitude(x, out_dtype)
+
+
 def distributed_sht(x: torch.Tensor, sht: RealSHT, mesh: Mesh,
                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """This rank's grid block ``(B, H/nh, W/nw, C)`` -> its spectral block
     ``(B, L, M, C/nw, 2)``: JAX's input ``P(None, 'h', 'w', None)`` and
     output ``P(None, None, None, 'w')``; ``out_dtype`` as ``sht``'s."""
-    nw = mesh.shape[AXIS_W]
-    gw, gh = mesh.groups[AXIS_W], mesh.groups[AXIS_H]
-    if x.shape[-1] % nw:
-        raise ValueError(f"{x.shape[-1]} channels do not split over {nw} 'w' ranks")
-    if gw is not None:  # the longitude shard for a channel shard
-        x = _all_to_all(x, gw, nw, split=3, concat=2)
-    xf = sht.longitude(x, out_dtype)  # (B, H/nh, M, C/nw, 2)
+    gh = mesh.groups[AXIS_H]
+    xf = distributed_longitude(x, sht, mesh, out_dtype)  # (B, H/nh, M, C/nw, 2)
     rows = _rows(mesh, sht.nlat)
     part = einsum("...hmcr,hlm->...lmcr", xf, sht.analysis[rows], sht.matmul_dtype)
     part = part.contiguous()
@@ -84,21 +116,89 @@ def distributed_sht(x: torch.Tensor, sht: RealSHT, mesh: Mesh,
     return emit(part, out_dtype)
 
 
+def distributed_ilongitude(y: torch.Tensor, isht: InverseRealSHT, mesh: Mesh,
+                           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The inverse longitude stage of ``distributed_isht``: ``(B, H/nh, M,
+    C/nw, 2)`` -> this rank's grid block ``(B, H/nh, W/nw, C)``, the channel
+    shard traded back for a longitude shard."""
+    nw = mesh.shape[AXIS_W]
+    gw = mesh.groups[AXIS_W]
+    out = isht.longitude(y, out_dtype)  # (B, H/nh, W, C/nw)
+    if gw is not None:  # the channel shard back to a longitude shard
+        out = _all_to_all(out, gw, nw, split=2, concat=3)
+    return out
+
+
 def distributed_isht(xs: torch.Tensor, isht: InverseRealSHT, mesh: Mesh,
                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """This rank's spectral block ``(B, L, M, C/nw, 2)`` -> its grid block
     ``(B, H/nh, W/nw, C)``, the adjoint of ``distributed_sht``;
     ``out_dtype`` as ``isht``'s."""
-    nw = mesh.shape[AXIS_W]
-    gw = mesh.groups[AXIS_W]
     rows = _rows(mesh, isht.nlat)
     y = einsum("...lmcr,hlm->...hmcr", xs, isht.synthesis[rows], isht.matmul_dtype)
     if isht._emits:
         y = emit(y, out_dtype)
-    out = isht.longitude(y, out_dtype)  # (B, H/nh, W, C/nw)
-    if gw is not None:  # the channel shard back to a longitude shard
-        out = _all_to_all(out, gw, nw, split=2, concat=3)
+    return distributed_ilongitude(y, isht, mesh, out_dtype)
+
+
+def reduce_scatter_w(y: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over "w" of this rank's partial ``(..., CO, 2)`` (a product
+    over its input-channel rows), in float32, scattered over the output
+    channels: this rank keeps ``(..., CO/nw, 2)``, chunk ``index("w")``.
+    Without a "w" group, the partial itself."""
+    nw = mesh.shape[AXIS_W]
+    gw = mesh.groups[AXIS_W]
+    y = y.float()
+    if gw is None:
+        return y
+    CO = y.shape[-2]
+    if CO % nw:
+        raise ValueError(f"{CO} output channels do not split over {nw} 'w' ranks")
+    parts = torch.stack(y.chunk(nw, dim=-2))  # (nw, ..., CO/nw, 2)
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter_tensor(out, parts.flatten(0, 1).contiguous(), group=gw)
     return out
+
+
+def all_reduce_w(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's partial ``t`` summed over "w" in float32, in place where
+    ``t`` is a contiguous float32 tensor (without a "w" group, ``t`` in
+    float32)."""
+    gw = mesh.groups[AXIS_W]
+    t = t.float().contiguous()
+    if gw is not None:
+        dist.all_reduce(t, group=gw)
+    return t
+
+
+def _padded_orders(M: int, nw: int) -> int:
+    return -(-M // nw) * nw
+
+
+def channels_to_orders(xs: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's channel shard of a spectral block ``(B, L, M, C/nw, 2)``
+    traded over "w" for a shard of the orders: ``(B, L, Mp/nw, C, 2)``,
+    chunk ``index("w")`` of the orders padded with zeros to ``Mp``, the
+    multiple of "w" at or above M (a trade of equal chunks)."""
+    nw = mesh.shape[AXIS_W]
+    gw = mesh.groups[AXIS_W]
+    if gw is None:
+        return xs
+    M = xs.shape[-3]
+    pad = _padded_orders(M, nw) - M
+    if pad:
+        xs = torch.nn.functional.pad(xs, (0, 0, 0, 0, 0, pad))
+    return _all_to_all(xs, gw, nw, split=-3, concat=-2)
+
+
+def orders_to_channels(ys: torch.Tensor, mesh: Mesh, M: int) -> torch.Tensor:
+    """The inverse of ``channels_to_orders``: ``(B, L, Mp/nw, C, 2)`` ->
+    ``(B, L, M, C/nw, 2)``, the padded orders dropped."""
+    nw = mesh.shape[AXIS_W]
+    gw = mesh.groups[AXIS_W]
+    if gw is None:
+        return ys
+    return _all_to_all(ys, gw, nw, split=-2, concat=-3)[..., :M, :, :]
 
 
 def distributed_dhconv(xs: torch.Tensor, w: torch.Tensor, mesh: Mesh,
@@ -112,18 +212,7 @@ def distributed_dhconv(xs: torch.Tensor, w: torch.Tensor, mesh: Mesh,
     sum is a ``reduce_scatter`` over the output channels, leaving this rank
     ``(B, L, M, CO/nw, 2)``, the layout ``distributed_isht`` takes; else an
     ``all_reduce`` leaves every rank the whole output."""
-    nw = mesh.shape[AXIS_W]
-    gw = mesh.groups[AXIS_W]
     y = dhconv(xs.float().contiguous(), w.float(), image)
-    if gw is None:
-        return y
     if not scatter_output:
-        dist.all_reduce(y, group=gw)
-        return y
-    CO = y.shape[-2]
-    if CO % nw:
-        raise ValueError(f"{CO} output channels do not split over {nw} 'w' ranks")
-    parts = torch.stack(y.chunk(nw, dim=-2))  # (nw, B, L, M, CO/nw, 2)
-    out = torch.empty_like(parts[0])
-    dist.reduce_scatter_tensor(out, parts.flatten(0, 1).contiguous(), group=gw)
-    return out
+        return all_reduce_w(y, mesh)
+    return reduce_scatter_w(y, mesh)

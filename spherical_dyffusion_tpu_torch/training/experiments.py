@@ -242,13 +242,16 @@ class DYffusionForecastingExperiment:
         return frozen
 
     def _forecast_fn(self, generator: Optional[torch.Generator] = None):
-        """The forecaster; dropout live when a ``generator`` is given."""
+        """The forecaster; dropout live when a ``generator`` is given. Its
+        ``mesh`` is the forecaster's (``SFNO.set_mesh``), so that the noised
+        conditionings draw the whole grid's noise on a split grid."""
 
         def forecast_fn(x_t, time, condition, static_condition=None):
             return self.model(x_t, time=time.float(), condition=condition,
                               static_condition=static_condition,
                               deterministic=generator is None, generator=generator)
 
+        forecast_fn.mesh = getattr(self.model, "_mesh", None)
         return forecast_fn
 
     def train_loss(self, dynamics: torch.Tensor, generator: torch.Generator,

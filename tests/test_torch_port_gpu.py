@@ -489,6 +489,34 @@ def test_fused_rank_kernel_tall_grids(cuda, dtype, B, H, L, R, grid):
     assert _rel_err(y, want) < (1e-5 if dtype == torch.float32 else 1e-2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,h0,rows", [(180, 0, 90), (180, 90, 90), (180, 37, 53),
+                                       (721, 300, 400)])
+def test_fused_rank_kernel_synthesis_rows(cuda, dtype, H, h0, rows):
+    """K4 with the whole analysis and only a block's synthesis rows (the
+    route of a grid split over latitudes): the two halves of the fast
+    window's 180 latitudes, a ragged block, and 400 rows of the 0.25-degree
+    grid (chunks of h in both products); against the whole grid's plain
+    result restricted to those rows, float32 1e-5 and bf16 1e-2."""
+    L, R = 144, 64
+    g = torch.Generator(device=cuda).manual_seed(28)
+    kw = dict(grid="legendre-gauss" if H == 180 else "equiangular", matmul_dtype=dtype,
+              kernel_layout=True)
+    fwd = RealSHT(H, 2 * H, L, L, **kw).to(cuda)
+    inv = InverseRealSHT(H, 2 * H, L, L, **kw).to(cuda)
+    A_t, S_t = fwd.analysis_mhl, inv.synthesis_mhl
+    l_first = torch.minimum(fwd.analysis_l_first, inv.synthesis_l_first)
+    xf = torch.randn(1, H, L, 2 * R, 2, device=cuda, generator=g).to(dtype)
+    C = torch.randn(L, R, 2, device=cuda, generator=g) * 0.5
+    before = fused_rank.launches
+    y = fused_rank(xf, A_t, S_t[:, h0:h0 + rows].contiguous(), C, l_first)
+    torch.cuda.synchronize()
+    assert fused_rank.launches == before + 1
+    want = fused_rank_plain(xf, A_t, S_t, C)[:, h0:h0 + rows]
+    assert y.dtype == dtype and y.shape == want.shape == (1, rows, L, 2 * R, 2)
+    assert _rel_err(y, want) < (1e-5 if dtype == torch.float32 else 1e-2)
+
+
 def test_fused_rank_wrapper_checks_l_first(cuda):
     """l_first of the wrong dtype, shape or device raises before any
     launch."""

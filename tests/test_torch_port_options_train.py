@@ -257,7 +257,7 @@ def _pin_noise(monkeypatch, noise):
 
     monkeypatch.setattr(jdyffusion.jax.random, "normal", jnoise)
     monkeypatch.setattr(dyffusion, "forward_noise",
-                        lambda x, generator: torch.from_numpy(noise).to(x.dtype))
+                        lambda x, generator, mesh=None: torch.from_numpy(noise).to(x.dtype))
 
 
 @pytest.mark.parametrize("ctype", ["data+noise-v1", "data+noise-v2"])

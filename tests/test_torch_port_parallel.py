@@ -78,7 +78,6 @@ from spherical_dyffusion_tpu.training.experiments import (
 from spherical_dyffusion_tpu_torch import main_path
 from spherical_dyffusion_tpu_torch.models.modules import fold_generator
 from spherical_dyffusion_tpu_torch.inference.stepper import DYffusionStepper
-from spherical_dyffusion_tpu_torch.models.modules import QuantizedDropout
 from spherical_dyffusion_tpu_torch.models.sfno import SFNO, SFNOConfig
 from spherical_dyffusion_tpu_torch.ops.contractions import contract_dhconv
 from spherical_dyffusion_tpu_torch.parallel import multihost
@@ -166,30 +165,23 @@ def test_maybe_init_multihost_maps_the_spec_to_a_process_group(monkeypatch):
 
 
 SPLIT_GRID_REFUSALS = {
-    "factorized": dict(factorization="cp", rank=0.5),
-    "diagonal": dict(operator_type="diagonal"),
-    "separable": dict(separable=True),
-    "l-dependant": dict(filter_type="non-linear", operator_type="l-dependant"),
-    "attention": dict(filter_type="non-linear"),
     "fold": dict(sht_fold_symmetry=True),
-    "scale_factor": dict(scale_factor=2),
-    "exact_dropout": dict(exact_dropout=True),
     "fft_transform": dict(spectral_transform="fft"),
 }
 
 
-@pytest.mark.parametrize("option", sorted(SPLIT_GRID_REFUSALS) + ["fused_rank"])
+@pytest.mark.parametrize("option", sorted(SPLIT_GRID_REFUSALS))
 @pytest.mark.parametrize("mesh_kw", [dict(data=1, h=2, w=2), dict(data=2, w=2)])
 def test_model_parallel_mesh_refusals(option, mesh_kw):
-    """On a grid split over "h" or "w" every option outside the dense
-    dhconv filter on unfolded SHTs of one grid raises, naming ROADMAP Queue
-    1 item 7c; with "h" and "w" at 1 the same mesh runs it on the whole
-    grid; JAX's explicit bf16 step needs a pure data-parallel mesh
-    (``tests/test_parallel.py:172``), which the model axes break."""
+    """On a grid split over "h" or "w" the folded Legendre stage and the
+    planar FFT transform raise, naming ROADMAP Queue 1 item 7c (every other
+    option runs: ``tests/test_torch_port_spatial_options.py``); with "h" and
+    "w" at 1 the same mesh runs them on the whole grid; JAX's explicit bf16
+    step needs a pure data-parallel mesh (``tests/test_parallel.py:172``),
+    which the model axes break."""
     mesh = make_mesh(ranks=range(4), **mesh_kw)
     kw = dict(img_shape=(16, 32), in_chans=3, out_chans=3, embed_dim=8, num_layers=2)
-    model = SFNO(SFNOConfig(**kw, **SPLIT_GRID_REFUSALS.get(option, {})),
-                 fused_rank=option == "fused_rank")
+    model = SFNO(SFNOConfig(**kw, **SPLIT_GRID_REFUSALS[option]))
     with pytest.raises(NotImplementedError, match="item 7c"):
         model.set_mesh(mesh)
     model.set_mesh(make_mesh(data=4, ranks=range(4)))  # the whole grid: every option runs
@@ -200,24 +192,21 @@ def test_model_parallel_mesh_refusals(option, mesh_kw):
 
 
 def test_split_grid_refusals_of_the_stepper_and_the_modules():
-    """The stepper checks both networks when it is built; the noised
-    conditionings, exact-rate dropout, autograd and a grid that does not
-    divide raise too; ``TrainerConfig`` checks the reduction dtype."""
+    """The stepper checks both networks when it is built (a UNet backbone
+    raises, naming item 7c); autograd, a grid that does not divide and a
+    rank pipeline whose rank does not split over "w" raise too;
+    ``TrainerConfig`` checks the reduction dtype."""
     mesh = make_mesh(data=1, h=2, ranks=range(2))
-    st = workers.window_stepper()
-    exact = st.exp.interpolator.model
-    exact.cfg = dataclasses.replace(exact.cfg, exact_dropout=True)
-    with pytest.raises(NotImplementedError, match="item 7c"):
+    st = main_path.build_unet(img_shape=(16, 32), n_state=3, dim=8, dim_mults=(1, 2),
+                              upsample_dims=None, device="cpu")
+    with pytest.raises(NotImplementedError, match="UNet backbone.*item 7c"):
         DYffusionStepper(st.exp, mesh=mesh)
-    st = workers.window_stepper()
-    st.exp.diffusion_cfg = dataclasses.replace(st.exp.diffusion_cfg,
-                                               forward_conditioning="data+noise-v1")
-    with pytest.raises(NotImplementedError, match="noised forecaster conditioning"):
-        DYffusionStepper(st.exp, mesh=mesh)
-    drop = QuantizedDropout(0.1, exact=True)
-    drop._mesh = mesh
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        drop(torch.ones(1, 8, 16, 4), deterministic=False, generator=torch.Generator())
+    cp = SFNO(SFNOConfig(img_shape=(16, 32), in_chans=3, out_chans=3, embed_dim=12,
+                         num_layers=3, factorization="cp", rank=0.25))  # R = 3
+    with pytest.raises(ValueError, match="rank 3 must split over w=2"):
+        cp.set_mesh(make_mesh(data=1, w=2, ranks=range(2)))
+    cp.set_mesh(make_mesh(data=1, h=2, ranks=range(2)))  # "h" alone: any rank
+    cp.set_mesh(None)
     model = workers.spatial_sfno("k3")
     model.set_mesh(mesh)
     with pytest.raises(NotImplementedError, match="forwards only"):

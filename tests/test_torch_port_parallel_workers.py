@@ -8,8 +8,15 @@ over the group, and spatial model parallelism on the meshes of
 ``SPATIAL_MESHES`` (the SFNO forward and the window over "h" and "w", and
 on four ranks a training step on ``make_mesh(data=2, h=2)``), and writes
 its results to ``<out>/rank<r>.pt``. It holds no tests.
+
+``start_options`` spawns the four ranks of
+``tests/test_torch_port_spatial_options.py``: every SFNO option of
+``OPTIONS`` on ``make_mesh(data=1, h=2, w=2)`` (and the rank pipelines
+also on "h" = 2 and "w" = 2 alone), forwards with dropout off and live, and
+the ``data+noise-v1`` window on "h" = 2.
 """
 
+import dataclasses
 import os
 import time
 
@@ -28,6 +35,7 @@ from spherical_dyffusion_tpu_torch.parallel.distributed_sht import (
     distributed_isht,
     distributed_sht,
 )
+from spherical_dyffusion_tpu_torch.parallel import mesh as mesh_module
 from spherical_dyffusion_tpu_torch.parallel.mesh import gather_batch, make_mesh, shard_batch
 from spherical_dyffusion_tpu_torch.training.experiments import (
     ExperimentConfig,
@@ -169,15 +177,17 @@ def sfno_inputs():
             torch.tensor([1.0, 2.0]))
 
 
-def sfno_forward(model: SFNO, x, t, mesh=None, seed: int = 5) -> torch.Tensor:
-    """One forward (dropout live where the model has it, from ``seed``); on
-    ``mesh``, this rank's block of rows and grid, gathered."""
+def sfno_forward(model: SFNO, x, t, mesh=None, seed: int = 5,
+                 dropout: bool = True) -> torch.Tensor:
+    """One forward (with ``dropout``, dropout live where the model has it,
+    from ``seed``); on ``mesh``, this rank's block of rows and grid,
+    gathered."""
     if mesh is not None:
         model.set_mesh(mesh)
         x, t = shard_batch(mesh, x, spatial=True), shard_batch(mesh, t)
     try:
         with torch.no_grad():
-            y = model(x, time=t, deterministic=False,
+            y = model(x, time=t, deterministic=not dropout,
                       generator=torch.Generator().manual_seed(seed))
     finally:
         model.set_mesh(None)
@@ -265,12 +275,13 @@ def _worker(rank: int, world: int, init: str, out: str):
         dist.destroy_process_group()
 
 
-def start(world: int, out: str):
-    """Start ``_worker`` on ``world`` spawned processes, without waiting."""
+def start(world: int, out: str, worker=None):
+    """Start ``worker`` (``_worker``) on ``world`` spawned processes,
+    without waiting."""
     os.makedirs(out, exist_ok=True)
     init = "file://" + os.path.join(out, "rendezvous")
-    return mp.start_processes(_worker, args=(world, init, out), nprocs=world, join=False,
-                              start_method="spawn")
+    return mp.start_processes(worker or _worker, args=(world, init, out), nprocs=world,
+                              join=False, start_method="spawn")
 
 
 def results(ctx, world: int, out: str, timeout_s: float = 300.0) -> list:
@@ -284,3 +295,119 @@ def results(ctx, world: int, out: str, timeout_s: float = 300.0) -> list:
             raise TimeoutError(f"the {world} ranks did not finish in {timeout_s} s")
     return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
+
+
+# ------------------------------------------- the SFNO options on a split grid
+# (tests/test_torch_port_spatial_options.py): each option at embed 8 x 2 on
+# 16 x 32 (the rank pipelines at 16 x 3: 2R <= 16 and R % 2 == 0 at rank
+# 0.25, and only the middle block has one grid), dropout 0.1 in the MLP, the
+# position embedding and DropPath (off in a deterministic forward)
+RANK_PIPELINE = dict(embed_dim=16, num_layers=3, rank=0.25)
+OPTIONS = {
+    "dhconv": {},
+    "dhconv bf16 operands": dict(sht_matmul_dtype="bfloat16"),
+    "dhconv spectral io": dict(sht_matmul_dtype="bfloat16", spectral_io_dtype="bfloat16"),
+    "merged dhconv": dict(merged_dhconv=True),
+    "merged dhconv bf16": dict(merged_dhconv=True, sht_matmul_dtype="bfloat16",
+                               spectral_io_dtype="bfloat16"),
+    "separable": dict(separable=True),
+    "diagonal": dict(operator_type="diagonal"),
+    "diagonal separable": dict(operator_type="diagonal", separable=True),
+    "cp spectral": dict(factorization="cp", rank=0.5, rank_pipeline=False),
+    "tucker spectral": dict(factorization="tucker", rank=0.5, rank_pipeline=False),
+    "tt": dict(factorization="tt", rank=0.5),
+    "cp pipeline": dict(factorization="cp", **RANK_PIPELINE),
+    "cp pipeline K4": dict(factorization="cp", fused_rank=True, **RANK_PIPELINE),
+    "tucker pipeline": dict(factorization="tucker", **RANK_PIPELINE),
+    "cp pipeline K4 bf16": dict(factorization="cp", fused_rank=True, sht_matmul_dtype="bfloat16",
+                                spectral_io_dtype="bfloat16", hard_thresholding_fraction=0.8,
+                                **RANK_PIPELINE),
+    "attention": dict(filter_type="non-linear", spectral_layers=2),
+    "attention l-dependant": dict(filter_type="non-linear", operator_type="l-dependant",
+                                  complex_activation="complex", spectral_layers=2),
+    "scale_factor": dict(scale_factor=2),
+    "exact dropout": dict(exact_dropout=True),
+}
+BF16_OPTIONS = ("dhconv bf16 operands", "dhconv spectral io", "merged dhconv bf16",
+                "cp pipeline K4 bf16")
+PIPELINES = ("cp pipeline", "cp pipeline K4", "tucker pipeline")
+# mesh -> the options run on it: h = 2 and w = 2 alone are two meshes of two
+# ranks each (ranks 0-1 and 2-3), which run the same work
+OPTION_MESHES = {"h2w2": list(OPTIONS),
+                 "h2": list(PIPELINES), "w2": list(PIPELINES)}
+
+
+def option_mesh(key: str):
+    """The mesh ``key`` of ``OPTION_MESHES`` over the world of four."""
+    if key == "h2w2":
+        return make_mesh(data=1, h=2, w=2)
+    shape = (2, 1, 2, 1, 1) if key == "h2" else (2, 1, 1, 2, 1)
+    return mesh_module._build(np.arange(4).reshape(shape))
+
+
+def option_config(name: str) -> SFNOConfig:
+    kw = dict(img_shape=GRID, in_chans=IN, out_chans=OUT, embed_dim=8, num_layers=2,
+              with_time_emb=True, dropout_mlp=0.1, drop_path_rate=0.1, pos_emb_dropout=0.1)
+    kw.update({k: v for k, v in OPTIONS[name].items() if k != "fused_rank"})
+    return SFNOConfig(**kw)
+
+
+def option_sfno(name: str) -> SFNO:
+    """The SFNO of option ``name``, weights from seed 0 with the spectral
+    weights and factors scaled up so that the filter shows."""
+    model = SFNO(option_config(name), fused_rank=OPTIONS[name].get("fused_rank", False))
+    model.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name_, p in model.named_parameters():
+            leaf = name_.rsplit(".", 1)[-1]
+            if name_.endswith("filter.weight"):
+                p.mul_(64.0)
+            elif leaf.split("_", 1)[0] in ("cp", "tucker", "tt"):
+                p.mul_(4.0)
+    return model
+
+
+def option_forward(model: SFNO, dropout: bool, mesh=None) -> torch.Tensor:
+    """``sfno_forward`` on ``sfno_inputs``, dropout live or off."""
+    return sfno_forward(model, *sfno_inputs(), mesh, dropout=dropout)
+
+
+def noised_window_stepper(mesh=None) -> DYffusionStepper:
+    """The main path's window at embed 8 x 2 on 16 x 32 (K1, the fused
+    tail, the peeled sampler) with the ``data+noise-v1`` forecaster
+    conditioning: the forecaster takes the noised condition's channels."""
+    icfg, fcfg = main_path.sfno_configs(8, 2, "float32", GRID, 3, STATE, use_pallas=True,
+                                        fused_mlp=False, fused_tail=True)
+    fcfg = dataclasses.replace(fcfg, in_chans=fcfg.in_chans + STATE)
+    imodel, fmodel = SFNO(icfg), SFNO(fcfg)
+    gen = torch.Generator().manual_seed(0)
+    for net in (imodel, fmodel):
+        net.init_weights(gen)
+        boost_filters(net)
+    st = main_path._window_stepper(imodel, fmodel, 3, STATE, peel=True, mesh=mesh)
+    st.exp.diffusion_cfg = dataclasses.replace(st.exp.diffusion_cfg,
+                                               forward_conditioning="data+noise-v1")
+    return st
+
+
+def _options_worker(rank: int, world: int, init: str, out: str):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    try:
+        res = {}
+        for key, names in OPTION_MESHES.items():
+            mesh = option_mesh(key)
+            res[key] = {}
+            for name in names:
+                model = option_sfno(name)
+                res[key][name] = dict(det=option_forward(model, False, mesh),
+                                      drop=option_forward(model, True, mesh))
+        res["noised"] = spatial_window(noised_window_stepper(option_mesh("h2")))
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def start_options(out: str):
+    """Start the four ranks of the options' runs, without waiting."""
+    return start(4, out, _options_worker)

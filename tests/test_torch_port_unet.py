@@ -249,7 +249,8 @@ def test_dropout_keep_rate_scale_and_form(monkeypatch):
     exact_calls = []
     real = tmodules.exact_dropout
     monkeypatch.setattr(tmodules, "exact_dropout",
-                        lambda x, rate, g: exact_calls.append(tuple(x.shape)) or real(x, rate, g))
+                        lambda x, rate, g, mesh=None: exact_calls.append(tuple(x.shape))
+                        or real(x, rate, g, mesh))
     gen = torch.Generator().manual_seed(0)
 
     # the ConvBlock: the quantized form on (B, H, W, 64)
