@@ -207,7 +207,7 @@ Phases, each timed:
    as JAX does at mesh size 1), K1's launches counted; the group destroyed.
    Two ranks cannot share one card's NCCL communicator: the multi-rank
    numerics are the CPU tests' (gloo, 2 and 4 processes).
-21. spatial model parallelism (run after phase 17; ``phase21``): (a) K1
+21. spatial model parallelism (run after phase 13; ``phase21``): (a) K1
    on the channel shards of "w" = 2 and 4 (CI 128 and 64 -> 256 on (1,
    180, 181)) against its plain version (1e-5) with its ms, bound and
    complex ``torch.matmul``'s ms; (b) K3 and K2 in bf16 at batch 2 with
@@ -226,9 +226,12 @@ Phases, each timed:
    spin), plain, library and bound beside the whole grid's; (e) phase 8's
    fast window on the same route, as (c), K4 launched 144 x both ways,
    its seconds beside phase 8's; (f) one float32 forward of each routed
-   filter option at 256 x 8 (the diagonal filters at embed OPT_DIAG_EMBED)
-   on the route against the same model without the mesh (1e-4), with the
-   collectives its route makes.
+   filter option at 256 x 8 (the diagonal filters at embed OPT_DIAG_EMBED;
+   the folded Legendre stage and the planar FFT transform through K1, 8
+   launches each) on the route against the same model without the mesh
+   (1e-4), with the collectives its route makes; (g) phase 13's folded
+   window on the same route, as (c), K1 and K3 launched 192 x both ways,
+   its seconds beside phase 13's.
 18. the netCDF data layer (run after phase 15, before the profile), in a
    temporary directory: a dataset written by ``data/hdf5.py:write_hdf5``
    (this machine has no h5py) with the 34 state names, the two forcings and
@@ -2546,8 +2549,17 @@ def phase21(smi_line, wrappers, report, runs, device="cuda") -> None:
     spectral space, the CP and Tucker rank pipelines, K4 in float32,
     spectral attention shared and per degree, ``scale_factor``) at
     SPATIAL_EMBED x SPATIAL_LAYERS (the diagonal filters at
-    OPT_DIAG_EMBED) with the mesh attached against the same model without
-    it (1e-4), each making the collectives of its route. The group is
+    OPT_DIAG_EMBED), and of the folded Legendre stage and the planar FFT
+    transform through K1, with the mesh attached against the same model
+    without it (1e-4), each making the collectives of its route and
+    launching K1 as many times as its dense filters. (g) Phase 13's folded
+    window (phase 7's path with ``sht_fold_symmetry``) on the route as (c):
+    K1 and K3 launched 192 x both ways, its seconds beside phase 13's. With
+    "h" at 1 a rank is its own mirror and a gather over "h" is one rank's,
+    so the folded stage's mirror exchange and the FFT's "h" gather make no
+    call here: their numerics over several ranks (mirror pairs, the equator
+    block at odd "h", the gather's row order) are the gloo tests'
+    (``tests/test_torch_port_spatial_options.py``). The group is
     destroyed."""
     import dataclasses
     import socket
@@ -2572,6 +2584,7 @@ def phase21(smi_line, wrappers, report, runs, device="cuda") -> None:
         dhconv_weight_image,
     )
     from spherical_dyffusion_tpu_torch.ops.sht import InverseRealSHT, RealSHT
+    from spherical_dyffusion_tpu_torch.parallel.distributed_sht import mirror_pairs
     from spherical_dyffusion_tpu_torch.parallel.mesh import Block, make_mesh
     from spherical_dyffusion_tpu_torch.parallel.multihost import maybe_init_multihost
 
@@ -2902,6 +2915,13 @@ def phase21(smi_line, wrappers, report, runs, device="cuda") -> None:
             "the fast window", fast, dict(fast, spectral_io=""),
             {"K1": 0, "K2": 0, "K3": 0, "K4": SPATIAL_LAYERS - 2},
             ("all_to_all_single", "all_reduce"), "fast")
+        # (g) phase 13's folded window: the folded analysis's partial sums
+        # all-reduced over "h" (its mirror exchange is no call where "h" is 1)
+        fold = dict(tail, sht_fold_symmetry=True)
+        runs["spatial_fold"] = rep["fold_window"] = route_window(
+            "the folded window", fold, fold,
+            {"K1": SPATIAL_LAYERS, "K2": 0, "K3": SPATIAL_LAYERS, "K4": 0},
+            ("all_to_all_single", "all_reduce", "reduce_scatter_tensor"), "fold")
 
         # (f) one float32 forward of each routed option on the route
         base = main_path.sfno_configs(C, SPATIAL_LAYERS, "float32", SPATIAL_SHAPE,
@@ -2933,6 +2953,10 @@ def phase21(smi_line, wrappers, report, runs, device="cuda") -> None:
             "non-linear filter, per degree": (
                 dict(filter_type="non-linear", operator_type="l-dependant"), trade),
             "scale_factor 2": (dict(scale_factor=2), scatter),
+            "folded Legendre stage, K1": (dict(sht_fold_symmetry=True, use_pallas=True),
+                                          scatter),
+            "planar FFT transform, K1": (dict(spectral_transform="fft", use_pallas=True),
+                                         scatter),
         }
         forwards = {}
         for name, (kw, need) in cases.items():
@@ -2951,12 +2975,13 @@ def phase21(smi_line, wrappers, report, runs, device="cuda") -> None:
                     net.set_mesh(None)
             abs_err, rel_err = rel(got, want)
             k4_want = sum(bool(getattr(b.filter, "fused_rank", False)) for b in net.blocks)
+            k1_want = sum(getattr(b.filter, "_k1_image", None) is not None for b in net.blocks)
             forwards[name] = dict(ms=seconds * 1e3, max_abs_err=abs_err, max_rel_err=rel_err,
                                   launches=launches, collectives=coll)
             log(f"option on the spatial route, {name}: float32 forward {seconds * 1e3:.2f} ms "
                 f"(the route's first), max rel err against the forward without the mesh "
-                f"{rel_err:.3e} (tolerance 1e-4), K4 launches {launches['K4']}, collectives "
-                f"{coll}")
+                f"{rel_err:.3e} (tolerance 1e-4), K1 launches {launches['K1']}, K4 launches "
+                f"{launches['K4']}, collectives {coll}")
             check(bool(torch.isfinite(got).all()) and rel_err <= 1e-4,
                   f"option {name}: the spatial route disagrees with the forward without the "
                   f"mesh ({rel_err:.3e})")
@@ -2965,10 +2990,29 @@ def phase21(smi_line, wrappers, report, runs, device="cuda") -> None:
                   f"taken")
             check(launches["K4"] == k4_want, f"option {name}: K4 launched {launches['K4']} "
                                              f"times, expected {k4_want}")
+            check(launches["K1"] == k1_want, f"option {name}: K1 launched {launches['K1']} "
+                                             f"times, expected {k1_want}")
             del net, want, got
             if cuda:
                 torch.cuda.empty_cache()
         rep["options"] = forwards
+        # the bytes each new route moves over "h" per forward at this width
+        # and grid (batch 1, every block), from the shapes: the folded
+        # stage's mirror exchange (the rows a rank sends, in the matmul
+        # dtype) beside the all-reduce buffer of its partial sums, and the
+        # FFT's "h" gather (the rows a rank receives, float32)
+        M = W // 2 + 1
+        route_bytes = {}
+        for nh, nw in ((2, 1), (2, 2), (4, 1)):
+            sent = max(mirror_pairs(H, nh, i)[1] for i in range(nh))
+            per_row = M * (C // nw) * 2 * SPATIAL_LAYERS
+            route_bytes[f"h{nh}w{nw}"] = dict(
+                fold_exchange_bf16=sent * per_row * 2, fold_exchange_f32=sent * per_row * 4,
+                fold_all_reduce_buffer=L * per_row * 4,
+                fft_gather=(H - H // nh) * per_row * 4)
+        log(f"bytes over 'h' per forward at {C} x {SPATIAL_LAYERS} on {SPATIAL_SHAPE}, batch 1, "
+            f"by (h, w): {route_bytes}")
+        rep["route_bytes"] = route_bytes
         del inp, x, forcing
     finally:
         dist.destroy_process_group()
@@ -4931,13 +4975,14 @@ def main() -> int:
                "bf16 gradient mean and ZeRO-1 through K1)"):
         phase17(smi_line, wrappers, report, runs)
 
-    with Phase("21 spatial model parallelism (K1 and K4 on the channel shards, K4 on a "
-               "block's rows, K2 and K3 at block origins, the fused-tail and fast windows and "
-               "every filter option on the spatial route over an NCCL group of one)"):
-        phase21(smi_line, wrappers, report, runs)
-
     with Phase("13 model options at 256 x 8 (Tucker, fold, remat, the other options)"):
         phase13(smi_line, wrappers, report, runs, drive, pair, other)
+
+    with Phase("21 spatial model parallelism (K1 and K4 on the channel shards, K4 on a "
+               "block's rows, K2 and K3 at block origins, the fused-tail, fast and folded "
+               "windows and every filter option on the spatial route over an NCCL group of "
+               "one)"):
+        phase21(smi_line, wrappers, report, runs)
 
     with Phase("14 training modes at 256 x 8 (bf16, bf16 moments, fused, streaming, rollout "
                "validation, histograms, code snapshot)"):

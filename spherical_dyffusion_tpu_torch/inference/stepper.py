@@ -39,10 +39,11 @@ JAX shards no window array over it. The inputs noise is drawn for the whole
 grid and sliced to the block, and so is the noise of the noised forecaster
 conditionings ("data+noise", ``diffusion/dyffusion.py:forward_noise``, from
 the forecaster's mesh). The sampler is pointwise but for its network calls
-and its generator, so it needs no change. Every SFNO option but the folded
-Legendre stage and the planar FFT transform has a split-grid route; those
-two and the UNet backbone, whose convolutions need a halo exchange, raise
-here when the stepper is built (ROADMAP Queue 1 item 7c).
+and its generator, so it needs no change. Every SFNO option has a
+split-grid route (the folded Legendre stage and the planar FFT transform
+among them); the UNet backbone, whose convolutions need a halo exchange,
+raises here when the stepper is built: it is item 7c's last refusal
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from typing import Any, Mapping, Optional, Tuple
 
 import torch
 
-from ..models.modules import fold_generator, refuse_split_grid
+from ..models.modules import fold_generator
 from ..parallel.mesh import (
     AXIS_DATA,
     AXIS_H,
@@ -117,7 +118,9 @@ class DYffusionStepper:
         if self.mesh is not None and self.mesh.spatial:
             for net in self._nets:  # raises here for what has no split-grid route
                 if not hasattr(net, "set_mesh"):
-                    refuse_split_grid(self.mesh, f"the {type(net).__name__} backbone")
+                    raise NotImplementedError(
+                        f"the {type(net).__name__} backbone on a grid split over the mesh "
+                        f"{self.mesh.shape} is not ported (ROADMAP Queue 1 item 7c)")
                 net.set_mesh(self.mesh)
                 net.set_mesh(None)
         if use_ema_params:

@@ -48,7 +48,7 @@ from ..parallel.mesh import Mesh, all_reduce_spatial, spatial_block
 __all__ = ["Dense", "InstanceNorm2d", "SpatialLayerNorm", "QuantizedDropout", "MLP2d",
            "SinusoidalTimeEmbedding", "TimeEmbedMLP", "DropPath",
            "get_activation", "draw_seed", "fold_generator", "device_generator", "exact_dropout",
-           "spatial_moments", "refuse_split_grid"]
+           "spatial_moments"]
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -93,16 +93,6 @@ def exact_dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
         u = torch.rand(x.shape[:-3] + blk.shape + x.shape[-1:], generator=device_gen,
                        device=x.device)[..., blk.rows(), blk.cols(), :]
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
-
-
-def refuse_split_grid(mesh: Optional[Mesh], what: str) -> None:
-    """Raise for an option that has no route over a grid split over "h" or
-    "w" (ROADMAP Queue 1 item 7c: the folded Legendre stage, the planar FFT
-    transform, the UNet)."""
-    if mesh is not None and mesh.spatial:
-        raise NotImplementedError(
-            f"{what} on a grid split over the mesh {mesh.shape} is not ported (ROADMAP "
-            f"Queue 1 item 7c)")
 
 
 def spatial_moments(x: torch.Tensor, exact: bool, mesh: Optional[Mesh] = None):

@@ -23,8 +23,7 @@ JAX package's configuration space:
 ``scan_layers`` runs the same plain loop over the blocks (the JAX package
 states both are the same math; its stacked parameter layout is unstacked by
 ``utils/convert.py``). Values that the JAX package rejects raise in
-``SFNOConfig.__post_init__``, and so do ``fused_mlp_tile_rows`` other than
-1024 (the CUDA kernels tile by their own rule), compute and matmul dtypes
+``SFNOConfig.__post_init__``, and so do compute and matmul dtypes
 other than float32 and bfloat16, and a non-linear ``operator_type`` name
 outside "dhconv", "diagonal" and "l-dependant", which the JAX package reads as
 "diagonal". The transforms check their own names (``ops/sht.py``): an unknown
@@ -76,7 +75,9 @@ latitudes over "h" and longitudes over "w" (ranks that differ only in
 "data" or "matmul" hold their own rows or replicas), as JAX's
 ``jit``-with-shardings partitions the same program. Every filter runs
 between ``distributed_sht`` and ``distributed_isht``
-(``parallel/distributed_sht.py``), on the channel shard of "w":
+(``parallel/distributed_sht.py``), over every transform (the unfolded and
+the folded Legendre stage, either longitude method, the planar FFT), on the
+channel shard of "w":
 
 - a filter linear in its input channels (the dense dhconv on K1 or in its
   XLA form, merged or not, with bf16 operands or spectral IO; the diagonal
@@ -107,9 +108,8 @@ embedding and a layer norm's affine are sliced to the block; the fused MLP,
 conditionings draw the whole grid's bits and keep the block's
 (``models/modules.py``). The parameters stay whole and replicated, so
 attaching and detaching a mesh touches no weight, name or checkpoint.
-Under "h" or "w" above 1 the folded Legendre stage and the planar FFT
-transform raise (ROADMAP Queue 1 item 7c), as does autograd: the trainer
-replicates its step over "h" and "w", as JAX's does.
+Under "h" or "w" above 1 autograd raises: the trainer replicates its step
+over "h" and "w", as JAX's does.
 """
 
 from __future__ import annotations
@@ -163,7 +163,6 @@ from .modules import (
     SpatialLayerNorm,
     TimeEmbedMLP,
     get_activation,
-    refuse_split_grid,
 )
 
 __all__ = ["SFNOConfig", "SFNO", "FNOBlock", "SpectralConvS2", "SpectralAttentionS2"]
@@ -173,7 +172,6 @@ __all__ = ["SFNOConfig", "SFNO", "FNOBlock", "SpectralConvS2", "SpectralAttentio
 _SUPPORTED = {
     "spectral_io_dtype": ("", "bfloat16"),
     "sht_matmul_dtype": ("float32", "bfloat16"),
-    "fused_mlp_tile_rows": (1024,),
 }
 # field -> its values, as the JAX package names them
 _NAMES = {
@@ -221,6 +219,8 @@ class SFNOConfig:
     exact_dropout: bool = False
     hard_thresholding_fraction: float = 1.0
     fused_mlp: bool = False
+    # the row tile of the JAX package's Pallas MLP; the CUDA kernels (K2, K3)
+    # tile by their own rule, so any positive value gives the same result
     fused_mlp_tile_rows: int = 1024
     fused_tail: bool = False
     scan_layers: bool = False
@@ -261,6 +261,8 @@ class SFNOConfig:
                 raise ValueError(f"SFNOConfig.{name}={getattr(self, name)!r}: one of {values}")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
+        if not (isinstance(self.fused_mlp_tile_rows, int) and self.fused_mlp_tile_rows > 0):
+            raise ValueError(f"fused_mlp_tile_rows {self.fused_mlp_tile_rows!r}: a positive int")
         if self.filter_type == "linear":
             if self.operator_type not in ("dhconv", "diagonal"):
                 raise ValueError(f"Unsupported operator_type {self.operator_type!r}")
@@ -315,16 +317,6 @@ def _build_transforms(cfg: SFNOConfig, kernel_layout: bool = False):
             InverseRealSHT(h, w, lmax, mmax, grid="legendre-gauss", **kw))
 
 
-def _transform_refusal(fwd, inv) -> Optional[str]:
-    """The transforms of a filter that have no route over a split grid
-    (ROADMAP Queue 1 item 7c), or None."""
-    if not (isinstance(fwd, RealSHT) and isinstance(inv, InverseRealSHT)):
-        return "the planar FFT transform"
-    if fwd.folded or inv.folded:
-        return "the folded Legendre stage (sht_fold_symmetry)"
-    return None
-
-
 class SpectralConvS2(nn.Module):
     """The linear filter: transform -> spectral weight -> inverse transform
     (+ bias). Returns ``(filtered, residual)``; the residual is the input
@@ -351,8 +343,8 @@ class SpectralConvS2(nn.Module):
     middle as the K4 kernel (unfolded matmul SHTs only).
 
     With a mesh (``_mesh``) the input is this rank's block and the filter
-    runs over it (``_distributed``, the routes of the module docstring);
-    ``split_grid_refusal`` names the transforms that have no such route.
+    runs over it (``_distributed``, the routes of the module docstring),
+    whatever its transforms.
     """
 
     _mesh: Optional[Mesh] = None
@@ -422,10 +414,6 @@ class SpectralConvS2(nn.Module):
             self.register_buffer("rank_l_first", torch.minimum(fwd.analysis_l_first,
                                                                inv.synthesis_l_first),
                                  persistent=False)
-
-    def split_grid_refusal(self) -> Optional[str]:
-        """What of this filter has no route over a split grid, or None."""
-        return _transform_refusal(*self._transforms)
 
     def _contract(self, xs: torch.Tensor, w, out_dtype: Optional[torch.dtype] = None,
                   image: Optional[torch.Tensor] = None, reduce=None) -> torch.Tensor:
@@ -533,7 +521,7 @@ class SpectralConvS2(nn.Module):
         return cp_spatial_expand(g, f["B"], md, out_dtype=io, order=order)
 
     def forward(self, x: torch.Tensor):
-        if self._mesh is not None and self.split_grid_refusal() is None:
+        if self._mesh is not None:
             return self._distributed(x)
         fwd, inv = self._transforms
         dtype = x.dtype
@@ -605,10 +593,6 @@ class SpectralAttentionS2(nn.Module):
             return torch.relu(zr), torch.relu(zi)
         return torch.nn.functional.gelu(zr), torch.nn.functional.gelu(zi)
 
-    def split_grid_refusal(self) -> Optional[str]:
-        """What of this filter has no route over a split grid, or None."""
-        return _transform_refusal(*self._transforms)
-
     def _mlp(self, xs: torch.Tensor) -> torch.Tensor:
         """The complex MLP on every mode of ``xs`` ``(..., l, m, c, 2)``."""
         eq = "...lmi,lio->...lmo" if self.l_dependant else "...lmi,io->...lmo"
@@ -624,8 +608,8 @@ class SpectralAttentionS2(nn.Module):
         fwd, inv = self._transforms
         dtype = x.dtype
         residual = x
-        mesh = self._mesh if self.split_grid_refusal() is None else None
-        if mesh is None:
+        mesh = self._mesh
+        if mesh is None:  # the one-device transforms, only here
             xs = fwd(x.float())
             if self.scale_residual:
                 residual = inv(xs).to(dtype)
@@ -819,17 +803,13 @@ class SFNO(nn.Module):
         from then on ``forward`` takes this rank's block of the grid,
         latitudes over "h" and longitudes over "w", and returns its block of
         the output. Parameters, their names and shapes are left as they are.
-        Under "h" or "w" above 1 the folded Legendre stage and the planar
-        FFT transform raise here (ROADMAP Queue 1 item 7c), and a grid,
-        width or rank-pipeline rank that does not split raises
-        ``ValueError``; with both at 1 the block is the whole grid and every
-        option runs, its collectives over groups of one."""
+        Every option has a route. A grid (the image grid's and the model
+        grid's latitudes, which the folded Legendre stage pairs across the
+        ranks of "h", and longitudes), width or rank-pipeline rank that does
+        not split raises ``ValueError``; with "h" and "w" at 1 the block is
+        the whole grid, its collectives over groups of one."""
         if mesh is not None and mesh.spatial:
             cfg = self.cfg
-            for block in self.blocks:
-                why = block.filter.split_grid_refusal()
-                if why is not None:
-                    refuse_split_grid(mesh, why)
             nh, nw = mesh.shape[AXIS_H], mesh.shape[AXIS_W]
             for H, W in dict.fromkeys((cfg.img_shape, cfg.model_shape)):
                 if H % nh or W % nw or cfg.embed_dim % nw:

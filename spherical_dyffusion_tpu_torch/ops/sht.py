@@ -123,19 +123,27 @@ class RealSHT(_Transform):
                     .contiguous(), out_dtype)
 
     def _folded(self, xf: torch.Tensor) -> torch.Tensor:
-        """Even/odd-folded analysis: with e and o the sum and difference of
-        the two hemispheres (taken in the matmul dtype), the even-l rows
-        contract e for even m and o for odd m, the odd-l rows the other;
-        two products over half the latitudes, interleaved back into l."""
-        H2, md = self.nlat // 2, self.matmul_dtype
-        xf = xf.to(md)
-        top, bot = xf[..., :H2, :, :, :], xf[..., H2:, :, :, :].flip(-4)
+        """Even/odd-folded analysis over every latitude pair."""
+        H2 = self.nlat // 2
+        return self.folded_pairs(xf[..., :H2, :, :, :], xf[..., H2:, :, :, :].flip(-4),
+                                 slice(0, H2))
+
+    def folded_pairs(self, top: torch.Tensor, bot: torch.Tensor, north) -> torch.Tensor:
+        """Even/odd-folded analysis over a subset of the latitude pairs
+        (h, nlat - 1 - h), h < nlat / 2: ``top`` ``(..., n, m, c, 2)`` holds
+        rows ``north`` (a slice of the northern rows) and ``bot`` their
+        mirrors in the same order. With e and o the sum and difference of
+        the two (taken in the matmul dtype), the even-l rows contract e for
+        even m and o for odd m, the odd-l rows the other; two products over
+        the pairs, interleaved back into l: the pairs' part of the sum over
+        latitudes, float32 ``(..., lmax, m, c, 2)``."""
+        md = self.matmul_dtype
+        top, bot = top.to(md), bot.to(md)
         e, o = top + bot, top - bot
-        m_even = _m_parity(xf.shape[-3], xf.device)
-        out_e = einsum("...hmcr,hjm->...jmcr", torch.where(m_even, e, o),
-                       self.analysis[:H2, 0::2], md)
-        out_o = einsum("...hmcr,hjm->...jmcr", torch.where(m_even, o, e),
-                       self.analysis[:H2, 1::2], md)
+        A = self.analysis[north]
+        m_even = _m_parity(top.shape[-3], top.device)
+        out_e = einsum("...hmcr,hjm->...jmcr", torch.where(m_even, e, o), A[:, 0::2], md)
+        out_o = einsum("...hmcr,hjm->...jmcr", torch.where(m_even, o, e), A[:, 1::2], md)
         y = torch.stack([out_e, out_o], dim=-4)  # (..., L/2, 2, M, C, 2)
         return y.reshape(y.shape[:-5] + (self.lmax,) + y.shape[-3:])
 
@@ -167,14 +175,29 @@ class InverseRealSHT(_Transform):
         return emit(y, out_dtype) if self._emits else y
 
     def _folded(self, x: torch.Tensor) -> torch.Tensor:
-        """Even/odd-folded synthesis (the adjoint of the folded analysis):
-        with E and O the even- and odd-l syntheses over the northern half,
-        the north is E + O and the mirrored south (-1)^m (E - O)."""
-        H2, md = self.nlat // 2, self.matmul_dtype
-        E = einsum("...jmcr,hjm->...hmcr", x[..., 0::2, :, :, :], self.synthesis[:H2, 0::2], md)
-        O = einsum("...jmcr,hjm->...hmcr", x[..., 1::2, :, :, :], self.synthesis[:H2, 1::2], md)
+        """Even/odd-folded synthesis (the adjoint of the folded analysis) of
+        every latitude."""
+        return self.folded_rows(x, slice(0, self.nlat))
+
+    def folded_rows(self, x: torch.Tensor, rows: slice) -> torch.Tensor:
+        """Even/odd-folded synthesis of the latitudes ``rows`` (a contiguous
+        slice): with E and O the even- and odd-l syntheses at the northern
+        rows h < nlat / 2 that these rows mirror to, a northern row is E + O
+        and a southern row nlat - 1 - h is (-1)^m (E - O) at h;
+        ``(..., n, m, c, 2)`` float32."""
+        H, H2, md = self.nlat, self.nlat // 2, self.matmul_dtype
+        a, b = rows.start, rows.stop
+        n_top = max(min(b, H2) - a, 0)  # the northern rows of the slice
+        s0, s1 = max(a, H2), b  # its southern rows, which mirror to H-s1 .. H-1-s0
+        spans = ([(a, a + n_top)] if n_top else []) + ([(H - s1, H - s0)] if s1 > s0 else [])
+        lo, hi = min(p for p, _ in spans), max(q for _, q in spans)
+        S = self.synthesis[lo:hi]
+        E = einsum("...jmcr,hjm->...hmcr", x[..., 0::2, :, :, :], S[:, 0::2], md)
+        O = einsum("...jmcr,hjm->...hmcr", x[..., 1::2, :, :, :], S[:, 1::2], md)
         sign = torch.where(_m_parity(x.shape[-3], x.device), 1.0, -1.0)
-        return torch.cat([E + O, ((E - O) * sign).flip(-4)], dim=-4)
+        top = (E + O)[..., a - lo:a - lo + n_top, :, :, :]
+        bottom = ((E - O) * sign)[..., H - s1 - lo:H - s0 - lo, :, :, :].flip(-4)
+        return torch.cat([top, bottom], dim=-4)
 
     def longitude(self, y: torch.Tensor, out_dtype: Optional[torch.dtype] = None):
         """Inverse DFT stage: ``(..., h, m, c, 2)`` -> ``(..., h, w, c)``."""

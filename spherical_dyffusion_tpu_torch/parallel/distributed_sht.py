@@ -18,9 +18,36 @@ collectives over the mesh's process groups:
 The inverse runs the adjoint. Spectral tensors use the port's stacked real
 layout ``(B, L, M, C, 2)`` (``ops/sht.py``), contiguous, the layout K1
 reads; the longitude stage is the transform's own (its DFT matrix or FFT),
-the latitude stage its unfolded Legendre matrix, and ``out_dtype`` rounds
-each stage's output where the transform's own ``out_dtype`` does (after the
-latitude sum over "h"). The contraction is K1's wrapper
+and ``out_dtype`` rounds each stage's output where the transform's own
+``out_dtype`` does (after the latitude sum over "h"). The latitude stage is
+the transform's too:
+
+* the unfolded Legendre matrix: this rank's rows of it, as above;
+* the folded Legendre stage (``sht_fold_symmetry``): latitude r pairs with
+  H-1-r, so rank i of "h" pairs its rows with those of rank nh-1-i. The
+  two ranks of a pair split its latitude pairs in half (``mirror_pairs``):
+  each sends the other the rows of the pairs the other owns, in the matmul
+  dtype (the rounding point of JAX's e and o), in one ``all_to_all_single``
+  over "h" whose split sizes are zero but for the mirror's chunk. A rank
+  that pairs with itself (the equator's block when nh is odd) sends and
+  receives nothing in that call, and where "h" is 1 no call is made. Each
+  rank forms e and o of the pairs it owns, takes the two half-size
+  products (``RealSHT.folded_pairs``, restacked into l) and the partial
+  (l, m) sums go to the ``all_reduce`` over "h". Per forward that moves B x
+  H/(2 nh) x M x C/nw x 2 values of the matmul dtype each way between the
+  two ranks of a pair, besides the all-reduce's B x L x M x C/nw x 2
+  float32. The folded synthesis needs no exchange: each rank forms E and
+  O at the mirror-north rows of its own rows (``InverseRealSHT.
+  folded_rows``);
+* the planar FFT (``spectral_transform="fft"``): after the longitude FFT,
+  this rank's channel shard ``(B, H/nh, M, C/nw, 2)`` float32 is gathered
+  over "h" in rank order (``parallel/mesh.py:gather``; B x H x M x C/nw x
+  2 float32 a rank, never the whole grid's channels) and the FFT over H
+  keeps its rows, giving the same layout as the SHTs. The inverse runs the
+  latitude inverse FFT on the whole spectrum of its channel shard, keeps
+  its H/nh rows and runs the longitude stage: no collective over "h".
+
+The contraction is K1's wrapper
 (``ops/pallas_contractions.py:dhconv``): the kernel on the card, its plain
 version on the CPU. A collective runs over an axis wherever the mesh has a
 group for it, so on a world of one (an NCCL group of one rank) each runs
@@ -57,14 +84,15 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ..ops.fft import InverseRealFFT2, RealFFT2
 from ..ops.matmul import einsum, emit
 from ..ops.pallas_contractions import dhconv
 from ..ops.sht import InverseRealSHT, RealSHT
-from .mesh import AXIS_H, AXIS_W, Mesh
+from .mesh import AXIS_H, AXIS_W, Mesh, gather
 
 __all__ = ["distributed_sht", "distributed_isht", "distributed_dhconv", "distributed_longitude",
            "distributed_ilongitude", "reduce_scatter_w", "all_reduce_w",
-           "channels_to_orders", "orders_to_channels"]
+           "channels_to_orders", "orders_to_channels", "mirror_pairs"]
 
 
 def _all_to_all(x: torch.Tensor, group, n: int, split: int, concat: int) -> torch.Tensor:
@@ -87,7 +115,51 @@ def _rows(mesh: Mesh, n_lat: int) -> slice:
     return slice(i * k, (i + 1) * k)
 
 
-def distributed_longitude(x: torch.Tensor, sht: RealSHT, mesh: Mesh,
+def mirror_pairs(n_lat: int, nh: int, i: int):
+    """The latitude pairs (r, n_lat-1-r) that rank ``i`` of ``nh`` "h"
+    ranks owns in the folded analysis: ``(keep, send, north)``. The rank
+    keeps its first ``keep`` rows and sends its last ``send`` rows to rank
+    nh-1-i, whose last ``keep`` rows it receives; ``north`` (a slice of the
+    rows r < n_lat/2) is the northern row of each pair it owns, in order.
+    Of two mirror ranks the northern one owns the first ceil(k/2) pairs of
+    its k rows and the southern one the rest; a rank that is its own mirror
+    owns its k/2 pairs and sends nothing."""
+    k = n_lat // nh
+    j = nh - 1 - i
+    if i == j:
+        return k // 2, 0, slice(i * k, i * k + k // 2)
+    k2 = (k + 1) // 2
+    if i < j:
+        return k2, k - k2, slice(i * k, i * k + k2)
+    return k - k2, k2, slice(j * k + k2, (j + 1) * k)
+
+
+def _folded_analysis(xf: torch.Tensor, sht: RealSHT, mesh: Mesh) -> torch.Tensor:
+    """This rank's part of the folded Legendre analysis of ``(B, H/nh, M,
+    C/nw, 2)``: the mirror rows exchanged over "h", the pairs it owns
+    contracted (the module docstring)."""
+    nh, gh = mesh.shape[AXIS_H], mesh.groups[AXIS_H]
+    i = mesh.index(AXIS_H) if nh > 1 else 0
+    j = nh - 1 - i
+    keep, send, north = mirror_pairs(sht.nlat, nh, i)
+    xf = xf.to(sht.matmul_dtype)
+    if nh > 1:  # one call of every rank of "h"; a rank that is its own mirror sends nothing
+        out_splits, in_splits = [0] * nh, [0] * nh
+        if i != j:
+            out_splits[j], in_splits[j] = keep, send
+        rows = xf[..., xf.shape[-4] - send:, :, :, :].movedim(-4, 0).contiguous()
+        recv = xf.new_empty((out_splits[j],) + rows.shape[1:])
+        dist.all_to_all_single(recv, rows, out_splits, in_splits, group=gh)
+        theirs = recv.movedim(0, -4)
+    mine = xf[..., :keep, :, :, :]
+    if i == j:  # both rows of every pair: the mirrors are its other half, last-first
+        return sht.folded_pairs(mine, xf[..., keep:, :, :, :].flip(-4), north)
+    if i < j:  # northern: its rows on top, the mirrors received last-first
+        return sht.folded_pairs(mine, theirs.flip(-4), north)
+    return sht.folded_pairs(theirs, mine.flip(-4), north)
+
+
+def distributed_longitude(x: torch.Tensor, sht: RealSHT | RealFFT2, mesh: Mesh,
                           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The longitude stage of ``distributed_sht``: this rank's grid block
     ``(B, H/nh, W/nw, C)`` -> ``(B, H/nh, M, C/nw, 2)``, the longitude shard
@@ -101,22 +173,27 @@ def distributed_longitude(x: torch.Tensor, sht: RealSHT, mesh: Mesh,
     return sht.longitude(x, out_dtype)
 
 
-def distributed_sht(x: torch.Tensor, sht: RealSHT, mesh: Mesh,
+def distributed_sht(x: torch.Tensor, sht: RealSHT | RealFFT2, mesh: Mesh,
                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """This rank's grid block ``(B, H/nh, W/nw, C)`` -> its spectral block
     ``(B, L, M, C/nw, 2)``: JAX's input ``P(None, 'h', 'w', None)`` and
     output ``P(None, None, None, 'w')``; ``out_dtype`` as ``sht``'s."""
     gh = mesh.groups[AXIS_H]
-    xf = distributed_longitude(x, sht, mesh, out_dtype)  # (B, H/nh, M, C/nw, 2)
     rows = _rows(mesh, sht.nlat)
-    part = einsum("...hmcr,hlm->...lmcr", xf, sht.analysis[rows], sht.matmul_dtype)
+    xf = distributed_longitude(x, sht, mesh, out_dtype)  # (B, H/nh, M, C/nw, 2)
+    if isinstance(sht, RealFFT2):  # every latitude of this channel shard, in rank order
+        return sht.latitude(gather(mesh, xf, (None, AXIS_H)))
+    if sht.folded:
+        part = _folded_analysis(xf, sht, mesh)
+    else:
+        part = einsum("...hmcr,hlm->...lmcr", xf, sht.analysis[rows], sht.matmul_dtype)
     part = part.contiguous()
     if gh is not None:  # the latitude sum over the latitude shards
         dist.all_reduce(part, group=gh)
     return emit(part, out_dtype)
 
 
-def distributed_ilongitude(y: torch.Tensor, isht: InverseRealSHT, mesh: Mesh,
+def distributed_ilongitude(y: torch.Tensor, isht: InverseRealSHT | InverseRealFFT2, mesh: Mesh,
                            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The inverse longitude stage of ``distributed_isht``: ``(B, H/nh, M,
     C/nw, 2)`` -> this rank's grid block ``(B, H/nh, W/nw, C)``, the channel
@@ -129,15 +206,20 @@ def distributed_ilongitude(y: torch.Tensor, isht: InverseRealSHT, mesh: Mesh,
     return out
 
 
-def distributed_isht(xs: torch.Tensor, isht: InverseRealSHT, mesh: Mesh,
+def distributed_isht(xs: torch.Tensor, isht: InverseRealSHT | InverseRealFFT2, mesh: Mesh,
                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """This rank's spectral block ``(B, L, M, C/nw, 2)`` -> its grid block
     ``(B, H/nh, W/nw, C)``, the adjoint of ``distributed_sht``;
     ``out_dtype`` as ``isht``'s."""
     rows = _rows(mesh, isht.nlat)
-    y = einsum("...lmcr,hlm->...hmcr", xs, isht.synthesis[rows], isht.matmul_dtype)
-    if isht._emits:
-        y = emit(y, out_dtype)
+    if isinstance(isht, InverseRealFFT2):  # the whole spectrum of the shard, this block's rows
+        y = isht.latitude(xs)[..., rows, :, :, :]
+    elif isht.folded:
+        y = isht.folded_rows(xs, rows)
+    else:
+        y = einsum("...lmcr,hlm->...hmcr", xs, isht.synthesis[rows], isht.matmul_dtype)
+        if isht._emits:
+            y = emit(y, out_dtype)
     return distributed_ilongitude(y, isht, mesh, out_dtype)
 
 

@@ -497,16 +497,34 @@ def test_new_initializers_follow_jax_scales():
 
 
 def test_config_accepts_the_jax_option_space():
-    """Every option value that the JAX package runs builds here (besides
-    the tile rows of its Pallas MLP), and the defaults mirror JAX's."""
+    """Every option value that the JAX package runs builds here (the tile
+    rows of its Pallas MLP too, any positive int), and the defaults mirror
+    JAX's."""
     assert {f.name: f.default for f in dataclasses.fields(SFNOConfig)} == \
         {f.name: f.default for f in dataclasses.fields(JSFNOConfig)}
     for kw in (*OPTIONS.values(), *NONLINEAR.values(), dict(checkpointing=3),
                dict(filter_type="non-linear", operator_type="dhconv", factorization="tucker",
-                    separable=True), dict(complex_activation="modulus")):
+                    separable=True), dict(complex_activation="modulus"),
+               dict(fused_mlp_tile_rows=512)):
         SFNO(SFNOConfig(**_kw(**kw)))
-    with pytest.raises(NotImplementedError, match="fused_mlp_tile_rows"):
-        SFNOConfig(fused_mlp_tile_rows=512)
+
+
+def test_fused_mlp_tile_rows_changes_no_result():
+    """The CUDA kernels tile by their own rule, so ``fused_mlp_tile_rows``
+    (the JAX package's Pallas row tile) leaves a forward through the fused
+    tail (K3's path; its plain version on the CPU, dropout off) bit for bit
+    the same at 256, 1024 and 4096; a tile of 0 rows raises."""
+    x, cond, t = (torch.from_numpy(a) for a in _inputs())
+    outs = []
+    for rows in (256, 1024, 4096):
+        model = SFNO(SFNOConfig(**_kw(fused_tail=True, fused_mlp_tile_rows=rows)))
+        assert all(b.use_tail for b in model.blocks)
+        model.init_weights(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            outs.append(model(x, time=t, condition=cond))
+    assert all(torch.equal(o, outs[1]) for o in outs)
+    with pytest.raises(ValueError, match="fused_mlp_tile_rows"):
+        SFNOConfig(fused_mlp_tile_rows=0)
 
 
 def test_unknown_lon_method_raises_at_transform_build():

@@ -173,19 +173,24 @@ SPLIT_GRID_REFUSALS = {
 @pytest.mark.parametrize("option", sorted(SPLIT_GRID_REFUSALS))
 @pytest.mark.parametrize("mesh_kw", [dict(data=1, h=2, w=2), dict(data=2, w=2)])
 def test_model_parallel_mesh_refusals(option, mesh_kw):
-    """On a grid split over "h" or "w" the folded Legendre stage and the
-    planar FFT transform raise, naming ROADMAP Queue 1 item 7c (every other
-    option runs: ``tests/test_torch_port_spatial_options.py``); with "h" and
-    "w" at 1 the same mesh runs them on the whole grid; JAX's explicit bf16
+    """The folded Legendre stage and the planar FFT transform, which raised
+    on a split grid until they had a route, are taken by ``set_mesh`` on a
+    grid split over "h" and "w" and over "w" alone (their forwards on the
+    ranks: ``tests/test_torch_port_spatial_options.py``), and so is the
+    whole grid; the refusal that stays is the trainer's: JAX's explicit bf16
     step needs a pure data-parallel mesh (``tests/test_parallel.py:172``),
     which the model axes break."""
     mesh = make_mesh(ranks=range(4), **mesh_kw)
     kw = dict(img_shape=(16, 32), in_chans=3, out_chans=3, embed_dim=8, num_layers=2)
     model = SFNO(SFNOConfig(**kw, **SPLIT_GRID_REFUSALS[option]))
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        model.set_mesh(mesh)
-    model.set_mesh(make_mesh(data=4, ranks=range(4)))  # the whole grid: every option runs
+    model.set_mesh(mesh)
+    assert all(b.filter._mesh is mesh for b in model.blocks)
+    if option == "fold":
+        assert all(t.folded for t in (model.trans_down, model.itrans_up, model.trans,
+                                      model.itrans))
+    model.set_mesh(make_mesh(data=4, ranks=range(4)))  # the whole grid
     model.set_mesh(None)
+    assert all(b.filter._mesh is None for b in model.blocks)
     tr = workers.interpolation_trainer(mesh, grad_reduce_dtype="bfloat16")
     with pytest.raises(ValueError, match="data-parallel mesh"):
         tr.init_state()

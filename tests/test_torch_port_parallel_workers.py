@@ -11,9 +11,11 @@ its results to ``<out>/rank<r>.pt``. It holds no tests.
 
 ``start_options`` spawns the four ranks of
 ``tests/test_torch_port_spatial_options.py``: every SFNO option of
-``OPTIONS`` on ``make_mesh(data=1, h=2, w=2)`` (and the rank pipelines
-also on "h" = 2 and "w" = 2 alone), forwards with dropout off and live, and
-the ``data+noise-v1`` window on "h" = 2.
+``OPTIONS`` on ``make_mesh(data=1, h=2, w=2)`` (and the rank pipelines and
+the folded Legendre stage also on "h" = 2 and "w" = 2 alone, the folded
+stage on "h" = 4 and, at 18 x 32 over three of the ranks, on "h" = 3),
+forwards with dropout off and live, and the ``data+noise-v1`` window and
+the folded window on "h" = 2.
 """
 
 import dataclasses
@@ -171,9 +173,9 @@ def spatial_sfno(opts: str, dropout: bool = True) -> SFNO:
     return model
 
 
-def sfno_inputs():
+def sfno_inputs(grid=GRID):
     rng = np.random.default_rng(2)
-    return (torch.from_numpy(rng.standard_normal((2,) + GRID + (IN,)).astype(np.float32)),
+    return (torch.from_numpy(rng.standard_normal((2,) + tuple(grid) + (IN,)).astype(np.float32)),
             torch.tensor([1.0, 2.0]))
 
 
@@ -194,13 +196,15 @@ def sfno_forward(model: SFNO, x, t, mesh=None, seed: int = 5,
     return gather_batch(mesh, y, spatial=True) if mesh is not None else y
 
 
-def spatial_window_stepper(path: str, dropout: bool, mesh=None) -> DYffusionStepper:
+def spatial_window_stepper(path: str, dropout: bool, mesh=None,
+                           **build_kw) -> DYffusionStepper:
     """The main path's window (both SFNOs at embed 8 x 2 on 16 x 32, 5 state
-    channels, horizon 3, K1 and ``WINDOW_PATHS[path]``, the SST prescriber)
-    with the interpolator's dropout live with ``dropout``, on ``mesh``."""
+    channels, horizon 3, K1 and ``WINDOW_PATHS[path]``, the SST prescriber;
+    ``build_kw`` more of ``main_path.build``'s options) with the
+    interpolator's dropout live with ``dropout``, on ``mesh``."""
     st = main_path.build(embed=8, layers=2, img_shape=GRID, horizon=3, n_state=STATE,
                          dtype="float32", device="cpu", enable_interpolator_dropout=dropout,
-                         **WINDOW_PATHS[path])
+                         **WINDOW_PATHS[path], **build_kw)
     for net in (st.exp.model, st.exp.interpolator.model):
         boost_filters(net)
     return DYffusionStepper(st.exp, prescriber=st.prescriber, mesh=mesh)
@@ -300,8 +304,9 @@ def results(ctx, world: int, out: str, timeout_s: float = 300.0) -> list:
 # ------------------------------------------- the SFNO options on a split grid
 # (tests/test_torch_port_spatial_options.py): each option at embed 8 x 2 on
 # 16 x 32 (the rank pipelines at 16 x 3: 2R <= 16 and R % 2 == 0 at rank
-# 0.25, and only the middle block has one grid), dropout 0.1 in the MLP, the
-# position embedding and DropPath (off in a deterministic forward)
+# 0.25, and only the middle block has one grid; the folded stage on "h" = 3
+# at 18 x 32, whose middle rank holds the equator), dropout 0.1 in the MLP,
+# the position embedding and DropPath (off in a deterministic forward)
 RANK_PIPELINE = dict(embed_dim=16, num_layers=3, rank=0.25)
 OPTIONS = {
     "dhconv": {},
@@ -327,22 +332,35 @@ OPTIONS = {
                                   complex_activation="complex", spectral_layers=2),
     "scale_factor": dict(scale_factor=2),
     "exact dropout": dict(exact_dropout=True),
+    "fold": dict(sht_fold_symmetry=True),
+    "fold bf16 operands": dict(sht_fold_symmetry=True, sht_matmul_dtype="bfloat16"),
+    "fold lon fft": dict(sht_fold_symmetry=True, lon_method="fft"),
+    "fold cp pipeline": dict(sht_fold_symmetry=True, factorization="cp", **RANK_PIPELINE),
+    "fft transform": dict(spectral_transform="fft"),
+    "fft transform scale_factor": dict(spectral_transform="fft", scale_factor=2),
+    "fft attention": dict(spectral_transform="fft", filter_type="non-linear", spectral_layers=2),
+    "fold 18 x 32": dict(sht_fold_symmetry=True, img_shape=(18, 32)),
 }
 BF16_OPTIONS = ("dhconv bf16 operands", "dhconv spectral io", "merged dhconv bf16",
-                "cp pipeline K4 bf16")
+                "cp pipeline K4 bf16", "fold bf16 operands")
 PIPELINES = ("cp pipeline", "cp pipeline K4", "tucker pipeline")
 # mesh -> the options run on it: h = 2 and w = 2 alone are two meshes of two
-# ranks each (ranks 0-1 and 2-3), which run the same work
-OPTION_MESHES = {"h2w2": list(OPTIONS),
-                 "h2": list(PIPELINES), "w2": list(PIPELINES)}
+# ranks each (ranks 0-1 and 2-3), which run the same work; "h" = 3 runs on
+# ranks 0-2 (rank 3 holds no block of it)
+OPTION_MESHES = {"h2w2": [n for n in OPTIONS if n != "fold 18 x 32"],
+                 "h2": [*PIPELINES, "fold"], "w2": [*PIPELINES, "fold"],
+                 "h4": ["fold"], "h3": ["fold 18 x 32"]}
 
 
 def option_mesh(key: str):
-    """The mesh ``key`` of ``OPTION_MESHES`` over the world of four."""
+    """The mesh ``key`` of ``OPTION_MESHES`` over the world of four (every
+    rank makes every mesh's groups)."""
     if key == "h2w2":
         return make_mesh(data=1, h=2, w=2)
-    shape = (2, 1, 2, 1, 1) if key == "h2" else (2, 1, 1, 2, 1)
-    return mesh_module._build(np.arange(4).reshape(shape))
+    if key == "h4":
+        return make_mesh(data=1, h=4)
+    shape = {"h2": (2, 1, 2, 1, 1), "w2": (2, 1, 1, 2, 1), "h3": (1, 1, 3, 1, 1)}[key]
+    return mesh_module._build(np.arange(int(np.prod(shape))).reshape(shape))
 
 
 def option_config(name: str) -> SFNOConfig:
@@ -368,8 +386,9 @@ def option_sfno(name: str) -> SFNO:
 
 
 def option_forward(model: SFNO, dropout: bool, mesh=None) -> torch.Tensor:
-    """``sfno_forward`` on ``sfno_inputs``, dropout live or off."""
-    return sfno_forward(model, *sfno_inputs(), mesh, dropout=dropout)
+    """``sfno_forward`` on ``sfno_inputs`` of the model's grid, dropout live
+    or off."""
+    return sfno_forward(model, *sfno_inputs(model.cfg.img_shape), mesh, dropout=dropout)
 
 
 def noised_window_stepper(mesh=None) -> DYffusionStepper:
@@ -390,6 +409,12 @@ def noised_window_stepper(mesh=None) -> DYffusionStepper:
     return st
 
 
+def fold_window_stepper(mesh=None) -> DYffusionStepper:
+    """The fused-tail window of ``spatial_window_stepper`` with the folded
+    Legendre stage, the interpolator's dropout live."""
+    return spatial_window_stepper("k3", True, mesh, sht_fold_symmetry=True)
+
+
 def _options_worker(rank: int, world: int, init: str, out: str):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
@@ -397,12 +422,16 @@ def _options_worker(rank: int, world: int, init: str, out: str):
         res = {}
         for key, names in OPTION_MESHES.items():
             mesh = option_mesh(key)
+            if rank not in mesh.ranks:
+                continue
             res[key] = {}
             for name in names:
                 model = option_sfno(name)
                 res[key][name] = dict(det=option_forward(model, False, mesh),
                                       drop=option_forward(model, True, mesh))
-        res["noised"] = spatial_window(noised_window_stepper(option_mesh("h2")))
+        h2 = option_mesh("h2")
+        res["noised"] = spatial_window(noised_window_stepper(h2))
+        res["fold_window"] = spatial_window(fold_window_stepper(h2))
         torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
