@@ -231,7 +231,14 @@ Phases, each timed:
    launches each) on the route against the same model without the mesh
    (1e-4), with the collectives its route makes; (g) phase 13's folded
    window on the same route, as (c), K1 and K3 launched 192 x both ways,
-   its seconds beside phase 13's.
+   its seconds beside phase 13's; (h) phase 16's published UNet on the
+   same route (``UNet.set_mesh``, ``phase21_unet``): with cuDNN's TF32 off
+   one interpolator forward with dropout live within 1e-5 and the 12-step
+   window within 1e-4 of the same stepper's without the mesh; with TF32 on
+   the window's seconds both ways beside phase 16's, the collectives by
+   kind, K1-K4 launched no time; the bytes over "h" and "w" a forward at
+   h = 2, w = 2 and at h = 4 by level, from every rank's block with its
+   collectives recorded, not made.
 18. the netCDF data layer (run after phase 15, before the profile), in a
    temporary directory: a dataset written by ``data/hdf5.py:write_hdf5``
    (this machine has no h5py) with the 34 state names, the two forcings and
@@ -300,8 +307,8 @@ line (K1's backward dx as its own entry; ``launches_by_path`` holds phase
 12 (b)'s counts as ``"cli"``, phase 13's as ``"tucker"``, ``"fold"`` and
 ``"remat"``, phase 15's as ``"ace"``, ``"ace_cli"`` and
 ``"simultaneous"``, phase 16's as ``"unet"`` (zero for every kernel) and
-phase 17's as ``"parallel"``, phase 21's as ``"spatial"`` and
-``"spatial_fast"``, phase 18's
+phase 17's as ``"parallel"``, phase 21's as ``"spatial"``,
+``"spatial_fast"``, ``"spatial_fold"`` and ``"spatial_unet"``, phase 18's
 as ``"data_train"`` and
 ``"data"``, phase 19's as ``"outputs"`` and ``"outputs_ace"``, phase 20's
 as ``"parity"`` and ``"parity_k2"``), the
@@ -3014,12 +3021,213 @@ def phase21(smi_line, wrappers, report, runs, device="cuda") -> None:
             f"by (h, w): {route_bytes}")
         rep["route_bytes"] = route_bytes
         del inp, x, forcing
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (h) the published UNet on the route
+        runs["spatial_unet"] = rep["unet"] = phase21_unet(smi_line, report, mesh, counted,
+                                                          device)
     finally:
         dist.destroy_process_group()
     check(not dist.is_initialized(), "the process group outlived phase 21")
     if cuda:
         torch.cuda.empty_cache()
     report["spatial"] = rep
+
+
+def phase21_unet(smi_line, report, mesh, counted, device="cuda") -> dict:
+    """Phase 21 (h): phase 16's published UNet (UNET_DIM, UNET_MULTS,
+    UNET_SHAPE -> UNET_UPSAMPLE, UNET_STATE channels, float32, batch 1, the
+    interpolator's dropout live) with ``mesh`` (``make_mesh(1, 1, 1)`` over
+    the NCCL group of one) attached to both UNets: every level but the
+    bottleneck's on the route (halo exchanges that make no call where "h"
+    and "w" are 1, grid-wide GroupNorm and attention sums, the outer
+    resampler's whole-grid weights), the bottleneck whole. With cuDNN's TF32
+    off, one interpolator forward within 1e-5 and the 12-step window within
+    1e-4 of the largest value without the mesh (the same seeds: the same
+    masks); with TF32 on, as a user runs it, the window's seconds both ways
+    beside phase 16's and with its one-rank all-reduces skipped (identities
+    on a group of one), its collectives by kind, and K1-K4 launched no time.
+    Then the bytes over "h" and "w" a forward at h = 2, w = 2 and at h = 4,
+    by level: one interpolator forward on each rank's block of a layout
+    whose collectives are recorded, not made (``counted``: phase 21's
+    counter of launches and collectives)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from spherical_dyffusion_tpu_torch import main_path
+    from spherical_dyffusion_tpu_torch.models.unet import level_plan
+    from spherical_dyffusion_tpu_torch.parallel.mesh import Mesh
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    st = main_path.build_unet(img_shape=UNET_SHAPE, n_state=UNET_STATE, dim=UNET_DIM,
+                              dim_mults=UNET_MULTS, upsample_dims=UNET_UPSAMPLE, device=device)
+    nets = (st.exp.model, st.exp.interpolator.model)
+    inp = main_path.window_inputs(N_STEPS, UNET_SHAPE, UNET_STATE, device=device)
+
+    def window(seed):
+        out = st.run_window(inp["x0"], inp["forcing"], inp["sst"], inp["mask"],
+                            torch.Generator().manual_seed(seed), N_STEPS)
+        sync()
+        return out
+
+    def attach(m):
+        for net in nets:
+            net.set_mesh(m)
+
+    def gap(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    rep = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        # agreement with TF32 off: the route's blocks are padded tensors of
+        # other shapes, for which cuDNN may pick other algorithms
+        torch.backends.cudnn.allow_tf32 = False
+        net = st.exp.interpolator.model
+        g = torch.Generator(device=dev).manual_seed(22)
+        x = torch.randn((1,) + tuple(UNET_SHAPE) + (net.cfg.in_chans,), generator=g, device=dev)
+        t = torch.full((1,), 3.0, device=dev)
+        with torch.no_grad():
+            want = net(x, time=t, deterministic=False, generator=torch.Generator().manual_seed(3))
+            net.set_mesh(mesh)
+            try:
+                got = net(x, time=t, deterministic=False,
+                          generator=torch.Generator().manual_seed(3))
+            finally:
+                net.set_mesh(None)
+        rep["forward_gap"] = gap(got, want)
+        _, one = window(2)
+        attach(mesh)
+        try:
+            plan = nets[0].plan
+            _, sp = window(2)
+        finally:
+            attach(None)
+        rep["window_gap"] = gap(sp, one)
+        rep["split_levels"] = plan.split
+        log(f"UNet on the spatial route over an NCCL group of one ({UNET_DIM} x "
+            f"{list(UNET_MULTS)}, {UNET_SHAPE} -> {UNET_UPSAMPLE}, levels 0-{plan.split - 1} "
+            f"on the route, {plan.grids[plan.split]} whole), cuDNN TF32 off: interpolator "
+            f"forward with dropout live max gap {rep['forward_gap']:.3e} of its largest output "
+            f"(tolerance 1e-5), {N_STEPS}-step window {rep['window_gap']:.3e} of its largest "
+            f"prediction (tolerance 1e-4)")
+        check(bool(torch.isfinite(sp).all()) and sp.shape == one.shape,
+              f"UNet route window: shape {tuple(sp.shape)} or non-finite")
+        check(rep["forward_gap"] <= 1e-5, "the UNet's forward on the route disagrees with the "
+                                          "forward without the mesh")
+        check(rep["window_gap"] <= 1e-4, "the UNet's window on the route disagrees with the "
+                                         "window without the mesh")
+        del x, got, want, one, sp
+
+        # the window's seconds with TF32 on, both ways, in this phase
+        torch.backends.cudnn.allow_tf32 = True
+        window(1)
+        _, one_s, one_launches, _ = counted(lambda: window(2))
+        attach(mesh)
+        real_all_reduce = dist.all_reduce
+        try:
+            window(1)  # the route's warm-up: cuDNN's plans for the block shapes
+            _, sp_s, launches, coll = counted(lambda: window(2))
+            # the same window with its all-reduces skipped, which on a group
+            # of one leave every tensor as it is: the route's cost without
+            # NCCL's host work
+            dist.all_reduce = lambda *args, **kwargs: None
+            t0 = time.perf_counter()
+            window(2)
+            quiet_s = time.perf_counter() - t0
+        finally:
+            dist.all_reduce = real_all_reduce
+            attach(None)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    phase16_s = report.get("unet", {}).get("window", {}).get("seconds")
+    rep.update(seconds=sp_s, one_process_seconds=one_s, phase16_seconds=phase16_s,
+               seconds_without_all_reduce=quiet_s, launches=launches,
+               one_process_launches=one_launches, collectives=coll)
+    log(f"UNet window on the route, TF32 on: {N_STEPS} steps in {sp_s:.3f} s against {one_s:.3f} "
+        f"s without the mesh in this phase and phase 16's {phase16_s} s; {quiet_s:.3f} s on the "
+        f"route with its one-rank all-reduces skipped; collectives {coll}; launches {launches} "
+        f"(without the mesh {one_launches}); on {smi_line}")
+    check(not any(v for v in launches.values()) and not any(v for v in one_launches.values()),
+          f"the UNet route launched a port kernel: {launches}")
+    check(coll["all_reduce"] > 0 and coll["all_gather_into_tensor"] == 0,
+          f"the UNet window made the collectives {coll}: the route was not taken")
+
+    # the bytes over "h" and "w" a forward, by level: every rank's block of
+    # a (1, h, w, 1) layout, its collectives recorded and not made
+    net = st.exp.interpolator.model
+    n = len(net.resamples_down)
+    where = ["init_conv"]
+
+    def level(name):
+        m = re.match(r"(down|up)(\d+)_", name)
+        if m:
+            return int(m[2]) if m[1] == "down" else n - 1 - int(m[2])
+        return n - 1 if name.startswith("mid_") else 0
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    sizes = {"all_to_all_single": lambda out, sent: nbytes(sent),  # sent
+             "all_gather_into_tensor": lambda out, part: nbytes(out) - nbytes(part),  # received
+             "all_reduce": lambda buf: nbytes(buf)}  # the reduced buffer
+    kinds = {"all_to_all_single": "halo", "all_gather_into_tensor": "gather",
+             "all_reduce": "sums"}
+    route_bytes, real = {}, {k: getattr(dist, k) for k in sizes}
+    hooks = [net.get_submodule(name).register_forward_pre_hook(
+        lambda mod, args, name=name: where.__setitem__(0, name))
+        for name, _ in net.named_children()
+        if re.match(r"(down|up)\d+_|mid_|init_conv|final_", name)]
+    try:
+        for nh, nw in ((2, 2), (4, 1)):
+            tally = {}
+
+            def record(kind):
+                def call(*args, group=None, **kw):
+                    key = f"level {level(where[0])} {kinds[kind]} over {group}"
+                    tally[key] = tally.get(key, 0) + sizes[kind](*args[:2 if kind != "all_reduce"
+                                                                         else 1])
+                return call
+
+            for k in sizes:
+                setattr(dist, k, record(k))
+            try:
+                for r in range(nh * nw):
+                    lay = Mesh(ranks=np.arange(nh * nw).reshape(1, nh, nw, 1),
+                               groups={"data": None, "h": "h", "w": "w" if nw > 1 else None,
+                                       "matmul": None}, rank=r)
+                    net.set_mesh(lay)
+                    where[0] = "init_conv"
+                    with torch.no_grad():
+                        net(torch.zeros((1, UNET_SHAPE[0] // nh, UNET_SHAPE[1] // nw,
+                                         net.cfg.in_chans), device=dev),
+                            time=torch.ones(1, device=dev))
+                    sync()
+            finally:
+                net.set_mesh(None)
+                for k in sizes:
+                    setattr(dist, k, real[k])
+            route_bytes[f"h{nh}w{nw}"] = dict(sorted(tally.items()),
+                                              split_levels=level_plan(net.cfg, nh, nw).split)
+            log(f"UNet interpolator bytes a forward over every rank at h = {nh}, w = {nw}, batch "
+                f"1, float32 (halo: sent; gather: received; sums: the reduced buffers): "
+                f"{route_bytes[f'h{nh}w{nw}']}")
+    finally:
+        for hk in hooks:
+            hk.remove()
+    rep["route_bytes"] = route_bytes
+    del st, nets, net, inp
+    if cuda:
+        torch.cuda.empty_cache()
+    return rep
 
 
 def phase18(smi_line, wrappers, report, runs, device="cuda") -> None:

@@ -39,11 +39,10 @@ JAX shards no window array over it. The inputs noise is drawn for the whole
 grid and sliced to the block, and so is the noise of the noised forecaster
 conditionings ("data+noise", ``diffusion/dyffusion.py:forward_noise``, from
 the forecaster's mesh). The sampler is pointwise but for its network calls
-and its generator, so it needs no change. Every SFNO option has a
-split-grid route (the folded Legendre stage and the planar FFT transform
-among them); the UNet backbone, whose convolutions need a halo exchange,
-raises here when the stepper is built: it is item 7c's last refusal
-(ROADMAP Queue 1).
+and its generator, so it needs no change. Both backbones have a split-grid
+route: every SFNO option (``SFNO.set_mesh``), and the UNet
+(``UNet.set_mesh``: halo exchanges before its convolutions, grid-wide norm
+and attention sums, its deepest levels whole on every rank).
 """
 
 from __future__ import annotations
@@ -116,11 +115,7 @@ class DYffusionStepper:
         self._nets = ((experiment.model, experiment.interpolator.model)
                       if self.mesh is not None else ())
         if self.mesh is not None and self.mesh.spatial:
-            for net in self._nets:  # raises here for what has no split-grid route
-                if not hasattr(net, "set_mesh"):
-                    raise NotImplementedError(
-                        f"the {type(net).__name__} backbone on a grid split over the mesh "
-                        f"{self.mesh.shape} is not ported (ROADMAP Queue 1 item 7c)")
+            for net in self._nets:  # a grid that does not split raises here
                 net.set_mesh(self.mesh)
                 net.set_mesh(None)
         if use_ema_params:

@@ -689,12 +689,12 @@ def unet_configs(img_shape: Tuple[int, int] = (180, 360), n_state: int = 35, dim
 def build_unet(img_shape: Tuple[int, int] = (180, 360), n_state: int = 35, dim: int = 64,
                dim_mults: Tuple[int, ...] = (1, 2, 4, 8),
                upsample_dims: Optional[Tuple[int, int]] = (184, 368),
-               device: str = "cuda") -> DYffusionStepper:
+               device: str = "cuda", mesh: Optional[Mesh] = None) -> DYffusionStepper:
     """``build``'s window stepper at horizon 6 with UNet interpolator and
     forecaster (``unet_configs``, every dropout 0.1), float32, weights from
     a ``torch.Generator`` seeded with 0 on ``device``; the interpolator's
-    dropout live at inference. Raises without CUDA unless the caller asks
-    for the CPU."""
+    dropout live at inference; ``mesh`` as ``build``'s. Raises without CUDA
+    unless the caller asks for the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("main path: CUDA is not available; pass device='cpu' "
@@ -704,7 +704,7 @@ def build_unet(img_shape: Tuple[int, int] = (180, 360), n_state: int = 35, dim: 
     gen = torch.Generator(device=device).manual_seed(0)
     imodel.init_weights(gen)
     fmodel.init_weights(gen)
-    return _window_stepper(imodel, fmodel, 6, n_state)
+    return _window_stepper(imodel, fmodel, 6, n_state, mesh=mesh)
 
 
 def unet_window(stepper: DYffusionStepper, n_steps: int = 12) -> dict:

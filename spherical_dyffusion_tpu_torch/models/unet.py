@@ -34,22 +34,69 @@ Where the two packages can part:
   last: 1058 at the published width, not a multiple of 4, so the exact
   rate). Masks come from the port's generators, so only the rate and the
   scale can match JAX's.
+
+A grid split over "h" (latitudes) and "w" (longitudes) (``UNet.set_mesh``)
+runs as JAX's ``jit``-with-shardings partitions the same program. The
+levels at the top of the network run on this rank's block, as far as
+``level_plan`` allows (each level's grid must divide over the mesh with
+blocks at least as wide as its halo; the bottleneck level, whose
+``FullAttention`` reads every pixel, never splits); from the first level
+that does not split down to the bottleneck and back up to it, the network
+runs whole on every rank of the spatial group. On a block:
+
+* a conv first takes ``kh // 2`` rows and ``kw // 2`` columns from the
+  neighbouring blocks (``parallel/mesh.py:halo_exchange``; zeros beyond the
+  grid's edges, as "SAME" pads) and convolves with no padding: 3 rows for
+  the 7x7 ``init_conv``, 1 for the 3x3s and for the 4x4 stride-2
+  downsample, whose output block is the input block's half (block origins
+  are even); the x2 nearest upsample is local;
+* the outer resampler applies the whole grid's 1-D weights (the resize of
+  an identity, so the weights the one-process resize takes) to its block
+  and a halo as wide as those weights reach;
+* GroupNorm takes its group moments over the whole grid (two passes, each
+  block's share summed over "h" then "w"); ``LinearAttention`` takes the
+  grid's max and sum of exponentials for ``k``'s softmax over pixels, the
+  grid's pixel count for ``v``, and sums ``k v^T`` over the grid;
+  ``ChanLayerNorm`` and ``q``'s softmax are per pixel;
+* dropout draws the whole grid's bits and keeps the block's (its
+  ``_mesh``), so every block drops what one process drops there; a level
+  that runs whole draws as one process does.
+
+The input of the first whole level's downsample is gathered (``gather``,
+"w" then "h") and the up path's output at that level cut back to the
+block; where level 0 itself does not split, the whole input is gathered,
+the whole network run, and the block kept.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import (
+    AXIS_H,
+    AXIS_W,
+    Mesh,
+    all_reduce_spatial,
+    gather,
+    halo_exchange,
+    shard,
+    spatial_block,
+)
 from .modules import Dense, QuantizedDropout, TimeEmbedMLP
 
 __all__ = ["UNetConfig", "UNet", "Conv", "WSConv", "ChanLayerNorm", "GroupNorm", "ConvBlock",
-           "ResnetBlock", "LinearAttention", "FullAttention", "PreNormResidual"]
+           "ResnetBlock", "LinearAttention", "FullAttention", "PreNormResidual", "LevelPlan",
+           "level_plan"]
+
+_NCHW = (None, None, AXIS_H, AXIS_W)  # the spatial dims of an NCHW tensor, for shard/gather
 
 
 def _channels_last_dropout(drop: QuantizedDropout, x: torch.Tensor, deterministic: bool,
@@ -64,7 +111,10 @@ def _channels_last_dropout(drop: QuantizedDropout, x: torch.Tensor, deterministi
 class Conv(nn.Module):
     """``flax.linen.Conv`` on NCHW tensors: an HWIO ``kernel`` and a
     ``bias``; ``padding`` "SAME" (odd kernels: symmetric) or explicit
-    ``(pad_h, pad_w)``."""
+    ``(pad_h, pad_w)``. On a split grid (``_mesh``) the padding rows and
+    columns are the neighbouring blocks' (``halo_exchange``)."""
+
+    _mesh: Optional[Mesh] = None
 
     def __init__(self, in_features: int, features: int, kernel_size: Tuple[int, int] = (3, 3),
                  strides: Tuple[int, int] = (1, 1), padding="SAME", use_bias: bool = True):
@@ -84,7 +134,10 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight().permute(3, 2, 0, 1)  # HWIO -> OIHW
-        return F.conv2d(x, w, self.bias, self.strides, self.padding)
+        if self._mesh is None:
+            return F.conv2d(x, w, self.bias, self.strides, self.padding)
+        x = halo_exchange(self._mesh, x.permute(0, 2, 3, 1), *self.padding).permute(0, 3, 1, 2)
+        return F.conv2d(x, w, self.bias, self.strides)
 
 
 class WSConv(Conv):
@@ -117,7 +170,10 @@ class ChanLayerNorm(nn.Module):
 
 class GroupNorm(nn.Module):
     """``flax.linen.GroupNorm`` (``scale``, ``bias``, eps 1e-6) through
-    ``F.group_norm``."""
+    ``F.group_norm``; on a split grid (``_mesh``) with the whole grid's
+    group moments, in two passes as ``F.group_norm`` takes them."""
+
+    _mesh: Optional[Mesh] = None
 
     def __init__(self, features: int, num_groups: int):
         super().__init__()
@@ -126,7 +182,17 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x, self.num_groups, self.scale, self.bias, eps=1e-6)
+        mesh = self._mesh
+        if mesh is None:
+            return F.group_norm(x, self.num_groups, self.scale, self.bias, eps=1e-6)
+        H, W = x.shape[2:]
+        share = H * W / math.prod(spatial_block(mesh, (H, W)).shape)
+        xg = x.float().unflatten(1, (self.num_groups, -1))  # (B, G, C / G, H, W)
+        mean = all_reduce_spatial(xg.mean(dim=(2, 3, 4)) * share, mesh)[..., None, None, None]
+        xc = xg - mean
+        var = all_reduce_spatial(xc.square().mean(dim=(2, 3, 4)) * share, mesh)
+        y = (xc * torch.rsqrt(var + 1e-6)[..., None, None, None]).flatten(1, 2)
+        return y * self.scale[:, None, None] + self.bias[:, None, None]
 
 
 class ConvBlock(nn.Module):
@@ -187,7 +253,12 @@ def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
 
 class LinearAttention(nn.Module):
     """Linear attention: q softmaxed over its head dim and scaled, k over
-    the pixels, v over the pixel count; ``context = k v^T`` per head."""
+    the pixels, v over the pixel count; ``context = k v^T`` per head. On a
+    split grid (``_mesh``) k's softmax takes the grid's max, and the sum of
+    its exponentials goes with the block's part of ``k v^T`` into one sum
+    over the grid."""
+
+    _mesh: Optional[Mesh] = None
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, dropout: float = 0.0):
         super().__init__()
@@ -203,9 +274,19 @@ class LinearAttention(nn.Module):
         x = _channels_last_dropout(self.drop, x, deterministic, generator)
         q, k, v = (_heads(t, self.heads) for t in self.Conv_0(x).chunk(3, dim=1))
         q = torch.softmax(q, dim=2) * self.dim_head ** -0.5
-        k = torch.softmax(k, dim=3)
-        v = v / (H * W)
-        context = torch.einsum("bhdn,bhen->bhde", k, v)
+        mesh = self._mesh
+        if mesh is None:
+            k = torch.softmax(k, dim=3)
+            v = v / (H * W)
+            context = torch.einsum("bhdn,bhen->bhde", k, v)
+        else:
+            top = all_reduce_spatial(k.amax(dim=3, keepdim=True), mesh, dist.ReduceOp.MAX)
+            e = torch.exp(k - top)
+            v = v / math.prod(spatial_block(mesh, (H, W)).shape)
+            # [sum_n e_dn v_en | sum_n e_dn] over the grid, then softmax's division
+            sums = all_reduce_spatial(torch.cat([torch.einsum("bhdn,bhen->bhde", e, v),
+                                                 e.sum(dim=3, keepdim=True)], dim=3), mesh)
+            context = sums[..., :-1] / sums[..., -1:]
         out = torch.einsum("bhde,bhdn->bhen", context, q)
         out = out.reshape(B, -1, H, W).contiguous(memory_format=torch.channels_last)
         return self.Conv_1(out)
@@ -290,14 +371,111 @@ def _resize(x: torch.Tensor, size: Tuple[int, int], mode: str) -> torch.Tensor:
                          antialias=True)
 
 
+def _resize_matrix(n_in: int, n_out: int, mode: str, device=None) -> torch.Tensor:
+    """The (n_out, n_in) float32 weights of ``_resize`` along one axis: the
+    resize of an identity on ``device``, so the weights that the whole
+    grid's resize takes there (both modes are separable). The identity is
+    two columns wide: torch's antialiased bilinear mishandles a width of
+    one."""
+    eye = torch.eye(n_in, device=device)[None, :, :, None].expand(1, n_in, n_in, 2)
+    return _resize(eye.contiguous(), (n_out, 2), mode)[0, :, :, 0].T.contiguous()
+
+
+def _resize_halo(m: torch.Tensor, n: int) -> int:
+    """The most rows beyond its own block, on either side, that a block of
+    an ``n``-way split reads through the resize weights ``m`` (n_out,
+    n_in): the reach of their nonzero columns."""
+    n_out, n_in = m.shape
+    if n == 1:
+        return 0
+    cols = torch.arange(n_in, device=m.device)
+    first = torch.where(m != 0, cols, n_in).amin(dim=1)
+    last = torch.where(m != 0, cols, -1).amax(dim=1)
+    start = torch.arange(n_out, device=m.device) // (n_out // n) * (n_in // n)
+    return max(int((start - first).max()), int((last + 1 - start - n_in // n).max()), 0)
+
+
+def _block_resize(x: torch.Tensor, size: Tuple[int, int], mode: str, mesh: Mesh,
+                  weights: dict) -> torch.Tensor:
+    """``_resize`` of this rank's block ``x`` (NCHW) of the grid to its
+    block of the whole grid resized to ``size``: the whole grid's weights
+    (zero columns beyond its edges) applied to the block and its halo.
+    ``weights`` caches each axis's padded weights and halo."""
+    ways = (mesh.shape[AXIS_H], mesh.shape[AXIS_W])
+    local = tuple(x.shape[2:])
+    out_local = tuple(n // k for n, k in zip(size, ways))
+    at, out_at = spatial_block(mesh, local), spatial_block(mesh, out_local)
+    mats, halos = [], []
+    for n_in, n_out, k, origin, out_origin, ln, lo in zip(
+            at.shape, size, ways, (at.h0, at.w0), (out_at.h0, out_at.w0), local, out_local):
+        key = (n_in, n_out, mode, k, x.device)
+        if key not in weights:
+            m = _resize_matrix(n_in, n_out, mode, x.device)
+            r = _resize_halo(m, k)
+            weights[key] = (F.pad(m, (r, r)), r)
+        m, r = weights[key]
+        mats.append(m[out_origin:out_origin + lo, origin:origin + ln + 2 * r])
+        halos.append(r)
+    x = halo_exchange(mesh, x.permute(0, 2, 3, 1), *halos).permute(0, 3, 1, 2)
+    return (mats[0] @ x @ mats[1].T).contiguous(memory_format=torch.channels_last)
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelPlan:
+    """How a UNet runs on a grid split ``h`` x ``w`` ways: ``grids`` the
+    (H, W) of each level (level 0 is the outer resampler's grid where there
+    is one); the levels below ``split`` run on this rank's block, the
+    others whole on every rank."""
+
+    grids: Tuple[Tuple[int, int], ...]
+    split: int
+
+
+def level_plan(cfg: UNetConfig, h: int, w: int) -> LevelPlan:
+    """The ``LevelPlan`` of ``cfg`` on ``h`` x ``w`` blocks. Level i splits
+    where every level above it does, it is not the bottleneck's, its grid
+    divides over (h, w) with blocks at least as wide as its halo (3 rows
+    and columns for the 7x7 ``init_conv`` at level 0, else 1), and, for
+    level 0, the outer resampler's weights reach no further than the
+    neighbouring block on either grid (the input's grid must divide too)."""
+    cfg = cfg.resolved()
+    ways = (h, w)
+    resample = cfg.outer_sample_mode is not None and cfg.upsample_dims is not None
+    grid = tuple(cfg.upsample_dims) if resample else tuple(cfg.img_shape)
+    grids = [grid]
+    for _ in cfg.dim_mults[1:]:
+        if not cfg.keep_spatial_dims:
+            grid = (grid[0] // 2, grid[1] // 2)
+        grids.append(grid)
+
+    def fits(grid, halo):
+        return all(k == 1 or (g % k == 0 and g // k >= halo) for g, k in zip(grid, ways))
+
+    def resamples():  # the outer resize and its inverse, along each axis
+        return all(_resize_halo(_resize_matrix(a, b, cfg.outer_sample_mode), k) <= a // k
+                   for top, orig, k in zip(grids[0], cfg.img_shape, ways)
+                   for a, b in ((orig, top), (top, orig)))
+
+    split = 0
+    while (split < len(grids) - 1
+           and fits(grids[split], max(cfg.init_kernel_size // 2, 1) if split == 0 else 1)
+           and (split > 0 or (fits(cfg.img_shape, 1) and (not resample or resamples())))):
+        split += 1
+    return LevelPlan(tuple(grids), split)
+
+
 class UNet(nn.Module):
     """The UNet backbone: ``(inputs, time, condition, static_condition) ->
     outputs``, all (B, H, W, C), float32."""
+
+    _mesh: Optional[Mesh] = None
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
         cfg = cfg.resolved()
         self.cfg = cfg
+        self.plan: Optional[LevelPlan] = None
+        self._resize_weights = {}  # (n_in, n_out, mode, ways, device) -> (padded weights, halo)
         dims = [cfg.dim] + [cfg.dim * m for m in cfg.dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         tdim = cfg.dim * cfg.time_dim_mult if cfg.with_time_emb else None
@@ -380,19 +558,85 @@ class UNet(nn.Module):
             else:
                 raise KeyError(f"no initializer for parameter {name}")
 
+    def set_mesh(self, mesh: Optional[Mesh]) -> None:
+        """Attach a process mesh (``parallel/mesh.py``; None detaches it):
+        from then on ``forward`` takes this rank's block of the grid,
+        latitudes over "h" and longitudes over "w", and returns its block of
+        the output. The plan of levels (``level_plan``, kept as ``plan``)
+        decides which modules run on the block: only theirs get the mesh
+        (the bottleneck's ``FullAttention`` never does). Parameters are left
+        as they are. A grid that does not split raises ``ValueError``; with
+        "h" and "w" at 1 the block is the whole grid, its collectives over
+        groups of one."""
+        for m in self.modules():
+            if hasattr(type(m), "_mesh"):
+                m._mesh = None
+        self.plan = None
+        self._resize_weights.clear()
+        if mesh is None:
+            return
+        nh, nw = mesh.shape[AXIS_H], mesh.shape[AXIS_W]
+        H, W = self.cfg.img_shape
+        if H % nh or W % nw:
+            raise ValueError(f"UNet on the mesh {mesh.shape}: {H} latitudes and {W} longitudes "
+                             f"must split over h={nh}, w={nw}")
+        plan = level_plan(self.cfg, nh, nw)
+        n, s = len(self.resamples_down), plan.split
+        names = ["init_conv", "input_drop", "final_res_block", "final_conv"] if s else []
+        for i, down in enumerate(self.resamples_down[:s]):
+            names += [f"down{i}_block1", f"down{i}_block2", self.attn_fn[f"down{i}_attn"]]
+            if i < s - 1:  # its output level splits too
+                names.append(f"down{i}_downsample" if down else f"down{i}_conv")
+        for u, up in enumerate(self.resamples_up[n - s:], start=n - s):
+            names += [f"up{u}_block1", f"up{u}_block2", self.attn_fn[f"up{u}_attn"],
+                      f"up{u}_upsample" if up else f"up{u}_conv"]
+        for name in names:
+            for m in self.get_submodule(name).modules():
+                if hasattr(type(m), "_mesh"):
+                    m._mesh = mesh
+        self._mesh, self.plan = mesh, plan
+
     def forward(self, inputs: torch.Tensor, time: Optional[torch.Tensor] = None,
                 condition: Optional[torch.Tensor] = None,
                 static_condition: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        cfg = self.cfg
         conds = [c for c in (condition, static_condition) if c is not None]
         x = torch.cat([inputs] + conds, dim=-1) if conds else inputs
+        mesh = self._mesh
+        if mesh is None:
+            return self._net(x, time, deterministic, generator)
+        if mesh.spatial and torch.is_grad_enabled() and any(
+                p.requires_grad for p in self.parameters()):
+            raise NotImplementedError(
+                "UNet on a split grid computes forwards only (the trainer replicates its step "
+                "over 'h' and 'w'); run it under torch.no_grad() or inference")
+        whole = spatial_block(mesh, x.shape[1:3]).shape
+        if whole != tuple(self.cfg.img_shape):
+            raise ValueError(f"UNet on the mesh {mesh.shape}: a block {tuple(x.shape[1:3])} of "
+                             f"a {whole} grid, not of the configured {self.cfg.img_shape}")
+        if self.plan.split == 0:  # no level splits: the whole network on every rank
+            spec = (None, AXIS_H, AXIS_W, None)
+            y = self._net(gather(mesh, x, spec), time, deterministic, generator)
+            return shard(mesh, y, spec).contiguous()
+        return self._net(x, time, deterministic, generator, self.plan.split)
+
+    def _net(self, x: torch.Tensor, time: Optional[torch.Tensor], deterministic: bool,
+             generator: Optional[torch.Generator], split: Optional[int] = None) -> torch.Tensor:
+        """The network on (B, H, W, C) x. With ``split``, x is this rank's
+        block and the levels below ``split`` run on blocks: the input of
+        level ``split``'s downsample is gathered, and the up path's output
+        at that level cut back to the block."""
+        cfg = self.cfg
+        mesh = self._mesh
         x = x.float().contiguous().permute(0, 3, 1, 2)  # NCHW in channels_last memory
         orig_shape = tuple(x.shape[2:])
         resample = cfg.outer_sample_mode is not None and cfg.upsample_dims is not None
+        resize = (functools.partial(_block_resize, mesh=mesh, weights=self._resize_weights)
+                  if split else _resize)
         if resample:
-            x = _resize(x, cfg.upsample_dims, cfg.outer_sample_mode)
+            orig_shape = tuple(cfg.img_shape) if split else orig_shape
+            x = resize(x, cfg.upsample_dims, cfg.outer_sample_mode)
 
         x = self.init_conv(x)
         r = x
@@ -418,6 +662,8 @@ class UNet(nn.Module):
             x = run(f"down{i}_block2", x, t)
             x = run(f"down{i}_attn", x)
             hs.append(x)
+            if i == (split or 0) - 1:  # the next level runs whole
+                x = gather(mesh, x, _NCHW).contiguous(memory_format=torch.channels_last)
             x = getattr(self, f"down{i}_downsample" if down else f"down{i}_conv")(x)
 
         x = run("mid_block1", x, t)
@@ -433,9 +679,11 @@ class UNet(nn.Module):
                     F.interpolate(x, scale_factor=2, mode="nearest-exact"))
             else:
                 x = self.get_submodule(f"up{i}_conv")(x)
+            if split and i == len(self.resamples_up) - 1 - split:  # back to the split levels
+                x = shard(mesh, x, _NCHW).contiguous(memory_format=torch.channels_last)
 
         x = torch.cat([x, r], dim=1)
         if resample:
-            x = _resize(x, orig_shape, cfg.outer_sample_mode)
+            x = resize(x, orig_shape, cfg.outer_sample_mode)
         x = run("final_res_block", x, t)
         return self.final_conv(x).permute(0, 2, 3, 1)

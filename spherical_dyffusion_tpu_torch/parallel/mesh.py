@@ -28,7 +28,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "Block", "make_mesh", "data_mesh", "batch_sharding", "shard", "gather",
-           "shard_batch", "gather_batch", "spatial_block", "all_reduce_spatial", "replicated",
+           "shard_batch", "gather_batch", "spatial_block", "all_reduce_spatial", "halo_exchange",
+           "replicated",
            "AXIS_DATA", "AXIS_H", "AXIS_W", "AXIS_MATMUL", "AXES"]
 
 AXIS_DATA = "data"
@@ -234,15 +235,66 @@ def spatial_block(mesh: Optional[Mesh], local: Tuple[int, int]) -> Block:
     return Block(hi * Hl, wi * Wl, (Hl, Wl), (nh * Hl, nw * Wl))
 
 
-def all_reduce_spatial(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """``t`` summed in place over this rank's "h" group, then its "w" group
-    (every group the mesh has, a group of one included); a partial sum over
-    a block becomes the sum over the grid."""
+def all_reduce_spatial(t: torch.Tensor, mesh: Optional[Mesh],
+                       op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` summed (or reduced by ``op``) in place over this rank's "h"
+    group, then its "w" group (every group the mesh has, a group of one
+    included); a partial sum over a block becomes the sum over the grid."""
     if mesh is not None:
         for axis in (AXIS_H, AXIS_W):
             if mesh.groups[axis] is not None:
-                dist.all_reduce(t, group=mesh.groups[axis])
+                dist.all_reduce(t, op=op, group=mesh.groups[axis])
     return t
+
+
+def _exchange(mesh: Mesh, axis: str, t: torch.Tensor, k: int, dim: int) -> None:
+    """Fill the ``k`` halo slots at both ends of ``dim`` of ``t`` (this
+    rank's block between them) from its neighbours along ``axis``, in one
+    ``all_to_all_single`` whose split sizes are zero but for the neighbours'
+    (NCCL sends nothing to a rank itself); the slots beyond the grid's edges
+    stay as they are."""
+    n = mesh.shape[axis]
+    if k == 0 or n == 1:
+        return
+    m = t.shape[dim]
+    if m - 2 * k < k:
+        raise ValueError(f"a halo of {k} along mesh axis {axis!r} is wider than the "
+                         f"neighbour's block of {m - 2 * k}")
+    i = mesh.index(axis)
+    splits = [0] * n
+    sends, slots = [], []
+    if i > 0:  # this block's first k to the rank before, whose last k arrive
+        splits[i - 1] = k
+        sends.append(t.narrow(dim, k, k))
+        slots.append(t.narrow(dim, 0, k))
+    if i < n - 1:  # its last k to the rank after, whose first k arrive
+        splits[i + 1] = k
+        sends.append(t.narrow(dim, m - 2 * k, k))
+        slots.append(t.narrow(dim, m - k, k))
+    send = torch.cat([s.movedim(dim, 0) for s in sends])
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, splits, splits, group=mesh.groups[axis])
+    for slot, part in zip(slots, recv.split(k)):
+        slot.copy_(part.movedim(0, dim))
+
+
+def halo_exchange(mesh: Mesh, x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """This rank's block ``x`` (..., Hl, Wl, C) with a halo: ``(..., Hl + 2
+    rows, Wl + 2 cols, C)``, ``rows`` rows above and below from its "h"
+    neighbours, then ``cols`` columns left and right from its "w"
+    neighbours, taken from the row-extended block so that the corners
+    arrive; zeros beyond the grid's edges, which is not periodic (a conv's
+    zero padding). One ``all_to_all_single`` per axis, none where the axis
+    is 1; ``ValueError`` where a neighbour's block is narrower than the
+    halo."""
+    Hl, Wl = x.shape[-3], x.shape[-2]
+    if rows == 0 and cols == 0:
+        return x
+    out = x.new_zeros(x.shape[:-3] + (Hl + 2 * rows, Wl + 2 * cols) + x.shape[-1:])
+    out[..., rows:rows + Hl, cols:cols + Wl, :] = x
+    _exchange(mesh, AXIS_H, out[..., cols:cols + Wl, :], rows, -3)
+    _exchange(mesh, AXIS_W, out, cols, -2)
+    return out
 
 
 def replicated(mesh: Mesh, tensors: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:

@@ -198,14 +198,22 @@ def test_model_parallel_mesh_refusals(option, mesh_kw):
 
 def test_split_grid_refusals_of_the_stepper_and_the_modules():
     """The stepper checks both networks when it is built (a UNet backbone
-    raises, naming item 7c); autograd, a grid that does not divide and a
-    rank pipeline whose rank does not split over "w" raise too;
-    ``TrainerConfig`` checks the reduction dtype."""
+    builds on "h" = 2 and refuses autograd there: forwards only); autograd,
+    a grid that does not divide and a rank pipeline whose rank does not
+    split over "w" raise too; ``TrainerConfig`` checks the reduction
+    dtype."""
     mesh = make_mesh(data=1, h=2, ranks=range(2))
     st = main_path.build_unet(img_shape=(16, 32), n_state=3, dim=8, dim_mults=(1, 2),
                               upsample_dims=None, device="cpu")
-    with pytest.raises(NotImplementedError, match="UNet backbone.*item 7c"):
-        DYffusionStepper(st.exp, mesh=mesh)
+    DYffusionStepper(st.exp, mesh=mesh)
+    unet = st.exp.model
+    unet.set_mesh(mesh)
+    with pytest.raises(NotImplementedError, match="forwards only"):
+        unet(torch.zeros(1, 8, 32, 3), static_condition=torch.zeros(1, 8, 32, 2),
+             time=torch.ones(1))
+    unet.set_mesh(None)
+    with pytest.raises(ValueError, match="must split"):
+        DYffusionStepper(st.exp, mesh=make_mesh(data=1, h=3, ranks=range(3)))
     cp = SFNO(SFNOConfig(img_shape=(16, 32), in_chans=3, out_chans=3, embed_dim=12,
                          num_layers=3, factorization="cp", rank=0.25))  # R = 3
     with pytest.raises(ValueError, match="rank 3 must split over w=2"):

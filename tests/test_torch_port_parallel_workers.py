@@ -16,6 +16,12 @@ the folded Legendre stage also on "h" = 2 and "w" = 2 alone, the folded
 stage on "h" = 4 and, at 18 x 32 over three of the ranks, on "h" = 3),
 forwards with dropout off and live, and the ``data+noise-v1`` window and
 the folded window on "h" = 2.
+
+``start_unet`` spawns the four ranks of
+``tests/test_torch_port_spatial_unet.py``: the UNets of ``UNETS`` on the
+meshes of ``UNET_MESHES`` (forwards with dropout off and live), the inputs
+of ``UNET_PROBES`` at h = 2, w = 2, and the main path's UNet window on "h" =
+2.
 """
 
 import dataclasses
@@ -31,6 +37,7 @@ from spherical_dyffusion_tpu_torch import main_path
 from spherical_dyffusion_tpu_torch.data.datamodule import DebugDataModule
 from spherical_dyffusion_tpu_torch.inference.stepper import DYffusionStepper
 from spherical_dyffusion_tpu_torch.models.sfno import SFNO, SFNOConfig
+from spherical_dyffusion_tpu_torch.models.unet import UNet, UNetConfig
 from spherical_dyffusion_tpu_torch.ops.sht import InverseRealSHT, RealSHT
 from spherical_dyffusion_tpu_torch.parallel.distributed_sht import (
     distributed_dhconv,
@@ -179,18 +186,19 @@ def sfno_inputs(grid=GRID):
             torch.tensor([1.0, 2.0]))
 
 
-def sfno_forward(model: SFNO, x, t, mesh=None, seed: int = 5,
-                 dropout: bool = True) -> torch.Tensor:
-    """One forward (with ``dropout``, dropout live where the model has it,
-    from ``seed``); on ``mesh``, this rank's block of rows and grid,
-    gathered."""
+def sfno_forward(model, x, t, mesh=None, seed: int = 5, dropout: bool = True,
+                 **conds) -> torch.Tensor:
+    """One forward of a backbone (with ``dropout``, dropout live where the
+    model has it, from ``seed``; ``conds``: its conditions); on ``mesh``,
+    this rank's block of rows and grid, gathered."""
     if mesh is not None:
         model.set_mesh(mesh)
         x, t = shard_batch(mesh, x, spatial=True), shard_batch(mesh, t)
+        conds = {k: shard_batch(mesh, v, spatial=True) for k, v in conds.items()}
     try:
         with torch.no_grad():
             y = model(x, time=t, deterministic=not dropout,
-                      generator=torch.Generator().manual_seed(seed))
+                      generator=torch.Generator().manual_seed(seed), **conds)
     finally:
         model.set_mesh(None)
     return gather_batch(mesh, y, spatial=True) if mesh is not None else y
@@ -440,3 +448,105 @@ def _options_worker(rank: int, world: int, init: str, out: str):
 def start_options(out: str):
     """Start the four ranks of the options' runs, without waiting."""
     return start(4, out, _options_worker)
+
+
+# ------------------------------------------------ the UNet on a split grid
+# (tests/test_torch_port_spatial_unet.py): each config at dim 8, dropout 0.1
+# in its blocks and attentions (off in a deterministic forward), on the
+# meshes of UNET_MESHES; the main path's UNet window on "h" = 2
+UNETS = {
+    "bilinear": dict(img_shape=(20, 40), in_chans=5, out_chans=3, dim=8, dim_mults=(1, 2, 4, 8),
+                     with_time_emb=True, outer_sample_mode="bilinear", upsample_dims=(24, 48)),
+    "nearest": dict(img_shape=(45, 90), in_chans=2, out_chans=2, dim=8, dim_mults=(1, 2),
+                    outer_sample_mode="nearest", upsample_dims=(48, 96)),
+    "keep": dict(img_shape=(16, 32), in_chans=2, out_chans=2, dim=8, dim_mults=(1, 2, 4),
+                 keep_spatial_dims=True, with_time_emb=True),
+}
+UNET_MESHES = {"h2w2": ["bilinear"], "h2": ["bilinear", "keep"], "w2": ["bilinear"],
+               "h4": ["bilinear"], "h3": ["nearest"]}
+# the modules whose inputs the h2w2 run records (block or whole grid)
+UNET_PROBES = ("down0_block1", "down1_block1", "down2_block1", "down2_downsample", "down3_block1",
+               "mid_block1", "up0_upsample", "up1_block1", "up3_block1", "final_res_block")
+UNET_WINDOW = dict(img_shape=(20, 40), n_state=3, dim=8, dim_mults=(1, 2, 4),
+                   upsample_dims=(24, 48))
+UNET_WINDOW_STEPS = 12
+
+
+def unet_net(name: str) -> UNet:
+    """The UNet of config ``name``: weights from seed 0, its biases and norm
+    affines moved off their initial values (seed 100)."""
+    net = UNet(UNetConfig(**UNETS[name]))
+    net.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(100)
+        for p in net.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=g))
+    return net
+
+
+def unet_inputs(name: str):
+    """(x, time or None, conditions) from numpy seeds: with 5 input channels,
+    3 of state and one each of condition and static condition."""
+    kw = UNETS[name]
+    rng = np.random.default_rng(11)
+    shape = (2,) + tuple(kw["img_shape"])
+    x = rng.standard_normal(shape + (3 if kw["in_chans"] == 5 else kw["in_chans"],))
+    conds = {}
+    if kw["in_chans"] == 5:
+        conds = {k: torch.from_numpy(rng.standard_normal(shape + (1,)).astype(np.float32))
+                 for k in ("condition", "static_condition")}
+    t = torch.tensor([1.0, 2.5]) if kw.get("with_time_emb") else None
+    return torch.from_numpy(x.astype(np.float32)), t, conds
+
+
+def unet_forward(net: UNet, name: str, dropout: bool, mesh=None) -> torch.Tensor:
+    """``sfno_forward`` of the UNet ``net`` on ``unet_inputs(name)``."""
+    x, t, conds = unet_inputs(name)
+    return sfno_forward(net, x, t, mesh, dropout=dropout, **conds)
+
+
+def unet_window_stepper(mesh=None) -> DYffusionStepper:
+    """``main_path.build_unet`` at ``UNET_WINDOW``'s size, the interpolator's
+    dropout live, on ``mesh``."""
+    return main_path.build_unet(**UNET_WINDOW, device="cpu", mesh=mesh)
+
+
+def unet_window(stepper: DYffusionStepper):
+    inp = main_path.window_inputs(UNET_WINDOW_STEPS, UNET_WINDOW["img_shape"],
+                                  UNET_WINDOW["n_state"], seed=3, device="cpu")
+    return stepper.run_window(inp["x0"], inp["forcing"], inp["sst"], inp["mask"],
+                              torch.Generator().manual_seed(0), UNET_WINDOW_STEPS)
+
+
+def _unet_worker(rank: int, world: int, init: str, out: str):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    try:
+        res = {}
+        for key, names in UNET_MESHES.items():
+            mesh = option_mesh(key)
+            if rank not in mesh.ranks:
+                continue
+            res[key] = {}
+            for name in names:
+                net = unet_net(name)
+                res[key][name] = dict(det=unet_forward(net, name, False, mesh),
+                                      drop=unet_forward(net, name, True, mesh))
+        net, seen = unet_net("bilinear"), {}
+        hooks = [net.get_submodule(n).register_forward_pre_hook(
+            lambda mod, args, n=n: seen.__setitem__(n, tuple(args[0].shape)))
+            for n in UNET_PROBES]
+        unet_forward(net, "bilinear", False, option_mesh("h2w2"))
+        for hk in hooks:
+            hk.remove()
+        res["probes"] = seen
+        res["window"] = unet_window(unet_window_stepper(option_mesh("h2")))
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def start_unet(out: str):
+    """Start the four ranks of the UNet's runs, without waiting."""
+    return start(4, out, _unet_worker)
