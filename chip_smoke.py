@@ -4167,7 +4167,7 @@ def main() -> int:
         from spherical_dyffusion_tpu_torch.evaluation.aggregators import InferenceAggregator
         from spherical_dyffusion_tpu_torch.inference.loop import InferenceConfig, run_inference
         from spherical_dyffusion_tpu_torch.models.sfno import SFNO
-        from spherical_dyffusion_tpu_torch.ops import _cuda
+        from spherical_dyffusion_tpu_torch.ops import _cuda, pallas_contractions
         from spherical_dyffusion_tpu_torch.ops.fused_mlp import (
             fused_block_tail,
             fused_block_tail_plain,
@@ -4182,6 +4182,7 @@ def main() -> int:
             dhconv,
             dhconv_plain,
             dhconv_weight_grad,
+            dhconv_weight_grad_plain,
             dhconv_weight_image,
             dhconv_weight_image_plain,
         )
@@ -4212,6 +4213,14 @@ def main() -> int:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / reps
+
+    def wgrad_library_ms(x, gy) -> float:
+        """dW's yardstick: one complex ``torch.matmul``, conj(x)^T g per l
+        over (b, m), on inputs laid out for it (the layout copies untimed)."""
+        L, CI, CO = x.shape[-4], x.shape[-2], gy.shape[-2]
+        xk = torch.view_as_complex(x).transpose(0, 1).reshape(L, -1, CI)
+        gk = torch.view_as_complex(gy).transpose(0, 1).reshape(L, -1, CO)
+        return timed(lambda: torch.matmul(xk.mH, gk), 10)
 
     def device_ms(fn, reps: int) -> float:
         """Device time per call of ``fn`` (a wrapper that launches one
@@ -4274,8 +4283,8 @@ def main() -> int:
                 hgmma[fn] = 0
             elif fn is not None and "HGMMA" in line:
                 hgmma[fn] += 1
-        for kernel, n in (("dhconv_tc_kernel", 1), ("fused_mlp_tc_kernel", 4),
-                          ("fused_rank_tc_kernel", 2)):
+        for kernel, n in (("dhconv_tc_kernel", 1), ("dhconv_wgrad_tc_kernel", 1),
+                          ("fused_mlp_tc_kernel", 4), ("fused_rank_tc_kernel", 2)):
             tc = {k: v for k, v in hgmma.items() if kernel in k}
             for k, v in tc.items():
                 log(f"  sass: {v} HGMMA (wgmma) instructions in {k}")
@@ -4286,7 +4295,7 @@ def main() -> int:
 
     with Phase("11 training (K1 forward and backward, the trainer at 256 x 8)"):
         # (a) K1's backward at the main path's shapes: dx is K1 over the
-        # conjugate-transposed image, dW a float32 torch.bmm
+        # conjugate-transposed image, dW its own kernel (dhconv_wgrad_tc_kernel)
         g = torch.Generator(device=dev).manual_seed(11)
         L, M, CI, CO = 180, 181, 256, 256
         w = torch.randn((CI, CO, L, 2), device=dev, generator=g) / (CI * CO)
@@ -4296,7 +4305,7 @@ def main() -> int:
               "the conjugate-transposed K1 image differs from its plain version")
         image_t_ms = timed(lambda: dhconv_weight_image(w, conj_t=True), 5)
         wct = conj_transpose(w).contiguous()  # its forward image is img_t
-        bwd = {}
+        bwd, dw_rep = {}, {}
         for B in (1, 2):
             x = torch.randn((B, L, M, CI, 2), device=dev, generator=g)
             gy = torch.randn((B, L, M, CO, 2), device=dev, generator=g)
@@ -4314,7 +4323,15 @@ def main() -> int:
             ms = timed(lambda: dhconv(gy, wct, img_t), 20)
             dev_ms = device_ms(lambda: dhconv(gy, wct, img_t), 20)
             plain_ms = timed(lambda: dhconv_plain(gy, conj_transpose(w)), 5)
-            dw_ms = timed(lambda: dhconv_weight_grad(x, gy), 10)
+            dw_k = dhconv_weight_grad(x, gy)
+            dw_p = dhconv_weight_grad_plain(x, gy)
+            torch.cuda.synchronize()
+            dwk_err, dwk_rel = errs(dw_k, dw_p)
+            check(dwk_rel <= 1e-5, f"dW's kernel disagrees with its plain version (B={B})")
+            del dw_k, dw_p
+            dw_ms = timed(lambda: dhconv_weight_grad(x, gy), 20)
+            dw_dev_ms = device_ms(lambda: dhconv_weight_grad(x, gy), 20)
+            dw_plain_ms = timed(lambda: dhconv_weight_grad_plain(x, gy), 5)
             gc = torch.view_as_complex(gy)
             wc = torch.view_as_complex(w.permute(2, 0, 1, 3).contiguous())
             library_ms = timed(lambda: torch.matmul(gc, wc.conj().transpose(-1, -2)), 20)
@@ -4323,6 +4340,8 @@ def main() -> int:
             yc = torch.matmul(xc, wcl)
             autograd_ms = timed(lambda: torch.autograd.grad(yc, (xc, wcl), gc,
                                                             retain_graph=True), 10)
+            # dW's yardstick: one complex torch.matmul, conj(x)^T g per l
+            dw_library_ms = wgrad_library_ms(x, gy)
             flops = 8.0 * B * L * M * CI * CO
             bound_ms, bound_by = bound(flops, 4.0 * (2 * gy.numel() + w.numel()), TF32_PEAK)
             # dW's bound on the yardstick of K1's: the TF32 tensor cores, one
@@ -4334,7 +4353,10 @@ def main() -> int:
                 f"wrapper ({dev_ms:.4f} ms on the device, queued behind a spin), plain {plain_ms:.4f} ms, "
                 f"complex torch.matmul {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by}); the backward image {image_t_ms:.4f} ms (once per step per "
-                f"filter); dW torch.bmm {dw_ms:.4f} ms, its bound {dw_bound:.4f} ms "
+                f"filter); dW kernel {dw_ms:.4f} ms ({dw_dev_ms:.4f} ms on the device), max abs "
+                f"err {dwk_err:.3e} (rel {dwk_rel:.3e}) against its plain version (float32 "
+                f"torch.bmm, tolerance 1e-5 of the largest entry) at {dw_plain_ms:.4f} ms, "
+                f"complex torch.matmul {dw_library_ms:.4f} ms, its bound {dw_bound:.4f} ms "
                 f"({dw_by}; {dw_bound3:.4f} ms as 3xTF32, {dw_by3}); autograd of complex "
                 f"torch.matmul (dx and dW) {autograd_ms:.4f} ms "
                 f"against dx + dW here {ms + dw_ms:.4f} ms, on {smi_line}")
@@ -4343,10 +4365,46 @@ def main() -> int:
                           bound_ms=bound_ms, bound_by=bound_by, dw_ms=dw_ms,
                           dw_bound_ms=dw_bound, dw_bound_ms_3xtf32=dw_bound3,
                           autograd_complex_matmul_ms=autograd_ms)
+            dw_rep[B] = dict(max_abs_err=dwk_err, max_rel_err=dwk_rel, ms=dw_ms,
+                             device_ms=dw_dev_ms, plain_ms=dw_plain_ms,
+                             library_ms=dw_library_ms, bound_ms=dw_bound, bound_by=dw_by,
+                             bound_ms_3xtf32=dw_bound3, autograd_complex_matmul_ms=autograd_ms,
+                             dx_plus_dw_ms=ms + dw_ms)
             del x, gy, xl, wl, dx, dw, want_dx, want_dw, gc, wc, xc, wcl, yc
         report["K1_bwd"] = dict(bwd[1], image_t_ms=image_t_ms,
                                 **{f"{k}_b2": v for k, v in bwd[2].items()})
         del w, wct, img_t
+        # dW on the "w" = 2 and 4 channel shards of the split grid's
+        # distributed_dhconv: x (1, L, M, CI / nw), g (1, L, M, CO)
+        shards = {}
+        for CIs in (CI // 2, CI // 4):
+            x = torch.randn((1, L, M, CIs, 2), device=dev, generator=g)
+            gy = torch.randn((1, L, M, CO, 2), device=dev, generator=g)
+            dw_k = dhconv_weight_grad(x, gy)
+            dw_p = dhconv_weight_grad_plain(x, gy)
+            torch.cuda.synchronize()
+            s_err, s_rel = errs(dw_k, dw_p)
+            check(s_rel <= 1e-5, f"dW's kernel disagrees with its plain version (CI {CIs})")
+            del dw_k, dw_p
+            s_ms = timed(lambda: dhconv_weight_grad(x, gy), 20)
+            s_dev = device_ms(lambda: dhconv_weight_grad(x, gy), 20)
+            s_plain = timed(lambda: dhconv_weight_grad_plain(x, gy), 5)
+            s_lib = wgrad_library_ms(x, gy)
+            s_flops = 8.0 * L * M * CIs * CO
+            s_bytes = 4.0 * (x.numel() + gy.numel() + CIs * CO * L * 2)
+            s_bound, s_by = bound(s_flops, s_bytes, TF32_PEAK)
+            s_bound3, s_by3 = bound(3 * s_flops, s_bytes, TF32_PEAK)
+            log(f"dW on the \"w\" = {CI // CIs} shard (1, {L}, {M}) x CI {CIs} -> {CO}: kernel "
+                f"{s_ms:.4f} ms ({s_dev:.4f} ms on the device), max abs err {s_err:.3e} (rel "
+                f"{s_rel:.3e}) against its plain version at {s_plain:.4f} ms, complex "
+                f"torch.matmul {s_lib:.4f} ms, bound {s_bound:.4f} ms ({s_by}; {s_bound3:.4f} "
+                f"ms as 3xTF32), on {smi_line}")
+            shards[f"ci{CIs}"] = dict(max_abs_err=s_err, max_rel_err=s_rel, ms=s_ms,
+                                      device_ms=s_dev, plain_ms=s_plain, library_ms=s_lib,
+                                      bound_ms=s_bound, bound_by=s_by, bound_ms_3xtf32=s_bound3)
+            del x, gy
+        report["K1_dw"] = dict(dw_rep[1], **{f"{k}_b2": v for k, v in dw_rep[2].items()},
+                               shards=shards)
         torch.cuda.empty_cache()
 
         # (b) the trainer at 256 x 8 on 180 x 360, float32, K1 on: the
@@ -4372,14 +4430,17 @@ def main() -> int:
                 f"{split['forward']:.2f}, backward {split['backward']:.2f}, optimizer and EMA "
                 f"{split['optimizer']:.2f} ms (CUDA events); peak device memory "
                 f"{rec['peak_bytes'] / 1e9:.3f} GB; K1 launches per step {rec['k1_launches']} "
-                f"(backward {rec['k1_backward']}), K1 images made per step {rec['k1_images']} "
-                f"on {smi_line}")
+                f"(backward {rec['k1_backward']}), dW launches per step {rec['k1_dw']}, K1 images "
+                f"made per step {rec['k1_images']} on {smi_line}")
             check(all(np.isfinite(v) for v in rec["losses"]), f"training {name}: a non-finite loss")
             k1, dx = per_step[name]
             check(all(n == k1 for n in rec["k1_launches"]) and
                   all(n == dx for n in rec["k1_backward"]),
                   f"training {name}: K1 launches {rec['k1_launches']} (backward "
                   f"{rec['k1_backward']}), expected {k1} ({dx}) a step")
+            # dW's kernel once per filter of the trained SFNO
+            check(all(n == dx for n in rec["k1_dw"]),
+                  f"training {name}: dW launches {rec['k1_dw']}, expected {dx} a step")
             # a new forward and backward image per filter after every update;
             # the frozen interpolator's, once, at the forecaster's first step
             images = [16] * TRAIN_STEPS
@@ -4390,9 +4451,43 @@ def main() -> int:
             train_report[name] = dict(step_ms=med, steps_per_s=1e3 / med, split_ms=split,
                                       peak_gb=rec["peak_bytes"] / 1e9, losses=rec["losses"],
                                       k1_launches=sum(rec["k1_launches"]),
-                                      k1_backward=sum(rec["k1_backward"]))
+                                      k1_backward=sum(rec["k1_backward"]),
+                                      k1_dw=sum(rec["k1_dw"]))
         report["K1_bwd"]["launches"] = sum(r["k1_backward"] for r in train_report.values())
+        report["K1_dw"]["launches"] = sum(r["k1_dw"] for r in train_report.values())
         del train, rec  # rec holds the last trainer and its state
+        torch.cuda.empty_cache()
+
+        # the interpolator's step with dW's kernel against the same step with
+        # dW's plain version patched in here (the package has no switch), in
+        # turns: plain, kernel, kernel, plain, TRAIN_STEPS steps each
+        tr = main_path.build_training(n_samples=TRAIN_STEPS, forecaster=False,
+                                      device="cuda")["interpolator"]
+        turns = []
+        for plain in (True, False, False, True):
+            if plain:
+                pallas_contractions.dhconv_weight_grad = dhconv_weight_grad_plain
+            try:
+                rec = main_path.train_steps(n_steps=TRAIN_STEPS,
+                                            trainers={"interpolator": tr})["interpolator"]
+            finally:
+                pallas_contractions.dhconv_weight_grad = dhconv_weight_grad
+            want_dw = [0 if plain else 8] * TRAIN_STEPS
+            check(rec["k1_dw"] == want_dw,
+                  f"interpolator steps ({'plain' if plain else 'kernel'} dW): dW launches "
+                  f"{rec['k1_dw']}, expected {want_dw}")
+            turns.append(("plain" if plain else "kernel", float(np.median(rec["step_ms"][2:]))))
+            del rec
+        step = {k: [v for n, v in turns if n == k] for k in ("kernel", "plain")}
+        log(f"interpolator step, median after 2 warm-up steps, dW's kernel against its plain "
+            f"version (turns plain, kernel, kernel, plain): "
+            f"{', '.join(f'{n} {v:.2f}' for n, v in turns)} ms; kernel {np.mean(step['kernel']):.2f}"
+            f" ms against plain {np.mean(step['plain']):.2f} ms, 8 dW launches a kernel step, "
+            f"on {smi_line}")
+        report["K1_dw"].update(interpolator_step_ms=step["kernel"],
+                               interpolator_step_ms_plain_dw=step["plain"],
+                               interpolator_turns=turns)
+        del tr
         torch.cuda.empty_cache()
 
         # the same batch 10 times, dropout off, constant lr: the loss at a
@@ -5247,6 +5342,7 @@ def main() -> int:
             groups = {}
             for key, (cnt, us) in dev_us.items():
                 group = ("K1 weight image" if "dhconv_weight_image" in key else
+                         "K1 dW" if "dhconv_wgrad" in key else
                          "K1" if "dhconv" in key else
                          "K4" if "fused_rank" in key else
                          "K3" if re.search(r"fused_mlp(_tc)?_kernel<true", key) else
@@ -5285,6 +5381,11 @@ def main() -> int:
     kernels.append(dict(name="dhconv_backward_dx", route="cuda", source=sources["K1"],
                         replaces="spherical_dyffusion_tpu/ops/pallas_contractions.py:94",
                         kernel_ms=report["K1_bwd"]["ms"], **report["K1_bwd"]))
+    # dW's own kernel (dhconv_wgrad_tc_kernel), the weight half of the same
+    # VJP (XLA's einsums in JAX); launches over the training steps of phase 11
+    kernels.append(dict(name="dhconv_backward_dw", route="cuda", source=sources["K1"],
+                        replaces="spherical_dyffusion_tpu/ops/pallas_contractions.py:103",
+                        kernel_ms=report["K1_dw"]["ms"], **report["K1_dw"]))
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     fused_tail_rate = N_STEPS / runs["fused_tail"]["seconds"]
     report["cli"]["inference"]["phase7_fused_tail_steps_per_second"] = fused_tail_rate

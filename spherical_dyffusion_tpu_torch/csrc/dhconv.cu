@@ -291,6 +291,282 @@ __global__ void dhconv_weight_image_kernel(const float* __restrict__ w, float* _
   *reinterpret_cast<float4*>(img + idx * 4) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
+// ---------------------------------------------------------------------------
+// K1's weight gradient, dW = sum_{b,m} conj(x)^T g per degree l, on the same
+// TF32 tensor cores with the same 3xTF32 split:
+//
+//     dW[ci, co, l] = sum_{b, m} conj(x[b, l, m, ci]) * g[b, l, m, co]
+//
+// Replaces the weight half of _dhconv_rr_bwd
+// (spherical_dyffusion_tpu/ops/pallas_contractions.py:103-104: dwr = xr^T gr
+// + xi^T gi, dwi = xr^T gi - xi^T gr, two XLA einsums a part). x is (B, L,
+// M, CI) and g (B, L, M, CO) complex as float2, contiguous; dW is the
+// weight's own (CI, CO, L, 2) float32 layout.
+//
+// The complex product as two real GEMMs over K' = 2 B M, the (b, m, re/im)
+// triples, that share one staged operand (K1's trick, mirrored): with B[co,
+// (k, re)] = gr and B[co, (k, im)] = gi, the real part is A' . B with A'[ci,
+// (k, re)] = xr, A'[ci, (k, im)] = xi, and the imaginary part A'' . B with
+// A'' = (-xi, xr). The staged g (the larger tile) is written once, x twice,
+// and the epilogue writes dW with no pass over a real product.
+//
+// What bounds it on the H100: at the main path's shapes (B = 1, L = 180, M =
+// 181, CI = CO = 256) the three TF32 passes do 3 x 17.08 GFLOP, 0.1035 ms at
+// 495 TFLOP/s, against 228 MB of compulsory traffic (x and g 66.7 MB each,
+// dW 94.4 MB), 0.0680 ms at 3.35 TB/s: operations bound it.
+//
+// Design. One block is one warpgroup that owns 64 ci (wgmma's M) by 128 co
+// (each GEMM's N) of one l; the real and imaginary accumulators take 64
+// float32 registers each. K runs in chunks of 16 (b, m) (32 floats, one
+// 128-byte swizzle row); each b's m are zero-padded to a multiple of 16 (a
+// chunk never crosses b, whose rows lie L M CI apart), 192 for M = 181.
+// Both operands arrive MN-major (a row (b, l, m) holds its ci, or co,
+// contiguous) and TF32 wgmma reads only K-major tiles, so both are staged
+// through registers: each thread loads its 8 x and 16 g values of the next
+// chunk (16-byte loads of a ci or co pair) while the tensor cores work on
+// this one, then splits them into hi and lo and stores them transposed into
+// the K-major swizzle (16-byte stores of a k pair; a warp's store covers 8
+// rows by 16 k, four wavefronts of 512 bytes, no conflict). A'' is written
+// from the split of A' (the rounding is odd). Shared memory 65 KB, two blocks an
+// SM: A' hi, A' lo, A'' hi, A'' lo (64 x 32 floats, 8 KB each), B hi, B lo
+// (128 x 32, 16 KB each). Per chunk 4 k-steps x 2 GEMMs x 3 passes = 24
+// m64n128k8 products. Blocks of one l are adjacent in launch order, so its
+// x and g slices come from device memory about once per call and from L2 to
+// the others.
+// The output puts l innermost: one l's (ci, co) entries lie 2 L floats
+// apart, so a block alone could store only 8-byte pieces, a quarter of a
+// 32-byte sector each (a variant that did was slower). Instead the four
+// blocks of four consecutive l form a cluster (__cluster_dims__(1, 4, 1)):
+// each writes its 64 x 128 complex tile into its own shared memory (the
+// operand area, free after the last product; 16-byte chunks swizzled by the
+// row), and after a cluster barrier block r reads rows 16 r .. 16 r + 15 of
+// all four tiles through distributed shared memory (16-byte reads, all of a
+// batch issued before its stores) and stores each (ci, co)'s run of four l
+// as two 16-byte stores by neighbouring lanes: whole sectors. A second
+// barrier keeps every block's tile alive until the others have read it.
+// Blocks of l >= L (L not a multiple of 4) compute nothing and take part in
+// the barriers and the stores.
+// What bounds this design: shared memory. Per chunk the products read 144
+// KB of it and the staging writes 64 KB, about its 128 bytes a clock for
+// the time the tensor cores take, so the staging is not hidden behind the
+// other block's products; then the exchange, whose 94 MB of stores (B = 1)
+// follow the block's last product. A double-buffered variant at one block
+// an SM was slower.
+
+namespace k1w {
+constexpr int kThreads = 128;                 // one warpgroup
+constexpr int kCi = 64;                       // ci per block: wgmma's M
+constexpr int kCo = 128;                      // co per block: each GEMM's N
+constexpr int kK = 16;                        // (b, m) per chunk: K' = 32 floats
+constexpr int kCluster = 4;                   // consecutive l per cluster
+constexpr uint32_t kATile = 8192;             // 64 rows x 128 B
+constexpr uint32_t kBTile = 16384;            // 128 rows x 128 B
+constexpr uint32_t kBBase = 4 * kATile;       // A' hi, A' lo, A'' hi, A'' lo, then B
+constexpr uint32_t kTileRow = kCo * 8;        // one ci row of the output tile: 1 KB
+constexpr uint32_t kOperands = kBBase + 2 * kBTile;
+static_assert(kCi * kTileRow <= kOperands, "the output tile reuses the operand area");
+constexpr size_t kSmem = 1024 + kOperands;
+}  // namespace k1w
+
+// x (B, L, M, CI) and g (B, L, M, CO) complex as float2; dw (CI, CO, L)
+// complex as float2. blockIdx.x = ci tile * (co tiles) + co tile;
+// blockIdx.y = l (rounded up to a multiple of the cluster).
+__global__ void __cluster_dims__(1, k1w::kCluster, 1) __launch_bounds__(k1w::kThreads, 2)
+dhconv_wgrad_tc_kernel(const float2* __restrict__ x, const float2* __restrict__ g,
+                       float2* __restrict__ dw, int B, int L, int M, int CI, int CO) {
+  using namespace k1w;
+  extern __shared__ __align__(1024) unsigned char smem_k1w[];
+  const uint32_t raw = smem_u32(smem_k1w);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const sgen = smem_k1w + (base - raw);  // generic pointer to base
+
+  const int nct = (CO + kCo - 1) / kCo;
+  const int ct = blockIdx.x % nct, it = blockIdx.x / nct;
+  const int l = blockIdx.y;
+  const int ci0 = it * kCi, co0 = ct * kCo;
+  const int nmc = (M + kK - 1) / kK;  // chunks per b
+  const int nch = B * nmc;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // A thread's values of a chunk, in units of 8 rows by 16 k: unit v = warp
+  // + 4 u (x: u < 2, rows 8 v .. 8 v + 7 of the 64; g: u < 4, of the 128),
+  // the thread's rows 8 v + 2 cp and + 1 (cp = lane % 4), its k 2 kp and
+  // 2 kp + 1 (kp = lane / 4): one 16-byte load a k of the row pair, one
+  // 16-byte store a row of the k pair (a swizzle chunk). Loads come from
+  // clamped, always valid addresses; rows past CI or CO and k past M are
+  // written as zeros.
+  const int cp = lane & 3, kp = lane >> 2;
+  float4 xv[2][2], gv[4][2];
+  // the complex values (c, c + 1) of row (b, l, m) of a (.., C) array
+  auto ld_pair = [](const float2* a, size_t row, int c, int C) -> float4 {
+    if ((C & 1) == 0)
+      return __ldg(reinterpret_cast<const float4*>(a + row * C + min(c, C - 2)));
+    const float2 u = __ldg(a + row * C + min(c, C - 1)), v = __ldg(a + row * C + min(c + 1, C - 1));
+    return make_float4(u.x, u.y, v.x, v.y);
+  };
+  auto load = [&](int j) {
+    const int b = j / nmc, m0 = (j % nmc) * kK;
+    const size_t r0 = ((size_t)b * L + l) * M;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const size_t row = r0 + min(m0 + 2 * kp + e, M - 1);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) xv[u][e] = ld_pair(x, row, ci0 + 8 * (warp + 4 * u) + 2 * cp, CI);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) gv[u][e] = ld_pair(g, row, co0 + 8 * (warp + 4 * u) + 2 * cp, CO);
+    }
+  };
+  // v split into hi (returned) and lo (in lo); the rounding is odd, so the
+  // split of -v is that of v negated
+  auto split = [](float4 v, float4& lo) {
+    const float4 h =
+        make_float4(tf32_round(v.x), tf32_round(v.y), tf32_round(v.z), tf32_round(v.w));
+    lo = make_float4(tf32_round(v.x - h.x), tf32_round(v.y - h.y), tf32_round(v.z - h.z),
+                     tf32_round(v.w - h.w));
+    return h;
+  };
+  auto st16 = [](unsigned char* p, float4 v) { *reinterpret_cast<float4*>(p) = v; };
+  // row h of a row pair's two loads (k = 2 kp and 2 kp + 1): one swizzle
+  // chunk, (re, im) of each k, zero where the k lies past M or the row
+  // outside the tile's channels
+  auto row_of = [](const float4* v, int h, bool k0, bool k1) {
+    const float2 a = h ? make_float2(v[0].z, v[0].w) : make_float2(v[0].x, v[0].y);
+    const float2 c = h ? make_float2(v[1].z, v[1].w) : make_float2(v[1].x, v[1].y);
+    return make_float4(k0 ? a.x : 0.f, k0 ? a.y : 0.f, k1 ? c.x : 0.f, k1 ? c.y : 0.f);
+  };
+  // k sits at K' = 2 k (re), 2 k + 1 (im) of its row: A' = (xr, xi), A'' =
+  // (-xi, xr), B = (gr, gi), each as hi and lo.
+  auto store = [&](int j) {
+    const int m0 = (j % nmc) * kK;
+    const bool k0 = m0 + 2 * kp < M, k1 = m0 + 2 * kp + 1 < M;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the row pair's rows
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r = 8 * (warp + 4 * u) + 2 * cp + h;
+        const bool in = ci0 + r < CI;
+        float4 lo;
+        const float4 hi = split(row_of(xv[u], h, in && k0, in && k1), lo);
+        unsigned char* p = sgen + r * 128 + ((kp ^ (r & 7)) << 4);
+        st16(p, hi);
+        st16(p + kATile, lo);
+        st16(p + 2 * kATile, make_float4(-hi.y, hi.x, -hi.w, hi.z));
+        st16(p + 3 * kATile, make_float4(-lo.y, lo.x, -lo.w, lo.z));
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = 8 * (warp + 4 * u) + 2 * cp + h;
+        const bool in = co0 + r < CO;
+        float4 lo;
+        unsigned char* p = sgen + kBBase + r * 128 + ((kp ^ (r & 7)) << 4);
+        st16(p, split(row_of(gv[u], h, in && k0, in && k1), lo));
+        st16(p + kBTile, lo);
+      }
+    }
+  };
+
+  if (l < L) {
+    float acc_r[64], acc_i[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc_r[i] = acc_i[i] = 0.f;
+
+    load(0);
+    store(0);
+    fence_async_smem();
+    __syncthreads();
+    for (int j = 0; j < nch; ++j) {
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {  // 8 K' (32 bytes) a step
+        const uint32_t ko = 32u * ks, a = base + ko;
+        const uint64_t bh = kmajor_desc(base + kBBase + ko);
+        const uint64_t bl = kmajor_desc(base + kBBase + kBTile + ko);
+        wgmma_tf32_n128(acc_r, kmajor_desc(a + kATile), bh);      // A' lo . B hi
+        wgmma_tf32_n128(acc_r, kmajor_desc(a), bl);               // A' hi . B lo
+        wgmma_tf32_n128(acc_r, kmajor_desc(a), bh);               // A' hi . B hi
+        wgmma_tf32_n128(acc_i, kmajor_desc(a + 3 * kATile), bh);  // A'' lo . B hi
+        wgmma_tf32_n128(acc_i, kmajor_desc(a + 2 * kATile), bl);  // A'' hi . B lo
+        wgmma_tf32_n128(acc_i, kmajor_desc(a + 2 * kATile), bh);  // A'' hi . B hi
+      }
+      wgmma_commit();
+      const bool more = j + 1 < nch;
+      if (more) load(j + 1);  // in flight while the products run
+      wgmma_wait_all();
+      fence_regs<64>(acc_r);
+      fence_regs<64>(acc_i);
+      __syncthreads();  // every read of the operand tiles is done
+      if (more) {
+        store(j + 1);
+        fence_async_smem();
+        __syncthreads();
+      }
+    }
+
+    // The tile into the operand area, row ci (1 KB of (co, re/im)): the
+    // thread holds rows r and r + 8 of its warp's 16, columns 8 q + 2 (lane
+    // % 4) + {0, 1}, one 16-byte chunk (co / 2) stored at chunk ^ (row % 8).
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * warp + (lane >> 2) + 8 * h;
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int c = 4 * q + (lane & 3), i = 4 * q + 2 * h;
+        *reinterpret_cast<float4*>(sgen + row * kTileRow + ((c ^ (row & 7)) << 4)) =
+            make_float4(acc_r[i], acc_i[i], acc_r[i + 1], acc_i[i + 1]);
+      }
+    }
+  }
+  cluster_sync();  // the four tiles are written
+
+  // This block stores rows 16 r .. 16 r + 15 (r its rank) of the cluster's
+  // four l: lane pair (2 t, 2 t + 1) takes one (ci, co pair), the even lane
+  // l0 and l0 + 1 from ranks 0 and 1, the odd lane l0 + 2 and l0 + 3 from
+  // ranks 2 and 3, one 16-byte read from each; a warp covers 32 co of one
+  // row, 16 whole sectors a store.
+  const int rank = (int)cluster_ctaid_y(), l0 = blockIdx.y - rank;
+  const int half = lane & 1;
+  const int la = l0 + 2 * half;
+  const bool two = la + 1 < L, wide = two && (L & 1) == 0;
+  // 16 (ci, co pair) a lane pair, in two batches of 8 whose reads are all
+  // issued before the batch's stores (the reads are ordered asm)
+#pragma unroll 1
+  for (int n0 = tid >> 1; n0 < 16 * kCo / 2; n0 += 8 * (kThreads / 2)) {
+    float4 va[8], vb[8];
+    bool ok[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int n = n0 + i * (kThreads / 2);
+      const int row = 16 * rank + n / (kCo / 2), cq = n % (kCo / 2);
+      ok[i] = ci0 + row < CI && co0 + 2 * cq < CO && la < L;
+      va[i] = vb[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      const uint32_t off = base + row * kTileRow + ((cq ^ (row & 7)) << 4);
+      if (ok[i]) va[i] = ld_cluster_f4(cluster_map(off, 2 * half));
+      if (ok[i] && two) vb[i] = ld_cluster_f4(cluster_map(off, 2 * half + 1));
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (!ok[i]) continue;
+      const int n = n0 + i * (kThreads / 2);
+      const int ci = ci0 + 16 * rank + n / (kCo / 2), co = co0 + 2 * (n % (kCo / 2));
+      float2* dst = dw + ((size_t)ci * CO + co) * L + la;
+      const bool next = co + 1 < CO;
+      if (wide) {
+        *reinterpret_cast<float4*>(dst) = make_float4(va[i].x, va[i].y, vb[i].x, vb[i].y);
+        if (next)
+          *reinterpret_cast<float4*>(dst + L) = make_float4(va[i].z, va[i].w, vb[i].z, vb[i].w);
+      } else {
+        dst[0] = make_float2(va[i].x, va[i].y);
+        if (two) dst[1] = make_float2(vb[i].x, vb[i].y);
+        if (next) {
+          dst[L] = make_float2(va[i].z, va[i].w);
+          if (two) dst[L + 1] = make_float2(vb[i].z, vb[i].w);
+        }
+      }
+    }
+  }
+  cluster_sync();  // no tile is released while another block may read it
+}
+
 }  // namespace
 
 // w (CI, CO, L, 2) float32, contiguous, or with conj_t (CO, CI, L, 2), whose
@@ -325,5 +601,25 @@ extern "C" int sdt_dhconv_fwd(const void* x, const void* img, void* y, int B, in
   dim3 grid(tiles, B * L);
   dhconv_tc_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
       (const float2*)x, (const float*)img, (float2*)y, B, L, M, CI, CO);
+  return (int)cudaGetLastError();
+}
+
+// x: (B, L, M, CI, 2) and g: (B, L, M, CO, 2) float32, contiguous; dw: (CI,
+// CO, L, 2) float32, contiguous. Returns the cudaError_t of the launch (0 on
+// success), or -1 for shapes the kernel does not take.
+extern "C" int sdt_dhconv_wgrad(const void* x, const void* g, void* dw, int B, int L, int M,
+                                int CI, int CO, void* stream) {
+  using namespace k1w;
+  if (B <= 0 || L <= 0 || M <= 0 || CI <= 0 || CO <= 0) return -1;
+  const long long ly = (long long)(L + kCluster - 1) / kCluster * kCluster;
+  const long long tiles = (long long)((CI + kCi - 1) / kCi) * ((CO + kCo - 1) / kCo);
+  if (ly > 65535 || tiles > 0x7FFFFFFF || (long long)B * ((M + kK - 1) / kK) > 0x7FFFFFFF)
+    return -1;
+  cudaError_t err = cudaFuncSetAttribute(dhconv_wgrad_tc_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)tiles, (unsigned)ly);
+  dhconv_wgrad_tc_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
+      (const float2*)x, (const float2*)g, (float2*)dw, B, L, M, CI, CO);
   return (int)cudaGetLastError();
 }

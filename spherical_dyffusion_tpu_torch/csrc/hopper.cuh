@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// K1 (dhconv.cu), K2/K3 (fused_mlp.cu) and K4 (fused_rank.cu).
+// K1 and its weight gradient (dhconv.cu), K2/K3 (fused_mlp.cu) and K4
+// (fused_rank.cu).
 //
 // Shared-memory operands use wgmma's 128-byte-swizzle layouts. An atom is 8
 // rows of 128 bytes (1024 bytes, 1024-byte aligned); the 16-byte chunk c of
@@ -91,6 +92,37 @@ __device__ __forceinline__ void wgmma_wait_all() {
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+// Thread block clusters: every thread of every block of the cluster arrives,
+// and waits until all have (release / acquire: shared-memory writes before
+// the barrier are visible to the cluster's reads after it).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// This block's index along y inside its cluster (its rank where the
+// cluster is one block wide in x and z).
+__device__ __forceinline__ uint32_t cluster_ctaid_y() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctaid.y;\n" : "=r"(r));
+  return r;
+}
+// The shared::cluster address of the same offset in the block of the given
+// rank, and a 16-byte load from it.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // Keeps the compiler from moving accumulator reads or writes across a wait.
 template <int kN>
 __device__ __forceinline__ void fence_regs(float* d) {

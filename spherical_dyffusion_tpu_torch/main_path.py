@@ -99,7 +99,7 @@ from .inference.writers import DataWriter, DataWriterConfig
 from .models.sfno import SFNO, SFNOConfig
 from .models.unet import UNet, UNetConfig
 from .parallel.mesh import Mesh
-from .ops.pallas_contractions import dhconv, dhconv_weight_image
+from .ops.pallas_contractions import dhconv, dhconv_weight_grad, dhconv_weight_image
 from .training.experiments import (
     DYffusionForecastingExperiment,
     ExperimentConfig,
@@ -394,8 +394,9 @@ def train_steps(n_steps: int = 6, embed: int = 256, layers: int = 8,
     (``torch.cuda.max_memory_allocated`` over the steps; None on the CPU), and
     per step the K1 launches (``k1_launches``; ``k1_backward``: those made
     in the backward, which under remat include the recompute's forwards;
-    ``k1_dx``: the backward's dx products) and K1 weight images made
-    (``k1_images``), with the ``trainer`` and its ``state``."""
+    ``k1_dx``: the backward's dx products), the weight-gradient kernel's
+    launches (``k1_dw``) and K1 weight images made (``k1_images``), with the
+    ``trainer`` and its ``state``."""
     if trainers is None:
         trainers = build_training(embed, layers, img_shape, horizon, n_state,
                                   n_samples=max(n_steps, 1), device=device)
@@ -408,7 +409,7 @@ def train_steps(n_steps: int = 6, embed: int = 256, layers: int = 8,
         state = tr.init_state()
         gen = torch.Generator().manual_seed(1)
         rec = {k: [] for k in ("losses", "step_ms", "split_ms", "k1_launches", "k1_backward",
-                               "k1_dx", "k1_images")}
+                               "k1_dx", "k1_dw", "k1_images")}
         if cuda:
             torch.cuda.synchronize(tr.device)
             torch.cuda.reset_peak_memory_stats(tr.device)
@@ -425,6 +426,7 @@ def train_steps(n_steps: int = 6, embed: int = 256, layers: int = 8,
                     marks.append((part, time.perf_counter(), dhconv.launches))
 
             dhconv.launches = dhconv.dx_launches = dhconv_weight_image.launches = 0
+            dhconv_weight_grad.launches = 0
             t0 = time.perf_counter()
             mark("start")
             dyn, cond, rt = tr.upload(batch)
@@ -434,6 +436,7 @@ def train_steps(n_steps: int = 6, embed: int = 256, layers: int = 8,
             rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
             rec["k1_launches"].append(dhconv.launches)
             rec["k1_dx"].append(dhconv.dx_launches)
+            rec["k1_dw"].append(dhconv_weight_grad.launches)
             rec["k1_images"].append(dhconv_weight_image.launches)
             rec["split_ms"].append({
                 part: (a.elapsed_time(b) if cuda else (b - a) * 1e3)

@@ -26,14 +26,20 @@ Differentiable, as the JAX function is: under autograd ``dhconv`` runs
 gradient ``dx = g conj(W)^T`` is the forward's product shape, so on the card
 it is K1 itself (counted in ``dhconv.launches``, and apart in
 ``dhconv.dx_launches``) over the image of the conjugate transpose
-(``dhconv_weight_image(w, conj_t=True)``). The weight gradient ``dW = sum_{b,m} conj(x)^T g`` is a plain float32 product over l
-(``dhconv_weight_grad``, one ``torch.bmm`` with TF32 off whatever the
-process's setting), as JAX leaves it to XLA: it is the same code on every
-device and no kernel of this repository.
+(``dhconv_weight_image(w, conj_t=True)``). The weight gradient ``dW =
+sum_{b,m} conj(x)^T g`` (JAX's two einsums a part, left to XLA) is a kernel
+of its own in the same source, ``dhconv_wgrad_tc_kernel``: the same 3xTF32
+products, x and g staged through registers into the K-major tiles, the
+result written in the weight's layout by clusters of four l.
+``dhconv_weight_grad`` launches it for CUDA tensors and counts the launch
+in ``dhconv_weight_grad.launches``; for CPU tensors it computes the plain
+version, ``dhconv_weight_grad_plain`` (one float32 ``torch.bmm`` with TF32
+off whatever the process's setting).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -42,13 +48,15 @@ from . import _cuda
 from .contractions import contract_dhconv
 
 __all__ = ["dhconv", "dhconv_plain", "DhconvFunction", "dhconv_weight_grad",
-           "dhconv_weight_image", "dhconv_weight_image_plain", "conj_transpose", "split_tf32",
-           "WeightImageCache", "IMAGE_CO", "IMAGE_CI"]
+           "dhconv_weight_grad_plain", "dhconv_weight_image", "dhconv_weight_image_plain",
+           "conj_transpose", "split_tf32", "WeightImageCache", "IMAGE_CO", "IMAGE_CI",
+           "WGRAD_K"]
 
 dhconv_plain = contract_dhconv
 
 IMAGE_CO = 128  # co per column tile of the image: the kernel's N
 IMAGE_CI = 16   # ci per chunk: K = 32 floats, one 128-byte row
+WGRAD_K = 16    # (b, m) per chunk of dW's kernel: each b's m padded to a multiple
 
 
 def split_tf32(a: torch.Tensor):
@@ -191,14 +199,14 @@ def _forward(x: torch.Tensor, w: torch.Tensor, image: Optional[torch.Tensor]) ->
     return _launch(x, dhconv_weight_image(w) if image is None else image, w.shape[1])
 
 
-def dhconv_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def dhconv_weight_grad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``dW = sum_{b,m} conj(x)^T g`` per l: x ``(..., L, M, CI, 2)``, g
-    ``(..., L, M, CO, 2)`` -> ``(CI, CO, L, 2)`` float32. One real product
-    per l, ``[xr xi]^T [gr gi]`` over K = B M, holds JAX's four
-    (``dwr = xr^T gr + xi^T gi``, ``dwi = xr^T gi - xi^T gr``). It is a
-    float32 ``torch.bmm`` on every device, in full float32 whatever the
-    process's matmul precision: TF32 is switched off for the product and
-    the caller's setting put back after it."""
+    ``(..., L, M, CO, 2)`` -> ``(CI, CO, L, 2)`` in x's dtype. One real
+    product per l, ``[xr xi]^T [gr gi]`` over K = B M, holds JAX's four
+    (``dwr = xr^T gr + xi^T gi``, ``dwi = xr^T gi - xi^T gr``). A
+    ``torch.bmm`` in full float32 whatever the process's matmul precision:
+    TF32 is switched off for the product and the caller's setting put back
+    after it."""
     L, M, CI = x.shape[-4:-1]
     CO = g.shape[-2]
     xk = x.reshape(-1, L, M * 2 * CI).transpose(0, 1).reshape(L, -1, 2 * CI)
@@ -215,10 +223,46 @@ def dhconv_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.stack([dwr, dwi], dim=-1).permute(1, 2, 0, 3).contiguous()
 
 
+def dhconv_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``dW = sum_{b,m} conj(x)^T g`` per l: x ``(..., L, M, CI, 2)``, g
+    ``(..., L, M, CO, 2)`` float32 -> ``(CI, CO, L, 2)`` float32. On the
+    card ``dhconv_wgrad_tc_kernel`` (3xTF32, counted in
+    ``dhconv_weight_grad.launches``) over contiguous copies of x and g; on
+    the CPU ``dhconv_weight_grad_plain``. A CUDA input the kernel does not
+    take raises."""
+    if x.device.type == "cpu":
+        return dhconv_weight_grad_plain(x, g)
+    if x.device.type != "cuda":
+        raise ValueError(f"dhconv_weight_grad: unsupported device {x.device}")
+    if x.dtype != torch.float32 or g.dtype != torch.float32:
+        raise TypeError(f"dhconv_weight_grad: float32 inputs required, got {x.dtype}, "
+                        f"{g.dtype}")
+    if g.device != x.device:
+        raise ValueError("dhconv_weight_grad: x and g must lie on the same device")
+    if x.dim() < 4 or x.shape[-1] != 2 or g.dim() != x.dim() or g.shape[-1] != 2 \
+            or g.shape[:-2] != x.shape[:-2]:
+        raise ValueError(f"dhconv_weight_grad: bad shapes x {tuple(x.shape)}, "
+                         f"g {tuple(g.shape)}")
+    L, M, CI = x.shape[-4:-1]
+    CO = g.shape[-2]
+    B = math.prod(x.shape[:-4])
+    dw = torch.empty((CI, CO, L, 2), device=x.device, dtype=torch.float32)
+    x, g = x.contiguous(), g.contiguous()
+    lib = _cuda.library()
+    _cuda.check(lib.sdt_dhconv_wgrad(x.data_ptr(), g.data_ptr(), dw.data_ptr(), B, L, M, CI,
+                                     CO, _cuda.stream_ptr(x.device)), "dhconv_weight_grad")
+    dhconv_weight_grad.launches += 1
+    return dw
+
+
+dhconv_weight_grad.launches = 0
+
+
 class DhconvFunction(torch.autograd.Function):
     """K1 with the backward of JAX's custom VJP (``_dhconv_rr_bwd``):
     ``dx = g conj(W)^T`` (K1 over the conjugate-transposed image on the card,
-    ``dhconv_plain`` on the CPU) and ``dW = dhconv_weight_grad(x, g)``. It
+    ``dhconv_plain`` on the CPU) and ``dW = dhconv_weight_grad(x, g)`` (its
+    kernel on the card, the plain product on the CPU). It
     saves x and w, never an image, so torch's version check catches an
     in-place update of either between forward and backward. ``image``: w's
     forward image (made here if None); ``image_t``: a callable giving w's

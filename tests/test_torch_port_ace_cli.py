@@ -402,19 +402,29 @@ def test_only_a_native_ace_checkpoint_is_read_without_weights_only(native, tmp_p
 
 # ---------------------------------------------------- run_inference, ace path
 
-def _assert_metrics(got: dict, want: dict):
-    """``metrics.json``: the same keys; every ``inference/`` log 1e-4
-    relative plus 1e-6 of the largest log of its metric; the steps equal,
-    ``loss_last_window`` 1e-5."""
-    assert set(want) <= set(got)
+def _log_tolerances(want: dict) -> dict:
+    """``_assert_metrics``'s tolerance of each ``inference/`` log: 1e-4
+    relative plus 1e-6 of the largest log of its metric."""
     logs = [k for k in want if k.startswith("inference/")]
     assert logs
     top = {}
     for k in logs:
         metric = k.rsplit("/", 1)[0]
         top[metric] = max(top.get(metric, 0.0), abs(want[k]))
-    for k in logs:
-        tol = 1e-4 * abs(want[k]) + 1e-6 * top[k.rsplit("/", 1)[0]]
+    return {k: 1e-4 * abs(want[k]) + 1e-6 * top[k.rsplit("/", 1)[0]] for k in logs}
+
+
+def _deviation(got: dict, want: dict):
+    """The largest ``|got - want|`` of an ``inference/`` log in units of its
+    ``_log_tolerances``, and that log's key."""
+    return max((abs(got[k] - want[k]) / tol, k) for k, tol in _log_tolerances(want).items())
+
+
+def _assert_metrics(got: dict, want: dict):
+    """``metrics.json``: the same keys; every ``inference/`` log within its
+    ``_log_tolerances``; the steps equal, ``loss_last_window`` 1e-5."""
+    assert set(want) <= set(got)
+    for k, tol in _log_tolerances(want).items():
         assert abs(got[k] - want[k]) <= tol, f"{k}: {got[k]} vs {want[k]}"
     assert got["n_forward_steps"] == want["n_forward_steps"]
     np.testing.assert_allclose(got["loss_last_window"], want["loss_last_window"], rtol=1e-5)
@@ -484,6 +494,11 @@ def _ace_run(kind, native, simultaneous_ckpt):
                 prescriber={"prescribed_name": "var_0", "mask_name": "forcing_0"})
 
 
+# how much further from JAX's bf16 metrics a float32 run must stand than the
+# port's bf16 run, both in units of _assert_metrics's per-log tolerance
+F32_VS_BF16_MARGIN = 5.0
+
+
 @pytest.mark.parametrize("kind", ["native", "simultaneous"])
 def test_run_inference_ace_params_dtype_matches_jax(native, simultaneous_ckpt, tmp_path, kind):
     """``params_dtype: bfloat16`` on both ACE entries (a native checkpoint;
@@ -492,7 +507,11 @@ def test_run_inference_ace_params_dtype_matches_jax(native, simultaneous_ckpt, t
     (``_assert_metrics``). The rounding shows: weights moved off their
     float32 values, and from the experiment checkpoint (the native
     network's small spectral weights barely move its logs) a float32 run's
-    ``metrics.json`` fails that check."""
+    ``metrics.json`` stands clearly further from JAX's: its largest log
+    deviation, in units of ``_assert_metrics``'s tolerance, at least
+    ``F32_VS_BF16_MARGIN`` times the bf16 run's (about 0.99 against 0.098
+    on the CPU, where whether the float32 run also exceeds the tolerance
+    depends on how the XLA-CPU build rounds)."""
     cfg = dict(_ace_run(kind, native, simultaneous_ckpt), params_dtype="bfloat16")
     out, got, want = _run_both(cfg, tmp_path)
     _assert_metrics(got, want)
@@ -503,8 +522,12 @@ def test_run_inference_ace_params_dtype_matches_jax(native, simultaneous_ckpt, t
     assert any(not torch.equal(p, rounded[k])
                for k, p in f32["stepper"].module.named_parameters())
     if kind == "simultaneous":
-        with pytest.raises(AssertionError):
-            _assert_metrics(json.loads((tmp_path / "f32" / "metrics.json").read_text()), want)
+        bf16_dev, bf16_key = _deviation(got, want)
+        f32_dev, f32_key = _deviation(
+            json.loads((tmp_path / "f32" / "metrics.json").read_text()), want)
+        assert f32_dev >= F32_VS_BF16_MARGIN * bf16_dev, (
+            f"float32 run {f32_dev:.4f} ({f32_key}) against bf16 run {bf16_dev:.4f} "
+            f"({bf16_key}) of the tolerance: not {F32_VS_BF16_MARGIN}x apart")
 
 
 @pytest.mark.parametrize("kind", ["native", "simultaneous"])

@@ -36,6 +36,7 @@ from spherical_dyffusion_tpu_torch.ops.pallas_contractions import (
     dhconv,
     dhconv_plain,
     dhconv_weight_grad,
+    dhconv_weight_grad_plain,
     dhconv_weight_image,
     dhconv_weight_image_plain,
 )
@@ -717,20 +718,21 @@ def test_dhconv_conj_transposed_image_kernel_matches_plain(cuda, CI, CO, L):
                                              ((3,), 3, 65, 33, 130)])
 def test_dhconv_backward_on_the_card_matches_autograd_of_plain(cuda, lead, L, M, CI, CO):
     """dhconv under grad carries a grad_fn; its backward launches K1 once
-    for dx (over the conjugate-transposed image, made once) and matches
-    autograd of the plain version: dx and dW within 1e-5 of their largest
-    entry (3xTF32 drops about 2^-22 of each product; dW is a float32
-    product summed in another order)."""
+    for dx (over the conjugate-transposed image, made once) and dW's kernel
+    once, and matches autograd of the plain version: dx and dW within 1e-5
+    of their largest entry (3xTF32 drops about 2^-22 of each product)."""
     g = torch.Generator(device=cuda).manual_seed(31)
     x = torch.randn(lead + (L, M, CI, 2), device=cuda, generator=g, requires_grad=True)
     w = (torch.randn((CI, CO, L, 2), device=cuda, generator=g) / CI).requires_grad_()
     gy = torch.randn(lead + (L, M, CO, 2), device=cuda, generator=g)
     k1, images = dhconv.launches, dhconv_weight_image.launches
+    dws = dhconv_weight_grad.launches
     y = dhconv(x, w)
     assert y.grad_fn is not None
     dx, dw = torch.autograd.grad(y, (x, w), gy)
     torch.cuda.synchronize()
     assert (dhconv.launches - k1, dhconv_weight_image.launches - images) == (2, 2)
+    assert dhconv_weight_grad.launches == dws + 1
     want_dx, want_dw = torch.autograd.grad(dhconv_plain(x, w), (x, w), gy)
     assert _rel_err(dx, want_dx) < 1e-5
     assert _rel_err(dw, want_dw) < 1e-5
@@ -741,23 +743,64 @@ def test_dhconv_backward_on_the_card_matches_autograd_of_plain(cuda, lead, L, M,
 
 
 def test_dhconv_weight_grad_keeps_float32_under_tf32(cuda):
-    """dW stays a full float32 product when the caller has switched TF32 on
-    for matmuls (one TF32 pass would miss by about 1e-4 of the largest
-    entry): within 1e-5 of its largest entry against float64, and the
-    caller's setting is put back."""
+    """dW keeps float32 accuracy when the caller has switched TF32 on for
+    matmuls (one TF32 pass would miss by about 1e-4 of the largest entry):
+    the kernel (3xTF32) within 1e-5 of its largest entry against the plain
+    version in float64, and the caller's setting is left as it was."""
     g = torch.Generator(device=cuda).manual_seed(41)
     x = torch.randn((1, 4, 181, 64, 2), device=cuda, generator=g)
     gy = torch.randn((1, 4, 181, 48, 2), device=cuda, generator=g)
     flags = torch.backends.cuda.matmul
     before = flags.allow_tf32
+    launches = dhconv_weight_grad.launches
     try:
         flags.allow_tf32 = True
         dw = dhconv_weight_grad(x, gy)
         assert flags.allow_tf32
     finally:
         flags.allow_tf32 = before
-    want = dhconv_weight_grad(x.double(), gy.double())
+    assert dhconv_weight_grad.launches == launches + 1
+    want = dhconv_weight_grad_plain(x.double(), gy.double())
     assert _rel_err(dw, want) < 1e-5
+
+
+@pytest.mark.parametrize("lead,L,M,CI,CO", [((1,), 4, 181, 64, 48), ((2,), 5, 181, 128, 48),
+                                             ((1,), 6, 181, 256, 256), ((2,), 3, 70, 256, 256),
+                                             ((2, 1), 7, 33, 40, 130), ((3,), 1, 5, 8, 3)])
+def test_dhconv_weight_grad_kernel_matches_plain(cuda, lead, L, M, CI, CO):
+    """dW's kernel against the plain version in float64 within 1e-5 of the
+    largest entry: CO 48 and 130 (partial co tiles), CI 40, 64 and 128 (a
+    partial ci tile, the "w" shards), batch 1 and 2, L not a multiple of the
+    cluster of four (odd L too) and M across the 16-wide chunks; one launch
+    each, and a permuted upstream gradient made contiguous first."""
+    g = torch.Generator(device=cuda).manual_seed(43)
+    x = torch.randn(lead + (L, M, CI, 2), device=cuda, generator=g)
+    gy = torch.randn(lead + (L, M, CO, 2), device=cuda, generator=g)
+    before = dhconv_weight_grad.launches
+    dw = dhconv_weight_grad(x, gy)
+    torch.cuda.synchronize()
+    assert dhconv_weight_grad.launches == before + 1
+    assert dw.shape == (CI, CO, L, 2) and dw.dtype == torch.float32
+    want = dhconv_weight_grad_plain(x.double(), gy.double())
+    assert _rel_err(dw, want) < 1e-5
+    gp = gy.transpose(-2, -3).contiguous().transpose(-2, -3)
+    assert not gp.is_contiguous()
+    assert _rel_err(dhconv_weight_grad(x, gp), want) < 1e-5
+    assert dhconv_weight_grad.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+def test_dhconv_weight_grad_refuses_other_dtypes_on_the_card(cuda, dtype):
+    """A CUDA input that is not float32 raises and launches nothing: no
+    fallback to a library product."""
+    x = torch.zeros((1, 2, 5, 8, 2), device=cuda, dtype=dtype)
+    gy = torch.zeros((1, 2, 5, 4, 2), device=cuda, dtype=dtype)
+    before = dhconv_weight_grad.launches
+    with pytest.raises(TypeError, match="float32"):
+        dhconv_weight_grad(x, gy)
+    with pytest.raises(TypeError, match="float32"):
+        dhconv_weight_grad(x.float(), gy)
+    assert dhconv_weight_grad.launches == before
 
 
 def _adam_allowance(gk, gp, lr):

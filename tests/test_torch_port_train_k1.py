@@ -40,6 +40,7 @@ from spherical_dyffusion_tpu_torch.ops.pallas_contractions import (
     conj_transpose,
     dhconv,
     dhconv_weight_grad,
+    dhconv_weight_grad_plain,
     dhconv_weight_image,
     split_tf32,
 )
@@ -159,8 +160,9 @@ def test_conj_transposed_image_contracts_like_autograd_dx(L, M, CI, CO):
 
 
 def test_dhconv_weight_grad_puts_back_the_matmul_precision():
-    """dW switches TF32 off for its product and puts the caller's setting
-    back, whichever it was; the product is the same either way here."""
+    """dW's plain version switches TF32 off for its product and puts the
+    caller's setting back, whichever it was; the product is the same either
+    way here."""
     r = np.random.default_rng(4)
     x = torch.from_numpy(r.standard_normal((1, 3, 5, 4, 2)).astype(np.float32))
     g = torch.from_numpy(r.standard_normal((1, 3, 5, 6, 2)).astype(np.float32))
@@ -170,7 +172,7 @@ def test_dhconv_weight_grad_puts_back_the_matmul_precision():
         got = {}
         for tf32 in (True, False):
             flags.allow_tf32 = tf32
-            got[tf32] = dhconv_weight_grad(x, g)
+            got[tf32] = dhconv_weight_grad_plain(x, g)
             assert flags.allow_tf32 == tf32
     finally:
         flags.allow_tf32 = before
