@@ -296,11 +296,20 @@ Phases, each timed:
    ``restore_orbax`` (``torch.distributed.checkpoint``) of a DCP_EMBED x
    DCP_LAYERS SFNO's state on the card, bit for bit, with bytes and seconds.
 
+22. the skill studies (run after phase 20, before the profile;
+   ``phase22``): K1's forward, dx and dW at the studies' shapes (CI = CO =
+   64 and 16) against their plain versions with their ms, the plain
+   version's and complex ``torch.matmul``'s; the port's ``skill_proof`` and
+   ``ace_skill --configs dense`` at the full preset's widths with their
+   depth cut, ``tests/test_skill.py``'s gates on the report, and K1's
+   forwards, dx, dW and weight images in every training step, counted by a
+   hook on ``Trainer.train_step``.
+
 It prints a ``training`` JSON line (phase 11's figures), a ``cli`` JSON line
 (phase 12's), an ``options`` JSON line (phase 13's), a ``modes`` JSON line
 (phase 14's), an ``ace`` JSON line (phase 15's), a ``unet`` JSON line
 (phase 16's), a ``parallel`` JSON line (phase 17's), a ``spatial`` JSON
-line (phase 21's), a ``data`` JSON line
+line (phase 21's), a ``studies`` JSON line (phase 22's), a ``data`` JSON line
 (phase 18's), a ``writers`` JSON line (phase 10's writer run and phase
 19's), a ``parity`` JSON line (phase 20's), a ``kernels`` JSON
 line (K1's backward dx as its own entry; ``launches_by_path`` holds phase
@@ -311,7 +320,8 @@ phase 17's as ``"parallel"``, phase 21's as ``"spatial"``,
 ``"spatial_fast"``, ``"spatial_fold"`` and ``"spatial_unet"``, phase 18's
 as ``"data_train"`` and
 ``"data"``, phase 19's as ``"outputs"`` and ``"outputs_ace"``, phase 20's
-as ``"parity"`` and ``"parity_k2"``), the
+as ``"parity"`` and ``"parity_k2"``, phase 22's as ``"skill_proof"`` and
+``"ace_skill"``; the dx and dW entries' ``launches`` add phase 22's), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. It needs the port's package beside it
@@ -321,6 +331,7 @@ and a CUDA card; without either it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -414,6 +425,20 @@ DCP_EMBED, DCP_LAYERS = 256, 8
 # loader turns exact_dropout on, which keeps the MLP off K2 and K3 (they
 # quantize the dropout rate); with the interpolator's dropout off the
 # windows draw no dropout, so turning it off only routes the MLP through them
+# phase 22: the skill studies at the full preset's widths, their depth cut
+# (the preset's 24 + 24 epochs and 504 rollout steps, ace_skill's 24 epochs),
+# and the gates of tests/test_skill.py on skill_proof's report: the
+# interpolator's val RMSE under 0.6 x climatology, its train loss down 20%
+# (last epoch's mean under 0.8 x the first's), h1 RMSE under 0.8 x
+# climatology, cold sampling's CRPS at the last horizon at most 1.05 x naive
+# sampling's
+SKILL_PRESET = "full"
+SKILL_EPOCHS_INTERP, SKILL_EPOCHS_FC, SKILL_ROLLOUT, ACE_SKILL_EPOCHS = 3, 2, 72, 2
+# the training frames of both studies (the preset's 8192): the stacked
+# 7-frame windows of 8192 frames are 3.8 GB, read on the host in about 30 s
+# a stage on the card's machine
+SKILL_N_TIMESTEPS = 2048
+SKILL_INTERP_VS_CLIM, SKILL_LOSS_DROP, SKILL_H1_VS_CLIM, SKILL_COLD_VS_NAIVE = 0.6, 0.8, 0.8, 1.05
 PARITY_K3 = {"use_pallas": True, "fused_tail": True, "exact_dropout": False}
 PARITY_K2 = {"use_pallas": True, "fused_mlp": True, "exact_dropout": False}
 
@@ -4153,6 +4178,275 @@ def phase20(smi_line, wrappers, report, runs, oracle_job, device="cuda") -> None
     report["parity"] = rep
 
 
+def phase22(smi_line, wrappers, report, runs, device="cuda") -> None:
+    """Phase 22: the skill studies on the card (``scripts/skill_proof.py``
+    and ``scripts/ace_skill.py`` of the port), the dense dhconv through K1.
+    (a) K1's forward, its dx (K1 over the conjugate-transposed image) and dW
+    (``dhconv_wgrad_tc_kernel``) at the studies' shapes, CI = CO = 64 at the
+    full preset (x (16, 64, 65, 64), W (64, 64, 64)) and 16 at the mini one
+    (x (8, 16, 17, 16)), float32, against their plain versions (1e-5 of the
+    largest entry), with the event-loop and device ms; (b) ``skill_proof``
+    at the full preset's widths (64 x 128, 2 channels, embed 64 x 4, batch
+    16, horizon 6, ensemble 10, 150 steps an epoch, the OU system, MLP
+    dropout 0.15), its depth cut to SKILL_EPOCHS_INTERP + SKILL_EPOCHS_FC
+    epochs, a SKILL_ROLLOUT-step rollout and SKILL_N_TIMESTEPS training
+    frames (the cuts printed on a ``reduced`` line), its report held to
+    ``tests/test_skill.py``'s gates (thresholds below); (c) ``ace_skill
+    --configs dense`` at the full preset's widths, ACE_SKILL_EPOCHS epochs
+    and SKILL_N_TIMESTEPS frames, ``bounded``; (d) the K1
+    launches of every training step, counted by a hook on
+    ``Trainer.train_step`` (an interpolator step: 4 forwards, 4 dx, 4 dW; a
+    forecaster step: its own 4, 4 and 4 and the frozen interpolator's 4
+    forwards; a simultaneous step: 4, 4, 4) and the K1 weight images made
+    in each (the trained network's 8, made anew after every update: an
+    image served stale across an update would show as fewer), the median
+    step ms, each stage's seconds and the peak device memory. K2-K4 are
+    not on these paths and launch no time."""
+    import tempfile
+
+    import torch
+
+    from spherical_dyffusion_tpu_torch.ops.pallas_contractions import (
+        conj_transpose,
+        dhconv,
+        dhconv_plain,
+        dhconv_weight_grad,
+        dhconv_weight_grad_plain,
+        dhconv_weight_image,
+    )
+    from spherical_dyffusion_tpu_torch.scripts import ace_skill, skill_proof
+    from spherical_dyffusion_tpu_torch.training.trainer import Trainer
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    rep = {}
+
+    def timed_ms(fn, reps, spin=False):
+        """ms a call of ``fn`` in a loop of ``reps`` between CUDA events;
+        with ``spin``, the calls queued behind a spin kernel (the device's
+        time, without the host's work between launches)."""
+        fn()
+        if not cuda:
+            return None
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
+        ev[0].record()
+        for _ in range(reps):
+            fn()
+        ev[1].record()
+        if spin:
+            check(not ev[0].query(), "the device reached the timed launches before the host "
+                                     "had queued them all; lengthen the spin")
+        ev[1].synchronize()
+        return ev[0].elapsed_time(ev[1]) / reps
+
+    def rel(got, want):
+        d = float((got.float() - want.float()).abs().max())
+        return d, d / float(want.float().abs().max())
+
+    # (a) K1's forward, dx and dW at the studies' shapes
+    g = torch.Generator(device=dev).manual_seed(22)
+    for preset_name, (B, L, M, C) in (("full", (16, 64, 65, 64)), ("mini", (8, 16, 17, 16))):
+        x = torch.randn((B, L, M, C, 2), generator=g, device=dev)
+        gy = torch.randn((B, L, M, C, 2), generator=g, device=dev)
+        w = torch.randn((C, C, L, 2), generator=g, device=dev) / C
+        img, wct = dhconv_weight_image(w), conj_transpose(w).contiguous()
+        img_t = dhconv_weight_image(w, conj_t=True)
+        flops = 8.0 * B * L * M * C * C
+        nbytes = 4.0 * (x.numel() + gy.numel() + w.numel())
+        bound_ms, bound_by = bound(flops, nbytes, TF32_PEAK)
+        # the library yardsticks: one complex torch.matmul each, on operands
+        # laid out for it (the layout copies untimed)
+        xc, gc = torch.view_as_complex(x), torch.view_as_complex(gy)
+        wc = torch.view_as_complex(w.permute(2, 0, 1, 3).contiguous())  # (L, CI, CO)
+        wh = wc.conj().transpose(-1, -2).contiguous()
+        xk = xc.transpose(0, 1).reshape(L, -1, C).mH.contiguous()  # (L, CI, B M)
+        gk = gc.transpose(0, 1).reshape(L, -1, C).contiguous()
+        cases = {
+            "forward": (lambda: dhconv(x, w, img), lambda: dhconv_plain(x, w),
+                        lambda: torch.matmul(xc, wc)),
+            "dx": (lambda: dhconv(gy, wct, img_t), lambda: dhconv_plain(gy, conj_transpose(w)),
+                   lambda: torch.matmul(gc, wh)),
+            "dw": (lambda: dhconv_weight_grad(x, gy), lambda: dhconv_weight_grad_plain(x, gy),
+                   lambda: torch.matmul(xk, gk)),
+        }
+        shape = {}
+        for name, (kernel, plain, library) in cases.items():
+            got = kernel()
+            want = plain()
+            abs_err, rel_err = rel(got, want)
+            shape[name] = dict(max_abs_err=abs_err, max_rel_err=rel_err,
+                               ms=timed_ms(kernel, 20), device_ms=timed_ms(kernel, 20, spin=True),
+                               plain_ms=timed_ms(plain, 5), library_ms=timed_ms(library, 20),
+                               bound_ms=bound_ms, bound_by=bound_by)
+            log(f"phase 22 (a) K1 {name} at the {preset_name} preset's shape x {(B, L, M, C)} "
+                f"x W ({C}, {C}, {L}): max abs err {abs_err:.3e} (rel {rel_err:.3e}, tolerance "
+                f"1e-5) against its plain version; {shape[name]['ms']} ms a call in a loop "
+                f"({shape[name]['device_ms']} ms on the device, queued behind a spin), plain "
+                f"{shape[name]['plain_ms']} ms, complex torch.matmul "
+                f"{shape[name]['library_ms']} ms, bound {bound_ms:.4f} ms ({bound_by}); on "
+                f"{smi_line}")
+            check(rel_err <= 1e-5, f"K1 {name} at {(B, L, M, C)} disagrees with its plain "
+                                   "version")
+            del got, want
+        rep[f"k1_{preset_name}"] = dict(shape=[B, L, M, C, C], **shape)
+        del x, gy, w, img, wct, img_t, xc, gc, wc, wh, xk, gk
+    report["K1"]["studies"] = {k: v["forward"] for k, v in rep.items()}
+    report["K1_bwd"]["studies"] = {k: v["dx"] for k, v in rep.items()}
+    report["K1_dw"]["studies"] = {k: v["dw"] for k, v in rep.items()}
+
+    # (d) the hook: K1's launches and images per training step
+    counters = (dhconv, "dx_launches"), (dhconv_weight_grad, "launches"), \
+        (dhconv_weight_image, "launches")
+    steps = []
+    train_step = Trainer.train_step
+
+    def counted(self, *a, **k):
+        before = [dhconv.launches] + [getattr(f, n) for f, n in counters]
+        out = train_step(self, *a, **k)
+        after = [dhconv.launches] + [getattr(f, n) for f, n in counters]
+        total, dx, dw, images = (b - a for a, b in zip(before, after))
+        steps.append((type(self.exp).__name__, (total - dx, dx, dw, images)))
+        return out
+
+    def run(main, argv):
+        for fn in wrappers.values():
+            fn.launches = 0
+        dhconv.dx_launches = dhconv_weight_grad.launches = dhconv_weight_image.launches = 0
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        Trainer.train_step = counted
+        t0 = time.perf_counter()
+        try:
+            out = main(argv)
+        finally:
+            Trainer.train_step = train_step
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        launches.update(dx=dhconv.dx_launches, dw=dhconv_weight_grad.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None
+        for fn in wrappers.values():
+            fn.launches = 0
+        check(not any(launches[k] for k in ("K2", "K3", "K4")),
+              f"the studies launched kernels that are not on their path: {launches}")
+        return out, seconds, launches, peak
+
+    platform = [] if cuda else ["--platform=cpu"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_skill_") as tmp:
+        # (b) skill_proof at the full preset's widths, its depth cut
+        argv = platform + [
+            f"--preset={SKILL_PRESET}", f"--out={tmp}/skill",
+            f"--epochs-interp={SKILL_EPOCHS_INTERP}",
+            f"--epochs-fc={SKILL_EPOCHS_FC}", f"--rollout-steps={SKILL_ROLLOUT}",
+            f"--n-timesteps={SKILL_N_TIMESTEPS}"]
+        log(f"reduced: skill_proof --preset={SKILL_PRESET} at its widths, {SKILL_EPOCHS_INTERP} + "
+            f"{SKILL_EPOCHS_FC} epochs (the preset's 24 + 24), a {SKILL_ROLLOUT}-step "
+            f"rollout (504) and {SKILL_N_TIMESTEPS} training frames (8192); {' '.join(argv)}")
+        r, sp_s, sp_launches, sp_peak = run(skill_proof.main, argv)
+        i, c, n, ro = r["interpolator"], r["cold_sampling"], r["naive_sampling"], r["rollout"]
+        H = r["params"]["horizon"]
+        log(f"reduced: {r['timing']['interpolator']['steps'] // SKILL_EPOCHS_INTERP} steps an "
+            f"epoch ({r['params']['steps_per_epoch']} where the training frames allow them)")
+        gates = {
+            "interpolator val RMSE < SKILL_INTERP_VS_CLIM x climatology":
+                i["val_rmse"] < SKILL_INTERP_VS_CLIM * i["baseline_rmse_climatology"],
+            "interpolator train loss down by 1 - SKILL_LOSS_DROP":
+                i["train_loss"][-1] < SKILL_LOSS_DROP * i["train_loss"][0],
+            "h1 RMSE < SKILL_H1_VS_CLIM x climatology":
+                c["h1/rmse"] < SKILL_H1_VS_CLIM * c["h1/rmse_climatology"],
+            "every table value finite": all(math.isfinite(v) for t in (c, n) for v in t.values()),
+            "h1 CRPS < h1 RMSE": c["h1/crps"] < c["h1/rmse"],
+            f"cold h{H} CRPS <= SKILL_COLD_VS_NAIVE x naive":
+                c[f"h{H}/crps"] <= SKILL_COLD_VS_NAIVE * n[f"h{H}/crps"],
+            "rollout stable": bool(ro["stable"]),
+        }
+        t = r["timing"]
+        log(f"phase 22 (b) skill_proof at the {SKILL_PRESET} preset's widths: interpolator val "
+            f"RMSE "
+            f"{i['val_rmse']:.4f} (climatology {i['baseline_rmse_climatology']:.4f}, linear "
+            f"{i['baseline_rmse_linear_interp']:.4f}), CRPS {i['val_crps']:.4f}, SSR "
+            f"{i['val_ssr']:.4f}, train loss {[round(v, 4) for v in i['train_loss']]}; cold h1 "
+            f"RMSE {c['h1/rmse']:.4f} CRPS {c['h1/crps']:.4f} SSR {c['h1/ssr']:.3f}, h{H} RMSE "
+            f"{c[f'h{H}/rmse']:.4f} CRPS {c[f'h{H}/crps']:.4f} SSR {c[f'h{H}/ssr']:.3f}; naive "
+            f"h1 RMSE {n['h1/rmse']:.4f} CRPS {n['h1/crps']:.4f}, h{H} RMSE "
+            f"{n[f'h{H}/rmse']:.4f} CRPS {n[f'h{H}/crps']:.4f}; calibration pass "
+            f"{r['calibration']['pass']}; rollout max {ro['max_abs_normalized']:.3f} (data "
+            f"{ro['data_max_abs_normalized']:.3f}) stable {ro['stable']}; {sp_s:.2f} s "
+            f"(interpolator {t['interpolator']['seconds']:.2f} s at "
+            f"{t['interpolator']['step_ms']:.3f} ms a step, forecaster "
+            f"{t['forecaster']['seconds']:.2f} s at {t['forecaster']['step_ms']:.3f} ms a step, "
+            f"evaluation {t['eval_s']:.2f} s, rollout {t['rollout_s']:.2f} s; training set "
+            f"{t['interpolator']['upload']['bytes'] / 2 ** 30:.3f} GiB, read and pinned in "
+            f"{t['interpolator']['upload']['host_s']:.2f} s (pinning "
+            f"{t['interpolator']['upload']['pin_s']} s), copied in "
+            f"{t['interpolator']['upload']['copy_s']} s), peak "
+            f"{sp_peak} GiB; on {smi_line}")
+        for what, ok in gates.items():
+            log(f"  gate {what}: {ok}")
+        check(all(gates.values()), f"skill_proof at the full preset's widths failed a gate: "
+                                   f"{[k for k, v in gates.items() if not v]}")
+        sp_steps = list(steps)
+        steps.clear()
+
+        # (c) ace_skill's dense config at the full preset's widths
+        argv = platform + [f"--preset={SKILL_PRESET}", "--configs=dense", f"--out={tmp}/ace",
+                           f"--epochs={ACE_SKILL_EPOCHS}", f"--n-timesteps={SKILL_N_TIMESTEPS}"]
+        log(f"reduced: ace_skill --preset={SKILL_PRESET} --configs=dense at its widths, "
+            f"{ACE_SKILL_EPOCHS} epochs (the preset's 24) and {SKILL_N_TIMESTEPS} training "
+            f"frames (8192); {' '.join(argv)}")
+        a, ace_s, ace_launches, ace_peak = run(ace_skill.main, argv)
+        e = a["configs"]["dense"]
+        log(f"phase 22 (c) ace_skill dense: per-lead RMSE {e['rmse_per_lead']} (climatology "
+            f"{e['rmse_climatology_per_lead']}), max |state| {e['max_abs_normalized']:.3f}, "
+            f"bounded {e['bounded']}; {ace_s:.2f} s (training {e['train_s']} s at "
+            f"{e['step_ms']:.3f} ms a step), peak {ace_peak} GiB; on {smi_line}")
+        check(e["bounded"], "ace_skill's dense rollout is not bounded")
+        ace_steps = list(steps)
+
+    # (d) per step: (K1 forwards, dx, dW, images)
+    nl = r["params"]["layers"]  # one K1 contraction a block
+    expected = {"InterpolationExperiment": (nl, nl, nl),
+                "DYffusionForecastingExperiment": (2 * nl, nl, nl),
+                "SimultaneousForecastingExperiment": (nl, nl, nl)}
+    per_step = {}
+    for kind, counts in sp_steps + ace_steps:
+        per_step.setdefault(kind, []).append(counts)
+    for kind, counts in per_step.items():
+        kinds = sorted({c[:3] for c in counts})
+        images = [c[3] for c in counts]
+        log(f"phase 22 (d) {kind}: {len(counts)} steps, K1 (forwards, dx, dW) a step {kinds}, "
+            f"weight images a step {sorted(set(images))} (first step {images[0]})")
+        check(kinds == [expected[kind]], f"{kind}: K1 launches a step {kinds}, expected "
+                                         f"{expected[kind]}")
+        check(min(images) >= 2 * nl, f"{kind}: a step made {min(images)} K1 weight images: a "
+                                     "stale image served across an update")
+    check(set(per_step) == set(expected), f"the studies trained {sorted(per_step)}")
+    rep["skill_proof"] = dict(
+        seconds=sp_s, peak_gb=sp_peak, gates=gates, launches=sp_launches, timing=r["timing"],
+        interpolator={k: v for k, v in i.items() if k != "train_loss"},
+        train_loss=i["train_loss"], cold={k: c[k] for k in ("h1/rmse", "h1/crps", "h1/ssr",
+                                                            f"h{H}/rmse", f"h{H}/crps",
+                                                            f"h{H}/ssr")},
+        naive={k: n[k] for k in ("h1/rmse", "h1/crps", f"h{H}/rmse", f"h{H}/crps")},
+        calibration=r["calibration"], rollout={k: v for k, v in ro.items()
+                                               if k != "max_abs_normalized_per_window"})
+    rep["ace_skill"] = dict(seconds=ace_s, peak_gb=ace_peak, launches=ace_launches,
+                            dense={k: v for k, v in e.items() if k != "upload"})
+    rep["per_step"] = {k: dict(steps=len(v), k1_forward_dx_dw=list(v[-1][:3]),
+                               images_first=v[0][3], images_last=v[-1][3])
+                       for k, v in per_step.items()}
+    for name, launches in (("skill_proof", sp_launches), ("ace_skill", ace_launches)):
+        runs[name] = dict(launches={k: launches[k] for k in ("K1", "K2", "K3", "K4")})
+    for key, sub in (("K1_bwd", "dx"), ("K1_dw", "dw")):
+        report[key]["launches"] = report[key].get("launches", 0) + sp_launches[sub] + \
+            ace_launches[sub]
+        report[key]["launches_studies"] = sp_launches[sub] + ace_launches[sub]
+    report["studies"] = rep
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -5307,6 +5601,10 @@ def main() -> int:
                "packer, profiling, DCP checkpoints"):
         phase20(smi_line, wrappers, report, runs, oracle_job)
 
+    with Phase("22 the skill studies at the full preset's widths (K1, dx and dW at their "
+               "shapes, skill_proof and ace_skill through K1, launches a training step)"):
+        phase22(smi_line, wrappers, report, runs)
+
     # the profile runs last: a torch.profiler session leaves a launch cost
     # behind in the process (the UNet's forward, bound by the host's
     # launches at batch 1, took 19.9-21.4 ms before one profiled forward and
@@ -5402,6 +5700,7 @@ def main() -> int:
     print(json.dumps({"data": report["data"]}))
     print(json.dumps({"writers": report["writers"]}))
     print(json.dumps({"parity": report["parity"]}))
+    print(json.dumps({"studies": report["studies"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

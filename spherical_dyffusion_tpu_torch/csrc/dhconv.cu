@@ -352,6 +352,20 @@ __global__ void dhconv_weight_image_kernel(const float* __restrict__ w, float* _
 // other block's products; then the exchange, whose 94 MB of stores (B = 1)
 // follow the block's last product. A double-buffered variant at one block
 // an SM was slower.
+//
+// Accuracy over long sums. The tensor cores add each product into the
+// float32 accumulator rounding toward zero, so the error of a sum grows with
+// its length, not with its square root: over random data the tile's largest
+// entry loses about 2.7e-7 of itself per chunk (3.2e-6 over the main path's
+// 12 chunks at B = 1, 1.8e-5 over the 80 of (16, 64, 65, 64), the full skill
+// preset's, on an H100). So every `promote` chunks (the wrapper's choice,
+// chunks x promote <= 576; never where promote >= the chunks, as at the
+// main path's B = 1 and 2) each thread adds its accumulators into the
+// block's tile of `ws` (float32, the output tile's layout: the first time a
+// store, then round-to-nearest 16-byte atomic adds to entries no other
+// thread touches, so the sums run in a fixed order) and restarts them at
+// zero; the last interval is added to the tile read back. The error then
+// grows with sqrt(chunks x promote), not with the chunks.
 
 namespace k1w {
 constexpr int kThreads = 128;                 // one warpgroup
@@ -373,7 +387,8 @@ constexpr size_t kSmem = 1024 + kOperands;
 // blockIdx.y = l (rounded up to a multiple of the cluster).
 __global__ void __cluster_dims__(1, k1w::kCluster, 1) __launch_bounds__(k1w::kThreads, 2)
 dhconv_wgrad_tc_kernel(const float2* __restrict__ x, const float2* __restrict__ g,
-                       float2* __restrict__ dw, int B, int L, int M, int CI, int CO) {
+                       float2* __restrict__ dw, float4* __restrict__ ws, int promote, int B,
+                       int L, int M, int CI, int CO) {
   using namespace k1w;
   extern __shared__ __align__(1024) unsigned char smem_k1w[];
   const uint32_t raw = smem_u32(smem_k1w);
@@ -465,6 +480,11 @@ dhconv_wgrad_tc_kernel(const float2* __restrict__ x, const float2* __restrict__ 
     }
   };
 
+  // this block's tile of the promotion workspace: (ci row, co pair) as the
+  // output tile below lays it out
+  const bool promoted = promote < nch;
+  float4* const wt =
+      promoted ? ws + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * (kCi * kCo / 2) : nullptr;
   if (l < L) {
     float acc_r[64], acc_i[64];
 #pragma unroll
@@ -494,6 +514,24 @@ dhconv_wgrad_tc_kernel(const float2* __restrict__ x, const float2* __restrict__ 
       wgmma_wait_all();
       fence_regs<64>(acc_r);
       fence_regs<64>(acc_i);
+      if (more && (j + 1) % promote == 0) {  // the accumulators into ws, restarted
+        const bool first = j + 1 == promote;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = 16 * warp + (lane >> 2) + 8 * h;
+#pragma unroll
+          for (int q = 0; q < 16; ++q) {
+            const int c = 4 * q + (lane & 3), i = 4 * q + 2 * h;
+            float4* p = wt + row * (kCo / 2) + c;
+            const float4 v = make_float4(acc_r[i], acc_i[i], acc_r[i + 1], acc_i[i + 1]);
+            if (first)
+              *p = v;
+            else
+              atomicAdd(p, v);  // one 16-byte reduction in L2 (sm_90)
+            acc_r[i] = acc_i[i] = acc_r[i + 1] = acc_i[i + 1] = 0.f;
+          }
+        }
+      }
       __syncthreads();  // every read of the operand tiles is done
       if (more) {
         store(j + 1);
@@ -511,8 +549,12 @@ dhconv_wgrad_tc_kernel(const float2* __restrict__ x, const float2* __restrict__ 
 #pragma unroll
       for (int q = 0; q < 16; ++q) {
         const int c = 4 * q + (lane & 3), i = 4 * q + 2 * h;
-        *reinterpret_cast<float4*>(sgen + row * kTileRow + ((c ^ (row & 7)) << 4)) =
-            make_float4(acc_r[i], acc_i[i], acc_r[i + 1], acc_i[i + 1]);
+        float4 v = make_float4(acc_r[i], acc_i[i], acc_r[i + 1], acc_i[i + 1]);
+        if (promoted) {  // the earlier intervals, this thread's own entries
+          const float4 s = __ldcg(wt + row * (kCo / 2) + c);
+          v = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+        }
+        *reinterpret_cast<float4*>(sgen + row * kTileRow + ((c ^ (row & 7)) << 4)) = v;
       }
     }
   }
@@ -605,12 +647,18 @@ extern "C" int sdt_dhconv_fwd(const void* x, const void* img, void* y, int B, in
 }
 
 // x: (B, L, M, CI, 2) and g: (B, L, M, CO, 2) float32, contiguous; dw: (CI,
-// CO, L, 2) float32, contiguous. Returns the cudaError_t of the launch (0 on
-// success), or -1 for shapes the kernel does not take.
-extern "C" int sdt_dhconv_wgrad(const void* x, const void* g, void* dw, int B, int L, int M,
-                                int CI, int CO, void* stream) {
+// CO, L, 2) float32, contiguous; promote: chunks of 16 (b, m) between the
+// accumulators' promotions into ws (>= 1); ws: where promote is below the
+// chunks, B * ceil(M / 16), a float32 workspace of ceil(CI / 64) *
+// ceil(CO / 128) * (L rounded up to 4) tiles of 64 x 128 complex, 16-byte
+// aligned (its contents need not be set), else null. Returns the
+// cudaError_t of the launch (0 on success), or -1 for arguments the kernel
+// does not take.
+extern "C" int sdt_dhconv_wgrad(const void* x, const void* g, void* dw, void* ws, int promote,
+                                int B, int L, int M, int CI, int CO, void* stream) {
   using namespace k1w;
-  if (B <= 0 || L <= 0 || M <= 0 || CI <= 0 || CO <= 0) return -1;
+  if (B <= 0 || L <= 0 || M <= 0 || CI <= 0 || CO <= 0 || promote <= 0) return -1;
+  if (promote < (long long)B * ((M + kK - 1) / kK) && ws == nullptr) return -1;
   const long long ly = (long long)(L + kCluster - 1) / kCluster * kCluster;
   const long long tiles = (long long)((CI + kCi - 1) / kCi) * ((CO + kCo - 1) / kCo);
   if (ly > 65535 || tiles > 0x7FFFFFFF || (long long)B * ((M + kK - 1) / kK) > 0x7FFFFFFF)
@@ -620,6 +668,6 @@ extern "C" int sdt_dhconv_wgrad(const void* x, const void* g, void* dw, int B, i
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)tiles, (unsigned)ly);
   dhconv_wgrad_tc_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
-      (const float2*)x, (const float2*)g, (float2*)dw, B, L, M, CI, CO);
+      (const float2*)x, (const float2*)g, (float2*)dw, (float4*)ws, promote, B, L, M, CI, CO);
   return (int)cudaGetLastError();
 }

@@ -220,6 +220,8 @@ class StochasticModalTimeSeries(TimeSeriesSource):
         self.n_timesteps = int(n_timesteps)
         self.spatial_shape = tuple(spatial_shape)
         self.omega_px = int(omega_px)
+        self.ou_rho = float(rho)
+        self.ou_sigma = float(sigma)
         H, W = self.spatial_shape
         V, K = len(self.names), int(n_modes)
         rng = np.random.default_rng(seed)
@@ -266,6 +268,12 @@ class StochasticModalTimeSeries(TimeSeriesSource):
                 frames[i] = det + np.einsum("k,khw->hw", self._a[t, v], self._modes[v])
             out[n] = frames
         return out
+
+    def conditional_forecast_std(self, h: int) -> float:
+        """The stationary per-mode std of a(t + h) given a(t),
+        ``sigma sqrt(1 - rho^(2h))``: the irreducible spread that a
+        calibrated h-step ensemble should match."""
+        return self.ou_sigma * float(np.sqrt(1.0 - self.ou_rho ** (2 * h)))
 
 
 class ChaoticModalTimeSeries(TimeSeriesSource):

@@ -38,7 +38,7 @@ _ROW_MAP = [_I] * 5  # K2/K3's dropout row map (csrc/fused_mlp.cu, RowMap)
 _SIGNATURES = {
     "sdt_dhconv_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sdt_dhconv_weight_image": [_P, _P, _I, _I, _I, _I, _P],
-    "sdt_dhconv_wgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sdt_dhconv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sdt_fused_mlp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       ctypes.c_ulonglong, _I] + _ROW_MAP + [_P],
     "sdt_fused_block_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

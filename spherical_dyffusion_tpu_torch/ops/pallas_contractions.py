@@ -34,7 +34,10 @@ result written in the weight's layout by clusters of four l.
 ``dhconv_weight_grad`` launches it for CUDA tensors and counts the launch
 in ``dhconv_weight_grad.launches``; for CPU tensors it computes the plain
 version, ``dhconv_weight_grad_plain`` (one float32 ``torch.bmm`` with TF32
-off whatever the process's setting).
+off whatever the process's setting). The tensor cores round each
+accumulation toward zero, so over a long sum (K = B M grows with the batch)
+the kernel adds its accumulators into a float32 workspace every
+``wgrad_promote`` chunks and restarts them (the source's note).
 """
 
 from __future__ import annotations
@@ -50,13 +53,26 @@ from .contractions import contract_dhconv
 __all__ = ["dhconv", "dhconv_plain", "DhconvFunction", "dhconv_weight_grad",
            "dhconv_weight_grad_plain", "dhconv_weight_image", "dhconv_weight_image_plain",
            "conj_transpose", "split_tf32", "WeightImageCache", "IMAGE_CO", "IMAGE_CI",
-           "WGRAD_K"]
+           "WGRAD_K", "wgrad_promote"]
 
 dhconv_plain = contract_dhconv
 
 IMAGE_CO = 128  # co per column tile of the image: the kernel's N
 IMAGE_CI = 16   # ci per chunk: K = 32 floats, one 128-byte row
 WGRAD_K = 16    # (b, m) per chunk of dW's kernel: each b's m padded to a multiple
+WGRAD_TILE = (64, 128, 4)  # dW's block: ci, co, and the cluster's consecutive l
+WGRAD_SUM_BUDGET = 576  # chunks x promote: bounds dW's accumulation error
+
+
+def wgrad_promote(B: int, M: int) -> int:
+    """Chunks of ``WGRAD_K`` (b, m) that ``dhconv_wgrad_tc_kernel`` sums in
+    its accumulators before it adds them into its workspace: the largest
+    that keeps chunks x promote within ``WGRAD_SUM_BUDGET`` (at least 1).
+    Where it is not below the chunks, ``B * ceil(M / WGRAD_K)``, the kernel
+    never promotes and needs no workspace: at the main path's B = 1 and 2
+    (12 and 24 chunks); the full skill preset's 80 promote every 7."""
+    chunks = B * -(-M // WGRAD_K)
+    return max(1, WGRAD_SUM_BUDGET // chunks)
 
 
 def split_tf32(a: torch.Tensor):
@@ -248,9 +264,17 @@ def dhconv_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     B = math.prod(x.shape[:-4])
     dw = torch.empty((CI, CO, L, 2), device=x.device, dtype=torch.float32)
     x, g = x.contiguous(), g.contiguous()
+    promote = wgrad_promote(B, M)
+    ws = None
+    if promote < B * -(-M // WGRAD_K):  # one 64 x 128 complex tile a block
+        tci, tco, cl = WGRAD_TILE
+        blocks = -(-CI // tci) * -(-CO // tco) * (-(-L // cl) * cl)
+        ws = torch.empty(blocks * tci * tco * 2, device=x.device, dtype=torch.float32)
     lib = _cuda.library()
-    _cuda.check(lib.sdt_dhconv_wgrad(x.data_ptr(), g.data_ptr(), dw.data_ptr(), B, L, M, CI,
-                                     CO, _cuda.stream_ptr(x.device)), "dhconv_weight_grad")
+    _cuda.check(lib.sdt_dhconv_wgrad(x.data_ptr(), g.data_ptr(), dw.data_ptr(),
+                                     ws.data_ptr() if ws is not None else None, promote, B, L,
+                                     M, CI, CO, _cuda.stream_ptr(x.device)),
+                "dhconv_weight_grad")
     dhconv_weight_grad.launches += 1
     return dw
 

@@ -110,8 +110,8 @@ from .experiments import SimultaneousForecastingExperiment, stack_window
 from .optim import AdamWLowMu
 from .schedules import get_scheduler
 
-__all__ = ["TrainerConfig", "TrainState", "Trainer", "decays", "grad_histogram",
-           "histogram_wire"]
+__all__ = ["TrainerConfig", "TrainState", "Trainer", "decays", "ensemble_members",
+           "grad_histogram", "histogram_wire"]
 
 MU_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 HIST_BINS = 64
@@ -283,6 +283,22 @@ def zero_axis(shape, dp: int) -> Optional[int]:
         if shape[ax] % dp == 0:
             return ax
     return None
+
+
+def ensemble_members(fn, E: int, B: int, chunk: Optional[int] = None):
+    """E ensemble members of ``fn(n)`` (n members tiled along the batch
+    axis, B rows each, each member with its own dropout draws), run in
+    chunks of ``chunk`` members (all at once where None): (E, B, ...), or a
+    dict of them where ``fn`` returns a dict."""
+    chunk = chunk or E
+    parts = [fn(min(chunk, E - start)) for start in range(0, E, chunk)]
+
+    def split(xs):
+        return torch.cat([x.reshape((-1, B) + x.shape[1:]) for x in xs])
+
+    if isinstance(parts[0], dict):
+        return {k: split([p[k] for p in parts]) for k in parts[0]}
+    return split(parts)
 
 
 def _is_writer() -> bool:
@@ -686,9 +702,9 @@ class Trainer:
         seed = int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0])
         return torch.Generator().manual_seed(seed)
 
-    def _read_rows(self, ds, rows, keys) -> Dict[str, torch.Tensor]:
+    def _read_rows(self, ds, rows, keys, pin: bool = True) -> Dict[str, torch.Tensor]:
         """Samples ``rows`` of ``ds`` stacked per key into host tensors,
-        pinned when the trainer is on the card."""
+        pinned when the trainer is on the card (and ``pin``)."""
         rows = [int(i) for i in rows]
         first = ds[rows[0]]
         out = {k: np.empty((len(rows),) + np.shape(first[k]), np.asarray(first[k]).dtype)
@@ -698,7 +714,7 @@ class Trainer:
             for k in keys:
                 out[k][j] = s[k]
         host = {k: torch.from_numpy(v) for k, v in out.items()}
-        if self.device.type == "cuda":
+        if pin and self.device.type == "cuda":
             host = {k: v.pin_memory() for k, v in host.items()}
         return host
 
@@ -735,7 +751,8 @@ class Trainer:
         seconds of its copy to the device, by CUDA events on the card) or
         ``"segment_wait_s"`` (per epoch, the host's wait for each segment).
         ``mark`` goes to every ``train_step`` (``main_path.fused_epoch``
-        times the steps with it)."""
+        times the steps with it). ``upload``'s ``host_s`` holds ``pin_s``,
+        the seconds of pinning the stacked set (None on the CPU)."""
         cfg = self.cfg
         self._logger = logger  # for the uploads of _save_epoch
         epochs = epochs if epochs is not None else cfg.epochs
@@ -752,7 +769,10 @@ class Trainer:
         data = None
         if segment_samples is None:
             t0 = time.perf_counter()
-            host = self._read_rows(ds, range(n), keys)
+            host = self._read_rows(ds, range(n), keys, pin=False)
+            t_read = time.perf_counter()
+            if cuda:
+                host = {k: v.pin_memory() for k, v in host.items()}
             t1 = time.perf_counter()
             marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if cuda else None
             if cuda:
@@ -761,7 +781,8 @@ class Trainer:
             if cuda:
                 marks[1].record()
             upload = dict(bytes=sum(v.numel() * v.element_size() for v in host.values()),
-                          host_s=t1 - t0, copy_s=None if cuda else time.perf_counter() - t1)
+                          host_s=t1 - t0, pin_s=t1 - t_read if cuda else None,
+                          copy_s=None if cuda else time.perf_counter() - t1)
             del host
         else:
             segment_samples = min(max(bs, (segment_samples // bs) * bs), spe * bs)
@@ -830,22 +851,6 @@ class Trainer:
             out["ssr"] = torch.mean(M.spread_skill_ratio(target, preds_e, wc, dim=(-3, -2, -1)))
         return out
 
-    def _members(self, fn, E: int, B: int):
-        """E ensemble members of ``fn(n)`` (n members tiled along the batch
-        axis, each with its own dropout draws), in chunks of
-        ``val_ensemble_chunk``; returns (E, B, ...) or a dict of them."""
-        chunk = self.cfg.val_ensemble_chunk or E
-        parts = []
-        for start in range(0, E, chunk):
-            parts.append(fn(min(chunk, E - start)))
-
-        def split(xs):
-            return torch.cat([x.reshape((-1, B) + x.shape[1:]) for x in xs])
-
-        if isinstance(parts[0], dict):
-            return {k: split([p[k] for p in parts]) for k in parts[0]}
-        return split(parts)
-
     @torch.no_grad()
     def validate(self, state: TrainState, max_batches: int = 4) -> Dict[str, float]:
         """Ensemble RMSE (+ CRPS and SSR when stochastic) per horizon step,
@@ -913,7 +918,8 @@ class Trainer:
                     return exp.predict(perturb(tile(inputs, n)), time=t, condition=tile(c, n),
                                        generator=gen, use_inference_dropout=use_do)
 
-                preds_e = out_norm.denormalize(self._members(member, E, B))
+                preds_e = out_norm.denormalize(
+                    ensemble_members(member, E, B, self.cfg.val_ensemble_chunk))
                 per_h.append(self._ens_metrics(preds_e, dyn[:, target_time][..., out_idx], w))
         else:  # forecasting: the full sampling loop per member
             E = self._val_ensemble
@@ -926,7 +932,7 @@ class Trainer:
                                   dynamical_condition=tile(cond, n))
                 return {h: out.preds[h] for h in valid if h in out.preds}
 
-            preds = self._members(member, E, B)
+            preds = ensemble_members(member, E, B, self.cfg.val_ensemble_chunk)
             for h, p in preds.items():
                 target = dyn[:, exp.cfg.window + h - 1][..., out_idx]
                 per_h.append(self._ens_metrics(out_norm.denormalize(p), target, w))

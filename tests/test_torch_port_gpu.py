@@ -1394,3 +1394,104 @@ def test_nccl_group_of_one_runs_the_distributed_transforms(cuda, tmp_path):
         assert _rel_err(distributed_dhconv(want, w, mesh, scatter_output=False), conv) < 1e-6
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------------ the skill studies
+
+
+@pytest.mark.parametrize("B,L,M,C", [(16, 64, 65, 64), (8, 16, 17, 16)])
+def test_k1_forward_dx_dw_at_the_skill_studies_shapes(cuda, B, L, M, C):
+    """K1's forward, dx and dW at CI = CO = 64 (the full preset of
+    ``scripts/skill_proof.py``: half of K1's 128-wide column tile) and 16
+    (the mini preset: L = 16, four of dW's clusters of four l), against
+    the plain version and autograd of it, 1e-5 of the largest entry; one
+    forward, one dx and one dW launch."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    x = torch.randn((B, L, M, C, 2), device=cuda, generator=g, requires_grad=True)
+    w = (torch.randn((C, C, L, 2), device=cuda, generator=g) / C).requires_grad_()
+    gy = torch.randn((B, L, M, C, 2), device=cuda, generator=g)
+    k1, dx_n, dws = dhconv.launches, dhconv.dx_launches, dhconv_weight_grad.launches
+    y = dhconv(x, w)
+    dx, dw = torch.autograd.grad(y, (x, w), gy)
+    torch.cuda.synchronize()
+    assert (dhconv.launches - k1, dhconv.dx_launches - dx_n) == (2, 1)
+    assert dhconv_weight_grad.launches == dws + 1
+    want = dhconv_plain(x, w)
+    want_dx, want_dw = torch.autograd.grad(want, (x, w), gy)
+    assert _rel_err(y, want) < 1e-5
+    assert _rel_err(dx, want_dx) < 1e-5
+    assert _rel_err(dw, want_dw) < 1e-5
+
+
+def test_skill_interpolator_fit_through_k1_matches_the_plain_path(cuda):
+    """20 steps of ``Trainer.fit_in_memory`` of ``skill_proof``'s mini
+    interpolator (MLP dropout live, AdamW, warmup, EMA) through K1's
+    forward, dx and dW against the same fit with ``use_pallas=False`` (the
+    plain einsum, TF32 off) from the same weights, data and seed: the loss
+    at every step within 1e-4 relative. The weights change at every step,
+    so K1's weight images are made again each step (the trained network's
+    forward and conjugate-transposed image of each of its blocks); an image
+    served stale across an update would show here as a loss gap that grows
+    step by step, and in the images counted."""
+    import dataclasses
+
+    from spherical_dyffusion_tpu_torch.scripts import skill_proof
+    from spherical_dyffusion_tpu_torch.training.experiments import (
+        ExperimentConfig,
+        InterpolationExperiment,
+    )
+    from spherical_dyffusion_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    steps = 20
+    args = skill_proof.parser().parse_args(["--preset=mini"])
+    P = skill_proof.preset(args)
+    dm = skill_proof.datamodule(P, "ou")
+    cfg = skill_proof.sfno_config(P, args, interpolator=True)
+    assert cfg.use_pallas
+    init = None
+    out = {}
+    for k1 in (True, False):
+        model = SFNO(dataclasses.replace(cfg, use_pallas=k1)).to(cuda)
+        if init is None:
+            model.init_weights(torch.Generator(device=cuda).manual_seed(0))
+            init = {n: v.clone() for n, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(init)
+        exp = InterpolationExperiment(
+            model, ExperimentConfig(horizon=P["horizon"], enable_inference_dropout=True),
+            dm.in_packer, dm.out_packer, dm.normalizer)
+        tr = Trainer(exp, dm, TrainerConfig(lr=P["lr_interp"], epochs=1, use_ema=True,
+                                            warmup_steps=50, steps_per_epoch=steps, seed=0))
+        images, launches = dhconv_weight_image.launches, dhconv_weight_grad.launches
+        hist = tr.fit_in_memory(verbose=False, val_every=10 ** 9)
+        out[k1] = (hist["step_losses"], dhconv_weight_image.launches - images,
+                   dhconv_weight_grad.launches - launches)
+    (losses, images, dws), (plain, plain_images, plain_dws) = out[True], out[False]
+    assert len(losses) == len(plain) == steps
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+    assert max(gaps) < 1e-4, gaps
+    assert images == 2 * cfg.num_layers * steps and plain_images == 0
+    assert dws == cfg.num_layers * steps and plain_dws == 0
+
+
+@pytest.mark.parametrize("lead,L,M,CI,CO", [((16,), 5, 65, 64, 64), ((4,), 3, 181, 40, 130),
+                                             ((60,), 2, 150, 33, 48), ((8,), 16, 17, 16, 16)])
+def test_dhconv_weight_grad_promotes_over_long_sums(cuda, lead, L, M, CI, CO):
+    """Over long sums (K = B M) dW's kernel adds its accumulators into its
+    workspace every ``wgrad_promote`` chunks: 80 chunks promoting every 7
+    (the full skill preset's CI = CO = 64), 48 every 12 with partial ci and
+    co tiles, 600 every chunk, and 16 never (the mini preset's); each
+    within 1e-5 of the largest entry of the plain version in float64, as the
+    short sums are, and the same bits on a second call (each entry's sum
+    runs in a fixed order)."""
+    from spherical_dyffusion_tpu_torch.ops.pallas_contractions import wgrad_promote
+
+    g = torch.Generator(device=cuda).manual_seed(44)
+    x = torch.randn(lead + (L, M, CI, 2), device=cuda, generator=g)
+    gy = torch.randn(lead + (L, M, CO, 2), device=cuda, generator=g)
+    dw = dhconv_weight_grad(x, gy)
+    again = dhconv_weight_grad(x, gy)
+    torch.cuda.synchronize()
+    want = dhconv_weight_grad_plain(x.double(), gy.double())
+    assert _rel_err(dw, want) < 1e-5, (wgrad_promote(lead[0], M), _rel_err(dw, want))
+    assert torch.equal(dw, again)

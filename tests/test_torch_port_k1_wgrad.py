@@ -131,12 +131,13 @@ def test_dw_refuses_a_device_it_has_no_version_for():
 
 def test_dw_kernel_is_bound_and_its_module_imports_no_jax():
     """The kernel and its C entry are in K1's source with a signature of
-    nine arguments (three pointers, five ints, the stream), and the port's
+    eleven arguments (x, g, dW and the promotion workspace, the promotion
+    interval and five sizes, the stream), and the port's
     module that launches it imports nothing of JAX or the JAX package (the
     import scan of ``tests/test_torch_port_ops.py`` covers every module)."""
     src = (REPO / "spherical_dyffusion_tpu_torch" / "csrc" / "dhconv.cu").read_text()
     assert "dhconv_wgrad_tc_kernel(" in src and 'extern "C" int sdt_dhconv_wgrad(' in src
-    assert len(_cuda._SIGNATURES["sdt_dhconv_wgrad"]) == 9
+    assert len(_cuda._SIGNATURES["sdt_dhconv_wgrad"]) == 11
     tree = ast.parse(Path(pc.__file__).read_text())
     roots = set()
     for node in ast.walk(tree):
@@ -145,3 +146,24 @@ def test_dw_kernel_is_bound_and_its_module_imports_no_jax():
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             roots.add(node.module.split(".")[0])
     assert roots.isdisjoint({"jax", "flax", "optax", "spherical_dyffusion_tpu"})
+
+
+def test_wgrad_promotion_plan():
+    """dW's kernel sums at most ``WGRAD_SUM_BUDGET`` chunk-intervals' worth
+    in its accumulators (chunks x promote within the budget, promote at
+    least 1): the main path's B = 1 and 2 (12 and 24 chunks) never
+    promote, the full skill preset's (16, 64, 65, 64) promotes every 7 of
+    its 80 chunks."""
+    from spherical_dyffusion_tpu_torch.ops.pallas_contractions import (
+        WGRAD_SUM_BUDGET,
+        wgrad_promote,
+    )
+
+    assert wgrad_promote(1, 181) >= 12
+    assert wgrad_promote(2, 181) >= 24
+    assert wgrad_promote(16, 65) == 7
+    for B in (1, 2, 3, 7, 16, 40, 300):
+        for M in (5, 17, 65, 181):
+            chunks = B * -(-M // WGRAD_K)
+            p = wgrad_promote(B, M)
+            assert p >= 1 and (chunks * p <= WGRAD_SUM_BUDGET or p == 1), (B, M, p)

@@ -349,6 +349,8 @@ def test_port_imports_only_stdlib_torch_numpy_scipy_einops():
     card's machine has no jax, flax, optax, yaml or h5py."""
     files = _port_files()
     assert len(files) > 10
+    scripts = {p.name for p in files if p.parent.name == "scripts"}
+    assert {"skill_proof.py", "ace_skill.py", "skill_report.py"} <= scripts, scripts
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
