@@ -10,8 +10,9 @@ Phases, each timed:
    ``spherical_dyffusion_tpu_torch/csrc``, all started together, linked into
    one library; prints its seconds and the ``-Xptxas -v`` register, spill
    and shared-memory lines, and checks with ``cuobjdump -sass`` that K1's
-   TF32 kernel, the four bf16 K2/K3 instances and the two bf16 K4 instances
-   run their products as HGMMA (``wgmma``);
+   TF32 kernel, the two TF32 instances of dW's kernel (128 and 64 co a
+   block), the four bf16 K2/K3 instances and the two bf16 K4 instances run
+   their products as HGMMA (``wgmma``);
 2. K1 (dhconv, 3xTF32 on the tensor cores) at the main path's shape, batch 1
    and 2, through a weight image made once (the image kernel against its
    plain version, and timed apart), against its plain version, with the
@@ -83,10 +84,14 @@ Phases, each timed:
    CUDA kernels by total time and the kernel time by group;
 11. training (run right after the build, while the process holds nothing
    else, so that its peak memory is training's own): (a) K1's backward at the main path's shapes, batch
-   1 and 2: dx (K1 over the conjugate-transposed image) and dW (a float32
-   ``torch.bmm``) against autograd of the plain version, the backward image
+   1 and 2: dx (K1 over the conjugate-transposed image) and dW
+   (``dhconv_wgrad_tc_kernel``, its two instances, 128 and 64 co a block,
+   with the split partials' reduction where its plan splits) against
+   autograd of the plain version and its own plain version, the same bits on
+   a second call, its plan (splits, blocks, workspace), the backward image
    against its plain version, and the dx kernel (event loop and
-   ``device_ms``), the backward image, the dW product, one complex
+   ``device_ms``), the backward image, the dW kernel and its ratio to one
+   complex ``torch.matmul`` (also on the "w" = 2 and 4 shards), one complex
    ``torch.matmul`` computing dx and autograd of complex ``torch.matmul``
    (dx and dW) timed; (b) ``main_path.train_steps`` at 256 x 8, 180 x 360,
    float32, K1 on: 6 interpolator steps, then 6 forecaster steps with the
@@ -296,10 +301,13 @@ Phases, each timed:
    ``restore_orbax`` (``torch.distributed.checkpoint``) of a DCP_EMBED x
    DCP_LAYERS SFNO's state on the card, bit for bit, with bytes and seconds.
 
-22. the skill studies (run after phase 20, before the profile;
-   ``phase22``): K1's forward, dx and dW at the studies' shapes (CI = CO =
-   64 and 16) against their plain versions with their ms, the plain
-   version's and complex ``torch.matmul``'s; the port's ``skill_proof`` and
+22. the skill studies: (a) (run after phase 2, before any profiler pass,
+   since a call at these shapes is mostly the host's work; ``phase22a``)
+   K1's forward, dx and dW at the studies' shapes (CI = CO = 64 and 16)
+   against their plain versions with their ms, the plain version's and
+   complex ``torch.matmul``'s, and dW through its wrapper at 1, 3, 9 and the
+   plan's splits; (b)-(d) (run after phase 20, before the profile;
+   ``phase22``) the port's ``skill_proof`` and
    ``ace_skill --configs dense`` at the full preset's widths with their
    depth cut, ``tests/test_skill.py``'s gates on the report, and K1's
    forwards, dx, dW and weight images in every training step, counted by a
@@ -470,6 +478,46 @@ def check(ok: bool, what: str) -> None:
 def bound(flops: float, nbytes: float, peak: float):
     t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def dw_plan(x, gy) -> dict:
+    """``wgrad_plan`` of dW's kernel for x ``(..., L, M, CI, 2)`` and g
+    ``(..., L, M, CO, 2)``: its splits, chunks a split, promotion interval,
+    co a block, blocks and workspace MB."""
+    from spherical_dyffusion_tpu_torch.ops.pallas_contractions import wgrad_plan
+
+    L, M, CI = x.shape[-4:-1]
+    p = wgrad_plan(x.numel() // (L * M * CI * 2), L, M, CI, gy.shape[-2])
+    return dict(splits=p.splits, per_split=p.per_split, promote=p.promote,
+                co_tile=p.co_tile, blocks=p.blocks, workspace_mb=p.workspace * 4 / 1e6)
+
+
+def dw_plan_text(p: dict) -> str:
+    return (f"plan {p['splits']} split(s) of {p['per_split']} chunks, {p['blocks']} blocks of "
+            f"64 ci x {p['co_tile']} co, workspace {p['workspace_mb']:.2f} MB")
+
+
+def dw_by_plan(x, gy, want, plans, timed_ms) -> dict:
+    """dW through its wrapper at x ``(B, L, M, C, 2)``, g alike, under each
+    of ``plans`` (``wgrad_plan``'s keywords, such as ``splits``, in place
+    of the plan's own choice while it is timed): per plan the ms a
+    call in a loop of 200 calls and the device ms (queued behind a spin),
+    each result held to 1e-5 of ``want``'s largest entry."""
+    from spherical_dyffusion_tpu_torch.ops import pallas_contractions as pc
+
+    plan, ms = pc.wgrad_plan, {}
+    call = lambda: pc.dhconv_weight_grad(x, gy)  # noqa: E731
+    try:
+        for kw in plans:
+            key = ",".join(f"{k}={v}" for k, v in kw.items())
+            pc.wgrad_plan = lambda *a, kw=kw: plan(*a, **kw)
+            got = call()
+            err = float((got - want).abs().max() / want.abs().max())
+            check(err <= 1e-5, f"dW at {key} disagrees with its plain version ({err:.3e})")
+            ms[key] = dict(ms=timed_ms(call, 200), device_ms=timed_ms(call, 20, spin=True))
+    finally:
+        pc.wgrad_plan = plan
+    return ms
 
 
 def k4_library(xf, A, S, C):
@@ -4178,32 +4226,17 @@ def phase20(smi_line, wrappers, report, runs, oracle_job, device="cuda") -> None
     report["parity"] = rep
 
 
-def phase22(smi_line, wrappers, report, runs, device="cuda") -> None:
-    """Phase 22: the skill studies on the card (``scripts/skill_proof.py``
-    and ``scripts/ace_skill.py`` of the port), the dense dhconv through K1.
-    (a) K1's forward, its dx (K1 over the conjugate-transposed image) and dW
-    (``dhconv_wgrad_tc_kernel``) at the studies' shapes, CI = CO = 64 at the
-    full preset (x (16, 64, 65, 64), W (64, 64, 64)) and 16 at the mini one
-    (x (8, 16, 17, 16)), float32, against their plain versions (1e-5 of the
-    largest entry), with the event-loop and device ms; (b) ``skill_proof``
-    at the full preset's widths (64 x 128, 2 channels, embed 64 x 4, batch
-    16, horizon 6, ensemble 10, 150 steps an epoch, the OU system, MLP
-    dropout 0.15), its depth cut to SKILL_EPOCHS_INTERP + SKILL_EPOCHS_FC
-    epochs, a SKILL_ROLLOUT-step rollout and SKILL_N_TIMESTEPS training
-    frames (the cuts printed on a ``reduced`` line), its report held to
-    ``tests/test_skill.py``'s gates (thresholds below); (c) ``ace_skill
-    --configs dense`` at the full preset's widths, ACE_SKILL_EPOCHS epochs
-    and SKILL_N_TIMESTEPS frames, ``bounded``; (d) the K1
-    launches of every training step, counted by a hook on
-    ``Trainer.train_step`` (an interpolator step: 4 forwards, 4 dx, 4 dW; a
-    forecaster step: its own 4, 4 and 4 and the frozen interpolator's 4
-    forwards; a simultaneous step: 4, 4, 4) and the K1 weight images made
-    in each (the trained network's 8, made anew after every update: an
-    image served stale across an update would show as fewer), the median
-    step ms, each stage's seconds and the peak device memory. K2-K4 are
-    not on these paths and launch no time."""
-    import tempfile
-
+def phase22a(smi_line, report, device="cuda") -> None:
+    """Phase 22 (a): K1's forward, its dx (K1 over the conjugate-transposed
+    image) and dW (``dhconv_wgrad_tc_kernel``) at the skill studies' shapes,
+    CI = CO = 64 at the full preset (x (16, 64, 65, 64), W (64, 64, 64))
+    and 16 at the mini one (x (8, 16, 17, 16)), float32, against their plain
+    versions (1e-5 of the largest entry), with the event-loop and device ms,
+    and dW's plan, the same bits on its second call, its ratio to one
+    complex ``torch.matmul`` and its times at other splits. At these shapes
+    a call is mostly the host's work, which a torch.profiler session leaves
+    slower for the rest of the process, so it runs after phase 2, before
+    any profiler pass."""
     import torch
 
     from spherical_dyffusion_tpu_torch.ops.pallas_contractions import (
@@ -4214,8 +4247,6 @@ def phase22(smi_line, wrappers, report, runs, device="cuda") -> None:
         dhconv_weight_grad_plain,
         dhconv_weight_image,
     )
-    from spherical_dyffusion_tpu_torch.scripts import ace_skill, skill_proof
-    from spherical_dyffusion_tpu_torch.training.trainer import Trainer
 
     dev = torch.device(device)
     cuda = dev.type == "cuda"
@@ -4277,10 +4308,27 @@ def phase22(smi_line, wrappers, report, runs, device="cuda") -> None:
             got = kernel()
             want = plain()
             abs_err, rel_err = rel(got, want)
+            # 200 calls of kernel and library alike: at these shapes a call is
+            # mostly the host's work, which 20 calls time poorly
             shape[name] = dict(max_abs_err=abs_err, max_rel_err=rel_err,
-                               ms=timed_ms(kernel, 20), device_ms=timed_ms(kernel, 20, spin=True),
-                               plain_ms=timed_ms(plain, 5), library_ms=timed_ms(library, 20),
+                               ms=timed_ms(kernel, 200), device_ms=timed_ms(kernel, 20, spin=True),
+                               plain_ms=timed_ms(plain, 5), library_ms=timed_ms(library, 200),
                                bound_ms=bound_ms, bound_by=bound_by)
+            if name == "dw":
+                check(torch.equal(got, kernel()), f"two calls of dW's kernel differ at "
+                                                  f"{(B, L, M, C)}")
+                plan = dw_plan(x, gy)
+                shape[name].update(plan=plan)
+                if cuda:
+                    ratio = shape[name]["ms"] / shape[name]["library_ms"]
+                    # the plan's choice against others, each through the wrapper
+                    plans = [dict(splits=n) for n in sorted({1, 3, 9, plan["splits"]})]
+                    by_plan = dw_by_plan(x, gy, want, plans, timed_ms)
+                    shape[name].update(vs_library=ratio, by_plan=by_plan)
+                    log(f"phase 22 (a) dW at {(B, L, M, C)}: {dw_plan_text(plan)}; the same bits "
+                        f"on a second call; dW kernel against complex torch.matmul {ratio:.3f}x; "
+                        f"through the wrapper by splits (the plan's choice against others), ms "
+                        f"a call in a loop and device ms: {by_plan}")
             log(f"phase 22 (a) K1 {name} at the {preset_name} preset's shape x {(B, L, M, C)} "
                 f"x W ({C}, {C}, {L}): max abs err {abs_err:.3e} (rel {rel_err:.3e}, tolerance "
                 f"1e-5) against its plain version; {shape[name]['ms']} ms a call in a loop "
@@ -4296,6 +4344,43 @@ def phase22(smi_line, wrappers, report, runs, device="cuda") -> None:
     report["K1"]["studies"] = {k: v["forward"] for k, v in rep.items()}
     report["K1_bwd"]["studies"] = {k: v["dx"] for k, v in rep.items()}
     report["K1_dw"]["studies"] = {k: v["dw"] for k, v in rep.items()}
+    report["studies"] = rep
+
+
+def phase22(smi_line, wrappers, report, runs, device="cuda") -> None:
+    """Phase 22: the skill studies on the card (``scripts/skill_proof.py``
+    and ``scripts/ace_skill.py`` of the port), the dense dhconv through K1.
+    (a) is ``phase22a``, run before any profiler pass; (b) ``skill_proof``
+    at the full preset's widths (64 x 128, 2 channels, embed 64 x 4, batch
+    16, horizon 6, ensemble 10, 150 steps an epoch, the OU system, MLP
+    dropout 0.15), its depth cut to SKILL_EPOCHS_INTERP + SKILL_EPOCHS_FC
+    epochs, a SKILL_ROLLOUT-step rollout and SKILL_N_TIMESTEPS training
+    frames (the cuts printed on a ``reduced`` line), its report held to
+    ``tests/test_skill.py``'s gates (thresholds below); (c) ``ace_skill
+    --configs dense`` at the full preset's widths, ACE_SKILL_EPOCHS epochs
+    and SKILL_N_TIMESTEPS frames, ``bounded``; (d) the K1
+    launches of every training step, counted by a hook on
+    ``Trainer.train_step`` (an interpolator step: 4 forwards, 4 dx, 4 dW; a
+    forecaster step: its own 4, 4 and 4 and the frozen interpolator's 4
+    forwards; a simultaneous step: 4, 4, 4) and the K1 weight images made
+    in each (the trained network's 8, made anew after every update: an
+    image served stale across an update would show as fewer), the median
+    step ms, each stage's seconds and the peak device memory. K2-K4 are
+    not on these paths and launch no time."""
+    import tempfile
+
+    import torch
+
+    from spherical_dyffusion_tpu_torch.ops.pallas_contractions import (
+        dhconv,
+        dhconv_weight_grad,
+        dhconv_weight_image,
+    )
+    from spherical_dyffusion_tpu_torch.scripts import ace_skill, skill_proof
+    from spherical_dyffusion_tpu_torch.training.trainer import Trainer
+
+    cuda = torch.device(device).type == "cuda"
+    rep = report.setdefault("studies", {})  # phase22a's K1 figures first
 
     # (d) the hook: K1's launches and images per training step
     counters = (dhconv, "dx_launches"), (dhconv_weight_grad, "launches"), \
@@ -4577,7 +4662,7 @@ def main() -> int:
                 hgmma[fn] = 0
             elif fn is not None and "HGMMA" in line:
                 hgmma[fn] += 1
-        for kernel, n in (("dhconv_tc_kernel", 1), ("dhconv_wgrad_tc_kernel", 1),
+        for kernel, n in (("dhconv_tc_kernel", 1), ("dhconv_wgrad_tc_kernel", 2),
                           ("fused_mlp_tc_kernel", 4), ("fused_rank_tc_kernel", 2)):
             tc = {k: v for k, v in hgmma.items() if kernel in k}
             for k, v in tc.items():
@@ -4618,11 +4703,14 @@ def main() -> int:
             dev_ms = device_ms(lambda: dhconv(gy, wct, img_t), 20)
             plain_ms = timed(lambda: dhconv_plain(gy, conj_transpose(w)), 5)
             dw_k = dhconv_weight_grad(x, gy)
+            dw_again = dhconv_weight_grad(x, gy)
             dw_p = dhconv_weight_grad_plain(x, gy)
             torch.cuda.synchronize()
             dwk_err, dwk_rel = errs(dw_k, dw_p)
             check(dwk_rel <= 1e-5, f"dW's kernel disagrees with its plain version (B={B})")
-            del dw_k, dw_p
+            check(torch.equal(dw_k, dw_again), f"two calls of dW's kernel differ (B={B})")
+            plan = dw_plan(x, gy)
+            del dw_k, dw_again, dw_p
             dw_ms = timed(lambda: dhconv_weight_grad(x, gy), 20)
             dw_dev_ms = device_ms(lambda: dhconv_weight_grad(x, gy), 20)
             dw_plain_ms = timed(lambda: dhconv_weight_grad_plain(x, gy), 5)
@@ -4647,10 +4735,12 @@ def main() -> int:
                 f"wrapper ({dev_ms:.4f} ms on the device, queued behind a spin), plain {plain_ms:.4f} ms, "
                 f"complex torch.matmul {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by}); the backward image {image_t_ms:.4f} ms (once per step per "
-                f"filter); dW kernel {dw_ms:.4f} ms ({dw_dev_ms:.4f} ms on the device), max abs "
+                f"filter); dW kernel {dw_ms:.4f} ms ({dw_dev_ms:.4f} ms on the device; "
+                f"{dw_plan_text(plan)}; the same bits on a second call), max abs "
                 f"err {dwk_err:.3e} (rel {dwk_rel:.3e}) against its plain version (float32 "
                 f"torch.bmm, tolerance 1e-5 of the largest entry) at {dw_plain_ms:.4f} ms, "
-                f"complex torch.matmul {dw_library_ms:.4f} ms, its bound {dw_bound:.4f} ms "
+                f"complex torch.matmul {dw_library_ms:.4f} ms (dW kernel against complex "
+                f"torch.matmul {dw_ms / dw_library_ms:.3f}x), its bound {dw_bound:.4f} ms "
                 f"({dw_by}; {dw_bound3:.4f} ms as 3xTF32, {dw_by3}); autograd of complex "
                 f"torch.matmul (dx and dW) {autograd_ms:.4f} ms "
                 f"against dx + dW here {ms + dw_ms:.4f} ms, on {smi_line}")
@@ -4663,7 +4753,8 @@ def main() -> int:
                              device_ms=dw_dev_ms, plain_ms=dw_plain_ms,
                              library_ms=dw_library_ms, bound_ms=dw_bound, bound_by=dw_by,
                              bound_ms_3xtf32=dw_bound3, autograd_complex_matmul_ms=autograd_ms,
-                             dx_plus_dw_ms=ms + dw_ms)
+                             dx_plus_dw_ms=ms + dw_ms, plan=plan,
+                             vs_library=dw_ms / dw_library_ms)
             del x, gy, xl, wl, dx, dw, want_dx, want_dw, gc, wc, xc, wcl, yc
         report["K1_bwd"] = dict(bwd[1], image_t_ms=image_t_ms,
                                 **{f"{k}_b2": v for k, v in bwd[2].items()})
@@ -4675,11 +4766,14 @@ def main() -> int:
             x = torch.randn((1, L, M, CIs, 2), device=dev, generator=g)
             gy = torch.randn((1, L, M, CO, 2), device=dev, generator=g)
             dw_k = dhconv_weight_grad(x, gy)
+            dw_again = dhconv_weight_grad(x, gy)
             dw_p = dhconv_weight_grad_plain(x, gy)
             torch.cuda.synchronize()
             s_err, s_rel = errs(dw_k, dw_p)
             check(s_rel <= 1e-5, f"dW's kernel disagrees with its plain version (CI {CIs})")
-            del dw_k, dw_p
+            check(torch.equal(dw_k, dw_again), f"two calls of dW's kernel differ (CI {CIs})")
+            plan = dw_plan(x, gy)
+            del dw_k, dw_again, dw_p
             s_ms = timed(lambda: dhconv_weight_grad(x, gy), 20)
             s_dev = device_ms(lambda: dhconv_weight_grad(x, gy), 20)
             s_plain = timed(lambda: dhconv_weight_grad_plain(x, gy), 5)
@@ -4689,13 +4783,16 @@ def main() -> int:
             s_bound, s_by = bound(s_flops, s_bytes, TF32_PEAK)
             s_bound3, s_by3 = bound(3 * s_flops, s_bytes, TF32_PEAK)
             log(f"dW on the \"w\" = {CI // CIs} shard (1, {L}, {M}) x CI {CIs} -> {CO}: kernel "
-                f"{s_ms:.4f} ms ({s_dev:.4f} ms on the device), max abs err {s_err:.3e} (rel "
+                f"{s_ms:.4f} ms ({s_dev:.4f} ms on the device; {dw_plan_text(plan)}; the same "
+                f"bits on a second call), max abs err {s_err:.3e} (rel "
                 f"{s_rel:.3e}) against its plain version at {s_plain:.4f} ms, complex "
-                f"torch.matmul {s_lib:.4f} ms, bound {s_bound:.4f} ms ({s_by}; {s_bound3:.4f} "
+                f"torch.matmul {s_lib:.4f} ms (dW kernel against complex torch.matmul "
+                f"{s_ms / s_lib:.3f}x), bound {s_bound:.4f} ms ({s_by}; {s_bound3:.4f} "
                 f"ms as 3xTF32), on {smi_line}")
             shards[f"ci{CIs}"] = dict(max_abs_err=s_err, max_rel_err=s_rel, ms=s_ms,
                                       device_ms=s_dev, plain_ms=s_plain, library_ms=s_lib,
-                                      bound_ms=s_bound, bound_by=s_by, bound_ms_3xtf32=s_bound3)
+                                      bound_ms=s_bound, bound_by=s_by, bound_ms_3xtf32=s_bound3,
+                                      plan=plan, vs_library=s_ms / s_lib)
             del x, gy
         report["K1_dw"] = dict(dw_rep[1], **{f"{k}_b2": v for k, v in dw_rep[2].items()},
                                shards=shards)
@@ -5007,6 +5104,10 @@ def main() -> int:
     # tie in the two versions; the outputs then move by about one bf16 ulp
     # of a hidden value times a weight. float32: sums in another order.
     tol_bf16, tol_f32 = 1e-2, 1e-5
+
+    with Phase("22 (a) K1's forward, dx and dW at the skill studies' shapes (before any "
+               "profiler pass)"):
+        phase22a(smi_line, report)
 
     with Phase("3 K2 fused MLP"):
         x = torch.randn((N, C), device=dev, generator=g).bfloat16()
@@ -5601,8 +5702,8 @@ def main() -> int:
                "packer, profiling, DCP checkpoints"):
         phase20(smi_line, wrappers, report, runs, oracle_job)
 
-    with Phase("22 the skill studies at the full preset's widths (K1, dx and dW at their "
-               "shapes, skill_proof and ace_skill through K1, launches a training step)"):
+    with Phase("22 the skill studies at the full preset's widths (skill_proof and ace_skill "
+               "through K1, launches a training step)"):
         phase22(smi_line, wrappers, report, runs)
 
     # the profile runs last: a torch.profiler session leaves a launch cost

@@ -303,93 +303,145 @@ __global__ void dhconv_weight_image_kernel(const float* __restrict__ w, float* _
 // M, CI) and g (B, L, M, CO) complex as float2, contiguous; dW is the
 // weight's own (CI, CO, L, 2) float32 layout.
 //
-// The complex product as two real GEMMs over K' = 2 B M, the (b, m, re/im)
-// triples, that share one staged operand (K1's trick, mirrored): with B[co,
-// (k, re)] = gr and B[co, (k, im)] = gi, the real part is A' . B with A'[ci,
-// (k, re)] = xr, A'[ci, (k, im)] = xi, and the imaginary part A'' . B with
-// A'' = (-xi, xr). The staged g (the larger tile) is written once, x twice,
-// and the epilogue writes dW with no pass over a real product.
+// The complex product as two real GEMMs over K' = the (b, m, re/im) of an l
+// that share one staged operand (K1's trick, mirrored): with B[co, (k, re)]
+// = gr and B[co, (k, im)] = gi, the real part is A' . B with A'[ci, (k, re)]
+// = xr, A'[ci, (k, im)] = xi, and the imaginary part A'' . B with A'' =
+// (-xi, xr). The staged g is written once, x twice, and the epilogue writes
+// dW with no pass over a real product.
 //
 // What bounds it on the H100: at the main path's shapes (B = 1, L = 180, M =
 // 181, CI = CO = 256) the three TF32 passes do 3 x 17.08 GFLOP, 0.1035 ms at
 // 495 TFLOP/s, against 228 MB of compulsory traffic (x and g 66.7 MB each,
-// dW 94.4 MB), 0.0680 ms at 3.35 TB/s: operations bound it.
+// dW 94.4 MB), 0.0680 ms at 3.35 TB/s: operations bound it. At the skill
+// studies' (16, 64, 65, 64) the bytes do (0.0210 ms against 0.0132).
 //
 // Design. One block is one warpgroup that owns 64 ci (wgmma's M) by 128 co
-// (each GEMM's N) of one l; the real and imaginary accumulators take 64
-// float32 registers each. K runs in chunks of 16 (b, m) (32 floats, one
-// 128-byte swizzle row); each b's m are zero-padded to a multiple of 16 (a
-// chunk never crosses b, whose rows lie L M CI apart), 192 for M = 181.
-// Both operands arrive MN-major (a row (b, l, m) holds its ci, or co,
-// contiguous) and TF32 wgmma reads only K-major tiles, so both are staged
-// through registers: each thread loads its 8 x and 16 g values of the next
+// (each GEMM's N; 64 where CO <= 64, so that no product multiplies padding)
+// of one l and one split of its rows; the real and imaginary accumulators
+// take kCo / 2 float32 registers each. The B M rows (b, m) of an l are one
+// sequence, taken in chunks of 16 (32 floats, one 128-byte swizzle row)
+// across b boundaries; only the last chunk is clamped and zeroed. Both
+// operands arrive MN-major (a row (b, l, m) holds its ci, or co, contiguous)
+// and TF32 wgmma reads only K-major tiles, so both are staged through
+// registers: each thread loads its 8 x and 8 or 16 g values of the next
 // chunk (16-byte loads of a ci or co pair) while the tensor cores work on
 // this one, then splits them into hi and lo and stores them transposed into
 // the K-major swizzle (16-byte stores of a k pair; a warp's store covers 8
 // rows by 16 k, four wavefronts of 512 bytes, no conflict). A'' is written
-// from the split of A' (the rounding is odd). Shared memory 65 KB, two blocks an
-// SM: A' hi, A' lo, A'' hi, A'' lo (64 x 32 floats, 8 KB each), B hi, B lo
-// (128 x 32, 16 KB each). Per chunk 4 k-steps x 2 GEMMs x 3 passes = 24
-// m64n128k8 products. Blocks of one l are adjacent in launch order, so its
-// x and g slices come from device memory about once per call and from L2 to
-// the others.
+// from the split of A' (the rounding is odd). Shared memory 65 KB (49 KB at
+// 64 co), two blocks an SM, so that one block's
+// staging, first loads and epilogue run while the other's products do: A'
+// hi, A' lo, A'' hi, A'' lo (64 x 32 floats, 8 KB each), B hi, B lo (kCo x
+// 32). Per chunk 4 k-steps x
+// 2 GEMMs x 3 passes = 24 products. Blocks of one l are adjacent in launch
+// order, so its x and g slices come from device memory about once per call
+// and from L2 to the others.
+// The split (blockIdx.z; the wrapper's plan, ops/pallas_contractions.py:
+// wgrad_plan): where the tiles of all l are fewer than the card's 132 SMs
+// and there are at least 16 chunks, the chunks are cut into splits that
+// give every SM a block and keep the grid within 198 blocks (3/4 of two an
+// SM; at the studies' shape 192 blocks ran faster than 256 to 576 on an
+// H100): at (16, 64, 65, 64) one 64 x 64 tile an l, 65 chunks in 3 splits
+// of 22, 192 blocks where 64 were. Split 0 writes dW, split z > 0
+// its partial into slice z - 1 of the float32 workspace `ws`, laid out as
+// dW; then a second kernel, dhconv_wgrad_reduce_kernel, adds the slices into
+// dW in split order (round to nearest, no atomics: two calls give the same
+// bits). A call of one split launches the first kernel alone.
 // The output puts l innermost: one l's (ci, co) entries lie 2 L floats
 // apart, so a block alone could store only 8-byte pieces, a quarter of a
 // 32-byte sector each (a variant that did was slower). Instead the four
-// blocks of four consecutive l form a cluster (__cluster_dims__(1, 4, 1)):
-// each writes its 64 x 128 complex tile into its own shared memory (the
-// operand area, free after the last product; 16-byte chunks swizzled by the
-// row), and after a cluster barrier block r reads rows 16 r .. 16 r + 15 of
-// all four tiles through distributed shared memory (16-byte reads, all of a
-// batch issued before its stores) and stores each (ci, co)'s run of four l
-// as two 16-byte stores by neighbouring lanes: whole sectors. A second
-// barrier keeps every block's tile alive until the others have read it.
-// Blocks of l >= L (L not a multiple of 4) compute nothing and take part in
-// the barriers and the stores.
-// What bounds this design: shared memory. Per chunk the products read 144
-// KB of it and the staging writes 64 KB, about its 128 bytes a clock for
-// the time the tensor cores take, so the staging is not hidden behind the
-// other block's products; then the exchange, whose 94 MB of stores (B = 1)
-// follow the block's last product. A double-buffered variant at one block
-// an SM was slower.
-//
+// blocks of four consecutive l (one tile, one split) form a cluster
+// (__cluster_dims__(1, 4, 1)): each writes its 64 x kCo complex tile into
+// its own shared memory (the operand area, free after the last product;
+// 16-byte chunks swizzled by the row), and after a cluster barrier block r
+// reads rows 16 r .. 16 r + 15 of all four tiles through distributed shared
+// memory (16-byte reads, all of a batch issued before its stores) and stores
+// each (ci, co)'s run of four l as two 16-byte stores by neighbouring lanes:
+// whole sectors. A second barrier keeps every block's tile alive until the
+// others have read it. Blocks of l >= L (L not a multiple of 4) compute
+// nothing and take part in the barriers and the stores.
 // Accuracy over long sums. The tensor cores add each product into the
 // float32 accumulator rounding toward zero, so the error of a sum grows with
 // its length, not with its square root: over random data the tile's largest
 // entry loses about 2.7e-7 of itself per chunk (3.2e-6 over the main path's
-// 12 chunks at B = 1, 1.8e-5 over the 80 of (16, 64, 65, 64), the full skill
-// preset's, on an H100). So every `promote` chunks (the wrapper's choice,
-// chunks x promote <= 576; never where promote >= the chunks, as at the
-// main path's B = 1 and 2) each thread adds its accumulators into the
-// block's tile of `ws` (float32, the output tile's layout: the first time a
-// store, then round-to-nearest 16-byte atomic adds to entries no other
-// thread touches, so the sums run in a fixed order) and restarts them at
-// zero; the last interval is added to the tile read back. The error then
-// grows with sqrt(chunks x promote), not with the chunks.
+// 12 chunks at B = 1, 1.8e-5 over 80 chunks, the full skill preset's before
+// the rows were flattened, on an H100). So the plan keeps every block's
+// serial sum within a budget (chunks x promote <= 576): a block whose split
+// is longer adds its accumulators every `promote` chunks into its promotion
+// tile and restarts them; the last interval is added to the tile read back.
+// The tile has the output tile's layout and lies in the workspace after the
+// partials (the first time a store, then round-to-nearest 16-byte atomic
+// adds to entries no other thread touches, so the sums run in a fixed
+// order). The error then grows with sqrt(chunks x promote).
+// What bounds this design: a block's products wait on its own staging
+// between chunks (the warps that issue wgmma are held for most of the
+// products' time, so only the SM's other block overlaps them), and a
+// block's first loads and its epilogue (the exchange and 64 KB of stores at
+// 128 co) are fixed costs that only that other block hides; the tensor
+// cores take about 2.7x the three passes' time at B = 1 (PERF.md). Shared
+// memory does not set the pace: on an H100, shared-memory stores of a
+// chunk's size beside two warpgroups' products hardly slowed them. A design
+// with g as wgmma's register operand, x alone staged by a producer
+// warpgroup and two consumer warpgroups (one block an SM, for its
+// registers) ran slower at the main path's shape: with one block an SM its
+// first loads and epilogue, which no other block hid, took a large share of
+// each block's time.
 
 namespace k1w {
 constexpr int kThreads = 128;                 // one warpgroup
 constexpr int kCi = 64;                       // ci per block: wgmma's M
-constexpr int kCo = 128;                      // co per block: each GEMM's N
-constexpr int kK = 16;                        // (b, m) per chunk: K' = 32 floats
+constexpr int kK = 16;                        // (b, m) rows per chunk: K' = 32 floats
 constexpr int kCluster = 4;                   // consecutive l per cluster
 constexpr uint32_t kATile = 8192;             // 64 rows x 128 B
-constexpr uint32_t kBTile = 16384;            // 128 rows x 128 B
 constexpr uint32_t kBBase = 4 * kATile;       // A' hi, A' lo, A'' hi, A'' lo, then B
-constexpr uint32_t kTileRow = kCo * 8;        // one ci row of the output tile: 1 KB
-constexpr uint32_t kOperands = kBBase + 2 * kBTile;
-static_assert(kCi * kTileRow <= kOperands, "the output tile reuses the operand area");
-constexpr size_t kSmem = 1024 + kOperands;
+// co per block (each GEMM's N): 128, or 64 where CO <= 64
+template <int kCo>
+__host__ __device__ constexpr uint32_t b_tile() { return kCo * 128; }  // kCo rows x 128 B
+template <int kCo>
+constexpr size_t smem() { return 1024 + kBBase + 2 * b_tile<kCo>(); }
 }  // namespace k1w
 
+// D += A B, m64n64k8, tf32 operands (K-major)
+__device__ __forceinline__ void wgmma_tf32_n64(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <int kCo>
+__device__ __forceinline__ void wgmma_tf32(float* d, uint64_t a, uint64_t b) {
+  if (kCo == 128)
+    wgmma_tf32_n128(d, a, b);
+  else
+    wgmma_tf32_n64(d, a, b);
+}
+
 // x (B, L, M, CI) and g (B, L, M, CO) complex as float2; dw (CI, CO, L)
-// complex as float2. blockIdx.x = ci tile * (co tiles) + co tile;
-// blockIdx.y = l (rounded up to a multiple of the cluster).
+// complex as float2; ws: the split partials, (gridDim.z - 1) slices laid out
+// as dw, then (where a split's chunks exceed promote) one promotion tile a
+// block. blockIdx.x = ci tile * (co tiles) + co tile; blockIdx.y = l
+// (rounded up to a multiple of the cluster); blockIdx.z = split, chunks
+// [z per_split, (z + 1) per_split).
+template <int kCo>
 __global__ void __cluster_dims__(1, k1w::kCluster, 1) __launch_bounds__(k1w::kThreads, 2)
 dhconv_wgrad_tc_kernel(const float2* __restrict__ x, const float2* __restrict__ g,
-                       float2* __restrict__ dw, float4* __restrict__ ws, int promote, int B,
-                       int L, int M, int CI, int CO) {
+                       float2* __restrict__ dw, float2* __restrict__ ws, int B, int L, int M,
+                       int CI, int CO, int per_split, int promote) {
   using namespace k1w;
+  constexpr uint32_t kBTile = b_tile<kCo>();
+  constexpr uint32_t kTileRow = kCo * 8;  // one ci row of the output tile
+  constexpr int kAcc = kCo / 2;           // accumulator registers a GEMM
+  static_assert(kCi * kTileRow <= kBBase + 2 * kBTile, "the output tile reuses the operands");
   extern __shared__ __align__(1024) unsigned char smem_k1w[];
   const uint32_t raw = smem_u32(smem_k1w);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -397,21 +449,35 @@ dhconv_wgrad_tc_kernel(const float2* __restrict__ x, const float2* __restrict__ 
 
   const int nct = (CO + kCo - 1) / kCo;
   const int ct = blockIdx.x % nct, it = blockIdx.x / nct;
-  const int l = blockIdx.y;
+  const int l = blockIdx.y, z = blockIdx.z;
   const int ci0 = it * kCi, co0 = ct * kCo;
-  const int nmc = (M + kK - 1) / kK;  // chunks per b
-  const int nch = B * nmc;
+  const int K = B * M;  // the (b, m) rows of an l, one sequence across b
+  const int nch = (K + kK - 1) / kK;
+  const int c0 = z * per_split, c1 = min(nch, c0 + per_split);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // Row (b, l, m) of (b, m) row j kK + o of this l: row0 + o within the
+  // chunk's first b, plus (L - 1) M for each b boundary crossed (at most one
+  // where M >= kK); one division a chunk. Rows past the last are clamped to
+  // it and zeroed where they are stored.
+  const size_t bstep = (size_t)(L - 1) * M;
+  auto row_at = [&](int j, int o) -> size_t {
+    const int k = j * kK, b0 = k / M, m0 = k - b0 * M;
+    o = min(o, K - 1 - k);
+    const int q = M >= kK ? (m0 + o >= M) : (m0 + o) / M;
+    return ((size_t)b0 * L + l) * M + m0 + o + q * bstep;
+  };
 
   // A thread's values of a chunk, in units of 8 rows by 16 k: unit v = warp
-  // + 4 u (x: u < 2, rows 8 v .. 8 v + 7 of the 64; g: u < 4, of the 128),
+  // + 4 u (x: u < 2, rows 8 v .. 8 v + 7 of the 64; g: u < kCo / 32, of the
+  // kCo),
   // the thread's rows 8 v + 2 cp and + 1 (cp = lane % 4), its k 2 kp and
   // 2 kp + 1 (kp = lane / 4): one 16-byte load a k of the row pair, one
   // 16-byte store a row of the k pair (a swizzle chunk). Loads come from
   // clamped, always valid addresses; rows past CI or CO and k past M are
   // written as zeros.
   const int cp = lane & 3, kp = lane >> 2;
-  float4 xv[2][2], gv[4][2];
+  constexpr int kGu = kCo / 32;
+  float4 xv[2][2], gv[kGu][2];
   // the complex values (c, c + 1) of row (b, l, m) of a (.., C) array
   auto ld_pair = [](const float2* a, size_t row, int c, int C) -> float4 {
     if ((C & 1) == 0)
@@ -420,15 +486,14 @@ dhconv_wgrad_tc_kernel(const float2* __restrict__ x, const float2* __restrict__ 
     return make_float4(u.x, u.y, v.x, v.y);
   };
   auto load = [&](int j) {
-    const int b = j / nmc, m0 = (j % nmc) * kK;
-    const size_t r0 = ((size_t)b * L + l) * M;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const size_t row = r0 + min(m0 + 2 * kp + e, M - 1);
+      const size_t row = row_at(j, 2 * kp + e);
 #pragma unroll
       for (int u = 0; u < 2; ++u) xv[u][e] = ld_pair(x, row, ci0 + 8 * (warp + 4 * u) + 2 * cp, CI);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) gv[u][e] = ld_pair(g, row, co0 + 8 * (warp + 4 * u) + 2 * cp, CO);
+      for (int u = 0; u < kGu; ++u)
+        gv[u][e] = ld_pair(g, row, co0 + 8 * (warp + 4 * u) + 2 * cp, CO);
     }
   };
   // v split into hi (returned) and lo (in lo); the rounding is odd, so the
@@ -442,8 +507,8 @@ dhconv_wgrad_tc_kernel(const float2* __restrict__ x, const float2* __restrict__ 
   };
   auto st16 = [](unsigned char* p, float4 v) { *reinterpret_cast<float4*>(p) = v; };
   // row h of a row pair's two loads (k = 2 kp and 2 kp + 1): one swizzle
-  // chunk, (re, im) of each k, zero where the k lies past M or the row
-  // outside the tile's channels
+  // chunk, (re, im) of each k, zero where the k lies past the last row or
+  // the row outside the tile's channels
   auto row_of = [](const float4* v, int h, bool k0, bool k1) {
     const float2 a = h ? make_float2(v[0].z, v[0].w) : make_float2(v[0].x, v[0].y);
     const float2 c = h ? make_float2(v[1].z, v[1].w) : make_float2(v[1].x, v[1].y);
@@ -452,8 +517,7 @@ dhconv_wgrad_tc_kernel(const float2* __restrict__ x, const float2* __restrict__ 
   // k sits at K' = 2 k (re), 2 k + 1 (im) of its row: A' = (xr, xi), A'' =
   // (-xi, xr), B = (gr, gi), each as hi and lo.
   auto store = [&](int j) {
-    const int m0 = (j % nmc) * kK;
-    const bool k0 = m0 + 2 * kp < M, k1 = m0 + 2 * kp + 1 < M;
+    const bool k0 = j * kK + 2 * kp < K, k1 = j * kK + 2 * kp + 1 < K;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {  // the row pair's rows
 #pragma unroll
@@ -469,7 +533,7 @@ dhconv_wgrad_tc_kernel(const float2* __restrict__ x, const float2* __restrict__ 
         st16(p + 3 * kATile, make_float4(-lo.y, lo.x, -lo.w, lo.z));
       }
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
+      for (int u = 0; u < kGu; ++u) {
         const int r = 8 * (warp + 4 * u) + 2 * cp + h;
         const bool in = co0 + r < CO;
         float4 lo;
@@ -480,47 +544,52 @@ dhconv_wgrad_tc_kernel(const float2* __restrict__ x, const float2* __restrict__ 
     }
   };
 
-  // this block's tile of the promotion workspace: (ci row, co pair) as the
-  // output tile below lays it out
-  const bool promoted = promote < nch;
+  // this block's tile of the promotion workspace, after the split partials
+  // (rounded up to 16 bytes): (ci row, co pair) as the output tile below
+  // lays it out
+  const size_t part = (size_t)CI * CO * L;  // complex values a partial slice
+  const bool promoted = promote < c1 - c0;
   float4* const wt =
-      promoted ? ws + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * (kCi * kCo / 2) : nullptr;
-  if (l < L) {
-    float acc_r[64], acc_i[64];
+      promoted ? reinterpret_cast<float4*>(ws + (((gridDim.z - 1) * part + 1) & ~(size_t)1)) +
+                     (((size_t)z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) *
+                         (kCi * kCo / 2)
+               : nullptr;
+  if (l < L && c0 < c1) {
+    float acc_r[kAcc], acc_i[kAcc];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc_r[i] = acc_i[i] = 0.f;
+    for (int i = 0; i < kAcc; ++i) acc_r[i] = acc_i[i] = 0.f;
 
-    load(0);
-    store(0);
+    load(c0);
+    store(c0);
     fence_async_smem();
     __syncthreads();
-    for (int j = 0; j < nch; ++j) {
+    for (int j = c0; j < c1; ++j) {
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {  // 8 K' (32 bytes) a step
         const uint32_t ko = 32u * ks, a = base + ko;
         const uint64_t bh = kmajor_desc(base + kBBase + ko);
         const uint64_t bl = kmajor_desc(base + kBBase + kBTile + ko);
-        wgmma_tf32_n128(acc_r, kmajor_desc(a + kATile), bh);      // A' lo . B hi
-        wgmma_tf32_n128(acc_r, kmajor_desc(a), bl);               // A' hi . B lo
-        wgmma_tf32_n128(acc_r, kmajor_desc(a), bh);               // A' hi . B hi
-        wgmma_tf32_n128(acc_i, kmajor_desc(a + 3 * kATile), bh);  // A'' lo . B hi
-        wgmma_tf32_n128(acc_i, kmajor_desc(a + 2 * kATile), bl);  // A'' hi . B lo
-        wgmma_tf32_n128(acc_i, kmajor_desc(a + 2 * kATile), bh);  // A'' hi . B hi
+        wgmma_tf32<kCo>(acc_r, kmajor_desc(a + kATile), bh);      // A' lo . B hi
+        wgmma_tf32<kCo>(acc_r, kmajor_desc(a), bl);               // A' hi . B lo
+        wgmma_tf32<kCo>(acc_r, kmajor_desc(a), bh);               // A' hi . B hi
+        wgmma_tf32<kCo>(acc_i, kmajor_desc(a + 3 * kATile), bh);  // A'' lo . B hi
+        wgmma_tf32<kCo>(acc_i, kmajor_desc(a + 2 * kATile), bl);  // A'' hi . B lo
+        wgmma_tf32<kCo>(acc_i, kmajor_desc(a + 2 * kATile), bh);  // A'' hi . B hi
       }
       wgmma_commit();
-      const bool more = j + 1 < nch;
+      const bool more = j + 1 < c1;
       if (more) load(j + 1);  // in flight while the products run
       wgmma_wait_all();
-      fence_regs<64>(acc_r);
-      fence_regs<64>(acc_i);
-      if (more && (j + 1) % promote == 0) {  // the accumulators into ws, restarted
-        const bool first = j + 1 == promote;
+      fence_regs<kAcc>(acc_r);
+      fence_regs<kAcc>(acc_i);
+      if (more && (j + 1 - c0) % promote == 0) {  // the accumulators into ws, restarted
+        const bool first = j + 1 - c0 == promote;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = 16 * warp + (lane >> 2) + 8 * h;
 #pragma unroll
-          for (int q = 0; q < 16; ++q) {
+          for (int q = 0; q < kCo / 8; ++q) {
             const int c = 4 * q + (lane & 3), i = 4 * q + 2 * h;
             float4* p = wt + row * (kCo / 2) + c;
             const float4 v = make_float4(acc_r[i], acc_i[i], acc_r[i + 1], acc_i[i + 1]);
@@ -547,11 +616,12 @@ dhconv_wgrad_tc_kernel(const float2* __restrict__ x, const float2* __restrict__ 
     for (int h = 0; h < 2; ++h) {
       const int row = 16 * warp + (lane >> 2) + 8 * h;
 #pragma unroll
-      for (int q = 0; q < 16; ++q) {
+      for (int q = 0; q < kCo / 8; ++q) {
         const int c = 4 * q + (lane & 3), i = 4 * q + 2 * h;
         float4 v = make_float4(acc_r[i], acc_i[i], acc_r[i + 1], acc_i[i + 1]);
         if (promoted) {  // the earlier intervals, this thread's own entries
-          const float4 s = __ldcg(wt + row * (kCo / 2) + c);
+          const float4* const pt = wt + row * (kCo / 2) + c;
+          const float4 s = __ldcg(pt);
           v = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
         }
         *reinterpret_cast<float4*>(sgen + row * kTileRow + ((c ^ (row & 7)) << 4)) = v;
@@ -564,7 +634,9 @@ dhconv_wgrad_tc_kernel(const float2* __restrict__ x, const float2* __restrict__ 
   // four l: lane pair (2 t, 2 t + 1) takes one (ci, co pair), the even lane
   // l0 and l0 + 1 from ranks 0 and 1, the odd lane l0 + 2 and l0 + 3 from
   // ranks 2 and 3, one 16-byte read from each; a warp covers 32 co of one
-  // row, 16 whole sectors a store.
+  // row, 16 whole sectors a store. Split 0 stores into dW, split z > 0 into
+  // slice z - 1 of the partials.
+  float2* const out = z == 0 ? dw : ws + (size_t)(z - 1) * part;
   const int rank = (int)cluster_ctaid_y(), l0 = blockIdx.y - rank;
   const int half = lane & 1;
   const int la = l0 + 2 * half;
@@ -590,7 +662,7 @@ dhconv_wgrad_tc_kernel(const float2* __restrict__ x, const float2* __restrict__ 
       if (!ok[i]) continue;
       const int n = n0 + i * (kThreads / 2);
       const int ci = ci0 + 16 * rank + n / (kCo / 2), co = co0 + 2 * (n % (kCo / 2));
-      float2* dst = dw + ((size_t)ci * CO + co) * L + la;
+      float2* dst = out + ((size_t)ci * CO + co) * L + la;
       const bool next = co + 1 < CO;
       if (wide) {
         *reinterpret_cast<float4*>(dst) = make_float4(va[i].x, va[i].y, vb[i].x, vb[i].y);
@@ -607,6 +679,33 @@ dhconv_wgrad_tc_kernel(const float2* __restrict__ x, const float2* __restrict__ 
     }
   }
   cluster_sync();  // no tile is released while another block may read it
+}
+
+// dw[i] += p[0][i] + p[1][i] + ... in that order (splits 1, 2, ...), each
+// add rounded to nearest: the sum of dW's split partials, the same bits on
+// every call. n floats a slice.
+__global__ void dhconv_wgrad_reduce_kernel(float* __restrict__ dw, const float* __restrict__ p,
+                                           size_t n, int parts) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float v = dw[i];
+    for (int s = 0; s < parts; ++s) v += __ldg(p + (size_t)s * n + i);
+    dw[i] = v;
+  }
+}
+
+template <int kCo>
+int launch_wgrad(const void* x, const void* g, void* dw, void* ws, int B, int L, int M, int CI,
+                 int CO, int per_split, int promote, dim3 grid, cudaStream_t stream) {
+  using namespace k1w;
+  const int bytes = (int)smem<kCo>();
+  cudaError_t err = cudaFuncSetAttribute(dhconv_wgrad_tc_kernel<kCo>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dhconv_wgrad_tc_kernel<kCo><<<grid, kThreads, bytes, stream>>>(
+      (const float2*)x, (const float2*)g, (float2*)dw, (float2*)ws, B, L, M, CI, CO, per_split,
+      promote);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -647,27 +746,39 @@ extern "C" int sdt_dhconv_fwd(const void* x, const void* img, void* y, int B, in
 }
 
 // x: (B, L, M, CI, 2) and g: (B, L, M, CO, 2) float32, contiguous; dw: (CI,
-// CO, L, 2) float32, contiguous; promote: chunks of 16 (b, m) between the
-// accumulators' promotions into ws (>= 1); ws: where promote is below the
-// chunks, B * ceil(M / 16), a float32 workspace of ceil(CI / 64) *
-// ceil(CO / 128) * (L rounded up to 4) tiles of 64 x 128 complex, 16-byte
-// aligned (its contents need not be set), else null. Returns the
-// cudaError_t of the launch (0 on success), or -1 for arguments the kernel
-// does not take.
-extern "C" int sdt_dhconv_wgrad(const void* x, const void* g, void* dw, void* ws, int promote,
-                                int B, int L, int M, int CI, int CO, void* stream) {
+// CO, L, 2) float32, contiguous; per_split: chunks of 16 (b, m) rows a split
+// (>= 1; splits = ceil(ceil(B M / 16) / per_split)); promote: chunks between
+// the accumulators' promotions (>= 1); ws: 16-byte aligned float32 (its
+// contents need not be set), (splits - 1) slices of dw's size for the split
+// partials, then, where per_split > promote, from the next 16-byte boundary
+// one tile of 64 ci x the block's co (128, or 64 where CO <= 64) complex a
+// block; null where it needs neither. Several splits launch the partials'
+// kernel, then the reduction's. Returns the cudaError_t of the launches (0
+// on success), or -1 for arguments the kernels do not take.
+extern "C" int sdt_dhconv_wgrad(const void* x, const void* g, void* dw, void* ws, int B, int L,
+                                int M, int CI, int CO, int per_split, int promote, void* stream) {
   using namespace k1w;
-  if (B <= 0 || L <= 0 || M <= 0 || CI <= 0 || CO <= 0 || promote <= 0) return -1;
-  if (promote < (long long)B * ((M + kK - 1) / kK) && ws == nullptr) return -1;
-  const long long ly = (long long)(L + kCluster - 1) / kCluster * kCluster;
-  const long long tiles = (long long)((CI + kCi - 1) / kCi) * ((CO + kCo - 1) / kCo);
-  if (ly > 65535 || tiles > 0x7FFFFFFF || (long long)B * ((M + kK - 1) / kK) > 0x7FFFFFFF)
+  if (B <= 0 || L <= 0 || M <= 0 || CI <= 0 || CO <= 0 || per_split <= 0 || promote <= 0)
     return -1;
-  cudaError_t err = cudaFuncSetAttribute(dhconv_wgrad_tc_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)tiles, (unsigned)ly);
-  dhconv_wgrad_tc_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
-      (const float2*)x, (const float2*)g, (float2*)dw, (float4*)ws, promote, B, L, M, CI, CO);
+  const long long rows = (long long)B * M;
+  if (rows > 0x7FFFFFFF - kK) return -1;
+  const long long nch = (rows + kK - 1) / kK;
+  const long long splits = (nch + per_split - 1) / per_split;
+  const int co_tile = CO > 64 ? 128 : 64;
+  const long long ly = ((long long)L + kCluster - 1) / kCluster * kCluster;
+  const long long tiles = (long long)((CI + kCi - 1) / kCi) * ((CO + co_tile - 1) / co_tile);
+  if (ly > 65535 || splits > 65535 || tiles > 0x7FFFFFFF) return -1;
+  if ((splits > 1 || per_split > promote) && ws == nullptr) return -1;
+  const dim3 grid((unsigned)tiles, (unsigned)ly, (unsigned)splits);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int err =
+      co_tile == 128
+          ? launch_wgrad<128>(x, g, dw, ws, B, L, M, CI, CO, per_split, promote, grid, s)
+          : launch_wgrad<64>(x, g, dw, ws, B, L, M, CI, CO, per_split, promote, grid, s);
+  if (err != 0 || splits == 1) return err;
+  const size_t n = (size_t)CI * CO * L * 2;
+  const size_t want = (n + 255) / 256, blocks = want < 2048 ? want : 2048;
+  dhconv_wgrad_reduce_kernel<<<(unsigned)blocks, 256, 0, s>>>((float*)dw, (const float*)ws, n,
+                                                               (int)(splits - 1));
   return (int)cudaGetLastError();
 }

@@ -29,21 +29,25 @@ it is K1 itself (counted in ``dhconv.launches``, and apart in
 (``dhconv_weight_image(w, conj_t=True)``). The weight gradient ``dW =
 sum_{b,m} conj(x)^T g`` (JAX's two einsums a part, left to XLA) is a kernel
 of its own in the same source, ``dhconv_wgrad_tc_kernel``: the same 3xTF32
-products, x and g staged through registers into the K-major tiles, the
-result written in the weight's layout by clusters of four l.
-``dhconv_weight_grad`` launches it for CUDA tensors and counts the launch
-in ``dhconv_weight_grad.launches``; for CPU tensors it computes the plain
-version, ``dhconv_weight_grad_plain`` (one float32 ``torch.bmm`` with TF32
-off whatever the process's setting). The tensor cores round each
-accumulation toward zero, so over a long sum (K = B M grows with the batch)
-the kernel adds its accumulators into a float32 workspace every
-``wgrad_promote`` chunks and restarts them (the source's note).
+products, x and g staged through registers into the K-major tiles, 128 co
+a block (64 where CO <= 64), the result written in the weight's layout by
+clusters of four l. ``dhconv_weight_grad`` launches it for CUDA tensors and
+counts the call in ``dhconv_weight_grad.launches``; for CPU tensors it
+computes the plain version, ``dhconv_weight_grad_plain`` (one float32
+``torch.bmm`` with TF32 off whatever the process's setting). Its plan,
+``wgrad_plan``, takes each l's (b, m) rows as one sequence in chunks of
+``WGRAD_K`` and, where the tiles alone leave SMs idle, splits the chunks
+over blocks; the splits after the first write float32 partials that a
+second kernel adds in split order (no atomics: the same bits on every
+call). The tensor cores round each accumulation toward zero, so over a long
+sum a block adds its accumulators every ``promote``
+chunks into a float32 tile of its workspace (the source's note).
 """
 
 from __future__ import annotations
 
-import math
-from typing import Callable, Optional
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -53,26 +57,86 @@ from .contractions import contract_dhconv
 __all__ = ["dhconv", "dhconv_plain", "DhconvFunction", "dhconv_weight_grad",
            "dhconv_weight_grad_plain", "dhconv_weight_image", "dhconv_weight_image_plain",
            "conj_transpose", "split_tf32", "WeightImageCache", "IMAGE_CO", "IMAGE_CI",
-           "WGRAD_K", "wgrad_promote"]
+           "WGRAD_K", "WgradPlan", "wgrad_plan"]
 
 dhconv_plain = contract_dhconv
 
 IMAGE_CO = 128  # co per column tile of the image: the kernel's N
 IMAGE_CI = 16   # ci per chunk: K = 32 floats, one 128-byte row
-WGRAD_K = 16    # (b, m) per chunk of dW's kernel: each b's m padded to a multiple
-WGRAD_TILE = (64, 128, 4)  # dW's block: ci, co, and the cluster's consecutive l
+WGRAD_K = 16         # (b, m) rows per chunk of dW's kernel: K' = 32 floats
+WGRAD_CI = 64        # ci per block: wgmma's M
+WGRAD_CLUSTER = 4    # consecutive l per cluster
+WGRAD_SMS = 132      # an H100's SMs: a split grid gives each at least one block
+WGRAD_TARGET = 198   # blocks a split grid aims at: 3/4 of two blocks on each SM
+WGRAD_MIN_SPLIT = 16  # chunks below which a call is not split (its reduction costs more)
+WGRAD_MIN_CHUNKS = 2  # chunks a split keeps at least
 WGRAD_SUM_BUDGET = 576  # chunks x promote: bounds dW's accumulation error
 
 
-def wgrad_promote(B: int, M: int) -> int:
-    """Chunks of ``WGRAD_K`` (b, m) that ``dhconv_wgrad_tc_kernel`` sums in
-    its accumulators before it adds them into its workspace: the largest
-    that keeps chunks x promote within ``WGRAD_SUM_BUDGET`` (at least 1).
-    Where it is not below the chunks, ``B * ceil(M / WGRAD_K)``, the kernel
-    never promotes and needs no workspace: at the main path's B = 1 and 2
-    (12 and 24 chunks); the full skill preset's 80 promote every 7."""
-    chunks = B * -(-M // WGRAD_K)
-    return max(1, WGRAD_SUM_BUDGET // chunks)
+class WgradPlan(NamedTuple):
+    """How ``dhconv_wgrad_tc_kernel`` takes a call: ``chunks`` of
+    ``WGRAD_K`` (b, m) rows per l, cut into ``splits`` of ``per_split``
+    chunks (the last may have fewer), a block summing at most ``promote``
+    chunks in the tensor cores before it promotes (where ``per_split`` is
+    larger), ``co_tile`` co a block (128, or 64 where CO <= 64), ``tiles``
+    (ci, co) tiles per l, ``blocks`` in the grid and ``workspace`` float32s:
+    the split partials, then the promotion tiles."""
+
+    chunks: int
+    splits: int
+    per_split: int
+    promote: int
+    co_tile: int
+    tiles: int
+    blocks: int
+    workspace: int
+
+
+@functools.lru_cache(maxsize=64)
+def wgrad_plan(B: int, L: int, M: int, CI: int, CO: int,
+               splits: Optional[int] = None) -> WgradPlan:
+    """The plan of dW's kernel for x ``(B, L, M, CI)`` and g ``(B, L, M,
+    CO)``. Each l's B M rows are one sequence, in ``ceil(B M / WGRAD_K)``
+    chunks. Where the tiles of all l are fewer than ``WGRAD_SMS`` blocks
+    and there are at least ``WGRAD_MIN_SPLIT`` chunks, the chunks are cut
+    into as many splits as keep the grid within ``WGRAD_TARGET`` blocks (at
+    least ``WGRAD_SMS``); ``splits`` asks for a number instead (at most
+    the chunks). Split 0 writes dW, the others ``(splits - 1)`` partials of
+    dW's size. A block sums at most ``promote = WGRAD_SUM_BUDGET //
+    chunks`` chunks in the tensor cores; a longer split promotes into its
+    tile in the workspace after the partials. On an H100: at the main
+    path's B = 1 (12 chunks, 1,440 blocks) one split and no workspace; at
+    the skill studies' (16, 64, 65, 64) three splits of 22 chunks on 192
+    blocks of 64 x 64, promoting every 8 (faster there than 1 or 9 splits:
+    ``chip_smoke.py`` phase 22 (a)); the mini preset's 9 chunks unsplit."""
+    if min(B, L, M, CI, CO) <= 0:
+        raise ValueError(f"wgrad_plan: sizes must be positive, got B {B}, L {L}, M {M}, "
+                         f"CI {CI}, CO {CO}")
+    chunks = -(-B * M // WGRAD_K)
+    co_tile = 64 if CO <= 64 else 128
+    tiles = -(-CI // WGRAD_CI) * -(-CO // co_tile)
+    promote = max(1, WGRAD_SUM_BUDGET // chunks)
+    if splits is not None:
+        if not 1 <= splits <= chunks:
+            raise ValueError(f"wgrad_plan: {splits} splits of {chunks} chunks")
+    elif tiles * L < WGRAD_SMS and chunks >= WGRAD_MIN_SPLIT:
+        splits = max(WGRAD_TARGET // (tiles * L), -(-WGRAD_SMS // (tiles * L)))
+        splits = min(splits, chunks // WGRAD_MIN_CHUNKS)
+    else:
+        splits = 1
+    per_split = -(-chunks // splits)
+    splits = -(-chunks // per_split)  # no split left empty
+    lc = -(-L // WGRAD_CLUSTER) * WGRAD_CLUSTER
+    if lc > 65535 or splits > 65535 or B * M + WGRAD_K > 2 ** 31 - 1:
+        raise ValueError(f"wgrad_plan: ({B}, {L}, {M}) exceeds the kernel's grid "
+                         f"(L rounded to {lc}, {splits} splits, {B * M} rows)")
+    blocks = tiles * lc * splits
+    partials = (splits - 1) * CI * CO * L  # complex values
+    workspace = 2 * partials
+    if per_split > promote:  # one 64 x co_tile tile a block, 16-byte aligned
+        workspace = 2 * (partials + (partials & 1)) + blocks * WGRAD_CI * co_tile * 2
+    return WgradPlan(chunks=chunks, splits=splits, per_split=per_split, promote=promote,
+                     co_tile=co_tile, tiles=tiles, blocks=blocks, workspace=workspace)
 
 
 def split_tf32(a: torch.Tensor):
@@ -242,18 +306,19 @@ def dhconv_weight_grad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def dhconv_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``dW = sum_{b,m} conj(x)^T g`` per l: x ``(..., L, M, CI, 2)``, g
     ``(..., L, M, CO, 2)`` float32 -> ``(CI, CO, L, 2)`` float32. On the
-    card ``dhconv_wgrad_tc_kernel`` (3xTF32, counted in
-    ``dhconv_weight_grad.launches``) over contiguous copies of x and g; on
-    the CPU ``dhconv_weight_grad_plain``. A CUDA input the kernel does not
-    take raises."""
-    if x.device.type == "cpu":
-        return dhconv_weight_grad_plain(x, g)
-    if x.device.type != "cuda":
+    card ``dhconv_wgrad_tc_kernel`` (3xTF32) over contiguous copies of x and
+    g as ``wgrad_plan`` splits them, with the reduction kernel after it where
+    there are several splits: one call, counted once in
+    ``dhconv_weight_grad.launches``; on the CPU ``dhconv_weight_grad_plain``.
+    A CUDA input the kernels do not take raises."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return dhconv_weight_grad_plain(x, g)
         raise ValueError(f"dhconv_weight_grad: unsupported device {x.device}")
     if x.dtype != torch.float32 or g.dtype != torch.float32:
         raise TypeError(f"dhconv_weight_grad: float32 inputs required, got {x.dtype}, "
                         f"{g.dtype}")
-    if g.device != x.device:
+    if g.get_device() != x.get_device():
         raise ValueError("dhconv_weight_grad: x and g must lie on the same device")
     if x.dim() < 4 or x.shape[-1] != 2 or g.dim() != x.dim() or g.shape[-1] != 2 \
             or g.shape[:-2] != x.shape[:-2]:
@@ -261,19 +326,17 @@ def dhconv_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                          f"g {tuple(g.shape)}")
     L, M, CI = x.shape[-4:-1]
     CO = g.shape[-2]
-    B = math.prod(x.shape[:-4])
-    dw = torch.empty((CI, CO, L, 2), device=x.device, dtype=torch.float32)
+    B = x.numel() // (L * M * CI * 2)
+    plan = wgrad_plan(B, L, M, CI, CO)
+    # new_empty: float32 on x's device, at less host time than torch.empty
+    dw = x.new_empty((CI, CO, L, 2))
     x, g = x.contiguous(), g.contiguous()
-    promote = wgrad_promote(B, M)
-    ws = None
-    if promote < B * -(-M // WGRAD_K):  # one 64 x 128 complex tile a block
-        tci, tco, cl = WGRAD_TILE
-        blocks = -(-CI // tci) * -(-CO // tco) * (-(-L // cl) * cl)
-        ws = torch.empty(blocks * tci * tco * 2, device=x.device, dtype=torch.float32)
+    ws = x.new_empty(plan.workspace) if plan.workspace else None
     lib = _cuda.library()
     _cuda.check(lib.sdt_dhconv_wgrad(x.data_ptr(), g.data_ptr(), dw.data_ptr(),
-                                     ws.data_ptr() if ws is not None else None, promote, B, L,
-                                     M, CI, CO, _cuda.stream_ptr(x.device)),
+                                     ws.data_ptr() if ws is not None else None, B, L, M, CI,
+                                     CO, plan.per_split, plan.promote,
+                                     _cuda.stream_ptr(x.device)),
                 "dhconv_weight_grad")
     dhconv_weight_grad.launches += 1
     return dw

@@ -1475,16 +1475,21 @@ def test_skill_interpolator_fit_through_k1_matches_the_plain_path(cuda):
 
 
 @pytest.mark.parametrize("lead,L,M,CI,CO", [((16,), 5, 65, 64, 64), ((4,), 3, 181, 40, 130),
-                                             ((60,), 2, 150, 33, 48), ((8,), 16, 17, 16, 16)])
+                                             ((60,), 2, 150, 33, 48), ((8,), 16, 17, 16, 16),
+                                             ((16,), 64, 65, 64, 64), ((40,), 4, 181, 256, 256)])
 def test_dhconv_weight_grad_promotes_over_long_sums(cuda, lead, L, M, CI, CO):
-    """Over long sums (K = B M) dW's kernel adds its accumulators into its
-    workspace every ``wgrad_promote`` chunks: 80 chunks promoting every 7
-    (the full skill preset's CI = CO = 64), 48 every 12 with partial ci and
-    co tiles, 600 every chunk, and 16 never (the mini preset's); each
-    within 1e-5 of the largest entry of the plain version in float64, as the
-    short sums are, and the same bits on a second call (each entry's sum
-    runs in a fixed order)."""
-    from spherical_dyffusion_tpu_torch.ops.pallas_contractions import wgrad_promote
+    """Over long sums (K = B M) ``wgrad_plan`` splits the chunks over blocks,
+    and a block adds its accumulators into its float32 promotion tile every
+    ``promote`` chunks: 65 chunks in 22 splits of 3 at L = 5 (the full skill
+    preset's CI = CO = 64), 46 with partial ci and co tiles in 23 of 2, 563
+    in 94 splits of 6 promoting every chunk, the mini preset's 9 unsplit,
+    the full preset's real grid (64 l, 3 splits of 22, promoting every 8)
+    and 453 chunks at 256 channels (6 splits of 76, promoting every chunk);
+    each within 1e-5 of the largest entry of the plain version in float64,
+    as the short sums are, and the same bits on a second call (the partials
+    are added in split order, each promotion by the one thread that owns
+    the entry)."""
+    from spherical_dyffusion_tpu_torch.ops.pallas_contractions import wgrad_plan
 
     g = torch.Generator(device=cuda).manual_seed(44)
     x = torch.randn(lead + (L, M, CI, 2), device=cuda, generator=g)
@@ -1493,5 +1498,6 @@ def test_dhconv_weight_grad_promotes_over_long_sums(cuda, lead, L, M, CI, CO):
     again = dhconv_weight_grad(x, gy)
     torch.cuda.synchronize()
     want = dhconv_weight_grad_plain(x.double(), gy.double())
-    assert _rel_err(dw, want) < 1e-5, (wgrad_promote(lead[0], M), _rel_err(dw, want))
+    assert _rel_err(dw, want) < 1e-5, (wgrad_plan(lead[0], L, M, CI, CO), _rel_err(dw, want))
     assert torch.equal(dw, again)
+
