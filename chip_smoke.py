@@ -11,8 +11,8 @@ Phases, each timed:
    one library; prints its seconds and the ``-Xptxas -v`` register, spill
    and shared-memory lines, and checks with ``cuobjdump -sass`` that K1's
    TF32 kernel, the two TF32 instances of dW's kernel (128 and 64 co a
-   block), the four bf16 K2/K3 instances and the two bf16 K4 instances run
-   their products as HGMMA (``wgmma``);
+   block), the eight 16-bit K2/K3 instances (four bf16, four float16) and
+   the four 16-bit K4 instances run their products as HGMMA (``wgmma``);
 2. K1 (dhconv, 3xTF32 on the tensor cores) at the main path's shape, batch 1
    and 2, through a weight image made once (the image kernel against its
    plain version, and timed apart), against its plain version, with the
@@ -312,6 +312,27 @@ Phases, each timed:
    depth cut, ``tests/test_skill.py``'s gates on the report, and K1's
    forwards, dx, dW and weight images in every training step, counted by a
    hook on ``Trainer.train_step``.
+23. float16 (run after phase 22, before the profile; ``phase23``): (a) the
+   float16 instances of K2 (the forecaster's call with the float32 residual,
+   float16 out, a float16 residual, erf gelu, the interpolator's 129,600 rows
+   with dropout 0.1), K3 (batch 1 with the float32 residual, batch 2, 77
+   rows a sample with dropout) and K4 (the fast window's shape, batch 1 and
+   2) against their plain versions (F16_TOL, the dropout masks bit for bit)
+   with their ms beside their bf16 instances', bounds and the float16
+   ``torch.matmul``/``torch.bmm`` chains' ms; (b) the window path (K1 + K2),
+   the fused-tail path (K1 + K3) and ``main_path.FAST_WINDOW_F16`` (K4) at
+   ``dtype="float16"``, one counted 12-step window each with dropout live,
+   the launches as their bf16 paths'; (c) each with dropout off against the
+   float32 plain path from the same weights: its error at most
+   F16_WINDOW_VS_PLAIN times the float16 plain path's own.
+24. the port's ``scripts/rollout_10yr.py`` (``phase24``) at 256 x 8 on 180 x
+   360, horizon 6, in ROLLOUT10_VARIANTS (the JAX script's program, plain
+   bf16; ``--use-pallas --fused-tail`` in bf16 and in float16 with float16
+   predictions; ``--fast`` in bf16 through K4 and in float16 unfused), each
+   cut from 14,600 steps to ROLLOUT10_STEPS (two windows of 96) after its
+   warm-up window: steps/s, sim-yr/day, the host fractions,
+   ``all_steps_finite`` and the time-mean logs finite, the kernels'
+   launches a forward.
 
 It prints a ``training`` JSON line (phase 11's figures), a ``cli`` JSON line
 (phase 12's), an ``options`` JSON line (phase 13's), a ``modes`` JSON line
@@ -319,8 +340,12 @@ It prints a ``training`` JSON line (phase 11's figures), a ``cli`` JSON line
 (phase 16's), a ``parallel`` JSON line (phase 17's), a ``spatial`` JSON
 line (phase 21's), a ``studies`` JSON line (phase 22's), a ``data`` JSON line
 (phase 18's), a ``writers`` JSON line (phase 10's writer run and phase
-19's), a ``parity`` JSON line (phase 20's), a ``kernels`` JSON
-line (K1's backward dx as its own entry; ``launches_by_path`` holds phase
+19's), a ``parity`` JSON line (phase 20's), a ``float16`` JSON line (phase
+23's), a ``rollout_10yr`` JSON line (phase 24's), a ``kernels`` JSON
+line (K1's backward dx as its own entry; the float16 instances of K2, K3 and
+K4 as entries of their own, their launches those of phase 23's float16
+paths ``"f16_window"``, ``"f16_fused_tail"`` and ``"f16_fast"`` and of phase
+24's float16 variants; ``launches_by_path`` holds phase
 12 (b)'s counts as ``"cli"``, phase 13's as ``"tucker"``, ``"fold"`` and
 ``"remat"``, phase 15's as ``"ace"``, ``"ace_cli"`` and
 ``"simultaneous"``, phase 16's as ``"unet"`` (zero for every kernel) and
@@ -329,7 +354,9 @@ phase 17's as ``"parallel"``, phase 21's as ``"spatial"``,
 as ``"data_train"`` and
 ``"data"``, phase 19's as ``"outputs"`` and ``"outputs_ace"``, phase 20's
 as ``"parity"`` and ``"parity_k2"``, phase 22's as ``"skill_proof"`` and
-``"ace_skill"``; the dx and dW entries' ``launches`` add phase 22's), the
+``"ace_skill"``, phase 23's as ``"f16_window"``, ``"f16_fused_tail"`` and
+``"f16_fast"``, phase 24's as ``"rollout_10yr <variant>"``; the dx and dW
+entries' ``launches`` add phase 22's), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. It needs the port's package beside it
@@ -449,6 +476,30 @@ SKILL_N_TIMESTEPS = 2048
 SKILL_INTERP_VS_CLIM, SKILL_LOSS_DROP, SKILL_H1_VS_CLIM, SKILL_COLD_VS_NAIVE = 0.6, 0.8, 0.8, 1.05
 PARITY_K3 = {"use_pallas": True, "fused_tail": True, "exact_dropout": False}
 PARITY_K2 = {"use_pallas": True, "fused_mlp": True, "exact_dropout": False}
+# phase 23: the float16 instances of K2, K3 and K4 against their plain
+# versions, relative to the largest output: a float16 intermediate may round
+# a tie the other way in the two versions, one step of 2^-11 of it carried
+# through a product (bf16's 1e-2 is for steps of 2^-8); the float16 windows
+# against the float32 plain path, as a multiple of the float16 plain path's
+# own error (as BF16_TAIL_VS_PLAIN holds the bf16 windows)
+F16_TOL = 2e-3
+F16_WINDOW_VS_PLAIN = 2.0
+F16_EMBED, F16_LAYERS, F16_SHAPE = 256, 8, (180, 360)
+# phase 24: the port's rollout_10yr at 256 x 8, 14,600 steps cut to two
+# windows of 96 after the warm-up window, in the variants below with the
+# launches each kernel must make an SFNO forward (12 forwards every 6 steps
+# at horizon 6; --fast: K4 in blocks 1-6; --fast --dtype float16 runs the
+# unfused rank pipeline, as JAX's SFNO)
+ROLLOUT10_STEPS, ROLLOUT10_WINDOW = 192, 96
+ROLLOUT10_EMBED, ROLLOUT10_LAYERS = 256, 8
+ROLLOUT10_VARIANTS = {
+    "plain bf16": ([], {"K1": 0, "K2": 0, "K3": 0, "K4": 0}),
+    "K1+K3 bf16": (["--use-pallas", "--fused-tail"], {"K1": 8, "K2": 0, "K3": 8, "K4": 0}),
+    "K1+K3 float16": (["--use-pallas", "--fused-tail", "--dtype", "float16", "--preds-dtype",
+                       "float16"], {"K1": 8, "K2": 0, "K3": 8, "K4": 0}),
+    "fast bf16": (["--fast"], {"K1": 0, "K2": 0, "K3": 0, "K4": 6}),
+    "fast float16": (["--fast", "--dtype", "float16"], {"K1": 0, "K2": 0, "K3": 0, "K4": 0}),
+}
 
 
 def log(msg: str) -> None:
@@ -4532,6 +4583,369 @@ def phase22(smi_line, wrappers, report, runs, device="cuda") -> None:
     report["studies"] = rep
 
 
+def event_ms(fn, reps: int, spin: bool = False) -> float:
+    """ms a call of ``fn`` in a loop of ``reps`` between CUDA events, after
+    one untimed call; with ``spin``, the calls queued behind a spin kernel
+    (the device's time, without the host's work between launches)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    if spin:
+        torch.cuda._sleep(SPIN_CYCLES)
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    if spin:
+        check(not ev[0].query(), "the device reached the timed launches before the host had "
+                                 "queued them all; lengthen the spin")
+    ev[1].synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def phase23(smi_line, wrappers, report, runs, drive, other, device="cuda") -> None:
+    """Phase 23: float16. (a) K2 (dropout off and on), K3 at batch 1 and 2
+    and K4 at the fast window's shape, float16 instances, against their
+    plain versions (``F16_TOL``) with their ms, bounds and the float16
+    ``torch.matmul`` (``torch.bmm``) chains' ms; (b) the window path (K1 +
+    K2), the fused-tail path (K1 + K3) and the float16 fast window (K4) at
+    ``dtype="float16"``, one counted 12-step window each with dropout live
+    (``drive``); (c) each with dropout off against the float32 plain path
+    from the same weights: its error at most ``F16_WINDOW_VS_PLAIN`` times
+    the float16 plain path's own. ``other`` is the model-driven channels."""
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+
+    from spherical_dyffusion_tpu_torch import main_path
+    from spherical_dyffusion_tpu_torch.ops.fused_mlp import (
+        fused_block_tail,
+        fused_block_tail_plain,
+        fused_mlp,
+        fused_mlp_plain,
+        weight_image,
+        weight_image_plain,
+    )
+    from spherical_dyffusion_tpu_torch.ops.fused_rank import fused_rank, fused_rank_plain
+    from spherical_dyffusion_tpu_torch.ops.sht import InverseRealSHT, RealSHT
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    f16 = torch.float16
+    rep = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def errs(got, want):
+        d = float((got.float() - want.float()).abs().max())
+        return d, d / float(want.float().abs().max())
+
+    def same_drops(y, want, what):
+        """The kernel drops the plain version's elements. A kept float16
+        output below 2^-25 rounds to 0, and the two versions differ by up to
+        the tolerance, so where one output is 0 and the other is not, the
+        other must lie within F16_TOL of the largest |plain| of 0; returns
+        the count of such elements."""
+        diff = (y == 0) ^ (want == 0)
+        near = torch.maximum(y.float().abs(), want.float().abs()) <= \
+            F16_TOL * float(want.float().abs().max())
+        check(bool((near | ~diff).all()), f"{what} float16 dropout mask differs from the plain")
+        return int(diff.sum())
+
+    # (a) the kernels: the main path's MLP widths, the fast window's K4 shape
+    N, C, Hd = F16_SHAPE[0] * F16_SHAPE[1], F16_EMBED, 2 * F16_EMBED
+    g = torch.Generator(device=dev).manual_seed(23)
+    w1 = torch.randn((C, Hd), device=dev, generator=g) / 16
+    w2 = torch.randn((Hd, C), device=dev, generator=g) / 22
+    b1 = torch.randn(Hd, device=dev, generator=g) * 0.1
+    b2 = torch.randn(C, device=dev, generator=g) * 0.1
+    w1h, w2h, b1h, b2h = w1.half(), w2.half(), b1.half(), b2.half()
+    flops1 = 2.0 * N * (C * Hd + Hd * C)
+    img = weight_image(w1, w2, f16)
+    sync()
+    check(torch.equal(img, weight_image_plain(w1, w2).to(f16)),
+          "the float16 weight repack differs from its plain permutation")
+    x = torch.randn((N, C), device=dev, generator=g).half()
+    res = torch.randn((N, C), device=dev, generator=g)
+    xi = torch.randn((2 * N, C), device=dev, generator=g).half()
+    k2_cases = {
+        "residual f32 (the forecaster's call)": (x, dict(residual=res)),
+        "no residual, float16 out": (x, {}),
+        "float16 residual": (x, dict(residual=res.half())),
+        "erf gelu, 77 rows": (x[:77], dict(residual=res[:77], exact_gelu=True)),
+        "interpolator call: 129,600 rows, dropout 0.1": (xi, dict(seed=20262301,
+                                                                 drop_rate=0.1)),
+    }
+    k2_err = None
+    for name, (xx, kw) in k2_cases.items():
+        y = fused_mlp(xx, w1, b1, w2, b2, **kw)
+        sync()
+        want = fused_mlp_plain(xx, w1, b1, w2, b2, **kw)
+        check(y.dtype == want.dtype, f"K2 float16 {name}: dtype {y.dtype} vs {want.dtype}")
+        abs_err, rel_err = errs(y, want)
+        log(f"K2 float16 {name}: out {y.dtype}, max abs err {abs_err:.3e}, max rel err "
+            f"{rel_err:.3e} (tolerance {F16_TOL:g} of max |plain|)")
+        check(rel_err <= F16_TOL, f"K2 float16 disagrees with its plain version ({name})")
+        if "seed" in kw:
+            n = same_drops(y, want, "K2")
+            log(f"K2 float16 dropout: the kernel drops the plain version's elements; {n} kept "
+                f"outputs within the tolerance of 0 are 0 in one version only")
+        k2_err = k2_err or (abs_err, rel_err)
+    ms = event_ms(lambda: fused_mlp(x, w1, b1, w2, b2, residual=res), 10)
+    plain_ms = event_ms(lambda: fused_mlp_plain(x, w1, b1, w2, b2, residual=res), 3)
+    library_ms = event_ms(lambda: F.gelu(torch.matmul(x, w1h) + b1h, approximate="tanh") @ w2h
+                          + b2h, 10)
+    ms_drop = event_ms(lambda: fused_mlp(xi, w1, b1, w2, b2, seed=20262302, drop_rate=0.1), 10)
+    ms_i = event_ms(lambda: fused_mlp(xi, w1, b1, w2, b2), 10)
+    nbytes = 2.0 * (x.numel() + w1.numel() + w2.numel()) + 4.0 * (Hd + C + res.numel() + N * C)
+    bound_ms, bound_by = bound(flops1, nbytes, BF16_PEAK)
+    nb_i = 2.0 * (2 * xi.numel() + w1.numel() + w2.numel()) + 4.0 * (Hd + C)
+    bound_i, by_i = bound(2 * flops1, nb_i, BF16_PEAK)
+    log(f"K2 float16 (64800,256)->512->256, f32 residual: kernel {ms:.4f} ms (bf16: "
+        f"{report['K2']['ms']:.4f} ms, phase 3), plain {plain_ms:.4f} ms, float16 torch.matmul "
+        f"chain {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) on {smi_line}")
+    log(f"K2 float16 interpolator call (129600 rows, float16 out): {ms_i:.4f} ms dropout off, "
+        f"{ms_drop:.4f} ms dropout 0.1 (bf16: {report['K2']['ms_interp']:.4f} and "
+        f"{report['K2']['ms_interp_dropout']:.4f} ms), bound {bound_i:.4f} ms ({by_i})")
+    rep["K2"] = dict(max_abs_err=k2_err[0], max_rel_err=k2_err[1], ms=ms, plain_ms=plain_ms,
+                     library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     ms_interp=ms_i, ms_interp_dropout=ms_drop, bound_ms_interp=bound_i)
+    del x, xi
+
+    def tail_operands(B):
+        return (torch.randn((B, N, C), device=dev, generator=g).half(),
+                1.0 + 0.1 * torch.randn((B, 1, C), device=dev, generator=g),
+                0.1 * torch.randn((B, 1, C), device=dev, generator=g))
+
+    x1, a1, c1 = tail_operands(1)
+    x2, a2, c2 = tail_operands(2)
+    res1 = res.reshape(1, N, C)
+    k3_err = None
+    for name, (xx, aa, cc, kw) in {
+            "B=1, f32 residual (the forecaster)": (x1, a1, c1, dict(residual=res1)),
+            "B=2, no residual, float16 out (the interpolator)": (x2, a2, c2, {}),
+            "B=2, 77 rows a sample, dropout 0.1": (x2[:, :77], a2, c2,
+                                                  dict(seed=20262303, drop_rate=0.1))}.items():
+        y = fused_block_tail(xx, aa, cc, w1, b1, w2, b2, **kw)
+        sync()
+        want = fused_block_tail_plain(xx, aa, cc, w1, b1, w2, b2, **kw)
+        check(y.dtype == want.dtype and y.shape == want.shape,
+              f"K3 float16 {name}: {y.dtype} {tuple(y.shape)} vs {want.dtype}")
+        abs_err, rel_err = errs(y, want)
+        log(f"K3 float16 {name}: out {y.dtype}, max abs err {abs_err:.3e}, max rel err "
+            f"{rel_err:.3e} (tolerance {F16_TOL:g} of max |plain|)")
+        check(rel_err <= F16_TOL, f"K3 float16 disagrees with its plain version ({name})")
+        if "seed" in kw:
+            n = same_drops(y, want, "K3")
+            log(f"K3 float16 dropout: the kernel drops the plain version's elements; {n} kept "
+                f"outputs within the tolerance of 0 are 0 in one version only")
+        k3_err = k3_err or (abs_err, rel_err)
+    ms = event_ms(lambda: fused_block_tail(x1, a1, c1, w1, b1, w2, b2, residual=res1), 10)
+    plain_ms = event_ms(lambda: fused_block_tail_plain(x1, a1, c1, w1, b1, w2, b2,
+                                                       residual=res1), 3)
+    library_ms = event_ms(lambda: F.gelu(torch.matmul((x1.float() * a1 + c1).half(), w1h) + b1h,
+                                         approximate="tanh") @ w2h + b2h + res1, 10)
+    ms_b2 = event_ms(lambda: fused_block_tail(x2, a2, c2, w1, b1, w2, b2), 10)
+    library_b2 = event_ms(lambda: F.gelu(torch.matmul((x2.float() * a2 + c2).half(), w1h) + b1h,
+                                         approximate="tanh") @ w2h + b2h, 10)
+    nbytes = 2.0 * (x1.numel() + w1.numel() + w2.numel()) + 4.0 * (
+        Hd + C + a1.numel() + c1.numel() + res1.numel() + N * C)
+    bound_ms, bound_by = bound(flops1, nbytes, BF16_PEAK)
+    nb_b2 = 2.0 * (x2.numel() + w1.numel() + w2.numel() + 2 * N * C) + 4.0 * (
+        Hd + C + a2.numel() + c2.numel())
+    bound_b2, by_b2 = bound(2 * flops1, nb_b2, BF16_PEAK)
+    log(f"K3 float16 B=1, f32 residual: kernel {ms:.4f} ms (bf16: {report['K3']['ms']:.4f} ms, "
+        f"phase 4), plain {plain_ms:.4f} ms, affine + float16 torch.matmul chain + residual "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) on {smi_line}")
+    log(f"K3 float16 B=2, float16 out: kernel {ms_b2:.4f} ms (bf16: "
+        f"{report['K3']['ms_b2']:.4f} ms), chain {library_b2:.4f} ms, bound {bound_b2:.4f} ms "
+        f"({by_b2})")
+    rep["K3"] = dict(max_abs_err=k3_err[0], max_rel_err=k3_err[1], ms=ms, plain_ms=plain_ms,
+                     library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, ms_b2=ms_b2,
+                     library_ms_b2=library_b2, bound_ms_b2=bound_b2, bound_by_b2=by_b2)
+    del x1, x2, res, res1, y, want
+
+    k4 = {}
+    for B in (1, 2):
+        H, L, R = F16_SHAPE[0], int(0.8 * F16_SHAPE[0]), F16_EMBED // 4
+        kw = dict(grid="legendre-gauss", matmul_dtype=f16, kernel_layout=True)
+        fwd, inv = RealSHT(H, 2 * H, L, L, **kw), InverseRealSHT(H, 2 * H, L, L, **kw)
+        A, S = fwd.analysis_mhl.to(dev), inv.synthesis_mhl.to(dev)
+        l_first = torch.minimum(fwd.analysis_l_first, inv.synthesis_l_first).to(dev)
+        xf = torch.randn((B, H, L, 2 * R, 2), device=dev, generator=g).half()
+        Cf = torch.randn((L, R, 2), device=dev, generator=g) * 0.5
+        ops = (xf, A, S, Cf, l_first)
+        y = fused_rank(*ops)
+        sync()
+        want = fused_rank_plain(xf, A, S, Cf)
+        check(y.dtype == want.dtype == f16 and y.shape == want.shape,
+              f"K4 float16 B={B}: {y.dtype} {tuple(y.shape)} vs {want.dtype}")
+        abs_err, rel_err = errs(y, want)
+        lib_err = errs(k4_library(xf, A, S, Cf), want)[1]
+        ms = event_ms(lambda: fused_rank(*ops), 20)
+        dev_ms = event_ms(lambda: fused_rank(*ops), 20, spin=True)
+        plain_ms = event_ms(lambda: fused_rank_plain(xf, A, S, Cf), 5)
+        library_ms = event_ms(lambda: k4_library(xf, A, S, Cf), 20)
+        bound_ms, bound_by = k4_bound(*ops)
+        bf16 = report["K4"]["ms" if B == 1 else "ms_b2"]
+        log(f"K4 float16 fast shape B={B}: max abs err {abs_err:.3e}, max rel err "
+            f"{rel_err:.3e} (tolerance {F16_TOL:g}); kernel {ms:.4f} ms ({dev_ms:.4f} ms on the "
+            f"device, queued behind a spin; bf16 {bf16:.4f} ms, phase 5), plain "
+            f"{plain_ms:.4f} ms, float16 torch.bmm chain {library_ms:.4f} ms (its max rel err "
+            f"{lib_err:.3e}), bound over the triangle {bound_ms:.4f} ms ({bound_by}) on "
+            f"{smi_line}")
+        check(rel_err <= F16_TOL, f"K4 float16 disagrees with its plain version (B={B})")
+        k4[B] = dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=ms, device_ms=dev_ms,
+                     plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                     bound_by=bound_by)
+        del ops, xf, y, want, fwd, inv, A, S
+    rep["K4"] = dict(k4[1], **{f"{k}_b2": v for k, v in k4[2].items()})
+
+    # (b) the three float16 paths at full width, counted windows with dropout live
+    paths = {
+        "window": ({}, dict(use_pallas=False, fused_mlp=False),
+                   {"K1": 8, "K2": 8, "K3": 0, "K4": 0}),
+        "fused_tail": (dict(use_pallas=True, fused_tail=True, peel=True, scan_layers=True),
+                       dict(use_pallas=False, fused_mlp=False, fused_tail=False, peel=True,
+                            scan_layers=True),
+                       {"K1": 8, "K2": 0, "K3": 8, "K4": 0}),
+        "fast": (dict(main_path.FAST_WINDOW_F16), dict(main_path.FAST_WINDOW_F16,
+                                                       fused_rank=False),
+                 {"K1": 0, "K2": 0, "K3": 0, "K4": 6}),
+    }
+    inp = main_path.window_inputs(N_STEPS, F16_SHAPE, seed=0, device=device)
+    size = dict(embed=F16_EMBED, layers=F16_LAYERS, img_shape=F16_SHAPE)
+
+    def window(st):
+        out = st.run_window(inp["x0"], inp["forcing"], inp["sst"], inp["mask"],
+                            torch.Generator().manual_seed(3), N_STEPS)
+        sync()
+        return out[1]
+
+    windows = {}
+    for name, (kern_kw, plain_kw, per_forward) in paths.items():
+        run = drive(f"float16 {name}", kern_kw, per_forward, dtype="float16")
+        runs[f"f16_{name}"] = run
+        # (c) dropout off: kernels in float16, the plain path in float16 and
+        # in float32 (its float32 form: no spectral-IO emit, as phase 8)
+        kern = main_path.build(dtype="float16", device=device, seed=0,
+                               enable_interpolator_dropout=False, **size, **kern_kw)
+        state = {k: n.state_dict() for k, n in (("f", kern.exp.model),
+                                                ("i", kern.exp.interpolator.model))}
+        pk = window(kern)
+        del kern
+        preds = {}
+        for dt in ("float16", "float32"):
+            kw = dict(plain_kw, spectral_io="") if dt == "float32" and name == "fast" \
+                else plain_kw
+            plain = main_path.build(dtype=dt, device=device, seed=0,
+                                    enable_interpolator_dropout=False, **size, **kw)
+            plain.exp.model.load_state_dict(state["f"])
+            plain.exp.interpolator.model.load_state_dict(state["i"])
+            preds[dt] = window(plain)
+            del plain
+        check(bool(torch.isfinite(pk).all()), f"float16 {name}: non-finite predictions")
+        pp32 = preds["float32"]
+        scale = pp32[..., other].abs().max().item()
+        err = (pk.float() - pp32).abs().max().item()
+        noise = (preds["float16"].float() - pp32).abs().max().item()
+        gap = (pk.float() - preds["float16"].float()).abs().max().item()
+        log(f"float16 {name}, dropout off: max |kernels f16 - plain f32| {err:.3e} = "
+            f"{err / scale:.3e} of the largest model-driven prediction; the float16 plain "
+            f"path's own error {noise:.3e} = {noise / scale:.3e}; ratio {err / noise:.3f} "
+            f"(tolerance {F16_WINDOW_VS_PLAIN:g}); max |kernels - plain| in float16 {gap:.3e}")
+        check(err <= F16_WINDOW_VS_PLAIN * noise,
+              f"float16 {name}: the kernels' error exceeds {F16_WINDOW_VS_PLAIN} x the float16 "
+              f"plain path's")
+        windows[name] = dict(seconds=run["seconds"], steps_per_s=N_STEPS / run["seconds"],
+                             bf16_seconds=runs[name]["seconds"], launches=run["launches"],
+                             err_vs_f32=err / scale, plain_f16_err_vs_f32=noise / scale,
+                             ratio=err / noise)
+        log(f"float16 {name} window {run['seconds']:.3f} s against the bf16 window's "
+            f"{runs[name]['seconds']:.3f} s (phases 6-8) on {smi_line}")
+        del pk, preds, state, pp32
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    report["float16"] = dict(kernels=rep, windows=windows)
+
+
+def phase24(smi_line, wrappers, report, runs, device="cuda") -> None:
+    """Phase 24: the port's ``scripts/rollout_10yr.py`` at 256 x 8 on 180 x
+    360, horizon 6, in the variants of ``ROLLOUT10_VARIANTS``, each
+    ``ROLLOUT10_STEPS`` steps (two windows of 96) after its warm-up window:
+    steps/s, sim-yr/day, the host fractions and ``all_steps_finite``, every
+    time-mean log finite, and the kernels' launches where a variant routes
+    through them."""
+    import tempfile
+
+    import numpy as np
+
+    from spherical_dyffusion_tpu_torch.ops.fused_mlp import weight_image
+    from spherical_dyffusion_tpu_torch.ops.pallas_contractions import dhconv_weight_image
+    from spherical_dyffusion_tpu_torch.scripts import rollout_10yr
+
+    out = {}
+    n_windows = ROLLOUT10_STEPS // ROLLOUT10_WINDOW
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (flags, per_forward) in ROLLOUT10_VARIANTS.items():
+            args = rollout_10yr.parse_args(
+                ["--steps", str(ROLLOUT10_STEPS), "--window", str(ROLLOUT10_WINDOW),
+                 "--embed", str(ROLLOUT10_EMBED), "--layers", str(ROLLOUT10_LAYERS),
+                 "--device", device, "--out", os.path.join(tmp, name.replace(" ", "_")),
+                 *flags])
+            t0 = time.perf_counter()
+            stepper = rollout_10yr.build_stepper(args)
+            windows = []
+            real = stepper.run_window
+
+            def run_window(*a, **k):
+                windows.append(1)
+                return real(*a, **k)
+
+            def zero_counts():
+                windows.clear()
+                for fn in (*wrappers.values(), weight_image, dhconv_weight_image):
+                    fn.launches = 0
+
+            stepper.run_window = run_window
+            art = rollout_10yr.rollout_artifact(stepper, args, verbose=False,
+                                                before_timed=zero_counts)
+            seconds = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in wrappers.items()}
+            tp, hf, num = art["throughput"], art["host_fractions"], art["numerics"]
+            log(f"rollout_10yr {name} ({' '.join(flags) or 'defaults'}): {tp['total_steps']} steps "
+                f"(cut from 14,600 to two windows of {ROLLOUT10_WINDOW}): "
+                f"{tp['steps_per_second']:.3f} steps/s = {tp['sim_years_per_day']:.1f} "
+                f"sim-yr/day, steady {tp['steady_steps_per_second']:.3f} steps/s = "
+                f"{tp['steady_sim_years_per_day']:.1f} sim-yr/day; host fractions "
+                f"data {hf['data_loading']:.4f}, writer+aggregator "
+                f"{hf['writer_and_aggregator']:.4f}, device+dispatch "
+                f"{hf['device_and_dispatch']:.4f}; all_steps_finite {num['all_steps_finite']}, "
+                f"K4 {'on' if art['config']['fused_rank'] else 'off'}; launches {launches}; "
+                f"{seconds:.1f} s with its build and warm-up on {smi_line}")
+            check(len(windows) == n_windows, f"rollout_10yr {name}: {len(windows)} timed windows")
+            check(num["all_steps_finite"] and num["n_metric_rows"] == ROLLOUT10_STEPS,
+                  f"rollout_10yr {name}: numerics {num}")
+            bad = [k for k, v in art["time_mean_logs"].items() if not np.isfinite(v)]
+            check(art["time_mean_logs"] and not bad, f"rollout_10yr {name}: non-finite {bad[:5]}")
+            forwards = 2 * ROLLOUT10_STEPS  # 12 SFNO forwards every 6 steps
+            for k, n in per_forward.items():
+                check(launches[k] == n * forwards,
+                      f"rollout_10yr {name}: {k} launched {launches[k]} times in {forwards} "
+                      f"SFNO forwards, expected {n} a forward")
+            runs[f"rollout_10yr {name}"] = dict(launches=launches)
+            out[name] = dict(flags=flags, throughput=tp, host_fractions=hf, numerics=num,
+                             fused_rank=art["config"]["fused_rank"], seconds=seconds)
+            del stepper, real, run_window
+    report["rollout_10yr"] = out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -4663,7 +5077,7 @@ def main() -> int:
             elif fn is not None and "HGMMA" in line:
                 hgmma[fn] += 1
         for kernel, n in (("dhconv_tc_kernel", 1), ("dhconv_wgrad_tc_kernel", 2),
-                          ("fused_mlp_tc_kernel", 4), ("fused_rank_tc_kernel", 2)):
+                          ("fused_mlp_tc_kernel", 8), ("fused_rank_tc_kernel", 4)):
             tc = {k: v for k, v in hgmma.items() if kernel in k}
             for k, v in tc.items():
                 log(f"  sass: {v} HGMMA (wgmma) instructions in {k}")
@@ -5372,12 +5786,12 @@ def main() -> int:
         torch.cuda.synchronize()
         return out
 
-    def drive(name, path_kw, per_forward):
-        """Build the path at full width, warm it up, and run one counted,
-        timed 12-step window with dropout live. ``per_forward`` maps each
-        kernel to the launches the path must make per SFNO forward."""
+    def drive(name, path_kw, per_forward, dtype="bfloat16"):
+        """Build the path at full width in ``dtype``, warm it up, and run one
+        counted, timed 12-step window with dropout live. ``per_forward`` maps
+        each kernel to the launches the path must make per SFNO forward."""
         t0 = time.perf_counter()
-        stepper = main_path.build(embed=256, layers=8, dtype="bfloat16", device="cuda", seed=0,
+        stepper = main_path.build(embed=256, layers=8, dtype=dtype, device="cuda", seed=0,
                                   **path_kw)
         log(f"{name} built in {time.perf_counter() - t0:.2f} s")
         nets = {"forecaster": stepper.exp.model, "interpolator": stepper.exp.interpolator.model}
@@ -5398,7 +5812,7 @@ def main() -> int:
         launches = {k: fn.launches for k, fn in wrappers.items()}
         check(weight_image.launches == launches["K2"] + launches["K3"],
               f"{name}: {weight_image.launches} weight repacks for "
-              f"{launches['K2'] + launches['K3']} bf16 K2/K3 launches")
+              f"{launches['K2'] + launches['K3']} 16-bit K2/K3 launches")
         check(dhconv_weight_image.launches == 0,
               f"{name}: {dhconv_weight_image.launches} K1 weight images made in a window after "
               f"the first (each filter makes its image once)")
@@ -5706,6 +6120,14 @@ def main() -> int:
                "through K1, launches a training step)"):
         phase22(smi_line, wrappers, report, runs)
 
+    with Phase("23 float16 (K2, K3 and K4's float16 instances; the window, fused-tail and "
+               "fast windows at float16 against the float32 plain path)"):
+        phase23(smi_line, wrappers, report, runs, drive, other)
+
+    with Phase("24 the port's rollout_10yr at 256 x 8 (plain, K1+K3 in bf16 and float16, "
+               "--fast in bf16 and float16)"):
+        phase24(smi_line, wrappers, report, runs)
+
     # the profile runs last: a torch.profiler session leaves a launch cost
     # behind in the process (the UNet's forward, bound by the host's
     # launches at batch 1, took 19.9-21.4 ms before one profiled forward and
@@ -5774,6 +6196,15 @@ def main() -> int:
             launches=runs[own_path[k]]["launches"][k],
             launches_by_path={p: r["launches"][k] for p, r in runs.items()},
             kernel_ms=report[k]["ms"], **report[k]))
+    # the float16 instances (phase 23), their launches on the float16 paths
+    for k in ("K2", "K3", "K4"):
+        f16 = report["float16"]["kernels"][k]
+        kernels.append(dict(
+            name=f"{names[k]} (float16)", route="cuda", source=sources[k],
+            replaces=replaces[k], launches=runs[f"f16_{own_path[k]}"]["launches"][k],
+            launches_by_path={p: r["launches"][k] for p, r in runs.items()
+                              if p.startswith("f16_") or "float16" in p},
+            kernel_ms=f16["ms"], **f16))
     # K1 run by the backward for dx (JAX's custom VJP, whose dx is XLA's
     # einsum and whose forward is the Pallas kernel); launches over the
     # training steps of phase 11
@@ -5802,6 +6233,8 @@ def main() -> int:
     print(json.dumps({"writers": report["writers"]}))
     print(json.dumps({"parity": report["parity"]}))
     print(json.dumps({"studies": report["studies"]}))
+    print(json.dumps({"float16": report["float16"]}))
+    print(json.dumps({"rollout_10yr": report["rollout_10yr"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

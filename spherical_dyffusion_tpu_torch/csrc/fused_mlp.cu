@@ -62,8 +62,13 @@
 // sample if it reached device memory; it never does, which is the point of
 // the kernels.
 //
-// bf16 design (fused_mlp_tc_kernel: x bf16, residual float32, bf16 or none).
-// Both products run on the tensor cores with wgmma (sm_90a), float32
+// 16-bit design (fused_mlp_tc_kernel: x bf16 or fp16, residual float32, of
+// x's type or none). The two instances differ only in the element type T:
+// wgmma's operand type (.bf16 or .f16), the rounding of the affine, the
+// hidden tile and the output (Elem16 in hopper.cuh), and the weight image's
+// type; bytes, layouts and tiling are the same, and so is the tensor-core
+// rate (989 TFLOP/s dense for either on the H100). The notes below say bf16
+// for T. Both products run on the tensor cores with wgmma (sm_90a), float32
 // accumulation. One block is one warpgroup (128 threads) and owns 64 rows,
 // wgmma's M; two blocks share an SM. Shared memory (107 KB at C = 256,
 // 1024-byte aligned), every operand in wgmma's K-major 128-byte-swizzle
@@ -98,10 +103,10 @@
 // group of 32 columns at a time from clamped addresses) and stores the
 // promoted type; rows past B * N are not stored. The tanh-form gelu is
 // computed as v * sigmoid(2u) with the fast exponential and division, within
-// about 1e-6 of v of the tanhf form, before the bf16 rounding. Widths: C, Hd
-// and C2 multiples of 16, C and C2 at most 256; the wrapper raises on any
-// other bf16 call. At B = 1 the grid is 1,013 blocks on 132 SMs. ptxas gives
-// the kernel 218 registers, no spill.
+// about 1e-6 of v of the tanhf form, before the 16-bit rounding. Widths: C,
+// Hd and C2 multiples of 16, C and C2 at most 256; the wrapper raises on any
+// other 16-bit call. At B = 1 the grid is 1,013 blocks on 132 SMs. ptxas gives
+// the bf16 kernel 218 registers, no spill.
 //
 // Why not a producer warpgroup with setmaxnreg: with three warpgroups the
 // launch bound caps the whole kernel at 168 registers, and ptxas kept the
@@ -127,8 +132,11 @@
 // the bf16 main path.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -136,6 +144,7 @@ namespace {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
@@ -189,18 +198,19 @@ __device__ __forceinline__ float gelu(float v, int exact) {
   return 0.5f * v * (1.f + tanhf(inner));
 }
 
-// Keeps v scaled by 256 / t (scale) iff its byte is below t.
-// The tanh-form gelu of the bf16 kernel: 0.5 v (1 + tanh(u)) = v sigmoid(2u),
-// with the fast exponential and division, within about 1e-6 of v of the
-// tanhf form; its result is rounded to bf16 next, 2^-9 relative. (The float32
-// kernel keeps tanhf: its checks allow 1e-5.) erf gelu is computed as in
-// gelu().
-__device__ __forceinline__ float gelu_bf16(float v, int exact) {
+// The tanh-form gelu of the 16-bit kernels: 0.5 v (1 + tanh(u)) =
+// v sigmoid(2u), with the fast exponential and division, within about 1e-6
+// of v of the tanhf form; its result is rounded to bf16 (2^-9 relative at
+// most) or fp16 (2^-11 at most) next, so the difference stays a few
+// hundredths of fp16's rounding step or less. (The float32 kernel keeps
+// tanhf: its checks allow 1e-5.) erf gelu is computed as in gelu().
+__device__ __forceinline__ float gelu_16(float v, int exact) {
   if (exact) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
   const float two_u = 1.5957691216057308f * v * (1.f + 0.044715f * v * v);
   return __fdividef(v, 1.f + __expf(-two_u));
 }
 
+// Keeps v scaled by 256 / t (scale) iff its byte is below t.
 __device__ __forceinline__ float keep_or_zero(float v, uint32_t byte, int t, float scale) {
   return byte < (uint32_t)t ? v * scale : 0.f;
 }
@@ -367,7 +377,9 @@ int dispatch_simt(const void* x, const float* aff_a, const float* aff_c, int n_p
                   const void* res, void* y, int N, int C, int Hd, int C2, int x_dtype,
                   int res_dtype, int t, uint64_t seed, int exact_gelu, RowMap map,
                   void* stream) {
-  if (x_dtype != 0 || C2 > kMaxOut || C2 <= 0 || C <= 0 || Hd <= 0 || N < 0) return -1;
+  if (x_dtype != 0 || C2 > kMaxOut || C2 <= 0 || C <= 0 || Hd <= 0 || N < 0 || res_dtype < -1 ||
+      res_dtype > 1)
+    return -1;
   cudaStream_t s = (cudaStream_t)stream;
   const void* r = res_dtype < 0 ? nullptr : res;
   if (res_dtype == 1)
@@ -380,7 +392,7 @@ int dispatch_simt(const void* x, const float* aff_a, const float* aff_c, int n_p
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the tensor-core kernel
+// bf16 and fp16: the tensor-core kernel
 
 namespace tc {
 constexpr int kThreads = 128;           // one warpgroup
@@ -388,80 +400,107 @@ constexpr int kRows = 64;               // rows of x per block: wgmma's M
 constexpr int kChunk = 64;              // hidden units per chunk
 constexpr int kN2 = 256;                // GEMM2 width: C2 padded in the image
 constexpr int kSlots = 2;               // weight slots: one W1 part, one W2 part
-constexpr uint32_t kSlotBytes = 32768;  // kN2 x kChunk bf16
+constexpr uint32_t kSlotBytes = 32768;  // kN2 x kChunk 16-bit values
 constexpr uint32_t kBlockBytes = 8192;  // 64 rows x 128 bytes
 constexpr int kMaxC = 256;
 constexpr uint32_t kBiasOffset = 64;    // b1 and b2 follow the barriers
 }  // namespace tc
 
 // D (+)= A B for a 64-row A tile and a 64- or 256-wide B tile, K = 16, both
-// K-major in shared memory; scale_d == 0 overwrites D.
+// K-major in shared memory; scale_d == 0 overwrites D. TY is the PTX type of
+// the 16-bit operands, "bf16" or "f16"; the instances differ in nothing else.
+#define SDT_WGMMA_N64(TY)                                                                      \
+  asm volatile(                                                                                \
+      "{\n.reg .pred p;\n"                                                                     \
+      "setp.ne.b32 p, %34, 0;\n"                                                               \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"                 \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "     \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),    \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),             \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),          \
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),          \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),          \
+        "+f"(d[31])                                                                            \
+      : "l"(a), "l"(b), "r"(scale_d))
+
+#define SDT_WGMMA_N256(TY)                                                                     \
+  asm volatile(                                                                                \
+      "{\n.reg .pred p;\n"                                                                     \
+      "setp.ne.b32 p, %130, 0;\n"                                                              \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "                             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"                 \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"       \
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"       \
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"       \
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"       \
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"       \
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110," \
+      " %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124,"   \
+      " %125, %126, %127}, "                                                                   \
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"                                                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),    \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),             \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),          \
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),          \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),          \
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),          \
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),          \
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),          \
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),          \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),          \
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),          \
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),          \
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),          \
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),          \
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),          \
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),          \
+        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),       \
+        "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),    \
+        "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),    \
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),    \
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),    \
+        "+f"(d[127])                                                                           \
+      : "l"(a), "l"(b), "r"(scale_d))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_n64(float* d, uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
+  if constexpr (std::is_same<T, __half>::value)
+    SDT_WGMMA_N64("f16");
+  else
+    SDT_WGMMA_N64("bf16");
 }
 
+template <typename T>
 __device__ __forceinline__ void wgmma_n256(float* d, uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(scale_d));
+  if constexpr (std::is_same<T, __half>::value)
+    SDT_WGMMA_N256("f16");
+  else
+    SDT_WGMMA_N256("bf16");
 }
 
 __device__ __forceinline__ float2 load_pair(const float* p) { return *reinterpret_cast<const float2*>(p); }
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+template <typename T>
+__device__ __forceinline__ float2 load_pair(const T* p) {
+  return Elem16<T>::unpack(*reinterpret_cast<const uint32_t*>(p));
 }
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = Elem16<T>::pack(a, b);
 }
 
-// x (N, C) bf16; img the weight image (weight_image in ops/fused_mlp.py);
-// b1, b2 float32; res (N, C2) of type O or null; y (N, C2) of type O.
-template <bool kAffine, typename O>
+// x (N, C) of the 16-bit type T (bf16 or fp16); img the weight image in T
+// (weight_image in ops/fused_mlp.py); b1, b2 float32; res (N, C2) of type O
+// or null; y (N, C2) of type O (float32 or T).
+template <bool kAffine, typename T, typename O>
 __global__ void __launch_bounds__(tc::kThreads, 2)
-fused_mlp_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ aff_a,
+fused_mlp_tc_kernel(const T* __restrict__ x, const float* __restrict__ aff_a,
                     const float* __restrict__ aff_c, int n_per_sample,
-                    const __nv_bfloat16* __restrict__ img, const float* __restrict__ b1,
+                    const T* __restrict__ img, const float* __restrict__ b1,
                     const float* __restrict__ b2, const O* __restrict__ res,
                     O* __restrict__ y, int N, int C, int Hd, int C2, int t, uint64_t seed,
                     int exact_gelu, RowMap map) {
@@ -512,7 +551,7 @@ fused_mlp_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
   const int warp = tid >> 5, lane = tid & 31;
   const int row0 = blockIdx.x * tc::kRows;
 
-  // x tile: 16-byte loads, K3's affine in float32, bf16 into the swizzle.
+  // x tile: 16-byte loads, K3's affine in float32, T into the swizzle.
   // Each batch issues its loads from clamped, always valid addresses before
   // it uses any of them; rows past N and columns past C become zero.
   {
@@ -546,13 +585,9 @@ fused_mlp_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
                                cv[u][1].x, cv[u][1].y, cv[u][1].z, cv[u][1].w};
 #pragma unroll
           for (int p = 0; p < 4; ++p) {
-            const float lo = __uint_as_float(wv[p] << 16);
-            const float hi = __uint_as_float(wv[p] & 0xFFFF0000u);
-            const __nv_bfloat162 h2 =
-                __floats2bfloat162_rn(__fadd_rn(__fmul_rn(lo, a8[2 * p]), c8[2 * p]),
-                                      __fadd_rn(__fmul_rn(hi, a8[2 * p + 1]), c8[2 * p + 1]));
-            wv[p] = (uint32_t)__bfloat16_as_ushort(h2.x) |
-                    ((uint32_t)__bfloat16_as_ushort(h2.y) << 16);
+            const float2 lh = Elem16<T>::unpack(wv[p]);
+            wv[p] = Elem16<T>::pack(__fadd_rn(__fmul_rn(lh.x, a8[2 * p]), c8[2 * p]),
+                                    __fadd_rn(__fmul_rn(lh.y, a8[2 * p + 1]), c8[2 * p + 1]));
           }
         }
         const bool inside = row0 + r < N && cc * 8 < C;
@@ -589,12 +624,12 @@ fused_mlp_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
       const uint32_t w2s = slot(l1 - 1);
 #pragma unroll
       for (int ks = 0; ks < kChunk / 16; ++ks)
-        wgmma_n256(acc_o, kmajor_desc(base + hs + 32 * ks), kmajor_desc(w2s + 32 * ks), 1);
+        wgmma_n256<T>(acc_o, kmajor_desc(base + hs + 32 * ks), kmajor_desc(w2s + 32 * ks), 1);
     }
     const uint32_t w1s = slot(l1);
     for (int ks = 0; ks < 4 * nkb; ++ks) {
       const uint32_t off = (uint32_t)(ks >> 2) * kBlockBytes + 32u * (ks & 3);
-      wgmma_n64(acc_h, kmajor_desc(base + xs + off), kmajor_desc(w1s + off), ks > 0);
+      wgmma_n64<T>(acc_h, kmajor_desc(base + xs + off), kmajor_desc(w1s + off), ks > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -605,7 +640,7 @@ fused_mlp_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
       if (j > 0) issue(l1 - 1 + kSlots);
     }
 
-    // GEMM1's epilogue: b1, gelu, stream-0 dropout, bf16 into the hidden tile
+    // GEMM1's epilogue: b1, gelu, stream-0 dropout, T into the hidden tile
     const int j0 = j * kChunk;
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
@@ -620,15 +655,15 @@ fused_mlp_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
         const uint32_t words[2] = {word_of(bits, jj), word_of(bits_b, jj)};
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          float v0 = gelu_bf16(acc_h[4 * j8 + 2 * h] + bia.x, exact_gelu);
-          float v1 = gelu_bf16(acc_h[4 * j8 + 2 * h + 1] + bia.y, exact_gelu);
+          float v0 = gelu_16(acc_h[4 * j8 + 2 * h] + bia.x, exact_gelu);
+          float v1 = gelu_16(acc_h[4 * j8 + 2 * h + 1] + bia.y, exact_gelu);
           if (t > 0) {
             v0 = keep_or_zero(v0, (words[h] >> (8 * half[h])) & 255u, t, scale);
             v1 = keep_or_zero(v1, (words[h] >> (8 * (2 + half[h]))) & 255u, t, scale);
           }
           const int r = 16 * warp + (lane >> 2) + 8 * h;
-          *reinterpret_cast<__nv_bfloat162*>(sgen + hs + r * 128 + ((j8 ^ (r & 7)) << 4) +
-                                             4 * (lane & 3)) = __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<uint32_t*>(sgen + hs + r * 128 + ((j8 ^ (r & 7)) << 4) +
+                                       4 * (lane & 3)) = Elem16<T>::pack(v0, v1);
         }
       }
     }
@@ -644,7 +679,7 @@ fused_mlp_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
     const uint32_t w2s = slot(l2);
 #pragma unroll
     for (int ks = 0; ks < kChunk / 16; ++ks)
-      wgmma_n256(acc_o, kmajor_desc(base + hs + 32 * ks), kmajor_desc(w2s + 32 * ks), 1);
+      wgmma_n256<T>(acc_o, kmajor_desc(base + hs + 32 * ks), kmajor_desc(w2s + 32 * ks), 1);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<128>(acc_o);
@@ -690,11 +725,12 @@ fused_mlp_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
   }
 }
 
-// The weight image of weight_image_plain (ops/fused_mlp.py) in bf16, one
-// 16-byte chunk of 8 values a thread, from W1 (C, Hd) and W2 (Hd, C2) of type W.
-template <typename W>
+// The weight image of weight_image_plain (ops/fused_mlp.py) in the 16-bit
+// type T, one 16-byte chunk of 8 values a thread, from W1 (C, Hd) and W2 (Hd,
+// C2) of type W.
+template <typename W, typename T>
 __global__ void weight_image_kernel(const W* __restrict__ w1, const W* __restrict__ w2,
-                                    __nv_bfloat16* __restrict__ img, int C, int Hd, int C2) {
+                                    T* __restrict__ img, int C, int Hd, int C2) {
   using namespace tc;
   const int Cp = (C + 63) & ~63;
   const int per_chunk = (Cp + kN2) * kChunk / 8;  // 16-byte pieces per hidden chunk
@@ -718,16 +754,12 @@ __global__ void weight_image_kernel(const W* __restrict__ w1, const W* __restric
   }
   uint32_t packed[4];
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const __nv_bfloat162 h2 = __floats2bfloat162_rn(v[2 * p], v[2 * p + 1]);
-    packed[p] = (uint32_t)__bfloat16_as_ushort(h2.x) |
-                ((uint32_t)__bfloat16_as_ushort(h2.y) << 16);
-  }
+  for (int p = 0; p < 4; ++p) packed[p] = Elem16<T>::pack(v[2 * p], v[2 * p + 1]);
   *reinterpret_cast<uint4*>(img + (size_t)idx * 8) =
       make_uint4(packed[0], packed[1], packed[2], packed[3]);
 }
 
-template <bool kAffine, typename O>
+template <bool kAffine, typename T, typename O>
 int launch_tc(const void* x, const float* aff_a, const float* aff_c, int n_per_sample,
               const void* img, const float* b1, const float* b2, const void* res, void* y,
               int N, int C, int Hd, int C2, int t, uint64_t seed, int exact_gelu, RowMap map,
@@ -737,15 +769,15 @@ int launch_tc(const void* x, const float* aff_a, const float* aff_c, int n_per_s
   const size_t smem = 1024 + (size_t)nkb * kBlockBytes + kSlots * kSlotBytes + kBlockBytes +
                       kBiasOffset + 4 * ((size_t)(Hd + kChunk - 1) / kChunk * kChunk + kN2);
   if (smem > 232448) return -1;  // Hd beyond about 30,000
-  auto kern = fused_mlp_tc_kernel<kAffine, O>;
+  auto kern = fused_mlp_tc_kernel<kAffine, T, O>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (N + tc::kRows - 1) / tc::kRows;
   if (blocks == 0) return 0;
   kern<<<blocks, tc::kThreads, smem, stream>>>(
-      (const __nv_bfloat16*)x, aff_a, aff_c, n_per_sample, (const __nv_bfloat16*)img, b1, b2,
-      (const O*)res, (O*)y, N, C, Hd, C2, t, seed, exact_gelu, map);
+      (const T*)x, aff_a, aff_c, n_per_sample, (const T*)img, b1, b2, (const O*)res, (O*)y, N,
+      C, Hd, C2, t, seed, exact_gelu, map);
   return (int)cudaGetLastError();
 }
 
@@ -760,7 +792,7 @@ bool make_map(int lw, int wl, int gw, int ghw, int off, RowMap* m) {
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16; res_dtype -1 = no residual. The
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16; res_dtype -1 = no residual. The
 // last five integers before the stream are the dropout row map (RowMap: lw,
 // wl, gw, ghw, off; all 0 for the identity); -1 for a map that is not one.
 // The float32 kernels (K2 and K3 with x float32): x (N, C), w1 (C, Hd), w2
@@ -797,43 +829,80 @@ extern "C" int sdt_fused_block_tail(const void* x, const void* a, const void* c,
                              exact_gelu, map, stream);
 }
 
-// The weight image for the bf16 kernels: w1 (C, Hd) and w2 (Hd, C2), both
-// float32 (w_dtype 0) or both bfloat16 (1), contiguous; img (Hd/64 rounded
-// up, (C rounded up to 64 + 256) * 64) bf16, 16-byte aligned. Returns the
-// cudaError_t of the launch, or -1 for what the kernels do not take.
-extern "C" int sdt_weight_image(const void* w1, const void* w2, void* img, int C, int Hd,
-                                int C2, int w_dtype, void* stream) {
-  if (C <= 0 || C > tc::kMaxC || Hd <= 0 || C2 <= 0 || C2 > tc::kN2) return -1;
-  const int pieces = (Hd + tc::kChunk - 1) / tc::kChunk * (((C + 63) & ~63) + tc::kN2) *
-                     tc::kChunk / 8;
-  const int threads = 256, blocks = (pieces + threads - 1) / threads;
-  cudaStream_t s = (cudaStream_t)stream;
+// The weight image for the 16-bit kernels: w1 (C, Hd) and w2 (Hd, C2), both
+// float32 (w_dtype 0), both bfloat16 (1) or both float16 (2), contiguous; img
+// (Hd/64 rounded up, (C rounded up to 64 + 256) * 64) in bfloat16 (img_dtype
+// 1) or float16 (2), 16-byte aligned. Returns the cudaError_t of the launch,
+// or -1 for what the kernels do not take.
+template <typename T>
+int launch_image(const void* w1, const void* w2, void* img, int C, int Hd, int C2,
+                 int w_dtype, int blocks, int threads, cudaStream_t s) {
   if (w_dtype == 0)
-    weight_image_kernel<float><<<blocks, threads, 0, s>>>(
-        (const float*)w1, (const float*)w2, (__nv_bfloat16*)img, C, Hd, C2);
+    weight_image_kernel<float, T><<<blocks, threads, 0, s>>>(
+        (const float*)w1, (const float*)w2, (T*)img, C, Hd, C2);
   else if (w_dtype == 1)
-    weight_image_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        (const __nv_bfloat16*)w1, (const __nv_bfloat16*)w2, (__nv_bfloat16*)img, C, Hd, C2);
+    weight_image_kernel<__nv_bfloat16, T><<<blocks, threads, 0, s>>>(
+        (const __nv_bfloat16*)w1, (const __nv_bfloat16*)w2, (T*)img, C, Hd, C2);
+  else if (w_dtype == 2)
+    weight_image_kernel<__half, T><<<blocks, threads, 0, s>>>(
+        (const __half*)w1, (const __half*)w2, (T*)img, C, Hd, C2);
   else
     return -1;
   return (int)cudaGetLastError();
 }
 
-// The bf16 kernels, K2 (a == c == null) and K3: x (N, C) bf16, 16-byte
-// aligned; img the weight image of sdt_weight_image; b1 (Hd,), b2 (C2,) float32;
-// a, c (B, C) float32 with N = B * n_per_sample; res (N, C2) float32 (y
-// float32), bfloat16 or none (y bfloat16). C, Hd, C2 multiples of 16, C and
-// C2 at most 256. Returns the cudaError_t of the launch, or -1 for what the
-// kernel does not take.
+extern "C" int sdt_weight_image(const void* w1, const void* w2, void* img, int C, int Hd,
+                                int C2, int w_dtype, int img_dtype, void* stream) {
+  if (C <= 0 || C > tc::kMaxC || Hd <= 0 || C2 <= 0 || C2 > tc::kN2) return -1;
+  const int pieces = (Hd + tc::kChunk - 1) / tc::kChunk * (((C + 63) & ~63) + tc::kN2) *
+                     tc::kChunk / 8;
+  const int threads = 256, blocks = (pieces + threads - 1) / threads;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (img_dtype == 1)
+    return launch_image<__nv_bfloat16>(w1, w2, img, C, Hd, C2, w_dtype, blocks, threads, s);
+  if (img_dtype == 2)
+    return launch_image<__half>(w1, w2, img, C, Hd, C2, w_dtype, blocks, threads, s);
+  return -1;
+}
+
+// K2 (aff_a == null) or K3 with x and the image in T: the output type O is
+// float32 with a float32 residual, else T.
+template <typename T>
+int dispatch_tc(const void* x, const float* aff_a, const float* aff_c, int n_per_sample,
+                const void* img, const float* b1, const float* b2, const void* res, void* y,
+                int N, int C, int Hd, int C2, int res_dtype, int t, uint64_t seed,
+                int exact_gelu, RowMap map, cudaStream_t s) {
+  const bool affine = aff_a != nullptr;
+  const int nps = affine ? n_per_sample : 1;
+  if (res_dtype == 0)
+    return affine ? launch_tc<true, T, float>(x, aff_a, aff_c, nps, img, b1, b2, res, y, N, C,
+                                              Hd, C2, t, seed, exact_gelu, map, s)
+                  : launch_tc<false, T, float>(x, aff_a, aff_c, nps, img, b1, b2, res, y, N, C,
+                                               Hd, C2, t, seed, exact_gelu, map, s);
+  return affine ? launch_tc<true, T, T>(x, aff_a, aff_c, nps, img, b1, b2, res, y, N, C, Hd, C2,
+                                        t, seed, exact_gelu, map, s)
+                : launch_tc<false, T, T>(x, aff_a, aff_c, nps, img, b1, b2, res, y, N, C, Hd,
+                                         C2, t, seed, exact_gelu, map, s);
+}
+
+// The 16-bit kernels, K2 (a == c == null) and K3: x (N, C) in bfloat16
+// (x_dtype 1) or float16 (2), 16-byte aligned; img the weight image of
+// sdt_weight_image in x's type; b1 (Hd,), b2 (C2,) float32; a, c (B, C)
+// float32 with N = B * n_per_sample; res (N, C2) float32 (y float32), of x's
+// type (res_dtype == x_dtype) or none (y of x's type). C, Hd, C2 multiples of
+// 16, C and C2 at most 256. Returns the cudaError_t of the launch, or -1 for
+// what the kernel does not take.
 extern "C" int sdt_fused_mlp_tc(const void* x, const void* a, const void* c, int n_per_sample,
                                 const void* img, const void* b1, const void* b2,
                                 const void* res, void* y, int N, int C, int Hd, int C2,
-                                int res_dtype, int t, unsigned long long seed, int exact_gelu,
-                                int lw, int wl, int gw, int ghw, int off, void* stream) {
+                                int x_dtype, int res_dtype, int t, unsigned long long seed,
+                                int exact_gelu, int lw, int wl, int gw, int ghw, int off,
+                                void* stream) {
   RowMap map;
   if (!make_map(lw, wl, gw, ghw, off, &map)) return -1;
   if (N < 0 || C <= 0 || C > tc::kMaxC || C % 16 || Hd <= 0 || Hd % 16 || C2 <= 0 ||
-      C2 > tc::kN2 || C2 % 16 || res_dtype < -1 || res_dtype > 1)
+      C2 > tc::kN2 || C2 % 16 || (x_dtype != 1 && x_dtype != 2) ||
+      (res_dtype != -1 && res_dtype != 0 && res_dtype != x_dtype))
     return -1;
   const bool affine = a != nullptr;
   if (affine != (c != nullptr)) return -1;
@@ -844,13 +913,9 @@ extern "C" int sdt_fused_mlp_tc(const void* x, const void* a, const void* c, int
   const float* fb1 = (const float*)b1;
   const float* fb2 = (const float*)b2;
   const void* r = res_dtype < 0 ? nullptr : res;
-  if (res_dtype == 0)
-    return affine ? launch_tc<true, float>(x, fa, fc, n_per_sample, img, fb1, fb2, r, y, N, C,
-                                           Hd, C2, t, seed, exact_gelu, map, s)
-                  : launch_tc<false, float>(x, fa, fc, 1, img, fb1, fb2, r, y, N, C, Hd, C2,
-                                            t, seed, exact_gelu, map, s);
-  return affine ? launch_tc<true, __nv_bfloat16>(x, fa, fc, n_per_sample, img, fb1, fb2, r, y,
-                                                 N, C, Hd, C2, t, seed, exact_gelu, map, s)
-                : launch_tc<false, __nv_bfloat16>(x, fa, fc, 1, img, fb1, fb2, r, y, N, C, Hd,
-                                                  C2, t, seed, exact_gelu, map, s);
+  if (x_dtype == 2)
+    return dispatch_tc<__half>(x, fa, fc, n_per_sample, img, fb1, fb2, r, y, N, C, Hd, C2,
+                               res_dtype, t, seed, exact_gelu, map, s);
+  return dispatch_tc<__nv_bfloat16>(x, fa, fc, n_per_sample, img, fb1, fb2, r, y, N, C, Hd,
+                                    C2, res_dtype, t, seed, exact_gelu, map, s);
 }

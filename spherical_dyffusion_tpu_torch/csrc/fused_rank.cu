@@ -12,13 +12,13 @@
 //     y[b, h, m, :] = sum_l S[m, h, l] [s | i s][l, :]
 //
 // Layout: xf (B, H, M, 2R, 2), A (M, H, L), S (M, H_out, L), y (B, H_out, M,
-// 2R, 2), all in one dtype T (float or bf16); C (L, R, 2) float; l_first (M,)
-// int32. The synthesis has its own row count H_out: on a grid split over
-// latitudes a rank analyses every latitude and synthesizes its block's rows
-// (H_out = H on one device). Rounding points
-// are the model path's (ops/fused_rank.py): under bf16, t, s and y are
-// rounded to bf16 where the plain version rounds them, and the scale is
-// float32 without FMA contraction, as the plain version computes it.
+// 2R, 2), all in one dtype T (float, bf16 or fp16); C (L, R, 2) float;
+// l_first (M,) int32. The synthesis has its own row count H_out: on a grid
+// split over latitudes a rank analyses every latitude and synthesizes its
+// block's rows (H_out = H on one device). Rounding points are the model
+// path's (ops/fused_rank.py): under bf16 (fp16), t, s and y are rounded to
+// bf16 (fp16) where the plain version rounds them, and the scale is float32
+// without FMA contraction, as the plain version computes it.
 //
 // The Legendre triangle. The associated Legendre functions vanish for
 // l < m, so A[m] and S[m] are zero in their first m columns. The transforms
@@ -35,10 +35,13 @@
 // over the triangle, so bytes bound it: 10.2 us at 3.35 TB/s (18.1 us at
 // B = 2) against 2 us at the 989 TFLOP/s of the bf16 tensor cores.
 //
-// bf16 design (fused_rank_tc_kernel: both products on wgmma, float32
-// accumulation). One block is one warpgroup (128 threads) and owns 16 rank
-// indices (the 64 input columns Sr and Si, re and im) of one (b, m); blocks
-// run heaviest m first (m is the outer grid axis, and l_first grows with m).
+// 16-bit design (fused_rank_tc_kernel: both products on wgmma, float32
+// accumulation; one instance for bf16 and one for fp16, which differ only in
+// wgmma's operand type and the rounding of t, s and y, so the notes below,
+// written for bf16, hold for fp16 with the same bytes and rate). One block
+// is one warpgroup (128 threads) and owns 16 rank indices (the 64 input
+// columns Sr and Si, re and im) of one (b, m); blocks run heaviest m first
+// (m is the outer grid axis, and l_first grows with m).
 // Up to H 192, everything a block needs fits in shared memory at once (109
 // KB at H 180, L 144: two blocks an SM); a taller grid goes through h in
 // chunks of 192 rows, the analysis summing over the chunks and the synthesis
@@ -81,10 +84,12 @@
 // the other two columns of a rank as a copy and a negation.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -251,7 +256,7 @@ int launch_simt(const void* xf, const void* At, const void* St, const float* C,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the tensor-core kernel
+// bf16 and fp16: the tensor-core kernel
 
 namespace tc {
 constexpr int kThreads = 128;   // one warpgroup
@@ -261,38 +266,56 @@ constexpr uint32_t kSBlock = 4096;  // s: one 64-deep K block, 32 rows x 128 B
 constexpr uint32_t kTile = 8192;    // 64 rows x 128 B
 }  // namespace tc
 
-// D += A B, m64n64k16, bf16, both operands MN-major (imm-trans-a = imm-trans-b = 1)
-__device__ __forceinline__ void wgmma_bf16_n64_mn(float* d, uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
+// D += A B, m64n64k16, both operands MN-major (imm-trans-a = imm-trans-b =
+// 1), and m64n32k16, both operands K-major; TY is the PTX type of the 16-bit
+// operands, "bf16" or "f16".
+#define SDT_WGMMA_N64_MN(TY)                                                                  \
+  asm volatile(                                                                               \
+      "{\n.reg .pred p;\n"                                                                    \
+      "setp.ne.b32 p, %34, 0;\n"                                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"                \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "    \
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"                                                         \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),   \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),            \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),         \
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),         \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
+        "+f"(d[31])                                                                           \
+      : "l"(a), "l"(b), "r"(1))
+
+#define SDT_WGMMA_N32(TY)                                                                     \
+  asm volatile(                                                                               \
+      "{\n.reg .pred p;\n"                                                                    \
+      "setp.ne.b32 p, %18, 0;\n"                                                              \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "                             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "              \
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"                                                         \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),   \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),            \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])                                                 \
+      : "l"(a), "l"(b), "r"(1))
+
+template <typename T>
+__device__ __forceinline__ void wgmma_n64_mn(float* d, uint64_t a, uint64_t b) {
+  if constexpr (std::is_same<T, __half>::value)
+    SDT_WGMMA_N64_MN("f16");
+  else
+    SDT_WGMMA_N64_MN("bf16");
 }
 
-// D += A B, m64n32k16, bf16, both operands K-major
-__device__ __forceinline__ void wgmma_bf16_n32(float* d, uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
+template <typename T>
+__device__ __forceinline__ void wgmma_n32(float* d, uint64_t a, uint64_t b) {
+  if constexpr (std::is_same<T, __half>::value)
+    SDT_WGMMA_N32("f16");
+  else
+    SDT_WGMMA_N32("bf16");
 }
 
-// Eight bf16 of a 16-byte chunk from p, of which the first `valid` (0 to 8)
-// are in range: 2-byte loads of the valid ones.
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p, int valid) {
+// Eight 16-bit values of a 16-byte chunk from p, of which the first `valid`
+// (0 to 8) are in range: 2-byte loads of the valid ones.
+__device__ __forceinline__ uint4 load8(const void* p, int valid) {
   const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
   uint32_t w[4];
 #pragma unroll
@@ -328,7 +351,7 @@ __device__ __forceinline__ void stage(unsigned char* sgen, int n, Src src, Dst d
     const uint32_t base = smem_u32(sgen);
     for (int e = threadIdx.x; e < n; e += tc::kThreads) {
       int valid;
-      const __nv_bfloat16* p = src(e, valid);
+      const void* p = src(e, valid);
       cp_async16(base + dst(e), p, 2 * valid);
     }
   } else {
@@ -338,7 +361,7 @@ __device__ __forceinline__ void stage(unsigned char* sgen, int n, Src src, Dst d
       for (int u = 0; u < 4; ++u) {
         const int e = min(e0 + u * tc::kThreads, n - 1);
         int valid;
-        const __nv_bfloat16* p = src(e, valid);
+        const void* p = src(e, valid);
         v[u] = load8(p, valid);
       }
 #pragma unroll
@@ -350,8 +373,9 @@ __device__ __forceinline__ void stage(unsigned char* sgen, int n, Src src, Dst d
   }
 }
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+template <typename T>
+__device__ __forceinline__ float round16(float v) {
+  return Elem16<T>::widen(Elem16<T>::round(v));
 }
 
 // the byte of 16-byte chunk c of row r in a 128-byte-swizzle tile
@@ -359,11 +383,13 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
   return (uint32_t)r * 128 + (uint32_t)((c ^ (r & 7)) << 4);
 }
 
-template <bool kVec>
+// T: the 16-bit element type, bf16 or fp16 (xf, A, S, y and the rounding
+// points); the instances differ in nothing else.
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(tc::kThreads, 2)
-fused_rank_tc_kernel(const __nv_bfloat16* __restrict__ xf, const __nv_bfloat16* __restrict__ At,
-                     const __nv_bfloat16* __restrict__ St, const float2* __restrict__ C,
-                     const int* __restrict__ l_first, __nv_bfloat16* __restrict__ y, int H,
+fused_rank_tc_kernel(const T* __restrict__ xf, const T* __restrict__ At,
+                     const T* __restrict__ St, const float2* __restrict__ C,
+                     const int* __restrict__ l_first, T* __restrict__ y, int H,
                      int H_out, int M, int L, int R) {
   using namespace tc;
   extern __shared__ __align__(1024) unsigned char smem_k4[];
@@ -387,10 +413,10 @@ fused_rank_tc_kernel(const __nv_bfloat16* __restrict__ xf, const __nv_bfloat16* 
   const int nl = L - lb;           // rows of t, depth of the synthesis
   const int nlt = (nl + 63) / 64;  // l tiles = K blocks of 64 of the synthesis
   const size_t row = (size_t)M * 4 * R;  // elements between two h of xf and y
-  const __nv_bfloat16* xb = xf + (size_t)b * H * row + (size_t)m * 4 * R;
-  __nv_bfloat16* yb = y + (size_t)b * H_out * row + (size_t)m * 4 * R;
-  const __nv_bfloat16* Am = At + (size_t)m * H * L;
-  const __nv_bfloat16* Sm = St + (size_t)m * H_out * L;
+  const T* xb = xf + (size_t)b * H * row + (size_t)m * 4 * R;
+  T* yb = y + (size_t)b * H_out * row + (size_t)m * 4 * R;
+  const T* Am = At + (size_t)m * H * L;
+  const T* Sm = St + (size_t)m * H_out * L;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   // ---- Legendre analysis: t (l x 64) = A_m^T xf_m, both operands MN-major,
@@ -433,7 +459,7 @@ fused_rank_tc_kernel(const __nv_bfloat16* __restrict__ xf, const __nv_bfloat16* 
 #pragma unroll
       for (int t = 0; t < kMaxTiles; ++t)
         if (t < nlt)
-          wgmma_bf16_n64_mn(acc[t],
+          wgmma_n64_mn<T>(acc[t],
                             mnmajor_desc(base + ms + (uint32_t)t * Hc * 128 + 2048u * ks), bx);
     }
     wgmma_commit();
@@ -477,20 +503,20 @@ fused_rank_tc_kernel(const __nv_bfloat16* __restrict__ xf, const __nv_bfloat16* 
         const int kk = 4 * q + (lane & 3);
         float s_re = 0.f, s_im = 0.f;
         if (l < L && kk < nk) {
-          const float sr_re = round_bf16(acc[t][4 * q + 2 * h2]);
-          const float sr_im = round_bf16(acc[t][4 * q + 2 * h2 + 1]);
-          const float si_re = round_bf16(acc[t][4 * (q + 4) + 2 * h2]);
-          const float si_im = round_bf16(acc[t][4 * (q + 4) + 2 * h2 + 1]);
+          const float sr_re = round16<T>(acc[t][4 * q + 2 * h2]);
+          const float sr_im = round16<T>(acc[t][4 * q + 2 * h2 + 1]);
+          const float si_re = round16<T>(acc[t][4 * (q + 4) + 2 * h2]);
+          const float si_im = round16<T>(acc[t][4 * (q + 4) + 2 * h2 + 1]);
           const float p_re = __fsub_rn(sr_re, si_im), p_im = __fadd_rn(sr_im, si_re);
           const float2 c = C[(size_t)l * R + k0 + kk];
           s_re = __fsub_rn(__fmul_rn(p_re, c.x), __fmul_rn(p_im, c.y));
           s_im = __fadd_rn(__fmul_rn(p_re, c.y), __fmul_rn(p_im, c.x));
         }
         const uint32_t at = ss + (uint32_t)t * kSBlock + (uint32_t)((lr & 7) * 2);
-        *reinterpret_cast<__nv_bfloat16*>(sgen + at + swz(2 * kk, (lr & 63) >> 3)) =
-            __float2bfloat16_rn(s_re);
-        *reinterpret_cast<__nv_bfloat16*>(sgen + at + swz(2 * kk + 1, (lr & 63) >> 3)) =
-            __float2bfloat16_rn(s_im);
+        *reinterpret_cast<T*>(sgen + at + swz(2 * kk, (lr & 63) >> 3)) =
+            Elem16<T>::round(s_re);
+        *reinterpret_cast<T*>(sgen + at + swz(2 * kk + 1, (lr & 63) >> 3)) =
+            Elem16<T>::round(s_im);
       }
     }
   }
@@ -519,7 +545,7 @@ fused_rank_tc_kernel(const __nv_bfloat16* __restrict__ xf, const __nv_bfloat16* 
 #pragma unroll
       for (int ht = 0; ht < kMaxTiles; ++ht)
         if (ht < nht)
-          wgmma_bf16_n32(u[ht], kmajor_desc(base + ms + (uint32_t)(ht * nlt + kb) * kTile + ko),
+          wgmma_n32<T>(u[ht], kmajor_desc(base + ms + (uint32_t)(ht * nlt + kb) * kTile + ko),
                          bs);
     }
     wgmma_commit();
@@ -528,7 +554,7 @@ fused_rank_tc_kernel(const __nv_bfloat16* __restrict__ xf, const __nv_bfloat16* 
     for (int t = 0; t < kMaxTiles; ++t) fence_regs<16>(u[t]);
 
     // y: (u_re, u_im) for rank k0 + kk and (-u_im, u_re) for R + k0 + kk,
-    // as bf16 pairs; the thread holds rows h and h + 8, columns 8j + 2(lane % 4)
+    // as pairs of T; the thread holds rows h and h + 8, columns 8j + 2(lane % 4)
 #pragma unroll
     for (int ht = 0; ht < kMaxTiles; ++ht) {
       if (ht >= nht) continue;
@@ -536,23 +562,21 @@ fused_rank_tc_kernel(const __nv_bfloat16* __restrict__ xf, const __nv_bfloat16* 
       for (int h2 = 0; h2 < 2; ++h2) {
         const int h = h0 + 64 * ht + 16 * warp + (lane >> 2) + 8 * h2;
         if (h >= H_out) continue;
-        __nv_bfloat16* yr = yb + (size_t)h * row;
+        T* yr = yb + (size_t)h * row;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int kk = 4 * j + (lane & 3);
           if (kk >= nk) continue;
           const float re = u[ht][4 * j + 2 * h2], im = u[ht][4 * j + 2 * h2 + 1];
-          *reinterpret_cast<__nv_bfloat162*>(yr + 2 * (k0 + kk)) =
-              __floats2bfloat162_rn(re, im);
-          *reinterpret_cast<__nv_bfloat162*>(yr + 2 * (R + k0 + kk)) =
-              __floats2bfloat162_rn(-im, re);
+          *reinterpret_cast<uint32_t*>(yr + 2 * (k0 + kk)) = Elem16<T>::pack(re, im);
+          *reinterpret_cast<uint32_t*>(yr + 2 * (R + k0 + kk)) = Elem16<T>::pack(-im, re);
         }
       }
     }
   }
 }
 
-template <bool kVec>
+template <typename T, bool kVec>
 int launch_tc(const void* xf, const void* At, const void* St, const float* C,
               const int* l_first, void* y, int B, int H, int H_out, int M, int L, int R,
               cudaStream_t stream) {
@@ -560,14 +584,14 @@ int launch_tc(const void* xf, const void* At, const void* St, const float* C,
   const size_t Hc = std::min((size_t)(H + 63) / 64 * 64, (size_t)kMaxHL);
   const size_t nkb = (size_t)(L + 63) / 64;
   const size_t smem = 1024 + Hc * 128 * (1 + nkb) + nkb * kSBlock;
-  auto kernel = fused_rank_tc_kernel<kVec>;
+  auto kernel = fused_rank_tc_kernel<T, kVec>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(((R + kRanks - 1) / kRanks) * B, M);
   kernel<<<grid, tc::kThreads, smem, stream>>>(
-      (const __nv_bfloat16*)xf, (const __nv_bfloat16*)At, (const __nv_bfloat16*)St,
-      (const float2*)C, l_first, (__nv_bfloat16*)y, H, H_out, M, L, R);
+      (const T*)xf, (const T*)At, (const T*)St, (const float2*)C, l_first, (T*)y, H, H_out, M,
+      L, R);
   return (int)cudaGetLastError();
 }
 
@@ -576,8 +600,8 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 }  // namespace
 
 // xf: (B, H, M, 2R, 2); At: (M, H, L); St: (M, H_out, L); y: (B, H_out, M,
-// 2R, 2); all contiguous in one dtype (dtype 0 float32, 1 bf16); C: (L, R, 2)
-// float32; l_first: (M,) int32, per m a column before which A[m] and S[m] are
+// 2R, 2); all contiguous in one dtype (dtype 0 float32, 1 bf16, 2 fp16); C:
+// (L, R, 2) float32; l_first: (M,) int32, per m a column before which A[m] and S[m] are
 // zero (0 skips nothing). L <= 192. Returns the cudaError_t of the launch (0
 // on success).
 extern "C" int sdt_fused_rank(const void* xf, const void* At, const void* St, const void* C,
@@ -596,11 +620,13 @@ extern "C" int sdt_fused_rank(const void* xf, const void* At, const void* St, co
     if (L <= 144) return launch_simt<9>(xf, At, St, c, lf, y, B, H, H_out, M, L, R, s);
     return launch_simt<12>(xf, At, St, c, lf, y, B, H, H_out, M, L, R, s);
   }
-  if (dtype == 1) {
-    const bool vec = R % 4 == 0 && L % 8 == 0 && aligned16(xf) && aligned16(At) &&
-                     aligned16(St);
-    return vec ? launch_tc<true>(xf, At, St, c, lf, y, B, H, H_out, M, L, R, s)
-               : launch_tc<false>(xf, At, St, c, lf, y, B, H, H_out, M, L, R, s);
-  }
+  const bool vec = R % 4 == 0 && L % 8 == 0 && aligned16(xf) && aligned16(At) &&
+                   aligned16(St);
+  if (dtype == 1)
+    return vec ? launch_tc<__nv_bfloat16, true>(xf, At, St, c, lf, y, B, H, H_out, M, L, R, s)
+               : launch_tc<__nv_bfloat16, false>(xf, At, St, c, lf, y, B, H, H_out, M, L, R, s);
+  if (dtype == 2)
+    return vec ? launch_tc<__half, true>(xf, At, St, c, lf, y, B, H, H_out, M, L, R, s)
+               : launch_tc<__half, false>(xf, At, St, c, lf, y, B, H, H_out, M, L, R, s);
   return (int)cudaErrorInvalidValue;
 }

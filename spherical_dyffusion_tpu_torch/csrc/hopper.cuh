@@ -8,17 +8,51 @@
 //   - K-major (kmajor_desc): a row is one M (or N) index, the 128 bytes run
 //     along K; atoms of 8 rows are 1024 bytes apart. A product of depth 32
 //     bytes (16 bf16, 8 tf32) starts 32 bytes further along the row.
-//   - MN-major (mnmajor_desc, bf16 only): a row is one K index, the 128
+//   - MN-major (mnmajor_desc, 16-bit types only): a row is one K index, the 128
 //     bytes hold 64 consecutive M (or N) values; groups of 8 K rows are 1024
 //     bytes apart, so a product of depth 16 starts 2048 bytes further on.
 // Every helper is inline: each translation unit compiles its own copy.
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// The 16-bit element types of the tensor-core kernels, bf16 and fp16: one
+// value rounded to nearest even and widened, and two values packed in one
+// 32-bit word (the first in the low half) and unpacked. Both types take 2
+// bytes, so every layout, descriptor and swizzle here serves either.
+template <typename T>
+struct Elem16;
+template <>
+struct Elem16<__nv_bfloat16> {
+  static __device__ __forceinline__ __nv_bfloat16 round(float v) { return __float2bfloat16_rn(v); }
+  static __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+  static __device__ __forceinline__ uint32_t pack(float a, float b) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return (uint32_t)__bfloat16_as_ushort(h.x) | ((uint32_t)__bfloat16_as_ushort(h.y) << 16);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t w) {
+    return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xFFFF0000u));
+  }
+};
+template <>
+struct Elem16<__half> {
+  static __device__ __forceinline__ __half round(float v) { return __float2half_rn(v); }
+  static __device__ __forceinline__ float widen(__half v) { return __half2float(v); }
+  static __device__ __forceinline__ uint32_t pack(float a, float b) {
+    const __half2 h = __floats2half2_rn(a, b);
+    return (uint32_t)__half_as_ushort(h.x) | ((uint32_t)__half_as_ushort(h.y) << 16);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t w) {
+    return make_float2(__half2float(__ushort_as_half((unsigned short)(w & 0xFFFFu))),
+                       __half2float(__ushort_as_half((unsigned short)(w >> 16))));
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);

@@ -4,7 +4,8 @@ Builds the same system as the JAX package's benchmark builder, with the
 configuration written here in Python (no YAML): two SFNOs at 180 x 360 with
 a time embedding, bf16 compute with the transforms and spectral products
 rounding their operands to bf16 (``sht_matmul_dtype=dtype``, as
-``bench.py:build()`` sets it), the interpolator (72 -> 35 channels) with MLP
+``bench.py:build()`` sets it; ``dtype`` may be float32, bfloat16 or
+float16), the interpolator (72 -> 35 channels) with MLP
 dropout and DropPath 0.1 live at inference, the deterministic forecaster
 (37 -> 35), DYffusion at horizon 6 with ``forward_conditioning="none"`` and
 ``time_encoding="dynamics"``, and the SST prescriber. ``use_pallas`` and
@@ -16,7 +17,9 @@ of K2 (``bench.py``'s ``BENCH_FUSED_TAIL=1``). ``factorization``, ``rank``,
 truncation and spectral-IO dtype, and ``fused_rank`` routes the CP rank
 pipeline's spectral middle through K4; ``FAST_WINDOW`` is the JAX bench's
 fast product compose (CP rank 0.25, truncation 0.8, bf16 spectral IO, scan
-and peel on, no fused MLP) with K4 on, and ``TUCKER_WINDOW`` its compose
+and peel on, no fused MLP) with K4 on, ``FAST_WINDOW_F16`` the same in
+float16 (``dtype="float16"``, float16 spectral IO, K4's float16 instance),
+and ``TUCKER_WINDOW`` its compose
 with ``BENCH_FACT=tucker BENCH_RANK=0.25`` (the Tucker rank pipeline, scan
 and peel on) with K3 on. ``sht_fold_symmetry`` is ``BENCH_FOLD``. The window is cold-sampled
 by the double-batch scan sampler, peeled with ``peel`` (``BENCH_PEEL``);
@@ -109,7 +112,8 @@ from .training.experiments import (
 from .training.trainer import Trainer, TrainerConfig
 from .utils.convert import flax_to_state_dict
 
-__all__ = ["state_names", "FORCING_NAMES", "MASK_NAME", "FAST_WINDOW", "TUCKER_WINDOW",
+__all__ = ["state_names", "FORCING_NAMES", "MASK_NAME", "FAST_WINDOW", "FAST_WINDOW_F16",
+           "TUCKER_WINDOW",
            "sfno_configs",
            "build", "window_inputs", "product_rollout", "build_training", "train_steps",
            "fused_epoch", "ace_names", "AceBenchSource", "build_ace", "ace_rollout",
@@ -125,6 +129,10 @@ MASK_NAME = "ocean_fraction"
 FAST_WINDOW = dict(use_pallas=False, fused_mlp=False, fused_tail=False, factorization="cp",
                    rank=0.25, thresh=0.8, spectral_io="bfloat16", scan_layers=True,
                    peel=True, fused_rank=True)
+# the same compose in float16: build(dtype="float16", **FAST_WINDOW_F16) runs
+# the compute, the transforms' operands and the spectral IO in float16, with
+# K4's float16 instance
+FAST_WINDOW_F16 = dict(FAST_WINDOW, spectral_io="float16")
 # bench.py's compose with BENCH_FACT=tucker BENCH_RANK=0.25 (scan and peel
 # on): the Tucker rank pipeline (2R = 128 channels through the SHTs) in the
 # middle blocks, with every block's tail on K3

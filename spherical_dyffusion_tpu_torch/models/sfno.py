@@ -23,11 +23,12 @@ JAX package's configuration space:
 ``scan_layers`` runs the same plain loop over the blocks (the JAX package
 states both are the same math; its stacked parameter layout is unstacked by
 ``utils/convert.py``). Values that the JAX package rejects raise in
-``SFNOConfig.__post_init__``, and so do compute and matmul dtypes
-other than float32 and bfloat16, and a non-linear ``operator_type`` name
-outside "dhconv", "diagonal" and "l-dependant", which the JAX package reads as
-"diagonal". The transforms check their own names (``ops/sht.py``): an unknown
-``lon_method``, which the JAX package reads as "fft", raises at model build.
+``SFNOConfig.__post_init__``, and so do compute, matmul and spectral-IO
+dtypes other than float32, bfloat16 and float16, and a non-linear
+``operator_type`` name outside "dhconv", "diagonal" and "l-dependant", which
+the JAX package reads as "diagonal". The transforms check their own names
+(``ops/sht.py``): an unknown ``lon_method``, which the JAX package reads as
+"fft", raises at model build.
 
 Remat: with ``checkpointing >= 3`` every block runs under
 ``torch.utils.checkpoint`` (non-reentrant), the middle blocks under
@@ -46,7 +47,7 @@ operands to ``sht_matmul_dtype`` and sum in float32, and
 ``spectral_io_dtype`` rounds the spectral stages' outputs (``ops/sht.py``);
 parameters stay float32, and the residual stream is promoted to float32 by
 the float32 time scale-shift, position embedding and filter output, so under
-bf16 compute every block returns float32.
+bf16 or float16 compute every block returns float32.
 
 ``use_pallas`` routes the dense dhconv contraction that is not separable
 through the K1 kernel and ``fused_mlp`` the block MLP through the K2 kernel
@@ -165,13 +166,14 @@ from .modules import (
     get_activation,
 )
 
-__all__ = ["SFNOConfig", "SFNO", "FNOBlock", "SpectralConvS2", "SpectralAttentionS2"]
+__all__ = ["SFNOConfig", "SFNO", "FNOBlock", "SpectralConvS2", "SpectralAttentionS2",
+           "K4_PAIRS"]
 
 # field -> the values the port implements, where it implements fewer than
 # the JAX package runs
 _SUPPORTED = {
-    "spectral_io_dtype": ("", "bfloat16"),
-    "sht_matmul_dtype": ("float32", "bfloat16"),
+    "spectral_io_dtype": ("", "bfloat16", "float16"),
+    "sht_matmul_dtype": ("float32", "bfloat16", "float16"),
 }
 # field -> its values, as the JAX package names them
 _NAMES = {
@@ -181,6 +183,9 @@ _NAMES = {
     "activation_function": ("gelu", "gelu_exact", "relu", "silu", "tanh"),
 }
 _FACTORIZATIONS = (None, "", "cp", "tucker", "tt")
+# the (sht_matmul_dtype, spectral_io_dtype) pairs that K4 has an instance for
+K4_PAIRS = ((torch.float32, None), (torch.bfloat16, torch.bfloat16),
+            (torch.float16, torch.float16))
 _COMPLEX_ACTIVATIONS = ("real", "cartesian", "complex")
 
 
@@ -241,7 +246,7 @@ class SFNOConfig:
     rank_pipeline: bool = True
     spectral_layers: int = 3
     complex_activation: str = "real"  # "real" | "cartesian" | "complex"
-    compute_dtype: str = "float32"  # "float32" | "bfloat16"
+    compute_dtype: str = "float32"  # "float32" | "bfloat16" | "float16"
     sht_matmul_dtype: str = "float32"
     spectral_io_dtype: str = ""
     lon_method: str = "matmul"  # "matmul" | "fft"
@@ -259,7 +264,7 @@ class SFNOConfig:
         for name, values in _NAMES.items():
             if getattr(self, name) not in values:
                 raise ValueError(f"SFNOConfig.{name}={getattr(self, name)!r}: one of {values}")
-        if self.compute_dtype not in ("float32", "bfloat16"):
+        if self.compute_dtype not in ("float32", "bfloat16", "float16"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
         if not (isinstance(self.fused_mlp_tile_rows, int) and self.fused_mlp_tile_rows > 0):
             raise ValueError(f"fused_mlp_tile_rows {self.fused_mlp_tile_rows!r}: a positive int")
@@ -405,11 +410,11 @@ class SpectralConvS2(nn.Module):
         self.io_dtype = as_dtype(io_dtype) if (self.rank_pipeline or stacked) else None
         self.fused_rank = (fused_rank and self.rank_pipeline and self.factorization == "cp"
                            and not (fwd.folded or inv.folded or fwd.lon_fft or inv.lon_fft))
-        if self.fused_rank and (self.matmul_dtype, self.io_dtype) not in (
-                (torch.float32, None), (torch.bfloat16, torch.bfloat16)):
+        if self.fused_rank and (self.matmul_dtype, self.io_dtype) not in K4_PAIRS:
             raise NotImplementedError(
                 "fused_rank: K4 rounds like sht_matmul_dtype = spectral_io_dtype = bfloat16 "
-                "or computes in float32 throughout; other mixes are not implemented")
+                "or float16, or computes in float32 throughout; other mixes are not "
+                "implemented")
         if self.fused_rank:  # where K4 may start: A[m] and S[m] are zero before it
             self.register_buffer("rank_l_first", torch.minimum(fwd.analysis_l_first,
                                                                inv.synthesis_l_first),

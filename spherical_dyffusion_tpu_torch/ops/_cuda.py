@@ -43,9 +43,9 @@ _SIGNATURES = {
                       ctypes.c_ulonglong, _I] + _ROW_MAP + [_P],
     "sdt_fused_block_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, ctypes.c_ulonglong, _I] + _ROW_MAP + [_P],
-    "sdt_fused_mlp_tc": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "sdt_fused_mlp_tc": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          ctypes.c_ulonglong, _I] + _ROW_MAP + [_P],
-    "sdt_weight_image": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "sdt_weight_image": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sdt_fused_rank": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 

@@ -14,11 +14,13 @@ rounded to x's dtype, before K2's arithmetic. A and C fold the instance
 norm and the time scale-shift (``InstanceNorm2d(fold=True)``), so the
 normalized tensor never reaches device memory.
 
-Both kernels are ``csrc/fused_mlp.cu``, dispatched on x's type: bf16 x
-goes to the tensor-core kernel (``wgmma``; its weights arrive as the
-swizzled image of ``weight_image``), float32 x to the CUDA-core kernel; in
-each, K3 is K2's code with the affine on. The source note says what bounds
-them on the H100 and how they are tiled. ``fused_mlp`` and
+Both kernels are ``csrc/fused_mlp.cu``, dispatched on x's type: bf16 or
+float16 x goes to the tensor-core kernel's instance for that type
+(``wgmma``; its weights arrive as the swizzled image of ``weight_image``, in
+x's type), float32 x to the CUDA-core kernel; in each, K3 is K2's code with
+the affine on. A 16-bit x takes a residual in float32, in its own type or
+none; a float32 x one in float32, bf16 or none. The source note says what
+bounds them on the H100 and how they are tiled. ``fused_mlp`` and
 ``fused_block_tail`` launch them for CUDA tensors and count the launches in
 ``fused_mlp.launches`` and ``fused_block_tail.launches``; for CPU tensors they
 compute the plain versions, ``fused_mlp_plain`` and
@@ -61,7 +63,8 @@ __all__ = ["fused_mlp", "fused_mlp_plain", "fused_block_tail", "fused_block_tail
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_HALF = (torch.bfloat16, torch.float16)  # the tensor-core kernel's types
 
 
 def _mulhilo(a: int, b: torch.Tensor):
@@ -246,8 +249,8 @@ def fused_block_tail_plain(x: torch.Tensor, affine_a: torch.Tensor, affine_c: to
                            exact_gelu=exact_gelu, block=block)
 
 
-_CHUNK = 64  # hidden units per chunk of the bf16 kernel
-_OUT = 256  # the bf16 kernel's second product is this wide; C2 is padded to it
+_CHUNK = 64  # hidden units per chunk of the 16-bit kernel
+_OUT = 256  # the 16-bit kernel's second product is this wide; C2 is padded to it
 
 
 def _swizzled(rows: int):
@@ -279,7 +282,7 @@ def _image_index(C: int, Hd: int, C2: int, device: str) -> torch.Tensor:
 
 def weight_image_plain(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """W1 ``(C, Hd)`` and W2 ``(Hd, C2)`` repacked, zero-padded, in the
-    bf16 kernel's shared-memory layout, one row per chunk of 64 hidden units
+    16-bit kernel's shared-memory layout, one row per chunk of 64 hidden units
     j: first ``W1[:, chunk j]`` transposed (64 rows of hidden units by C
     inputs, C padded to a multiple of 64, in blocks of 64 inputs), then
     ``W2[chunk j, :]`` transposed (256 rows of outputs, C2 padded to 256, by
@@ -293,24 +296,28 @@ def weight_image_plain(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     return torch.cat((w1.reshape(-1), w2.reshape(-1).to(w1.dtype), w1.new_zeros(1)))[idx]
 
 
-def weight_image(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
-    """``weight_image_plain`` in bf16: for CUDA tensors one launch of the
-    repack kernel of ``csrc/fused_mlp.cu`` (counted in
-    ``weight_image.launches``), which the K2/K3 wrappers make before each
-    bf16 launch; for CPU tensors the plain version."""
+def weight_image(w1: torch.Tensor, w2: torch.Tensor,
+                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``weight_image_plain`` in ``dtype`` (bf16 or float16, the type of the
+    x it serves): for CUDA tensors one launch of the repack kernel of
+    ``csrc/fused_mlp.cu`` (counted in ``weight_image.launches``), which the
+    K2/K3 wrappers make before each 16-bit launch; for CPU tensors the plain
+    version."""
+    if dtype not in _HALF:
+        raise TypeError(f"weight_image: a bfloat16 or float16 image, not {dtype}")
     if w1.device.type == "cpu":
-        return weight_image_plain(w1, w2).to(torch.bfloat16)
+        return weight_image_plain(w1, w2).to(dtype)
     C, Hd = w1.shape
     C2 = w2.shape[1]
     if w1.dtype not in _DTYPE_CODES:
-        raise TypeError(f"weight_image: float32/bfloat16 only, got {w1.dtype}")
+        raise TypeError(f"weight_image: float32, bfloat16 or float16 weights, got {w1.dtype}")
     w1 = w1.contiguous()
     w2 = w2.to(w1.dtype).contiguous()
     img = torch.empty((-(-Hd // _CHUNK), (-(-C // 64) * 64 + _OUT) * _CHUNK),
-                      device=w1.device, dtype=torch.bfloat16)
+                      device=w1.device, dtype=dtype)
     _cuda.check(_cuda.library().sdt_weight_image(
         w1.data_ptr(), w2.data_ptr(), img.data_ptr(), C, Hd, C2, _DTYPE_CODES[w1.dtype],
-        _cuda.stream_ptr(w1.device)), "weight_image")
+        _DTYPE_CODES[dtype], _cuda.stream_ptr(w1.device)), "weight_image")
     weight_image.launches += 1
     return img
 
@@ -329,9 +336,9 @@ def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 def _launch(name: str, x: torch.Tensor, affine, w1, b1, w2, b2, residual, seed,
             drop_rate: float, exact_gelu: bool, block: Optional[Block]) -> torch.Tensor:
     """Checks and launch of K2 (``affine`` None) or K3 (``affine`` the
-    float32 (B, C) pair) on CUDA tensors: the bf16 tensor-core kernel for
-    bf16 x, the float32 kernel for float32 x; raises on what the kernels do
-    not take."""
+    float32 (B, C) pair) on CUDA tensors: the tensor-core kernel's instance
+    for bf16 or float16 x, the float32 kernel for float32 x; raises on what
+    the kernels do not take."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     t, seed = _dropout_args(name, drop_rate, seed)
@@ -339,9 +346,12 @@ def _launch(name: str, x: torch.Tensor, affine, w1, b1, w2, b2, residual, seed,
     C = x.shape[-1]
     lead = x.shape[:-1]
     Hd, C2 = w1.shape[-1], w2.shape[-1]
-    if x.dtype not in _DTYPE_CODES or (residual is not None
-                                       and residual.dtype not in _DTYPE_CODES):
-        raise TypeError(f"{name}: float32/bfloat16 only, got {x.dtype}")
+    half = x.dtype in _HALF
+    res_types = (torch.float32, x.dtype) if half else (torch.float32, torch.bfloat16)
+    if x.dtype not in _DTYPE_CODES or (residual is not None and residual.dtype not in res_types):
+        raise TypeError(f"{name}: x float32, bfloat16 or float16 with a residual in float32 "
+                        f"or x's type (bfloat16 too for float32 x), got x {x.dtype} and "
+                        f"residual {None if residual is None else residual.dtype}")
     out_dtype = torch.promote_types(x.dtype, residual.dtype) if residual is not None else x.dtype
     x2 = x.reshape(-1, C)
     res2 = residual.reshape(-1, C2) if residual is not None else None
@@ -350,9 +360,8 @@ def _launch(name: str, x: torch.Tensor, affine, w1, b1, w2, b2, residual, seed,
         raise ValueError(f"{name}: operand shapes do not match")
     if C2 > _OUT:
         raise ValueError(f"{name}: output width {C2} exceeds the kernel's {_OUT}")
-    bf16 = x.dtype == torch.bfloat16
-    if bf16 and (C % 16 or Hd % 16 or C2 % 16 or C > 256):
-        raise ValueError(f"{name}: the bf16 tensor-core kernel takes C, Hd and C2 multiples "
+    if half and (C % 16 or Hd % 16 or C2 % 16 or C > 256):
+        raise ValueError(f"{name}: the 16-bit tensor-core kernel takes C, Hd and C2 multiples "
                          f"of 16 with C and C2 at most 256; got C={C}, Hd={Hd}, C2={C2}")
     tensors = [x2, w1, b1, w2, b2] + ([res2] if res2 is not None else []) + list(affine or ())
     if any(a.device != x.device for a in tensors):
@@ -366,13 +375,13 @@ def _launch(name: str, x: torch.Tensor, affine, w1, b1, w2, b2, residual, seed,
     nps = N // x.shape[0] if affine is not None else 1
     a, c = (_aligned(v) for v in affine) if affine is not None else (None, None)
     ptr = lambda v: v.data_ptr() if v is not None else None  # noqa: E731
-    if bf16:
+    if half:
         x2, res2 = _aligned(x2), _aligned(res2)
-        img = weight_image(w1, w2)
+        img = weight_image(w1, w2, x.dtype)
         code = lib.sdt_fused_mlp_tc(
             x2.data_ptr(), ptr(a), ptr(c), nps, img.data_ptr(), b1.data_ptr(), b2.data_ptr(),
-            ptr(res2), y2.data_ptr(), N, C, Hd, C2, res_code, t, seed, int(exact_gelu),
-            *_map_args(block), _cuda.stream_ptr(x.device))
+            ptr(res2), y2.data_ptr(), N, C, Hd, C2, _DTYPE_CODES[x.dtype], res_code, t, seed,
+            int(exact_gelu), *_map_args(block), _cuda.stream_ptr(x.device))
     else:
         x2, w1, w2 = x2.contiguous(), w1.to(x.dtype).contiguous(), w2.to(x.dtype).contiguous()
         res2 = res2.contiguous() if res2 is not None else None

@@ -14,8 +14,9 @@ is ``csrc/fused_rank.cu``; its source note says what bounds it on the H100
 and how it is tiled. ``fused_rank`` launches it for CUDA tensors and counts
 the launch in ``fused_rank.launches``; for CPU tensors it computes the plain
 version, ``fused_rank_plain``. There is no fallback: a CUDA tensor that the
-kernel cannot take raises. In bf16 both products run on the tensor cores; in
-float32 the kernel stays on the CUDA cores, for the float32 checks.
+kernel cannot take raises. In bf16 and in float16 both products run on the
+tensor cores (one instance of the kernel for each type); in float32 the
+kernel stays on the CUDA cores, for the float32 checks.
 
 The Legendre triangle: A[m] and S[m] vanish for l < m. The transforms
 record once (``kernel_layout=True``, ``ops/sht.py``'s ``legendre_l_first``),
@@ -37,11 +38,12 @@ On a grid split over latitudes (``models/sfno.py``) a rank runs the whole
 analysis over every latitude's xf and synthesizes only its block's rows.
 
 Rounding points are the model path's under ``sht_matmul_dtype`` =
-``spectral_io_dtype`` = bfloat16: products of bf16 operands summed in
-float32; t rounded to bf16 (the SHT's ``_emit``), the scale computed in
-float32 from it and rounded to bf16 (the inverse SHT's operand rounding),
-y rounded to bf16 (the inverse SHT's ``_emit``). In float32 nothing is
-rounded. Kernel and plain version then differ only in the order of sums.
+``spectral_io_dtype`` = bfloat16 (float16 alike): products of bf16 operands
+summed in float32; t rounded to bf16 (the SHT's ``_emit``), the scale
+computed in float32 from it and rounded to bf16 (the inverse SHT's operand
+rounding), y rounded to bf16 (the inverse SHT's ``_emit``). In float32
+nothing is rounded. Kernel and plain version then differ only in the order
+of sums.
 """
 
 from __future__ import annotations
@@ -57,15 +59,15 @@ from .matmul import einsum
 
 __all__ = ["fused_rank", "fused_rank_plain"]
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def fused_rank_plain(xf: torch.Tensor, A_t: torch.Tensor, S_t: torch.Tensor,
                      C: torch.Tensor) -> torch.Tensor:
     """The three stages as torch products with K4's rounding points:
     xf ``(B, h, m, 2R, 2)``, A_t ``(m, h, l)`` and S_t ``(m, h_out, l)`` in
-    one dtype (float32 or bf16), C ``(l, R, 2)`` -> ``(B, h_out, m, 2R, 2)``
-    in that dtype."""
+    one dtype (float32, bf16 or float16), C ``(l, R, 2)`` ->
+    ``(B, h_out, m, 2R, 2)`` in that dtype."""
     dtype = xf.dtype
     t = einsum("bhmcr,mhl->blmcr", xf, A_t, dtype).to(dtype)
     s = cp_spectral_scale_stacked(t, C).to(dtype)
@@ -86,8 +88,8 @@ def fused_rank(xf: torch.Tensor, A_t: torch.Tensor, S_t: torch.Tensor,
         raise ValueError(f"fused_rank: unsupported device {xf.device}")
     if xf.dtype not in _DTYPE_CODES or A_t.dtype != xf.dtype or S_t.dtype != xf.dtype \
             or C.dtype != torch.float32:
-        raise TypeError(f"fused_rank: xf, A_t and S_t in one dtype (float32 or bfloat16) "
-                        f"and C float32 required, got {xf.dtype}, {A_t.dtype}, "
+        raise TypeError(f"fused_rank: xf, A_t and S_t in one dtype (float32, bfloat16 or "
+                        f"float16) and C float32 required, got {xf.dtype}, {A_t.dtype}, "
                         f"{S_t.dtype}, {C.dtype}")
     if any(t.device != xf.device for t in (A_t, S_t, C)):
         raise ValueError("fused_rank: all operands must lie on xf's device")

@@ -7,21 +7,22 @@ product is accumulated and returned in float32
 for a two-operand ``torch.einsum`` equation:
 
 - float32: ``torch.einsum`` on float32 operands;
-- bf16 on the CPU: the operands are rounded to bf16 and multiplied in
-  float32. A product of two bf16 values is exact in float32, so this is a
-  bf16 GEMM with float32 accumulation, up to the order of the sums;
-- bf16 on the card: one bf16 ``torch.bmm`` with a float32 result
-  (``out_dtype``), which runs on the tensor cores and returns the float32
-  sums that JAX keeps. That call has no derivative in PyTorch, so it runs
-  inside ``Bf16Product``, whose backward is the CPU form's autograd: each
+- bf16 or float16 on the CPU: the operands are rounded to that dtype and
+  multiplied in float32. A product of two bf16 (8-bit mantissa) or two
+  float16 (11-bit) values is exact in float32 (24 bits), so this is a 16-bit
+  GEMM with float32 accumulation, up to the order of the sums;
+- bf16 or float16 on the card: one 16-bit ``torch.bmm`` with a float32
+  result (``out_dtype``), which runs on the tensor cores and returns the
+  float32 sums that JAX keeps. That call has no derivative in PyTorch, so it
+  runs inside ``Product16``, whose backward is the CPU form's autograd: each
   operand's gradient a float32 product of the float32 cotangent and the
-  other (bf16) operand, rounded to bf16 (the backward of the CPU form's
-  ``.float()`` cast).
+  other (16-bit) operand, rounded to the operand's dtype (the backward of
+  the CPU form's ``.float()`` cast).
 
-For bf16 the equation is lowered by hand to that one batched product (batch
-axes, then the free axes of each operand, then the contracted axes), the
-same lowering on both devices, so the CPU tests run the card's index
-arithmetic.
+For the 16-bit dtypes the equation is lowered by hand to that one batched
+product (batch axes, then the free axes of each operand, then the
+contracted axes), the same lowering on both devices, so the CPU tests run
+the card's index arithmetic.
 """
 
 from __future__ import annotations
@@ -37,13 +38,14 @@ _LETTERS = "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
 
 
 def as_dtype(name) -> Optional[torch.dtype]:
-    """A JAX-package dtype name ("float32", "bfloat16", "" or None) as a
-    torch dtype; "" and None give None."""
+    """A JAX-package dtype name ("float32", "bfloat16", "float16", "" or
+    None) as a torch dtype; "" and None give None."""
     if name is None or isinstance(name, torch.dtype):
         return name
     if name == "":
         return None
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
 
 
 def emit(y: torch.Tensor, out_dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -87,9 +89,10 @@ def _lowered(eq: str, a: torch.Tensor, b: torch.Tensor, product) -> torch.Tensor
     return y.permute([order.index(c) for c in out])
 
 
-class Bf16Product(torch.autograd.Function):
-    """``torch.bmm(a3, b3, out_dtype=torch.float32)`` of bf16 operands, with
-    the backward of ``torch.bmm(a3.float(), b3.float())``."""
+class Product16(torch.autograd.Function):
+    """``torch.bmm(a3, b3, out_dtype=torch.float32)`` of bf16 or float16
+    operands (one dtype), with the backward of ``torch.bmm(a3.float(),
+    b3.float())``."""
 
     @staticmethod
     def forward(ctx, a3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
@@ -107,9 +110,9 @@ class Bf16Product(torch.autograd.Function):
         return ga, gb
 
 
-def _bf16_product(a3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
+def _product16(a3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
     if a3.device.type == "cuda":
-        return Bf16Product.apply(a3.contiguous(), b3.contiguous())
+        return Product16.apply(a3.contiguous(), b3.contiguous())
     return torch.bmm(a3.float(), b3.float())
 
 
@@ -119,6 +122,6 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
     (float32 when None) and a float32 result."""
     if dtype is None or dtype == torch.float32:
         return torch.einsum(eq, a.float(), b.float())
-    if dtype != torch.bfloat16:
-        raise TypeError(f"einsum: matmul dtype {dtype} is not float32 or bfloat16")
-    return _lowered(eq, a.to(dtype), b.to(dtype), _bf16_product)
+    if dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"einsum: matmul dtype {dtype} is not float32, bfloat16 or float16")
+    return _lowered(eq, a.to(dtype), b.to(dtype), _product16)

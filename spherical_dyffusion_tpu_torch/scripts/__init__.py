@@ -6,6 +6,8 @@ ACE-style single-step forecaster per spectral config, and ``skill_report``
 gathers their runs into one report. Each runs as ``python -m
 spherical_dyffusion_tpu_torch.scripts.<name>``, on the CUDA card unless
 ``--platform=cpu`` is given, and writes under ``results/torch_*``.
+``rollout_10yr`` (the JAX package's 10-year product rollout; ``--device``)
+writes there too.
 """
 
 from __future__ import annotations

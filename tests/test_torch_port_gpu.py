@@ -58,6 +58,13 @@ def _rel_err(got, want):
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
+# kernel against plain version, relative to the largest output, by the type
+# of the rounded intermediates: float32 sums in another order; a bf16 or
+# float16 intermediate may round a tie either way, one step of 2^-8 or 2^-11
+# of its value, carried through a product
+TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
+
+
 @pytest.mark.parametrize("lead,L,M,CI,CO", [((1,), 6, 181, 256, 256), ((2, 1), 5, 70, 40, 72),
                                              ((3,), 4, 9, 16, 16)])
 def test_dhconv_kernel_matches_plain(cuda, lead, L, M, CI, CO):
@@ -137,7 +144,8 @@ def test_k1_image_rebuilt_after_weight_update_on_card(cuda):
 
 @pytest.mark.parametrize("x_dtype,res_dtype", [
     (torch.float32, None), (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
-    (torch.bfloat16, None), (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
+    (torch.bfloat16, None), (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+    (torch.float16, torch.float32), (torch.float16, None), (torch.float16, torch.float16)])
 @pytest.mark.parametrize("exact_gelu", [False, True])
 def test_fused_mlp_kernel_matches_plain(cuda, x_dtype, res_dtype, exact_gelu):
     """N = 130 rows leaves a partial last 64-row tile."""
@@ -155,11 +163,11 @@ def test_fused_mlp_kernel_matches_plain(cuda, x_dtype, res_dtype, exact_gelu):
     assert fused_mlp.launches == before + 1
     want = fused_mlp_plain(x, w1, b1, w2, b2, residual=res, exact_gelu=exact_gelu)
     assert y.dtype == want.dtype
-    tol = 1e-5 if x_dtype == torch.float32 else 2e-2
-    assert _rel_err(y, want) < tol
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: TOL[torch.float16]}
+    assert _rel_err(y, want) < tol[x_dtype]
 
 
-@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_fused_mlp_kernel_dropout_bits_match_plain(cuda, x_dtype):
     """Same seed, same Philox bits: the kernel drops exactly the elements
     the plain version drops."""
@@ -172,8 +180,8 @@ def test_fused_mlp_kernel_dropout_bits_match_plain(cuda, x_dtype):
     y = fused_mlp(x, w1, b1, w2, b2, seed=987654321987, drop_rate=0.1)
     want = fused_mlp_plain(x, w1, b1, w2, b2, seed=987654321987, drop_rate=0.1)
     assert torch.equal(y == 0, want == 0)
-    tol = 1e-5 if x_dtype == torch.float32 else 2e-2
-    assert _rel_err(y, want) < tol
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: TOL[torch.float16]}
+    assert _rel_err(y, want) < tol[x_dtype]
 
 
 def test_sfno_forward_kernels_match_plain(cuda):
@@ -211,7 +219,8 @@ def _tail_operands(cuda, seed, B, N, C=256, Hd=512, x_dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("x_dtype,res_dtype", [
     (torch.float32, None), (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
-    (torch.bfloat16, None), (torch.bfloat16, torch.bfloat16)])
+    (torch.bfloat16, None), (torch.bfloat16, torch.bfloat16), (torch.float16, torch.float32),
+    (torch.float16, None), (torch.float16, torch.float16)])
 @pytest.mark.parametrize("exact_gelu", [False, True])
 def test_fused_block_tail_kernel_matches_plain(cuda, x_dtype, res_dtype, exact_gelu):
     """K3 on two samples of 77 rows: the second 64-row tile holds rows of
@@ -225,8 +234,8 @@ def test_fused_block_tail_kernel_matches_plain(cuda, x_dtype, res_dtype, exact_g
     assert fused_block_tail.launches == before + 1
     want = fused_block_tail_plain(*args, residual=res, exact_gelu=exact_gelu)
     assert y.dtype == want.dtype and y.shape == want.shape == (2, 77, 256)
-    tol = 1e-5 if x_dtype == torch.float32 else 2e-2
-    assert _rel_err(y, want) < tol
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: TOL[torch.float16]}
+    assert _rel_err(y, want) < tol[x_dtype]
 
 
 def test_fused_block_tail_kernel_dropout_and_unit_affine(cuda):
@@ -267,6 +276,58 @@ def test_fused_block_tail_bf16_tensor_core_batches(cuda, B):
     assert _rel_err(y, want) < 1e-2
 
 
+@pytest.mark.parametrize("B", [1, 2])
+def test_fused_block_tail_fp16_tensor_core_batches(cuda, B):
+    """The float16 instance of the tensor-core kernel at the main path's
+    widths, as the bf16 test above: B = 1 with the float32 residual, B = 2
+    without (float16 out); 2e-3 of the largest output (``TOL``)."""
+    o = _tail_operands(cuda, 29, B=B, N=700, x_dtype=torch.float16)
+    args = [o[k] for k in ("x", "a", "c", "w1", "b1", "w2", "b2")]
+    res = o["res"] if B == 1 else None
+    before = fused_block_tail.launches
+    y = fused_block_tail(*args, residual=res)
+    torch.cuda.synchronize()
+    assert fused_block_tail.launches == before + 1
+    want = fused_block_tail_plain(*args, residual=res)
+    assert y.dtype == want.dtype == (torch.float32 if B == 1 else torch.float16)
+    assert y.shape == want.shape == (B, 700, 256)
+    assert _rel_err(y, want) < TOL[torch.float16]
+
+
+def test_fused_fp16_tensor_core_dropout_masks_match_plain(cuda):
+    """Dropout 0.1 in the float16 instances: K3 over two samples of 700
+    rows and K2 over 1000 of them drop exactly the plain versions' elements,
+    and K3 with A = 1, C = 0 equals K2 bit for bit."""
+    o = _tail_operands(cuda, 30, B=2, N=700, x_dtype=torch.float16)
+    args = [o[k] for k in ("x", "a", "c", "w1", "b1", "w2", "b2")]
+    w = args[3:]
+    kw = dict(seed=2**40 + 54321, drop_rate=0.1)
+    y = fused_block_tail(*args, **kw)
+    want = fused_block_tail_plain(*args, **kw)
+    assert torch.equal(y == 0, want == 0) and bool((y == 0).any())
+    assert _rel_err(y, want) < TOL[torch.float16]
+    x2 = o["x"].reshape(-1, 256)[:1000]
+    y2 = fused_mlp(x2, *w, **kw)
+    assert torch.equal(y2 == 0, fused_mlp_plain(x2, *w, **kw) == 0)
+    unit = fused_block_tail(o["x"], torch.ones_like(o["a"]), torch.zeros_like(o["c"]), *w, **kw)
+    assert torch.equal(unit.reshape(-1, 256)[:1000], y2)
+
+
+def test_fused_kernels_refuse_mixed_16_bit_residuals(cuda):
+    """A 16-bit x takes a residual in float32 or its own type; a bf16 x with
+    a float16 residual, a float16 x with a bf16 one and a float32 x with a
+    float16 one raise before a launch."""
+    o = _tail_operands(cuda, 31, B=1, N=64, x_dtype=torch.float32)
+    w = [o[k] for k in ("w1", "b1", "w2", "b2")]
+    x, res = o["x"].reshape(64, 256), o["res"].reshape(64, 256)
+    before = fused_mlp.launches
+    for xd, rd in ((torch.bfloat16, torch.float16), (torch.float16, torch.bfloat16),
+                   (torch.float32, torch.float16)):
+        with pytest.raises(TypeError, match="residual"):
+            fused_mlp(x.to(xd), *w, residual=res.to(rd))
+    assert fused_mlp.launches == before
+
+
 def test_fused_bf16_tensor_core_dropout_masks_match_plain(cuda):
     """Dropout 0.1 in the bf16 tensor-core kernels, no residual: K2 over
     1000 rows and K3 over two samples of 700 rows (a tile straddles them)
@@ -288,7 +349,7 @@ def test_fused_bf16_tensor_core_dropout_masks_match_plain(cuda):
     assert torch.equal(unit.reshape(-1, 256)[:1000], y2)
 
 
-@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_fused_kernels_at_block_origins_drop_the_whole_grids_elements(cuda, x_dtype):
     """Dropout 0.1, no residual, on blocks of a (2, 36, 72) grid: an h=2, w=2
     block (its 36-wide rows split a thread's 16-row groups), an h=2 block,
@@ -303,7 +364,7 @@ def test_fused_kernels_at_block_origins_drop_the_whole_grids_elements(cuda, x_dt
     a, c = o["a"][:, None], o["c"][:, None]
     w = [o[k] for k in ("w1", "b1", "w2", "b2")]
     kw = dict(seed=2**41 + 7, drop_rate=0.1)
-    tol = 1e-5 if x_dtype == torch.float32 else 1e-2
+    tol = TOL[x_dtype]
     whole = {"K2": fused_mlp(x, *w, **kw), "K3": fused_block_tail(x, a, c, *w, **kw)}
     for blk in (Block(18, 36, (18, 36), (H, W)), Block(0, 0, (18, 72), (H, W)),
                 Block(5, 9, (7, 11), (H, W))):
@@ -358,6 +419,21 @@ def test_weight_image_kernel_matches_plain(cuda, C, Hd, C2, dtype):
     assert torch.equal(img, weight_image_plain(w1, w2).to(torch.bfloat16))
 
 
+@pytest.mark.parametrize("C,Hd,C2,dtype", [(256, 512, 256, torch.float32),
+                                           (256, 512, 256, torch.float16),
+                                           (48, 80, 32, torch.bfloat16)])
+def test_weight_image_kernel_fp16_matches_plain(cuda, C, Hd, C2, dtype):
+    """The float16 image (the float16 kernels' weights) is the plain
+    permutation rounded to float16, from float32, float16 and bf16
+    weights."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+    w1 = torch.randn(C, Hd, device=cuda, generator=g).to(dtype)
+    w2 = torch.randn(Hd, C2, device=cuda, generator=g).to(dtype)
+    img = weight_image(w1, w2, torch.float16)
+    assert img.dtype == torch.float16
+    assert torch.equal(img, weight_image_plain(w1, w2).to(torch.float16))
+
+
 def test_sfno_fused_tail_kernels_match_plain(cuda):
     """The fused-tail network on the card (K1 and K3, batch 2, time
     scale-shift after the filter) against the plain path, float32."""
@@ -399,15 +475,16 @@ def _rank_operands(cuda, seed, B, H, L, M, R, dtype, real_matrices=False):
     return xf, A_t, S_t, C
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("B,H,L,M,R,real", [(1, 37, 29, 29, 5, False), (2, 37, 29, 29, 5, False),
                                             (1, 180, 144, 144, 64, True),
                                             (2, 180, 144, 144, 64, True)])
 def test_fused_rank_kernel_matches_plain(cuda, dtype, B, H, L, M, R, real):
     """K4 at a ragged shape (a partial rank tile, h and l not multiples of
     16) and at the fast window's shape, B = 1 and 2. float32: sums in
-    another order, 1e-5 of the largest output; bf16: t and s are rounded to
-    bf16 on both sides and a tie may round either way, 1e-2."""
+    another order, 1e-5 of the largest output; bf16 (float16): t and s are
+    rounded to bf16 (float16) on both sides and a tie may round either way,
+    1e-2 (2e-3)."""
     xf, A_t, S_t, C = _rank_operands(cuda, 9, B, H, L, M, R, dtype, real)
     before = fused_rank.launches
     y = fused_rank(xf, A_t, S_t, C)
@@ -415,10 +492,10 @@ def test_fused_rank_kernel_matches_plain(cuda, dtype, B, H, L, M, R, real):
     assert fused_rank.launches == before + 1
     want = fused_rank_plain(xf, A_t, S_t, C)
     assert y.dtype == want.dtype == dtype and y.shape == want.shape == xf.shape
-    assert _rel_err(y, want) < (1e-5 if dtype == torch.float32 else 1e-2)
+    assert _rel_err(y, want) < TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("B,grid,L", [(1, "legendre-gauss", 144), (2, "legendre-gauss", 144),
                                       (1, "equiangular", 181)])
 def test_fused_rank_kernel_skips_the_triangle(cuda, dtype, B, grid, L):
@@ -426,7 +503,7 @@ def test_fused_rank_kernel_skips_the_triangle(cuda, dtype, B, grid, L):
     the transforms record (l_first = m): the fast window's legendre-gauss
     l = m = 144 at B = 1 and 2, and the prototype's equiangular l = m = 181
     (L not a multiple of 8: the 2-byte load path); against the dense plain
-    version, float32 1e-5 and bf16 1e-2 of the largest output."""
+    version, float32 1e-5, bf16 1e-2 and float16 2e-3 of the largest output."""
     g = torch.Generator(device=cuda).manual_seed(22)
     kw = dict(grid=grid, matmul_dtype=dtype, kernel_layout=True)
     fwd, inv = RealSHT(180, 360, L, L, **kw).to(cuda), InverseRealSHT(180, 360, L, L, **kw).to(cuda)
@@ -441,10 +518,10 @@ def test_fused_rank_kernel_skips_the_triangle(cuda, dtype, B, grid, L):
     assert fused_rank.launches == before + 1
     want = fused_rank_plain(xf, A_t, S_t, C)
     assert y.dtype == want.dtype == dtype
-    assert _rel_err(y, want) < (1e-5 if dtype == torch.float32 else 1e-2)
+    assert _rel_err(y, want) < TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_fused_rank_kernel_random_matrices_skip_nothing(cuda, dtype):
     """Random matrices have no zero triangle: l_first is 0 for every m, and
     the kernel with it equals the kernel called without l_first (which
@@ -455,11 +532,10 @@ def test_fused_rank_kernel_random_matrices_skip_nothing(cuda, dtype):
     assert int(l_first.abs().max()) == 0
     y = fused_rank(xf, A_t, S_t, C, l_first)
     assert torch.equal(y, fused_rank(xf, A_t, S_t, C))
-    assert _rel_err(y, fused_rank_plain(xf, A_t, S_t, C)) < (1e-5 if dtype == torch.float32
-                                                               else 1e-2)
+    assert _rel_err(y, fused_rank_plain(xf, A_t, S_t, C)) < TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("B,H,L,R,grid", [(1, 721, 144, 64, "equiangular"),
                                           (2, 400, 29, 5, None)])
 def test_fused_rank_kernel_tall_grids(cuda, dtype, B, H, L, R, grid):
@@ -467,7 +543,7 @@ def test_fused_rank_kernel_tall_grids(cuda, dtype, B, H, L, R, grid):
     chunks of h: the 0.25-degree equiangular grid (721 latitudes, a partial
     last chunk) with its Legendre matrices and l_first at l = m = 144, and
     random matrices at a ragged shape (h 400, l = m = 29, R 5: the 2-byte
-    load path); against the plain version, float32 1e-5 and bf16 1e-2."""
+    load path); against the plain version, float32 1e-5, bf16 1e-2, float16 2e-3."""
     if grid is None:
         xf, A_t, S_t, C = _rank_operands(cuda, 26, B, H, L, L, R, dtype)
         l_first = legendre_l_first(A_t, S_t)
@@ -487,10 +563,10 @@ def test_fused_rank_kernel_tall_grids(cuda, dtype, B, H, L, R, grid):
     assert fused_rank.launches == before + 1
     want = fused_rank_plain(xf, A_t, S_t, C)
     assert y.dtype == want.dtype == dtype and y.shape == xf.shape
-    assert _rel_err(y, want) < (1e-5 if dtype == torch.float32 else 1e-2)
+    assert _rel_err(y, want) < TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("H,h0,rows", [(180, 0, 90), (180, 90, 90), (180, 37, 53),
                                        (721, 300, 400)])
 def test_fused_rank_kernel_synthesis_rows(cuda, dtype, H, h0, rows):
@@ -498,7 +574,7 @@ def test_fused_rank_kernel_synthesis_rows(cuda, dtype, H, h0, rows):
     route of a grid split over latitudes): the two halves of the fast
     window's 180 latitudes, a ragged block, and 400 rows of the 0.25-degree
     grid (chunks of h in both products); against the whole grid's plain
-    result restricted to those rows, float32 1e-5 and bf16 1e-2."""
+    result restricted to those rows, float32 1e-5, bf16 1e-2, float16 2e-3."""
     L, R = 144, 64
     g = torch.Generator(device=cuda).manual_seed(28)
     kw = dict(grid="legendre-gauss" if H == 180 else "equiangular", matmul_dtype=dtype,
@@ -515,7 +591,7 @@ def test_fused_rank_kernel_synthesis_rows(cuda, dtype, H, h0, rows):
     assert fused_rank.launches == before + 1
     want = fused_rank_plain(xf, A_t, S_t, C)[:, h0:h0 + rows]
     assert y.dtype == dtype and y.shape == want.shape == (1, rows, L, 2 * R, 2)
-    assert _rel_err(y, want) < (1e-5 if dtype == torch.float32 else 1e-2)
+    assert _rel_err(y, want) < TOL[dtype]
 
 
 def test_fused_rank_wrapper_checks_l_first(cuda):
@@ -551,12 +627,15 @@ def test_fused_rank_wrapper_raises(cuda):
     assert fused_rank.launches == before
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_sfno_fused_rank_matches_plain(cuda, dtype):
     """The CP network (rank 0.25, thresholding 0.8, 3 layers) on the card
     with K4 against the same weights without it: one launch for the middle
     block. float32: 1e-5 of the largest output; bf16 (matmul dtype and
-    spectral IO): 2e-2, a bf16 intermediate may round a tie either way."""
+    spectral IO): 2e-2, a bf16 intermediate may round a tie either way;
+    float16 alike, 2e-2 too: the compute dtype's Dense layers run cuBLAS in
+    both networks, and a tie that a K4 output rounds the other way moves
+    every later layer's operands."""
     kw = dict(img_shape=(32, 64), in_chans=7, out_chans=5, embed_dim=32, num_layers=3,
               with_time_emb=True, factorization="cp", rank=0.25,
               hard_thresholding_fraction=0.8, scan_layers=True, compute_dtype=dtype,
@@ -578,7 +657,7 @@ def test_sfno_fused_rank_matches_plain(cuda, dtype):
     assert _rel_err(y, want) < (1e-5 if dtype == "float32" else 2e-2)
 
 
-@pytest.mark.parametrize("preds_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("preds_dtype", [None, "bfloat16", "float16"])
 def test_run_inference_on_card_is_chained_run_window(cuda, preds_dtype):
     """run_inference on the card at a small size (the fused-tail path with
     K1 and K3, embed 32 x 2 layers, 16 x 32, 5 channels, horizon 3, bf16,
@@ -622,7 +701,7 @@ def test_run_inference_on_card_is_chained_run_window(cuda, preds_dtype):
         preds.append(p)
     assert torch.equal(outs[-1][0], x)
     got_preds = torch.cat([o[1] for o in outs], dim=1)
-    assert got_preds.dtype == (torch.bfloat16 if preds_dtype else torch.float32)
+    assert got_preds.dtype == (getattr(torch, preds_dtype) if preds_dtype else torch.float32)
     assert torch.equal(got_preds, torch.cat(preds, dim=1))
     cpu = InferenceAggregator(names, src.horizontal.area_weights())
     tgt = torch.stack([raw[n] for n in names], -1)
@@ -1223,7 +1302,7 @@ def test_bf16_mu_step_matches_its_float64_rule(cuda):
     ("...hmcr,hlm->...lmcr", (2, 12, 33, 8, 2), (12, 12, 33)),  # Legendre analysis
 ])
 def test_bf16_einsum_on_the_card_is_the_cpu_form(cuda, eq, sa, sb):
-    """``ops/matmul.py:einsum`` in bf16 on the card (``Bf16Product``: one
+    """``ops/matmul.py:einsum`` in bf16 on the card (``Product16``: one
     ``torch.bmm`` with ``out_dtype``) against its CPU form (the bf16 values
     multiplied in float32) on the same operands: forward and both gradients
     within 1e-5 of the largest sum of |products| (float32 sums in another
@@ -1250,9 +1329,41 @@ def test_bf16_einsum_on_the_card_is_the_cpu_form(cuda, eq, sa, sb):
         assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("eq,sa,sb", [
+    ("...hwc,wmr->...hmcr", (2, 12, 64, 8), (64, 33, 2)),      # the DFT
+    ("...hmcr,hlm->...lmcr", (2, 12, 33, 8, 2), (12, 12, 33)),  # Legendre analysis
+])
+def test_fp16_einsum_on_the_card_is_the_cpu_form(cuda, eq, sa, sb):
+    """``einsum`` in float16 on the card: ``torch.bmm`` takes float16
+    operands with a float32 ``out_dtype``, and equals the CPU form (the
+    float16 values multiplied in float32) within 1e-5 of the largest sum of
+    |products|; more than 2e-5 of it apart from the float32 einsum (float16
+    keeps 11 bits, a step of 2^-11 of an operand); gradients rounded to
+    float16 on both sides, one step of 2^-11 apart."""
+    from spherical_dyffusion_tpu_torch.ops.matmul import einsum
+
+    r = np.random.default_rng(12)
+    a0 = torch.from_numpy(r.standard_normal(sa).astype(np.float32))
+    b0 = torch.from_numpy(r.standard_normal(sb).astype(np.float32))
+    y32 = torch.einsum(eq, a0, b0)
+    g0 = torch.from_numpy(r.standard_normal(tuple(y32.shape)).astype(np.float32))
+    out = []
+    for dev in ("cpu", cuda):
+        a, b = (t.to(dev, copy=True).requires_grad_() for t in (a0, b0))
+        y = einsum(eq, a, b, torch.float16)
+        assert y.dtype == torch.float32
+        out.append([t.detach().cpu() for t in (y, *torch.autograd.grad(y, (a, b), g0.to(dev)))])
+    (y_cpu, *g_cpu), (y_card, *g_card) = out
+    scale = float(torch.einsum(eq, a0.abs(), b0.abs()).max())
+    assert float((y_card - y_cpu).abs().max()) <= 1e-5 * scale
+    assert float((y32 - y_cpu).abs().max()) > 2e-5 * scale
+    for got, want in zip(g_card, g_cpu):
+        assert float((got - want).abs().max()) <= 2e-3 * float(want.abs().max())
+
+
 def test_bf16_compute_training_steps_on_the_card(cuda):
     """Two bf16-compute steps of each experiment (the transforms' products
-    on the tensor cores through ``Bf16Product``, K1 float32): finite
+    on the tensor cores through ``Product16``, K1 float32): finite
     float32 gradients, K1 launched as in float32, losses within
     ``BF16_VS_F32_LOSS`` (5e-5) of the float32 steps' from the same weights
     and batches, and gradient norms apart from theirs by more than

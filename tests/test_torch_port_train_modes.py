@@ -566,12 +566,12 @@ def test_bf16_compute_train_step_matches_jax(pin_t, jax_bf16, kind):
 
 
 def test_bf16_product_backward_is_the_cpu_forms_autograd(monkeypatch):
-    """``ops/matmul.py:Bf16Product`` (the card's bf16 product; PyTorch gives
+    """``ops/matmul.py:Product16`` (the card's bf16 product; PyTorch gives
     ``bmm`` with ``out_dtype`` no derivative): its forward taken as the
     product of the bf16 values in float32 (``torch.bmm`` patched, since the
     CPU has no ``out_dtype``), its gradients equal, bit for bit, autograd of
     the CPU form ``torch.bmm(a.float(), b.float())`` on bf16 operands."""
-    from spherical_dyffusion_tpu_torch.ops.matmul import Bf16Product
+    from spherical_dyffusion_tpu_torch.ops.matmul import Product16
 
     real = torch.bmm
     monkeypatch.setattr(torch, "bmm", lambda a, b, out_dtype=None: real(
@@ -581,7 +581,7 @@ def test_bf16_product_backward_is_the_cpu_forms_autograd(monkeypatch):
     b0 = torch.from_numpy(r.standard_normal((3, 5, 4)).astype(np.float32))
     g = torch.from_numpy(r.standard_normal((3, 7, 4)).astype(np.float32))
     grads = []
-    for form in (lambda a, b: Bf16Product.apply(a, b), lambda a, b: real(a.float(), b.float())):
+    for form in (lambda a, b: Product16.apply(a, b), lambda a, b: real(a.float(), b.float())):
         a, b = a0.clone().requires_grad_(), b0.clone().requires_grad_()
         y = form(a.to(torch.bfloat16), b.to(torch.bfloat16))
         assert y.dtype == torch.float32
