@@ -185,8 +185,24 @@ Phases, each timed:
    (horizon 2, ``horizon_at_once`` 1, float32, K1): the median step ms, its
    split and peak memory, 16 K1 forwards and 16 dx a step, K2-K4 never;
    3 steps at constant lr through the kernels against the plain path
-   (losses 1e-5); (f) one warm ACE window under ``torch.profiler``: its
-   launches and kernel time by group against (a)'s steady window.
+   (losses 1e-5); in float16 (``compute_dtype`` and ``sht_matmul_dtype``;
+   K1 float32), 3 steps through K1 after 2 with their ms, the first step's
+   loss against the float32 plain path's within F16_WINDOW_VS_PLAIN times
+   the float16 plain path's own gap or the float32 rule's 1e-5 relative,
+   every gradient finite, and the parameter tensors whose
+   float16 gradient underflows to zero counted; (g) float16 on the ACE path:
+   (b)'s window and (c)'s physics also in float16 (K1, K3's float16
+   instance) under phase 23's rule and (c)'s Pa tolerance, and
+   ``ace_rollout(dtype="float16")``'s steady steps/s beside (a)'s bf16;
+   (h) ACE's slab ocean through ``run_inference`` (the run config's
+   ``ocean.slab``; a native checkpoint of ``build_ace(slab=True)``, whose
+   network predicts the six surface fluxes the slab reads; a netCDF file of
+   ``AceBenchSource`` frames with the mixed-layer depth and Q-flux): 12
+   steps with K1 and K3 against the plain path (1e-4), and each step's
+   surface temperature over the ocean against the slab tendency computed in
+   float64 (4 float32 spacings); (f) (run last in the phase: a profiler
+   pass) one warm ACE window under ``torch.profiler``: its launches and
+   kernel time by group against (a)'s steady window.
 16. (run after phase 10, as is phase 17) the UNet at
    the published width of ``configs/model/unet.json`` (dim
    64, ``dim_mults`` (1, 2, 4, 8), dropouts 0.1, bilinear resampling 180 x
@@ -329,10 +345,21 @@ Phases, each timed:
    360, horizon 6, in ROLLOUT10_VARIANTS (the JAX script's program, plain
    bf16; ``--use-pallas --fused-tail`` in bf16 and in float16 with float16
    predictions; ``--fast`` in bf16 through K4 and in float16 unfused), each
-   cut from 14,600 steps to ROLLOUT10_STEPS (two windows of 96) after its
+   cut from 14,600 steps to ROLLOUT10_STEPS (two windows of 48) after its
    warm-up window: steps/s, sim-yr/day, the host fractions,
    ``all_steps_finite`` and the time-mean logs finite, the kernels'
    launches a forward.
+25. the port's ``scripts/mesh_paper_window.py`` (``phase25``, after phase
+   24, before the profile): every rank of the paper window (MPW_EMBED x
+   MPW_LAYERS on MPW_SHAPE, MPW_STEPS steps, B = data rows of zeros) split
+   over data x h x w, played in turn by this process over PyTorch's fake
+   process group (no collective moves data, so no value is checked): (a)
+   JAX's program (float32, plain, uniform sampler) at data 2 x h 2 x w 2;
+   (b) phase 7's fused-tail path (K1, K3, bf16) at data 2 x h 2 x w 2 and
+   data 1 x h 2 x w 2 (the four-card layout), K1 and K3 launched on every
+   rank as on the one-card window; each rank's argument, output and temp
+   MB, its seconds beside phase 7's, its collectives; (c) K1 and K3 at the
+   four-card layout's rank 0 shapes against their plain versions.
 
 It prints a ``training`` JSON line (phase 11's figures), a ``cli`` JSON line
 (phase 12's), an ``options`` JSON line (phase 13's), a ``modes`` JSON line
@@ -341,7 +368,8 @@ It prints a ``training`` JSON line (phase 11's figures), a ``cli`` JSON line
 line (phase 21's), a ``studies`` JSON line (phase 22's), a ``data`` JSON line
 (phase 18's), a ``writers`` JSON line (phase 10's writer run and phase
 19's), a ``parity`` JSON line (phase 20's), a ``float16`` JSON line (phase
-23's), a ``rollout_10yr`` JSON line (phase 24's), a ``kernels`` JSON
+23's), a ``rollout_10yr`` JSON line (phase 24's), a ``mesh_paper_window``
+JSON line (phase 25's), a ``kernels`` JSON
 line (K1's backward dx as its own entry; the float16 instances of K2, K3 and
 K4 as entries of their own, their launches those of phase 23's float16
 paths ``"f16_window"``, ``"f16_fused_tail"`` and ``"f16_fast"`` and of phase
@@ -355,7 +383,10 @@ as ``"data_train"`` and
 ``"data"``, phase 19's as ``"outputs"`` and ``"outputs_ace"``, phase 20's
 as ``"parity"`` and ``"parity_k2"``, phase 22's as ``"skill_proof"`` and
 ``"ace_skill"``, phase 23's as ``"f16_window"``, ``"f16_fused_tail"`` and
-``"f16_fast"``, phase 24's as ``"rollout_10yr <variant>"``; the dx and dW
+``"f16_fast"``, phase 24's as ``"rollout_10yr <variant>"``, phase 15's
+float16 and slab runs as ``"simultaneous f16"``, ``"ace f16"`` and ``"ace
+slab"``, phase 25's as ``"mesh_paper_window <program> <layout>"``, the
+launches of all of a layout's ranks; the dx and dW
 entries' ``launches`` add phase 22's), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -486,12 +517,20 @@ F16_TOL = 2e-3
 F16_WINDOW_VS_PLAIN = 2.0
 F16_EMBED, F16_LAYERS, F16_SHAPE = 256, 8, (180, 360)
 # phase 24: the port's rollout_10yr at 256 x 8, 14,600 steps cut to two
-# windows of 96 after the warm-up window, in the variants below with the
+# windows of 48 after the warm-up window (the script's windows are 96; cut
+# to 48 to keep the whole run inside its time limit), in the variants below
+# with the
 # launches each kernel must make an SFNO forward (12 forwards every 6 steps
 # at horizon 6; --fast: K4 in blocks 1-6; --fast --dtype float16 runs the
 # unfused rank pipeline, as JAX's SFNO)
-ROLLOUT10_STEPS, ROLLOUT10_WINDOW = 192, 96
+ROLLOUT10_STEPS, ROLLOUT10_WINDOW = 96, 48
 ROLLOUT10_EMBED, ROLLOUT10_LAYERS = 256, 8
+# phase 25: the port's mesh_paper_window at the paper window's width, depth,
+# grid and steps, each rank of the split window in turn over the fake process
+# group; the SFNO forwards of the peeled sampler's 12-step window at horizon 6
+# (the one-card count where phase 7 did not run)
+MPW_EMBED, MPW_LAYERS, MPW_SHAPE, MPW_STEPS = 256, 8, (180, 360), 12
+MPW_FORWARDS = 24
 ROLLOUT10_VARIANTS = {
     "plain bf16": ([], {"K1": 0, "K2": 0, "K3": 0, "K4": 0}),
     "K1+K3 bf16": (["--use-pallas", "--fused-tail"], {"K1": 8, "K2": 0, "K3": 8, "K4": 0}),
@@ -1918,7 +1957,11 @@ def phase15(smi_line, wrappers, report, runs, device="cuda") -> None:
     per window, no synchronizing call before its end sync); (b) one window
     with the kernels against the plain path, float32 and bf16; (c) the dry
     air and the ocean on the card; (d) a native ACE checkpoint through
-    ``run_inference``; (e) simultaneous training."""
+    ``run_inference``; (e) simultaneous training, in float32 and float16;
+    (g) float16 on the ACE path; (h) the slab ocean through
+    ``run_inference``; (f) a profiled window (the module docstring has
+    each part's checks)."""
+    import functools
     import gc
     import statistics
     import tempfile
@@ -2059,7 +2102,7 @@ def phase15(smi_line, wrappers, report, runs, device="cuda") -> None:
     # checkpoint's network), on ace_bench's data
     ex = dict(size, exact=True, device=device)
     steppers = {}
-    for dtype in ("float32", "bfloat16"):
+    for dtype in ("float32", "bfloat16", "float16"):
         for kernels in (True, False):
             st = main_path.build_ace(dtype=dtype, kernels=kernels, **ex)
             if steppers:
@@ -2091,7 +2134,14 @@ def phase15(smi_line, wrappers, report, runs, device="cuda") -> None:
         f"{bf_k / bf_p:.3f}, at most {BF16_TAIL_VS_PLAIN})")
     check(f32_gap <= 1e-4, "ACE window: float32 kernels disagree with the plain path")
     check(bf_k <= BF16_TAIL_VS_PLAIN * bf_p, "ACE window: bf16 kernels off the plain path")
-    ace["window"] = dict(f32_rel=f32_gap, bf16_kernels_rel=bf_k, bf16_plain_rel=bf_p)
+    # (g) float16 (K1 float32, K3's float16 instance): phase 23's rule
+    f16_k, f16_p = gap(("float16", True), ("float32", False)), gap(("float16", False),
+                                                                   ("float32", False))
+    log(f"ACE window (g), float16 against float32 plain: kernels {f16_k:.3e}, plain path "
+        f"{f16_p:.3e} (ratio {f16_k / f16_p:.3f}, at most {F16_WINDOW_VS_PLAIN})")
+    check(f16_k <= F16_WINDOW_VS_PLAIN * f16_p, "ACE window: float16 kernels off the plain path")
+    ace["window"] = dict(f32_rel=f32_gap, bf16_kernels_rel=bf_k, bf16_plain_rel=bf_p,
+                         f16_kernels_rel=f16_k, f16_plain_rel=f16_p)
 
     # (c) the physics on the card: each step's global mean of dry-air
     # surface pressure equals its input's, and the surface temperature is
@@ -2104,7 +2154,7 @@ def phase15(smi_line, wrappers, report, runs, device="cuda") -> None:
     dry_tol = 0.15
     sigma, area = steppers[("float32", True)].sigma, steppers[("float32", True)].area
     worst, sst_ok, finite = 0.0, True, True
-    for key in (("float32", True), ("bfloat16", True)):
+    for key in (("float32", True), ("bfloat16", True), ("float16", True)):
         gen = outs[key].gen_data
         finite &= all(bool(torch.isfinite(v).all()) for v in gen.values())
         for t in range(1, T + 1):
@@ -2116,7 +2166,7 @@ def phase15(smi_line, wrappers, report, runs, device="cuda") -> None:
         region = torch.round(data[main_path.MASK_NAME][:, 1:]).to(torch.int32) == 1
         sst_ok &= torch.equal(gen["surface_temperature"][:, 1:][region],
                               data["surface_temperature"][:, 1:][region])
-    log(f"ACE physics on the card, float32 and bf16 windows: the global mean of dry-air "
+    log(f"ACE physics on the card, float32, bf16 and float16 windows: the global mean of dry-air "
         f"surface pressure moved at most {worst:.4f} Pa from the input's in any step (tolerance "
         f"{dry_tol} Pa); the surface temperature equals the target inside the ocean: {sst_ok}; "
         f"every field finite: {finite}")
@@ -2242,6 +2292,214 @@ def phase15(smi_line, wrappers, report, runs, device="cuda") -> None:
     check(l_rel <= 1e-5, "simultaneous training: the kernels disagree with the plain path")
     ace["simultaneous"].update(cmp_steps=SIM_CMP_STEPS, cmp_loss_rel=l_rel)
     del trs
+    free()
+
+    # (e) in float16: compute_dtype and sht_matmul_dtype float16 (K1 float32
+    # whatever the compute dtype), SIM_STEPS steps after SIM_WARMUP through K1
+    # at constant lr; the first step's loss against the float32 plain path's
+    # from the same weights and batch, within F16_WINDOW_VS_PLAIN times the
+    # float16 plain path's own gap (phase 23's rule) or within the 1e-5
+    # relative that holds the kernels' loss to the plain path's in float32
+    # (above): the untrained network's float16 rounding averages out of a
+    # mean over 2.3 M elements below the loss's float32 rounding (the two
+    # float16 losses stood 1 and 2 float32 spacings off), so the float16 rule
+    # alone would hold float32 summation noise. Every gradient finite. Neither
+    # package scales the loss, so a float16 backward at this size underflows:
+    # the loss's gradient a element (1 / 2.3 M) times the decoder's weights
+    # falls under float16's smallest subnormal, and the layers below the
+    # decoder get zero gradients (JAX's float16 step alike, on the CPU at 90 x
+    # 180); the parameter tensors whose float16 gradient is all zero where
+    # float32's is not are counted and reported
+    sims, grads = {}, {}
+    first = None
+    real_grad = torch.autograd.grad
+
+    def grab_first(*a, _out=None, **k):
+        res = real_grad(*a, **k)
+        if not _out:
+            _out.extend(g.detach().float().clone() for g in res)
+        return res
+
+    for key, kernels, dtype, n in (("kernels float16", True, "float16", SIM_WARMUP + SIM_STEPS),
+                                   ("plain float16", False, "float16", 1),
+                                   ("plain float32", False, "float32", 1)):
+        tr = main_path.build_simultaneous(use_pallas=kernels, dtype=dtype, scheduler="constant",
+                                          n_samples=SIM_WARMUP + SIM_STEPS, device=device,
+                                          embed=ACE_EMBED, layers=L, img_shape=ACE_SHAPE)
+        if first is None:
+            first = {k: v.detach().clone() for k, v in tr.exp.model.state_dict().items()}
+        else:
+            tr.exp.model.load_state_dict(first)
+        zero_counts()
+        grads[key] = []
+        torch.autograd.grad = functools.partial(grab_first, _out=grads[key])
+        try:
+            sims[key] = main_path.train_steps(n, trainers={"s": tr})["s"]
+        finally:
+            torch.autograd.grad = real_grad
+        sims[key]["launches"] = counts()
+        tr.exp.model.cpu()
+        del tr
+        free()
+    k16 = sims["kernels float16"]
+    l32, lk, lp = (sims[k]["losses"][0] for k in ("plain float32", "kernels float16",
+                                                  "plain float16"))
+    f16_gap, f16_noise = abs(lk - l32), abs(lp - l32)
+    loss_floor = 1e-5 * abs(l32)
+    f16_ms = statistics.median(k16["step_ms"][SIM_WARMUP:])
+    k1_fwd16 = [a - b for a, b in zip(k16["k1_launches"], k16["k1_dx"])]
+    finite16 = all(bool(torch.isfinite(g).all()) for g in grads["kernels float16"])
+    zeroed = {key: sum(bool((a == 0).all()) and not bool((b == 0).all())
+                       for a, b in zip(grads[key], grads["plain float32"]))
+              for key in ("kernels float16", "plain float16")}
+    n_tensors = len(grads["plain float32"])
+    log(f"simultaneous training in float16 (compute and transforms' operands; K1 float32), "
+        f"{SIM_STEPS} steps after {SIM_WARMUP} through K1: step ms "
+        f"{[round(v, 2) for v in k16['step_ms']]} (median {f16_ms:.2f} ms against float32's "
+        f"{med:.2f}), losses {[round(v, 5) for v in k16['losses']]}, gradient norms "
+        f"{[round(v, 5) for v in k16['grad_norms']]}; K1 per step {k1_fwd16} forward and "
+        f"{k16['k1_dx']} dx; the first step's loss {lk:.7f} against the float32 plain path's "
+        f"{l32:.7f}: gap {f16_gap:.3e}, the float16 plain path's own {f16_noise:.3e} (at most "
+        f"{F16_WINDOW_VS_PLAIN} x that, or the float32 rule's 1e-5 relative, {loss_floor:.3e}); "
+        f"gradients finite: {finite16}; parameter tensors whose float16 gradient is all zero "
+        f"where float32's is not (the backward's underflow without loss scaling): kernels "
+        f"{zeroed['kernels float16']}, plain path {zeroed['plain float16']} of {n_tensors} "
+        f"on {smi_line}")
+    check(finite16 and all(np.isfinite(k16["losses"])) and all(np.isfinite(k16["grad_norms"])),
+          "simultaneous training in float16: a loss or a gradient is not finite")
+    check(all(v == 2 * L for v in k1_fwd16) and all(v == 2 * L for v in k16["k1_dx"])
+          and k16["launches"]["K2"] == k16["launches"]["K3"] == k16["launches"]["K4"] == 0,
+          f"simultaneous training in float16: launches {k16['launches']}")
+    check(f16_gap <= max(F16_WINDOW_VS_PLAIN * f16_noise, loss_floor),
+          "simultaneous training in float16: the kernels' first loss is off the plain path")
+    runs["simultaneous f16"] = dict(launches=k16["launches"])
+    ace["simultaneous_f16"] = dict(step_ms=f16_ms, steps_ms=k16["step_ms"],
+                                   losses=k16["losses"], grad_norms=k16["grad_norms"],
+                                   loss_gap=f16_gap, plain_f16_gap=f16_noise,
+                                   loss_f32_plain=l32, zero_grad_tensors=zeroed,
+                                   n_tensors=n_tensors)
+    del sims, k16, first, grads
+    free()
+
+    # (g) the float16 rollout: ace_rollout(dtype="float16"), two windows after
+    # its warm-up, K1 (float32) and K3's float16 instance; its steady window
+    # beside (a)'s bf16 one ((b) and (c) hold its window and dry air)
+    r16 = main_path.ace_rollout(n_steps=2 * T, window=T, dtype="float16", kernels=True,
+                                before_timed=zero_counts, device=device, **size)
+    c16 = counts()
+    ws16 = r16["window_seconds"]
+    check(c16["K1"] == c16["K3"] == 2 * T * L and c16["K2"] == c16["K4"] == 0,
+          f"ACE float16 rollout launches {c16}: want K1 = K3 = {T * L} a window")
+    check(all(bool(torch.isfinite(v).all()) for v in r16["gen"].values())
+          and all(np.isfinite(v) for v in r16["logs"].values()),
+          "ACE float16 rollout: a field or a log is not finite")
+    log(f"ACE rollout (g) in float16 (K1 + K3's float16 instance), {2 * T} steps: window seconds "
+        f"on the device {[round(v, 4) for v in ws16]}, steady {T / ws16[-1]:.3f} steps/s against "
+        f"(a)'s bf16 {T / ws[-1]:.3f}; K1 {c16['K1'] // 2} and K3 {c16['K3'] // 2} launches a "
+        f"window on {smi_line}")
+    runs["ace f16"] = dict(launches=c16)
+    ace["float16"] = dict(window_seconds=ws16, steady_steps_per_second=T / ws16[-1],
+                          bf16_steady_steps_per_second=T / ws[-1], launches=c16,
+                          kernels_rel=f16_k, plain_rel=f16_p)
+    del r16
+    free()
+
+    # (h) the slab ocean through run_inference: a native checkpoint of
+    # build_ace(slab=True)'s float32 network (its outputs hold the six
+    # surface fluxes the slab reads), the run config's ocean.slab, T steps
+    # over a netCDF file of AceBenchSource frames with the mixed-layer depth
+    # and Q-flux; with K1 and K3 (overrides["model"]) against the plain path
+    # (1e-4 of each field's largest value), and each step's surface
+    # temperature over the ocean against the slab tendency in float64
+    from spherical_dyffusion_tpu_torch.data.hdf5 import write_hdf5
+    from spherical_dyffusion_tpu_torch.inference.ocean import mixed_layer_temperature_tendency
+
+    slab_st = main_path.build_ace(dtype="float32", kernels=False, exact=True, slab=True,
+                                  device=device, **size)
+    slab_names = list(slab_st.cfg.all_names)
+    frames = main_path.AceBenchSource(slab_names, T + 1, ACE_SHAPE, seed=2).read_window(
+        0, T + 1, slab_names)
+    slab_fields = dict(zip(("mixed_layer_depth_name", "q_flux_name"), main_path.SLAB_FIELDS))
+    recorded = {}
+    real_run = SingleStepStepper.run_on_batch
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slab_") as tmp:
+        path = os.path.join(tmp, "ace_slab.ckpt")
+        torch.save({"stepper": ace_native_state(slab_st, ACE_SHAPE)}, path)
+        data_dir = os.path.join(tmp, "data")
+        os.makedirs(data_dir)
+        H, W = ACE_SHAPE
+        write_hdf5(os.path.join(data_dir, "slab.nc"),
+                   dict(frames, lat=np.linspace(-89.5, 89.5, H), lon=np.linspace(0, 359, W)))
+        del slab_st
+        free()
+        slab_launches, slab_s = {}, {}
+        for key, over in (("kernels", {"model": {"use_pallas": True, "fused_tail": True}}),
+                          ("plain", None)):
+            runs_of = recorded.setdefault(key, [])
+
+            def recording(self, *a, _runs=runs_of, **k):
+                res = real_run(self, *a, **k)
+                _runs.append(res)
+                return res
+
+            SingleStepStepper.run_on_batch = recording
+            zero_counts()
+            try:
+                t0 = time.perf_counter()
+                res = main_from_config({
+                    "checkpoint_path": path, "stepper_type": "ace", "n_forward_steps": T,
+                    "forward_steps_in_memory": T, "verbose": False,
+                    "log_zonal_mean_images": False, "platform": device,
+                    "experiment_dir": os.path.join(tmp, key),
+                    "validation_loader": {"dataset": {"data_path": data_dir}},
+                    "ocean": {"surface_temperature_name": "surface_temperature",
+                              "ocean_fraction_name": main_path.MASK_NAME, "slab": slab_fields},
+                    **({"overrides": over} if over else {})})
+                sync()
+                slab_s[key] = time.perf_counter() - t0
+            finally:
+                SingleStepStepper.run_on_batch = real_run
+            slab_launches[key] = counts()
+            check(res["stepper"].ocean.type == "slab" and len(runs_of) == 1,
+                  f"ACE slab ({key}): ocean {res['stepper'].ocean.type}, {len(runs_of)} windows")
+            check(all(np.isfinite(v) for v in res["logs"].values()),
+                  f"ACE slab ({key}): a log is not finite")
+            del res
+    gk, gp = recorded["kernels"][0].gen_data, recorded["plain"][0].gen_data
+    slab_gap = max(rel(gk[n], gp[n]) for n in gp)
+    check(slab_launches["kernels"]["K1"] == slab_launches["kernels"]["K3"] == T * L
+          and sum(slab_launches["plain"].values()) == 0,
+          f"ACE slab launches {slab_launches}")
+    check(slab_gap <= 1e-4, "ACE slab: the kernels disagree with the plain path")
+    # the step's update over the ocean: input (frame t - 1) + the tendency of
+    # the generated fluxes and the target's Q-flux and depth over 6 hours
+    sst = "surface_temperature"
+    gen = {n: v[0].double().cpu() for n, v in gk.items()}
+    f64 = {n: torch.from_numpy(v).double() for n, v in frames.items()}
+    spacing = 4 * float(np.spacing(np.float32(np.abs(frames[sst]).max())))
+    sst_err, moved = 0.0, 0.0
+    for t in range(1, T + 1):
+        flux = (gen["DLWRFsfc"][t] - gen["ULWRFsfc"][t] + gen["DSWRFsfc"][t]
+                - gen["USWRFsfc"][t] - gen["LHTFLsfc"][t] - gen["SHTFLsfc"][t])
+        want = f64[sst][t - 1] + mixed_layer_temperature_tendency(
+            flux, f64[main_path.SLAB_FIELDS[1]][t], f64[main_path.SLAB_FIELDS[0]][t]) * 21600.0
+        ocean = torch.round(f64[main_path.MASK_NAME][t]) == 1
+        sst_err = max(sst_err, float((gen[sst][t] - want)[ocean].abs().max()))
+        moved = max(moved, float((want - f64[sst][t - 1])[ocean].abs().max()))
+    log(f"ACE slab ocean (h) through run_inference (the run config's ocean.slab; K1 and K3 from "
+        f"overrides['model']), {T} steps: K1 {slab_launches['kernels']['K1']} and K3 "
+        f"{slab_launches['kernels']['K3']} launches; fields against the plain path max gap "
+        f"{slab_gap:.3e} of each field's largest value (tolerance 1e-4); the surface "
+        f"temperature over the ocean against the float64 slab update: max error {sst_err:.3e} K "
+        f"(tolerance 4 float32 spacings, {spacing:.3e} K), the update at most {moved:.3e} K; "
+        f"{slab_s['kernels']:.2f} s with the load (plain path {slab_s['plain']:.2f} s) on "
+        f"{smi_line}")
+    check(sst_err <= spacing and moved > 100 * spacing,
+          "ACE slab: the surface temperature over the ocean is not the slab update")
+    runs["ace slab"] = dict(launches=slab_launches["kernels"])
+    ace["slab"] = dict(steps=T, rel=slab_gap, sst_err_k=sst_err, sst_tol_k=spacing,
+                       sst_update_max_k=moved, launches=slab_launches["kernels"])
+    del recorded, gk, gp, gen, f64, frames
     free()
 
     # (f) where an ACE window's time goes: one warm window of (a)'s path
@@ -4878,10 +5136,10 @@ def phase23(smi_line, wrappers, report, runs, drive, other, device="cuda") -> No
 def phase24(smi_line, wrappers, report, runs, device="cuda") -> None:
     """Phase 24: the port's ``scripts/rollout_10yr.py`` at 256 x 8 on 180 x
     360, horizon 6, in the variants of ``ROLLOUT10_VARIANTS``, each
-    ``ROLLOUT10_STEPS`` steps (two windows of 96) after its warm-up window:
-    steps/s, sim-yr/day, the host fractions and ``all_steps_finite``, every
-    time-mean log finite, and the kernels' launches where a variant routes
-    through them."""
+    ``ROLLOUT10_STEPS`` steps (two windows of ``ROLLOUT10_WINDOW``) after its
+    warm-up window: steps/s, sim-yr/day, the host fractions and
+    ``all_steps_finite``, every time-mean log finite, and the kernels'
+    launches where a variant routes through them."""
     import tempfile
 
     import numpy as np
@@ -4944,6 +5202,225 @@ def phase24(smi_line, wrappers, report, runs, device="cuda") -> None:
                              fused_rank=art["config"]["fused_rank"], seconds=seconds)
             del stepper, real, run_window
     report["rollout_10yr"] = out
+
+
+def phase25(smi_line, wrappers, report, runs, device="cuda") -> None:
+    """Phase 25: the port's ``scripts/mesh_paper_window.py`` (the paper
+    window split over a data x h x w mesh) rank by rank on the card, over
+    PyTorch's fake process group: each rank of the mesh is played in turn
+    by this process (its group, mesh and stepper made anew, the weights
+    built once a program and shared), one untimed and one timed window of
+    MPW_STEPS steps of its block at MPW_EMBED x MPW_LAYERS on MPW_SHAPE, B
+    = data rows of zeros. No collective moves data, so no value is checked:
+    the ranks' footprints and compute seconds are the figures. (a) JAX's
+    program (``bench.build``'s defaults: float32, no hand-written kernel,
+    the uniform sampler) at data 2 x h 2 x w 2, every rank: its argument,
+    output and temp MB, its seconds, its collectives; no kernel launched.
+    (b) Phase 7's fused-tail path (K1 and K3, bf16, peeled, ``scan_layers``,
+    the interpolator's dropout live) at data 2 x h 2 x w 2 and at the
+    four-card layout data 1 x h 2 x w 2: each rank's K1 and K3 launches the
+    count of the one-card window (the route launches each once a filter and
+    a block tail, over the same forwards at one row a rank) and no K1 image
+    in the timed window; its seconds beside phase 7's window and the ratio,
+    the ceiling on the speedup without communication. Ranks of one (h, w)
+    block give the same footprint. (c) On rank 0 of the four-card layout,
+    the window's first K1 and K3 calls captured: one call of each at those
+    shapes (the weights captured, K1's image made once as a filter makes
+    it; activations seeded) against its plain version, K1 float32 at 1e-5,
+    K3 bf16 at 1e-2 of the largest output, with the ms of each."""
+    import gc
+
+    import torch
+
+    from spherical_dyffusion_tpu_torch.models import modules as model_modules
+    from spherical_dyffusion_tpu_torch.ops.fused_mlp import fused_block_tail_plain
+    from spherical_dyffusion_tpu_torch.ops.pallas_contractions import (
+        dhconv_plain,
+        dhconv_weight_image,
+    )
+    from spherical_dyffusion_tpu_torch.parallel import distributed_sht
+    from spherical_dyffusion_tpu_torch.scripts import mesh_paper_window as mpw
+
+    cuda = torch.device(device).type == "cuda"
+    H, W = MPW_SHAPE
+    one_card = runs.get("fused_tail", {})
+    one_card_s = one_card.get("seconds")
+    per_window = {k: one_card.get("launches", {}).get(k, MPW_LAYERS * MPW_FORWARDS)
+                  for k in ("K1", "K3")}
+
+    def parse(layout, kernels):
+        d, h, w = layout
+        argv = ["--embed", str(MPW_EMBED), "--layers", str(MPW_LAYERS), "--img-shape", str(H),
+                str(W), "--window", str(MPW_STEPS), "--data", str(d), "--h", str(h), "--w",
+                str(w), "--device", device]
+        if kernels:
+            argv += ["--use-pallas", "--fused-tail", "--peel", "--scan-layers", "--dtype",
+                     "bfloat16"]
+        return mpw.parse_args(argv)
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def spy(module, name, sink):
+        """Keep the arguments of the first call of ``module.name``."""
+        real = getattr(module, name)
+
+        def call(*a, **k):
+            if not sink:
+                sink.append((a, k))
+            return real(*a, **k)
+
+        setattr(module, name, call)
+        return lambda: setattr(module, name, real)
+
+    def mb(v):
+        return "n/a" if v is None else f"{v:.1f}"
+
+    def show(what, layout, recs):
+        tag = "d{}h{}w{}".format(*layout)
+        for r in recs:
+            c = r["coords"]
+            ratio = one_card_s / r["seconds"] if one_card_s else None
+            log(f"mesh_paper_window {what} {tag} rank {r['rank']} (data {c['data']}, h {c['h']}, "
+                f"w {c['w']}): blocks x0 {r['blocks']['x0']} preds {r['blocks']['preds']}; "
+                f"argument {r['argument_mb']:.1f} MB (parameters {r['params_bytes'] / 1e6:.1f}, "
+                f"inputs {r['inputs_bytes'] / 1e6:.1f}), output {r['output_mb']:.1f} MB "
+                f"(gathered {r['gathered_output_mb']:.1f}), temp {mb(r['temp_mb'])} MB (peak "
+                f"allocated {mb(r['peak_mb'])}, reserved {mb(r['peak_reserved_mb'])}), resident "
+                f"before the window {mb(r['resident_mb'])} MB (K1 images "
+                f"{r['k1_images_mb']:.1f} MB); {MPW_STEPS} steps in "
+                f"{r['seconds']:.3f} s (phase 7's one-card window {one_card_s} s: ratio "
+                f"{ratio}); launches {r['launches']}, K1 images {r['k1_images']}; collectives "
+                f"(not performed) {({k: v['calls'] for k, v in r['collectives'].items()})} on "
+                f"{smi_line}")
+        # ranks of one (h, w) block and another data row hold the same footprint
+        by_block = {}
+        for r in recs:
+            by_block.setdefault((r["coords"]["h"], r["coords"]["w"]), []).append(r)
+        for same in by_block.values():
+            a = same[0]
+            for b in same[1:]:
+                check((a["argument_bytes"], a["output_bytes"], a["blocks"], a["collectives"])
+                      == (b["argument_bytes"], b["output_bytes"], b["blocks"],
+                          b["collectives"])
+                      and (not cuda or abs(a["temp_mb"] - b["temp_mb"])
+                           <= 0.01 * max(a["temp_mb"], b["temp_mb"])),
+                      f"mesh_paper_window {what} {tag}: ranks {a['rank']} and {b['rank']} of "
+                      f"one block differ in footprint")
+        check(all(sum(v["calls"] for v in r["collectives"].values()) > 0 for r in recs),
+              f"mesh_paper_window {what} {tag}: a rank called no collective: not split")
+        return dict(layout=dict(zip(("data", "h", "w"), layout)), per_rank=recs,
+                    argument_mb=max(r["argument_mb"] for r in recs),
+                    output_mb=max(r["output_mb"] for r in recs),
+                    temp_mb=max(r["temp_mb"] for r in recs) if cuda else None,
+                    seconds=max(r["seconds"] for r in recs), one_card_seconds=one_card_s,
+                    speedup_ceiling=(one_card_s / max(r["seconds"] for r in recs)
+                                     if one_card_s else None))
+
+    out = {}
+    # (a) JAX's program at data 2 x h 2 x w 2
+    args = parse((2, 2, 2), False)
+    t0 = time.perf_counter()
+    program = mpw.build_program(args, device)
+    build_s = time.perf_counter() - t0
+    recs = mpw.fake_ranks(args, program, mpw.window_inputs(args, program, device), warmup=cuda)
+    check(all(all(v == 0 for v in r["launches"].values()) for r in recs),
+          "mesh_paper_window JAX's program: a hand-written kernel was launched")
+    out["jax_program"] = dict(show("JAX's program (float32, plain, uniform sampler)", (2, 2, 2),
+                                   recs), build_s=build_s)
+    runs["mesh_paper_window plain d2h2w2"] = dict(
+        launches={k: sum(r["launches"][k] for r in recs) for k in wrappers})
+    del program, recs
+    free()
+
+    # (b) the fused-tail path at data 2 x h 2 x w 2 and at the four-card layout
+    t0 = time.perf_counter()
+    program = mpw.build_program(parse((2, 2, 2), True), device)
+    build_s = time.perf_counter() - t0
+    k1_call, k3_call = [], []
+    for layout in ((2, 2, 2), (1, 2, 2)):
+        args = parse(layout, True)
+        undo = []
+        if layout == (1, 2, 2):  # rank 0 runs first: its warm-up window's first calls
+            undo = [spy(distributed_sht, "dhconv", k1_call),
+                    spy(model_modules, "fused_block_tail", k3_call)]
+        try:
+            recs = mpw.fake_ranks(args, program, mpw.window_inputs(args, program, device),
+                                  warmup=cuda)
+        finally:
+            for u in undo:
+                u()
+        tag = "d{}h{}w{}".format(*layout)
+        for r in recs:
+            want = dict(per_window, K2=0, K4=0)
+            check(not cuda or (all(r["launches"][k] == n for k, n in want.items())
+                               and r["k1_images"] == 0),
+                  f"mesh_paper_window fused-tail {tag} rank {r['rank']}: launches "
+                  f"{r['launches']}, K1 images {r['k1_images']}; expected {want} (the one-card "
+                  f"window's) and no image")
+        log(f"mesh_paper_window fused-tail {tag}: every rank launched K1 "
+            f"{recs[0]['launches']['K1']} and K3 {recs[0]['launches']['K3']} times in its "
+            f"window, as the one-card window's {per_window['K1']} and {per_window['K3']}")
+        out[f"fused_tail {tag}"] = dict(show("fused-tail (K1 + K3, bf16, peeled)", layout, recs),
+                                        build_s=build_s)
+        runs[f"mesh_paper_window K1+K3 {tag}"] = dict(
+            launches={k: sum(r["launches"][k] for r in recs) for k in wrappers})
+        del recs
+        free()
+    del program
+    free()
+
+    # (c) K1 and K3 at the four-card layout's rank 0 shapes
+    check(bool(k1_call) and bool(k3_call), "mesh_paper_window: no K1 or K3 call captured")
+    g = torch.Generator(device=device).manual_seed(25)
+    (x1, w1, *_), _ = k1_call[0]
+    x = torch.randn(x1.shape, device=device, generator=g)
+    w = w1.detach().clone()
+    a3, kw3 = k3_call[0]
+    # the activations (x, the norm's A and C, the residual) seeded; the weights,
+    # the dropout's seed and rate and the block as captured
+    fresh = [torch.randn(t.shape, device=device, generator=g).to(t.dtype) if i < 3
+             else t.detach().clone() for i, t in enumerate(a3)]
+    kw3 = {k: (torch.randn(v.shape, device=device, generator=g).to(v.dtype)
+               if k == "residual" and v is not None else v) for k, v in kw3.items()}
+    with torch.no_grad():
+        image = dhconv_weight_image(w) if cuda else None  # made once, as the filter's cache
+        got, want = wrappers["K1"](x, w, image), dhconv_plain(x, w)
+        got3 = wrappers["K3"](*fresh, **kw3)
+        want3 = fused_block_tail_plain(*fresh, **kw3)
+    k1_err = float((got - want).abs().max() / want.abs().max())
+    k3_err = float((got3.float() - want3.float()).abs().max() / want3.float().abs().max())
+    k1_ms = k1_plain_ms = k3_ms = k3_plain_ms = None
+    if cuda:
+        torch.set_grad_enabled(False)
+        k1_ms = event_ms(lambda: wrappers["K1"](x, w, image), 10)
+        k1_plain_ms = event_ms(lambda: dhconv_plain(x, w), 3)
+        k3_ms = event_ms(lambda: wrappers["K3"](*fresh, **kw3), 10)
+        k3_plain_ms = event_ms(lambda: fused_block_tail_plain(*fresh, **kw3), 3)
+        torch.set_grad_enabled(True)
+    block = kw3.get("block")
+    log(f"mesh_paper_window d1h2w2 rank 0: K1 at the window's first call's shape x "
+        f"{tuple(x.shape)}, w {tuple(w.shape)} (the 'w' channel shard): max rel err against its "
+        f"plain version {k1_err:.3e} (tolerance 1e-5), {k1_ms} ms (plain {k1_plain_ms} ms); K3 "
+        f"at x {tuple(fresh[0].shape)} {fresh[0].dtype}, block {block}, drop rate "
+        f"{kw3.get('drop_rate')}: max rel err {k3_err:.3e} (tolerance 1e-2), {k3_ms} ms (plain "
+        f"{k3_plain_ms} ms) on {smi_line}")
+    check(k1_err <= 1e-5, "mesh_paper_window: K1 at the split window's shape disagrees")
+    check(k3_err <= 1e-2, "mesh_paper_window: K3 at the split window's shape disagrees")
+    out["kernels"] = {
+        "K1": dict(x=list(x.shape), w=list(w.shape), max_rel_err=k1_err, ms=k1_ms,
+                   plain_ms=k1_plain_ms),
+        "K3": dict(x=list(fresh[0].shape), dtype=str(fresh[0].dtype),
+                   block=None if block is None else [block.h0, block.w0, *block.local],
+                   drop_rate=kw3.get("drop_rate"), max_rel_err=k3_err, ms=k3_ms,
+                   plain_ms=k3_plain_ms)}
+    report.setdefault("K1", {})["mesh_window"] = out["kernels"]["K1"]
+    report.setdefault("K3", {})["mesh_window"] = out["kernels"]["K3"]
+    del k1_call, k3_call, x, w, image, got, want, fresh, got3, want3
+    free()
+    report["mesh_paper_window"] = out
 
 
 def main() -> int:
@@ -6128,6 +6605,10 @@ def main() -> int:
                "--fast in bf16 and float16)"):
         phase24(smi_line, wrappers, report, runs)
 
+    with Phase("25 the port's mesh_paper_window: every rank of the split paper window in turn "
+               "over the fake process group (JAX's program; K1 + K3 at d2h2w2 and d1h2w2)"):
+        phase25(smi_line, wrappers, report, runs)
+
     # the profile runs last: a torch.profiler session leaves a launch cost
     # behind in the process (the UNet's forward, bound by the host's
     # launches at batch 1, took 19.9-21.4 ms before one profiled forward and
@@ -6235,6 +6716,7 @@ def main() -> int:
     print(json.dumps({"studies": report["studies"]}))
     print(json.dumps({"float16": report["float16"]}))
     print(json.dumps({"rollout_10yr": report["rollout_10yr"]}))
+    print(json.dumps({"mesh_paper_window": report["mesh_paper_window"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -95,7 +95,7 @@ from .inference.ace_stepper import (
 )
 from .inference.corrector import CorrectorConfig
 from .inference.loop import InferenceConfig, run_inference
-from .inference.ocean import OceanConfig
+from .inference.ocean import OceanConfig, SlabOceanConfig
 from .inference.prescriber import PrescriberConfig
 from .inference.stepper import DYffusionStepper
 from .inference.writers import DataWriter, DataWriterConfig
@@ -116,9 +116,9 @@ __all__ = ["state_names", "FORCING_NAMES", "MASK_NAME", "FAST_WINDOW", "FAST_WIN
            "TUCKER_WINDOW",
            "sfno_configs",
            "build", "window_inputs", "product_rollout", "build_training", "train_steps",
-           "fused_epoch", "ace_names", "AceBenchSource", "build_ace", "ace_rollout",
-           "build_simultaneous", "simultaneous_steps", "unet_configs", "build_unet",
-           "unet_window", "unet_train_steps"]
+           "fused_epoch", "ace_names", "SLAB_FLUXES", "SLAB_FIELDS", "AceBenchSource",
+           "build_ace", "ace_rollout", "build_simultaneous", "simultaneous_steps",
+           "unet_configs", "build_unet", "unet_window", "unet_train_steps"]
 
 FORCING_NAMES = ("DSWRFtoa", "HGTsfc")
 MASK_NAME = "ocean_fraction"
@@ -508,25 +508,48 @@ def fused_epoch(n_steps: int = 8, embed: int = 256, layers: int = 8,
 # ---------------------------------------------------------------------------
 
 
-def ace_names(levels: int = 8, n_other: int = 25) -> Tuple[list, list, list]:
+# the slab ocean's inputs: the six surface energy fluxes of
+# ClimateData.net_surface_energy_flux_without_frozen_precip (W m-2), which the
+# network predicts, and the mixed-layer depth (m) and Q-flux (W m-2) it reads
+# from the data; each with a mean and spread of realistic size
+SLAB_FLUXES = ("DLWRFsfc", "ULWRFsfc", "DSWRFsfc", "USWRFsfc", "LHTFLsfc", "SHTFLsfc")
+SLAB_FIELDS = ("mixed_layer_depth", "q_flux")
+_SLAB_STATS = {"DLWRFsfc": (350.0, 50.0), "ULWRFsfc": (400.0, 50.0),
+               "DSWRFsfc": (200.0, 100.0), "USWRFsfc": (30.0, 20.0),
+               "LHTFLsfc": (80.0, 40.0), "SHTFLsfc": (15.0, 10.0),
+               "mixed_layer_depth": (50.0, 20.0), "q_flux": (0.0, 30.0)}
+
+
+def ace_names(levels: int = 8, n_other: int = 25,
+              slab: bool = False) -> Tuple[list, list, list]:
     """ace_bench's (in_names, out_names, all_names): the surface pressure,
     the surface temperature, ``levels`` water levels and ``n_other`` more
     prognostics (35 at the defaults); the forcing ``DSWRFtoa``; the mask
-    ``ocean_fraction``."""
+    ``ocean_fraction``. With ``slab`` the first six of the other prognostics
+    are the surface fluxes the slab ocean reads (``SLAB_FLUXES``; ``n_other``
+    at least 6) and all_names ends with its data fields (``SLAB_FIELDS``)."""
+    other = [f"v{i}" for i in range(n_other)]
+    if slab:
+        if n_other < len(SLAB_FLUXES):
+            raise ValueError(f"the slab ocean's six fluxes need n_other >= 6, got {n_other}")
+        other[:len(SLAB_FLUXES)] = SLAB_FLUXES
     out = (["PRESsfc", "surface_temperature"]
-           + [f"specific_total_water_{k}" for k in range(levels)]
-           + [f"v{i}" for i in range(n_other)])
+           + [f"specific_total_water_{k}" for k in range(levels)] + other)
     inp = out + ["DSWRFtoa"]
-    return inp, out, inp + [MASK_NAME]
+    return inp, out, inp + [MASK_NAME] + (list(SLAB_FIELDS) if slab else [])
 
 
 def _ace_mean(n: str) -> float:
     # realistic magnitudes: water about 1e-3 keeps the dry-air denominator
     # 1 - sum(bk_diff * q) away from zero under an untrained network
+    if n in _SLAB_STATS:
+        return _SLAB_STATS[n][0]
     return 1e5 if n == "PRESsfc" else 1e-3 if "water" in n else 1.0
 
 
 def _ace_std(n: str) -> float:
+    if n in _SLAB_STATS:
+        return _SLAB_STATS[n][1]
     return 1e3 if n == "PRESsfc" else 1e-4 if "water" in n else 0.5
 
 
@@ -534,7 +557,9 @@ class AceBenchSource(TimeSeriesSource):
     """ace_bench's data recipe as a source of ``n_timesteps`` frames, made in
     bulk from ``seed``: |N(0, 1)| + 1 for every name in order, then the
     surface pressure 1e5 + 1e3 x, water 1e-3 x, and the mask x > 1.8. With
-    ``n_timesteps = window + 1`` the frames are ace_bench's window."""
+    ``n_timesteps = window + 1`` the frames are ace_bench's window. The slab
+    ocean's fluxes and fields (``SLAB_FLUXES``, ``SLAB_FIELDS``) are their
+    mean + spread (x - 2): a mixed layer 30 m deep or more."""
 
     def __init__(self, names, n_timesteps: int, spatial_shape: Tuple[int, int] = (180, 360),
                  seed: int = 0):
@@ -552,6 +577,9 @@ class AceBenchSource(TimeSeriesSource):
                 x = 1e-3 * x
             elif n == MASK_NAME:
                 x = x > 1.8
+            elif n in _SLAB_STATS:
+                mean, spread = _SLAB_STATS[n]
+                x = mean + spread * (x - 2.0)
             self._data[n] = x.astype(np.float32)
 
     @property
@@ -564,7 +592,7 @@ class AceBenchSource(TimeSeriesSource):
 
 def build_ace(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
               img_shape: Tuple[int, int] = (180, 360), levels: int = 8, n_other: int = 25,
-              kernels: bool = True, exact: bool = False,
+              kernels: bool = True, exact: bool = False, slab: bool = False,
               device: str = "cuda") -> SingleStepStepper:
     """ace_bench's stepper: the SFNO (dense dhconv, ``dtype`` compute with the
     transforms' operands in ``dtype``, no time embedding) with weights from
@@ -573,12 +601,13 @@ def build_ace(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
     linspace(0, 1, K + 1), ace_bench's normalizer. ``kernels`` sets
     ``use_pallas`` and ``fused_tail`` (K1 and K3); ``exact`` takes erf gelu
     and two-pass norm statistics, which ``interface.load_ace_stepper_checkpoint``
-    builds for every ACE checkpoint."""
+    builds for every ACE checkpoint. ``slab`` takes ``ace_names(slab=True)``
+    and the slab ocean over ``SLAB_FIELDS`` in place of the prescribed one."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("main path: CUDA is not available; pass device='cpu' "
                            "to run on the CPU")
-    in_names, out_names, all_names = ace_names(levels, n_other)
+    in_names, out_names, all_names = ace_names(levels, n_other, slab)
     H, W = img_shape
     model = SFNO(SFNOConfig(
         img_shape=img_shape, in_chans=len(in_names), out_chans=len(out_names),
@@ -597,7 +626,9 @@ def build_ace(embed: int = 256, layers: int = 8, dtype: str = "bfloat16",
                              bk=np.linspace(0.0, 1.0, levels + 1))
     cfg = SingleStepStepperConfig(in_names=in_names, out_names=out_names,
                                   corrector=CorrectorConfig(conserve_dry_air=True),
-                                  ocean=OceanConfig("surface_temperature", MASK_NAME))
+                                  ocean=OceanConfig("surface_temperature", MASK_NAME,
+                                                    slab=SlabOceanConfig(*SLAB_FIELDS)
+                                                    if slab else None))
     area = spherical_area_weights(np.linspace(-89.5, 89.5, H), W)
     return SingleStepStepper(cfg, model_fn, norm, area, sigma, device=device, module=model)
 
@@ -636,14 +667,16 @@ def build_simultaneous(embed: int = 256, layers: int = 8,
                        img_shape: Tuple[int, int] = (180, 360), horizon: int = 2,
                        horizon_at_once: int = 1, n_state: int = 35, use_pallas: bool = True,
                        n_samples: int = 8, scheduler: str = "warmup_cosine",
-                       device: str = "cuda") -> Trainer:
+                       dtype: str = "float32", device: str = "cuda") -> Trainer:
     """The trainer of the simultaneous forecaster over a ``DebugDataModule``
     of ``build_training``'s data (``n_state`` state channels, two forcings,
     ``n_samples`` samples of batch 1) at ``horizon``: an SFNO of ``window *
     C + CF`` -> ``horizon_at_once * C`` channels (dense dhconv, no time
-    embedding, float32, K1 with ``use_pallas``) with weights from a
+    embedding, K1 with ``use_pallas``) with weights from a
     ``torch.Generator`` seeded with 0, the trainer settings of
-    ``build_training``."""
+    ``build_training``. ``dtype`` is the model config's ``compute_dtype``
+    and the transforms' ``sht_matmul_dtype`` (float32, bfloat16 or
+    float16), as ``build`` sets them; K1 takes float32 either way."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("main path: CUDA is not available; pass device='cpu' "
@@ -655,6 +688,7 @@ def build_simultaneous(embed: int = 256, layers: int = 8,
     model = SFNO(SFNOConfig(img_shape=img_shape, in_chans=C + CF,
                             out_chans=horizon_at_once * C, embed_dim=embed, num_layers=layers,
                             operator_type="dhconv", data_grid="equiangular",
+                            compute_dtype=dtype, sht_matmul_dtype=dtype,
                             use_pallas=use_pallas)).to(device)
     model.init_weights(torch.Generator(device=device).manual_seed(0))
     exp = SimultaneousForecastingExperiment(

@@ -7,7 +7,9 @@ gathers their runs into one report. Each runs as ``python -m
 spherical_dyffusion_tpu_torch.scripts.<name>``, on the CUDA card unless
 ``--platform=cpu`` is given, and writes under ``results/torch_*``.
 ``rollout_10yr`` (the JAX package's 10-year product rollout; ``--device``)
-writes there too.
+and ``mesh_paper_window`` (the paper window split over a data x h x w mesh,
+each rank's memory and seconds; ``--device``, ``--backend``) write there
+too.
 """
 
 from __future__ import annotations

@@ -368,17 +368,19 @@ def _jax_variables(model, params, *args):
     return {"params": params, **consts}
 
 
-def _stepper_pair(kernels: bool):
+def _stepper_pair(kernels: bool, dtype: str = "float32"):
     """(JAX stepper, port stepper): ace_bench's configuration at debug size
     (``main_path.build_ace``'s names, normalizer, sigma, corrector and
-    ocean), float32, the same SFNO weights (the port's, spectral weights
-    scaled up), ``use_pallas`` and ``fused_tail`` with ``kernels``."""
-    stepper = main_path.build_ace(embed=8, layers=2, dtype="float32", img_shape=(SH, SW),
+    ocean), ``dtype`` compute and transforms' operands (float32 unless
+    asked), the same SFNO weights (the port's, spectral weights scaled up),
+    ``use_pallas`` and ``fused_tail`` with ``kernels``."""
+    stepper = main_path.build_ace(embed=8, layers=2, dtype=dtype, img_shape=(SH, SW),
                                   levels=LEVELS, n_other=N_OTHER, kernels=kernels,
                                   device="cpu")
     in_names, out_names, all_names = main_path.ace_names(LEVELS, N_OTHER)
     kw = dict(img_shape=(SH, SW), in_chans=len(in_names), out_chans=len(out_names),
-              embed_dim=8, num_layers=2, operator_type="dhconv", data_grid="equiangular")
+              embed_dim=8, num_layers=2, operator_type="dhconv", data_grid="equiangular",
+              compute_dtype=dtype, sht_matmul_dtype=dtype)
     params = _boost(state_dict_to_flax(stepper.module.state_dict())["params"])
     stepper.module.load_state_dict(flax_to_state_dict(params))
     v = _jax_variables(JSFNO(JSFNOConfig(**kw)), params, jnp.zeros((1, SH, SW, len(in_names))))

@@ -647,3 +647,86 @@ def test_run_inference_ace_model_overrides_turn_the_kernels_on(native, tmp_path,
     assert calls == {"K1": 4, "K3": 4}
     logs = [{k: v for k, v in m.items() if k.startswith("inference/")} for m in metrics]
     assert logs[0] == logs[1]
+
+
+def test_run_inference_ace_slab_ocean_matches_jax(tmp_path, monkeypatch):
+    """``stepper_type: ace`` with the run config's ``ocean.slab``: a native
+    checkpoint whose network (embed 8, 1 layer) predicts the surface
+    pressure, the surface temperature, one water level and the six surface
+    energy fluxes the slab reads (``main_path.SLAB_FLUXES``), over netCDF
+    files of ``main_path.AceBenchSource`` frames with the mixed-layer depth
+    and the Q-flux added (``main_path.SLAB_FIELDS``), the checkpoint's
+    normalizer at the source's statistics; 6 steps in windows of 3 with the
+    dry-air corrector: ``metrics.json`` as JAX's (``_assert_metrics``'s
+    tolerances; float32 sums of 1e5 Pa surface pressures differ by a few
+    0.0078 Pa steps between the packages, so the surface pressure's logs
+    may also move by 4 such steps, and the averages over the fields by 4
+    steps over the field count). In
+    the port's first window the surface temperature over the ocean (the
+    mask rounds to 1) is the step's input plus the slab tendency of the
+    generated fluxes, the target's Q-flux and depth
+    (``inference/ocean.py:mixed_layer_temperature_tendency``) over 6 hours,
+    computed here in float64: within 4 float32 spacings of the largest
+    surface temperature, and moved by more than 100 of them."""
+    from spherical_dyffusion_tpu_torch import main_path
+    from spherical_dyffusion_tpu_torch.data.hdf5 import write_hdf5
+    from spherical_dyffusion_tpu_torch.inference.ace_stepper import SingleStepStepper
+    from spherical_dyffusion_tpu_torch.inference.ocean import mixed_layer_temperature_tendency
+
+    in_names, out_names, all_names = main_path.ace_names(1, 6, slab=True)
+    base = dict(img_shape=(H, W), in_chans=len(in_names), out_chans=len(out_names),
+                embed_dim=8, num_layers=1, with_time_emb=False,
+                activation_function="gelu_exact", exact_norm=True)
+    state = _native_state(in_names, out_names, base, _port_sfno_params(**base),
+                          {"scale_factor": 1, "data_grid": "equiangular"}, sigma_k=1,
+                          corrector={"conserve_dry_air": True})
+    state["normalizer"] = {"means": {n: main_path._ace_mean(n) for n in in_names},
+                           "stds": {n: main_path._ace_std(n) for n in in_names}}
+    ckpt = str(tmp_path / "ace_slab.ckpt")
+    torch.save({"stepper": state}, ckpt)
+    src = main_path.AceBenchSource(all_names, 7, (H, W), seed=5)
+    frames = src.read_window(0, 7, all_names)
+    d = tmp_path / "data"
+    d.mkdir()
+    for i, (a, b) in enumerate(((0, 3), (3, 7))):
+        variables = {n: frames[n][a:b] for n in all_names}
+        variables.update(lat=np.linspace(-78.75, 78.75, H), lon=np.linspace(0, 337.5, W))
+        write_hdf5(str(d / f"part_{i}.nc"), variables)
+    slab = {"mixed_layer_depth_name": main_path.SLAB_FIELDS[0],
+            "q_flux_name": main_path.SLAB_FIELDS[1]}
+    cfg = {"checkpoint_path": ckpt, "stepper_type": "ace", "n_forward_steps": 6,
+           "forward_steps_in_memory": 3, "verbose": False, "log_zonal_mean_images": False,
+           "validation_loader": {"dataset": {"data_path": str(d)}},
+           "ocean": {"surface_temperature_name": "surface_temperature",
+                     "ocean_fraction_name": main_path.MASK_NAME, "slab": slab}}
+    windows = []
+    real = SingleStepStepper.run_on_batch
+    monkeypatch.setattr(SingleStepStepper, "run_on_batch",
+                        lambda self, *a, **k: windows.append(real(self, *a, **k)) or windows[-1])
+    out, got, want = _run_both(cfg, tmp_path)
+    pa = 4 * float(np.spacing(np.float32(1e5)))
+    assert set(want) <= set(got)
+    for k, tol in _log_tolerances(want).items():
+        steps = (pa if k.endswith("/PRESsfc") else
+                 pa / len(out_names) if k.startswith("inference/avg/") else 0.0)
+        assert abs(got[k] - want[k]) <= tol + steps, f"{k}: {got[k]} vs {want[k]}"
+    assert got["n_forward_steps"] == want["n_forward_steps"] == 6
+    np.testing.assert_allclose(got["loss_last_window"], want["loss_last_window"], rtol=1e-5)
+    assert out["stepper"].ocean.type == "slab" and len(windows) == 2
+
+    gen = {n: v[0].double() for n, v in windows[0].gen_data.items()}
+    f64 = {n: torch.from_numpy(frames[n][:4]).double() for n in all_names}
+    sst = "surface_temperature"
+    spacing = 4 * float(np.spacing(np.float32(np.abs(frames[sst]).max())))
+    moved = 0.0
+    for t in range(1, 4):
+        flux = (gen["DLWRFsfc"][t] - gen["ULWRFsfc"][t] + gen["DSWRFsfc"][t]
+                - gen["USWRFsfc"][t] - gen["LHTFLsfc"][t] - gen["SHTFLsfc"][t])
+        tend = mixed_layer_temperature_tendency(flux, f64["q_flux"][t],
+                                                f64["mixed_layer_depth"][t])
+        want_sst = f64[sst][t - 1] + tend * 21600.0
+        ocean = torch.round(f64[main_path.MASK_NAME][t]) == 1
+        assert ocean.any()
+        assert float((gen[sst][t] - want_sst)[ocean].abs().max()) <= spacing
+        moved = max(moved, float((want_sst - f64[sst][t - 1])[ocean].abs().max()))
+    assert moved > 100 * spacing

@@ -698,3 +698,88 @@ def pin_t(monkeypatch):
     from test_torch_port_train_modes import pin_t as fixture
 
     return fixture.__wrapped__(monkeypatch)
+
+
+# ------------------------------------------------------- ACE in float16
+
+def test_ace_window_float16_matches_jax(jax_f16):
+    """ACE's single-step stepper (``main_path.build_ace``'s configuration at
+    16 x 32, embed 8 x 2 layers) at ``dtype="float16"`` (compute and the
+    transforms' operands) through K1 and K3 (JAX's interpreted), a window
+    of ``ACE_F16_STEPS`` steps with the dry-air corrector and the
+    prescribed ocean, against JAX's ACE stepper in float16 with the same
+    weights: each generated field (normalized, the steps after the initial
+    state) within ``F16_WINDOW_VS_JAX`` of its largest value, as the
+    float16 DYffusion window is held (measured: 1.7e-3 at most); the port's
+    float32 window misses JAX's float16 one by more than
+    ``F32_MISSES_F16`` of some field's largest value. At this size, where
+    the untrained network's outputs are about 0.02, a float32 sum that
+    lands on the other side of a float16 boundary moves them about as far
+    as float32 compute does (measured 3.0e-3 at most), so the rule bounds
+    the float16 window and does not tell the two apart."""
+    from test_torch_port_ace import _stepper_pair, _window
+
+    jstep, stepper, all_names = _stepper_pair(True, "float16")
+    data = _window(all_names, ACE_F16_STEPS, seed=3)
+    want = jstep.run_on_batch(data, ACE_F16_STEPS)
+    got = stepper.run_on_batch(data, ACE_F16_STEPS)
+    names = list(stepper.cfg.out_names)
+    jgen = {n: _np(want.gen_data_norm[n])[:, 1:] for n in names}
+    for n in names:
+        g = _np(got.gen_data_norm[n])[:, 1:]
+        assert np.isfinite(g).all()
+        assert _rel(g, jgen[n]) <= F16_WINDOW_VS_JAX, n
+    f32 = main_path.build_ace(embed=8, layers=2, dtype="float32", img_shape=(16, 32),
+                              levels=3, n_other=2, kernels=True, device="cpu")
+    f32.module.load_state_dict(stepper.module.state_dict())
+    out32 = f32.run_on_batch(data, ACE_F16_STEPS)
+    assert max(_rel(_np(out32.gen_data_norm[n])[:, 1:], jgen[n]) for n in names) > F32_MISSES_F16
+
+
+ACE_F16_STEPS = 3
+
+
+def test_simultaneous_float16_train_step_matches_jax(jax_f16):
+    """The simultaneous forecaster (horizon 2, ``horizon_at_once`` 1: two
+    autoregressive steps) with ``compute_dtype`` and ``sht_matmul_dtype``
+    float16 and K1 asked for (float32 on both sides), one step's loss and
+    gradients against JAX's ``value_and_grad`` of the same loss, with the
+    rule of ``test_float16_compute_train_step_matches_jax`` (which holds the
+    interpolation and forecasting experiments, not this one): the loss
+    within ``F16_LOSS_REL``, every gradient float32 and within
+    ``F16_GRAD_REL`` of the network's largest gradient entry; the port's
+    float32 step moves some gradient by more than ``F32_VS_F16`` of it."""
+    from test_torch_port_ace_cli import _batch, _cfg, _pair
+
+    from spherical_dyffusion_tpu_torch.utils.convert import flax_to_state_dict as to_sd
+
+    def losses_and_grads(cfg):
+        jexp, v, exp, jdm, _ = _pair(cfg)
+        dyn, cond = _batch(jdm)
+        consts = {k: x for k, x in v.items() if k != "params"}
+
+        def jloss(p):
+            return jexp.train_loss({**consts, "params": p}, jnp.asarray(dyn),
+                                   jax.random.PRNGKey(0),
+                                   dynamical_condition=jnp.asarray(cond))[0]
+
+        jl, jg = jax.value_and_grad(jloss)(v["params"])
+        loss, _ = exp.train_loss(torch.tensor(dyn), torch.Generator().manual_seed(0),
+                                 dynamical_condition=torch.tensor(cond))
+        names = [n for n, _ in exp.model.named_parameters()]
+        grads = torch.autograd.grad(loss, list(exp.model.parameters()))
+        return (float(jl), {k: x.numpy() for k, x in to_sd({"params": jg}).items()},
+                float(loss.detach()), dict(zip(names, grads)))
+
+    cfg = _cfg(horizon=2, hao=1)
+    cfg["model"].update(compute_dtype="float16", sht_matmul_dtype="float16")
+    jl, jg, tl, tg = losses_and_grads(cfg)
+    assert np.isfinite(tl) and abs(tl - jl) <= F16_LOSS_REL * abs(jl)
+    top = max(float(np.abs(v).max()) for v in jg.values())
+    assert set(tg) == set(jg)
+    for n, g in tg.items():
+        assert g.dtype == torch.float32
+        err = float(np.abs(g.numpy() - jg[n]).max())
+        assert err <= F16_GRAD_REL * top, f"{n}: {err:.3g} vs {F16_GRAD_REL} x {top:.3g}"
+    _, _, _, g32 = losses_and_grads(_cfg(horizon=2, hao=1))
+    assert max(float((g32[n] - g).abs().max()) for n, g in tg.items()) > F32_VS_F16 * top

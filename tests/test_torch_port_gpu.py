@@ -1612,3 +1612,25 @@ def test_dhconv_weight_grad_promotes_over_long_sums(cuda, lead, L, M, CI, CO):
     assert _rel_err(dw, want) < 1e-5, (wgrad_plan(lead[0], L, M, CI, CO), _rel_err(dw, want))
     assert torch.equal(dw, again)
 
+
+
+def test_mesh_paper_window_fake_mode_on_the_card(cuda, tmp_path):
+    """``scripts/mesh_paper_window.py``'s fake mode at a small width on the
+    card (embed 32 x 2 on 16 x 32, K1 on, data 1 x h 2 x w 2): every rank
+    reports a peak above the parameters' bytes and a temp figure, K1 once
+    a filter call on its "w" channel shard, no K1 image made in the timed
+    window, the collectives not performed, and no process group left up."""
+    import torch.distributed as dist
+
+    from spherical_dyffusion_tpu_torch.scripts import mesh_paper_window as mpw
+
+    stats = mpw.main(["--embed", "32", "--layers", "2", "--img-shape", "16", "32", "--window",
+                      "6", "--data", "1", "--h", "2", "--w", "2", "--use-pallas", "--out",
+                      str(tmp_path)])
+    assert stats["collectives"] == "not performed" and len(stats["per_rank"]) == 4
+    for r in stats["per_rank"]:
+        assert r["peak_mb"] * 1e6 > r["params_bytes"] > 0
+        assert r["temp_mb"] > 0 and r["k1_images_mb"] > 0
+        assert r["launches"]["K1"] > 0 and r["k1_images"] == 0
+        assert r["launches"]["K1"] == stats["per_rank"][0]["launches"]["K1"]
+    assert not dist.is_initialized()
